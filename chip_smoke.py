@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and hold its kernels
+against their plain versions.
+
+    python3 chip_smoke.py             # the check: one card, exit 0 only if every phase passed
+    python3 chip_smoke.py --profile DIR   # also write a kernel-time profile and per-case
+                                          # details into DIR
+
+Phases:
+  1. device and build: the card's name and power limit, the kernels built
+     from csrc/ with nvcc;
+  2. kernels vs plain at the main path's shapes: K1 (fused attention) and K3
+     (fused 1x1 Conv+IQBN+SiLU), errors against the stated tolerances, times
+     of kernel, plain version, library yardstick and bound;
+  3. predict: QUAN-YOLO11n-OBB (nc=15, random weights from a seed, bf16) at
+     1024 on 8 uint8 frames through the port's Predictor, with K1 only and
+     with K1+K3; the launch counters show the kernels ran, the predictions
+     agree with an all-plain run (bf16, and f32 with TF32 off, down to the
+     detections);
+  4. speed: img/s of each path in interleaved rounds, and the device's busy
+     share of one forward + decode + NMS from torch.profiler;
+  5. the ``kernels`` line, then the result line.
+
+Without a card, or when any phase fails, it exits non-zero and prints no
+result line. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, no sparsity), at 700 W
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12  # float32 outside the tensor cores
+TENSOR_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # f32 products stay f32 (no TF32)
+# exp2 runs on the special-function units: 16 lanes per SM (Hopper architecture
+# white paper); their rate follows from the card's SM count and max SM clock
+SFU_PER_SM = 16
+
+DEVICE = "cuda"
+IMGSZ, BATCH, NC = 1024, 8, 15
+MODEL = "yolo11n-obb-quan.yaml"
+# allclose-style tolerance |got - ref| <= rtol |ref| + atol max(1, max|ref|), per dtype.
+# K1 bf16 is held against the plain version in f32 on the same bf16 values: the kernel
+# rounds scale*q and the softmax numerator to bf16 (2^-9 relative each), as the TPU kernel does.
+# K3 bf16 keeps the plain version's rounding points (f32 inside, one cast at the end): at most
+# a bf16 ulp or two apart.
+K1_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+K3_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+# decoded predictions of the kernel paths vs the all-plain path, max abs error over
+# max |ref| per column group: f32 (TF32 off) differs by summation order only; bf16 by
+# the rounding points of 37 fused convs through the rest of the graph
+PRED_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+# the f32 Results of the kernel path vs the plain path: every kept row (xywhr in
+# source pixels and radians, conf, cls) within this of a row of the other
+RESULT_TOL = 1e-2
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, host ms) per call of ``fn``.
+
+    The device time comes from CUDA events around ``iters`` calls queued
+    behind a spin kernel, so that the card runs them back to back and the
+    host's cost of launching them drops out; the spin doubles until it
+    outlasts the queuing (after five doublings the time is returned as it
+    is, an upper bound). The host time is what queuing one call costs.
+    """
+    for _ in range(warmup):
+        fn()
+    cycles = 1 << 24
+    for _ in range(6):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        ev[2].synchronize()
+        if ev[0].elapsed_time(ev[1]) > host:
+            break
+        cycles *= 2
+    return ev[1].elapsed_time(ev[2]) / iters, host / iters
+
+
+def compare(got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
+    """(max abs error, max |ref|, within tolerance) of ``got`` against ``ref``."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    scale = max(1.0, float(ref.abs().max()))
+    ok = bool(torch.isfinite(got).all()) and bool((err <= rtol * ref.abs() + atol * scale).all())
+    return float(err.max()), float(ref.abs().max()), ok
+
+
+def bound_ms(nbytes: float, tensor_ops: float, f32_ops: float, dtype: torch.dtype):
+    """Least time for the work: max(bytes / HBM rate, operations / peak rate of their type)."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = tensor_ops / TENSOR_FLOPS[dtype] + f32_ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------- phase 1
+
+
+def phase_device():
+    check(torch.cuda.is_available(), "no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    card = smi.strip().splitlines()[0]
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60, check=True).stdout
+    sfu_rate = (torch.cuda.get_device_properties(0).multi_processor_count * SFU_PER_SM
+                * float(clock.strip().splitlines()[0]) * 1e6)  # exp2 per second
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from quan_ultralytics_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    secs = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln or "spill" in ln]
+    print(f"build: {secs:.1f} s (nvcc {_build.build_seconds if _build.build_seconds else 0:.1f} s)")
+    return card, ptxas, sfu_rate
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def phase_k1(gen, details, sfu_rate):
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn
+
+    dk, dv, heads, scale = 2, 4, 8, 2 ** -0.5
+    worst, timing = 0.0, None
+    for n in (1024, 400, 200):
+        for dtype in (torch.bfloat16, torch.float32):
+            shp = (BATCH, 4, heads, n)
+            q, k = (torch.randn(*shp, dk, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
+            v = torch.randn(*shp, dv, generator=gen, device=DEVICE).to(dtype)
+            got = qattn.qattention_fused(q, k, v, scale)
+            torch.cuda.synchronize()
+            ref = qattn.qattention_plain(q.float(), k.float(), v.float(), scale)
+            err, mag, ok = compare(got, ref, *K1_TOL[dtype])
+            details.append({"kernel": "qattn_fwd", "N": n, "dtype": str(dtype), "max_abs_err": err,
+                            "max_abs_ref": mag, "tol": K1_TOL[dtype], "ok": ok})
+            print(f"K1 N={n} {dtype}: max_abs_err {err:.3e} (max|ref| {mag:.3f}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K1 disagrees with its plain version at N={n} {dtype}")
+            if n == 1024 and dtype == torch.bfloat16:
+                worst = err
+                G = BATCH * 4 * heads
+                isz = q.element_size()
+                b, by = bound_ms(G * n * (2 * dk + 2 * dv) * isz, G * n * n * (2 * dk + 2 * dv),
+                                 G * n * n * 3, dtype)
+                ms, host_ms = time_ms(lambda: qattn.qattention_fused(q, k, v, scale))
+                timing = {
+                    "ms": ms, "host_ms": host_ms,
+                    "plain_ms": time_ms(lambda: qattn.qattention_plain(q, k, v, scale))[0],
+                    "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, scale=scale))[0],
+                    "bound_ms": b, "bound_by": by,
+                    # a tighter floor than the table's rates: one exp2 per score on the SFUs
+                    "sfu_bound_ms": 1e3 * G * n * n / sfu_rate,
+                }
+    return worst, timing
+
+
+def phase_k3(gen, sites, details):
+    from quan_ultralytics_tpu_torch.models.conv import Conv
+    from quan_ultralytics_tpu_torch.ops.kernels import qconv_fused
+    from quan_ultralytics_tpu_torch.ops.qconv import fold_dense_kernel
+
+    counts = {s: sites.count(s) for s in sorted(set(sites))}
+    worst = 0.0
+    tot = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "unfused_host_ms": 0.0,
+           "library_ms": 0.0, "bound_ms": 0.0}
+    t_bytes = t_ops = 0.0
+    for (ci, co, p), mult in counts.items():
+        w = torch.randn(4, co, ci, 1, 1, generator=gen, device=DEVICE) / math.sqrt(4 * ci)
+        scale = torch.rand(4, co, generator=gen, device=DEVICE) + 0.5
+        shift = torch.randn(4, co, generator=gen, device=DEVICE) * 0.1
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(BATCH, p // BATCH, 1, 4, ci, generator=gen, device=DEVICE).to(dtype)
+            for silu in (True, False):
+                got = qconv_fused.qconv1x1_fused(x, w, scale, shift, apply_silu=silu)
+                torch.cuda.synchronize()
+                ref = qconv_fused.qconv1x1_fused_plain(x, w, scale, shift, apply_silu=silu)
+                err, mag, ok = compare(got, ref, *K3_TOL[dtype])
+                details.append({"kernel": "qconv1x1_fused", "Ci": ci, "Co": co, "P": p,
+                                "dtype": str(dtype), "silu": silu, "max_abs_err": err,
+                                "max_abs_ref": mag, "tol": K3_TOL[dtype], "ok": ok})
+                check(ok, f"K3 disagrees with its plain version at Ci={ci} Co={co} P={p} "
+                          f"{dtype} silu={silu}: max_abs_err {err:.3e}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+            if dtype != torch.bfloat16:
+                continue
+            # times at the main path's dtype, with SiLU (all but the ffn1 sites apply it)
+            conv = Conv(4 * ci, 4 * co, 1, dtype=dtype, impl="auto").to(DEVICE).eval()
+            with torch.no_grad():
+                conv.conv.w.copy_(w)
+            dense = fold_dense_kernel(w, conv.conv.mix).reshape(4 * co, 4 * ci).t().to(dtype).contiguous()
+            x2 = x.reshape(p, 4 * ci)
+            isz = x.element_size()
+            nbytes = p * 4 * (ci + co) * isz + 4 * ci * co * isz + 2 * 4 * co * 4
+            b, _ = bound_ms(nbytes, 2 * p * 4 * ci * co, p * 4 * co * 9, dtype)
+            ms, host_ms = time_ms(lambda: qconv_fused.qconv1x1_fused(x, w, scale, shift))
+            unfused_ms, unfused_host_ms = time_ms(lambda: conv(x))
+            row = {
+                "ms": ms, "host_ms": host_ms,
+                "plain_ms": time_ms(lambda: qconv_fused.qconv1x1_fused_plain(x, w, scale, shift))[0],
+                "unfused_ms": unfused_ms, "unfused_host_ms": unfused_host_ms,
+                "library_ms": time_ms(lambda: torch.matmul(x2, dense))[0],
+                "bound_ms": b,
+            }
+            details.append({"kernel": "qconv1x1_fused", "Ci": ci, "Co": co, "P": p, "sites": mult,
+                            "dtype": str(dtype), **row})
+            print(f"K3 Ci={ci:3d} Co={co:3d} P={p:6d} x{mult}: kernel {ms:.4f} ms "
+                  f"(host {host_ms:.4f}), bound {b:.4f}, unfused {unfused_ms:.4f} "
+                  f"(host {unfused_host_ms:.4f}), plain {row['plain_ms']:.4f}, "
+                  f"matmul {row['library_ms']:.4f}")
+            for key in tot:
+                tot[key] += mult * row[key]
+            t_bytes += mult * nbytes / HBM_BYTES_S
+            t_ops += mult * (2 * p * 4 * ci * co / TENSOR_FLOPS[dtype] + p * 4 * co * 9 / F32_FLOPS)
+    tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"K3 all {len(sites)} sites, bf16: max_abs_err {worst:.3e}; per forward kernel "
+          f"{tot['ms']:.3f} ms (host {tot['host_ms']:.3f}), bound {tot['bound_ms']:.3f}, "
+          f"unfused {tot['unfused_ms']:.3f} (host {tot['unfused_host_ms']:.3f})")
+    return worst, tot
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def make_frames(seed: int):
+    """8 uint8 RGB frames, some non-square, from a seeded generator: a smooth gradient
+    with a few filled rectangles and noise."""
+    rng = np.random.default_rng(seed)
+    sizes = [(1024, 1024), (768, 1024), (1024, 640), (900, 1200),
+             (512, 512), (1080, 1920), (1024, 1024), (700, 1000)]
+    frames = []
+    for h, w in sizes:
+        yy, xx = np.mgrid[0:h, 0:w]
+        im = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (h + w)], -1)
+        for _ in range(6):
+            y0, x0 = rng.integers(0, h - 64), rng.integers(0, w - 64)
+            im[y0:y0 + rng.integers(16, 64), x0:x0 + rng.integers(16, 64)] = rng.integers(0, 256, 3)
+        im = im + rng.integers(-8, 9, im.shape)
+        frames.append(np.clip(im, 0, 255).astype(np.uint8))
+    return frames
+
+
+def seeded_model(dtype: torch.dtype, seed: int = 0, **kw):
+    """The n model with every weight, IQBN statistic and head bias drawn from ``seed``.
+
+    ``from_yaml`` draws the conv weights; the IQBN statistics and affines and
+    the QER biases are drawn here too (gamma, var U(0.5, 1.5); beta, mean
+    N(0, 0.1); QER biases N(0, 1)), so that the scores spread and NMS has
+    distinct boxes to keep or suppress, as a trained model's would.
+    """
+    from quan_ultralytics_tpu_torch.models.conv import IQBN
+    from quan_ultralytics_tpu_torch.models.head import QER
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+
+    model = DetectionModel.from_yaml(MODEL, nc=NC, dtype=dtype, device=DEVICE, seed=seed, **kw)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, IQBN):
+                for t, lo in ((mod.gamma, 0.5), (mod.var, 0.5)):
+                    t.copy_(torch.rand(t.shape, generator=gen) + lo)
+                for t in (mod.beta, mod.mean):
+                    t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+            elif isinstance(mod, QER):
+                mod.proj.bias.copy_(torch.randn(mod.proj.bias.shape, generator=gen))
+    return model
+
+
+def build_models():
+    """The three paths over the same seeded bf16 weights."""
+    paths = {"K1": dict(), "K1+K3": dict(fused_1x1=True), "plain": dict(fused_attn=False)}
+    return {name: seeded_model(torch.bfloat16, **kw) for name, kw in paths.items()}
+
+
+def phase_predict(models, frames, n_sites: int):
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    out = {"launches": {}, "detections": {}}
+    expect = {"K1": (1, 0), "K1+K3": (1, n_sites), "plain": (0, 0)}
+    for name, model in models.items():
+        pred = Predictor(model, imgsz=IMGSZ, conf=0.25)
+        qattn.launches = qconv_fused.launches = 0
+        res = pred(frames)  # the main path, driven once
+        torch.cuda.synchronize()
+        got = (qattn.launches, qconv_fused.launches)
+        out["launches"][name] = {"qattn_fwd": got[0], "qconv1x1_fused": got[1]}
+        print(f"predict [{name}]: launches K1 {got[0]}, K3 {got[1]} (expected {expect[name]})")
+        check(got == expect[name], f"{name}: kernel launches {got} != {expect[name]}")
+        check(len(res) == len(frames) and all(np.isfinite(r.boxes).all() for r in res),
+              f"{name}: bad Results")
+        low = Predictor(model, imgsz=IMGSZ, conf=0.0)(frames)
+        out["detections"][name] = {"conf_0.25": [len(r) for r in res],
+                                   "conf_0": [len(r) for r in low]}
+        print(f"predict [{name}]: detections per frame at conf 0.25 {[len(r) for r in res]}, "
+              f"at conf 0 (the top 2048 anchors enter NMS) {[len(r) for r in low]}")
+        for r in low:
+            check(r.boxes.shape[1] == 7 and np.isfinite(r.boxes).all(), "bad low-conf Results")
+            check(len(r) > 0, f"{name}: NMS kept nothing at conf 0")
+    return out
+
+
+def decoded(model, x_u8):
+    with torch.inference_mode():
+        return model.decode(model(x_u8.float() / 255.0)).float()
+
+
+def compare_preds(a: torch.Tensor, ref: torch.Tensor, nc: int):
+    """max abs error over max |ref| for the box, score and angle columns."""
+    groups = {"xywh": slice(0, 4), "scores": slice(4, 4 + nc), "angle": slice(4 + nc, 5 + nc)}
+    out = {}
+    for g, sl in groups.items():
+        err = float((a[..., sl] - ref[..., sl]).abs().max())
+        out[g] = err / max(float(ref[..., sl].abs().max()), 1e-6)
+    return out
+
+
+def phase_agree(models, frames):
+    """Decoded predictions of the kernel paths vs the all-plain path, bf16 and
+    f32, and the f32 detections of the whole Predictor."""
+    from quan_ultralytics_tpu_torch.data.augment import letterbox
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+
+    x = torch.stack([letterbox(torch.from_numpy(f).to(DEVICE), IMGSZ)[0] for f in frames])
+    agree = {}
+    ref = decoded(models["plain"], x)
+    for name in ("K1", "K1+K3"):
+        rel = compare_preds(decoded(models[name], x), ref, NC)
+        agree[f"{name} bf16"] = rel
+        print(f"agree [{name} vs plain, bf16]: max abs err / max|ref| {rel}")
+        check(all(v <= PRED_TOL[torch.bfloat16] for v in rel.values()),
+              f"{name} bf16 predictions disagree with the plain path: {rel}")
+    f32 = {"K1+K3": seeded_model(torch.float32, fused_1x1=True),
+           "plain": seeded_model(torch.float32, fused_attn=False)}
+    xs = x[:2]
+    rel = compare_preds(decoded(f32["K1+K3"], xs), decoded(f32["plain"], xs), NC)
+    agree["K1+K3 f32"] = rel
+    print(f"agree [K1+K3 vs plain, f32, 2 frames]: max abs err / max|ref| {rel}")
+    check(all(v <= PRED_TOL[torch.float32] for v in rel.values()),
+          f"K1+K3 f32 predictions disagree with the plain path: {rel}")
+    # the whole Predictor in f32: the same detections, box for box, in any order
+    kept = [Predictor(f32[name], imgsz=IMGSZ, conf=0.05)(frames[:2]) for name in ("K1+K3", "plain")]
+    for ra, rb in zip(*kept):
+        check(len(ra) == len(rb) > 0, f"f32 detections differ in number: {len(ra)} vs {len(rb)}")
+        d = np.abs(ra.boxes[:, None, :] - rb.boxes[None, :, :]).max(-1)
+        check(bool((d.min(1) <= RESULT_TOL).all() and (d.min(0) <= RESULT_TOL).all()),
+              f"f32 detections differ by more than {RESULT_TOL}: {d.min(1).max()}")
+    agree["K1+K3 f32 detections"] = [len(r) for r in kept[0]]
+    print(f"agree [K1+K3 vs plain, f32, 2 frames]: same detections {[len(r) for r in kept[0]]}")
+    return x, agree
+
+
+def phase_throughput(models, frames, x, rounds: int = 6):
+    """img/s of each path: whole Predictor calls on the frames (host clock,
+    synchronized) and ``infer`` on the letterboxed batch (host clock, synchronized).
+
+    The paths take turns, forward then backward order in alternate rounds, so
+    that drift of the card's clock or of the host's load falls on all alike;
+    the medians over rounds are reported.
+    """
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+
+    preds = {name: Predictor(m, imgsz=IMGSZ, conf=0.25) for name, m in models.items()}
+    for pred in preds.values():
+        pred(frames)
+        pred.infer(x)
+    torch.cuda.synchronize()
+    names = list(preds)
+    e2e = {name: [] for name in names}
+    dev = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            pred = preds[name]
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pred(frames)
+            torch.cuda.synchronize()
+            e2e[name].append(3 * len(frames) / (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            for _ in range(5):
+                pred.infer(x)
+            torch.cuda.synchronize()
+            dev[name].append(1e3 * (time.perf_counter() - t0) / 5)
+    out = {}
+    for name in names:
+        ms = statistics.median(dev[name])
+        out[name] = {"predict_img_s": statistics.median(e2e[name]), "infer_ms": ms,
+                     "infer_img_s": BATCH * 1e3 / ms, "predict_img_s_rounds": e2e[name],
+                     "infer_ms_rounds": dev[name]}
+        print(f"speed [{name}]: predict {out[name]['predict_img_s']:.1f} img/s end to end, "
+              f"infer {ms:.2f} ms per batch of {BATCH} ({BATCH * 1e3 / ms:.1f} img/s); "
+              f"median of {rounds} rounds")
+    return out
+
+
+def phase_device_share(models, x, speed, tables=None):
+    """Device time, device operations and busy share of one ``infer``, from
+    torch.profiler over three calls (null where it records no device activity)."""
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, model in models.items():
+        pred = Predictor(model, imgsz=IMGSZ, conf=0.25)
+        pred.infer(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                pred.infer(x)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ops) / 3e3 if ops else None
+        # device time of the port's own kernels on this path, per infer
+        own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / 3e3
+               for k in ("qattn_fwd_kernel", "qconv1x1_fused_kernel")}
+        wall = speed[name]["infer_ms"]
+        out[name] = {"device_ms": busy, "device_ops": len(ops) / 3,
+                     "busy_share": busy / wall if ops else None, "kernel_device_ms": own}
+        print(f"device [{name}]: {len(ops) / 3:.0f} device operations per infer, busy "
+              + (f"{busy:.2f} ms of {wall:.2f} ms, share {busy / wall:.3f}; port kernels {own}"
+                 if ops else "not measured"))
+        if tables is not None:
+            tables.append(f"== {name}: 3 x infer, batch {BATCH} @ {IMGSZ}")
+            tables.append(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    return out
+
+
+# ---------------------------------------------------------------- main
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="DIR", type=Path,
+                    help="also write DIR/chip_smoke_profile.txt and DIR/chip_smoke_details.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    card, ptxas, sfu_rate = phase_device()
+    from quan_ultralytics_tpu_torch.models.tasks import fused_1x1_sites
+
+    models = build_models()
+    sites = fused_1x1_sites(models["K1+K3"], BATCH, IMGSZ)
+    check(len(sites) == 37, f"expected 37 fused 1x1 sites, found {len(sites)}")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    details = []
+    with torch.no_grad():
+        k1_err, k1_t = phase_k1(gen, details, sfu_rate)
+        k3_err, k3_t = phase_k3(gen, sites, details)
+
+    frames = make_frames(0)
+    pred_out = phase_predict(models, frames, len(sites))
+    x, agree = phase_agree(models, frames)
+    speed = phase_throughput(models, frames, x)
+    tables = [] if args.profile else None
+    share = phase_device_share(models, x, speed, tables)
+    if args.profile:
+        out_dir = args.profile
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "chip_smoke_profile.txt").write_text("\n".join(tables))
+        (out_dir / "chip_smoke_details.json").write_text(json.dumps(
+            {"card": card, "ptxas": ptxas, "cases": details, "predict": pred_out,
+             "agree": agree, "speed": speed, "device": share}, indent=1))
+
+    launches = pred_out["launches"]["K1+K3"]
+    on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
+    kernels = [
+        {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
+         "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:60",
+         "launches": launches["qattn_fwd"], "max_abs_err": k1_err,
+         "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_kernel"],
+         "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
+         "library": "torch.nn.functional.scaled_dot_product_attention"},
+        {"name": "qconv1x1_fused", "route": "cuda",
+         "source": "quan_ultralytics_tpu_torch/csrc/qconv1x1_fused.cu",
+         "replaces": "quan_ultralytics_tpu/ops/pallas/qconv_fused.py:35",
+         "launches": launches["qconv1x1_fused"], "max_abs_err": k3_err,
+         "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_fused_kernel"],
+         "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
+                  "times summed",
+         "library": "torch.matmul with the mixing folded into the weights, no affine or SiLU "
+                    "(a partial yardstick)"},
+    ]
+    print(json.dumps({"speed": {name: {k: v for k, v in row.items() if not k.endswith("_rounds")}
+                                for name, row in speed.items()}, "device": share}))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,154 @@
+"""Detection heads: QER extraction, Detect, OBB (counterpart of the JAX ``models/head.py``).
+
+The heads return raw per-level maps; decoding to boxes is the separate
+function `decode_obb` (or `decode_detect`), as in the JAX package.
+Submodule names follow its flax names (``cv2_0_0``, ``detect``, ``proj``, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from quan_ultralytics_tpu_torch.models.block import dfl
+from quan_ultralytics_tpu_torch.models.conv import Conv, DWConv
+from quan_ultralytics_tpu_torch.ops.boxes import dist2bbox, dist2rbox, make_anchors
+from quan_ultralytics_tpu_torch.ops.qconv import to_nchw
+
+
+class QER(nn.Module):
+    """Quaternion-to-Real extraction (reference head.py:26-47): flatten the
+    quaternion axis into channels, q-major ``[B, H, W, 4C]``, and apply a real
+    conv with bias that learns the component mixing. Returns ``[B, H, W, c2]``.
+
+    ``proj`` is an ``nn.Conv2d`` (OIHW); its init follows flax's ``nn.Conv``
+    default (lecun-normal kernel), the bias is ``bias_init_value`` or 0.
+    ``dtype`` None computes in the promotion of the input and parameter dtypes.
+    """
+
+    def __init__(self, c1: int, c2: int, k: int = 1, bias_init_value: Optional[float] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.c1, self.dtype = c1, dtype
+        self.bias_init_value = bias_init_value
+        self.proj = nn.Conv2d(c1, c2, k, padding=k // 2, bias=True)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_in = self.proj.weight[0].numel()
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # flax's truncated-normal correction
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.proj.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            self.proj.bias.fill_(self.bias_init_value or 0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, Q, C = x.shape
+        if Q * C != self.c1:
+            raise ValueError(f"QER expects {self.c1} flattened channels, got {Q * C}")
+        dtype = self.dtype or torch.promote_types(x.dtype, self.proj.weight.dtype)
+        y = F.conv2d(to_nchw(x.to(dtype)), self.proj.weight.to(dtype), self.proj.bias.to(dtype),
+                     padding=self.proj.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class Detect(nn.Module):
+    """YOLO detect head (reference head.py:87-260).
+
+    Per level: box branch cv2 = Conv, Conv, QER -> 4 reg_max logits; class
+    branch cv3 = (DWConv, Conv) x 2, QER -> nc logits. Returns the per-level
+    ``[B, H, W, 4 reg_max + nc]`` maps.
+    """
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32),
+                 reg_max: int = 16, **kw):
+        super().__init__()
+        self.nc, self.nl, self.reg_max = nc, len(ch), reg_max
+        dtype = kw.get("dtype")
+        c2 = max(ch[0] // 2, reg_max * 4)
+        c3 = max(ch[0], min(nc, 256))
+        for i, c in enumerate(ch):
+            setattr(self, f"cv2_{i}_0", Conv(c, c2, 3, **kw))
+            setattr(self, f"cv2_{i}_1", Conv(c2, c2, 3, **kw))
+            setattr(self, f"cv2_{i}_2", QER(c2, 4 * reg_max, 1, bias_init_value=1.0, dtype=dtype))
+            setattr(self, f"cv3_{i}_0a", DWConv(c, c, 3, **kw))
+            setattr(self, f"cv3_{i}_0b", Conv(c, c3, 1, **kw))
+            setattr(self, f"cv3_{i}_1a", DWConv(c3, c3, 3, **kw))
+            setattr(self, f"cv3_{i}_1b", Conv(c3, c3, 1, **kw))
+            cls_bias = math.log(5 / nc / (640 / strides[i]) ** 2)
+            setattr(self, f"cv3_{i}_2", QER(c3, nc, 1, bias_init_value=cls_bias, dtype=dtype))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        outs = []
+        for i, x in enumerate(xs):
+            b = x
+            for name in ("cv2_{}_0", "cv2_{}_1", "cv2_{}_2"):
+                b = getattr(self, name.format(i))(b)
+            c = x
+            for name in ("cv3_{}_0a", "cv3_{}_0b", "cv3_{}_1a", "cv3_{}_1b", "cv3_{}_2"):
+                c = getattr(self, name.format(i))(c)
+            outs.append(torch.cat([b, c], dim=-1))
+        return outs
+
+
+class OBB(nn.Module):
+    """Oriented-box head (reference head.py:322-354): Detect + an angle branch
+    cv4 = Conv, Conv, QER -> ne logits, mapped in f32 to ``(sigmoid - 0.25) pi``.
+    Returns ``(feats, angles)``."""
+
+    def __init__(self, nc: int, ch: Sequence[int], ne: int = 1,
+                 strides: Sequence[int] = (8, 16, 32), reg_max: int = 16, **kw):
+        super().__init__()
+        self.nl = len(ch)
+        c4 = max(ch[0] // 4, ne * 4)  # keep quaternion-divisible
+        for i, c in enumerate(ch):
+            setattr(self, f"cv4_{i}_0", Conv(c, c4, 3, **kw))
+            setattr(self, f"cv4_{i}_1", Conv(c4, c4, 3, **kw))
+            setattr(self, f"cv4_{i}_2", QER(c4, ne, 1, dtype=kw.get("dtype")))
+        self.detect = Detect(nc, ch, strides, reg_max, **kw)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        angles = []
+        for i, x in enumerate(xs):
+            a = getattr(self, f"cv4_{i}_0")(x)
+            a = getattr(self, f"cv4_{i}_1")(a)
+            a = getattr(self, f"cv4_{i}_2")(a)
+            angles.append((torch.sigmoid(a.float()) - 0.25) * math.pi)
+        return self.detect(xs), angles
+
+
+def flatten_levels(feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``[B, H, W, C]`` per level -> ``[B, sum(H W), C]``."""
+    B = feats[0].shape[0]
+    return torch.cat([f.reshape(B, -1, f.shape[-1]) for f in feats], dim=1)
+
+
+def _anchors(feats: Sequence[torch.Tensor], strides: Sequence[int]):
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    return make_anchors(shapes, strides, 0.5, device=feats[0].device)
+
+
+def decode_detect(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int,
+                  reg_max: int = 16) -> torch.Tensor:
+    """Inference decode (reference head.py:191-219): DFL -> dist2bbox -> scale
+    by strides, sigmoid class scores. Returns ``[B, A, 4 + nc]`` (xywh pixels)."""
+    anchors, stride_t = _anchors(feats, strides)
+    x = flatten_levels(feats)
+    dist = dfl(x[..., :4 * reg_max], reg_max)
+    boxes = dist2bbox(dist, anchors[None], xywh=True) * stride_t[None]
+    return torch.cat([boxes, torch.sigmoid(x[..., 4 * reg_max:].float())], dim=-1)
+
+
+def decode_obb(feats: Sequence[torch.Tensor], angles: Sequence[torch.Tensor],
+               strides: Sequence[int], nc: int, reg_max: int = 16) -> torch.Tensor:
+    """OBB inference decode (reference head.py:338-354). Returns
+    ``[B, A, 4 + nc + 1]`` = (xywh in pixels, class scores, angle in radians), f32."""
+    anchors, stride_t = _anchors(feats, strides)
+    x = flatten_levels(feats)
+    ang = flatten_levels(angles)
+    dist = dfl(x[..., :4 * reg_max], reg_max)
+    boxes = dist2rbox(dist, ang, anchors[None]) * stride_t[None]
+    return torch.cat([boxes, torch.sigmoid(x[..., 4 * reg_max:].float()), ang], dim=-1)

@@ -1,0 +1,264 @@
+"""Model config -> PyTorch model, and the task model (counterpart of the JAX ``models/tasks.py``).
+
+`parse_model` repeats the reference's channel bookkeeping
+(ultralytics/nn/tasks.py:942-1098) for the modules the QUAN configs use and
+gives a static layer spec; `QUANYOLO` builds one module per layer into
+``model`` (so state names read ``model.10.m0.attn.qkv.w``, the JAX package's
+flax path ``model_10/m0/attn/qkv/w``) and walks the skip-connection save
+list in ``forward``. Only the plain graph is ported: the JAX package's
+``stem_s2d`` / ``stem_deep`` are TPU layout rewrites of the same math.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+import re
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+
+from quan_ultralytics_tpu_torch.cfg.models import MODELS
+from quan_ultralytics_tpu_torch.models import block as B
+from quan_ultralytics_tpu_torch.models import conv as C
+from quan_ultralytics_tpu_torch.models import head as H
+
+SCALE_RE = re.compile(r"yolo\d+([nslmx])")
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names another.
+
+    Raises when ``cuda`` is asked for (explicitly or by default) and no card
+    is present: the port never falls back to the CPU on its own.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def make_divisible(x: float, divisor: int = 8) -> int:
+    """Round up to the nearest multiple (reference utils/ops.py make_divisible)."""
+    return math.ceil(x / divisor) * divisor
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    i: int
+    f: Tuple[int, ...]  # input layer indices (-1 = previous)
+    module: str
+    args: Tuple[Any, ...]
+    n: int  # repeats (absorbed into module args for CSP blocks)
+    c2: int  # output channels (total quaternion space)
+    stride: int  # cumulative stride of the output
+
+
+# Modules that take (c1, c2, ...) and get width scaling on args[0].
+_CONV_LIKE = {"Conv", "DWConv", "Bottleneck", "QSPPF", "C2f", "C3", "C3k",
+              "C3k2", "QC3k2", "QC2PSA", "QPSA", "Classify"}
+# CSP-style modules that absorb the repeat count as arg index 2.
+_ABSORB_N = {"C2f", "C3", "C3k", "C3k2", "QC3k2", "QC2PSA"}
+_HEADS = {"Detect", "OBB", "HybridDetect", "Segment", "Pose"}
+
+
+def resolve_model_cfg(model: str) -> Tuple[Dict, str]:
+    """'yolo11n-obb-quan.yaml' -> (config dict, scale letter). The scale letter
+    follows the architecture number; the base name drops it."""
+    name = Path(model).name
+    m = SCALE_RE.search(name)
+    base = re.sub(r"(yolo\d+)[nslmx]", r"\1", name)
+    if base not in MODELS:
+        raise FileNotFoundError(f"model config {model!r} is not one of {sorted(MODELS)}")
+    cfg = MODELS[base]
+    scale = m.group(1) if m else next(iter(cfg["scales"]))
+    return cfg, scale
+
+
+def parse_model(cfg: Dict, scale: str, nc: Optional[int] = None) -> Tuple[List[LayerSpec], List[int], int]:
+    """Compile a model config into layer specs: (specs, save_list, nc).
+
+    Channels follow reference tasks.py:1016 (``make_divisible(min(c2,
+    max_channels) * width, 8)``), depth tasks.py:969 (``max(round(n * depth),
+    1)``) and the C3k2 m/l/x rule tasks.py:1045-1048.
+    """
+    nc = nc if nc is not None else cfg.get("nc", 80)
+    depth, width, max_channels = cfg["scales"][scale]
+    ch: List[int] = []
+    strides: List[int] = []
+    specs: List[LayerSpec] = []
+    save: List[int] = []
+
+    for i, (f, n, m, args) in enumerate(cfg["backbone"] + cfg["head"]):
+        args = [nc if a == "nc" else a for a in args]
+        n_scaled = max(round(n * depth), 1) if n > 1 else n
+        fs = tuple(f) if isinstance(f, list) else (f,)
+        in_ch = [ch[x] if (x != -1 or ch) else 3 for x in fs]
+        in_stride = [strides[x] if (x != -1 or strides) else 1 for x in fs]
+
+        if m in _CONV_LIKE:
+            c1, c2 = in_ch[0], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            margs: List[Any] = [c1, c2, *args[1:]]
+            if m in _ABSORB_N:
+                margs.insert(2, n_scaled)
+                n_scaled = 1
+            if m == "C3k2" and scale in "mlx":
+                margs[3] = True
+            stride = in_stride[0] * (2 if m in {"Conv", "DWConv"} and len(margs) > 3 and margs[3] == 2 else 1)
+        elif m == "QUpsample":
+            c2 = in_ch[0]
+            margs = list(args)
+            stride = in_stride[0] // int(args[0])
+        elif m == "Concat":
+            c2 = sum(in_ch)
+            margs = []
+            stride = in_stride[0]
+        elif m in _HEADS:
+            margs = [*args, tuple(in_ch), tuple(in_stride)]
+            c2 = 0
+            stride = in_stride[0]
+        else:
+            raise ValueError(f"unsupported module {m!r} in model config")
+
+        specs.append(LayerSpec(i, fs, m, tuple(margs), n_scaled, c2, stride))
+        save.extend(x % i for x in fs if x != -1)
+        ch.append(c2)
+        strides.append(stride)
+
+    return specs, sorted(set(save)), nc
+
+
+class Concat(nn.Module):
+    """Channel concat layer of the graph."""
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        return B.qconcat(xs)
+
+
+def build_layer(spec: LayerSpec, dtype: Optional[torch.dtype], mapping_type: str, impl: str,
+                fused_attn: bool, fused_1x1: bool) -> nn.Module:
+    """The module of one layer spec."""
+    m, a = spec.module, spec.args
+    kw = dict(dtype=dtype, impl=impl, fused_1x1=fused_1x1)
+    if m == "Conv":
+        return C.Conv(*a, mapping_type=mapping_type, **kw)
+    if m == "DWConv":
+        return C.DWConv(*a, **kw)
+    if m in ("C3k2", "QC3k2"):
+        return B.C3k2(*a, **kw)
+    if m == "QSPPF":
+        return B.QSPPF(*a, **kw)
+    if m == "QC2PSA":
+        return B.QC2PSA(*a, fused_attn=fused_attn, **kw)
+    if m == "QUpsample":
+        return C.QUpsample(int(a[0]), str(a[1]) if len(a) > 1 else "nearest")
+    if m == "Concat":
+        return Concat()
+    if m == "Detect":
+        nc, ch, strides = a
+        return H.Detect(nc, ch, strides, **kw)
+    if m == "OBB":
+        nc, ne, ch, strides = a
+        return H.OBB(nc, ch, ne, strides, **kw)
+    raise NotImplementedError(f"module {m!r} is not ported yet")
+
+
+class QUANYOLO(nn.Module):
+    """The YOLO graph built from a layer-spec tuple. ``forward`` returns the
+    head output: per-level maps for Detect, ``(feats, angles)`` for OBB."""
+
+    def __init__(self, specs: Sequence[LayerSpec], save: Sequence[int],
+                 dtype: Optional[torch.dtype] = None, mapping_type: str = "poincare",
+                 impl: str = "auto", fused_attn: bool = True, fused_1x1: bool = False):
+        super().__init__()
+        self.specs, self.save = tuple(specs), tuple(save)
+        self.dtype = dtype
+        self.model = nn.ModuleList(
+            build_layer(s, dtype, mapping_type, impl, fused_attn, fused_1x1) for s in self.specs)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw every weight anew, in module order, from ``generator``."""
+        for mod in self.modules():
+            if isinstance(mod, (C.QConv2D, H.QER)):
+                mod.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor):
+        saved: Dict[int, Any] = {}
+        y = x
+        for spec, layer in zip(self.specs, self.model):
+            inputs = [y if j == -1 else saved[j] for j in spec.f]
+            y = layer(inputs if spec.module in _HEADS or spec.module == "Concat" else inputs[0])
+            if spec.i in self.save:
+                saved[spec.i] = y
+        return y
+
+
+class DetectionModel(QUANYOLO):
+    """Task model: the graph plus its metadata (analog of reference nn/tasks.py
+    DetectionModel / OBBModel). Parameters are float32; ``dtype`` is the
+    activation dtype."""
+
+    def __init__(self, cfg: Dict, scale: str, nc: Optional[int] = None, **kw):
+        specs, save, nc_ = parse_model(cfg, scale, nc)
+        super().__init__(specs, save, **kw)
+        self.cfg, self.scale, self.nc = cfg, scale, nc_
+        head = specs[-1]
+        self.task = {"OBB": "obb"}.get(head.module, "detect")
+        self.strides = tuple(head.args[-1])
+        self.reg_max = 16
+
+    @classmethod
+    def from_yaml(cls, model: str = "yolo11n-obb-quan.yaml", nc: Optional[int] = None,
+                  dtype: Optional[torch.dtype] = None,
+                  device: Optional[Union[str, torch.device]] = None,
+                  mapping_type: str = "poincare", impl: str = "auto",
+                  fused_attn: bool = True, fused_1x1: bool = False,
+                  seed: int = 0) -> "DetectionModel":
+        """Build a model from its config name, with weights drawn from ``seed``.
+
+        Runs on ``cuda`` unless ``device`` names another device; raises when
+        no card is present and the CPU was not asked for. Returned in eval
+        mode. ``impl`` is the quaternion conv mapping (``auto``: the JAX main
+        path's choice); ``fused_attn`` runs the attention kernel (on by
+        default); ``fused_1x1`` the fused 1x1 Conv+IQBN+SiLU kernel (off by
+        default, as ``QUAN_FUSED_1X1`` is in JAX).
+        """
+        dev = resolve_device(device)
+        cfg, scale = resolve_model_cfg(model)
+        m = cls(cfg, scale, nc, dtype=dtype, mapping_type=mapping_type, impl=impl,
+                fused_attn=fused_attn, fused_1x1=fused_1x1)
+        m.reset_parameters(torch.Generator().manual_seed(seed))
+        return m.to(dev).eval()
+
+    def decode(self, out):
+        """Head output -> ``[B, A, ...]`` predictions in input-pixel units."""
+        if self.task == "obb":
+            feats, angles = out
+            return H.decode_obb(feats, angles, self.strides, self.nc, self.reg_max)
+        return H.decode_detect(out, self.strides, self.nc, self.reg_max)
+
+
+def fused_1x1_sites(model: QUANYOLO, batch: int, imgsz: int) -> List[Tuple[int, int, int]]:
+    """``(Ci, Co, P)`` of every Conv that ``fused_1x1`` routes to the fused
+    kernel, in forward order, for input frames ``[batch, imgsz, imgsz, 3]``.
+
+    Found by one forward of a copy of the model on the meta device, which
+    computes shapes only.
+    """
+    meta = copy.deepcopy(model).to("meta").eval()
+    sites: List[Tuple[int, int, int]] = []
+    for mod in meta.modules():
+        if isinstance(mod, B.QAttention):
+            mod.fused_attn = False
+        if isinstance(mod, C.Conv) and mod.fused:
+            mod.fused = False  # the kernels do not run on meta tensors
+            mod.register_forward_pre_hook(lambda m, args: sites.append(
+                (m.conv.cin, m.conv.cout, args[0].shape[0] * args[0].shape[1] * args[0].shape[2])))
+    with torch.no_grad():
+        meta(torch.empty(batch, imgsz, imgsz, 3, device="meta"))
+    return sites

@@ -1,0 +1,226 @@
+"""Box math: anchors, DFL decode, rotated boxes, probiou, fixed-shape rotated NMS
+(counterpart of the JAX ``ops/boxes.py``).
+
+NMS is the reference's one-shot "fast-NMS": an all-pairs upper-triangular
+suppression over a fixed candidate pool, batched over images. Sorts are
+stable, so ties keep index order as ``jnp.argsort`` and ``lax.top_k`` do.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+
+# ---------------------------------------------------------------------------
+# Anchors and distance decoding (reference utils/tal.py:333-386)
+# ---------------------------------------------------------------------------
+
+def make_anchors(feat_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
+                 grid_cell_offset: float = 0.5,
+                 device: Optional[torch.device] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor centers (feature-grid units) ``[A, 2]`` (x, y) and per-anchor strides ``[A, 1]``."""
+    points, stride_list = [], []
+    for (h, w), s in zip(feat_shapes, strides):
+        sx = torch.arange(w, dtype=torch.float32, device=device) + grid_cell_offset
+        sy = torch.arange(h, dtype=torch.float32, device=device) + grid_cell_offset
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        points.append(torch.stack([gx, gy], dim=-1).reshape(-1, 2))
+        stride_list.append(torch.full((h * w, 1), float(s), dtype=torch.float32, device=device))
+    return torch.cat(points), torch.cat(stride_list)
+
+
+def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = True) -> torch.Tensor:
+    """(l, t, r, b) distances -> xywh or xyxy boxes."""
+    lt, rb = distance[..., :2], distance[..., 2:]
+    x1y1 = anchor_points - lt
+    x2y2 = anchor_points + rb
+    if xywh:
+        return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
+    return torch.cat([x1y1, x2y2], dim=-1)
+
+
+def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor,
+              anchor_points: torch.Tensor) -> torch.Tensor:
+    """Rotated decode (reference tal.py:366-386): rotate the ltrb offset by the
+    predicted angle before shifting the anchor. Returns xywh."""
+    lt, rb = pred_dist[..., :2], pred_dist[..., 2:]
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    half = (rb - lt) / 2
+    xf, yf = half[..., 0:1], half[..., 1:2]
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], dim=-1) + anchor_points, lt + rb], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Format conversions (reference utils/ops.py:412-607)
+# ---------------------------------------------------------------------------
+
+def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    xy, wh = x[..., :2], x[..., 2:4]
+    return torch.cat([xy - wh / 2, xy + wh / 2, x[..., 4:]], dim=-1)
+
+
+def xywhr2xyxyxyxy(x: torch.Tensor) -> torch.Tensor:
+    """xywhr -> 4 corner points ``[..., 4, 2]`` (reference ops.py:572)."""
+    ctr, w, h, angle = x[..., :2], x[..., 2:3], x[..., 3:4], x[..., 4:5]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    vec1 = torch.cat([w / 2 * cos, w / 2 * sin], dim=-1)
+    vec2 = torch.cat([-h / 2 * sin, h / 2 * cos], dim=-1)
+    pt1 = ctr + vec1 + vec2
+    pt2 = ctr + vec1 - vec2
+    pt3 = ctr - vec1 - vec2
+    pt4 = ctr - vec1 + vec2
+    return torch.stack([pt1, pt2, pt3, pt4], dim=-2)
+
+
+def regularize_rboxes(rboxes: torch.Tensor) -> torch.Tensor:
+    """Canonicalize xywhr so w >= h and angle in [0, pi/2) (reference ops.py:791)."""
+    x, y, w, h, t = rboxes.unbind(-1)
+    swap = w < h
+    w_ = torch.where(swap, h, w)
+    h_ = torch.where(swap, w, h)
+    t_ = torch.remainder(torch.where(swap, t + math.pi / 2, t), math.pi)
+    return torch.stack([x, y, w_, h_, t_], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# probiou (reference utils/metrics.py:178-277), f32 path
+# ---------------------------------------------------------------------------
+
+def _covariance(boxes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gaussian form of an xywhr box (reference metrics.py:178-196)."""
+    a = boxes[..., 2] ** 2 / 12
+    b = boxes[..., 3] ** 2 / 12
+    c = boxes[..., 4]
+    cos, sin = torch.cos(c), torch.sin(c)
+    cos2, sin2 = cos ** 2, sin ** 2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Probabilistic IoU between broadcast-aligned xywhr boxes
+    (reference metrics.py:198-249, arXiv:2106.06072)."""
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _covariance(obb1)
+    a2, b2, c2 = _covariance(obb2)
+    den = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    det1 = torch.clamp(a1 * b1 - c1 ** 2, min=0)
+    det2 = torch.clamp(a2 * b2 - c2 ** 2, min=0)
+    t3 = torch.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+                   / (4 * torch.sqrt(det1 * det2) + eps) + eps) * 0.5
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / den * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / den * 0.5
+    bd = torch.clamp(t1 + t2 + t3, eps, 100.0)
+    hd = torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    return 1.0 - hd
+
+
+# ---------------------------------------------------------------------------
+# Fixed-shape rotated NMS (reference utils/ops.py:146-333)
+# ---------------------------------------------------------------------------
+
+def _probiou_pairs_over(b: torch.Tensor, iou_threshold: float, eps: float = 1e-7) -> torch.Tensor:
+    """All-pairs ``probiou(b_i, b_j) >= iou_threshold`` for ``b`` ``[..., n, 5]``
+    -> ``[..., n, n]``, tested in the Bhattacharyya-distance domain
+    (probiou is a decreasing function of it), which spares two
+    transcendentals per pair; the per-box sqrt(det) is taken once per box."""
+    x, y = b[..., 0], b[..., 1]
+    a, bb, c = _covariance(b)
+    sd = torch.sqrt(torch.clamp(a * bb - c ** 2, min=0))
+    A = a[..., :, None] + a[..., None, :]
+    Bb = bb[..., :, None] + bb[..., None, :]
+    C = c[..., :, None] + c[..., None, :]
+    dx = x[..., :, None] - x[..., None, :]
+    dy = y[..., :, None] - y[..., None, :]
+    den = A * Bb - C ** 2 + eps
+    t12 = (0.25 * (A * dy ** 2 + Bb * dx ** 2) - 0.5 * C * dx * dy) / den
+    t3 = 0.5 * torch.log(den / (4 * sd[..., :, None] * sd[..., None, :] + eps) + eps)
+    bd = torch.clamp(t12 + t3, eps, 100.0)
+    c_thr = -math.log(1.0 - (1.0 - iou_threshold) ** 2 + eps)
+    return bd <= c_thr
+
+
+def nms_rotated(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.45) -> torch.Tensor:
+    """One-shot rotated fast-NMS (reference ops.py:146-179), batched over leading dims.
+
+    boxes ``[..., n, 5]`` xywhr, scores ``[..., n]``. Sorts by score, builds
+    the all-pairs threshold matrix and keeps boxes not suppressed by any
+    higher-scoring box. Returns a keep mask in the *input* order.
+    """
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    b = torch.gather(boxes, -2, order[..., None].expand(*order.shape, boxes.shape[-1]))
+    over = _probiou_pairs_over(b, iou_threshold)
+    n = boxes.shape[-2]
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=boxes.device), diagonal=1)
+    keep_sorted = ~(over & upper).any(dim=-2)
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` along the last axis: descending, ties in index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def non_max_suppression(
+    pred: torch.Tensor,
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    max_det: int = 300,
+    nc: int = 80,
+    rotated: bool = False,
+    max_nms: int = 30000,
+    max_wh: float = 7680.0,
+    agnostic: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-shape batched NMS (reference ops.py:181-333, best-class-only path).
+
+    Args:
+      pred: ``[B, A, 4 + nc + 1]`` decoded predictions: xywhr boxes in pixels,
+        class scores, angle (the OBB layout of `decode_obb`).
+    Returns:
+      detections ``[B, max_det, 7]`` = (xywhr, conf, cls), zero rows past the
+      valid count, and the valid mask ``[B, max_det]``.
+
+    Only the rotated branch exists so far; axis-aligned NMS raises.
+    """
+    if not rotated:
+        raise NotImplementedError("axis-aligned NMS is not ported yet; pass rotated=True")
+    B, A, _ = pred.shape
+    n_keep = min(max_nms, A, 2048)  # candidate pool per image
+    boxes = pred[..., :4]
+    cls = pred[..., 4:4 + nc]
+    conf, cls_id = cls.amax(dim=-1), cls.argmax(dim=-1)
+    score = torch.where(conf > conf_thres, conf, torch.zeros_like(conf))
+    score_top, idx = _top_k(score, n_keep)
+
+    def take(t):  # gather candidate rows [B, A, k] -> [B, n_keep, k]
+        return torch.gather(t, 1, idx[..., None].expand(B, n_keep, t.shape[-1]))
+
+    boxes_t = take(boxes)
+    angle = take(pred[..., 4 + nc:5 + nc])
+    cls_t = torch.gather(cls_id, 1, idx)
+    valid_t = score_top > conf_thres
+    offset = (torch.zeros_like(score_top) if agnostic
+              else cls_t.to(torch.float32) * max_wh)
+    nms_boxes = torch.cat([boxes_t[..., :2] + offset[..., None], boxes_t[..., 2:4], angle], dim=-1)
+    keep = nms_rotated(nms_boxes, score_top, iou_thres) & valid_t
+    out_boxes = torch.cat([boxes_t, angle], dim=-1)
+
+    final_score = torch.where(keep, score_top, torch.zeros_like(score_top))
+    k = min(max_det, n_keep)
+    sc, order = _top_k(final_score, k)
+    rows = torch.gather(out_boxes, 1, order[..., None].expand(B, k, 5))
+    cls_o = torch.gather(cls_t, 1, order).to(torch.float32)
+    det = torch.cat([rows, sc[..., None], cls_o[..., None]], dim=-1)
+    ok = sc > conf_thres
+    det = torch.where(ok[..., None], det, torch.zeros_like(det))
+    if k < max_det:  # pad to the fixed max_det rows
+        det = torch.cat([det, det.new_zeros(B, max_det - k, det.shape[-1])], dim=1)
+        ok = torch.cat([ok, ok.new_zeros(B, max_det - k)], dim=1)
+    return det, ok

@@ -1,0 +1,121 @@
+"""Build ``csrc/*.cu`` with ``nvcc`` at first use and load the library with ctypes.
+
+Each source compiles to an object in its own ``nvcc`` process, all started
+together; one more ``nvcc`` links them into ``build/libquan_torch_kernels.so``
+beside the package. The library has a plain C interface, so no PyTorch header
+is compiled. A hash of the sources and flags, stored beside the library,
+decides whether it is rebuilt; a file lock keeps concurrent processes from
+building at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+LIB_NAME = "libquan_torch_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of the last build in this process
+build_log = ""  # nvcc's output of that build (register and shared-memory use)
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def _run(procs):
+    global build_log
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        build_log += out
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
+def build() -> Path:
+    """Compile the kernels if the sources changed since the last build; return the library path."""
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = _digest()
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+            return lib_path
+        t0 = time.perf_counter()
+        build_log = ""
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in _sources():
+            obj = BUILD_DIR / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(str(obj))
+        _run(procs)
+        tmp = BUILD_DIR / (LIB_NAME + f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))])
+        os.replace(tmp, lib_path)
+        stamp.write_text(digest)
+        build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.qattn_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, i32, vp]
+    lib.qattn_fwd.restype = i32
+    lib.qconv1x1_fused.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, vp]
+    lib.qconv1x1_fused.restype = i32
+    lib.quan_error_string.argtypes = [i32]
+    lib.quan_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if status != 0:
+        msg = library().quan_error_string(status).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {status} ({msg})")

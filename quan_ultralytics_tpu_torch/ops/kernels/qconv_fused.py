@@ -1,0 +1,95 @@
+"""Fused 1x1 quaternion conv + folded IQBN + SiLU (K3): wrapper, plain version, launch count.
+
+Counterpart of the JAX ``ops/pallas/qconv_fused.py``. The kernel is
+``csrc/qconv1x1_fused.cu``; see its header for the design. For inference
+only: the IQBN running statistics are folded into a per-(component, channel)
+affine by `fold_iqbn`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from quan_ultralytics_tpu_torch.ops.kernels import _build
+from quan_ultralytics_tpu_torch.ops.qconv import qconv2d
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0  # kernel launches made by `qconv1x1_fused`
+
+
+def fold_iqbn(gamma: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
+              var: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IQBN eval affine -> ``(scale, shift)``, each ``[4, C]``."""
+    inv = gamma * torch.rsqrt(var + eps)
+    return inv, beta - mean * inv
+
+
+def _weights(w: torch.Tensor, ci: int) -> torch.Tensor:
+    """``[4, Co, Ci, 1, 1]`` or ``[4, Co, Ci]`` -> ``[4, Co, Ci]``."""
+    if w.shape[0] != 4 or w.shape[2] != ci or (w.ndim == 5 and w.shape[3:] != (1, 1)) \
+            or w.ndim not in (3, 5):
+        raise ValueError(f"expected [4, Co, {ci}(, 1, 1)] weights, got {tuple(w.shape)}")
+    return w.reshape(4, w.shape[1], ci)
+
+
+def qconv1x1_fused_plain(x: torch.Tensor, w: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None,
+                         shift: Optional[torch.Tensor] = None,
+                         apply_silu: bool = True) -> torch.Tensor:
+    """`qconv2d` followed by the affine and SiLU, with the kernel's rounding
+    points: the weights in ``x.dtype``, everything after in f32, one cast to
+    ``x.dtype`` at the end."""
+    w = _weights(w, x.shape[-1]).to(x.dtype)
+    y = qconv2d(x.float(), w.float()[..., None, None])
+    if scale is not None:
+        y = y * scale.float() + shift.float()
+    if apply_silu:
+        y = F.silu(y)
+    return y.to(x.dtype)
+
+
+def qconv1x1_fused(x: torch.Tensor, w: torch.Tensor,
+                   scale: Optional[torch.Tensor] = None,
+                   shift: Optional[torch.Tensor] = None,
+                   apply_silu: bool = True) -> torch.Tensor:
+    """1x1 separable qconv + mixing + affine + optional SiLU, one pass.
+
+    x: ``[B, H, W, 4, Ci]``; w: ``[4, Co, Ci, 1, 1]`` (or ``[4, Co, Ci]``), cast
+    to ``x.dtype`` as in the JAX kernel; scale, shift: ``[4, Co]`` (None: no
+    affine). Returns ``[B, H, W, 4, Co]`` in ``x.dtype``. A CPU tensor takes
+    `qconv1x1_fused_plain`; a CUDA tensor launches the kernel or raises.
+    """
+    if x.device.type == "cpu":
+        return qconv1x1_fused_plain(x, w, scale, shift, apply_silu)
+    global launches
+    if x.ndim != 5 or x.shape[3] != 4:
+        raise ValueError(f"expected BHWQC input, got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    B, H, W, _, ci = x.shape
+    wk = _weights(w, ci)
+    co = wk.shape[1]
+    if scale is None:
+        scale = torch.ones(4, co, device=x.device)
+        shift = torch.zeros(4, co, device=x.device)
+    if scale.shape != (4, co) or shift.shape != (4, co):
+        raise ValueError(f"scale/shift must be [4, {co}], got {tuple(scale.shape)}, {tuple(shift.shape)}")
+    tensors = (x, wk, scale, shift)
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"x, w, scale, shift must lie on one CUDA device, got {[str(t.device) for t in tensors]}")
+    xc = x.contiguous()
+    wc = wk.to(x.dtype).contiguous()
+    sc = scale.float().contiguous()
+    sh = shift.float().contiguous()
+    out = torch.empty(B, H, W, 4, co, dtype=x.dtype, device=x.device)
+    status = _build.library().qconv1x1_fused(
+        xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), sh.data_ptr(), out.data_ptr(),
+        B * H * W, ci, co, int(apply_silu), _DTYPES[x.dtype], x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "qconv1x1_fused")
+    launches += 1
+    return out

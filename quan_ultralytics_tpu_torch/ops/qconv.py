@@ -1,0 +1,133 @@
+"""Separable quaternion convolution (counterpart of the JAX ``ops/qconv.py``).
+
+    s_d = conv2d(x_d, w_d)            # 4 independent per-component convs
+    y   = M @ s  (+ bias_r on every component)
+
+The component axis is flattened into channels (component-major) and ONE
+grouped convolution with ``groups = 4 * g`` computes all four ``s_d``; the
+constant mixing follows as elementwise adds. The folded form puts the mixing
+into a dense kernel: one ungrouped conv with 4x the essential FLOPs and no
+mixing pass. Both give the same values.
+
+Weight layout: ``w`` is ``[4, C_out, C_in / g, kH, kW]``, i.e. one PyTorch
+OIHW kernel per component, so the grouped kernel is ``w.reshape(4 * C_out,
+C_in / g, kH, kW)`` without a copy. (The JAX package stores HWIO per
+component, ``[4, kH, kW, C_in / g, C_out]``; ``utils/weights.py`` transposes.)
+
+Activations are BHWQC ``[B, H, W, 4, C]``. The ``[B, H, W, 4C]`` view permuted
+to NCHW has channels-last strides, which cuDNN consumes without a copy and
+answers in the same format.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from quan_ultralytics_tpu_torch.ops.mixing import mix_components
+
+IntOr2 = Union[int, Tuple[int, int], Sequence[int]]
+
+
+def _pair(v: IntOr2) -> Tuple[int, int]:
+    if isinstance(v, int):
+        return (v, v)
+    a, b = v
+    return (int(a), int(b))
+
+
+def autopad(k: IntOr2, p: Optional[IntOr2] = None, d: IntOr2 = 1) -> Tuple[int, int]:
+    """'same'-style padding rule, matching reference conv.py:62-68."""
+    kh, kw = _pair(k)
+    dh, dw = _pair(d)
+    if dh > 1:
+        kh = dh * (kh - 1) + 1
+    if dw > 1:
+        kw = dw * (kw - 1) + 1
+    if p is None:
+        return (kh // 2, kw // 2)
+    return _pair(p)
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """``[B, H, W, 4, C]`` -> an NCHW view ``[B, 4C, H, W]`` with channels-last strides."""
+    B, H, W, Q, C = x.shape
+    return x.reshape(B, H, W, Q * C).permute(0, 3, 1, 2)
+
+
+def from_nchw(y: torch.Tensor, q: int = 4) -> torch.Tensor:
+    """NCHW ``[B, 4C, H, W]`` -> BHWQC ``[B, H, W, 4, C]`` (a view for channels-last input)."""
+    B, C4, H, W = y.shape
+    return y.permute(0, 2, 3, 1).reshape(B, H, W, q, C4 // q)
+
+
+def qconv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    stride: IntOr2 = 1,
+    padding: IntOr2 = 0,
+    dilation: IntOr2 = 1,
+    groups: int = 1,
+) -> torch.Tensor:
+    """Separable quaternion conv on BHWQC tensors.
+
+    Args:
+      x: input ``[B, H, W, 4, C_in]``.
+      w: weights ``[4, C_out, C_in // groups, kH, kW]``; cast to ``x.dtype``.
+      bias: optional real bias ``[C_out]`` (reference ``bias_r``), added to all
+        four mixed components after the mixing (``M[:, 0] == 1``).
+      groups: grouped conv within each component.
+
+    Returns ``[B, H_out, W_out, 4, C_out]`` in ``x.dtype``.
+    """
+    if x.ndim != 5 or x.shape[3] != 4:
+        raise ValueError(f"expected BHWQC input, got {tuple(x.shape)}")
+    if w.ndim != 5 or w.shape[0] != 4:
+        raise ValueError(f"expected [4, Cout, Cin/g, kH, kW] weights, got {tuple(w.shape)}")
+    _, cout, cin_pg, kh, kw = w.shape
+    if cin_pg * groups != x.shape[4]:
+        raise ValueError(f"cin {x.shape[4]} != groups {groups} * {cin_pg}")
+    kernel = w.reshape(4 * cout, cin_pg, kh, kw).to(x.dtype)
+    s = F.conv2d(to_nchw(x), kernel, None, _pair(stride), _pair(padding), _pair(dilation),
+                 4 * groups)
+    y = mix_components(from_nchw(s), dim=-2)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def fold_dense_kernel(w: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """Fold the mixing matrix ``mix`` (`MIX_MATRIX` on ``w``'s device) into one
+    dense OIHW kernel (groups == 1 only).
+
+    ``K[(q, co), (d, ci)] = M[q, d] * w[d, co, ci]``: a single ungrouped conv
+    ``[4 C_out, 4 C_in, kH, kW]`` with 4x the essential FLOPs and no mixing pass.
+    """
+    _, cout, cin, kh, kw = w.shape
+    k = torch.einsum("qd,doihw->qodihw", mix.to(w.dtype), w)
+    return k.reshape(4 * cout, 4 * cin, kh, kw)
+
+
+def qconv2d_folded(
+    x: torch.Tensor,
+    dense_kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    stride: IntOr2 = 1,
+    padding: IntOr2 = 0,
+    dilation: IntOr2 = 1,
+) -> torch.Tensor:
+    """qconv through a pre-folded dense kernel (see `fold_dense_kernel`)."""
+    cout4, cin4 = dense_kernel.shape[:2]
+    if cin4 != 4 * x.shape[4]:
+        raise ValueError(f"dense kernel takes {cin4} channels, input has 4 * {x.shape[4]}")
+    y = F.conv2d(to_nchw(x), dense_kernel.to(x.dtype), None, _pair(stride), _pair(padding),
+                 _pair(dilation))
+    y = from_nchw(y)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y

@@ -1,0 +1,58 @@
+"""Guards of the PyTorch port: it imports no JAX and nothing of the JAX
+package, its entry points refuse to run without a card unless asked for the
+CPU, and its config literal is the JAX package's YAML."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import yaml
+
+import quan_ultralytics_tpu_torch
+from quan_ultralytics_tpu_torch.cfg.models import MODELS
+from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+
+PORT = Path(quan_ultralytics_tpu_torch.__file__).parent
+REPO = PORT.parent
+# import of jax, flax or the JAX package; the port's own name does not match
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|flax|quan_ultralytics_tpu(?!_torch))\b", re.MULTILINE)
+
+
+def test_import_loads_no_jax():
+    code = ("import quan_ultralytics_tpu_torch, quan_ultralytics_tpu_torch.engine.predictor, "
+            "quan_ultralytics_tpu_torch.utils.weights, sys; "
+            "assert 'jax' not in sys.modules and 'quan_ultralytics_tpu' not in sys.modules, "
+            "sorted(m for m in sys.modules if m.startswith(('jax', 'quan_ultralytics_tpu.')))")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_source_scan_finds_no_jax_import():
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+           for p in files for m in FORBIDDEN.finditer(p.read_text())]
+    assert not bad, bad
+    assert FORBIDDEN.search("from quan_ultralytics_tpu.ops import mixing")
+    assert not FORBIDDEN.search("from quan_ultralytics_tpu_torch.ops import mixing")
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cuda")
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cpu")
+    assert Predictor(model).device.type == "cpu"
+
+
+def test_config_literal_equals_yaml():
+    cfg_dir = REPO / "quan_ultralytics_tpu" / "cfg" / "models"
+    for name, literal in MODELS.items():
+        with open(cfg_dir / name) as fh:
+            assert literal == yaml.safe_load(fh), name
