@@ -9,9 +9,10 @@ against their plain versions.
 Phases:
   1. device and build: the card's name and power limit, the kernels built
      from csrc/ with nvcc;
-  2. kernels vs plain at the main path's shapes: K1 (fused attention) and K3
-     (fused 1x1 Conv+IQBN+SiLU), errors against the stated tolerances, times
-     of kernel, plain version, library yardstick and bound;
+  2. kernels vs plain at the main path's shapes: K1 (fused attention), K2
+     (its backward) and K3 (fused 1x1 Conv+IQBN+SiLU), errors against the
+     stated tolerances, times of kernel, plain version, library yardstick
+     and bound;
   3. predict: QUAN-YOLO11n-OBB (nc=15, random weights from a seed, bf16) at
      1024 on 8 uint8 frames through the port's Predictor, with K1 only and
      with K1+K3; the launch counters show the kernels ran, the predictions
@@ -19,7 +20,18 @@ Phases:
      detections);
   4. speed: img/s of each path in interleaved rounds, and the device's busy
      share of one forward + decode + NMS from torch.profiler;
-  5. the ``kernels`` line, then the result line.
+  5. train: the port's Trainer (default TrainConfig at batch 8, so 8
+     micro-steps an update) takes 16 micro-steps at 1024 in bf16 on a seeded
+     synthetic batch of 128 padded rotated boxes an image (34 to 100 valid);
+     every loss is finite, the parameters and the EMA change at micro-steps
+     8 and 16 only, K1 and K2 ran once a micro-step; one f32 micro-step (TF32
+     off) gives the same loss and, under one cotangent on the head's outputs,
+     the same gradients with fused and with plain attention;
+  6. train speed: ms per micro-step with fused and with plain attention in
+     interleaved rounds, and the device's busy share and the attention
+     kernels' device time per micro-step from torch.profiler; the loss
+     layer's device time at the batch's 128 padded boxes an image and at 16;
+  7. the ``kernels`` line, then the result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -56,6 +68,9 @@ MODEL = "yolo11n-obb-quan.yaml"
 # K3 bf16 keeps the plain version's rounding points (f32 inside, one cast at the end): at most
 # a bf16 ulp or two apart.
 K1_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+# K2 vs the plain backward, which keeps the TPU kernel's rounding points in both dtypes:
+# qattn.BWD_TOL, elementwise (rtol, atol) and a limit on mean |err| / mean |ref|; the f32
+# gradients of the bf16 inputs must miss the bf16 limits
 K3_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
 # decoded predictions of the kernel paths vs the all-plain path, max abs error over
 # max |ref| per column group: f32 (TF32 off) differs by summation order only; bf16 by
@@ -64,6 +79,19 @@ PRED_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 # the f32 Results of the kernel path vs the plain path: every kept row (xywhr in
 # source pixels and radians, conf, cls) within this of a row of the other
 RESULT_TOL = 1e-2
+# f32 gradients of one micro-step's backward under one cotangent, fused vs plain attention
+# (TF32 off): per leaf, max abs error <= GRAD_TOL * max|leaf| + GRAD_TOL * 1e-3 * max over
+# leaves (summation order only)
+GRAD_TOL = 1e-3
+LOSS_TOL = 1e-5  # relative, the f32 loss of one micro-step, fused vs plain attention
+# relative noise put on the attention's output for the gradients' noise floor: K1's f32
+# deviation from the plain version, max abs error over max |ref| (2.7e-6 / 2.5 at N = 1024)
+ATTN_NOISE = 1e-6
+# ground-truth rows per image in the train batch: the JAX loader's padding (max_labels=128,
+# quan_ultralytics_tpu/data/build.py:266); valid rows 34 to 100 an image, about DOTA-v1.0's
+# mean of 67 objects an image (188,282 instances in 2,806 images, Xia et al., CVPR 2018)
+TRAIN_M, TRAIN_VALID = 128, (34, 100)
+TRAIN_STEPS = 16  # micro-steps driven: two optimizer updates at accumulate 8
 
 
 class PhaseError(RuntimeError):
@@ -182,6 +210,74 @@ def phase_k1(gen, details, sfu_rate):
                     # a tighter floor than the table's rates: one exp2 per score on the SFUs
                     "sfu_bound_ms": 1e3 * G * n * n / sfu_rate,
                 }
+    return worst, timing
+
+
+def phase_k2(gen, details, sfu_rate):
+    """K2 against the plain backward at N = 1024, 400, 200 in bf16 and f32; times at
+    the main path's shape (G = 256, N = 1024, dk = 2, dv = 4, bf16)."""
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn
+
+    dk, dv, heads, scale = 2, 4, 8, 2 ** -0.5
+    worst, timing = 0.0, None
+    for n in (1024, 400, 200):
+        for dtype in (torch.bfloat16, torch.float32):
+            shp = (BATCH, 4, heads, n)
+            q, k = (torch.randn(*shp, dk, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
+            v, do = (torch.randn(*shp, dv, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
+            got = qattn.qattention_bwd(q, k, v, do, scale)
+            torch.cuda.synchronize()
+            ref = qattn.qattention_bwd_plain(q, k, v, do, scale)
+            # the tolerance's own check: the f32 gradients of these inputs must miss it in bf16
+            f32 = (qattn.qattention_bwd_plain(q.float(), k.float(), v.float(), do.float(), scale)
+                   if dtype == torch.bfloat16 else (None,) * 3)
+            for name, a, r, a32 in zip(("dq", "dk", "dv"), got, ref, f32):
+                err, rel, ok = qattn.bwd_error(a, r, dtype)
+                row = {"kernel": "qattn_bwd", "N": n, "dtype": str(dtype), "grad": name,
+                       "max_abs_err": err, "mean_rel_err": rel, "max_abs_ref": float(r.float().abs().max()),
+                       "tol": qattn.BWD_TOL[dtype], "ok": ok}
+                if a32 is not None:
+                    row["f32_max_abs_err"], row["f32_mean_rel_err"], f32_ok = qattn.bwd_error(a32, r, dtype)
+                    check(not f32_ok, f"the f32 {name} meets K2's bf16 tolerance at N={n}")
+                details.append(row)
+                print(f"K2 N={n} {dtype} {name}: max_abs_err {err:.3e}, mean rel {rel:.3e} "
+                      f"(max|ref| {row['max_abs_ref']:.3f})"
+                      + (f"; the f32 gradients: {row['f32_max_abs_err']:.3e}, mean rel "
+                         f"{row['f32_mean_rel_err']:.3e}" if a32 is not None else "")
+                      + f" {'ok' if ok else 'FAIL'}")
+                check(ok, f"K2 {name} disagrees with the plain backward at N={n} {dtype}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+            del ref, f32
+            if n == 1024 and dtype == torch.bfloat16:
+                G, isz = BATCH * 4 * heads, q.element_size()
+                # q, k, v, dO read once; dq, dk, dv written once; per score the products of
+                # recomputing S (2dk), dV (2dv), dP (2dv), dQ (2dk), dK (2dk) and ~6 f32 operations
+                b, by = bound_ms(G * n * (4 * dk + 3 * dv) * isz, G * n * n * (6 * dk + 4 * dv),
+                                 G * n * n * 6, dtype)
+                ms, host_ms = time_ms(lambda: qattn.qattention_bwd(q, k, v, do, scale))
+                plain_ms = time_ms(lambda: qattn.qattention_bwd_plain(q, k, v, do, scale), iters=5)[0]
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                with torch.enable_grad():
+                    out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+                    library_ms = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                                     retain_graph=True), iters=5)[0]
+                    # what the plain-attention model's backward runs: autograd of the einsum path
+                    out = qattn.qattention_plain(ql, kl, vl, scale)
+                    autograd_ms = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                                      retain_graph=True), iters=5)[0]
+                del out
+                timing = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                          "plain_autograd_ms": autograd_ms,
+                          "library_ms": library_ms, "bound_ms": b, "bound_by": by,
+                          # floors on the special-function units: 2 exp2 a score for any
+                          # two-kernel design, 3 for this one (dQ takes a pass of its own)
+                          "sfu_bound_ms": 1e3 * 2 * G * n * n / sfu_rate,
+                          "sfu_bound_3exp2_ms": 1e3 * 3 * G * n * n / sfu_rate}
+                print(f"K2 G={G} N={n} bf16: kernel {ms:.4f} ms (host {host_ms:.4f}), bound {b:.4f} "
+                      f"({by}), SFU floor {timing['sfu_bound_ms']:.4f} (2 exp2) / "
+                      f"{timing['sfu_bound_3exp2_ms']:.4f} (3 exp2), plain {plain_ms:.4f}, "
+                      f"autograd of the plain forward {autograd_ms:.4f}, SDPA backward {library_ms:.4f}")
     return worst, timing
 
 
@@ -311,13 +407,16 @@ def phase_predict(models, frames, n_sites: int):
     expect = {"K1": (1, 0), "K1+K3": (1, n_sites), "plain": (0, 0)}
     for name, model in models.items():
         pred = Predictor(model, imgsz=IMGSZ, conf=0.25)
-        qattn.launches = qconv_fused.launches = 0
+        qattn.launches = qattn.launches_bwd = qconv_fused.launches = 0
         res = pred(frames)  # the main path, driven once
         torch.cuda.synchronize()
         got = (qattn.launches, qconv_fused.launches)
-        out["launches"][name] = {"qattn_fwd": got[0], "qconv1x1_fused": got[1]}
-        print(f"predict [{name}]: launches K1 {got[0]}, K3 {got[1]} (expected {expect[name]})")
-        check(got == expect[name], f"{name}: kernel launches {got} != {expect[name]}")
+        out["launches"][name] = {"qattn_fwd": got[0], "qattn_bwd": qattn.launches_bwd,
+                                 "qconv1x1_fused": got[1]}
+        print(f"predict [{name}]: launches K1 {got[0]}, K3 {got[1]} (expected {expect[name]}), "
+              f"K2 {qattn.launches_bwd}")
+        check(got == expect[name] and qattn.launches_bwd == 0,
+              f"{name}: kernel launches {got}, K2 {qattn.launches_bwd} != {expect[name]}, 0")
         check(len(res) == len(frames) and all(np.isfinite(r.boxes).all() for r in res),
               f"{name}: bad Results")
         low = Predictor(model, imgsz=IMGSZ, conf=0.0)(frames)
@@ -457,6 +556,259 @@ def phase_device_share(models, x, speed, tables=None):
     return out
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def make_train_batch(seed: int):
+    """A seeded synthetic OBB batch at the main path's size: 8 uint8 frames
+    [8, 1024, 1024, 3] (a smooth gradient with noise) and TRAIN_M padded rotated
+    boxes per image (normalized xywhr; TRAIN_VALID valid rows, the rest masked)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:IMGSZ, 0:IMGSZ]
+    base = np.stack([xx * 255 // IMGSZ, yy * 255 // IMGSZ, (xx + yy) * 255 // (2 * IMGSZ)], -1)
+    img = np.clip(base[None] + rng.integers(-20, 21, (BATCH, IMGSZ, IMGSZ, 3)), 0, 255).astype(np.uint8)
+    boxes = np.concatenate([rng.uniform(0.1, 0.9, (BATCH, TRAIN_M, 2)),
+                            rng.uniform(0.02, 0.2, (BATCH, TRAIN_M, 2)),
+                            rng.uniform(-math.pi / 4, 3 * math.pi / 4, (BATCH, TRAIN_M, 1))], -1)
+    mask = np.arange(TRAIN_M)[None, :] < rng.integers(TRAIN_VALID[0], TRAIN_VALID[1] + 1, (BATCH, 1))
+    return {"img": torch.from_numpy(img).to(DEVICE),
+            "cls": torch.from_numpy(rng.integers(0, NC, (BATCH, TRAIN_M)).astype(np.int32)).to(DEVICE),
+            "bboxes": torch.from_numpy(boxes.astype(np.float32)).to(DEVICE),
+            "mask": torch.from_numpy(mask).to(DEVICE)}
+
+
+def make_trainer(dtype: torch.dtype, **kw):
+    """The port's Trainer on the n model (weights from seed 0) with the default
+    TrainConfig at batch 8 and imgsz 1024 (nbs 64: accumulate 8)."""
+    from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+
+    fused_attn = kw.pop("fused_attn", True)
+    model = DetectionModel.from_yaml(MODEL, nc=NC, dtype=dtype, device=DEVICE, fused_attn=fused_attn)
+    cfg = TrainConfig(batch=BATCH, dtype="bfloat16" if dtype == torch.bfloat16 else "float32", **kw)
+    return Trainer(model, cfg, steps_per_epoch=100, device=DEVICE)
+
+
+def phase_train(batch):
+    """16 micro-steps of the main path's train step (bf16, fused attention)."""
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    trainer = make_trainer(torch.bfloat16)
+    check(trainer.accumulate == 8, f"accumulate {trainer.accumulate} != 8")
+
+    def flat(ts):
+        return torch.cat([t.detach().reshape(-1) for t in ts])
+
+    losses, changed = [], []
+    qattn.launches = qattn.launches_bwd = qconv_fused.launches = 0
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):  # the main path, driven
+        p0, e0 = flat(trainer.params), flat(trainer.ema)
+        loss, aux = trainer.step(batch)
+        losses.append(float(loss))
+        changed.append((not torch.equal(p0, flat(trainer.params)),
+                        not torch.equal(e0, flat(trainer.ema)), float(aux["nan_skipped"])))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {"qattn_fwd": qattn.launches, "qattn_bwd": qattn.launches_bwd,
+           "qconv1x1_fused": qconv_fused.launches}
+    print(f"train: {TRAIN_STEPS} micro-steps in {secs:.1f} s; losses {[round(x, 3) for x in losses]}")
+    print(f"train: launches {got} (expected K1 {TRAIN_STEPS}, K2 {TRAIN_STEPS}, K3 0)")
+    check(all(math.isfinite(x) for x in losses), f"non-finite train loss: {losses}")
+    check(all(c[2] == 0.0 for c in changed), "a micro-step was skipped by the NaN guard")
+    update_at = [i + 1 for i, c in enumerate(changed) if c[0]]
+    ema_at = [i + 1 for i, c in enumerate(changed) if c[1]]
+    print(f"train: parameters changed at micro-steps {update_at}, EMA at {ema_at}")
+    check(update_at == [8, 16] and ema_at == [8, 16],
+          f"parameters / EMA changed at {update_at} / {ema_at}, not at [8, 16]")
+    check(got == {"qattn_fwd": TRAIN_STEPS, "qattn_bwd": TRAIN_STEPS, "qconv1x1_fused": 0},
+          f"train launches {got}")
+    return {"losses": losses, "launches": got, "seconds": secs, "updates_at": update_at}
+
+
+def head_outputs(trainer, batch):
+    """The OBB head's outputs of a train-mode forward on ``batch``, as one flat
+    list, and the number of them that are ``feats`` (the rest are ``angles``)."""
+    trainer.model.train()
+    feats, angles = trainer.model((batch["img"].float() / 255.0).to(trainer.dtype))
+    return [*feats, *angles], len(feats)
+
+
+def obb_loss_of(trainer, outs, n_feats, batch):
+    """The trainer's loss of flat head outputs ``outs`` (see `head_outputs`)."""
+    from quan_ultralytics_tpu_torch.losses.detect import obb_loss
+
+    m = trainer.model
+    return obb_loss((outs[:n_feats], outs[n_feats:]), batch, m.strides, m.nc, m.reg_max,
+                    hyp=trainer.loss_hyp, assigner_bf16=trainer.cfg.assigner_bf16)[0]
+
+
+def phase_train_grads(batch):
+    """One f32 micro-step (TF32 off, f32 assigner metric) with fused and with plain
+    attention from the same weights.
+
+    The loss's gradient with respect to the head's outputs is ill-conditioned at
+    f32 rounding (the assignment, and the angle term's arccos near 1), so the
+    whole micro-step's gradients of the two paths differ by more than their
+    backward does. The networks' backward is held under one cotangent, the
+    plain path's gradient of the loss with respect to the head's outputs: per
+    leaf within GRAD_TOL, and the losses within LOSS_TOL. Reported beside it:
+    the fused path's whole micro-step gradients, and the plain path's with the
+    attention's output perturbed by ATTN_NOISE relative (the noise floor)."""
+    from quan_ultralytics_tpu_torch.models.block import QAttention
+
+    def step(fused, cot=None, perturb=0.0):
+        tr = make_trainer(torch.float32, fused_attn=fused, assigner_bf16=False)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        for mod in tr.model.modules():
+            if perturb and isinstance(mod, QAttention):
+                mod.register_forward_hook(lambda _m, _i, o: o * (1 + perturb * torch.randn(
+                    o.shape, generator=gen, device=o.device, dtype=o.dtype)))
+        outs, n_feats = head_outputs(tr, batch)
+        leaves = [t.detach().requires_grad_() for t in outs]
+        total = obb_loss_of(tr, leaves, n_feats, batch)
+        own = torch.autograd.grad(total, leaves)
+
+        def backward(cotangent, retain):
+            gs = torch.autograd.grad(outs, tr.params, cotangent, retain_graph=retain, allow_unused=True)
+            return [torch.zeros_like(p) if g is None else g for p, g in zip(tr.params, gs)]
+
+        res = {"loss": float(total.detach()), "cot": own, "names": tr.param_names,
+               "own": backward(own, cot is not None)}
+        if cot is not None:
+            res["same"] = backward(cot, False)
+        return res
+
+    plain = step(False)
+    fused = step(True, cot=plain["cot"])
+    noisy = step(False, perturb=ATTN_NOISE)
+    names, ref = plain["names"], plain["own"]
+    gmax = max(float(g.abs().max()) for g in ref)
+
+    def share(grads):
+        """(largest share of the tolerance used, its leaf, worst err / max|leaf|, its leaf)."""
+        used, used_name, rel, rel_name = 0.0, None, 0.0, None
+        for n, a, r in zip(names, grads, ref):
+            check(bool(torch.isfinite(a).all()), f"non-finite f32 gradient of {n}")
+            err, mag = float((a - r).abs().max()), float(r.abs().max())
+            lim = GRAD_TOL * mag + GRAD_TOL * 1e-3 * gmax
+            if err / lim > used:
+                used, used_name = err / lim, n
+            if mag >= 1e-3 * gmax and err / mag > rel:  # leaves above the absolute term's scale
+                rel, rel_name = err / mag, n
+        return used, used_name, rel, rel_name
+
+    out = {"max_grad": gmax, "loss_plain": plain["loss"], "loss_fused": fused["loss"]}
+    for key, grads in (("same_cotangent", fused["same"]), ("micro_step", fused["own"]),
+                       ("noise_floor", noisy["own"])):
+        used, used_name, rel, rel_name = share(grads)
+        out[key] = {"tolerance_used": used, "leaf": used_name, "worst_rel": rel, "worst_rel_leaf": rel_name}
+        print(f"train f32 gradients [{key}], fused vs plain attention"
+              + (f" (the plain path, attention output x (1 + {ATTN_NOISE} noise))" if key == "noise_floor" else "")
+              + f": largest share of the tolerance {used:.3f} ({used_name}); worst max err / "
+              f"max|leaf| over leaves above 1e-3 of the largest gradient {rel:.3e} ({rel_name})")
+    loss_rel = abs(fused["loss"] - plain["loss"]) / abs(plain["loss"])
+    out["loss_rel_err"] = loss_rel
+    print(f"train f32 loss: fused {fused['loss']:.6f}, plain {plain['loss']:.6f} (rel {loss_rel:.2e}); "
+          f"largest gradient {gmax:.3e}")
+    check(loss_rel <= LOSS_TOL, f"f32 loss, fused vs plain attention: rel err {loss_rel:.3e} > {LOSS_TOL}")
+    check(out["same_cotangent"]["tolerance_used"] <= 1.0,
+          f"f32 gradient of {out['same_cotangent']['leaf']}, fused vs plain attention under one "
+          f"cotangent: {out['same_cotangent']['tolerance_used']:.3f} of the tolerance")
+    qkv = next(a for n, a in zip(names, fused["same"]) if n.endswith("attn.qkv.w"))
+    check(float(qkv.abs().max()) > 0, "no gradient reached the attention's qkv")
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def phase_train_speed(batch, rounds: int = 3, tables=None):
+    """ms per micro-step with fused (K1 + K2) and plain attention, one accumulation
+    (8 micro-steps, the update included) per round, host clock, synchronized, the
+    paths taking turns; then torch.profiler over one accumulation of each path:
+    device ms and busy share per micro-step, and the attention kernels' device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainers = {"fused": make_trainer(torch.bfloat16),
+                "plain": make_trainer(torch.bfloat16, fused_attn=False)}
+    n = trainers["fused"].accumulate
+    for tr in trainers.values():
+        for _ in range(n):
+            tr.step(batch)
+    torch.cuda.synchronize()
+    names = list(trainers)
+    walls = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                trainers[name].step(batch)
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t0) / n)
+    out = {}
+    for name, tr in trainers.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                tr.step(batch)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ops) / (1e3 * n) if ops else None
+        own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / (1e3 * n)
+               for k in ("qattn_fwd_kernel", "qattn_bwd_rows", "qattn_bwd_cols")}
+        ms = statistics.median(walls[name])
+        out[name] = {"ms_per_micro_step": ms, "ms_rounds": walls[name],
+                     "spread_ms": max(walls[name]) - min(walls[name]),
+                     "img_s": BATCH * 1e3 / ms, "device_ms": busy, "device_ops": len(ops) / n,
+                     "busy_share": busy / ms if ops else None, "kernel_device_ms": own}
+        print(f"train speed [{name}]: {ms:.1f} ms per micro-step of {BATCH} (median of {rounds}, "
+              f"rounds {[round(w, 1) for w in walls[name]]}), {BATCH * 1e3 / ms:.1f} img/s; "
+              + (f"device busy {busy:.2f} ms, share {busy / ms:.3f}, {len(ops) / n:.0f} device ops; "
+                 f"attention kernels {own}" if ops else "device time not measured"))
+        if tables is not None:
+            tables.append(f"== train [{name}]: {n} micro-steps, batch {BATCH} @ {IMGSZ}, bf16")
+            tables.append(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    return out
+
+
+def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
+    """The loss layer alone, ``obb_loss`` (the bf16 assigner included) and its
+    backward to the head's outputs, on one train-mode forward's outputs: at the
+    batch's TRAIN_M padded rows and with the rows cut to ``m_cut``. Device ms a
+    call from torch.profiler (the sum of its kernels' times) and host ms a call
+    (host clock, synchronized)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = make_trainer(torch.bfloat16)
+    with torch.no_grad():
+        outs, n_feats = head_outputs(tr, batch)
+    leaves = [t.detach().requires_grad_() for t in outs]
+
+    def run(b):
+        torch.autograd.grad(obb_loss_of(tr, leaves, n_feats, b), leaves)
+
+    out = {}
+    for rows in (TRAIN_M, m_cut):
+        b = {k: (v if k == "img" else v[:, :rows]) for k, v in batch.items()}
+        run(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run(b)
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / calls
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ops) / (1e3 * calls) if ops else None
+        out[rows] = {"device_ms": busy, "host_ms": wall, "device_ops": len(ops) / calls}
+        print(f"loss layer, M={rows}: obb_loss + backward, device busy "
+              + (f"{busy:.3f} ms over {len(ops) / calls:.0f} device ops" if ops else "not measured")
+              + f", {wall:.3f} ms a call on the host clock (profiled)")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -479,6 +831,7 @@ def main() -> int:
     details = []
     with torch.no_grad():
         k1_err, k1_t = phase_k1(gen, details, sfu_rate)
+        k2_err, k2_t = phase_k2(gen, details, sfu_rate)
         k3_err, k3_t = phase_k3(gen, sites, details)
 
     frames = make_frames(0)
@@ -487,27 +840,54 @@ def main() -> int:
     speed = phase_throughput(models, frames, x)
     tables = [] if args.profile else None
     share = phase_device_share(models, x, speed, tables)
+    del models
+    torch.cuda.empty_cache()
+
+    batch = make_train_batch(0)
+    train_out = phase_train(batch)
+    train_grads = phase_train_grads(batch)
+    train_speed = phase_train_speed(batch, tables=tables)
+    loss_layer = phase_loss_layer(batch)
     if args.profile:
         out_dir = args.profile
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke_profile.txt").write_text("\n".join(tables))
         (out_dir / "chip_smoke_details.json").write_text(json.dumps(
             {"card": card, "ptxas": ptxas, "cases": details, "predict": pred_out,
-             "agree": agree, "speed": speed, "device": share}, indent=1))
+             "agree": agree, "speed": speed, "device": share, "train": train_out,
+             "train_grads": train_grads, "train_speed": train_speed,
+             "loss_layer": loss_layer}, indent=1))
 
     launches = pred_out["launches"]["K1+K3"]
     on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
+    train_launches = train_out["launches"]
+    on_train = train_speed["fused"]["kernel_device_ms"]  # device ms per micro-step
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:60",
-         "launches": launches["qattn_fwd"], "max_abs_err": k1_err,
+         "launches": launches["qattn_fwd"],
+         "launches_by_path": {"predict": launches["qattn_fwd"], "train": train_launches["qattn_fwd"]},
+         "max_abs_err": k1_err,
          "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_kernel"],
+         "train_device_ms": on_train["qattn_fwd_kernel"],
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
          "library": "torch.nn.functional.scaled_dot_product_attention"},
+        {"name": "qattn_bwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_bwd.cu",
+         "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:86",
+         "launches": train_launches["qattn_bwd"],
+         "launches_by_path": {"predict": launches["qattn_bwd"], "train": train_launches["qattn_bwd"]},
+         "max_abs_err": k2_err, "kernel_ms": k2_t["ms"], **k2_t,
+         "train_device_ms": on_train["qattn_bwd_rows"] + on_train["qattn_bwd_cols"],
+         "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
+         "library": "torch.autograd.grad of torch.nn.functional.scaled_dot_product_attention "
+                    "(retained graph)"},
         {"name": "qconv1x1_fused", "route": "cuda",
          "source": "quan_ultralytics_tpu_torch/csrc/qconv1x1_fused.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qconv_fused.py:35",
-         "launches": launches["qconv1x1_fused"], "max_abs_err": k3_err,
+         "launches": launches["qconv1x1_fused"],
+         "launches_by_path": {"predict": launches["qconv1x1_fused"],
+                              "train": train_launches["qconv1x1_fused"]},
+         "max_abs_err": k3_err,
          "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_fused_kernel"],
          "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
                   "times summed",
@@ -516,6 +896,10 @@ def main() -> int:
     ]
     print(json.dumps({"speed": {name: {k: v for k, v in row.items() if not k.endswith("_rounds")}
                                 for name, row in speed.items()}, "device": share}))
+    print(json.dumps({"train": {name: {k: v for k, v in row.items() if k != "ms_rounds"}
+                                for name, row in train_speed.items()},
+                      "train_grads_f32": train_grads,
+                      "loss_layer_ms": {f"M={k}": v for k, v in loss_layer.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,317 @@
+"""Detection trainer: the train step, its optimizer, EMA and checkpoints
+(counterpart of the JAX ``engine/trainer.py``).
+
+The JAX package builds its optimizer from optax parts; here the same chain
+is written out (`Optimizer`):
+
+  * three parameter groups (`_param_label`): decayed conv weights,
+    decay-free norm scales, decay-free biases;
+  * per group, in this order: clipping by the group's own global norm
+    (``optax.multi_transform`` hands each group's chain only its leaves),
+    weight decay ``wd * batch * accumulate / nbs`` on the weight group, SGD
+    with Nesterov momentum;
+  * learning rate and momentum from schedules evaluated at the number of
+    updates already made (``optax.inject_hyperparams`` counts from 0);
+  * gradient accumulation over ``accumulate = round(nbs / batch)``
+    micro-steps as a running mean (``optax.MultiSteps``).
+
+EMA follows the optimizer's updates (reference trainer.py:586-594), and a
+non-finite loss or gradient leaves the whole state unchanged. Parameters
+are updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from pathlib import Path
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
+
+import torch
+
+from quan_ultralytics_tpu_torch.losses.detect import LossHyp, obb_loss
+from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, resolve_device
+
+GROUPS = ("weight", "norm", "bias")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The reference cfg/default.yaml hyperparameters that shape the
+    optimization, with its defaults (the JAX ``TrainConfig``). Its fields
+    that only ``init_state`` and ``fit`` read (imgsz, seed, optimizer,
+    save_dir, patience, multi_scale) come with ``fit``."""
+
+    epochs: int = 100
+    batch: int = 16
+    lr0: float = 0.01
+    lrf: float = 0.01
+    momentum: float = 0.937
+    weight_decay: float = 5e-4
+    warmup_epochs: float = 3.0
+    warmup_momentum: float = 0.8
+    warmup_bias_lr: float = 0.1
+    nbs: int = 64  # nominal batch size for accumulation and decay scaling
+    cos_lr: bool = False
+    box: float = 7.5
+    cls: float = 0.5
+    dfl: float = 1.5
+    ema_decay: float = 0.9999
+    ema_tau: float = 2000.0
+    max_grad_norm: float = 10.0
+    dtype: str = "bfloat16"
+    guard_nan: bool = True  # skip the update on a non-finite loss or gradient
+    # the assigner's metric chain in bf16 (the JAX trainer's default; the port
+    # reads no environment variable for it)
+    assigner_bf16: bool = True
+
+
+def _param_label(name: str) -> str:
+    """Optimizer group of a parameter, by its flax-path name (``model.0.bn.gamma``):
+    ``bias`` for biases and IQBN beta, ``norm`` for IQBN gamma (or a norm
+    layer's weight), else ``weight`` (decayed)."""
+    keys = name.split(".")
+    last = keys[-1]
+    if last in ("b", "bias", "beta"):
+        return "bias"
+    if last == "gamma" or ("bn" in keys and last == "weight"):
+        return "norm"
+    return "weight"
+
+
+def _warmup_updates(cfg: TrainConfig, steps_per_epoch: int, accumulate: int) -> float:
+    """Warmup length in optimizer updates: the reference's floor of 100
+    iterations (trainer.py:366) and the epoch length, both over ``accumulate``."""
+    if cfg.warmup_epochs == 0:
+        return 0.0
+    return max(cfg.warmup_epochs * steps_per_epoch, 100.0) / accumulate
+
+
+def lr_schedule(cfg: TrainConfig, steps_per_epoch: int,
+                accumulate: int = 1) -> Callable[[int], float]:
+    """lr(update): linear warmup, then linear (or cosine) decay to lr0 * lrf
+    (reference trainer.py:810 and :366-376). ``update`` counts optimizer updates."""
+    warmup = _warmup_updates(cfg, steps_per_epoch, accumulate)
+    updates_per_epoch = max(steps_per_epoch / accumulate, 1e-9)
+
+    def fn(step: int) -> float:
+        frac_epoch = step / updates_per_epoch
+        if cfg.cos_lr:
+            decay = cfg.lrf + 0.5 * (1 - cfg.lrf) * (1 + math.cos(math.pi * frac_epoch / cfg.epochs))
+        else:
+            decay = (1 - frac_epoch / cfg.epochs) * (1.0 - cfg.lrf) + cfg.lrf
+        lr = cfg.lr0 * decay
+        if warmup:
+            lr *= min(max(step / warmup, 0.0), 1.0)
+        return lr
+
+    return fn
+
+
+def _foreach_norm(ts: List[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of a list of tensors (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
+
+
+def _all_finite(ts: List[torch.Tensor]) -> bool:
+    """Whether every element of every tensor is finite: ``0 * x`` is NaN exactly
+    where ``x`` is not finite, and a NaN anywhere makes the norm NaN."""
+    with torch.no_grad():
+        return bool(torch.isfinite(_foreach_norm(torch._foreach_mul(ts, 0.0))))
+
+
+class Optimizer:
+    """The JAX ``build_optimizer`` chain written out: three groups, per-group
+    clipping, decay on the weight group, Nesterov SGD with scheduled lr and
+    momentum, accumulation over ``accumulate`` micro-steps.
+
+    ``params`` maps names to the parameters it updates in place. `step` takes
+    one micro-step's gradients and returns whether it made an update.
+    """
+
+    def __init__(self, cfg: TrainConfig, params: Mapping[str, torch.Tensor], steps_per_epoch: int):
+        self.cfg = cfg
+        self.accumulate = max(round(cfg.nbs / cfg.batch), 1)
+        self.schedule = lr_schedule(cfg, steps_per_epoch, self.accumulate)
+        self.wd = cfg.weight_decay * cfg.batch * self.accumulate / cfg.nbs
+        self.warmup = _warmup_updates(cfg, steps_per_epoch, self.accumulate)
+        self.names = list(params)
+        self.groups: Dict[str, List[int]] = {g: [] for g in GROUPS}
+        for i, name in enumerate(self.names):
+            self.groups[_param_label(name)].append(i)
+        with torch.no_grad():
+            self.trace = [torch.zeros_like(p) for p in params.values()]
+            self.acc = ([torch.zeros_like(p) for p in params.values()]
+                        if self.accumulate > 1 else [])
+        self.mini_step = 0  # micro-steps accumulated toward the next update
+        self.count = 0  # updates made
+
+    def momentum(self, n: int) -> float:
+        if self.warmup == 0:
+            return self.cfg.momentum
+        w = min(max(n / self.warmup, 0.0), 1.0)
+        return self.cfg.warmup_momentum + (self.cfg.momentum - self.cfg.warmup_momentum) * w
+
+    def lr(self, group: str, n: int) -> float:
+        """The group's learning rate at update ``n``: the bias group warms
+        down from ``warmup_bias_lr`` to the schedule, the others follow it."""
+        base = self.schedule(n)
+        if group != "bias" or self.warmup == 0:
+            return base
+        w = min(max(n / self.warmup, 0.0), 1.0)
+        full = base / max(w, 1e-9) if w > 0 else base  # the schedule before its warmup factor
+        return self.cfg.warmup_bias_lr + (full - self.cfg.warmup_bias_lr) * w if w < 1.0 else base
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor]) -> bool:
+        if self.accumulate > 1:  # running mean of the micro-steps' gradients
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, delta)
+            self.mini_step = (self.mini_step + 1) % self.accumulate
+            if self.mini_step:
+                return False
+            grads = self.acc
+        n, mom = self.count, self.momentum(self.count)
+        for group, idx in self.groups.items():
+            if not idx:
+                continue
+            p = [params[i] for i in idx]
+            g = [grads[i] for i in idx]
+            norm = _foreach_norm(g)
+            # clip by the group's own norm: g * (max / norm) where norm >= max
+            factor = torch.where(norm < self.cfg.max_grad_norm, torch.ones_like(norm),
+                                 self.cfg.max_grad_norm / norm)
+            g = torch._foreach_mul(g, factor)
+            if group == "weight" and self.wd:
+                torch._foreach_add_(g, p, alpha=self.wd)
+            t = [self.trace[i] for i in idx]
+            torch._foreach_mul_(t, mom)
+            torch._foreach_add_(t, g)  # t = g + m t
+            torch._foreach_add_(g, t, alpha=mom)  # nesterov: g + m t
+            torch._foreach_add_(p, g, alpha=-self.lr(group, n))
+        if self.accumulate > 1:
+            torch._foreach_zero_(self.acc)
+        self.count += 1
+        return True
+
+    def state_dict(self) -> Dict:
+        return {"trace": self.trace, "acc": self.acc, "mini_step": self.mini_step,
+                "count": self.count, "names": self.names}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        if list(state["names"]) != self.names:
+            raise ValueError("optimizer state was saved for other parameters")
+        with torch.no_grad():
+            torch._foreach_copy_(self.trace, list(state["trace"]))
+            if self.acc:
+                torch._foreach_copy_(self.acc, list(state["acc"]))
+        self.mini_step, self.count = int(state["mini_step"]), int(state["count"])
+
+
+@torch.no_grad()
+def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], updates: int,
+               decay: float, tau: float) -> None:
+    """ModelEMA's ramped decay (reference torch_utils.py:495), in place:
+    ``e = e d + p (1 - d)`` with ``d = decay (1 - exp(-updates / tau))``."""
+    d = decay * (1.0 - math.exp(-updates / tau))
+    torch._foreach_mul_(ema, d)
+    torch._foreach_add_(ema, params, alpha=1.0 - d)
+
+
+class Trainer:
+    """The train step of detection models (the OBB task so far).
+
+    A batch is a dict of ``img`` ``[B, H, W, 3]`` uint8 (divided by 255 in
+    f32, then cast to the compute dtype) or float in [0, 1]; ``cls`` ``[B, M]``
+    int; ``bboxes`` ``[B, M, 5]`` normalized xywhr; ``mask`` ``[B, M]`` bool.
+    Tensors or numpy arrays; they are moved to the model's device.
+
+    Runs on ``cuda`` unless ``device`` names another device, and raises when
+    no card is present and the CPU was not asked for. The model is moved there.
+    """
+
+    def __init__(self, model: DetectionModel, cfg: TrainConfig, steps_per_epoch: int,
+                 device: Optional[Union[str, torch.device]] = None):
+        if model.task != "obb":
+            raise NotImplementedError(f"task {model.task!r}: only the OBB loss is ported yet")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        self.loss_hyp = LossHyp(box=cfg.box, cls=cfg.cls, dfl=cfg.dfl)
+        named = dict(self.model.named_parameters())
+        self.param_names = list(named)
+        self.params = list(named.values())
+        self.opt = Optimizer(cfg, named, steps_per_epoch)
+        self.accumulate = self.opt.accumulate
+        # the IQBN running statistics (the JAX ``batch_stats``); EMA covers parameters only
+        persistent = set(self.model.state_dict())
+        self.stats = [b for n, b in self.model.named_buffers() if n in persistent]
+        with torch.no_grad():
+            self.ema = [p.detach().clone() for p in self.params]
+        self._stats_before = [torch.empty_like(b) for b in self.stats]
+        self.steps = 0  # micro-steps taken (skipped ones not counted)
+
+    def _batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def loss(self, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Forward in train mode (the IQBN running statistics move) and the loss."""
+        b = self._batch(batch)
+        img = b["img"]
+        if img.dtype == torch.uint8:
+            img = img.float() / 255.0
+        self.model.train()
+        out = self.model(img.to(self.dtype))
+        return obb_loss(out, b, self.model.strides, self.model.nc, self.model.reg_max,
+                        hyp=self.loss_hyp, assigner_bf16=self.cfg.assigner_bf16)
+
+    def step(self, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One micro-step: loss, gradients, and the optimizer and EMA update
+        when it completes an accumulation. Returns ``(loss, aux)``; ``aux``
+        holds the loss terms and ``nan_skipped`` (1.0 when a non-finite loss
+        or gradient left the state unchanged)."""
+        with torch.no_grad():
+            torch._foreach_copy_(self._stats_before, self.stats)
+        total, aux = self.loss(batch)
+        grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        # one host sync a micro-step
+        finite = not self.cfg.guard_nan or _all_finite([total.detach(), *grads])
+        if finite:
+            if self.opt.step(self.params, grads):
+                ema_update(self.ema, self.params, self.opt.count, self.cfg.ema_decay,
+                           self.cfg.ema_tau)
+            self.steps += 1
+        else:
+            with torch.no_grad():
+                torch._foreach_copy_(self.stats, self._stats_before)
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["nan_skipped"] = torch.tensor(0.0 if finite else 1.0)
+        return total.detach(), aux
+
+    def state_dict(self) -> Dict:
+        return {
+            "steps": self.steps,
+            "params": {n: p.detach() for n, p in zip(self.param_names, self.params)},
+            "batch_stats": {n: b for n, b in self.model.state_dict().items()
+                            if n not in self.param_names},
+            "ema": dict(zip(self.param_names, self.ema)),
+            "opt": self.opt.state_dict(),
+        }
+
+    def save_checkpoint(self, path: Union[str, Path], epoch: int) -> None:
+        """The whole train state, ``{epoch, steps, params, batch_stats, ema, opt}``
+        (the JAX ``utils/checkpoint.py`` payload), via ``torch.save``."""
+        torch.save({"epoch": epoch, **self.state_dict()}, path)
+
+    def restore_checkpoint(self, path: Union[str, Path]) -> int:
+        """Load a checkpoint written by `save_checkpoint`; returns the next epoch."""
+        ck = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict({**ck["params"], **ck["batch_stats"]})
+        with torch.no_grad():
+            torch._foreach_copy_(self.ema, [ck["ema"][n] for n in self.param_names])
+        self.opt.load_state_dict(ck["opt"])
+        self.steps = int(ck["steps"])
+        return int(ck["epoch"]) + 1

@@ -42,6 +42,13 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     return torch.cat([x1y1, x2y2], dim=-1)
 
 
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) clipped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:]
+    d = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
+    return torch.clamp(d, 0, reg_max - 0.01)
+
+
 def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor,
               anchor_points: torch.Tensor) -> torch.Tensor:
     """Rotated decode (reference tal.py:366-386): rotate the ltrb offset by the

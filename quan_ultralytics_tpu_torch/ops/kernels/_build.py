@@ -98,6 +98,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.qattn_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, i32, vp]
     lib.qattn_fwd.restype = i32
+    lib.qattn_bwd.argtypes = [vp] * 8 + [i32, i32, i32, i32, f32, f32, i32, i32, vp]
+    lib.qattn_bwd.restype = i32
     lib.qconv1x1_fused.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, vp]
     lib.qconv1x1_fused.restype = i32
     lib.quan_error_string.argtypes = [i32]

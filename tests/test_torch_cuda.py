@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card.
 
-K1 (fused attention forward) and K3 (fused 1x1 Conv+IQBN+SiLU) at the main
-path's shapes (yolo11n-obb-quan at imgsz 1024, batch 8), as in
-chip_smoke.py. This file imports no JAX, so it runs on a machine that has a
-card and no JAX:
+K1 (fused attention forward), K2 (its backward) and K3 (fused 1x1
+Conv+IQBN+SiLU) at the main path's shapes (yolo11n-obb-quan at imgsz 1024,
+batch 8), as in chip_smoke.py; and the attention's autograd Function. This
+file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -17,6 +17,7 @@ import math
 import pytest
 import torch
 
+from quan_ultralytics_tpu_torch.models.block import QAttention
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, fused_1x1_sites
 from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
 
@@ -55,6 +56,61 @@ def test_qattn_kernel_matches_plain_on_card(cuda, dtype, n):
     assert qattn.launches == before + 1
     ref = qattn.qattention_plain(q.float(), k.float(), v.float(), scale)
     _assert_close(got, ref, *_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1024, 400, 200])
+def test_qattn_bwd_kernel_matches_plain_on_card(cuda, dtype, n):
+    """K2 against the plain backward, which keeps its rounding points, within
+    `qattn.BWD_TOL`; in bf16 the f32 gradients of the same inputs miss it."""
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    q, k = (torch.randn(8, 4, 8, n, 2, generator=g, device=cuda).to(dtype) for _ in range(2))
+    v, do = (torch.randn(8, 4, 8, n, 4, generator=g, device=cuda).to(dtype) for _ in range(2))
+    scale = 2 ** -0.5
+    before = qattn.launches_bwd
+    got = qattn.qattention_bwd(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    assert qattn.launches_bwd == before + 1
+    ref = qattn.qattention_bwd_plain(q, k, v, do, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        err, rel, ok = qattn.bwd_error(a, b, dtype)
+        assert ok, f"{name} N={n} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
+    if dtype == torch.bfloat16:
+        f32 = qattn.qattention_bwd_plain(q.float(), k.float(), v.float(), do.float(), scale)
+        for name, a, b in zip(("dq", "dk", "dv"), f32, ref):
+            assert not qattn.bwd_error(a, b, dtype)[2], f"the f32 {name} meets the bf16 tolerance"
+
+
+def test_qattention_function_matches_autograd_of_plain(cuda):
+    """The Function (K1 forward, K2 backward) against autograd of the plain
+    einsum + softmax path, f32, at dk=4, dv=8 and a ragged N."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k = (torch.randn(2, 4, 3, 150, 4, generator=g, device=cuda, requires_grad=True)
+            for _ in range(2))
+    v = torch.randn(2, 4, 3, 150, 8, generator=g, device=cuda, requires_grad=True)
+    do = torch.randn(2, 4, 3, 150, 8, generator=g, device=cuda)
+    got = torch.autograd.grad(qattn.qattention_fused(q, k, v, 0.5), (q, k, v), do)
+    ref = torch.autograd.grad(qattn.qattention_plain(q, k, v, 0.5), (q, k, v), do)
+    for a, b in zip(got, ref):
+        _assert_close(a, b, 1e-4, 1e-5)
+
+
+def test_attention_backward_reaches_qkv_on_card(cuda):
+    """A backward through the CUDA QAttention module gives qkv.w a finite,
+    non-zero gradient equal to the plain path's: the attention's output
+    carries its gradient back through K2."""
+    torch.manual_seed(0)
+    fused = QAttention(128, 8, 0.5, fused_attn=True).to(cuda)
+    plain = QAttention(128, 8, 0.5, fused_attn=False).to(cuda)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 8, 16, 4, 32, device=cuda)
+    grads = []
+    for mod in (fused, plain):
+        (mod(x) ** 2).sum().backward()
+        grads.append(mod.qkv.w.grad)
+    assert torch.isfinite(grads[0]).all() and grads[0].abs().max() > 0
+    _assert_close(grads[0], grads[1], 1e-4, 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -14,6 +14,7 @@ import yaml
 import quan_ultralytics_tpu_torch
 from quan_ultralytics_tpu_torch.cfg.models import MODELS
 from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 
 PORT = Path(quan_ultralytics_tpu_torch.__file__).parent
@@ -25,7 +26,8 @@ FORBIDDEN = re.compile(
 
 def test_import_loads_no_jax():
     code = ("import quan_ultralytics_tpu_torch, quan_ultralytics_tpu_torch.engine.predictor, "
-            "quan_ultralytics_tpu_torch.utils.weights, sys; "
+            "quan_ultralytics_tpu_torch.engine.trainer, quan_ultralytics_tpu_torch.losses.tal, "
+            "quan_ultralytics_tpu_torch.losses.detect, quan_ultralytics_tpu_torch.utils.weights, sys; "
             "assert 'jax' not in sys.modules and 'quan_ultralytics_tpu' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'quan_ultralytics_tpu.')))")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -49,6 +51,9 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cuda")
     model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cpu")
     assert Predictor(model).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, TrainConfig(), steps_per_epoch=1)
+    assert Trainer(model, TrainConfig(), steps_per_epoch=1, device="cpu").device.type == "cpu"
 
 
 def test_config_literal_equals_yaml():

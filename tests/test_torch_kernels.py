@@ -1,5 +1,5 @@
-"""The port's two kernels: K1 (fused attention forward) and K3 (fused 1x1
-Conv+IQBN+SiLU).
+"""The port's kernels: K1 (fused attention forward), K2 (its backward) and
+K3 (fused 1x1 Conv+IQBN+SiLU).
 
 On the CPU the wrappers take their plain versions, which are held against
 the JAX package's Pallas kernels in interpret mode (as its own
@@ -54,6 +54,88 @@ def test_qattention_fused_plain_matches_pallas(n):
     ref = jqattn.qattention_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
     got = qattn.qattention_fused(to_torch(q), to_torch(k), to_torch(v), scale)
     assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------- K2, CPU
+
+
+@pytest.mark.parametrize("dk,dv", [(2, 4), (4, 8)])
+@pytest.mark.parametrize("n", [128, 200])
+def test_qattention_backward_matches_pallas_vjp(n, dk, dv):
+    """The plain backward (K2's yardstick) and autograd of the plain forward
+    against ``jax.grad`` through the JAX kernel's custom VJP (the flash
+    backward, in the Pallas interpreter; N = 200 is padded to 256 there), f32,
+    at tests/test_pallas.py's tolerance."""
+    rng = np.random.default_rng(10 * n + dk)
+    B, Q, H = 1, 2, 2
+    q, k = (rng.normal(size=(B, Q, H, n, dk)).astype(np.float32) for _ in range(2))
+    v, do = (rng.normal(size=(B, Q, H, n, dv)).astype(np.float32) for _ in range(2))
+    scale = dk ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: jqattn.qattention_fused(q, k, v, scale),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    got = qattn.qattention_bwd_plain(*(to_torch(a) for a in (q, k, v, do)), scale)
+    tq, tk, tv = (to_torch(a).requires_grad_() for a in (q, k, v))
+    auto = torch.autograd.grad(qattn.qattention_fused(tq, tk, tv, scale), (tq, tk, tv), to_torch(do))
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, auto, ref):
+        assert_close(a, r, rtol=5e-4, atol=5e-5, err_msg=f"plain {name}")
+        assert_close(b, r, rtol=5e-4, atol=5e-5, err_msg=f"autograd {name}")
+
+
+def _bwd_variant(q, k, v, do, scale, skip=(), acc=torch.float32):
+    """`qattention_bwd_plain` written out again, with the rounding points named in
+    ``skip`` left out and the products accumulated in ``acc``."""
+    T, f = q.dtype, acc
+
+    def rnd(x, name, dt=T):
+        return x if name in skip else x.to(dt).to(f)
+
+    q2 = rnd(q.to(f) * qattn._round(scale * qattn._LOG2E, T), "q2")
+    ks = rnd(k.to(f) * qattn._round(scale, T), "ks")
+    s2 = q2 @ k.to(f).transpose(-1, -2)
+    e = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+    r = 1.0 / e.sum(-1, keepdim=True)
+    dor = rnd(do.to(f) * r, "dor", do.dtype)
+    dv = rnd(e, "E", v.dtype).transpose(-1, -2) @ dor
+    dp = do.to(f) @ v.to(f).transpose(-1, -2)
+    u = rnd(e * (dp - r * (dp * e).sum(-1, keepdim=True)), "U")
+    dq = (u @ ks) * r
+    dk = u.transpose(-1, -2) @ rnd(q2 * (r * qattn._LN2), "q2r")
+    return dq.to(T), dk.to(T), dv.to(T)
+
+
+def _bf16_inputs(n=256):
+    rng = np.random.default_rng(3)
+    q, k = (torch.from_numpy(rng.normal(size=(1, 4, 2, n, 2)).astype(np.float32)) for _ in range(2))
+    v, do = (torch.from_numpy(rng.normal(size=(1, 4, 2, n, 4)).astype(np.float32)) for _ in range(2))
+    return [t.bfloat16() for t in (q, k, v, do)]
+
+
+def test_qattention_backward_keeps_bf16_rounding_points():
+    """In bf16 the plain backward rounds where the TPU kernel rounds: the f32
+    gradients of the same bf16 inputs miss K2's bf16 tolerance, while the same
+    rounding points with the products accumulated in f64 (another summation
+    order, as a kernel has) meet it."""
+    bf = _bf16_inputs()
+    got = qattn.qattention_bwd_plain(*bf, 2 ** -0.5)
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    f32 = qattn.qattention_bwd_plain(*(t.float() for t in bf), 2 ** -0.5)
+    f64 = _bwd_variant(*bf, 2 ** -0.5, acc=torch.float64)
+    for name, a, r, other in zip(("dq", "dk", "dv"), got, f32, f64):
+        assert not qattn.bwd_error(r, a, torch.bfloat16)[2], f"the f32 {name} passes"
+        assert qattn.bwd_error(other, a, torch.bfloat16)[2], f"the f64-accumulated {name} fails"
+        assert not torch.equal(a.float(), r)
+
+
+@pytest.mark.parametrize("point", ["q2", "ks", "E", "dor", "U", "q2r"])
+def test_bf16_tolerance_sees_each_rounding_point(point):
+    """K2's bf16 tolerance fails a backward that leaves out any one of the TPU
+    kernel's rounding points (q2, ks, E cast to V's dtype, dO r, U, q2 r ln2)."""
+    bf = _bf16_inputs()
+    ref = qattn.qattention_bwd_plain(*bf, 2 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(_bwd_variant(*bf, 2 ** -0.5), ref))
+    mutant = _bwd_variant(*bf, 2 ** -0.5, skip=(point,))
+    assert not all(qattn.bwd_error(a, r, torch.bfloat16)[2] for a, r in zip(mutant, ref))
 
 
 # ---------------------------------------------------------------- K3, CPU
