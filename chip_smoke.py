@@ -9,24 +9,27 @@ against their plain versions.
 Phases:
   1. device and build: the card's name and power limit, the kernels built
      from csrc/ with nvcc;
-  2. kernels vs plain at the main path's shapes: K1 (fused attention), K2
-     (its backward) and K3 (fused 1x1 Conv+IQBN+SiLU), errors against the
-     stated tolerances, times of kernel, plain version, library yardstick
-     and bound;
+  2. kernels vs plain at the main path's shapes: K1 (fused attention; and
+     that it writes the row statistics for K2 only under grad), K2 (its
+     backward, bf16 on the tensor cores, given K1's statistics) and K3 (fused
+     1x1 Conv+IQBN+SiLU: bf16 on the tensor cores at all 21 site shapes, f32
+     on the CUDA cores), errors against the stated tolerances, times of
+     kernel, plain version, library yardstick, the unfused path and bound;
   3. predict: QUAN-YOLO11n-OBB (nc=15, random weights from a seed, bf16) at
      1024 on 8 uint8 frames through the port's Predictor, with K1 only and
-     with K1+K3; the launch counters show the kernels ran, the predictions
-     agree with an all-plain run (bf16, and f32 with TF32 off, down to the
-     detections);
+     with K1+K3; the launch counters show the kernels ran (and that K1 wrote
+     no statistics), the predictions agree with an all-plain run (bf16, and
+     f32 with TF32 off, down to the detections);
   4. speed: img/s of each path in interleaved rounds, and the device's busy
      share of one forward + decode + NMS from torch.profiler;
   5. train: the port's Trainer (default TrainConfig at batch 8, so 8
      micro-steps an update) takes 16 micro-steps at 1024 in bf16 on a seeded
      synthetic batch of 128 padded rotated boxes an image (34 to 100 valid);
      every loss is finite, the parameters and the EMA change at micro-steps
-     8 and 16 only, K1 and K2 ran once a micro-step; one f32 micro-step (TF32
-     off) gives the same loss and, under one cotangent on the head's outputs,
-     the same gradients with fused and with plain attention;
+     8 and 16 only, K1 (writing its statistics) and K2 ran once a micro-step;
+     one f32 micro-step (TF32 off) gives the same loss and, under one
+     cotangent on the head's outputs, the same gradients with fused and with
+     plain attention;
   6. train speed: ms per micro-step with fused and with plain attention in
      interleaved rounds, and the device's busy share and the attention
      kernels' device time per micro-step from torch.profiler; the loss
@@ -65,13 +68,14 @@ MODEL = "yolo11n-obb-quan.yaml"
 # allclose-style tolerance |got - ref| <= rtol |ref| + atol max(1, max|ref|), per dtype.
 # K1 bf16 is held against the plain version in f32 on the same bf16 values: the kernel
 # rounds scale*q and the softmax numerator to bf16 (2^-9 relative each), as the TPU kernel does.
-# K3 bf16 keeps the plain version's rounding points (f32 inside, one cast at the end): at most
-# a bf16 ulp or two apart.
+# K3: qconv_fused.K3_TOL (bf16 keeps the plain version's rounding points, f32 inside and one
+# cast at the end: at most a bf16 ulp or two apart).
 K1_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 # K2 vs the plain backward, which keeps the TPU kernel's rounding points in both dtypes:
 # qattn.BWD_TOL, elementwise (rtol, atol) and a limit on mean |err| / mean |ref|; the f32
 # gradients of the bf16 inputs must miss the bf16 limits
-K3_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+# K1's row statistics vs qattn.qattention_stats_plain: f32 summation order only
+STATS_TOL = 1e-5
 # decoded predictions of the kernel paths vs the all-plain path, max abs error over
 # max |ref| per column group: f32 (TF32 off) differs by summation order only; bf16 by
 # the rounding points of 37 fused convs through the rest of the graph
@@ -210,12 +214,40 @@ def phase_k1(gen, details, sfu_rate):
                     # a tighter floor than the table's rates: one exp2 per score on the SFUs
                     "sfu_bound_ms": 1e3 * G * n * n / sfu_rate,
                 }
+    k1_stats_only_under_grad(gen, details)
     return worst, timing
 
 
+def k1_stats_only_under_grad(gen, details):
+    """K1 writes the row statistics only when a backward will follow: not under
+    no_grad, and under grad they agree with the plain statistics."""
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k = (torch.randn(2, 4, 8, 400, 2, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
+        v = torch.randn(2, 4, 8, 400, 4, generator=gen, device=DEVICE).to(dtype)
+        before = qattn.launches_stats
+        with torch.no_grad():
+            qattn.qattention_fused(q.requires_grad_(), k, v, 0.5)
+        check(qattn.launches_stats == before, "K1 wrote row statistics under no_grad")
+        with torch.enable_grad():
+            out = qattn.qattention_fused(q, k, v, 0.5)
+        check(qattn.launches_stats == before + 1, "K1 wrote no row statistics under grad")
+        got = out.grad_fn.saved_tensors[3]
+        ref = qattn.qattention_stats_plain(q.detach(), k, 0.5)
+        # m relative to max(1, |m|), r relative to r
+        err = max(float(((got[0] - ref[0]).abs() / ref[0].abs().clamp(min=1.0)).max()),
+                  float(((got[1] - ref[1]).abs() / ref[1].abs()).max()))
+        details.append({"kernel": "qattn_fwd stats", "dtype": str(dtype), "max_rel_err": err,
+                        "tol": STATS_TOL, "ok": err <= STATS_TOL})
+        print(f"K1 row statistics {dtype}: written only under grad; max err vs plain {err:.3e}")
+        check(err <= STATS_TOL, f"K1's row statistics disagree with the plain ones: {err:.3e}")
+
+
 def phase_k2(gen, details, sfu_rate):
-    """K2 against the plain backward at N = 1024, 400, 200 in bf16 and f32; times at
-    the main path's shape (G = 256, N = 1024, dk = 2, dv = 4, bf16)."""
+    """K2, given the row statistics K1 writes, against the plain backward at N = 1024,
+    400, 200 in bf16 and f32; times at the main path's shape (G = 256, N = 1024, dk = 2,
+    dv = 4, bf16)."""
     from quan_ultralytics_tpu_torch.ops.kernels import qattn
 
     dk, dv, heads, scale = 2, 4, 8, 2 ** -0.5
@@ -225,7 +257,9 @@ def phase_k2(gen, details, sfu_rate):
             shp = (BATCH, 4, heads, n)
             q, k = (torch.randn(*shp, dk, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
             v, do = (torch.randn(*shp, dv, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
-            got = qattn.qattention_bwd(q, k, v, do, scale)
+            stats = qattn.new_stats(q)
+            qattn.qattention_fwd(q, k, v, scale, stats)
+            got = qattn.qattention_bwd(q, k, v, do, scale, stats)
             torch.cuda.synchronize()
             ref = qattn.qattention_bwd_plain(q, k, v, do, scale)
             # the tolerance's own check: the f32 gradients of these inputs must miss it in bf16
@@ -251,11 +285,12 @@ def phase_k2(gen, details, sfu_rate):
             del ref, f32
             if n == 1024 and dtype == torch.bfloat16:
                 G, isz = BATCH * 4 * heads, q.element_size()
-                # q, k, v, dO read once; dq, dk, dv written once; per score the products of
-                # recomputing S (2dk), dV (2dv), dP (2dv), dQ (2dk), dK (2dk) and ~6 f32 operations
-                b, by = bound_ms(G * n * (4 * dk + 3 * dv) * isz, G * n * n * (6 * dk + 4 * dv),
-                                 G * n * n * 6, dtype)
-                ms, host_ms = time_ms(lambda: qattn.qattention_bwd(q, k, v, do, scale))
+                # q, k, v, dO and the row statistics (m, r) read once; dq, dk, dv written once;
+                # per score the products of recomputing S (2dk), dV (2dv), dP (2dv), dQ (2dk),
+                # dK (2dk) and ~6 f32 operations
+                b, by = bound_ms(G * n * (4 * dk + 3 * dv) * isz + G * n * 2 * 4,
+                                 G * n * n * (6 * dk + 4 * dv), G * n * n * 6, dtype)
+                ms, host_ms = time_ms(lambda: qattn.qattention_bwd(q, k, v, do, scale, stats))
                 plain_ms = time_ms(lambda: qattn.qattention_bwd_plain(q, k, v, do, scale), iters=5)[0]
                 ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
                 with torch.enable_grad():
@@ -270,13 +305,11 @@ def phase_k2(gen, details, sfu_rate):
                 timing = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                           "plain_autograd_ms": autograd_ms,
                           "library_ms": library_ms, "bound_ms": b, "bound_by": by,
-                          # floors on the special-function units: 2 exp2 a score for any
-                          # two-kernel design, 3 for this one (dQ takes a pass of its own)
-                          "sfu_bound_ms": 1e3 * 2 * G * n * n / sfu_rate,
-                          "sfu_bound_3exp2_ms": 1e3 * 3 * G * n * n / sfu_rate}
+                          # the floor on the special-function units: this design's 2 exp2 a
+                          # score (the pre-pass for rse and the main pass)
+                          "sfu_bound_ms": 1e3 * 2 * G * n * n / sfu_rate}
                 print(f"K2 G={G} N={n} bf16: kernel {ms:.4f} ms (host {host_ms:.4f}), bound {b:.4f} "
-                      f"({by}), SFU floor {timing['sfu_bound_ms']:.4f} (2 exp2) / "
-                      f"{timing['sfu_bound_3exp2_ms']:.4f} (3 exp2), plain {plain_ms:.4f}, "
+                      f"({by}), SFU floor {timing['sfu_bound_ms']:.4f} (2 exp2), plain {plain_ms:.4f}, "
                       f"autograd of the plain forward {autograd_ms:.4f}, SDPA backward {library_ms:.4f}")
     return worst, timing
 
@@ -289,7 +322,7 @@ def phase_k3(gen, sites, details):
     counts = {s: sites.count(s) for s in sorted(set(sites))}
     worst = 0.0
     tot = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "unfused_host_ms": 0.0,
-           "library_ms": 0.0, "bound_ms": 0.0}
+           "library_ms": 0.0, "bound_ms": 0.0, "f32_ms": 0.0}
     t_bytes = t_ops = 0.0
     for (ci, co, p), mult in counts.items():
         w = torch.randn(4, co, ci, 1, 1, generator=gen, device=DEVICE) / math.sqrt(4 * ci)
@@ -298,18 +331,26 @@ def phase_k3(gen, sites, details):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(BATCH, p // BATCH, 1, 4, ci, generator=gen, device=DEVICE).to(dtype)
             for silu in (True, False):
+                own = "launches_mma" if dtype == torch.bfloat16 else "launches_simt"
+                before = getattr(qconv_fused, own)
                 got = qconv_fused.qconv1x1_fused(x, w, scale, shift, apply_silu=silu)
                 torch.cuda.synchronize()
+                check(getattr(qconv_fused, own) == before + 1, f"K3 {dtype} did not launch {own}")
                 ref = qconv_fused.qconv1x1_fused_plain(x, w, scale, shift, apply_silu=silu)
-                err, mag, ok = compare(got, ref, *K3_TOL[dtype])
+                tol = qconv_fused.K3_TOL[dtype]
+                err, mag, ok = compare(got, ref, *tol)
                 details.append({"kernel": "qconv1x1_fused", "Ci": ci, "Co": co, "P": p,
                                 "dtype": str(dtype), "silu": silu, "max_abs_err": err,
-                                "max_abs_ref": mag, "tol": K3_TOL[dtype], "ok": ok})
+                                "max_abs_ref": mag, "tol": tol, "ok": ok})
                 check(ok, f"K3 disagrees with its plain version at Ci={ci} Co={co} P={p} "
                           f"{dtype} silu={silu}: max_abs_err {err:.3e}")
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
             if dtype != torch.bfloat16:
+                f32_ms = time_ms(lambda: qconv_fused.qconv1x1_fused(x, w, scale, shift))[0]
+                tot["f32_ms"] += mult * f32_ms
+                details.append({"kernel": "qconv1x1_fused", "Ci": ci, "Co": co, "P": p, "sites": mult,
+                                "dtype": str(dtype), "ms": f32_ms})
                 continue
             # times at the main path's dtype, with SiLU (all but the ffn1 sites apply it)
             conv = Conv(4 * ci, 4 * co, 1, dtype=dtype, impl="auto").to(DEVICE).eval()
@@ -335,14 +376,15 @@ def phase_k3(gen, sites, details):
                   f"(host {host_ms:.4f}), bound {b:.4f}, unfused {unfused_ms:.4f} "
                   f"(host {unfused_host_ms:.4f}), plain {row['plain_ms']:.4f}, "
                   f"matmul {row['library_ms']:.4f}")
-            for key in tot:
+            for key in row:
                 tot[key] += mult * row[key]
             t_bytes += mult * nbytes / HBM_BYTES_S
             t_ops += mult * (2 * p * 4 * ci * co / TENSOR_FLOPS[dtype] + p * 4 * co * 9 / F32_FLOPS)
     tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     print(f"K3 all {len(sites)} sites, bf16: max_abs_err {worst:.3e}; per forward kernel "
           f"{tot['ms']:.3f} ms (host {tot['host_ms']:.3f}), bound {tot['bound_ms']:.3f}, "
-          f"unfused {tot['unfused_ms']:.3f} (host {tot['unfused_host_ms']:.3f})")
+          f"unfused {tot['unfused_ms']:.3f} (host {tot['unfused_host_ms']:.3f}), matmul "
+          f"{tot['library_ms']:.3f}; the f32 kernel at the same sites {tot['f32_ms']:.3f}")
     return worst, tot
 
 
@@ -407,16 +449,19 @@ def phase_predict(models, frames, n_sites: int):
     expect = {"K1": (1, 0), "K1+K3": (1, n_sites), "plain": (0, 0)}
     for name, model in models.items():
         pred = Predictor(model, imgsz=IMGSZ, conf=0.25)
-        qattn.launches = qattn.launches_bwd = qconv_fused.launches = 0
+        qattn.launches = qattn.launches_stats = qattn.launches_bwd = 0
+        qconv_fused.launches = qconv_fused.launches_mma = qconv_fused.launches_simt = 0
         res = pred(frames)  # the main path, driven once
         torch.cuda.synchronize()
-        got = (qattn.launches, qconv_fused.launches)
+        got = (qattn.launches, qconv_fused.launches_mma)
         out["launches"][name] = {"qattn_fwd": got[0], "qattn_bwd": qattn.launches_bwd,
                                  "qconv1x1_fused": got[1]}
-        print(f"predict [{name}]: launches K1 {got[0]}, K3 {got[1]} (expected {expect[name]}), "
-              f"K2 {qattn.launches_bwd}")
-        check(got == expect[name] and qattn.launches_bwd == 0,
-              f"{name}: kernel launches {got}, K2 {qattn.launches_bwd} != {expect[name]}, 0")
+        print(f"predict [{name}]: launches K1 {got[0]}, K3 (bf16, tensor cores) {got[1]} (expected "
+              f"{expect[name]}), K2 {qattn.launches_bwd}, K1 with statistics {qattn.launches_stats}")
+        check(got == expect[name] and qattn.launches_bwd == 0 and qattn.launches_stats == 0
+              and qconv_fused.launches == qconv_fused.launches_mma,
+              f"{name}: kernel launches {got}, K2 {qattn.launches_bwd}, K1 with statistics "
+              f"{qattn.launches_stats} != {expect[name]}, 0, 0")
         check(len(res) == len(frames) and all(np.isfinite(r.boxes).all() for r in res),
               f"{name}: bad Results")
         low = Predictor(model, imgsz=IMGSZ, conf=0.0)(frames)
@@ -543,7 +588,7 @@ def phase_device_share(models, x, speed, tables=None):
         busy = sum(e.time_range.elapsed_us() for e in ops) / 3e3 if ops else None
         # device time of the port's own kernels on this path, per infer
         own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / 3e3
-               for k in ("qattn_fwd_kernel", "qconv1x1_fused_kernel")}
+               for k in ("qattn_fwd_kernel", "qconv1x1_")}
         wall = speed[name]["infer_ms"]
         out[name] = {"device_ms": busy, "device_ops": len(ops) / 3,
                      "busy_share": busy / wall if ops else None, "kernel_device_ms": own}
@@ -600,7 +645,7 @@ def phase_train(batch):
         return torch.cat([t.detach().reshape(-1) for t in ts])
 
     losses, changed = [], []
-    qattn.launches = qattn.launches_bwd = qconv_fused.launches = 0
+    qattn.launches = qattn.launches_stats = qattn.launches_bwd = qconv_fused.launches = 0
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):  # the main path, driven
         p0, e0 = flat(trainer.params), flat(trainer.ema)
@@ -611,9 +656,10 @@ def phase_train(batch):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = {"qattn_fwd": qattn.launches, "qattn_bwd": qattn.launches_bwd,
-           "qconv1x1_fused": qconv_fused.launches}
+           "qconv1x1_fused": qconv_fused.launches, "qattn_fwd_with_stats": qattn.launches_stats}
     print(f"train: {TRAIN_STEPS} micro-steps in {secs:.1f} s; losses {[round(x, 3) for x in losses]}")
-    print(f"train: launches {got} (expected K1 {TRAIN_STEPS}, K2 {TRAIN_STEPS}, K3 0)")
+    print(f"train: launches {got} (expected K1 {TRAIN_STEPS}, all with statistics, K2 "
+          f"{TRAIN_STEPS}, K3 0)")
     check(all(math.isfinite(x) for x in losses), f"non-finite train loss: {losses}")
     check(all(c[2] == 0.0 for c in changed), "a micro-step was skipped by the NaN guard")
     update_at = [i + 1 for i, c in enumerate(changed) if c[0]]
@@ -621,8 +667,8 @@ def phase_train(batch):
     print(f"train: parameters changed at micro-steps {update_at}, EMA at {ema_at}")
     check(update_at == [8, 16] and ema_at == [8, 16],
           f"parameters / EMA changed at {update_at} / {ema_at}, not at [8, 16]")
-    check(got == {"qattn_fwd": TRAIN_STEPS, "qattn_bwd": TRAIN_STEPS, "qconv1x1_fused": 0},
-          f"train launches {got}")
+    check(got == {"qattn_fwd": TRAIN_STEPS, "qattn_bwd": TRAIN_STEPS, "qconv1x1_fused": 0,
+                  "qattn_fwd_with_stats": TRAIN_STEPS}, f"train launches {got}")
     return {"losses": losses, "launches": got, "seconds": secs, "updates_at": update_at}
 
 
@@ -756,7 +802,7 @@ def phase_train_speed(batch, rounds: int = 3, tables=None):
         ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in ops) / (1e3 * n) if ops else None
         own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / (1e3 * n)
-               for k in ("qattn_fwd_kernel", "qattn_bwd_rows", "qattn_bwd_cols")}
+               for k in ("qattn_fwd_kernel", "qattn_bwd_")}
         ms = statistics.median(walls[name])
         out[name] = {"ms_per_micro_step": ms, "ms_rounds": walls[name],
                      "spread_ms": max(walls[name]) - min(walls[name]),
@@ -877,7 +923,7 @@ def main() -> int:
          "launches": train_launches["qattn_bwd"],
          "launches_by_path": {"predict": launches["qattn_bwd"], "train": train_launches["qattn_bwd"]},
          "max_abs_err": k2_err, "kernel_ms": k2_t["ms"], **k2_t,
-         "train_device_ms": on_train["qattn_bwd_rows"] + on_train["qattn_bwd_cols"],
+         "train_device_ms": on_train["qattn_bwd_"],
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
          "library": "torch.autograd.grad of torch.nn.functional.scaled_dot_product_attention "
                     "(retained graph)"},
@@ -888,7 +934,7 @@ def main() -> int:
          "launches_by_path": {"predict": launches["qconv1x1_fused"],
                               "train": train_launches["qconv1x1_fused"]},
          "max_abs_err": k3_err,
-         "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_fused_kernel"],
+         "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_"],
          "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
                   "times summed",
          "library": "torch.matmul with the mixing folded into the weights, no affine or SiLU "

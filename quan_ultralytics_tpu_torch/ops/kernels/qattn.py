@@ -11,6 +11,7 @@ device memory, forward or backward: the backward recomputes it from q, k, v.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -23,8 +24,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
-launches = 0  # K1 launches made by `qattention_fused`
-launches_bwd = 0  # K2 launches (one C call, two kernels) made by `qattention_bwd`
+launches = 0  # K1 launches made by `qattention_fwd`
+launches_stats = 0  # of those, the launches that also wrote the row statistics
+launches_bwd = 0  # K2 launches (one C call: three kernels in bf16, two in f32) by `qattention_bwd`
+KEY_BLOCK = 128  # keys per block of the bf16 K2 (csrc/qattn_bwd.cu:kRows): one dQ partial each
 
 # K2 against `qattention_bwd_plain` on the same inputs, per dtype: (rtol, atol, mean_rel).
 # Each element within rtol |ref| + atol, and mean |got - ref| within mean_rel mean |ref|.
@@ -61,22 +64,50 @@ def _round(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float):
+    """``(q2, s2)``: q scaled into the exp2 domain and rounded to its dtype, and the
+    f32 scores ``q2 k^T`` (K1's and K2's first step)."""
+    f = torch.float32
+    q2 = (q.to(f) * _round(scale * _LOG2E, q.dtype)).to(q.dtype).to(f)
+    return q2, q2 @ k.to(f).transpose(-1, -2)
+
+
+def _stats_of(s2: torch.Tensor) -> torch.Tensor:
+    m = s2.amax(dim=-1)
+    return torch.stack([m, 1.0 / torch.exp2(s2 - m[..., None]).sum(dim=-1)])
+
+
+def qattention_stats_plain(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """The row statistics K1 writes for the backward: ``[2, ..., N]`` f32 holding
+    each query row's score max m and reciprocal sum r = 1 / rowsum(exp2(s - m)),
+    in the log2 domain at the TPU kernel's rounding points."""
+    return _stats_of(_scores(q, k, scale)[1])
+
+
+def new_stats(q: torch.Tensor) -> torch.Tensor:
+    """An uninitialised ``[2, ..., N]`` f32 buffer for the row statistics of ``q``."""
+    return torch.empty(2, *q.shape[:-1], dtype=torch.float32, device=q.device)
+
+
 def qattention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         do: torch.Tensor, scale: float):
+                         do: torch.Tensor, scale: float, stats: Optional[torch.Tensor] = None):
     """``(dq, dk, dv)`` of ``softmax(scale q k^T) v`` for the cotangent ``do``,
     step by step at the rounding points of the TPU kernel
     (JAX ``ops/pallas/qattn.py:_attn_bwd_kernel``) and of K2.
 
     Any leading shape ``[..., N, d]``; products run in f32, and each value
-    the TPU kernel keeps in the input dtype is rounded to it here.
+    the TPU kernel keeps in the input dtype is rounded to it here. ``stats``
+    (``[2, ..., N]``, m and r) are the forward's row statistics; None
+    recomputes them with `qattention_stats_plain`, which gives the same values.
     """
     T = q.dtype
     f = torch.float32
-    q2 = (q.to(f) * _round(scale * _LOG2E, T)).to(T).to(f)
+    q2, s2 = _scores(q, k, scale)
+    if stats is None:
+        stats = _stats_of(s2)
     ks = (k.to(f) * _round(scale, T)).to(T).to(f)
-    s2 = q2 @ k.to(f).transpose(-1, -2)  # [..., N, N] log2-domain scores
-    e = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
-    r = 1.0 / e.sum(dim=-1, keepdim=True)
+    e = torch.exp2(s2 - stats[0][..., None])
+    r = stats[1][..., None]
     dor = (do.to(f) * r).to(do.dtype).to(f)
     dv = e.to(v.dtype).to(f).transpose(-1, -2) @ dor
     dp = do.to(f) @ v.to(f).transpose(-1, -2)
@@ -106,38 +137,64 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Launch K1 on contiguous CUDA q, k, v."""
-    global launches
+def _check_stats(stats: torch.Tensor, q: torch.Tensor) -> None:
+    if stats.shape != (2, *q.shape[:-1]) or stats.dtype != torch.float32 \
+            or stats.device != q.device or not stats.is_contiguous():
+        raise ValueError(f"stats must be contiguous float32 {(2, *q.shape[:-1])} on {q.device}, "
+                         f"got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
+
+
+def qattention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K1 on CUDA q, k, v (no autograd). With ``stats`` (`new_stats`) it
+    also writes each query row's m and r there, for `qattention_bwd`."""
+    global launches, launches_stats
     G, N, dk, dv = _check(q, k, v)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if stats is not None:
+        _check_stats(stats, q)
     out = torch.empty_like(v)
     status = _build.library().qattn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), G, N, dk, dv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if stats is None else stats.data_ptr(), G, N, dk, dv,
         scale * _LOG2E, _DTYPES[q.dtype], q.device.index or 0, _stream(q))
     _build.check(status, "qattn_fwd")
     launches += 1
+    launches_stats += stats is not None
     return out
 
 
 def qattention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                   scale: float):
+                   scale: float, stats: Optional[torch.Tensor] = None):
     """``(dq, dk, dv)`` of `qattention_fused` for the cotangent ``do`` (shaped like
-    its output). A CPU tensor takes `qattention_bwd_plain`; a CUDA tensor
-    launches K2 or raises."""
+    its output), given the forward's row statistics ``stats``. A CPU tensor
+    takes `qattention_bwd_plain` (``stats`` optional there); a CUDA tensor
+    launches K2 (the bf16 kernels or the f32 ones, by dtype) or raises."""
     if q.device.type == "cpu":
-        return qattention_bwd_plain(q, k, v, do, scale)
+        return qattention_bwd_plain(q, k, v, do, scale, stats)
     global launches_bwd
     G, N, dk, dv = _check(q, k, v)
     if do.shape != v.shape or do.device != v.device:
         raise ValueError(f"do {tuple(do.shape)} on {do.device} must match v {tuple(v.shape)}")
+    if stats is None:
+        raise ValueError("K2 needs the forward's row statistics: run K1 with stats=new_stats(q)")
+    _check_stats(stats, q)
     qf, kf, vf = (t.contiguous() for t in (q, k, v))
     dof = do.to(v.dtype).contiguous()
     dq, dk_, dv_ = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
-    stats = torch.empty(3, G, N, dtype=torch.float32, device=q.device)  # m, r, rse per row
-    status = _build.library().qattn_bwd(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), dq.data_ptr(),
-        dk_.data_ptr(), dv_.data_ptr(), stats.data_ptr(), G, N, dk, dv, scale,
-        scale * _LOG2E, _DTYPES[q.dtype], q.device.index or 0, _stream(q))
+    lib, ptrs = _build.library(), [t.data_ptr() for t in (qf, kf, vf, dof, stats)]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        cbuf = torch.empty(G, N, **f32)  # r rse per row
+        part = torch.empty(-(-N // KEY_BLOCK), G, N, dk, **f32)  # dQ per key block
+        status = lib.qattn_bwd_bf16(*ptrs, cbuf.data_ptr(), part.data_ptr(), dq.data_ptr(),
+                                    dk_.data_ptr(), dv_.data_ptr(), G, N, dk, dv, scale,
+                                    scale * _LOG2E, q.device.index or 0, _stream(q))
+    else:
+        rse = torch.empty(G, N, **f32)
+        status = lib.qattn_bwd_f32(*ptrs, rse.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
+                                   dv_.data_ptr(), G, N, dk, dv, scale, scale * _LOG2E,
+                                   q.device.index or 0, _stream(q))
     _build.check(status, "qattn_bwd")
     launches_bwd += 1
     return dq, dk_, dv_
@@ -145,21 +202,24 @@ def qattention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.
 
 class QAttention(torch.autograd.Function):
     """K1 forward and K2 backward as one differentiable op (the JAX custom VJP
-    ``_attn``): the forward saves ``(q, k, v)`` only, the backward recomputes
-    the softmax."""
+    ``_attn``): the forward saves ``(q, k, v)`` and, when a backward will
+    follow, the row statistics K1 wrote; the backward recomputes the softmax
+    from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
+    def forward(ctx, q, k, v, scale: float, with_stats: bool):
         q, k, v = (t.contiguous() for t in (q, k, v))
-        ctx.save_for_backward(q, k, v)
+        stats = new_stats(q) if with_stats else None
+        out = qattention_fwd(q, k, v, scale, stats)
+        ctx.save_for_backward(q, k, v, stats)
         ctx.scale = scale
-        return _fwd_kernel(q, k, v, scale)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = qattention_bwd(q, k, v, do, ctx.scale)
-        return dq, dk, dv, None
+        q, k, v, stats = ctx.saved_tensors
+        dq, dk, dv = qattention_bwd(q, k, v, do, ctx.scale, stats)
+        return dq, dk, dv, None, None
 
 
 def qattention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,7 +230,11 @@ def qattention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, 4, H, N, dv]`` in ``v.dtype``. A CPU tensor takes `qattention_plain`,
     which autograd differentiates; a CUDA tensor goes through `QAttention`
     (K1 forward, K2 backward; float32 or bfloat16, any N) or raises.
+    K1 writes the row statistics for K2 only under grad with an input that
+    requires it.
     """
     if q.device.type == "cpu":
         return qattention_plain(q, k, v, scale)
-    return QAttention.apply(q, k, v, scale)
+    # K1 writes the row statistics only when a backward will follow
+    with_stats = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return QAttention.apply(q, k, v, scale, with_stats)

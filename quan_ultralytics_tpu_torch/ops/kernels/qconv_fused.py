@@ -1,9 +1,10 @@
 """Fused 1x1 quaternion conv + folded IQBN + SiLU (K3): wrapper, plain version, launch count.
 
-Counterpart of the JAX ``ops/pallas/qconv_fused.py``. The kernel is
-``csrc/qconv1x1_fused.cu``; see its header for the design. For inference
-only: the IQBN running statistics are folded into a per-(component, channel)
-affine by `fold_iqbn`.
+Counterpart of the JAX ``ops/pallas/qconv_fused.py``. The kernels are in
+``csrc/qconv1x1_fused.cu`` (see its header for the designs): bf16 runs on the
+tensor cores, f32 on the CUDA cores; the wrapper picks by dtype. For
+inference only: the IQBN running statistics are folded into a
+per-(component, channel) affine by `fold_iqbn`.
 """
 
 from __future__ import annotations
@@ -18,7 +19,15 @@ from quan_ultralytics_tpu_torch.ops.qconv import qconv2d
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches made by `qconv1x1_fused`
+launches = 0  # kernel launches made by `qconv1x1_fused`, both dtypes
+launches_mma = 0  # of those, bf16 launches of the tensor-core kernel
+launches_simt = 0  # and f32 launches of the CUDA-core kernel
+
+# K3 against `qconv1x1_fused_plain` on the same inputs, per dtype: (rtol, atol), each
+# element within rtol |ref| + atol max(1, max |ref|). f32 differs by summation order; bf16
+# keeps the plain version's rounding points (f32 inside, one cast at the end), so the two
+# sit at most a bf16 ulp or two apart.
+K3_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
 
 
 def fold_iqbn(gamma: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
@@ -61,11 +70,14 @@ def qconv1x1_fused(x: torch.Tensor, w: torch.Tensor,
     x: ``[B, H, W, 4, Ci]``; w: ``[4, Co, Ci, 1, 1]`` (or ``[4, Co, Ci]``), cast
     to ``x.dtype`` as in the JAX kernel; scale, shift: ``[4, Co]`` (None: no
     affine). Returns ``[B, H, W, 4, Co]`` in ``x.dtype``. A CPU tensor takes
-    `qconv1x1_fused_plain`; a CUDA tensor launches the kernel or raises.
+    `qconv1x1_fused_plain`; a CUDA tensor launches the kernel of its dtype
+    (bf16: tensor cores, Ci up to about 700 and any Co, split into channel
+    tiles where the weights of all of Co do not fit a block; f32: CUDA cores)
+    or raises.
     """
     if x.device.type == "cpu":
         return qconv1x1_fused_plain(x, w, scale, shift, apply_silu)
-    global launches
+    global launches, launches_mma, launches_simt
     if x.ndim != 5 or x.shape[3] != 4:
         raise ValueError(f"expected BHWQC input, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -86,10 +98,20 @@ def qconv1x1_fused(x: torch.Tensor, w: torch.Tensor,
     sc = scale.float().contiguous()
     sh = shift.float().contiguous()
     out = torch.empty(B, H, W, 4, co, dtype=x.dtype, device=x.device)
-    status = _build.library().qconv1x1_fused(
-        xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), sh.data_ptr(), out.data_ptr(),
-        B * H * W, ci, co, int(apply_silu), _DTYPES[x.dtype], x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "qconv1x1_fused")
+    lib = _build.library()
+    if x.dtype == torch.bfloat16:
+        # the kernel copies x and w in pieces of up to 16 bytes
+        xc, wc = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xc, wc))
+        fn, name = lib.qconv1x1_mma_bf16, "qconv1x1_mma_bf16"
+    else:
+        fn, name = lib.qconv1x1_simt_f32, "qconv1x1_simt_f32"
+    status = fn(xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), sh.data_ptr(), out.data_ptr(),
+                B * H * W, ci, co, int(apply_silu), x.device.index or 0,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, name)
     launches += 1
+    if x.dtype == torch.bfloat16:
+        launches_mma += 1
+    else:
+        launches_simt += 1
     return out

@@ -23,7 +23,7 @@ from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
 
 pytestmark = pytest.mark.cuda
 
-_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}  # K1; K3: qconv_fused.K3_TOL
 
 
 @pytest.fixture
@@ -58,17 +58,30 @@ def test_qattn_kernel_matches_plain_on_card(cuda, dtype, n):
     _assert_close(got, ref, *_TOL[dtype])
 
 
+def _bwd_inputs(cuda, dtype, n, seed, batch=8, dk=2, dv=4, heads=8):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(batch, 4, heads, n, dk, generator=g, device=cuda).to(dtype) for _ in range(2))
+    v, do = (torch.randn(batch, 4, heads, n, dv, generator=g, device=cuda).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def _k2(q, k, v, do, scale):
+    """K2 given the statistics K1 writes for it."""
+    stats = qattn.new_stats(q)
+    qattn.qattention_fwd(q, k, v, scale, stats)
+    return qattn.qattention_bwd(q, k, v, do, scale, stats)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1024, 400, 200])
+@pytest.mark.parametrize("n", [1024, 400, 200, 77])
 def test_qattn_bwd_kernel_matches_plain_on_card(cuda, dtype, n):
-    """K2 against the plain backward, which keeps its rounding points, within
-    `qattn.BWD_TOL`; in bf16 the f32 gradients of the same inputs miss it."""
-    g = torch.Generator(device=cuda).manual_seed(n + 1)
-    q, k = (torch.randn(8, 4, 8, n, 2, generator=g, device=cuda).to(dtype) for _ in range(2))
-    v, do = (torch.randn(8, 4, 8, n, 4, generator=g, device=cuda).to(dtype) for _ in range(2))
+    """K2 (given K1's row statistics) against the plain backward, which keeps
+    its rounding points, within `qattn.BWD_TOL`; in bf16 the f32 gradients of
+    the same inputs miss it."""
+    q, k, v, do = _bwd_inputs(cuda, dtype, n, n + 1)
     scale = 2 ** -0.5
     before = qattn.launches_bwd
-    got = qattn.qattention_bwd(q, k, v, do, scale)
+    got = _k2(q, k, v, do, scale)
     torch.cuda.synchronize()
     assert qattn.launches_bwd == before + 1
     ref = qattn.qattention_bwd_plain(q, k, v, do, scale)
@@ -80,6 +93,60 @@ def test_qattn_bwd_kernel_matches_plain_on_card(cuda, dtype, n):
         f32 = qattn.qattention_bwd_plain(q.float(), k.float(), v.float(), do.float(), scale)
         for name, a, b in zip(("dq", "dk", "dv"), f32, ref):
             assert not qattn.bwd_error(a, b, dtype)[2], f"the f32 {name} meets the bf16 tolerance"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qattn_bwd_kernel_one_group_on_card(cuda, dtype):
+    """G = 1 (one batch element, one component, one head), N = 1024."""
+    q, k, v, do = (t[:1, :1, :1] for t in _bwd_inputs(cuda, dtype, 1024, 5, batch=1))
+    got = _k2(q, k, v, do, 0.5)
+    ref = qattn.qattention_bwd_plain(q, k, v, do, 0.5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err, rel, ok = qattn.bwd_error(a, b, dtype)
+        assert ok, f"{name} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [200, 77])
+@pytest.mark.parametrize("dk,dv", sorted(qattn.SUPPORTED))
+def test_qattn_bwd_kernel_every_width_on_card(cuda, dk, dv, n, dtype):
+    """K2 at every (dk, dv) it is built for, at ragged N (no 16-row block
+    divides it): the bf16 kernel's tiles and fragments change with the widths,
+    which the larger models' attention uses."""
+    q, k, v, do = _bwd_inputs(cuda, dtype, n, 100 * dk + dv, batch=2, dk=dk, dv=dv, heads=2)
+    scale = dk ** -0.5
+    got = _k2(q, k, v, do, scale)
+    ref = qattn.qattention_bwd_plain(q, k, v, do, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        err, rel, ok = qattn.bwd_error(a, b, dtype)
+        assert ok, f"{name} dk={dk} dv={dv} N={n} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
+def test_qattn_bwd_bf16_is_deterministic_on_card(cuda):
+    """dQ is summed as f32 partials per key block in a fixed order (no atomics):
+    two runs give bitwise the same gradients."""
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 1024, 9)
+    a, b = _k2(q, k, v, do, 0.5), _k2(q, k, v, do, 0.5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_writes_stats_only_under_grad_on_card(cuda, dtype):
+    """K1 writes the row statistics for the backward only when one will follow:
+    not under no_grad (nor for inputs that require no grad), and then they
+    agree with the plain statistics."""
+    q, k, v, _ = _bwd_inputs(cuda, dtype, 400, 3, batch=2)
+    before = (qattn.launches, qattn.launches_stats)
+    with torch.no_grad():
+        qattn.qattention_fused(q.requires_grad_(), k, v, 0.5)
+    qattn.qattention_fused(q.detach(), k, v, 0.5)
+    assert (qattn.launches, qattn.launches_stats) == (before[0] + 2, before[1])
+    out = qattn.qattention_fused(q.detach().requires_grad_(), k, v, 0.5)
+    assert qattn.launches_stats == before[1] + 1
+    stats = out.grad_fn.saved_tensors[3]
+    ref = qattn.qattention_stats_plain(q.detach(), k, 0.5)
+    torch.testing.assert_close(stats, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_qattention_function_matches_autograd_of_plain(cuda):
@@ -113,22 +180,69 @@ def test_attention_backward_reaches_qkv_on_card(cuda):
     _assert_close(grads[0], grads[1], 1e-4, 1e-5)
 
 
+def _k3_case(cuda, dtype, ci, co, p, g):
+    """K3 against its plain version, with and without SiLU; each dtype launches
+    its own kernel (bf16: tensor cores, f32: CUDA cores)."""
+    x = torch.randn(p, 1, 1, 4, ci, generator=g, device=cuda).to(dtype)
+    w = torch.randn(4, co, ci, 1, 1, generator=g, device=cuda) / math.sqrt(ci)
+    scale = torch.rand(4, co, generator=g, device=cuda) + 0.5
+    shift = torch.randn(4, co, generator=g, device=cuda) * 0.1
+    own = (1, 1, 0) if dtype == torch.bfloat16 else (1, 0, 1)  # all, tensor cores, CUDA cores
+
+    def counts():
+        return qconv_fused.launches, qconv_fused.launches_mma, qconv_fused.launches_simt
+
+    for silu in (True, False):
+        before = counts()
+        got = qconv_fused.qconv1x1_fused(x, w, scale, shift, apply_silu=silu)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == own
+        ref = qconv_fused.qconv1x1_fused_plain(x, w, scale, shift, apply_silu=silu)
+        assert got.dtype == dtype and got.shape == ref.shape
+        _assert_close(got, ref, *qconv_fused.K3_TOL[dtype], msg=f"Ci={ci} Co={co} P={p} silu={silu}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_qconv1x1_kernel_matches_plain_on_card(cuda, dtype):
+    """K3 at the 21 (Ci, Co, P) shapes of the n model's fused sites at batch 8 @ 1024."""
     model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cpu", fused_1x1=True)
     g = torch.Generator(device=cuda).manual_seed(0)
     for ci, co, p in sorted(set(fused_1x1_sites(model, 8, 1024))):
-        x = torch.randn(p, 1, 1, 4, ci, generator=g, device=cuda).to(dtype)
-        w = torch.randn(4, co, ci, 1, 1, generator=g, device=cuda) / math.sqrt(ci)
-        scale = torch.rand(4, co, generator=g, device=cuda) + 0.5
-        shift = torch.randn(4, co, generator=g, device=cuda) * 0.1
-        for silu in (True, False):
-            before = qconv_fused.launches
-            got = qconv_fused.qconv1x1_fused(x, w, scale, shift, apply_silu=silu)
-            torch.cuda.synchronize()
-            assert qconv_fused.launches == before + 1
-            ref = qconv_fused.qconv1x1_fused_plain(x, w, scale, shift, apply_silu=silu)
-            _assert_close(got, ref, *_TOL[dtype], msg=f"Ci={ci} Co={co} P={p} silu={silu}")
+        _k3_case(cuda, dtype, ci, co, p, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qconv1x1_kernel_ragged_tile_on_card(cuda, dtype):
+    """P = 1,000 pixels (no tile size divides it) at every (Ci, Co) of the sites."""
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cpu", fused_1x1=True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for ci, co in sorted({(ci, co) for ci, co, _ in fused_1x1_sites(model, 8, 1024)}):
+        _k3_case(cuda, dtype, ci, co, 1000, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qconv1x1_kernel_wider_models_on_card(cuda, dtype):
+    """Every (Ci, Co) of the s, m, l and x models' fused sites at P = 1,000: the
+    bf16 kernel splits Co into channel tiles where its weights pass one block's
+    budget (Ci = 256, Co = 128 and wider)."""
+    shapes = set()
+    for scale in "smlx":
+        model = DetectionModel.from_yaml(f"yolo11{scale}-obb-quan.yaml", nc=15, device="cpu",
+                                         fused_1x1=True)
+        shapes |= {(ci, co) for ci, co, _ in fused_1x1_sites(model, 8, 1024)}
+    assert (256, 128) in shapes and (384, 192) in shapes
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for ci, co in sorted(shapes):
+        _k3_case(cuda, dtype, ci, co, 1000, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co", [(7, 3), (13, 10), (6, 5), (10, 12), (200, 99), (256, 100)])
+def test_qconv1x1_kernel_odd_widths_on_card(cuda, dtype, ci, co):
+    """Widths no model has: odd Ci or Co, Ci not a multiple of 4, Co not a
+    multiple of 8, and Co split into channel tiles of which the last is odd
+    (Co = 99) or not a multiple of 8 (Co = 100), at a ragged P."""
+    _k3_case(cuda, dtype, ci, co, 999, torch.Generator(device=cuda).manual_seed(ci * co))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

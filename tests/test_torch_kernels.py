@@ -104,10 +104,10 @@ def _bwd_variant(q, k, v, do, scale, skip=(), acc=torch.float32):
     return dq.to(T), dk.to(T), dv.to(T)
 
 
-def _bf16_inputs(n=256):
+def _bf16_inputs(n=256, dk=2, dv=4):
     rng = np.random.default_rng(3)
-    q, k = (torch.from_numpy(rng.normal(size=(1, 4, 2, n, 2)).astype(np.float32)) for _ in range(2))
-    v, do = (torch.from_numpy(rng.normal(size=(1, 4, 2, n, 4)).astype(np.float32)) for _ in range(2))
+    q, k = (torch.from_numpy(rng.normal(size=(1, 4, 2, n, dk)).astype(np.float32)) for _ in range(2))
+    v, do = (torch.from_numpy(rng.normal(size=(1, 4, 2, n, dv)).astype(np.float32)) for _ in range(2))
     return [t.bfloat16() for t in (q, k, v, do)]
 
 
@@ -138,7 +138,154 @@ def test_bf16_tolerance_sees_each_rounding_point(point):
     assert not all(qattn.bwd_error(a, r, torch.bfloat16)[2] for a, r in zip(mutant, ref))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_stats_feed_the_plain_backward(dtype):
+    """The row statistics K1 saves for K2: m and r from `qattention_stats_plain`
+    are the forward's (they rebuild the f32 softmax output), and the plain
+    backward given them is bitwise the one that recomputes them."""
+    rng = np.random.default_rng(4)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(1, 4, 2, 96, d)).astype(np.float32)).to(dtype)
+                   for d in (2, 2, 4, 4))
+    scale = 2 ** -0.5
+    stats = qattn.qattention_stats_plain(q, k, scale)
+    assert stats.shape == (2, 1, 4, 2, 96) and stats.dtype == torch.float32
+    # the same statistics in f64 from the same rounded q2
+    q2 = (q.double() * qattn._round(scale * qattn._LOG2E, dtype)).to(dtype).double()
+    s2 = q2 @ k.double().transpose(-1, -2)
+    m = s2.amax(-1)
+    torch.testing.assert_close(stats[0].double(), m, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(stats[1].double(), 1 / torch.exp2(s2 - m[..., None]).sum(-1),
+                               rtol=1e-5, atol=0)
+    if dtype == torch.float32:  # they rebuild the forward's output
+        e = torch.exp2(s2 - stats[0].double()[..., None])
+        out = (e @ v.double()) * stats[1].double()[..., None]
+        torch.testing.assert_close(out.float(), qattn.qattention_plain(q, k, v, scale),
+                                   rtol=1e-5, atol=1e-6)
+    given = qattn.qattention_bwd_plain(q, k, v, do, scale, stats=stats)
+    again = qattn.qattention_bwd_plain(q, k, v, do, scale)
+    for a, b in zip(given, again):
+        assert torch.equal(a, b)
+
+
+def _k2_order_model(q, k, v, do, scale, key_block=128, warp_keys=16, chunk=16):
+    """K2's bf16 order written out in plain PyTorch: the statistics from the
+    forward, rse from a pre-pass (each lane's keys summed, then the quad), dV
+    and dK summed over query chunks of 16 (one mma each) in f32, dQ summed over
+    each warp's 16 keys, over the eight warps of a key block, then over the key
+    blocks as f32 partials, and multiplied by r at the end."""
+    T, f = q.dtype, torch.float32
+    n = q.shape[-2]
+    pad = -n % key_block
+
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, pad))
+
+    stats = qattn.qattention_stats_plain(q, k, scale)
+    q2, s2 = qattn._scores(q, k, scale)
+    m, r = stats[0][..., None], stats[1][..., None]
+    ks = (k.to(f) * qattn._round(scale, T)).to(T).to(f)
+    e = torch.exp2(s2 - m)
+    dp = do.to(f) @ v.to(f).transpose(-1, -2)
+    # pre-pass: lane t sums keys 8 j + 2 t, 8 j + 2 t + 1 in order, then the quad adds up
+    pe = torch.nn.functional.pad(dp * e, (0, -n % 8)).unflatten(-1, (-1, 4, 2))
+    lanes = torch.zeros(pe.shape[:-3] + (4,), dtype=f)
+    for j in range(pe.shape[-3]):
+        for h in range(2):
+            lanes = lanes + pe[..., j, :, h]
+    rse = ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
+    u = (e * (dp - r * rse)).to(T).to(f)
+    eb = e.to(T).to(f)
+    dor = (do.to(f) * r).to(T).to(f)
+    qr = (q2 * (r * qattn._LN2)).to(T).to(f)
+    dv = torch.zeros(v.shape, dtype=f)
+    dk = torch.zeros(k.shape, dtype=f)
+    for i0 in range(0, n, chunk):
+        rows = slice(i0, i0 + chunk)
+        dv = dv + eb[..., rows, :].transpose(-1, -2) @ dor[..., rows, :]
+        dk = dk + u[..., rows, :].transpose(-1, -2) @ qr[..., rows, :]
+    up, ksp = torch.nn.functional.pad(u, (0, pad)), padded(ks)
+    dq = torch.zeros(q.shape, dtype=f)
+    for b0 in range(0, n + pad, key_block):
+        part = torch.zeros(q.shape, dtype=f)
+        for w0 in range(b0, b0 + key_block, warp_keys):
+            keys = slice(w0, w0 + warp_keys)
+            part = part + up[..., keys] @ ksp[..., keys, :]
+        dq = dq + part
+    return (dq * r).to(T), dk.to(T), dv.to(T)
+
+
+@pytest.mark.parametrize("n,dk,dv", [(200, 2, 4), (256, 2, 4), (200, 4, 8), (200, 8, 16),
+                                     (200, 16, 32), (200, 32, 32)])
+def test_k2_tensor_core_order_meets_bwd_tol(n, dk, dv):
+    """A plain model of the bf16 K2's summation order meets BWD_TOL[bf16]
+    against `qattention_bwd_plain`: only the order of the f32 sums changes. At
+    the main path's head widths and at the wider ones of the larger models."""
+    bf = _bf16_inputs(n, dk, dv)
+    scale = dk ** -0.5
+    ref = qattn.qattention_bwd_plain(*bf, scale)
+    got = _k2_order_model(*bf, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err, rel, ok = qattn.bwd_error(a, b, torch.bfloat16)
+        assert ok, f"{name}: max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
 # ---------------------------------------------------------------- K3, CPU
+
+# (Ci, Co) of the 37 fused sites of yolo11n-obb-quan (21 shapes)
+K3_SITES = [(8, 8), (12, 16), (16, 8), (16, 16), (24, 16), (24, 32), (32, 16), (32, 32),
+            (32, 64), (48, 32), (64, 16), (64, 32), (64, 64), (96, 32), (96, 64), (128, 64)]
+
+
+def test_k3_site_list_is_the_models():
+    """K3_SITES are the (Ci, Co) pairs `fused_1x1_sites` finds in the n model."""
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, fused_1x1_sites
+
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cpu", fused_1x1=True)
+    assert sorted({(ci, co) for ci, co, _ in fused_1x1_sites(model, 8, 1024)}) == K3_SITES
+
+
+def _k3_chunked_model(x, w, scale, shift, silu):
+    """The bf16 K3's arithmetic in plain PyTorch: per component, Ci zero-padded to
+    a multiple of 16, f32 sums of 16-wide chunks (one mma each; the kernel's
+    last 8-wide step where Ci is an odd multiple of 8 adds the same products)
+    added in order, then the mixing, the affine, SiLU and one cast."""
+    p, ci = x.shape[0], x.shape[-1]
+    cip = -(-ci // 16) * 16
+    xs = torch.nn.functional.pad(x.reshape(p, 4, ci).float(), (0, cip - ci))
+    ws = torch.nn.functional.pad(w.to(x.dtype).float(), (0, cip - ci))  # [4, Co, Cip]
+    s = torch.zeros(4, p, w.shape[1])
+    for k0 in range(0, cip, 16):
+        s = s + torch.einsum("pdk,dok->dpo", xs[..., k0:k0 + 16], ws[..., k0:k0 + 16])
+    sr, si, sj, sk = s
+    y = torch.stack([sr + si + sj + sk, sr - si - sj + sk, sr + si - sj - sk, sr - si + sj - sk], 1)
+    y = y * scale[None] + shift[None]
+    if silu:
+        y = torch.nn.functional.silu(y)
+    return y.to(x.dtype).reshape(p, 1, 1, 4, -1)
+
+
+# wider (Ci, Co) of the s to x models' fused sites, which the bf16 K3 splits into channel
+# tiles, and odd widths, which no model has
+K3_WIDE = [(192, 192), (256, 128), (384, 192), (24, 12), (7, 3), (13, 10)]
+
+
+@pytest.mark.parametrize("ci,co", K3_SITES + K3_WIDE)
+def test_k3_chunked_order_meets_k3_tol(ci, co):
+    """At every site shape of the n model and at wider and odd ones (P = 64),
+    with and without SiLU, a plain model of the bf16 K3's order meets
+    K3_TOL[bf16] against `qconv1x1_fused_plain`."""
+    rng = np.random.default_rng(ci * 100 + co)
+    x = torch.from_numpy(rng.normal(size=(64, 1, 1, 4, ci)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.normal(size=(4, co, ci)) / np.sqrt(4 * ci)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (4, co)).astype(np.float32))
+    shift = torch.from_numpy((rng.normal(size=(4, co)) * 0.1).astype(np.float32))
+    for silu in (True, False):
+        ref = qconv_fused.qconv1x1_fused_plain(x, w, scale, shift, apply_silu=silu)
+        got = _k3_chunked_model(x, w, scale, shift, silu)
+        assert got.dtype == torch.bfloat16
+        assert_close(got, ref.float().numpy(), *qconv_fused.K3_TOL[torch.bfloat16],
+                     err_msg=f"Ci={ci} Co={co} silu={silu}")
+
 
 
 def test_conv_fused_1x1_matches_pallas_kernel(monkeypatch):
@@ -169,3 +316,23 @@ def test_qconv1x1_fused_plain_matches_pallas(silu):
     w_port = to_torch(np.transpose(w, (0, 4, 3, 1, 2)))  # [4, Co, Ci, 1, 1]
     got = qconv_fused.qconv1x1_fused(to_torch(x), w_port, scale, shift, apply_silu=silu)
     assert_close(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("ci", [8, 12])
+def test_qconv1x1_fused_plain_matches_pallas_bf16(ci, silu):
+    """bf16 inputs: the plain version against the JAX kernel in interpret mode
+    (bf16 products, f32 sums), at Ci = 8 and 12, within K3_TOL[bf16]."""
+    rng = np.random.default_rng(ci)
+    x = rng.normal(size=(2, 4, 8, 4, ci)).astype(np.float32)
+    w = (rng.normal(size=(4, 1, 1, ci, 16)) / np.sqrt(4 * ci)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, (4, 16)).astype(np.float32)
+    shift = (rng.normal(size=(4, 16)) * 0.1).astype(np.float32)
+    ref = jqf.qconv1x1_fused(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(scale),
+                             jnp.asarray(shift), block_p=64, apply_silu=silu)
+    assert ref.dtype == jnp.bfloat16
+    w_port = to_torch(np.transpose(w, (0, 4, 3, 1, 2)))  # [4, Co, Ci, 1, 1]
+    got = qconv_fused.qconv1x1_fused(to_torch(x).bfloat16(), w_port, to_torch(scale),
+                                     to_torch(shift), apply_silu=silu)
+    assert got.dtype == torch.bfloat16
+    assert_close(got, np.asarray(ref, dtype=np.float32), *qconv_fused.K3_TOL[torch.bfloat16])
