@@ -9,8 +9,10 @@ against their plain versions.
 Phases:
   1. device and build: the card's name and power limit, the kernels built
      from csrc/ with nvcc;
-  2. kernels vs plain at the main path's shapes: K1 (fused attention; and
-     that it writes the row statistics for K2 only under grad), K2 (its
+  2. kernels vs plain at the main path's shapes: K1 (fused attention, bf16 on
+     the tensor cores and f32 on the CUDA cores, held to its plain version at
+     the TPU kernel's rounding points and to the einsum path; and that it
+     writes the row statistics for K2 only under grad), K2 (its
      backward, bf16 on the tensor cores, given K1's statistics) and K3 (fused
      1x1 Conv+IQBN+SiLU: bf16 on the tensor cores at all 21 site shapes, f32
      on the CUDA cores), errors against the stated tolerances, times of
@@ -66,8 +68,11 @@ DEVICE = "cuda"
 IMGSZ, BATCH, NC = 1024, 8, 15
 MODEL = "yolo11n-obb-quan.yaml"
 # allclose-style tolerance |got - ref| <= rtol |ref| + atol max(1, max|ref|), per dtype.
-# K1 bf16 is held against the plain version in f32 on the same bf16 values: the kernel
-# rounds scale*q and the softmax numerator to bf16 (2^-9 relative each), as the TPU kernel does.
+# K1 is held to qattn.qattention_fwd_plain, which keeps the TPU kernel's rounding points, under
+# qattn.FWD_TOL (elementwise and mean |err| / mean |ref|; the f32 forward of the bf16 inputs
+# must miss the bf16 limits), and, under K1_TOL, to the einsum path run in f32 on the same bf16
+# values: the kernel rounds scale*q and the softmax numerator to bf16 (2^-9 relative each),
+# as the TPU kernel does, and that path does not.
 # K3: qconv_fused.K3_TOL (bf16 keeps the plain version's rounding points, f32 inside and one
 # cast at the end: at most a bf16 ulp or two apart).
 K1_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
@@ -181,6 +186,10 @@ def phase_device():
 
 
 def phase_k1(gen, details, sfu_rate):
+    """K1 against the plain version at the TPU kernel's rounding points (qattn.FWD_TOL)
+    and against the einsum path in f32 (K1_TOL), at N = 1024, 400, 200 in bf16 (tensor
+    cores) and f32 (CUDA cores); times at the main path's shape (G = 256, N = 1024,
+    dk = 2, dv = 4, bf16)."""
     from quan_ultralytics_tpu_torch.ops.kernels import qattn
 
     dk, dv, heads, scale = 2, 4, 8, 2 ** -0.5
@@ -190,30 +199,59 @@ def phase_k1(gen, details, sfu_rate):
             shp = (BATCH, 4, heads, n)
             q, k = (torch.randn(*shp, dk, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
             v = torch.randn(*shp, dv, generator=gen, device=DEVICE).to(dtype)
+            own = "launches_mma" if dtype == torch.bfloat16 else "launches_simt"
+            before = getattr(qattn, own)
             got = qattn.qattention_fused(q, k, v, scale)
             torch.cuda.synchronize()
-            ref = qattn.qattention_plain(q.float(), k.float(), v.float(), scale)
-            err, mag, ok = compare(got, ref, *K1_TOL[dtype])
-            details.append({"kernel": "qattn_fwd", "N": n, "dtype": str(dtype), "max_abs_err": err,
-                            "max_abs_ref": mag, "tol": K1_TOL[dtype], "ok": ok})
-            print(f"K1 N={n} {dtype}: max_abs_err {err:.3e} (max|ref| {mag:.3f}) {'ok' if ok else 'FAIL'}")
+            check(getattr(qattn, own) == before + 1, f"K1 {dtype} did not launch {own}")
+            ref = qattn.qattention_fwd_plain(q, k, v, scale)
+            err, rel, ok = qattn.kernel_error(got, ref, dtype, qattn.FWD_TOL)
+            row = {"kernel": "qattn_fwd", "N": n, "dtype": str(dtype), "max_abs_err": err,
+                   "mean_rel_err": rel, "max_abs_ref": float(ref.float().abs().max()),
+                   "tol": qattn.FWD_TOL[dtype], "ok": ok}
+            # the tolerance's own check: the f32 forward of these inputs must miss it in bf16
+            if dtype == torch.bfloat16:
+                f32 = qattn.qattention_fwd_plain(q.float(), k.float(), v.float(), scale)
+                row["f32_max_abs_err"], row["f32_mean_rel_err"], f32_ok = qattn.kernel_error(
+                    f32, ref, dtype, qattn.FWD_TOL)
+                check(not f32_ok, f"the f32 forward meets K1's bf16 tolerance at N={n}")
+            einsum = qattn.qattention_plain(q.float(), k.float(), v.float(), scale)
+            row["einsum_max_abs_err"], _, einsum_ok = compare(got, einsum, *K1_TOL[dtype])
+            row["einsum_tol"], row["einsum_ok"] = K1_TOL[dtype], einsum_ok
+            details.append(row)
+            print(f"K1 N={n} {dtype}: vs the plain version max_abs_err {err:.3e}, mean rel {rel:.3e}"
+                  + (f" (the f32 forward: {row['f32_max_abs_err']:.3e}, mean rel "
+                     f"{row['f32_mean_rel_err']:.3e})" if dtype == torch.bfloat16 else "")
+                  + f"; vs the einsum path in f32 {row['einsum_max_abs_err']:.3e} "
+                  f"(max|ref| {row['max_abs_ref']:.3f}) {'ok' if ok and einsum_ok else 'FAIL'}")
             check(ok, f"K1 disagrees with its plain version at N={n} {dtype}")
-            if n == 1024 and dtype == torch.bfloat16:
-                worst = err
+            check(einsum_ok, f"K1 disagrees with the einsum path at N={n} {dtype}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            if n == 1024:
                 G = BATCH * 4 * heads
+                ms, host_ms = time_ms(lambda: qattn.qattention_fused(q, k, v, scale))
+                if dtype == torch.float32:
+                    timing["f32_ms"] = ms
+                    continue
                 isz = q.element_size()
                 b, by = bound_ms(G * n * (2 * dk + 2 * dv) * isz, G * n * n * (2 * dk + 2 * dv),
                                  G * n * n * 3, dtype)
-                ms, host_ms = time_ms(lambda: qattn.qattention_fused(q, k, v, scale))
                 timing = {
                     "ms": ms, "host_ms": host_ms,
-                    "plain_ms": time_ms(lambda: qattn.qattention_plain(q, k, v, scale))[0],
+                    "plain_ms": time_ms(lambda: qattn.qattention_fwd_plain(q, k, v, scale), iters=5)[0],
+                    "einsum_ms": time_ms(lambda: qattn.qattention_plain(q, k, v, scale), iters=5)[0],
                     "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                         q, k, v, scale=scale))[0],
                     "bound_ms": b, "bound_by": by,
                     # a tighter floor than the table's rates: one exp2 per score on the SFUs
                     "sfu_bound_ms": 1e3 * G * n * n / sfu_rate,
                 }
+    print(f"K1 G={BATCH * 4 * heads} N=1024 bf16: kernel {timing['ms']:.4f} ms (host "
+          f"{timing['host_ms']:.4f}), bound {timing['bound_ms']:.4f} ({timing['bound_by']}), SFU "
+          f"floor {timing['sfu_bound_ms']:.4f}, plain {timing['plain_ms']:.4f}, einsum path "
+          f"{timing['einsum_ms']:.4f}, SDPA {timing['library_ms']:.4f}; the f32 kernel "
+          f"{timing['f32_ms']:.4f}")
     k1_stats_only_under_grad(gen, details)
     return worst, timing
 
@@ -266,12 +304,13 @@ def phase_k2(gen, details, sfu_rate):
             f32 = (qattn.qattention_bwd_plain(q.float(), k.float(), v.float(), do.float(), scale)
                    if dtype == torch.bfloat16 else (None,) * 3)
             for name, a, r, a32 in zip(("dq", "dk", "dv"), got, ref, f32):
-                err, rel, ok = qattn.bwd_error(a, r, dtype)
+                err, rel, ok = qattn.kernel_error(a, r, dtype, qattn.BWD_TOL)
                 row = {"kernel": "qattn_bwd", "N": n, "dtype": str(dtype), "grad": name,
                        "max_abs_err": err, "mean_rel_err": rel, "max_abs_ref": float(r.float().abs().max()),
                        "tol": qattn.BWD_TOL[dtype], "ok": ok}
                 if a32 is not None:
-                    row["f32_max_abs_err"], row["f32_mean_rel_err"], f32_ok = qattn.bwd_error(a32, r, dtype)
+                    row["f32_max_abs_err"], row["f32_mean_rel_err"], f32_ok = qattn.kernel_error(
+                        a32, r, dtype, qattn.BWD_TOL)
                     check(not f32_ok, f"the f32 {name} meets K2's bf16 tolerance at N={n}")
                 details.append(row)
                 print(f"K2 N={n} {dtype} {name}: max_abs_err {err:.3e}, mean rel {rel:.3e} "
@@ -449,16 +488,18 @@ def phase_predict(models, frames, n_sites: int):
     expect = {"K1": (1, 0), "K1+K3": (1, n_sites), "plain": (0, 0)}
     for name, model in models.items():
         pred = Predictor(model, imgsz=IMGSZ, conf=0.25)
-        qattn.launches = qattn.launches_stats = qattn.launches_bwd = 0
+        qattn.launches = qattn.launches_mma = qattn.launches_simt = 0
+        qattn.launches_stats = qattn.launches_bwd = 0
         qconv_fused.launches = qconv_fused.launches_mma = qconv_fused.launches_simt = 0
         res = pred(frames)  # the main path, driven once
         torch.cuda.synchronize()
-        got = (qattn.launches, qconv_fused.launches_mma)
+        got = (qattn.launches_mma, qconv_fused.launches_mma)
         out["launches"][name] = {"qattn_fwd": got[0], "qattn_bwd": qattn.launches_bwd,
                                  "qconv1x1_fused": got[1]}
-        print(f"predict [{name}]: launches K1 {got[0]}, K3 (bf16, tensor cores) {got[1]} (expected "
+        print(f"predict [{name}]: launches K1 {got[0]}, K3 {got[1]} (bf16, tensor cores; expected "
               f"{expect[name]}), K2 {qattn.launches_bwd}, K1 with statistics {qattn.launches_stats}")
         check(got == expect[name] and qattn.launches_bwd == 0 and qattn.launches_stats == 0
+              and qattn.launches == qattn.launches_mma
               and qconv_fused.launches == qconv_fused.launches_mma,
               f"{name}: kernel launches {got}, K2 {qattn.launches_bwd}, K1 with statistics "
               f"{qattn.launches_stats} != {expect[name]}, 0, 0")
@@ -588,7 +629,7 @@ def phase_device_share(models, x, speed, tables=None):
         busy = sum(e.time_range.elapsed_us() for e in ops) / 3e3 if ops else None
         # device time of the port's own kernels on this path, per infer
         own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / 3e3
-               for k in ("qattn_fwd_kernel", "qconv1x1_")}
+               for k in ("qattn_fwd_", "qconv1x1_")}
         wall = speed[name]["infer_ms"]
         out[name] = {"device_ms": busy, "device_ops": len(ops) / 3,
                      "busy_share": busy / wall if ops else None, "kernel_device_ms": own}
@@ -645,7 +686,8 @@ def phase_train(batch):
         return torch.cat([t.detach().reshape(-1) for t in ts])
 
     losses, changed = [], []
-    qattn.launches = qattn.launches_stats = qattn.launches_bwd = qconv_fused.launches = 0
+    qattn.launches = qattn.launches_mma = qattn.launches_stats = qattn.launches_bwd = 0
+    qconv_fused.launches = 0
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):  # the main path, driven
         p0, e0 = flat(trainer.params), flat(trainer.ema)
@@ -655,8 +697,9 @@ def phase_train(batch):
                         not torch.equal(e0, flat(trainer.ema)), float(aux["nan_skipped"])))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = {"qattn_fwd": qattn.launches, "qattn_bwd": qattn.launches_bwd,
-           "qconv1x1_fused": qconv_fused.launches, "qattn_fwd_with_stats": qattn.launches_stats}
+    got = {"qattn_fwd": qattn.launches, "qattn_fwd_tensor_cores": qattn.launches_mma,
+           "qattn_bwd": qattn.launches_bwd, "qconv1x1_fused": qconv_fused.launches,
+           "qattn_fwd_with_stats": qattn.launches_stats}
     print(f"train: {TRAIN_STEPS} micro-steps in {secs:.1f} s; losses {[round(x, 3) for x in losses]}")
     print(f"train: launches {got} (expected K1 {TRAIN_STEPS}, all with statistics, K2 "
           f"{TRAIN_STEPS}, K3 0)")
@@ -667,7 +710,8 @@ def phase_train(batch):
     print(f"train: parameters changed at micro-steps {update_at}, EMA at {ema_at}")
     check(update_at == [8, 16] and ema_at == [8, 16],
           f"parameters / EMA changed at {update_at} / {ema_at}, not at [8, 16]")
-    check(got == {"qattn_fwd": TRAIN_STEPS, "qattn_bwd": TRAIN_STEPS, "qconv1x1_fused": 0,
+    check(got == {"qattn_fwd": TRAIN_STEPS, "qattn_fwd_tensor_cores": TRAIN_STEPS,
+                  "qattn_bwd": TRAIN_STEPS, "qconv1x1_fused": 0,
                   "qattn_fwd_with_stats": TRAIN_STEPS}, f"train launches {got}")
     return {"losses": losses, "launches": got, "seconds": secs, "updates_at": update_at}
 
@@ -802,7 +846,7 @@ def phase_train_speed(batch, rounds: int = 3, tables=None):
         ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in ops) / (1e3 * n) if ops else None
         own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / (1e3 * n)
-               for k in ("qattn_fwd_kernel", "qattn_bwd_")}
+               for k in ("qattn_fwd_", "qattn_bwd_")}
         ms = statistics.median(walls[name])
         out[name] = {"ms_per_micro_step": ms, "ms_rounds": walls[name],
                      "spread_ms": max(walls[name]) - min(walls[name]),
@@ -914,8 +958,8 @@ def main() -> int:
          "launches": launches["qattn_fwd"],
          "launches_by_path": {"predict": launches["qattn_fwd"], "train": train_launches["qattn_fwd"]},
          "max_abs_err": k1_err,
-         "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_kernel"],
-         "train_device_ms": on_train["qattn_fwd_kernel"],
+         "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_"],
+         "train_device_ms": on_train["qattn_fwd_"],
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
          "library": "torch.nn.functional.scaled_dot_product_attention"},
         {"name": "qattn_bwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_bwd.cu",

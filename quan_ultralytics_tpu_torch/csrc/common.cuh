@@ -8,9 +8,6 @@
 
 namespace quan {
 
-// dtype codes passed from Python (ops/kernels/*.py): 0 = float32, 1 = bfloat16
-enum DType { kF32 = 0, kBF16 = 1 };
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -74,6 +71,12 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
+// the same with each matrix transposed: lane 4r + c receives elements (2c, r), (2c+1, r)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -103,6 +106,16 @@ __device__ __forceinline__ void mma_1688(float (&c)[4], uint32_t a0, uint32_t a1
       "{%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// d = a b + c: m16n8k8 as above, with the accumulator's input c apart from its output d
+__device__ __forceinline__ void mma_1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0,
+                                         const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%7,%8,%9,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
 // The transpose of an 8x8 bf16 matrix held one row pair per lane (lane 4r + t holds

@@ -96,13 +96,14 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.qattn_fwd.argtypes = [vp] * 5 + [i32, i32, i32, i32, f32, i32, i32, vp]
+    for fn in (lib.qattn_fwd_bf16, lib.qattn_fwd_f32):
+        fn.argtypes = [vp] * 5 + [i32, i32, i32, i32, f32, i32, vp]
     lib.qattn_bwd_bf16.argtypes = [vp] * 10 + [i32, i32, i32, i32, f32, f32, i32, vp]
     lib.qattn_bwd_f32.argtypes = [vp] * 9 + [i32, i32, i32, i32, f32, f32, i32, vp]
     for fn in (lib.qconv1x1_mma_bf16, lib.qconv1x1_simt_f32):
         fn.argtypes = [vp] * 5 + [i64, i32, i32, i32, i32, vp]
-    for fn in (lib.qattn_fwd, lib.qattn_bwd_bf16, lib.qattn_bwd_f32, lib.qconv1x1_mma_bf16,
-               lib.qconv1x1_simt_f32):
+    for fn in (lib.qattn_fwd_bf16, lib.qattn_fwd_f32, lib.qattn_bwd_bf16, lib.qattn_bwd_f32,
+               lib.qconv1x1_mma_bf16, lib.qconv1x1_simt_f32):
         fn.restype = i32
     lib.quan_error_string.argtypes = [i32]
     lib.quan_error_string.restype = ctypes.c_char_p

@@ -20,29 +20,34 @@ from quan_ultralytics_tpu_torch.ops.kernels import _build
 # (dk, dv) pairs the kernels are instantiated for (csrc/qattn_{fwd,bwd}.cu:dispatch)
 SUPPORTED = {(1, 1), (1, 2), (2, 2), (2, 4), (4, 4), (4, 8), (8, 8), (8, 16),
              (16, 16), (16, 32), (32, 32)}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)  # the dtypes the kernels take
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
-launches = 0  # K1 launches made by `qattention_fwd`
-launches_stats = 0  # of those, the launches that also wrote the row statistics
+launches = 0  # K1 launches made by `qattention_fwd`, both dtypes
+launches_mma = 0  # of those, bf16 launches of the tensor-core kernel
+launches_simt = 0  # and f32 launches of the CUDA-core kernel
+launches_stats = 0  # of all K1 launches, those that also wrote the row statistics
 launches_bwd = 0  # K2 launches (one C call: three kernels in bf16, two in f32) by `qattention_bwd`
 KEY_BLOCK = 128  # keys per block of the bf16 K2 (csrc/qattn_bwd.cu:kRows): one dQ partial each
 
-# K2 against `qattention_bwd_plain` on the same inputs, per dtype: (rtol, atol, mean_rel).
-# Each element within rtol |ref| + atol, and mean |got - ref| within mean_rel mean |ref|.
-# f32 differs by summation order. In bf16 another summation order moves an output (or a
-# U or E) across a bf16 rounding boundary now and then: a one-ulp error in a few
-# elements. A rounding point skipped or misplaced moves a large share of the outputs by
-# an ulp, and so does the f32 backward: both miss these limits (tests/test_torch_kernels.py
-# holds that on the CPU; chip_smoke.py checks the f32 backward on the card).
+# K1 against `qattention_fwd_plain` and K2 against `qattention_bwd_plain`, on the same
+# inputs, per dtype: (rtol, atol, mean_rel). Each element within rtol |ref| + atol, and
+# mean |got - ref| within mean_rel mean |ref| (`kernel_error`). f32 differs by summation
+# order. In bf16 another summation order moves an output (or an E or U) across a bf16
+# rounding boundary now and then: a one-ulp error in a few elements. A rounding point
+# skipped or misplaced moves a large share of the outputs by an ulp, and so does the f32
+# forward or backward of the same inputs: both miss these limits (tests/test_torch_kernels.py
+# holds that on the CPU; chip_smoke.py checks the f32 forward and backward on the card).
+FWD_TOL = {torch.float32: (2e-4, 2e-5, 1e-5), torch.bfloat16: (2e-2, 2e-3, 1e-4)}
 BWD_TOL = {torch.float32: (1e-3, 1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-3, 1e-4)}
 
 
-def bwd_error(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype):
-    """``(max abs error, mean abs error / mean |ref|, within BWD_TOL[dtype])`` of
-    one gradient of K2 against the plain backward's."""
-    rtol, atol, mean_rel = BWD_TOL[dtype]
+def kernel_error(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype, table: dict):
+    """``(max abs error, mean abs error / mean |ref|, within table[dtype])`` of one
+    output of a kernel against its plain version's (``table``: `FWD_TOL` for K1,
+    `BWD_TOL` for K2)."""
+    rtol, atol, mean_rel = table[dtype]
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     rel = float(err.mean() / ref.abs().mean().clamp(min=1e-30))
@@ -82,6 +87,23 @@ def qattention_stats_plain(q: torch.Tensor, k: torch.Tensor, scale: float) -> to
     each query row's score max m and reciprocal sum r = 1 / rowsum(exp2(s - m)),
     in the log2 domain at the TPU kernel's rounding points."""
     return _stats_of(_scores(q, k, scale)[1])
+
+
+def qattention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """``softmax(scale q k^T) v`` step by step at the rounding points of the TPU
+    kernel (JAX ``ops/pallas/qattn.py:_attn_kernel``) and of K1: q2 =
+    round_T(q round_T(scale log2e)); f32 scores s2 = q2 k^T, keys >= N masked by
+    N itself; m = rowmax, e = exp2(s2 - m) and r = 1 / rowsum(e) in f32; the
+    output round_T((round_V(e) v in f32) r), normalized on [N, dv].
+
+    Any leading shape ``[..., N, d]``; q2, m and r are the ones K2's plain
+    version (`qattention_bwd_plain`) uses."""
+    s2 = _scores(q, k, scale)[1]
+    m, r = _stats_of(s2)
+    e = torch.exp2(s2 - m[..., None])
+    f = torch.float32
+    return ((e.to(v.dtype).to(f) @ v.to(f)) * r[..., None]).to(v.dtype)
 
 
 def new_stats(q: torch.Tensor) -> torch.Tensor:
@@ -146,20 +168,32 @@ def _check_stats(stats: torch.Tensor, q: torch.Tensor) -> None:
 
 def qattention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                    stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1 on CUDA q, k, v (no autograd). With ``stats`` (`new_stats`) it
-    also writes each query row's m and r there, for `qattention_bwd`."""
-    global launches, launches_stats
+    """Launch K1 on CUDA q, k, v (no autograd): the bf16 kernel on the tensor
+    cores or the f32 one on the CUDA cores, by dtype. With ``stats``
+    (`new_stats`) it also writes each query row's m and r there, for
+    `qattention_bwd`."""
+    global launches, launches_mma, launches_simt, launches_stats
     G, N, dk, dv = _check(q, k, v)
     q, k, v = (t.contiguous() for t in (q, k, v))
     if stats is not None:
         _check_stats(stats, q)
     out = torch.empty_like(v)
-    status = _build.library().qattn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if stats is None else stats.data_ptr(), G, N, dk, dv,
-        scale * _LOG2E, _DTYPES[q.dtype], q.device.index or 0, _stream(q))
-    _build.check(status, "qattn_fwd")
+    lib = _build.library()
+    if q.dtype == torch.bfloat16:
+        # the kernel copies k and v into shared memory in pieces of up to 16 bytes
+        k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (k, v))
+        fn, name = lib.qattn_fwd_bf16, "qattn_fwd_bf16"
+    else:
+        fn, name = lib.qattn_fwd_f32, "qattn_fwd_f32"
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if stats is None else stats.data_ptr(), G, N, dk, dv, scale * _LOG2E,
+                q.device.index or 0, _stream(q))
+    _build.check(status, name)
     launches += 1
+    if q.dtype == torch.bfloat16:
+        launches_mma += 1
+    else:
+        launches_simt += 1
     launches_stats += stats is not None
     return out
 

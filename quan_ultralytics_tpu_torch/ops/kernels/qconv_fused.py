@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from quan_ultralytics_tpu_torch.ops.kernels import _build
 from quan_ultralytics_tpu_torch.ops.qconv import qconv2d
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)  # the dtypes the kernels take
 
 launches = 0  # kernel launches made by `qconv1x1_fused`, both dtypes
 launches_mma = 0  # of those, bf16 launches of the tensor-core kernel

@@ -8,8 +8,10 @@ file imports no JAX, so it runs on a machine that has a card and no JAX:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Without a card every test skips. f32 runs with TF32 off; the tolerances are
-stated per dtype: in bf16, K1 rounds ``scale * q`` and the softmax numerator
-to bf16 where the plain version in f32 does not.
+stated per dtype. K1 is held to its step-by-step plain version at the TPU
+kernel's rounding points (`qattn.FWD_TOL`) and, as before, to the einsum path
+run in f32 on the same values (``_TOL``: in bf16, K1 rounds ``scale * q`` and
+the softmax numerator to bf16 where that path in f32 does not).
 """
 
 import math
@@ -43,12 +45,40 @@ def _assert_close(got, ref, rtol, atol, msg=""):
     torch.testing.assert_close(got, ref, rtol=rtol, atol=atol * scale, msg=msg)
 
 
+def _inputs(cuda, dtype, n, seed, batch=8, dk=2, dv=4, heads=8):
+    """q, k, v and a cotangent dO of the attention, ``[batch, 4, heads, n, d]``."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(batch, 4, heads, n, dk, generator=g, device=cuda).to(dtype) for _ in range(2))
+    v, do = (torch.randn(batch, 4, heads, n, dv, generator=g, device=cuda).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def _k1_counts():
+    return qattn.launches, qattn.launches_mma, qattn.launches_simt
+
+
+def _k1_meets_fwd_tol(q, k, v, scale, msg):
+    """K1 (one launch of the kernel of its dtype) against
+    `qattn.qattention_fwd_plain` within `qattn.FWD_TOL`."""
+    dtype = q.dtype
+    before = _k1_counts()
+    got = qattn.qattention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    own = (1, 1, 0) if dtype == torch.bfloat16 else (1, 0, 1)  # all, tensor cores, CUDA cores
+    assert tuple(a - b for a, b in zip(_k1_counts(), before)) == own
+    ref = qattn.qattention_fwd_plain(q, k, v, scale)
+    assert got.dtype == dtype and got.shape == ref.shape
+    err, rel, ok = qattn.kernel_error(got, ref, dtype, qattn.FWD_TOL)
+    assert ok, f"{msg} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1024, 400, 200])
+@pytest.mark.parametrize("n", [1024, 400, 200, 77])
 def test_qattn_kernel_matches_plain_on_card(cuda, dtype, n):
-    g = torch.Generator(device=cuda).manual_seed(n)
-    q, k = (torch.randn(8, 4, 8, n, 2, generator=g, device=cuda).to(dtype) for _ in range(2))
-    v = torch.randn(8, 4, 8, n, 4, generator=g, device=cuda).to(dtype)
+    """K1 at the main path's widths against the plain version at the TPU
+    kernel's rounding points (`qattn.FWD_TOL`; in bf16 the f32 forward of the
+    same inputs misses it), and against the einsum path in f32 (``_TOL``)."""
+    q, k, v, _ = _inputs(cuda, dtype, n, n)
     scale = 2 ** -0.5
     before = qattn.launches
     got = qattn.qattention_fused(q, k, v, scale)
@@ -56,13 +86,50 @@ def test_qattn_kernel_matches_plain_on_card(cuda, dtype, n):
     assert qattn.launches == before + 1
     ref = qattn.qattention_plain(q.float(), k.float(), v.float(), scale)
     _assert_close(got, ref, *_TOL[dtype])
+    _k1_meets_fwd_tol(q, k, v, scale, f"N={n}")
+    if dtype == torch.bfloat16:
+        f32 = qattn.qattention_fwd_plain(q.float(), k.float(), v.float(), scale)
+        assert not qattn.kernel_error(f32, qattn.qattention_fwd_plain(q, k, v, scale), dtype,
+                                      qattn.FWD_TOL)[2], "the f32 forward meets the bf16 tolerance"
 
 
-def _bwd_inputs(cuda, dtype, n, seed, batch=8, dk=2, dv=4, heads=8):
-    g = torch.Generator(device=cuda).manual_seed(seed)
-    q, k = (torch.randn(batch, 4, heads, n, dk, generator=g, device=cuda).to(dtype) for _ in range(2))
-    v, do = (torch.randn(batch, 4, heads, n, dv, generator=g, device=cuda).to(dtype) for _ in range(2))
-    return q, k, v, do
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qattn_kernel_one_group_on_card(cuda, dtype):
+    """G = 1 (one batch element, one component, one head), N = 1024."""
+    q, k, v, _ = (t[:1, :1, :1] for t in _inputs(cuda, dtype, 1024, 6, batch=1))
+    _k1_meets_fwd_tol(q, k, v, 0.5, "G=1")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [200, 77])
+@pytest.mark.parametrize("dk,dv", sorted(qattn.SUPPORTED))
+def test_qattn_kernel_every_width_on_card(cuda, dk, dv, n, dtype):
+    """K1 at every (dk, dv) it is built for, at ragged N (no 16- or 32-key
+    block divides it): the bf16 kernel's fragments and staged rows change with
+    the widths, which the larger models' attention uses."""
+    q, k, v, _ = _inputs(cuda, dtype, n, 100 * dk + dv + 1, batch=2, dk=dk, dv=dv, heads=2)
+    _k1_meets_fwd_tol(q, k, v, dk ** -0.5, f"dk={dk} dv={dv} N={n}")
+
+
+@pytest.mark.parametrize("n", [1024, 1100])
+@pytest.mark.parametrize("dk,dv", [(8, 16), (16, 32), (32, 32)])
+def test_qattn_kernel_key_tiles_on_card(cuda, dk, dv, n):
+    """The bf16 K1 where a group's staged keys and values pass 48 KB (the
+    larger models' widths at imgsz 1024), so it stages them in tiles, once per
+    pass: N = 1,100 ends in a partial tile and a ragged step."""
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, n, 7 * dk + dv, batch=1, dk=dk, dv=dv, heads=2)
+    _k1_meets_fwd_tol(q, k, v, dk ** -0.5, f"dk={dk} dv={dv} N={n}")
+
+
+def test_qattn_bf16_is_deterministic_on_card(cuda):
+    """No atomics: two runs of the bf16 K1 give bitwise the same output and row
+    statistics."""
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, 1024, 8)
+    runs = []
+    for _ in range(2):
+        stats = qattn.new_stats(q)
+        runs.append((qattn.qattention_fwd(q, k, v, 0.5, stats), stats))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
 
 def _k2(q, k, v, do, scale):
@@ -78,7 +145,7 @@ def test_qattn_bwd_kernel_matches_plain_on_card(cuda, dtype, n):
     """K2 (given K1's row statistics) against the plain backward, which keeps
     its rounding points, within `qattn.BWD_TOL`; in bf16 the f32 gradients of
     the same inputs miss it."""
-    q, k, v, do = _bwd_inputs(cuda, dtype, n, n + 1)
+    q, k, v, do = _inputs(cuda, dtype, n, n + 1)
     scale = 2 ** -0.5
     before = qattn.launches_bwd
     got = _k2(q, k, v, do, scale)
@@ -87,22 +154,23 @@ def test_qattn_bwd_kernel_matches_plain_on_card(cuda, dtype, n):
     ref = qattn.qattention_bwd_plain(q, k, v, do, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == dtype and a.shape == b.shape
-        err, rel, ok = qattn.bwd_error(a, b, dtype)
+        err, rel, ok = qattn.kernel_error(a, b, dtype, qattn.BWD_TOL)
         assert ok, f"{name} N={n} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
     if dtype == torch.bfloat16:
         f32 = qattn.qattention_bwd_plain(q.float(), k.float(), v.float(), do.float(), scale)
         for name, a, b in zip(("dq", "dk", "dv"), f32, ref):
-            assert not qattn.bwd_error(a, b, dtype)[2], f"the f32 {name} meets the bf16 tolerance"
+            assert not qattn.kernel_error(a, b, dtype, qattn.BWD_TOL)[2], \
+                f"the f32 {name} meets the bf16 tolerance"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_qattn_bwd_kernel_one_group_on_card(cuda, dtype):
     """G = 1 (one batch element, one component, one head), N = 1024."""
-    q, k, v, do = (t[:1, :1, :1] for t in _bwd_inputs(cuda, dtype, 1024, 5, batch=1))
+    q, k, v, do = (t[:1, :1, :1] for t in _inputs(cuda, dtype, 1024, 5, batch=1))
     got = _k2(q, k, v, do, 0.5)
     ref = qattn.qattention_bwd_plain(q, k, v, do, 0.5)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        err, rel, ok = qattn.bwd_error(a, b, dtype)
+        err, rel, ok = qattn.kernel_error(a, b, dtype, qattn.BWD_TOL)
         assert ok, f"{name} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
 
 
@@ -113,20 +181,20 @@ def test_qattn_bwd_kernel_every_width_on_card(cuda, dk, dv, n, dtype):
     """K2 at every (dk, dv) it is built for, at ragged N (no 16-row block
     divides it): the bf16 kernel's tiles and fragments change with the widths,
     which the larger models' attention uses."""
-    q, k, v, do = _bwd_inputs(cuda, dtype, n, 100 * dk + dv, batch=2, dk=dk, dv=dv, heads=2)
+    q, k, v, do = _inputs(cuda, dtype, n, 100 * dk + dv, batch=2, dk=dk, dv=dv, heads=2)
     scale = dk ** -0.5
     got = _k2(q, k, v, do, scale)
     ref = qattn.qattention_bwd_plain(q, k, v, do, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == dtype and a.shape == b.shape
-        err, rel, ok = qattn.bwd_error(a, b, dtype)
+        err, rel, ok = qattn.kernel_error(a, b, dtype, qattn.BWD_TOL)
         assert ok, f"{name} dk={dk} dv={dv} N={n} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
 
 
 def test_qattn_bwd_bf16_is_deterministic_on_card(cuda):
     """dQ is summed as f32 partials per key block in a fixed order (no atomics):
     two runs give bitwise the same gradients."""
-    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 1024, 9)
+    q, k, v, do = _inputs(cuda, torch.bfloat16, 1024, 9)
     a, b = _k2(q, k, v, do, 0.5), _k2(q, k, v, do, 0.5)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -136,7 +204,7 @@ def test_k1_writes_stats_only_under_grad_on_card(cuda, dtype):
     """K1 writes the row statistics for the backward only when one will follow:
     not under no_grad (nor for inputs that require no grad), and then they
     agree with the plain statistics."""
-    q, k, v, _ = _bwd_inputs(cuda, dtype, 400, 3, batch=2)
+    q, k, v, _ = _inputs(cuda, dtype, 400, 3, batch=2)
     before = (qattn.launches, qattn.launches_stats)
     with torch.no_grad():
         qattn.qattention_fused(q.requires_grad_(), k, v, 0.5)

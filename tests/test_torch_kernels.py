@@ -4,7 +4,9 @@ K3 (fused 1x1 Conv+IQBN+SiLU).
 On the CPU the wrappers take their plain versions, which are held against
 the JAX package's Pallas kernels in interpret mode (as its own
 tests/test_pallas.py runs them). The CUDA kernels are held against the plain
-versions on the card in tests/test_torch_cuda.py.
+versions on the card in tests/test_torch_cuda.py; the tolerances there are
+checked here to see each of the TPU kernels' rounding points, and plain
+models of the bf16 kernels' summation orders to meet them.
 """
 
 import jax
@@ -122,8 +124,9 @@ def test_qattention_backward_keeps_bf16_rounding_points():
     f32 = qattn.qattention_bwd_plain(*(t.float() for t in bf), 2 ** -0.5)
     f64 = _bwd_variant(*bf, 2 ** -0.5, acc=torch.float64)
     for name, a, r, other in zip(("dq", "dk", "dv"), got, f32, f64):
-        assert not qattn.bwd_error(r, a, torch.bfloat16)[2], f"the f32 {name} passes"
-        assert qattn.bwd_error(other, a, torch.bfloat16)[2], f"the f64-accumulated {name} fails"
+        assert not qattn.kernel_error(r, a, torch.bfloat16, qattn.BWD_TOL)[2], f"the f32 {name} passes"
+        assert qattn.kernel_error(other, a, torch.bfloat16, qattn.BWD_TOL)[2], \
+            f"the f64-accumulated {name} fails"
         assert not torch.equal(a.float(), r)
 
 
@@ -135,7 +138,8 @@ def test_bf16_tolerance_sees_each_rounding_point(point):
     ref = qattn.qattention_bwd_plain(*bf, 2 ** -0.5)
     assert all(torch.equal(a, b) for a, b in zip(_bwd_variant(*bf, 2 ** -0.5), ref))
     mutant = _bwd_variant(*bf, 2 ** -0.5, skip=(point,))
-    assert not all(qattn.bwd_error(a, r, torch.bfloat16)[2] for a, r in zip(mutant, ref))
+    assert not all(qattn.kernel_error(a, r, torch.bfloat16, qattn.BWD_TOL)[2]
+                   for a, r in zip(mutant, ref))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -167,6 +171,18 @@ def test_plain_stats_feed_the_plain_backward(dtype):
         assert torch.equal(a, b)
 
 
+def _quad_row_sum(x):
+    """Row sums ``[..., N, 1]`` of ``x`` in f32 in the order of an mma fragment's
+    quad: lane t sums columns 8 j + 2 t, 8 j + 2 t + 1 in order, then the four
+    lanes add up pairwise."""
+    pe = torch.nn.functional.pad(x, (0, -x.shape[-1] % 8)).unflatten(-1, (-1, 4, 2))
+    lanes = torch.zeros(pe.shape[:-3] + (4,), dtype=torch.float32)
+    for j in range(pe.shape[-3]):
+        for h in range(2):
+            lanes = lanes + pe[..., j, :, h]
+    return ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
+
+
 def _k2_order_model(q, k, v, do, scale, key_block=128, warp_keys=16, chunk=16):
     """K2's bf16 order written out in plain PyTorch: the statistics from the
     forward, rse from a pre-pass (each lane's keys summed, then the quad), dV
@@ -186,13 +202,7 @@ def _k2_order_model(q, k, v, do, scale, key_block=128, warp_keys=16, chunk=16):
     ks = (k.to(f) * qattn._round(scale, T)).to(T).to(f)
     e = torch.exp2(s2 - m)
     dp = do.to(f) @ v.to(f).transpose(-1, -2)
-    # pre-pass: lane t sums keys 8 j + 2 t, 8 j + 2 t + 1 in order, then the quad adds up
-    pe = torch.nn.functional.pad(dp * e, (0, -n % 8)).unflatten(-1, (-1, 4, 2))
-    lanes = torch.zeros(pe.shape[:-3] + (4,), dtype=f)
-    for j in range(pe.shape[-3]):
-        for h in range(2):
-            lanes = lanes + pe[..., j, :, h]
-    rse = ((lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3]))[..., None]
+    rse = _quad_row_sum(dp * e)  # the pre-pass
     u = (e * (dp - r * rse)).to(T).to(f)
     eb = e.to(T).to(f)
     dor = (do.to(f) * r).to(T).to(f)
@@ -225,8 +235,101 @@ def test_k2_tensor_core_order_meets_bwd_tol(n, dk, dv):
     ref = qattn.qattention_bwd_plain(*bf, scale)
     got = _k2_order_model(*bf, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        err, rel, ok = qattn.bwd_error(a, b, torch.bfloat16)
+        err, rel, ok = qattn.kernel_error(a, b, torch.bfloat16, qattn.BWD_TOL)
         assert ok, f"{name}: max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
+@pytest.mark.parametrize("dk,dv", [(2, 4), (4, 8)])
+@pytest.mark.parametrize("n", [128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qattention_fwd_plain_matches_pallas(dtype, n, dk, dv):
+    """K1's yardstick, the forward at the TPU kernel's rounding points, against
+    the JAX kernel in interpret mode (N = 200 is padded to 256 there) in bf16
+    and f32, within FWD_TOL.
+
+    The JAX side is compiled with ``xla_allow_excess_precision`` off. By
+    default XLA on the CPU may keep a bf16 value in f32 where that is
+    cheaper: at dk = 2 it turns the 2-deep q2 k^T into elementwise
+    multiply-adds and drops the rounding of q2 = q scale log2e to bf16 that
+    the kernel's program states (its output then differs from the program's
+    by 2.8e-3 mean relative, as a kernel that skips that rounding point)."""
+    rng = np.random.default_rng(100 * n + dk)
+    shape = (1, 4, 3, n)
+    q, k = (rng.normal(size=(*shape, dk)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(*shape, dv)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    args = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    fused = jax.jit(lambda q, k, v: jqattn.qattention_fused(q, k, v, dk ** -0.5))
+    ref = fused.lower(*args).compile({"xla_allow_excess_precision": False})(*args)
+    assert ref.dtype == jdt
+    got = qattn.qattention_fwd_plain(*(to_torch(a).to(dtype) for a in (q, k, v)), dk ** -0.5)
+    assert got.dtype == dtype
+    err, rel, ok = qattn.kernel_error(got, to_torch(np.asarray(ref, np.float32)), dtype, qattn.FWD_TOL)
+    assert ok, f"max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
+def _fwd_variant(q, k, v, scale, skip=()):
+    """`qattention_fwd_plain` written out again, with the rounding points named in
+    ``skip`` left out (``norm``: the probabilities normalized on [N, N] before
+    they are rounded, instead of the output on [N, dv])."""
+    T, f = q.dtype, torch.float32
+
+    def rnd(x, name):
+        return x if name in skip else x.to(T).to(f)
+
+    q2 = rnd(q.to(f) * qattn._round(scale * qattn._LOG2E, T), "q2")
+    s2 = q2 @ k.to(f).transpose(-1, -2)
+    e = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+    r = 1.0 / e.sum(-1, keepdim=True)
+    if "norm" in skip:
+        return (rnd(e * r, "E") @ v.to(f)).to(T)
+    return ((rnd(e, "E") @ v.to(f)) * r).to(T)
+
+
+@pytest.mark.parametrize("point", ["q2", "E", "norm", "f32"])
+def test_fwd_tolerance_sees_each_rounding_point(point):
+    """K1's bf16 tolerance fails a forward that leaves out any one of the TPU
+    kernel's rounding points (q2, E cast to V's dtype before E V, the reciprocal
+    applied on [N, dv]), and the f32 forward of the same bf16 inputs."""
+    q, k, v, _ = _bf16_inputs()
+    ref = qattn.qattention_fwd_plain(q, k, v, 2 ** -0.5)
+    assert torch.equal(_fwd_variant(q, k, v, 2 ** -0.5), ref)
+    if point == "f32":
+        mutant = qattn.qattention_fwd_plain(q.float(), k.float(), v.float(), 2 ** -0.5)
+    else:
+        mutant = _fwd_variant(q, k, v, 2 ** -0.5, skip=(point,))
+    assert not qattn.kernel_error(mutant, ref, torch.bfloat16, qattn.FWD_TOL)[2]
+
+
+def _k1_order_model(q, k, v, scale, block=16):
+    """The bf16 K1's order written out in plain PyTorch: f32 scores over dk
+    zero-padded to the mma depth (zeros add nothing), the row sums of E in a
+    quad's order, and E V summed in f32 over blocks of 16 keys (one m16n8k16
+    each) in key order."""
+    T, f = q.dtype, torch.float32
+    n = q.shape[-2]
+    s2 = qattn._scores(q, k, scale)[1]
+    e = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+    l = _quad_row_sum(e)
+    eb, vf = e.to(T).to(f), v.to(f)
+    o = torch.zeros(*q.shape[:-1], v.shape[-1], dtype=f)
+    for j0 in range(0, n, block):
+        o = o + eb[..., j0:j0 + block] @ vf[..., j0:j0 + block, :]
+    return (o * (1.0 / l)).to(T)
+
+
+@pytest.mark.parametrize("dk,dv", [(2, 4), (4, 8), (8, 16), (16, 32), (32, 32)])
+def test_k1_tensor_core_order_meets_fwd_tol(dk, dv):
+    """A plain model of the bf16 K1's summation order meets FWD_TOL[bf16]
+    against `qattention_fwd_plain` at a ragged N: only the order of the f32
+    sums changes. At the main path's head widths and at the wider ones of the
+    larger models."""
+    q, k, v, _ = _bf16_inputs(200, dk, dv)
+    scale = dk ** -0.5
+    err, rel, ok = qattn.kernel_error(_k1_order_model(q, k, v, scale),
+                                      qattn.qattention_fwd_plain(q, k, v, scale),
+                                      torch.bfloat16, qattn.FWD_TOL)
+    assert ok, f"max abs error {err:.3e}, mean rel {rel:.3e}"
 
 
 # ---------------------------------------------------------------- K3, CPU
