@@ -36,7 +36,27 @@ Phases:
      interleaved rounds, and the device's busy share and the attention
      kernels' device time per micro-step from torch.profiler; the loss
      layer's device time at the batch's 128 padded boxes an image and at 16;
-  7. the ``kernels`` line, then the result line.
+  7. data: a DOTA-layout set written with the port's PNG writer (16 images of
+     four sizes, 2-40 filled rotated rectangles each, 8-corner labels over
+     the 15 classes), every PNG and the committed baseline-JPEG fixtures
+     decoded exactly by the port's readers, the decode of a 1024 x 1024 PNG
+     and JPEG timed;
+  8. fit: ``Trainer.fit`` for 2 epochs on that set at 1024, bf16, batch 8
+     (nbs 8, an update a micro-step), validating the EMA weights each epoch;
+     finite losses, the EMA moved, last/best checkpoints, results.json and
+     results.csv written, ``latest()`` finds last.ckpt, a restored trainer
+     runs a third epoch; K1 and K2 launched every micro-step;
+  9. val: the Validator at 1024, conf 0.001, on the fitted EMA weights in
+     bf16 with K1, with K1+K3 and plain, and f32 with K1 and plain, each
+     run's launches counted from 0 (the kernels line's ``val`` is the bf16
+     K1+K3 run's); metrics finite and in [0, 1], 15 Task1 files each; each
+     kernel run against the plain run of its dtype: decoded predictions of
+     every batch within the predict tolerance, every metric within 5e-3, and
+     in f32 the same detection count on 15 of 16 images (in bf16 NMS's
+     candidate pool is cut inside a block of tied scores: the ties, and what
+     NMS keeps of f32 scores rounded to bf16, are printed); img/s and load,
+     infer and match ms a batch;
+ 10. the ``kernels`` line, then the result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -50,6 +70,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -156,6 +177,21 @@ def bound_ms(nbytes: float, tensor_ops: float, f32_ops: float, dtype: torch.dtyp
     t_bytes = nbytes / HBM_BYTES_S
     t_ops = tensor_ops / TENSOR_FLOPS[dtype] + f32_ops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _reset_counts():
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    qattn.launches = qattn.launches_mma = qattn.launches_simt = 0
+    qattn.launches_stats = qattn.launches_bwd = 0
+    qconv_fused.launches = qconv_fused.launches_mma = qconv_fused.launches_simt = 0
+
+
+def _counts():
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    return {"qattn_fwd": qattn.launches, "qattn_fwd_with_stats": qattn.launches_stats,
+            "qattn_bwd": qattn.launches_bwd, "qconv1x1_fused": qconv_fused.launches}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -488,9 +524,7 @@ def phase_predict(models, frames, n_sites: int):
     expect = {"K1": (1, 0), "K1+K3": (1, n_sites), "plain": (0, 0)}
     for name, model in models.items():
         pred = Predictor(model, imgsz=IMGSZ, conf=0.25)
-        qattn.launches = qattn.launches_mma = qattn.launches_simt = 0
-        qattn.launches_stats = qattn.launches_bwd = 0
-        qconv_fused.launches = qconv_fused.launches_mma = qconv_fused.launches_simt = 0
+        _reset_counts()
         res = pred(frames)  # the main path, driven once
         torch.cuda.synchronize()
         got = (qattn.launches_mma, qconv_fused.launches_mma)
@@ -686,8 +720,7 @@ def phase_train(batch):
         return torch.cat([t.detach().reshape(-1) for t in ts])
 
     losses, changed = [], []
-    qattn.launches = qattn.launches_mma = qattn.launches_stats = qattn.launches_bwd = 0
-    qconv_fused.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):  # the main path, driven
         p0, e0 = flat(trainer.params), flat(trainer.ema)
@@ -899,6 +932,269 @@ def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
     return out
 
 
+# ---------------------------------------------------------------- phases 7-9
+
+
+# the DOTA-layout set of phase_data: image sizes (h, w), 4 images of each; DOTA's
+# images run from about 800 to 4,000 pixels a side (Xia et al., CVPR 2018)
+DATA_SIZES = [(1024, 1024), (768, 1365), (1536, 1152), (600, 800)] * 4
+DATA_BOXES = (2, 40)  # rectangles an image
+FIT_EPOCHS = 2
+VAL_CONF = 0.001
+# validation with a kernel vs with the plain version in the same dtype: detection counts
+# may differ on at most one image in 16 (near-equal scores at conf 0.001), metrics by at
+# most this
+VAL_METRIC_TOL = 5e-3
+NMS_POOL = 2048  # candidates an image that enter rotated NMS (ops/boxes.py non_max_suppression)
+
+
+def _fill_rotated(im, cx, cy, w, h, t, colour):
+    """Fill the rotated rectangle in place, within its bounding box."""
+    c, s = math.cos(t), math.sin(t)
+    r = 0.5 * math.hypot(w, h)
+    y0, y1 = max(int(cy - r), 0), min(int(cy + r) + 1, im.shape[0])
+    x0, x1 = max(int(cx - r), 0), min(int(cx + r) + 1, im.shape[1])
+    yy, xx = np.mgrid[y0:y1, x0:x1]
+    u = (xx - cx) * c + (yy - cy) * s
+    v = -(xx - cx) * s + (yy - cy) * c
+    im[y0:y1, x0:x1][(np.abs(u) <= w / 2) & (np.abs(v) <= h / 2)] = colour
+
+
+def phase_data(root: Path, seed: int = 0):
+    """Write a DOTA-layout set with the port's PNG writer (16 images, 2-40 filled
+    rotated rectangles each over the 15 classes, 8-corner labels), check that
+    every PNG and the committed baseline-JPEG fixtures decode exactly, and time
+    the decode of a 1024 x 1024 PNG and JPEG."""
+    from quan_ultralytics_tpu_torch.cfg.datasets import DOTA_V1
+    from quan_ultralytics_tpu_torch.data.native import native
+
+    rng = np.random.default_rng(seed)
+    (root / "images" / "train").mkdir(parents=True)
+    (root / "labels" / "train").mkdir(parents=True)
+    written, n_boxes = [], 0
+    t0 = time.perf_counter()
+    for i, (h, w) in enumerate(DATA_SIZES):
+        yy, xx = np.mgrid[0:h, 0:w]
+        im = np.stack([xx * 160 // w, yy * 160 // h, (xx + yy) * 160 // (h + w)], -1).astype(np.uint8)
+        im = np.clip(im + rng.integers(0, 24, im.shape), 0, 255).astype(np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(DATA_BOXES[0], DATA_BOXES[1] + 1))):
+            bw, bh = rng.uniform(16, min(160, min(h, w) / 4), 2)
+            cx, cy = rng.uniform(bw, w - bw), rng.uniform(bh, h - bh)
+            t = rng.uniform(0, math.pi)
+            c, sn = math.cos(t), math.sin(t)
+            pts = [(cx + dx * c - dy * sn, cy + dx * sn + dy * c)
+                   for dx, dy in ((-bw / 2, -bh / 2), (bw / 2, -bh / 2), (bw / 2, bh / 2), (-bw / 2, bh / 2))]
+            _fill_rotated(im, cx, cy, bw, bh, t, rng.integers(170, 256, 3))
+            lines.append(" ".join([str(rng.integers(0, NC))] + [f"{x / w:.6f} {y / h:.6f}" for x, y in pts]))
+            n_boxes += 1
+        path = root / "images" / "train" / f"P{i:04d}__0_0.png"
+        native.imwrite_png(path, im)
+        (root / "labels" / "train" / f"P{i:04d}__0_0.txt").write_text("\n".join(lines) + "\n")
+        written.append((path, im))
+    write_s = time.perf_counter() - t0
+    for path, im in written:
+        check(np.array_equal(native.imread(path), im), f"{path.name} does not decode to the pixels written")
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
+    for name in ("jpeg_420_q90_rst", "jpeg_422_q75_odd", "jpeg_gray_q95"):
+        check(np.array_equal(native.imread(fixtures / f"{name}.jpg"), np.load(fixtures / f"{name}.npy")),
+              f"{name}.jpg does not decode to its committed OpenCV pixels")
+    png = next(p for p, im in written if im.shape[:2] == (1024, 1024))
+    times = {}
+    for key, path in (("png_1024_ms", png), ("jpeg_1024_ms", fixtures / "jpeg_1024_q75.jpg")):
+        native.imread(path)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            native.imread(path)
+        times[key] = 1e3 * (time.perf_counter() - t0) / 5
+    cfg = {"path": str(root), "train": "images/train", "val": "images/train", "names": DOTA_V1["names"]}
+    print(f"data: {len(written)} PNG images ({n_boxes} boxes) written in {write_s:.1f} s and decoded "
+          f"exactly; the JPEG fixtures decode to their OpenCV pixels; decode of a 1024 x 1024 PNG "
+          f"{times['png_1024_ms']:.2f} ms, of a 1024 x 1024 baseline JPEG (4:2:0, q75) "
+          f"{times['jpeg_1024_ms']:.2f} ms")
+    return cfg, {"images": len(written), "boxes": n_boxes, "write_s": write_s, **times}
+
+
+def phase_fit(cfg, run_dir: Path):
+    """Trainer.fit for FIT_EPOCHS epochs at 1024, bf16, batch 8 (nbs 8: an update
+    a micro-step), validating the EMA weights each epoch; then a trainer restored
+    from ``latest()`` runs one more epoch. Returns the EMA weights' state."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+    from quan_ultralytics_tpu_torch.utils.callbacks import Callbacks, CSVLogger
+    from quan_ultralytics_tpu_torch.utils.checkpoint import latest
+
+    tds = YOLODataset(cfg, "train", task="obb")
+    vds = YOLODataset(cfg, "val", task="obb")
+    steps = len(tds) // BATCH
+
+    def trainer():
+        # the predict phases' seeded weights (spread IQBN statistics and head biases), so
+        # that scores stay spread after a few updates and validation has boxes to score
+        model = seeded_model(torch.bfloat16)
+        return Trainer(model, TrainConfig(batch=BATCH, nbs=BATCH, epochs=FIT_EPOCHS + 1),
+                       steps_per_epoch=steps, device=DEVICE)
+
+    def loader(epoch):
+        return build_dataloader(tds, BATCH, IMGSZ, hyp=None, augment=False, seed=epoch)
+
+    val_times = []
+
+    def validate(tr):
+        val = Validator(tr.model, imgsz=IMGSZ, conf=VAL_CONF)
+        with tr.ema_weights():
+            metrics = val(vds, batch_size=BATCH)
+        val_times.append(val.speed)
+        return metrics
+
+    tr = trainer()
+    ema0 = torch.cat([e.reshape(-1) for e in tr.ema]).clone()
+    cb = Callbacks()
+    CSVLogger(run_dir).attach(cb)
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = tr.fit(loader, validate, epochs=FIT_EPOCHS, save_dir=run_dir, callbacks=cb,
+                     log=lambda line: print("fit:", line))  # the main path, driven
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    ema_moved = float((torch.cat([e.reshape(-1) for e in tr.ema]) - ema0).abs().max())
+    print(f"fit: {FIT_EPOCHS} epochs of {steps} micro-steps in {secs:.1f} s (validation included); "
+          f"launches {got}; EMA moved by up to {ema_moved:.3e}")
+    check(len(history) == FIT_EPOCHS and all(math.isfinite(r["loss"]) for r in history),
+          f"fit history {history}")
+    check(all(0 <= r[k] <= 1 for r in history for k in ("mAP50", "mAP50-95", "precision", "recall")),
+          "fit: a metric outside [0, 1]")
+    check(ema_moved > 0, "fit: the EMA did not move")
+    n_micro = FIT_EPOCHS * steps
+    n_val = FIT_EPOCHS * math.ceil(len(vds) / BATCH)
+    check(got == {"qattn_fwd": n_micro + n_val, "qattn_fwd_with_stats": n_micro, "qattn_bwd": n_micro,
+                  "qconv1x1_fused": 0}, f"fit launches {got}")
+    for name in ("last.ckpt", "best.ckpt", "results.json", "results.csv"):
+        check((run_dir / name).exists(), f"fit wrote no {name}")
+    check(latest(run_dir) == str(run_dir / "last.ckpt"), f"latest() found {latest(run_dir)}")
+    with tr.ema_weights():
+        weights = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    tr2 = trainer()
+    start = tr2.restore_checkpoint(latest(run_dir))
+    check(start == FIT_EPOCHS, f"the restored trainer starts at epoch {start}")
+    t0 = time.perf_counter()
+    h3 = tr2.fit(loader, validate, start_epoch=start, save_dir=run_dir, log=lambda line: print("fit:", line))
+    torch.cuda.synchronize()
+    check([r["epoch"] for r in h3] == [FIT_EPOCHS] and math.isfinite(h3[0]["loss"]),
+          f"the restored trainer's epoch {h3}")
+    out = {"epochs": FIT_EPOCHS, "micro_steps_per_epoch": steps, "seconds": secs,
+           "epoch_s": [r["time_s"] for r in history], "history": history, "launches": got,
+           "ema_moved": ema_moved, "restored_epoch_s": time.perf_counter() - t0,
+           "val_speed": val_times}
+    print(f"fit: train time an epoch {[r['time_s'] for r in history]} s; the restored trainer's "
+          f"epoch {FIT_EPOCHS} loss {h3[0]['loss']:.4f}")
+    del tr2
+    torch.cuda.empty_cache()
+    return weights, out
+
+
+def phase_val(cfg, weights, out_dir: Path):
+    """The Validator at 1024, conf 0.001, on the fitted EMA weights: bf16 with K1,
+    with K1 and K3 and with the plain attention and convs, f32 with K1 and with
+    the plain attention. Each run's launches are counted from 0 and read just
+    after it; each kernel run is held to the plain run of its dtype."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+    from quan_ultralytics_tpu_torch.ops.boxes import non_max_suppression
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    ds = YOLODataset(cfg, "val", task="obb")
+    nb = math.ceil(len(ds) / BATCH)
+    bf16, f32 = torch.bfloat16, torch.float32
+    paths = {"bf16 K1": (bf16, {}), "bf16 K1+K3": (bf16, {"fused_1x1": True}),
+             "bf16 plain": (bf16, {"fused_attn": False}),
+             "f32 K1": (f32, {}), "f32 plain": (f32, {"fused_attn": False})}
+    # each run's launches (K1 on the tensor cores, K1 on the CUDA cores, K3 on the
+    # tensor cores, K3 in all, K1 with statistics, K2): the bf16 runs launch only
+    # the tensor-core kernels, f32 K1 only the CUDA-core K1, the plain runs none
+    expect = {"bf16 K1": (nb, 0, 0, 0), "bf16 K1+K3": (nb, 0, 37 * nb, 37 * nb),
+              "bf16 plain": (0, 0, 0, 0), "f32 K1": (0, nb, 0, 0), "f32 plain": (0, 0, 0, 0)}
+    models = {}
+    for name, (dtype, kw) in paths.items():
+        m = DetectionModel.from_yaml(MODEL, nc=NC, dtype=dtype, device=DEVICE, **kw)
+        m.load_state_dict(weights)
+        models[name] = m
+    for m in models.values():  # warm up: cuDNN picks its algorithms, the kernels load
+        Validator(m, imgsz=IMGSZ, conf=VAL_CONF).infer(torch.zeros(BATCH, IMGSZ, IMGSZ, 3, dtype=torch.uint8,
+                                                                   device=DEVICE))
+    torch.cuda.synchronize()
+    res = {}
+    for name, m in models.items():
+        val = Validator(m, imgsz=IMGSZ, conf=VAL_CONF)
+        sub = out_dir / name.replace(" ", "_").replace("+", "_") / "Task1"
+        js = sub.parent / "dets.json"
+        sub.parent.mkdir(parents=True, exist_ok=True)
+        _reset_counts()
+        metrics = val(ds, batch_size=BATCH, save_json=str(js), save_submission=str(sub))  # the main path
+        torch.cuda.synchronize()
+        got = (qattn.launches_mma, qattn.launches_simt, qconv_fused.launches_mma, qconv_fused.launches)
+        counts = _counts()
+        print(f"val [{name}]: launches {counts}, K1 tensor cores / CUDA cores {got[:2]}, K3 tensor "
+              f"cores {got[2]} (expected {expect[name][:3]})")
+        check(got == expect[name] and counts["qattn_fwd"] == sum(got[:2])
+              and counts["qattn_fwd_with_stats"] == 0 and counts["qattn_bwd"] == 0,
+              f"val [{name}]: launches {counts}, {got} != {expect[name]}")
+        per_image = {Path(s.im_file).stem: 0 for s in ds.samples}
+        for d in json.loads(js.read_text()):
+            per_image[d["image_id"]] += 1
+        res[name] = {"metrics": metrics, "speed": val.speed, "detections": list(per_image.values()),
+                     "task1_files": len(list(sub.glob("Task1_*.txt"))), "launches": counts}
+        print(f"val [{name}]: {metrics}; {val.speed['img_s']:.1f} img/s on the host clock; a batch of "
+              f"{BATCH}: load + letterbox {val.speed['load_ms']:.1f} ms, infer {val.speed['infer_ms']:.1f} "
+              f"ms, match + AP {val.speed['match_ms']:.1f} ms; detections per image "
+              f"{res[name]['detections']}")
+    for name, r in res.items():
+        check(all(math.isfinite(v) and 0 <= v <= 1 for v in r["metrics"].values()),
+              f"val [{name}]: metrics {r['metrics']}")
+        check(r["task1_files"] == NC, f"val [{name}]: {r['task1_files']} Task1 files, not {NC}")
+    # each kernel run against the plain run of its dtype: the decoded predictions (NMS's
+    # input) of every val batch, then the kept detections and the metrics
+    loader = build_dataloader(ds, BATCH, IMGSZ, hyp=None, augment=False, shuffle=False, drop_last=False)
+    xs = [torch.from_numpy(batch["img"]).to(DEVICE) for batch in loader]
+    agree = {}
+    for name, ref in (("bf16 K1", "bf16 plain"), ("bf16 K1+K3", "bf16 plain"), ("f32 K1", "f32 plain")):
+        rel = [compare_preds(decoded(models[name], x), decoded(models[ref], x), NC) for x in xs]
+        rel = {g: max(r[g] for r in rel) for g in rel[0]}
+        a, b = res[name], res[ref]
+        same = sum(x == y for x, y in zip(a["detections"], b["detections"]))
+        diff = {k: abs(a["metrics"][k] - b["metrics"][k]) for k in a["metrics"]}
+        agree[f"{name} vs {ref}"] = {"decoded_rel_err": rel, "same_count_images": same, "metric_diff": diff}
+        print(f"val, {name} vs {ref}: decoded predictions of the {len(xs)} batches, max abs err / "
+              f"max|ref| {rel}; the same detection count on {same} of {len(ds)} images "
+              f"({sum(a['detections'])} vs {sum(b['detections'])} detections); metric differences {diff}")
+        dtype = paths[name][0]
+        check(all(v <= PRED_TOL[dtype] for v in rel.values()),
+              f"val, {name}: decoded predictions disagree with {ref}: {rel}")
+        check(all(v <= VAL_METRIC_TOL for v in diff.values()), f"val, {name} vs {ref}: metrics differ by {diff}")
+        if dtype == f32:  # in bf16 NMS's pool is cut inside a block of tied scores: see below
+            check(same >= len(ds) - 1, f"val, {name} vs {ref}: the same detection count on only {same} images")
+    # why bf16 keeps fewer boxes, on the first batch: the anchors whose best class score
+    # equals the last one NMS_POOL takes, and what NMS keeps of f32 scores rounded to bf16
+    pred = {n: decoded(models[n], xs[0]) for n in ("bf16 plain", "f32 plain")}
+    rounded = pred["f32 plain"].clone()
+    rounded[..., 4:4 + NC] = rounded[..., 4:4 + NC].to(bf16).float()
+    pred["f32 plain, scores rounded to bf16"] = rounded
+    ties = {}
+    for n, p in pred.items():
+        score = p[..., 4:4 + NC].amax(-1)
+        last = score.topk(NMS_POOL, dim=1).values[:, -1:]
+        ok = non_max_suppression(p, conf_thres=VAL_CONF, iou_thres=0.7, max_det=300, nc=NC, rotated=True)[1]
+        ties[n] = {"over_conf": int((score > VAL_CONF).sum()), "tied_at_pool_cut": (score == last).sum(1).tolist(),
+                   "kept": ok.sum(1).tolist()}
+    print(f"val, first batch of {BATCH} ({xs[0].shape[0] * pred['f32 plain'].shape[1]} anchors): anchors "
+          f"over conf, tied with the {NMS_POOL}th candidate an image, and kept by NMS an image: {ties}")
+    return {"paths": res, "launches": res["bf16 K1+K3"]["launches"], "agree": agree, "ties": ties}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -938,6 +1234,13 @@ def main() -> int:
     train_grads = phase_train_grads(batch)
     train_speed = phase_train_speed(batch, tables=tables)
     loss_layer = phase_loss_layer(batch)
+    del batch
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        data_cfg, data_out = phase_data(Path(tmp) / "dota")
+        weights, fit_out = phase_fit(data_cfg, Path(tmp) / "run")
+        val_out = phase_val(data_cfg, weights, Path(tmp) / "val")
     if args.profile:
         out_dir = args.profile
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -946,17 +1249,19 @@ def main() -> int:
             {"card": card, "ptxas": ptxas, "cases": details, "predict": pred_out,
              "agree": agree, "speed": speed, "device": share, "train": train_out,
              "train_grads": train_grads, "train_speed": train_speed,
-             "loss_layer": loss_layer}, indent=1))
+             "loss_layer": loss_layer, "data": data_out, "fit": fit_out, "val": val_out}, indent=1))
 
     launches = pred_out["launches"]["K1+K3"]
     on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
     train_launches = train_out["launches"]
     on_train = train_speed["fused"]["kernel_device_ms"]  # device ms per micro-step
+    fit_launches, val_launches = fit_out["launches"], val_out["launches"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:60",
          "launches": launches["qattn_fwd"],
-         "launches_by_path": {"predict": launches["qattn_fwd"], "train": train_launches["qattn_fwd"]},
+         "launches_by_path": {"predict": launches["qattn_fwd"], "train": train_launches["qattn_fwd"],
+                              "fit": fit_launches["qattn_fwd"], "val": val_launches["qattn_fwd"]},
          "max_abs_err": k1_err,
          "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_"],
          "train_device_ms": on_train["qattn_fwd_"],
@@ -965,7 +1270,8 @@ def main() -> int:
         {"name": "qattn_bwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_bwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:86",
          "launches": train_launches["qattn_bwd"],
-         "launches_by_path": {"predict": launches["qattn_bwd"], "train": train_launches["qattn_bwd"]},
+         "launches_by_path": {"predict": launches["qattn_bwd"], "train": train_launches["qattn_bwd"],
+                              "fit": fit_launches["qattn_bwd"], "val": val_launches["qattn_bwd"]},
          "max_abs_err": k2_err, "kernel_ms": k2_t["ms"], **k2_t,
          "train_device_ms": on_train["qattn_bwd_"],
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
@@ -976,7 +1282,9 @@ def main() -> int:
          "replaces": "quan_ultralytics_tpu/ops/pallas/qconv_fused.py:35",
          "launches": launches["qconv1x1_fused"],
          "launches_by_path": {"predict": launches["qconv1x1_fused"],
-                              "train": train_launches["qconv1x1_fused"]},
+                              "train": train_launches["qconv1x1_fused"],
+                              "fit": fit_launches["qconv1x1_fused"],
+                              "val": val_launches["qconv1x1_fused"]},
          "max_abs_err": k3_err,
          "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_"],
          "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
@@ -990,6 +1298,11 @@ def main() -> int:
                                 for name, row in train_speed.items()},
                       "train_grads_f32": train_grads,
                       "loss_layer_ms": {f"M={k}": v for k, v in loss_layer.items()}}))
+    print(json.dumps({"data": data_out,
+                      "fit": {k: v for k, v in fit_out.items() if k != "history"},
+                      "val": {name: {"metrics": r["metrics"], "speed": r["speed"]}
+                              for name, r in val_out["paths"].items()},
+                      "val_agree": val_out["agree"], "val_ties": val_out["ties"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,4 @@
+from quan_ultralytics_tpu_torch.data.build import build_dataloader
+from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
+
+__all__ = ["YOLODataset", "build_dataloader"]

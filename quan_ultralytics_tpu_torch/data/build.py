@@ -1,0 +1,176 @@
+"""Batches: load -> letterbox -> format -> fixed-shape padded numpy arrays
+(counterpart of the JAX package's ``data/build.py``).
+
+Every batch has static shapes: images ``[B, H, W, 3]`` uint8 and labels padded
+to ``max_labels`` with a validity mask. The consumer moves a batch to the card.
+The random draws (epoch permutation, multi-scale sizes, one seed a
+sample) are the JAX loader's, in its order, so that both packages give the
+same batches from the same seed. A thread pool overlaps decoding.
+
+Only the non-augmenting path is ported: ``augment=True`` with a ``hyp``
+raises `NotImplementedError` (the train augmentations come with a later
+slice); with ``hyp=None`` the JAX loader skips them too.
+"""
+
+from __future__ import annotations
+
+import math
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from quan_ultralytics_tpu_torch.data.augment import (corners_to_xywhr, corners_to_xyxy, letterbox,
+                                                     xywh_to_corners)
+from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
+
+Size = Union[int, Tuple[int, int]]
+
+
+def _load_sample_pixels(ds: YOLODataset, i: int, imgsz: Size, with_meta: bool = False):
+    """The image letterboxed to ``imgsz`` (the port's torch letterbox on a CPU
+    tensor) and its labels as pixel-space box corners ``[n, 4, 2]``."""
+    im = ds.load_image(i)
+    h0, w0 = im.shape[:2]
+    s = ds.samples[i]
+    lb, r, (dw, dh) = letterbox(torch.from_numpy(im), imgsz)
+    im = lb.numpy()
+    if ds.task == "obb":
+        corners = s.bboxes.reshape(-1, 4, 2) * [w0, h0]
+    else:
+        corners = xywh_to_corners(s.bboxes * [w0, h0, w0, h0])
+    corners = corners * r + [dw, dh]
+    if with_meta:
+        meta = {"ori_shape": np.array([h0, w0], np.float32),
+                "ratio_pad": np.array([r, dw, dh], np.float32)}
+        return im, corners.astype(np.float32), s.cls.copy(), meta
+    return im, corners.astype(np.float32), s.cls.copy()
+
+
+def _format(im, corners, cls, task: str, imgsz: Size, max_labels: int) -> Dict[str, np.ndarray]:
+    """Pixel corners -> normalized padded label arrays.
+
+    imgsz: int (square) or (H, W); rect batches normalize x by W and y by H.
+    OBB needs square batches: per-axis normalization would shear rotated boxes.
+    """
+    H, W = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
+    out_boxes = np.zeros((max_labels, 5 if task == "obb" else 4), np.float32)
+    out_cls = np.zeros(max_labels, np.int32)
+    out_mask = np.zeros(max_labels, bool)
+    n = min(corners.shape[0], max_labels)
+    if n:
+        if task == "obb":
+            if H != W:
+                raise ValueError("rect batching is not supported for the OBB task")
+            xywhr = corners_to_xywhr(corners[:n])
+            xywhr[:, :4] /= H
+            out_boxes[:n] = xywhr
+        else:
+            xyxy = corners_to_xyxy(corners[:n], W, H)
+            out_boxes[:n] = np.stack([
+                (xyxy[:, 0] + xyxy[:, 2]) / 2, (xyxy[:, 1] + xyxy[:, 3]) / 2,
+                xyxy[:, 2] - xyxy[:, 0], xyxy[:, 3] - xyxy[:, 1],
+            ], axis=1) / [W, H, W, H]
+        out_cls[:n] = cls[:n]
+        out_mask[:n] = True
+    # uint8 pixels: the consumer normalizes on the device
+    return {"img": im, "bboxes": out_boxes, "cls": out_cls, "mask": out_mask}
+
+
+def make_sample(ds: YOLODataset, idx: int, imgsz: Size, max_labels: int,
+                with_meta: bool = False) -> Dict[str, np.ndarray]:
+    """One formatted sample; with ``with_meta`` also the letterbox geometry
+    ``ori_shape`` and ``ratio_pad`` for mapping predictions back."""
+    if with_meta:
+        im, corners, cls, meta = _load_sample_pixels(ds, idx, imgsz, with_meta=True)
+        out = _format(im, corners, cls, ds.task, imgsz, max_labels)
+        out.update(meta)
+        return out
+    im, corners, cls = _load_sample_pixels(ds, idx, imgsz)
+    return _format(im, corners, cls, ds.task, imgsz, max_labels)
+
+
+def build_dataloader(
+    ds: YOLODataset,
+    batch_size: int,
+    imgsz: int = 640,
+    hyp: Optional[Any] = None,
+    max_labels: int = 128,
+    augment: bool = True,
+    shuffle: bool = True,
+    seed: int = 0,
+    workers: int = 4,
+    drop_last: bool = True,
+    multi_scale: bool = False,
+    with_meta: bool = False,
+    rect: bool = False,
+) -> Iterator[Dict[str, Any]]:
+    """One epoch of fixed-shape batches (the stacked `make_sample` outputs).
+
+    multi_scale: a per-batch image size from the 0.5-1.5x ladder on the
+    32-stride grid (reference detect/train.py:60-72).
+    rect: rectangular batching (reference data/base.py set_rectangle): sorted
+    by aspect ratio, each batch letterboxed to its own smallest stride-32
+    shape; val/predict only (no augment, no multi_scale, no shuffle).
+    A batch that is short of ``batch_size`` (the last one without
+    ``drop_last``, or a data set smaller than one batch) is filled by repeating
+    its indices; with ``with_meta`` it carries ``n_real``, the count of real
+    samples, and ``im_files``.
+    """
+    if augment and hyp:
+        raise NotImplementedError("the train augmentations are not ported yet; "
+                                  "pass augment=False or hyp=None")
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(ds)) if shuffle and not rect else np.arange(len(ds))
+    batch_shapes = None
+    if rect:
+        if augment or multi_scale:
+            raise ValueError("rect batching is a val/predict feature")
+        shapes = ds.shapes().astype(np.float64)  # [N, 2] (h, w)
+        ar = shapes[:, 0] / shapes[:, 1]
+        order = order[np.argsort(ar[order], kind="stable")]
+        gs = 32
+        batch_shapes = []
+        for b in range(math.ceil(len(order) / batch_size)):
+            ari = ar[order[b * batch_size:(b + 1) * batch_size]]
+            mini, maxi = ari.min(), ari.max()
+            sh = [1.0, 1.0]
+            if maxi < 1:
+                sh = [maxi, 1.0]  # wide images: shrink H
+            elif mini > 1:
+                sh = [1.0, 1.0 / mini]  # tall images: shrink W
+            batch_shapes.append(tuple(int(math.ceil(v * imgsz / gs + 0.5) * gs) for v in sh))
+    n = len(order)
+    nb = n // batch_size if drop_last else math.ceil(n / batch_size)
+    tiny_real = None
+    if nb == 0 and n > 0:  # a data set smaller than one batch: repeat it to fill one
+        tiny_real = n
+        order = np.resize(order, batch_size)
+        nb = 1
+    if multi_scale:
+        gs = 32
+        sizes = sorted({max(int(imgsz * f) // gs * gs, gs) for f in (0.5, 0.75, 1.0, 1.25, 1.5)})
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for b in range(nb):
+            idxs = order[b * batch_size:(b + 1) * batch_size]
+            n_real = tiny_real if tiny_real is not None else len(idxs)
+            if len(idxs) < batch_size:
+                idxs = np.resize(idxs, batch_size)
+            if batch_shapes is not None:
+                size = batch_shapes[b]
+            elif multi_scale:
+                size = int(rng.choice(sizes))
+            else:
+                size = imgsz
+            # the JAX loader seeds one generator a sample for its augmentations;
+            # the draws stay so that later batches' draws match it
+            rng.integers(1 << 31, size=len(idxs))
+            samples = list(pool.map(
+                lambda i: make_sample(ds, int(i), size, max_labels, with_meta=with_meta and not augment),
+                idxs))
+            batch: Dict[str, Any] = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+            if with_meta:
+                batch["im_files"] = [ds.samples[int(i)].im_file for i in idxs]
+                batch["n_real"] = n_real
+            yield batch

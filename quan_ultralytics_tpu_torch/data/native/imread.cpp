@@ -1,0 +1,766 @@
+// Image decoding on the host: PNG row unfiltering and a baseline JPEG decoder.
+//
+// The port's counterpart of cv2.imread(IMREAD_COLOR) + cvtColor(BGR2RGB),
+// called through ctypes from native.py, which parses PNG chunks and inflates
+// their data with Python's zlib.
+//
+// JPEG: baseline and extended sequential Huffman files, 8-bit samples,
+// interleaved or not, restart intervals, any integer chroma subsampling. The
+// arithmetic is libjpeg-turbo's, so the pixels equal what OpenCV (built with
+// libjpeg-turbo) gives:
+//   * the accurate integer IDCT (jidctint.c, jpeg_idct_islow) and its range
+//     limit table (jdmaster.c, prepare_range_limit_table);
+//   * "fancy" triangle upsampling of 2x1, 2x2 and 1x2 subsampled chroma
+//     (jdsample.c, h2v1/h2v2/h1v2_fancy_upsample), edge rows and columns
+//     replicated as the main controller's context rows are (jdmainct.c), and
+//     replication for the other ratios (int_upsample);
+//   * the fixed-point YCbCr->RGB tables (jdcolor.c, build_ycc_rgb_table).
+// Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and CMYK
+// files are refused with an error code that native.py raises as
+// NotImplementedError.
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+enum Status {
+  OK = 0,
+  E_TRUNCATED = 1,
+  E_NOT_JPEG = 2,
+  E_PROGRESSIVE = 3,
+  E_ARITHMETIC = 4,
+  E_LOSSLESS = 5,
+  E_PRECISION = 6,
+  E_SAMPLING = 7,
+  E_COMPONENTS = 8,
+  E_HUFFMAN = 9,
+  E_BAD_DATA = 10,
+  E_PNG_FILTER = 11,
+  E_SIZE = 12,
+  E_NO_FRAME = 13,
+  E_DNL = 14,
+};
+
+const char* const kMessages[] = {
+    "ok",
+    "the data ends before the image does",
+    "not a JPEG file",
+    "progressive JPEG is not supported",
+    "arithmetic-coded JPEG is not supported",
+    "lossless or hierarchical JPEG is not supported",
+    "only 8-bit JPEG samples are supported",
+    "this chroma subsampling is not supported",
+    "only 1- and 3-component JPEG files are supported (no CMYK)",
+    "bad Huffman code or table",
+    "corrupt JPEG data",
+    "unknown PNG filter type",
+    "the image size does not match the header",
+    "no frame header before the scan",
+    "height given by a DNL marker is not supported",
+};
+
+// zigzag index -> natural (row-major) index, with the 16 extra entries
+// libjpeg keeps so that a corrupt run length cannot write past the block
+const int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+struct Huffman {
+  bool defined = false;
+  uint8_t look_len[512];  // code length of the 9-bit prefix, 0 if longer
+  uint8_t look_val[512];
+  int32_t maxcode[18];
+  int32_t valoffset[17];
+  uint8_t vals[256];
+};
+
+bool build_huffman(Huffman& h, const uint8_t* bits, const uint8_t* vals, int nvals) {
+  memset(h.look_len, 0, sizeof(h.look_len));
+  memcpy(h.vals, vals, nvals);
+  int code = 0, p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    int n = bits[l - 1];
+    h.valoffset[l] = p - code;
+    if (n) {
+      for (int i = 0; i < n; ++i, ++p, ++code) {
+        if (l <= 9) {
+          int shift = 9 - l;
+          for (int j = 0; j < (1 << shift); ++j) {
+            h.look_len[(code << shift) | j] = (uint8_t)l;
+            h.look_val[(code << shift) | j] = vals[p];
+          }
+        }
+      }
+      h.maxcode[l] = code - 1;
+    } else {
+      h.maxcode[l] = -1;
+    }
+    if (code > (1 << l)) return false;  // more codes than the length allows
+    code <<= 1;
+  }
+  h.maxcode[17] = 0x7FFFFFFF;
+  h.defined = true;
+  return true;
+}
+
+// Entropy-coded data reader: bits MSB first, byte stuffing removed, zeros fed
+// past a marker (counted, so that reading into them is an error).
+struct BitReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t buf = 0;
+  int cnt = 0;
+  int fake = 0;  // zero bytes fed past a marker or the end, still in buf
+  bool at_marker = false;
+
+  void fill() {
+    while (cnt <= 56) {
+      uint32_t b = 0;
+      if (at_marker || p >= end) {
+        at_marker = true;
+        ++fake;
+      } else {
+        b = *p;
+        if (b == 0xFF) {
+          const uint8_t* q = p + 1;
+          while (q < end && *q == 0xFF) ++q;  // fill bytes
+          if (q < end && *q == 0x00) {
+            p = q + 1;
+          } else {  // a marker: stop before it
+            p = q - 1;
+            at_marker = true;
+            ++fake;
+            b = 0;
+          }
+        } else {
+          ++p;
+        }
+      }
+      buf |= (uint64_t)b << (56 - cnt);
+      cnt += 8;
+    }
+  }
+  bool overrun() const { return cnt < fake * 8; }
+  uint32_t get(int n) {  // n in 1..16, cnt >= n
+    uint32_t v = (uint32_t)(buf >> (64 - n));
+    buf <<= n;
+    cnt -= n;
+    return v;
+  }
+  void reset() { buf = 0; cnt = 0; fake = 0; at_marker = false; }
+};
+
+inline int decode(BitReader& br, const Huffman& h) {
+  if (br.cnt < 16) br.fill();
+  uint32_t look = (uint32_t)(br.buf >> 55);
+  int len = h.look_len[look];
+  if (len) {
+    br.buf <<= len;
+    br.cnt -= len;
+    return h.look_val[look];
+  }
+  for (int l = 10; l <= 16; ++l) {
+    int32_t code = (int32_t)(br.buf >> (64 - l));
+    if (code <= h.maxcode[l]) {
+      br.buf <<= l;
+      br.cnt -= l;
+      int idx = h.valoffset[l] + code;
+      return (idx >= 0 && idx < 256) ? h.vals[idx] : -1;
+    }
+  }
+  return -1;
+}
+
+inline int extend(uint32_t v, int s) {
+  return (v < (1u << (s - 1))) ? (int)v - (1 << s) + 1 : (int)v;
+}
+
+// ---- the accurate integer IDCT, jidctint.c jpeg_idct_islow -----------------
+
+constexpr int CONST_BITS = 13;
+constexpr int PASS1_BITS = 2;
+constexpr int64_t FIX_0_298631336 = 2446;
+constexpr int64_t FIX_0_390180644 = 3196;
+constexpr int64_t FIX_0_541196100 = 4433;
+constexpr int64_t FIX_0_765366865 = 6270;
+constexpr int64_t FIX_0_899976223 = 7373;
+constexpr int64_t FIX_1_175875602 = 9633;
+constexpr int64_t FIX_1_501321110 = 12299;
+constexpr int64_t FIX_1_847759065 = 15137;
+constexpr int64_t FIX_1_961570560 = 16069;
+constexpr int64_t FIX_2_053119869 = 16819;
+constexpr int64_t FIX_2_562915447 = 20995;
+constexpr int64_t FIX_3_072711026 = 25172;
+
+inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
+
+// post-IDCT range limit: the value, centred on 0, masked to 10 bits as libjpeg does
+inline uint8_t idct_limit(int64_t x) {
+  int v = (int)(x & 1023);
+  if (v < 128) return (uint8_t)(v + 128);
+  if (v < 512) return 255;
+  if (v < 896) return 0;
+  return (uint8_t)(v - 896);
+}
+
+void idct_islow(const int32_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  int32_t ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int32_t* in = coef + c;
+    const uint16_t* qt = q + c;
+    int32_t* w = ws + c;
+    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 && in[40] == 0 && in[48] == 0 &&
+        in[56] == 0) {
+      int32_t dc = (int32_t)((int64_t)in[0] * qt[0] * (1 << PASS1_BITS));
+      for (int r = 0; r < 8; ++r) w[8 * r] = dc;
+      continue;
+    }
+    int64_t z2 = (int64_t)in[16] * qt[16], z3 = (int64_t)in[48] * qt[48];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = (int64_t)in[0] * qt[0];
+    z3 = (int64_t)in[32] * qt[32];
+    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
+    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = (int64_t)in[56] * qt[56];
+    tmp1 = (int64_t)in[40] * qt[40];
+    tmp2 = (int64_t)in[24] * qt[24];
+    tmp3 = (int64_t)in[8] * qt[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int S = CONST_BITS - PASS1_BITS;
+    w[0] = (int32_t)descale(tmp10 + tmp3, S);
+    w[56] = (int32_t)descale(tmp10 - tmp3, S);
+    w[8] = (int32_t)descale(tmp11 + tmp2, S);
+    w[48] = (int32_t)descale(tmp11 - tmp2, S);
+    w[16] = (int32_t)descale(tmp12 + tmp1, S);
+    w[40] = (int32_t)descale(tmp12 - tmp1, S);
+    w[24] = (int32_t)descale(tmp13 + tmp0, S);
+    w[32] = (int32_t)descale(tmp13 - tmp0, S);
+  }
+  for (int r = 0; r < 8; ++r) {
+    const int32_t* w = ws + 8 * r;
+    uint8_t* o = out + (size_t)r * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 && w[6] == 0 && w[7] == 0) {
+      uint8_t dc = idct_limit(descale(w[0], PASS1_BITS + 3));
+      for (int c = 0; c < 8; ++c) o[c] = dc;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << CONST_BITS);
+    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << CONST_BITS);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int S = CONST_BITS + PASS1_BITS + 3;
+    o[0] = idct_limit(descale(tmp10 + tmp3, S));
+    o[7] = idct_limit(descale(tmp10 - tmp3, S));
+    o[1] = idct_limit(descale(tmp11 + tmp2, S));
+    o[6] = idct_limit(descale(tmp11 - tmp2, S));
+    o[2] = idct_limit(descale(tmp12 + tmp1, S));
+    o[5] = idct_limit(descale(tmp12 - tmp1, S));
+    o[3] = idct_limit(descale(tmp13 + tmp0, S));
+    o[4] = idct_limit(descale(tmp13 - tmp0, S));
+  }
+}
+
+// ---- frame, scans and output -------------------------------------------------
+
+struct Component {
+  int id, h, v, tq;
+  int dc_tbl = 0, ac_tbl = 0;
+  int pred = 0;
+  int plane_w = 0, plane_h = 0;  // samples, whole MCUs
+  int comp_w = 0, comp_h = 0;    // libjpeg's downsampled_width / _height
+  std::vector<uint8_t> plane;
+};
+
+struct Decoder {
+  const uint8_t* data;
+  size_t n;
+  size_t pos = 0;
+  int width = 0, height = 0, ncomp = 0;
+  int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  bool frame = false, jfif = false, adobe = false;
+  int adobe_transform = -1;
+  int restart_interval = 0;
+  uint16_t qt[4][64];
+  bool qt_defined[4] = {false, false, false, false};
+  Huffman dc[4], ac[4];
+  Component comp[4];
+
+  int u16(size_t at) const { return (data[at] << 8) | data[at + 1]; }
+
+  int read_segment(size_t* seg, int* len) {
+    if (pos + 2 > n) return E_TRUNCATED;
+    *len = u16(pos);
+    if (*len < 2 || pos + *len > n) return E_TRUNCATED;
+    *seg = pos + 2;
+    pos += *len;
+    return OK;
+  }
+
+  int parse_sof(int marker) {
+    size_t s;
+    int len, st = read_segment(&s, &len);
+    if (st) return st;
+    if (marker == 0xC2 || marker == 0xC6) return E_PROGRESSIVE;
+    if (marker >= 0xC9) return E_ARITHMETIC;
+    if (marker != 0xC0 && marker != 0xC1) return E_LOSSLESS;
+    if (len < 8) return E_BAD_DATA;
+    if (data[s] != 8) return E_PRECISION;
+    height = u16(s + 1);
+    width = u16(s + 3);
+    ncomp = data[s + 5];
+    if (height == 0) return E_DNL;
+    if (width == 0) return E_BAD_DATA;
+    if (ncomp != 1 && ncomp != 3) return E_COMPONENTS;
+    if (len < 8 + 3 * ncomp) return E_BAD_DATA;
+    hmax = vmax = 1;
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.id = data[s + 6 + 3 * i];
+      c.h = data[s + 7 + 3 * i] >> 4;
+      c.v = data[s + 7 + 3 * i] & 15;
+      c.tq = data[s + 8 + 3 * i];
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) return E_BAD_DATA;
+      hmax = c.h > hmax ? c.h : hmax;
+      vmax = c.v > vmax ? c.v : vmax;
+    }
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      if (hmax % c.h || vmax % c.v) return E_SAMPLING;
+      c.plane_w = mcux * c.h * 8;
+      c.plane_h = mcuy * c.v * 8;
+      c.comp_w = (int)(((long)width * c.h + hmax - 1) / hmax);
+      c.comp_h = (int)(((long)height * c.v + vmax - 1) / vmax);
+      c.plane.assign((size_t)c.plane_w * c.plane_h, 0);
+    }
+    frame = true;
+    return OK;
+  }
+
+  int parse_dht() {
+    size_t s;
+    int len, st = read_segment(&s, &len);
+    if (st) return st;
+    size_t e = s + len - 2;
+    while (s < e) {
+      if (s + 17 > e) return E_BAD_DATA;
+      int tc = data[s] >> 4, th = data[s] & 15;
+      if (tc > 1 || th > 3) return E_HUFFMAN;
+      const uint8_t* bits = data + s + 1;
+      int total = 0;
+      for (int i = 0; i < 16; ++i) total += bits[i];
+      if (total > 256 || s + 17 + total > e) return E_HUFFMAN;
+      if (!build_huffman(tc ? ac[th] : dc[th], bits, data + s + 17, total)) return E_HUFFMAN;
+      s += 17 + total;
+    }
+    return OK;
+  }
+
+  int parse_dqt() {
+    size_t s;
+    int len, st = read_segment(&s, &len);
+    if (st) return st;
+    size_t e = s + len - 2;
+    while (s < e) {
+      int pq = data[s] >> 4, tq = data[s] & 15;
+      if (tq > 3 || pq > 1) return E_BAD_DATA;
+      size_t need = 1 + 64 * (pq + 1);
+      if (s + need > e) return E_BAD_DATA;
+      for (int k = 0; k < 64; ++k)
+        qt[tq][kNatural[k]] = pq ? (uint16_t)u16(s + 1 + 2 * k) : data[s + 1 + k];
+      qt_defined[tq] = true;
+      s += need;
+    }
+    return OK;
+  }
+
+  int decode_block(BitReader& br, Component& c, uint8_t* out, int stride) {
+    int32_t coef[64];
+    memset(coef, 0, sizeof(coef));
+    const Huffman& hd = dc[c.dc_tbl];
+    const Huffman& ha = ac[c.ac_tbl];
+    if (br.cnt < 32) br.fill();
+    int s = decode(br, hd);
+    if (s < 0 || s > 15) return E_HUFFMAN;
+    if (s) {
+      if (br.cnt < 16) br.fill();
+      c.pred += extend(br.get(s), s);
+    }
+    coef[0] = c.pred;
+    for (int k = 1; k < 64; ++k) {
+      if (br.cnt < 32) br.fill();
+      int rs = decode(br, ha);
+      if (rs < 0) return E_HUFFMAN;
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        if (br.cnt < 16) br.fill();
+        coef[kNatural[k]] = extend(br.get(s), s);
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+    if (br.overrun()) return E_TRUNCATED;
+    idct_islow(coef, qt[c.tq], out, stride);
+    return OK;
+  }
+
+  // finds the RSTn marker that ends a restart interval and moves past it
+  int next_restart(BitReader& br) {
+    const uint8_t* p = br.p;
+    while (p + 1 < br.end) {
+      if (p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7) {
+        br.p = p + 2;
+        br.reset();
+        return OK;
+      }
+      if (p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF) return E_BAD_DATA;
+      ++p;
+    }
+    return E_TRUNCATED;
+  }
+
+  int parse_sos() {
+    if (!frame) return E_NO_FRAME;
+    size_t s;
+    int len, st = read_segment(&s, &len);
+    if (st) return st;
+    int ns = data[s];
+    if (ns < 1 || ns > 4 || len < 6 + 2 * ns) return E_BAD_DATA;
+    Component* sc[4];
+    for (int i = 0; i < ns; ++i) {
+      int id = data[s + 1 + 2 * i];
+      sc[i] = nullptr;
+      for (int j = 0; j < ncomp; ++j)
+        if (comp[j].id == id) sc[i] = &comp[j];
+      if (!sc[i]) return E_BAD_DATA;
+      sc[i]->dc_tbl = data[s + 2 + 2 * i] >> 4;
+      sc[i]->ac_tbl = data[s + 2 + 2 * i] & 15;
+      if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3 || !dc[sc[i]->dc_tbl].defined ||
+          !ac[sc[i]->ac_tbl].defined || !qt_defined[sc[i]->tq])
+        return E_HUFFMAN;
+      sc[i]->pred = 0;
+    }
+    int ss = data[s + 1 + 2 * ns], se = data[s + 2 + 2 * ns], ahal = data[s + 3 + 2 * ns];
+    if (ss != 0 || se != 63 || ahal != 0) return E_BAD_DATA;
+
+    BitReader br;
+    br.p = data + pos;
+    br.end = data + n;
+    int blocks_per_mcu = 0;
+    long mcus_x, mcus_y;
+    if (ns == 1) {  // non-interleaved: one block an MCU over the component's own extent
+      mcus_x = (sc[0]->comp_w + 7) / 8;
+      mcus_y = (sc[0]->comp_h + 7) / 8;
+      blocks_per_mcu = 1;
+    } else {
+      mcus_x = mcux;
+      mcus_y = mcuy;
+      for (int i = 0; i < ns; ++i) blocks_per_mcu += sc[i]->h * sc[i]->v;
+      if (blocks_per_mcu > 10) return E_BAD_DATA;
+    }
+    long total = mcus_x * mcus_y, done = 0;
+    for (long my = 0; my < mcus_y; ++my) {
+      for (long mx = 0; mx < mcus_x; ++mx) {
+        if (restart_interval && done && done % restart_interval == 0) {
+          st = next_restart(br);
+          if (st) return st;
+          for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+        }
+        if (ns == 1) {
+          Component& c = *sc[0];
+          st = decode_block(br, c, c.plane.data() + (size_t)my * 8 * c.plane_w + mx * 8, c.plane_w);
+          if (st) return st;
+        } else {
+          for (int i = 0; i < ns; ++i) {
+            Component& c = *sc[i];
+            for (int by = 0; by < c.v; ++by)
+              for (int bx = 0; bx < c.h; ++bx) {
+                size_t y = (size_t)(my * c.v + by) * 8, x = (size_t)(mx * c.h + bx) * 8;
+                st = decode_block(br, c, c.plane.data() + y * c.plane_w + x, c.plane_w);
+                if (st) return st;
+              }
+          }
+        }
+        ++done;
+      }
+    }
+    (void)total;
+    // continue the marker loop at the marker that ends the scan
+    const uint8_t* p = br.p;
+    while (p + 1 < br.end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF &&
+                               !(p[1] >= 0xD0 && p[1] <= 0xD7)))
+      ++p;
+    pos = (size_t)(p - data);
+    return OK;
+  }
+
+  int parse() {
+    if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) return E_NOT_JPEG;
+    pos = 2;
+    bool scanned = false;
+    while (true) {
+      while (pos < n && data[pos] != 0xFF) ++pos;  // garbage between segments
+      while (pos < n && data[pos] == 0xFF) ++pos;
+      if (pos >= n) return scanned ? OK : E_TRUNCATED;
+      int marker = data[pos++];
+      int st = OK;
+      if (marker == 0xD9) return scanned ? OK : E_TRUNCATED;
+      if (marker >= 0xC0 && marker <= 0xCF && marker != 0xC4 && marker != 0xC8 && marker != 0xCC) {
+        if (frame) return E_BAD_DATA;
+        st = parse_sof(marker);
+      } else if (marker == 0xCC) {
+        return E_ARITHMETIC;
+      } else if (marker == 0xC4) {
+        st = parse_dht();
+      } else if (marker == 0xDB) {
+        st = parse_dqt();
+      } else if (marker == 0xDD) {
+        size_t s;
+        int len;
+        st = read_segment(&s, &len);
+        if (!st) restart_interval = u16(s);
+      } else if (marker == 0xDA) {
+        st = parse_sos();
+        scanned = true;
+      } else if (marker == 0xDC) {
+        return E_DNL;
+      } else if (marker == 0xE0 || marker == 0xEE) {
+        size_t s;
+        int len;
+        st = read_segment(&s, &len);
+        if (!st && marker == 0xE0 && len >= 7 && memcmp(data + s, "JFIF\0", 5) == 0) jfif = true;
+        if (!st && marker == 0xEE && len >= 14 && memcmp(data + s, "Adobe", 5) == 0) {
+          adobe = true;
+          adobe_transform = data[s + 11];
+        }
+      } else if (marker >= 0xD0 && marker <= 0xD7) {
+        continue;  // stray restart marker
+      } else {
+        size_t s;
+        int len;
+        st = read_segment(&s, &len);
+      }
+      if (st) return st;
+    }
+  }
+
+  // libjpeg's default colour space of a 3-component file (jdapimin.c default_decompress_parms)
+  bool is_rgb() const {
+    if (jfif) return false;
+    if (adobe) return adobe_transform == 0;
+    if (comp[0].id == 1 && comp[1].id == 2 && comp[2].id == 3) return false;
+    if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) return true;
+    return false;
+  }
+};
+
+// One component's samples at full resolution, rows [0, height), cols [0, width).
+void upsample(const Component& c, int hmax, int vmax, int width, int height, uint8_t* out) {
+  int rx = hmax / c.h, ry = vmax / c.v;
+  const uint8_t* pl = c.plane.data();
+  int W = c.plane_w, cw = c.comp_w, ch = c.comp_h;
+  auto at = [&](int y, int x) -> int { return pl[(size_t)y * W + x]; };
+  auto clampy = [&](int y) { return y < 0 ? 0 : (y >= ch ? ch - 1 : y); };
+  auto clampx = [&](int x) { return x < 0 ? 0 : (x >= cw ? cw - 1 : x); };
+  if (rx == 1 && ry == 1) {
+    for (int y = 0; y < height; ++y) memcpy(out + (size_t)y * width, pl + (size_t)y * W, width);
+    return;
+  }
+  if (rx == 2 && ry == 1 && cw > 2) {  // h2v1_fancy_upsample
+    for (int y = 0; y < height; ++y) {
+      uint8_t* o = out + (size_t)y * width;
+      for (int x = 0; x < width; ++x) {
+        int i = x >> 1, v3 = 3 * at(y, i);
+        o[x] = (x & 1) ? (uint8_t)((v3 + at(y, clampx(i + 1)) + 2) >> 2)
+                       : (uint8_t)((v3 + at(y, clampx(i - 1)) + 1) >> 2);
+      }
+    }
+    return;
+  }
+  if (rx == 1 && ry == 2) {  // h1v2_fancy_upsample
+    for (int y = 0; y < height; ++y) {
+      int i = y >> 1, nb = (y & 1) ? clampy(i + 1) : clampy(i - 1), bias = (y & 1) ? 2 : 1;
+      uint8_t* o = out + (size_t)y * width;
+      for (int x = 0; x < width; ++x) o[x] = (uint8_t)((3 * at(i, x) + at(nb, x) + bias) >> 2);
+    }
+    return;
+  }
+  if (rx == 2 && ry == 2 && cw > 2) {  // h2v2_fancy_upsample
+    std::vector<int> colsum(cw);
+    for (int y = 0; y < height; ++y) {
+      int i = y >> 1, nb = (y & 1) ? clampy(i + 1) : clampy(i - 1);
+      for (int x = 0; x < cw; ++x) colsum[x] = 3 * at(i, x) + at(nb, x);
+      uint8_t* o = out + (size_t)y * width;
+      for (int x = 0; x < width; ++x) {
+        int j = x >> 1, t3 = 3 * colsum[j];
+        o[x] = (x & 1) ? (uint8_t)((t3 + colsum[clampx(j + 1)] + 7) >> 4)
+                       : (uint8_t)((t3 + colsum[clampx(j - 1)] + 8) >> 4);
+      }
+    }
+    return;
+  }
+  for (int y = 0; y < height; ++y) {  // int_upsample: replication
+    uint8_t* o = out + (size_t)y * width;
+    for (int x = 0; x < width; ++x) o[x] = (uint8_t)at(y / ry, x / rx);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* imread_error(int status) {
+  int n = (int)(sizeof(kMessages) / sizeof(kMessages[0]));
+  return (status >= 0 && status < n) ? kMessages[status] : "unknown error";
+}
+
+// Undo PNG's per-row filters. ``in``: h rows of 1 filter byte + rowbytes
+// bytes; ``bpp``: bytes a complete pixel (at least 1); ``out``: h * rowbytes.
+int png_unfilter(const uint8_t* in, int h, long rowbytes, int bpp, uint8_t* out) {
+  const uint8_t* prev = nullptr;
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* src = in + (size_t)y * (rowbytes + 1);
+    int ft = *src++;
+    uint8_t* dst = out + (size_t)y * rowbytes;
+    switch (ft) {
+      case 0:
+        memcpy(dst, src, rowbytes);
+        break;
+      case 1:
+        for (long i = 0; i < rowbytes; ++i) dst[i] = (uint8_t)(src[i] + (i >= bpp ? dst[i - bpp] : 0));
+        break;
+      case 2:
+        for (long i = 0; i < rowbytes; ++i) dst[i] = (uint8_t)(src[i] + (prev ? prev[i] : 0));
+        break;
+      case 3:
+        for (long i = 0; i < rowbytes; ++i) {
+          int a = i >= bpp ? dst[i - bpp] : 0, b = prev ? prev[i] : 0;
+          dst[i] = (uint8_t)(src[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (long i = 0; i < rowbytes; ++i) {
+          int a = i >= bpp ? dst[i - bpp] : 0, b = prev ? prev[i] : 0;
+          int c = (i >= bpp && prev) ? prev[i - bpp] : 0;
+          int p = a + b - c, pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+          int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          dst[i] = (uint8_t)(src[i] + pred);
+        }
+        break;
+      default:
+        return E_PNG_FILTER;
+    }
+    prev = dst;
+  }
+  return OK;
+}
+
+// Decode a JPEG held in memory into ``out``, ``height * width * 3`` RGB bytes;
+// ``height`` and ``width`` must be the frame's (see jpeg_shape in native.py).
+int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int height, int width) {
+  Decoder d;
+  d.data = data;
+  d.n = (size_t)n;
+  int st = d.parse();
+  if (st) return st;
+  if (!d.frame) return E_NO_FRAME;
+  if (d.height != height || d.width != width) return E_SIZE;
+  size_t npix = (size_t)width * height;
+  if (d.ncomp == 1) {
+    std::vector<uint8_t> y(npix);
+    upsample(d.comp[0], d.hmax, d.vmax, width, height, y.data());
+    for (size_t i = 0; i < npix; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+    return OK;
+  }
+  std::vector<uint8_t> p0(npix), p1(npix), p2(npix);
+  upsample(d.comp[0], d.hmax, d.vmax, width, height, p0.data());
+  upsample(d.comp[1], d.hmax, d.vmax, width, height, p1.data());
+  upsample(d.comp[2], d.hmax, d.vmax, width, height, p2.data());
+  if (d.is_rgb()) {
+    for (size_t i = 0; i < npix; ++i) {
+      out[3 * i] = p0[i];
+      out[3 * i + 1] = p1[i];
+      out[3 * i + 2] = p2[i];
+    }
+    return OK;
+  }
+  // jdcolor.c build_ycc_rgb_table and ycc_rgb_convert
+  constexpr int SCALEBITS = 16;
+  constexpr int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
+  auto fix = [](double x) { return (int64_t)(x * (1L << SCALEBITS) + 0.5); };
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  for (int i = 0, x = -128; i < 256; ++i, ++x) {
+    cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+    cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+  }
+  auto limit = [](int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+  for (size_t i = 0; i < npix; ++i) {
+    int y = p0[i], cb = p1[i], cr = p2[i];
+    out[3 * i] = limit(y + cr_r[cr]);
+    out[3 * i + 1] = limit(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
+    out[3 * i + 2] = limit(y + cb_b[cb]);
+  }
+  return OK;
+}
+
+}  // extern "C"

@@ -1,0 +1,303 @@
+"""PNG and JPEG reading and PNG writing on the host, without OpenCV or PIL.
+
+The port's counterpart of ``cv2.imread(path, IMREAD_COLOR)`` followed by
+``cvtColor(BGR2RGB)``: `imread` returns an RGB ``uint8 [h, w, 3]`` array with
+the pixels OpenCV gives (gray replicated to three channels, alpha dropped).
+
+* PNG: chunks are parsed and their data inflated here with ``zlib``; the row
+  filters are undone in C++ (Paeth and Average depend on the left neighbour,
+  so a row cannot be vectorised in numpy). 8-bit gray, gray+alpha, RGB, RGBA
+  and palette images, and 1/2/4-bit gray and palette images; 16-bit and
+  interlaced (Adam7) files raise `NotImplementedError`.
+* JPEG: baseline and extended sequential Huffman files, decoded in C++ with
+  libjpeg-turbo's arithmetic (``imread.cpp``); progressive, arithmetic-coded,
+  lossless, 12-bit and CMYK files, and files whose EXIF orientation asks for
+  a rotation, raise `NotImplementedError`.
+
+``imread.cpp`` is compiled with ``g++`` at first use into ``build/`` at the
+repository root, keyed by a hash of its source and flags, under a file lock
+so that concurrent processes build it once (`utils.native_build`). A missing
+compiler raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import shutil
+import struct
+import subprocess
+import zlib
+from pathlib import Path
+from typing import Optional, Tuple, Union
+
+import numpy as np
+
+from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, locked_build
+
+SOURCE = Path(__file__).resolve().parent / "imread.cpp"
+LIB_NAME = "libquan_torch_imread.so"
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# imread.cpp's status codes that mean "a kind of file this reader does not take"
+_NOT_IMPLEMENTED = {3, 4, 5, 6, 7, 8, 14}
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+
+_lib: Optional[ctypes.CDLL] = None
+
+PathLike = Union[str, Path]
+
+
+def _compile_to(lib_path: Path) -> None:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the image reader is C++ built at first use")
+    cmd = [cxx, *CXX_FLAGS, str(SOURCE), "-o", str(lib_path)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+
+
+def build() -> Path:
+    """Compile ``imread.cpp`` if its source or flags changed; return the library path."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()
+    return locked_build(BUILD_DIR, LIB_NAME, digest, _compile_to)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded reader library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.png_unfilter.argtypes = [u8p, ctypes.c_int, ctypes.c_long, ctypes.c_int, u8p]
+        lib.jpeg_decode.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_int, ctypes.c_int]
+        lib.png_unfilter.restype = lib.jpeg_decode.restype = ctypes.c_int
+        lib.imread_error.argtypes = [ctypes.c_int]
+        lib.imread_error.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _check(status: int, path: PathLike) -> None:
+    if status:
+        msg = f"{path}: {library().imread_error(status).decode()}"
+        raise NotImplementedError(msg) if status in _NOT_IMPLEMENTED else ValueError(msg)
+
+
+# ---------------------------------------------------------------- EXIF
+
+
+def _exif_orientation(tiff: bytes) -> int:
+    """The Orientation tag (0x0112) of a TIFF-structured EXIF block, 1 if absent."""
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    end = "<" if tiff[:2] == b"II" else ">"
+    ifd = struct.unpack(end + "I", tiff[4:8])[0]
+    if ifd + 2 > len(tiff):
+        return 1
+    for i in range(struct.unpack(end + "H", tiff[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * i
+        if at + 12 > len(tiff):
+            break
+        tag, kind = struct.unpack(end + "HH", tiff[at:at + 4])
+        if tag == 0x0112 and kind == 3:
+            return struct.unpack(end + "H", tiff[at + 8:at + 10])[0]
+    return 1
+
+
+def _refuse_rotation(orientation: int, path: PathLike) -> None:
+    # OpenCV's IMREAD_COLOR turns the image by its EXIF orientation; this reader does not
+    if orientation not in (0, 1):
+        raise NotImplementedError(f"{path}: EXIF orientation {orientation} (a rotated image)")
+
+
+# ---------------------------------------------------------------- JPEG
+
+
+def _jpeg_header(data: bytes, path: PathLike) -> Tuple[int, int]:
+    """(h, w) from the frame header, after checking the EXIF orientation."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{path}: not a JPEG file")
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker == 0xFF or 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            pos += 1
+            continue
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg = data[pos + 4:pos + 2 + length]
+        if marker == 0xE1 and seg[:6] == b"Exif\x00\x00":
+            _refuse_rotation(_exif_orientation(seg[6:]), path)
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            if len(seg) < 5:
+                break
+            h, w = struct.unpack(">HH", seg[1:5])
+            return h, w
+        if marker in (0xD9, 0xDA):
+            break
+        pos += 2 + length
+    raise ValueError(f"{path}: no JPEG frame header")
+
+
+def _decode_jpeg(data: bytes, path: PathLike) -> np.ndarray:
+    h, w = _jpeg_header(data, path)
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w, 3), np.uint8)
+    _check(library().jpeg_decode(_ptr(buf), len(data), _ptr(out), h, w), path)
+    return out
+
+
+# ---------------------------------------------------------------- PNG
+
+
+def _png_chunks(data: bytes, path: PathLike):
+    """(type, payload) of each chunk, CRCs checked, up to IEND."""
+    pos = len(PNG_SIGNATURE)
+    while pos + 12 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        payload = data[pos + 8:pos + 8 + length]
+        if len(payload) != length or pos + 12 + length > len(data):
+            break
+        crc = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0]
+        if zlib.crc32(kind + payload) != crc:
+            raise ValueError(f"{path}: bad CRC in the {kind.decode(errors='replace')} chunk")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError(f"{path}: the data ends before the image does")
+
+
+def _png_header(data: bytes, path: PathLike):
+    if data[:8] != PNG_SIGNATURE or data[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    return struct.unpack(">IIBBBBB", data[16:29])  # w, h, depth, colour, compression, filter, interlace
+
+
+def _decode_png(data: bytes, path: PathLike) -> np.ndarray:
+    w, h, depth, colour, compression, filt, interlace = _png_header(data, path)
+    if colour not in _PNG_CHANNELS or compression or filt:
+        raise ValueError(f"{path}: bad PNG header")
+    if depth == 16:
+        raise NotImplementedError(f"{path}: 16-bit PNG is not supported")
+    if interlace:
+        raise NotImplementedError(f"{path}: interlaced (Adam7) PNG is not supported")
+    if depth != 8 and not (colour in (0, 3) and depth in (1, 2, 4)):
+        raise ValueError(f"{path}: bit depth {depth} is not allowed for colour type {colour}")
+    idat, palette = [], None
+    for kind, payload in _png_chunks(data, path):
+        if kind == b"IDAT":
+            idat.append(payload)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+        elif kind == b"eXIf":
+            _refuse_rotation(_exif_orientation(payload), path)
+    channels = _PNG_CHANNELS[colour]
+    rowbytes = (w * channels * depth + 7) // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < h * (rowbytes + 1):
+        raise ValueError(f"{path}: the image data is shorter than its header says")
+    rows = np.empty((h, rowbytes), np.uint8)
+    bpp = max(1, channels * depth // 8)
+    _check(library().png_unfilter(_ptr(raw), h, rowbytes, bpp, _ptr(rows)), path)
+    if depth < 8:  # unpack the samples, most significant bits first
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+        rows = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+        if colour == 0:  # libpng's expand_gray_1_2_4_to_8 scales to 0..255
+            rows = rows * np.uint8(255 // ((1 << depth) - 1))
+    px = rows.reshape(h, w, channels)
+    if colour == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette image without a PLTE chunk")
+        idx = px[..., 0]
+        if idx.size and int(idx.max()) >= len(palette):
+            raise ValueError(f"{path}: palette index out of range")
+        return palette[idx]
+    if colour in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+# ---------------------------------------------------------------- public
+
+
+def imread(path: PathLike) -> np.ndarray:
+    """RGB ``uint8 [h, w, 3]`` pixels of a PNG or JPEG file, as OpenCV's
+    IMREAD_COLOR (then BGR->RGB) gives them. Raises `FileNotFoundError` for a
+    missing file, `NotImplementedError` for a kind of PNG or JPEG this reader
+    does not take, `ValueError` for anything else it cannot read."""
+    data = Path(path).read_bytes()
+    if data[:8] == PNG_SIGNATURE:
+        return _decode_png(data, path)
+    if data[:2] == b"\xff\xd8":
+        return _decode_jpeg(data, path)
+    raise NotImplementedError(f"{path}: only PNG and JPEG files are read")
+
+
+def read_shape(path: PathLike) -> Tuple[int, int]:
+    """``(h, w)`` of a PNG or JPEG file from its header, without decoding it."""
+    with open(path, "rb") as fh:
+        head = fh.read(64)
+        if head[:8] == PNG_SIGNATURE:
+            w, h = _png_header(head, path)[:2]
+            return h, w
+        if head[:2] != b"\xff\xd8":
+            raise NotImplementedError(f"{path}: only PNG and JPEG files are read")
+        return _jpeg_header(head + fh.read(), path)
+
+
+def imwrite_png(path: PathLike, im: np.ndarray, palette: Optional[np.ndarray] = None) -> None:
+    """Write ``uint8`` pixels as an 8-bit PNG: ``[h, w]`` or ``[h, w, 1]`` gray,
+    ``[h, w, 3]`` RGB, ``[h, w, 4]`` RGBA; or, with ``palette`` (``[n, 3]``,
+    n <= 256), ``im`` holds palette indices. Row ``y`` is filtered with type
+    ``y % 5``, so every filter occurs."""
+    im = np.asarray(im)
+    if im.dtype != np.uint8:
+        raise TypeError(f"imwrite_png takes uint8 pixels, got {im.dtype}")
+    if im.ndim == 2:
+        im = im[..., None]
+    h, w, c = im.shape
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        if c != 1 or palette.ndim != 2 or palette.shape[1] != 3 or not 0 < len(palette) <= 256:
+            raise ValueError("a palette image is [h, w] indices with a [n <= 256, 3] palette")
+        if im.size and int(im.max()) >= len(palette):
+            raise ValueError("palette index out of range")
+        colour = 3
+    else:
+        colour = {1: 0, 3: 2, 4: 6}.get(c)
+        if colour is None:
+            raise ValueError(f"cannot write {c} channels as PNG")
+    x = im.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]  # left neighbour
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]  # above
+    cc = np.zeros_like(x)
+    cc[1:, c:] = x[:-1, :-c]  # above-left
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    filtered = np.stack([x, x - a, x - b, x - (a + b) // 2, x - paeth])  # types 0..4
+    kind = np.arange(h) % 5
+    rows = filtered[kind, np.arange(h)].astype(np.uint8)  # mod 256
+    raw = np.concatenate([kind.astype(np.uint8)[:, None], rows], axis=1).tobytes()
+
+    def chunk(kind_: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind_ + payload
+                + struct.pack(">I", zlib.crc32(kind_ + payload)))
+
+    out = [PNG_SIGNATURE, chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))]
+    if palette is not None:
+        out.append(chunk(b"PLTE", palette.tobytes()))
+    out += [chunk(b"IDAT", zlib.compress(raw, 6)), chunk(b"IEND", b"")]
+    Path(path).write_bytes(b"".join(out))

@@ -74,7 +74,8 @@ class Predictor:
 
     @torch.inference_mode()
     def infer(self, x: torch.Tensor):
-        """uint8 ``[B, imgsz, imgsz, 3]`` on the device -> (det ``[B, max_det, 7]``, ok)."""
+        """uint8 ``[B, imgsz, imgsz, 3]`` on the device -> (det ``[B, max_det, 7]``:
+        xywhr, conf, cls in the input's pixels; keep mask ``[B, max_det]``)."""
         img = x.float() / 255.0
         pred = self.model.decode(self.model(img))
         return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,

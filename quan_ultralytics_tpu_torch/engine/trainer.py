@@ -22,10 +22,13 @@ are updated in place.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import math
+import time
 from pathlib import Path
-from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -38,9 +41,9 @@ GROUPS = ("weight", "norm", "bias")
 @dataclasses.dataclass
 class TrainConfig:
     """The reference cfg/default.yaml hyperparameters that shape the
-    optimization, with its defaults (the JAX ``TrainConfig``). Its fields
-    that only ``init_state`` and ``fit`` read (imgsz, seed, optimizer,
-    save_dir, patience, multi_scale) come with ``fit``."""
+    optimization and the epoch loop, with its defaults (the JAX
+    ``TrainConfig``). Its fields that only the JAX ``init_state`` and CLI
+    read (imgsz, seed, optimizer, save_dir, multi_scale) are not ported."""
 
     epochs: int = 100
     batch: int = 16
@@ -61,6 +64,7 @@ class TrainConfig:
     max_grad_norm: float = 10.0
     dtype: str = "bfloat16"
     guard_nan: bool = True  # skip the update on a non-finite loss or gradient
+    patience: int = 100  # epochs without a better fitness before `Trainer.fit` stops
     # the assigner's metric chain in bf16 (the JAX trainer's default; the port
     # reads no environment variable for it)
     assigner_bf16: bool = True
@@ -290,6 +294,85 @@ class Trainer:
         aux = {k: v.detach() for k, v in aux.items()}
         aux["nan_skipped"] = torch.tensor(0.0 if finite else 1.0)
         return total.detach(), aux
+
+    @contextlib.contextmanager
+    def ema_weights(self) -> Iterator[DetectionModel]:
+        """The model with the EMA parameters in place of the training ones and
+        the IQBN running statistics as they are (the JAX
+        ``TrainState.variables(ema=True)``); the training parameters are put
+        back on exit."""
+        with torch.no_grad():
+            saved = [p.detach().clone() for p in self.params]
+            torch._foreach_copy_(self.params, self.ema)
+        try:
+            yield self.model
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(self.params, saved)
+
+    def fit(self, train_loader_fn: Callable[[int], Iterable[Mapping]],
+            validate_fn: Optional[Callable[["Trainer"], Dict[str, float]]] = None,
+            epochs: Optional[int] = None, start_epoch: int = 0,
+            save_dir: Optional[Union[str, Path]] = None,
+            close_mosaic_hook: Optional[Callable[[int], None]] = None, close_mosaic: int = 10,
+            log: Callable[[str], Any] = print, callbacks=None) -> List[Dict[str, float]]:
+        """The epoch loop (the JAX ``Trainer.fit``; reference BaseTrainer._do_train
+        trainer.py:319-477): train on ``train_loader_fn(epoch)``, validate with
+        ``validate_fn(self)`` (which runs the EMA weights through `ema_weights`),
+        keep ``last.ckpt`` and ``best.ckpt`` and ``results.json`` in
+        ``save_dir``, stop after ``cfg.patience`` epochs without a better fitness.
+
+        Fitness is 0.9 mAP50-95 + 0.1 mAP50, or minus the mean loss without a
+        validator; the first epoch is always the best so far. Each epoch's
+        losses stay on the device and are fetched once. Returns the history,
+        one row a epoch, also kept as ``self.history``.
+        """
+        epochs = epochs or self.cfg.epochs
+        best_fitness: Optional[float] = None
+        best_epoch = -1
+        history: List[Dict[str, float]] = []
+        out = Path(save_dir) if save_dir else None
+        if out:
+            out.mkdir(parents=True, exist_ok=True)
+        if callbacks is not None:
+            callbacks.run("on_train_start")
+        for epoch in range(start_epoch, epochs):
+            if close_mosaic_hook and epoch == max(epochs - close_mosaic, 0):
+                close_mosaic_hook(epoch)  # reference close_mosaic (trainer.py:354)
+            if callbacks is not None:
+                callbacks.run("on_train_epoch_start")
+            t0 = time.time()
+            losses = [self.step(batch)[0] for batch in train_loader_fn(epoch)]
+            losses = torch.stack(losses).float().cpu().tolist() if losses else []
+            row = {"epoch": epoch, "loss": float(sum(losses) / len(losses)) if losses else float("nan"),
+                   "time_s": round(time.time() - t0, 2)}
+            fitness = row["loss"] * -1.0  # without a validator
+            if validate_fn is not None:
+                metrics = validate_fn(self)
+                row.update(metrics)
+                fitness = metrics.get("mAP50-95", 0.0) * 0.9 + metrics.get("mAP50", 0.0) * 0.1
+            row["fitness"] = fitness
+            history.append(row)
+            if callbacks is not None:
+                callbacks.run("on_train_epoch_end")
+                callbacks.run("on_fit_epoch_end", row)
+            log(f"epoch {epoch}: " + " ".join(f"{k}={v:.4g}" for k, v in row.items() if k != "epoch"))
+            if out:
+                self.save_checkpoint(out / "last.ckpt", epoch)
+                if best_fitness is None or fitness > best_fitness:
+                    best_fitness, best_epoch = fitness, epoch
+                    self.save_checkpoint(out / "best.ckpt", epoch)
+                (out / "results.json").write_text(json.dumps(history, indent=2))
+                if callbacks is not None:
+                    callbacks.run("on_model_save", out / "last.ckpt")
+            if epoch - best_epoch > self.cfg.patience:
+                log(f"early stopping: no fitness improvement in {self.cfg.patience} epochs")
+                break
+        self.history = history
+        if callbacks is not None:
+            callbacks.run("on_train_end",
+                          (out / "best.ckpt") if out and (out / "best.ckpt").exists() else None)
+        return history
 
     def state_dict(self) -> Dict:
         return {

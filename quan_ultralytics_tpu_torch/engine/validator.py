@@ -1,0 +1,148 @@
+"""Validator: run a model over a labelled split and compute rotated mAP
+(counterpart of the JAX package's ``engine/validator.py``, OBB task).
+
+Per batch, one upload of the uint8 images (from pinned memory when the model
+is on the card) and one device pass, `Predictor.infer`'s: forward,
+`decode_obb` and rotated NMS under ``torch.inference_mode``; the kept
+detections come back to the host once. Matching, AP, the confusion matrix,
+COCO-style JSON and the DOTA Task1 files are host work, as in JAX (reference
+engine/validator.py BaseValidator and models/yolo/obb/val.py OBBValidator).
+
+The Validator runs on the device of the model's parameters; a model on the
+card is validated there. The detect, segment and pose tasks and the JAX
+``mesh`` option are not ported yet; nor is ``rect``, which the JAX package
+refuses for the OBB task.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from quan_ultralytics_tpu_torch.data.build import build_dataloader
+from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
+from quan_ultralytics_tpu_torch.engine.dota_eval import DOTASubmission
+from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+from quan_ultralytics_tpu_torch.ops.boxes import scale_rboxes
+from quan_ultralytics_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
+
+
+class Validator:
+    def __init__(self, model: DetectionModel, imgsz: int = 640, conf: float = 0.001,
+                 iou: float = 0.7, max_det: int = 300, mesh=None):
+        if model.task != "obb":
+            raise NotImplementedError(f"task {model.task!r}: only the OBB validator is ported yet")
+        if mesh is not None:
+            raise NotImplementedError("sharded validation (mesh) is not ported yet")
+        self.model = model
+        self.imgsz = imgsz
+        # the device pass is the Predictor's: forward, decode, rotated NMS
+        self.predictor = Predictor(model, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det)
+        self.infer = self.predictor.infer
+        self.speed: Dict[str, float] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _upload(self, img: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(img)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def __call__(self, ds: YOLODataset, batch_size: int = 8, max_labels: int = 256,
+                 save_json: Optional[str] = None, save_submission: Optional[str] = None,
+                 save_dir: Optional[str] = None) -> Dict[str, float]:
+        """Validate on ``ds``; returns ``{mAP50, mAP50-95, precision, recall}``.
+
+        save_json: COCO-style detections in source-image coordinates (reference
+          detect/val.py pred_to_json).
+        save_submission: a DOTA Task1 directory: patch predictions mapped back to
+          their source image by the ``{stem}__{x}_{y}`` naming, merged with
+          rotated NMS, written as ``Task1_{class}.txt`` (`DOTASubmission`).
+        save_dir: the per-class table as ``per_class.txt``. The curve and
+          confusion-matrix images need matplotlib and are not written (their
+          methods raise `NotImplementedError`).
+
+        ``self.confusion`` and ``self.metrics`` hold the run's confusion matrix
+        and accumulated matches; ``self.speed`` the host-clock ms a batch of
+        loading and letterboxing (``load_ms``), the device pass with its copies
+        (``infer_ms``) and matching (``match_ms``), and ``img_s``.
+        """
+        metrics = DetMetrics(nc=self.model.nc, rotated=True)
+        self.confusion = ConfusionMatrix(nc=self.model.nc)
+        json_dets: Optional[List[Dict]] = [] if save_json else None
+        submission = DOTASubmission(ds.names) if save_submission else None
+        was_training = self.model.training
+        self.model.eval()
+        times = {"load_ms": 0.0, "infer_ms": 0.0, "match_ms": 0.0}
+        n_batches = n_images = 0
+        t_all = time.perf_counter()
+        loader = build_dataloader(ds, batch_size, self.imgsz, hyp=None, max_labels=max_labels,
+                                  augment=False, shuffle=False, drop_last=False, with_meta=True)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(loader, None)
+                if batch is None:
+                    break
+                t1 = time.perf_counter()
+                det, ok = self.infer(self._upload(batch["img"]))
+                det, ok = det.float().cpu().numpy(), ok.cpu().numpy()
+                t2 = time.perf_counter()
+                Hb = batch["img"].shape[1]  # OBB batches are square
+                # the tail batch repeats indices to fill up; only n_real are scored
+                n_real = int(batch.get("n_real", det.shape[0]))
+                for b in range(min(det.shape[0], n_real)):
+                    keep = ok[b]
+                    pred_boxes = det[b, keep, :5]  # xywhr, letterbox pixels
+                    conf, cls = det[b, keep, 5], det[b, keep, 6]
+                    gmask = batch["mask"][b]
+                    gt_boxes = batch["bboxes"][b][gmask].copy()  # normalized xywhr
+                    gt_boxes[:, :4] *= Hb
+                    gt_cls = batch["cls"][b][gmask].astype(np.float32)
+                    metrics.update(pred_boxes, conf, cls.astype(np.float32), gt_boxes, gt_cls)
+                    self.confusion.process_batch(pred_boxes, conf, cls, gt_boxes, gt_cls,
+                                                 rotated=True)
+                    src_boxes = scale_rboxes(pred_boxes, batch["ratio_pad"][b])
+                    stem = Path(batch["im_files"][b]).stem
+                    if submission is not None:
+                        submission.add_patch(stem, src_boxes, conf, cls)
+                    if json_dets is not None:
+                        for bi in range(len(src_boxes)):
+                            x, y, w, h, r = src_boxes[bi][:5]
+                            box = [float(x - w / 2), float(y - h / 2), float(w), float(h)]
+                            json_dets.append({
+                                "image_id": stem, "category_id": int(cls[bi]),
+                                "bbox": [round(v, 3) for v in box],
+                                "score": round(float(conf[bi]), 5), "angle": float(r),
+                            })
+                times["load_ms"] += 1e3 * (t1 - t0)
+                times["infer_ms"] += 1e3 * (t2 - t1)
+                times["match_ms"] += 1e3 * (time.perf_counter() - t2)
+                n_batches += 1
+                n_images += min(det.shape[0], n_real)
+        finally:
+            loader.close()
+            self.model.train(was_training)
+        if json_dets is not None:
+            Path(save_json).write_text(json.dumps(json_dets))
+        if submission is not None:
+            submission.write(save_submission)
+        out = metrics.compute()
+        self.metrics = metrics
+        if save_dir is not None:
+            d = Path(save_dir)
+            d.mkdir(parents=True, exist_ok=True)
+            (d / "per_class.txt").write_text(metrics.per_class_table(ds.names) + "\n")
+        wall = time.perf_counter() - t_all
+        self.speed = {k: v / max(n_batches, 1) for k, v in times.items()}
+        self.speed["img_s"] = n_images / wall if wall > 0 else float("nan")
+        return out

@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -92,6 +93,34 @@ def regularize_rboxes(rboxes: torch.Tensor) -> torch.Tensor:
     h_ = torch.where(swap, w, h)
     t_ = torch.remainder(torch.where(swap, t + math.pi / 2, t), math.pi)
     return torch.stack([x, y, w_, h_, t_], dim=-1)
+
+
+def _stack(like, parts):
+    return torch.stack(parts, dim=-1) if isinstance(like, torch.Tensor) else np.stack(parts, axis=-1)
+
+
+def scale_boxes(boxes, ratio_pad, ori_shape=None):
+    """Letterboxed-pixel xyxy boxes ``[..., 4]`` -> source-image pixels
+    (reference utils/ops.py:92), clipped to ``ori_shape`` ``(h0, w0)`` when
+    given. ``ratio_pad`` is ``(r, dw, dh)`` of the letterbox. numpy arrays or
+    torch tensors."""
+    r, dw, dh = ratio_pad[0], ratio_pad[1], ratio_pad[2]
+    x1, y1 = (boxes[..., 0] - dw) / r, (boxes[..., 1] - dh) / r
+    x2, y2 = (boxes[..., 2] - dw) / r, (boxes[..., 3] - dh) / r
+    if ori_shape is not None:
+        h0, w0 = ori_shape[0], ori_shape[1]
+        x1, x2 = x1.clip(0, w0), x2.clip(0, w0)
+        y1, y2 = y1.clip(0, h0), y2.clip(0, h0)
+    return _stack(boxes, [x1, y1, x2, y2])
+
+
+def scale_rboxes(rboxes, ratio_pad):
+    """Letterboxed-pixel xywhr boxes ``[..., 5]`` -> source-image pixels: the
+    centre shifted and scaled, the sides scaled, the angle kept (reference
+    obb/val.py pred_to_json). numpy arrays or torch tensors."""
+    r, dw, dh = ratio_pad[0], ratio_pad[1], ratio_pad[2]
+    return _stack(rboxes, [(rboxes[..., 0] - dw) / r, (rboxes[..., 1] - dh) / r,
+                           rboxes[..., 2] / r, rboxes[..., 3] / r, rboxes[..., 4]])
 
 
 # ---------------------------------------------------------------------------

@@ -2,16 +2,14 @@
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together; one more ``nvcc`` links them into ``build/libquan_torch_kernels.so``
-beside the package. The library has a plain C interface, so no PyTorch header
-is compiled. A hash of the sources and flags, stored beside the library,
-decides whether it is rebuilt; a file lock keeps concurrent processes from
-building at once.
+beside the package (`utils.native_build.locked_build`: once, keyed by a hash
+of the sources and flags, under a file lock). The library has a plain C
+interface, so no PyTorch header is compiled.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import hashlib
 import os
 import shutil
@@ -20,8 +18,9 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, locked_build
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 LIB_NAME = "libquan_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,36 +61,27 @@ def _run(procs):
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
+def _compile_to(lib_path: Path) -> None:
+    global build_seconds, build_log
+    t0 = time.perf_counter()
+    build_log = ""
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(str(obj))
+    _run(procs)
+    cmd = [nvcc, "-shared", "-o", str(lib_path), *objs]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+    build_seconds = time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile the kernels if the sources changed since the last build; return the library path."""
-    global build_seconds, build_log
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    digest = _digest()
-    with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
-            return lib_path
-        t0 = time.perf_counter()
-        build_log = ""
-        nvcc = _nvcc()
-        objs, procs = [], []
-        for src in _sources():
-            obj = BUILD_DIR / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
-            objs.append(str(obj))
-        _run(procs)
-        tmp = BUILD_DIR / (LIB_NAME + f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
-        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True))])
-        os.replace(tmp, lib_path)
-        stamp.write_text(digest)
-        build_seconds = time.perf_counter() - t0
-    return lib_path
+    return locked_build(BUILD_DIR, LIB_NAME, _digest(), _compile_to)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

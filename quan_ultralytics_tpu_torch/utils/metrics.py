@@ -1,0 +1,314 @@
+"""Detection metrics: AP / mAP for axis-aligned and oriented boxes
+(counterpart of the JAX package's ``utils/metrics.py``, its numeric part).
+
+Host-side NumPy re-implementation of the reference metric pipeline
+(ultralytics/utils/metrics.py: ap_per_class :537, DetMetrics :798,
+OBBMetrics :1226). Matching logic follows the reference: per-image IoU
+matching at 10 thresholds (0.5:0.95), greedy de-duplication by IoU order,
+101-point interpolated AP. Rotated IoU uses probiou like the reference's
+OBBValidator (models/yolo/obb/val.py:40). The plots need matplotlib and are
+not ported yet: their methods raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+# numpy 2 renamed trapz; the card's machine may have either
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+def _probiou_np(obb1: np.ndarray, obb2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """All-pairs probiou [N,5] x [M,5] -> [N,M] (numpy mirror of
+    ops/boxes.py batch_probiou)."""
+    def cov(b):
+        a = b[:, 2] ** 2 / 12
+        bb = b[:, 3] ** 2 / 12
+        c = b[:, 4]
+        cos, sin = np.cos(c), np.sin(c)
+        return a * cos**2 + bb * sin**2, a * sin**2 + bb * cos**2, (a - bb) * cos * sin
+
+    x1, y1 = obb1[:, 0:1], obb1[:, 1:2]
+    x2, y2 = obb2[None, :, 0], obb2[None, :, 1]
+    a1, b1, c1 = (v[:, None] for v in cov(obb1))
+    a2, b2, c2 = (v[None, :] for v in cov(obb2))
+    den = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / den * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / den * 0.5
+    det1 = np.clip(a1 * b1 - c1**2, 0, None)
+    det2 = np.clip(a2 * b2 - c2**2, 0, None)
+    t3 = np.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2) / (4 * np.sqrt(det1 * det2) + eps) + eps) * 0.5
+    bd = np.clip(t1 + t2 + t3, eps, 100.0)
+    return 1.0 - np.sqrt(1.0 - np.exp(-bd) + eps)
+
+
+def _box_iou_np(b1: np.ndarray, b2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """All-pairs IoU for xyxy boxes [N,4] x [M,4] -> [N,M]."""
+    a1 = (b1[:, 2] - b1[:, 0]) * (b1[:, 3] - b1[:, 1])
+    a2 = (b2[:, 2] - b2[:, 0]) * (b2[:, 3] - b2[:, 1])
+    lt = np.maximum(b1[:, None, :2], b2[None, :, :2])
+    rb = np.minimum(b1[:, None, 2:], b2[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (a1[:, None] + a2[None, :] - inter + eps)
+
+
+IOUV = np.linspace(0.5, 0.95, 10)
+
+def match_predictions(pred_cls: np.ndarray, gt_cls: np.ndarray, iou: np.ndarray) -> np.ndarray:
+    """Reference BaseValidator.match_predictions: for each IoU threshold,
+    greedily match predictions to gts of the same class.
+
+    Args: iou [n_gt, n_pred]. Returns bool [n_pred, 10]."""
+    correct = np.zeros((pred_cls.shape[0], IOUV.size), dtype=bool)
+    cc = gt_cls[:, None] == pred_cls[None, :]
+    iou = iou * cc  # zero out cross-class
+    for i, t in enumerate(IOUV):
+        matches = np.nonzero(iou >= t)
+        matches = np.array(matches).T  # [k, 2] (gt, pred)
+        if matches.shape[0]:
+            order = iou[matches[:, 0], matches[:, 1]].argsort()[::-1]
+            matches = matches[order]
+            matches = matches[np.unique(matches[:, 1], return_index=True)[1]]
+            matches = matches[np.unique(matches[:, 0], return_index=True)[1]]
+            correct[matches[:, 1], i] = True
+    return correct
+
+
+class ConfusionMatrix:
+    """Detection/classification confusion matrix (reference metrics.py:294).
+
+    Detect task: matrix is ``[nc+1, nc+1]`` (last row/col = background),
+    indexed [predicted, ground-truth]. Detections below ``conf`` are dropped
+    (0.25 is substituted when the 0.001 val default is passed, matching the
+    reference); matches require IoU (or probiou for rotated) > ``iou_thres``
+    and are deduplicated best-IoU-first per gt and per prediction.
+    """
+
+    def __init__(self, nc: int, conf: float = 0.25, iou_thres: float = 0.45,
+                 task: str = "detect"):
+        self.task = task
+        self.nc = nc
+        self.matrix = np.zeros((nc + 1, nc + 1) if task == "detect" else (nc, nc))
+        self.conf = 0.25 if conf in (None, 0.001) else conf
+        self.iou_thres = iou_thres
+
+    def process_cls_preds(self, preds, targets):
+        for p, t in zip(np.asarray(preds).astype(int), np.asarray(targets).astype(int)):
+            self.matrix[p, t] += 1
+
+    def process_batch(self, pred_boxes: np.ndarray, pred_conf: np.ndarray,
+                      pred_cls: np.ndarray, gt_boxes: np.ndarray, gt_cls: np.ndarray,
+                      rotated: bool = False):
+        """One image. Boxes: xyxy (or xywhr when rotated), same pixel space."""
+        gt_cls = np.asarray(gt_cls).astype(int)
+        keep = np.asarray(pred_conf) > self.conf
+        pred_boxes, pred_cls = np.asarray(pred_boxes)[keep], np.asarray(pred_cls).astype(int)[keep]
+        if gt_cls.shape[0] == 0:
+            for dc in pred_cls:
+                self.matrix[dc, self.nc] += 1  # false positive
+            return
+        if pred_cls.shape[0] == 0:
+            for gc in gt_cls:
+                self.matrix[self.nc, gc] += 1  # background FN
+            return
+        iou = (_probiou_np(gt_boxes, pred_boxes) if rotated
+               else _box_iou_np(gt_boxes, pred_boxes))
+        gi, pi = np.nonzero(iou > self.iou_thres)
+        matches = np.stack([gi, pi, iou[gi, pi]], 1) if gi.size else np.zeros((0, 3))
+        if gi.size > 1:
+            matches = matches[matches[:, 2].argsort()[::-1]]
+            matches = matches[np.unique(matches[:, 1], return_index=True)[1]]
+            matches = matches[matches[:, 2].argsort()[::-1]]
+            matches = matches[np.unique(matches[:, 0], return_index=True)[1]]
+        m0, m1 = matches[:, 0].astype(int), matches[:, 1].astype(int)
+        for i, gc in enumerate(gt_cls):
+            j = m0 == i
+            if j.sum() == 1:
+                self.matrix[pred_cls[m1[j]][0], gc] += 1  # correct/confused
+            else:
+                self.matrix[self.nc, gc] += 1  # missed (true background)
+        for i, dc in enumerate(pred_cls):
+            if not np.any(m1 == i):
+                self.matrix[dc, self.nc] += 1  # predicted on background
+
+    def tp_fp(self):
+        tp = self.matrix.diagonal()
+        fp = self.matrix.sum(1) - tp
+        return (tp[:-1], fp[:-1]) if self.task == "detect" else (tp, fp)
+
+    def summary(self, names=None) -> str:
+        """Compact textual rendering (stands in for the seaborn heatmap)."""
+        n = self.matrix.shape[0]
+        labels = list(names) if names else [str(i) for i in range(self.nc)]
+        if self.task == "detect":
+            labels = labels + ["bg"]
+        w = max(6, max(len(str(l)) for l in labels) + 1)
+        lines = ["pred\\gt".ljust(w) + "".join(str(l).rjust(w) for l in labels)]
+        for i in range(n):
+            lines.append(str(labels[i]).ljust(w)
+                         + "".join(f"{int(self.matrix[i, j])}".rjust(w) for j in range(n)))
+        return "\n".join(lines)
+
+    def plot(self, save_dir, names=None, normalize=True):
+        """The confusion-matrix image needs matplotlib, which the port does not
+        use; it comes with ``utils/plotting.py``."""
+        raise NotImplementedError("ConfusionMatrix.plot needs matplotlib: not ported yet")
+
+
+def compute_ap(recall: np.ndarray, precision: np.ndarray):
+    """101-point interpolated AP (reference metrics.py compute_ap)."""
+    mrec = np.concatenate(([0.0], recall, [1.0]))
+    mpre = np.concatenate(([1.0], precision, [0.0]))
+    mpre = np.flip(np.maximum.accumulate(np.flip(mpre)))
+    x = np.linspace(0, 1, 101)
+    return _trapezoid(np.interp(x, mrec, mpre), x)
+
+
+def smooth(y: np.ndarray, f: float = 0.05) -> np.ndarray:
+    """Box filter over fraction ``f`` of the curve (reference metrics.py
+    smooth :456)."""
+    nf = round(len(y) * f * 2) // 2 + 1
+    p = np.ones(nf // 2)
+    yp = np.concatenate((p * y[0], y, p * y[-1]))
+    return np.convolve(yp, np.ones(nf) / nf, mode="valid")
+
+
+def ap_per_class(tp: np.ndarray, conf: np.ndarray, pred_cls: np.ndarray, target_cls: np.ndarray,
+                 nc: int, eps: float = 1e-16) -> Dict[str, np.ndarray]:
+    """Reference metrics.py:537 — AP per class over the 10 IoU thresholds,
+    plus the confidence-axis P/R/F1 curves and the IoU-0.5 PR curve used by
+    the reference's val plot artifacts. Reported per-class P/R are taken at
+    the confidence maximizing the smoothed MEAN F1 (reference :618-620)."""
+    order = np.argsort(-conf)
+    tp, conf, pred_cls = tp[order], conf[order], pred_cls[order]
+    classes, counts = np.unique(target_cls.astype(int), return_counts=True)
+    npts = 1000
+    px = np.linspace(0, 1, npts)  # confidence axis
+    ap = np.zeros((nc, tp.shape[1]))
+    p_curve = np.zeros((nc, npts))
+    r_curve = np.zeros((nc, npts))
+    prec_values = np.zeros((nc, 101))  # precision at 101 recall pts, IoU .5
+    rx = np.linspace(0, 1, 101)
+    n_gt_per_class = np.zeros(nc, int)
+    for ci, c in enumerate(classes):
+        if 0 <= c < nc:
+            n_gt_per_class[c] = counts[ci]
+        mask = pred_cls == c
+        n_gt = counts[ci]
+        n_p = mask.sum()
+        if n_p == 0 or n_gt == 0:
+            continue
+        fpc = (1 - tp[mask]).cumsum(0)
+        tpc = tp[mask].cumsum(0)
+        recall = tpc / (n_gt + eps)
+        precision = tpc / (tpc + fpc)
+        # curves vs confidence (conf descending -> negate for interp)
+        r_curve[c] = np.interp(-px, -conf[mask], recall[:, 0], left=0)
+        p_curve[c] = np.interp(-px, -conf[mask], precision[:, 0], left=1)
+        for j in range(tp.shape[1]):
+            ap[c, j] = compute_ap(recall[:, j], precision[:, j])
+            if j == 0:
+                mrec = np.concatenate(([0.0], recall[:, 0], [1.0]))
+                mpre = np.concatenate(([1.0], precision[:, 0], [0.0]))
+                mpre = np.flip(np.maximum.accumulate(np.flip(mpre)))
+                prec_values[c] = np.interp(rx, mrec, mpre)
+    f1_curve = 2 * p_curve * r_curve / (p_curve + r_curve + eps)
+    i = int(smooth(f1_curve.mean(0), 0.1).argmax()) if len(classes) else 0
+    return {"ap": ap, "precision": p_curve[:, i], "recall": r_curve[:, i],
+            "classes": classes, "px": px, "p_curve": p_curve,
+            "r_curve": r_curve, "f1_curve": f1_curve, "rx": rx,
+            "prec_values": prec_values, "n_gt": n_gt_per_class}
+
+
+@dataclass
+class DetMetrics:
+    """Accumulates per-image matches and produces mAP (reference :798/:1226;
+    set rotated=True for the OBB variant)."""
+
+    nc: int
+    rotated: bool = False
+    _tp: List[np.ndarray] = field(default_factory=list)
+    _conf: List[np.ndarray] = field(default_factory=list)
+    _pred_cls: List[np.ndarray] = field(default_factory=list)
+    _target_cls: List[np.ndarray] = field(default_factory=list)
+
+    def update(self, pred_boxes: np.ndarray, pred_conf: np.ndarray, pred_cls: np.ndarray,
+               gt_boxes: np.ndarray, gt_cls: np.ndarray,
+               iou: Optional[np.ndarray] = None):
+        """pred_boxes: [n,4] xyxy or [n,5] xywhr; gt_boxes likewise.
+
+        iou: optional precomputed [n_gt, n_pred] similarity (mask IoU / OKS)
+        — used instead of box IoU when given (reference Segment/PoseValidator
+        _process_batch with masks/kpts)."""
+        n = pred_boxes.shape[0]
+        if gt_boxes.shape[0] == 0:
+            if n:
+                self._tp.append(np.zeros((n, IOUV.size), bool))
+                self._conf.append(pred_conf)
+                self._pred_cls.append(pred_cls)
+            self._target_cls.append(gt_cls)
+            return
+        if n == 0:
+            self._target_cls.append(gt_cls)
+            return
+        if iou is None:
+            iou = _probiou_np(gt_boxes, pred_boxes) if self.rotated else _box_iou_np(gt_boxes, pred_boxes)
+        self._tp.append(match_predictions(pred_cls, gt_cls, iou))
+        self._conf.append(pred_conf)
+        self._pred_cls.append(pred_cls)
+        self._target_cls.append(gt_cls)
+
+    def compute(self) -> Dict[str, float]:
+        if not self._tp:
+            self.last = None
+            return {"mAP50": 0.0, "mAP50-95": 0.0, "precision": 0.0, "recall": 0.0}
+        tp = np.concatenate(self._tp)
+        conf = np.concatenate(self._conf)
+        pred_cls = np.concatenate(self._pred_cls)
+        target_cls = np.concatenate(self._target_cls) if self._target_cls else np.zeros(0)
+        res = ap_per_class(tp, conf, pred_cls, target_cls, self.nc)
+        self.last = res  # per-class data for table/plots
+        seen = np.unique(target_cls.astype(int))
+        ap = res["ap"][seen] if len(seen) else res["ap"][:0]
+        return {
+            "mAP50": float(ap[:, 0].mean()) if ap.size else 0.0,
+            "mAP50-95": float(ap.mean()) if ap.size else 0.0,
+            "precision": float(res["precision"][seen].mean()) if len(seen) else 0.0,
+            "recall": float(res["recall"][seen].mean()) if len(seen) else 0.0,
+        }
+
+    def per_class_table(self, names=None) -> str:
+        """Reference val-summary table (validator LOGGER output + DetMetrics
+        class_result, metrics.py:798): one row per seen class with Instances,
+        P, R, mAP50, mAP50-95, headed by the all-classes row."""
+        if getattr(self, "last", None) is None:
+            self.compute()
+        res = self.last
+        if res is None:
+            return "(no predictions)"
+        names = names or {}
+        seen = res["classes"]
+        rows = []
+        ap = res["ap"]
+        head = f"{'Class':>18} {'Instances':>10} {'P':>8} {'R':>8} {'mAP50':>8} {'mAP50-95':>9}"
+        all_ap = ap[seen] if len(seen) else ap[:0]
+        rows.append(f"{'all':>18} {int(res['n_gt'].sum()):>10} "
+                    f"{res['precision'][seen].mean() if len(seen) else 0:>8.3f} "
+                    f"{res['recall'][seen].mean() if len(seen) else 0:>8.3f} "
+                    f"{all_ap[:, 0].mean() if all_ap.size else 0:>8.3f} "
+                    f"{all_ap.mean() if all_ap.size else 0:>9.3f}")
+        for c in seen:
+            nm = str(names.get(int(c), int(c)) if isinstance(names, dict)
+                     else (names[int(c)] if int(c) < len(names) else int(c)))
+            rows.append(f"{nm:>18} {res['n_gt'][c]:>10} {res['precision'][c]:>8.3f} "
+                        f"{res['recall'][c]:>8.3f} {ap[c, 0]:>8.3f} {ap[c].mean():>9.3f}")
+        return "\n".join([head] + rows)
+
+    def plot(self, save_dir, names=None):
+        """The PR/F1/P/R curve images need matplotlib, which the port does not
+        use; they come with ``utils/plotting.py``."""
+        raise NotImplementedError("DetMetrics.plot needs matplotlib: not ported yet")

@@ -1,0 +1,36 @@
+"""Build a shared library at first use, once, under a file lock.
+
+The port's native code (the CUDA kernels in ``csrc/``, the image reader in
+``data/native/``) is compiled when first called into ``build/`` at the
+repository root. A hash of the sources and flags, stored beside the library,
+decides whether it is rebuilt; a file lock keeps concurrent processes from
+building at once; the library is written to a temporary file of this process
+and moved into place, so no process loads a half-written one.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import os
+from pathlib import Path
+from typing import Callable
+
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+
+
+def locked_build(build_dir: Path, lib_name: str, digest: str,
+                 compile_to: Callable[[Path], None]) -> Path:
+    """``build_dir / lib_name``, compiled by ``compile_to(tmp_path)`` unless the
+    library there was built from sources with this ``digest``."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = build_dir / lib_name
+    stamp = build_dir / (lib_name + ".sha256")
+    with open(build_dir / (lib_name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+            return lib_path
+        tmp = build_dir / (lib_name + f".{os.getpid()}.tmp")
+        compile_to(tmp)
+        os.replace(tmp, lib_path)
+        stamp.write_text(digest)
+    return lib_path

@@ -2,8 +2,11 @@
 
 K1 (fused attention forward), K2 (its backward) and K3 (fused 1x1
 Conv+IQBN+SiLU) at the main path's shapes (yolo11n-obb-quan at imgsz 1024,
-batch 8), as in chip_smoke.py; and the attention's autograd Function. This
-file imports no JAX, so it runs on a machine that has a card and no JAX:
+batch 8), as in chip_smoke.py; and the attention's autograd Function. Then
+the validation path at a small size: the image reader's fixtures decoded by
+the card machine's build of the C++ reader, the Validator on the card
+against the CPU, and one epoch of ``Trainer.fit``. This file imports no JAX,
+so it runs on a machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -15,10 +18,16 @@ the softmax numerator to bf16 where that path in f32 does not).
 """
 
 import math
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+from quan_ultralytics_tpu_torch.data.native.native import imread, imwrite_png
+from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+from quan_ultralytics_tpu_torch.engine.validator import Validator
 from quan_ultralytics_tpu_torch.models.block import QAttention
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, fused_1x1_sites
 from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
@@ -320,3 +329,128 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 2, 2, 4, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         qconv_fused.qconv1x1_fused(x, torch.zeros(4, 8, 8, device=cuda))
+
+
+# ---------------------------------------------------------------- validation and fit on the card
+
+
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+
+
+@pytest.mark.parametrize("name", ["jpeg_420_q90_rst", "jpeg_422_q75_odd", "jpeg_gray_q95"])
+def test_reader_fixtures_on_the_cards_machine(cuda, name):
+    """The committed JPEGs decode to their committed OpenCV pixels with the C++
+    reader built on the card's machine, and the PNG writer's files read back."""
+    got = imread(FIXTURES / f"{name}.jpg")
+    assert np.array_equal(got, np.load(FIXTURES / f"{name}.npy"))
+
+
+def test_png_roundtrip_on_the_cards_machine(cuda, tmp_path):
+    im = np.random.default_rng(0).integers(0, 256, (37, 53, 3), dtype=np.uint8)
+    imwrite_png(tmp_path / "a.png", im)
+    assert np.array_equal(imread(tmp_path / "a.png"), im)
+
+
+def _obb_set(root, n=6, size=128, nc=15, seed=0):
+    """n PNG images with 2-6 filled rotated rectangles each and their labels."""
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            im = np.full((size, size, 3), 40, np.uint8)
+            lines = []
+            for _ in range(int(rng.integers(2, 7))):
+                cx, cy = rng.uniform(0.25, 0.75, 2) * size
+                w, h = rng.uniform(0.1, 0.3, 2) * size
+                t = rng.uniform(0, math.pi)
+                c, s = math.cos(t), math.sin(t)
+                pts = np.array([[cx + dx * c - dy * s, cy + dx * s + dy * c]
+                                for dx, dy in ((-w / 2, -h / 2), (w / 2, -h / 2), (w / 2, h / 2), (-w / 2, h / 2))])
+                yy, xx = np.mgrid[0:size, 0:size]
+                u = (xx - cx) * c + (yy - cy) * s
+                v = -(xx - cx) * s + (yy - cy) * c
+                im[(np.abs(u) <= w / 2) & (np.abs(v) <= h / 2)] = rng.integers(60, 256, 3)
+                lines.append(" ".join([str(rng.integers(0, nc))] + [f"{x:.6f}" for x in (pts / size).reshape(-1)]))
+            imwrite_png(root / "images" / split / f"im{i}.png", im)
+            (root / "labels" / split / f"im{i}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "train": "images/train", "val": "images/val",
+            "names": {i: f"c{i}" for i in range(nc)}}
+
+
+def _kept(val, ds, device):
+    """Per image, the kept detections (xywhr, conf, cls in letterbox pixels) of
+    ``val``'s device pass on the loader's batches."""
+    out = []
+    for batch in build_dataloader(ds, 4, 128, hyp=None, augment=False, shuffle=False, drop_last=False,
+                                  with_meta=True):
+        det, ok = val.infer(torch.from_numpy(batch["img"]).to(device))
+        out += [det[b][ok[b]].cpu().numpy() for b in range(batch["n_real"])]
+    return out
+
+
+def test_validator_on_card_matches_the_cpu(cuda, tmp_path):
+    """The Validator on the card (K1 in f32 on the CUDA cores, TF32 off) against
+    the same weights on the CPU (the plain attention). The QER biases are drawn
+    N(0, 1) so that the random model's scores spread, and each image is also
+    labelled with the CPU model's top 4 detections, so that boxes are kept and
+    matched. Per image, the same number of kept detections and every kept row
+    within 1e-4 of max(1, |value|) of a row of the other (near-equal scores may
+    swap neighbours); then the metrics within 1e-3, mAP50 above 0."""
+    from quan_ultralytics_tpu_torch.models.head import QER
+
+    cfg = _obb_set(tmp_path)
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, QER):
+                mod.proj.bias.copy_(torch.randn(mod.proj.bias.shape, generator=gen))
+    cpu = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    val, ref_val = Validator(model, imgsz=128), Validator(cpu, imgsz=128)
+    # 128 x 128 images at imgsz 128: letterbox pixels are source pixels
+    for i, d in enumerate(_kept(ref_val, YOLODataset(cfg, "val", task="obb"), "cpu")):
+        assert len(d) >= 4, f"image {i}: the CPU model keeps {len(d)} detections"
+        with open(tmp_path / "labels" / "val" / f"im{i}.txt", "a") as fh:
+            for x, y, w, h, t, _, c in d[:4]:
+                c_, s_ = math.cos(t), math.sin(t)
+                pts = [(x + dx * c_ - dy * s_, y + dx * s_ + dy * c_)
+                       for dx, dy in ((-w / 2, -h / 2), (w / 2, -h / 2), (w / 2, h / 2), (-w / 2, h / 2))]
+                fh.write(" ".join([str(int(c))] + [f"{v / 128:.6f}" for p in pts for v in p]) + "\n")
+    ds = YOLODataset(cfg, "val", task="obb")
+    before = qattn.launches_simt
+    got = val(ds, batch_size=4)
+    assert qattn.launches_simt - before == 2  # one K1 launch a batch
+    ref = ref_val(ds, batch_size=4)
+    for i, (g, r) in enumerate(zip(_kept(val, ds, cuda), _kept(ref_val, ds, "cpu"))):
+        assert len(g) == len(r) > 0, f"image {i}: {len(g)} vs {len(r)} kept"
+        worst = (np.abs(g[:, None, :] - r[None, :, :]) / np.maximum(1.0, np.abs(r[None, :, :]))).max(-1)
+        assert worst.min(1).max() <= 1e-4 and worst.min(0).max() <= 1e-4, f"image {i}"
+    assert ref["mAP50"] > 0
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-3, (k, got[k], ref[k])
+
+
+def test_fit_epoch_on_card(cuda, tmp_path):
+    """One epoch of Trainer.fit on the card in bf16 (K1 and K2 every micro-step),
+    validating the EMA weights: finite loss, checkpoints written, the
+    training weights back after validation."""
+    cfg = _obb_set(tmp_path / "data")
+    tds, vds = YOLODataset(cfg, "train", task="obb"), YOLODataset(cfg, "val", task="obb")
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, dtype=torch.bfloat16, device=cuda)
+    tr = Trainer(model, TrainConfig(batch=2, nbs=2, epochs=1, warmup_epochs=0), steps_per_epoch=3,
+                 device=cuda)
+    val = Validator(model, imgsz=128)
+
+    def validate(trainer):
+        with trainer.ema_weights():
+            return val(vds, batch_size=2)
+
+    k1, k2 = qattn.launches_stats, qattn.launches_bwd
+    history = tr.fit(lambda e: build_dataloader(tds, 2, 128, hyp=None, augment=False, seed=e),
+                     validate, save_dir=tmp_path / "run", log=lambda s: None)
+    assert qattn.launches_stats - k1 == 3 and qattn.launches_bwd - k2 == 3
+    assert math.isfinite(history[0]["loss"]) and tr.opt.count == 3
+    assert all(0 <= history[0][k] <= 1 for k in ("mAP50", "mAP50-95"))
+    assert (tmp_path / "run" / "last.ckpt").exists() and (tmp_path / "run" / "best.ckpt").exists()

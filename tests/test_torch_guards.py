@@ -22,14 +22,23 @@ REPO = PORT.parent
 # import of jax, flax or the JAX package; the port's own name does not match
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|flax|quan_ultralytics_tpu(?!_torch))\b", re.MULTILINE)
+# packages the card's machine does not have: the port reads images, YAML and
+# memory sizes without them
+ABSENT_ON_CARD = re.compile(
+    r"^\s*(?:import|from)\s+(?:cv2|yaml|PIL|matplotlib|psutil)\b", re.MULTILINE)
 
 
 def test_import_loads_no_jax():
     code = ("import quan_ultralytics_tpu_torch, quan_ultralytics_tpu_torch.engine.predictor, "
             "quan_ultralytics_tpu_torch.engine.trainer, quan_ultralytics_tpu_torch.losses.tal, "
-            "quan_ultralytics_tpu_torch.losses.detect, quan_ultralytics_tpu_torch.utils.weights, sys; "
-            "assert 'jax' not in sys.modules and 'quan_ultralytics_tpu' not in sys.modules, "
-            "sorted(m for m in sys.modules if m.startswith(('jax', 'quan_ultralytics_tpu.')))")
+            "quan_ultralytics_tpu_torch.losses.detect, quan_ultralytics_tpu_torch.utils.weights, "
+            "quan_ultralytics_tpu_torch.engine.validator, quan_ultralytics_tpu_torch.engine.dota_eval, "
+            "quan_ultralytics_tpu_torch.data, quan_ultralytics_tpu_torch.data.native.native, "
+            "quan_ultralytics_tpu_torch.cfg.datasets, quan_ultralytics_tpu_torch.utils.metrics, "
+            "quan_ultralytics_tpu_torch.utils.callbacks, quan_ultralytics_tpu_torch.utils.checkpoint, sys; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'quan_ultralytics_tpu', 'cv2', 'yaml', 'PIL', 'matplotlib', 'psutil')); "
+            "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
@@ -41,6 +50,17 @@ def test_source_scan_finds_no_jax_import():
     assert not bad, bad
     assert FORBIDDEN.search("from quan_ultralytics_tpu.ops import mixing")
     assert not FORBIDDEN.search("from quan_ultralytics_tpu_torch.ops import mixing")
+
+
+def test_source_scan_finds_no_package_the_card_lacks():
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+           for p in files for m in ABSENT_ON_CARD.finditer(p.read_text())]
+    assert not bad, bad
+    for line in ("import cv2", "    import yaml", "from PIL import Image", "import matplotlib.pyplot",
+                 "import psutil"):
+        assert ABSENT_ON_CARD.search(line), line
+    assert not ABSENT_ON_CARD.search("import yamlish")
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
