@@ -41,22 +41,32 @@ Phases:
      the 15 classes), every PNG and the committed baseline-JPEG fixtures
      decoded exactly by the port's readers, the decode of a 1024 x 1024 PNG
      and JPEG timed;
-  8. fit: ``Trainer.fit`` for 2 epochs on that set at 1024, bf16, batch 8
-     (nbs 8, an update a micro-step), validating the EMA weights each epoch;
-     finite losses, the EMA moved, last/best checkpoints, results.json and
+  8. augment: the native augmentation library (``data/native/augment.cpp``,
+     built here) against the committed OpenCV outputs of
+     ``tests/fixtures/augment`` (warps within one gray level on at most 0.1%
+     of the values, the rest exact); the load time of an augmenting batch of
+     8 at 1024 (mosaic, warp, photometric list, HSV, flips) and of a plain
+     one, and the share of mosaic and warp on one loader thread;
+  9. fit: ``Trainer.fit`` for 2 epochs on that set at 1024, bf16, batch 8
+     (nbs 8, an update a micro-step), validating the EMA weights each epoch,
+     with the DOTA recipe's augmentations in epoch 0 and close_mosaic = 1
+     (epoch 1 plain, as the JAX facade's loader); finite losses, the EMA
+     moved, epoch 0's batches hold labels and differ from the plain loader's,
+     epoch 1's equal them, last/best checkpoints, results.json and
      results.csv written, ``latest()`` finds last.ckpt, a restored trainer
      runs a third epoch; K1 and K2 launched every micro-step;
-  9. val: the Validator at 1024, conf 0.001, on the fitted EMA weights in
+ 10. val: the Validator at 1024, conf 0.001, on the fitted EMA weights in
      bf16 with K1, with K1+K3 and plain, and f32 with K1 and plain, each
      run's launches counted from 0 (the kernels line's ``val`` is the bf16
      K1+K3 run's); metrics finite and in [0, 1], 15 Task1 files each; each
      kernel run against the plain run of its dtype: decoded predictions of
      every batch within the predict tolerance, every metric within 5e-3, and
-     in f32 the same detection count on 15 of 16 images (in bf16 NMS's
+     in f32 the same detection count on 15 of 16 images, or a count that NMS
+     on the kernel's boxes keeps with the plain run's scores (in bf16 NMS's
      candidate pool is cut inside a block of tied scores: the ties, and what
      NMS keeps of f32 scores rounded to bf16, are printed); img/s and load,
      infer and match ms a batch;
- 10. the ``kernels`` line, then the result line.
+ 11. the ``kernels`` line, then the result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -208,10 +218,17 @@ def phase_device():
                 * float(clock.strip().splitlines()[0]) * 1e6)  # exp2 per second
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from concurrent.futures import ThreadPoolExecutor
+
+    from quan_ultralytics_tpu_torch.data.native import native, pixels
     from quan_ultralytics_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    _build.library()
+    with ThreadPoolExecutor(2) as pool:  # the host libraries (g++) build beside the kernels (nvcc)
+        host = [pool.submit(native.build), pool.submit(pixels.build)]
+        _build.library()
+        for f in host:
+            f.result()
     secs = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln or "spill" in ln]
     print(f"build: {secs:.1f} s (nvcc {_build.build_seconds if _build.build_seconds else 0:.1f} s)")
@@ -553,6 +570,14 @@ def phase_predict(models, frames, n_sites: int):
 def decoded(model, x_u8):
     with torch.inference_mode():
         return model.decode(model(x_u8.float() / 255.0)).float()
+
+
+def kept_counts(pred: torch.Tensor):
+    """Detections NMS keeps an image, at validation's settings (conf VAL_CONF, IoU 0.7)."""
+    from quan_ultralytics_tpu_torch.ops.boxes import non_max_suppression
+
+    return non_max_suppression(pred, conf_thres=VAL_CONF, iou_thres=0.7, max_det=300, nc=NC,
+                               rotated=True)[1].sum(1).tolist()
 
 
 def compare_preds(a: torch.Tensor, ref: torch.Tensor, nc: int):
@@ -932,7 +957,7 @@ def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
     return out
 
 
-# ---------------------------------------------------------------- phases 7-9
+# ---------------------------------------------------------------- phases 7-10
 
 
 # the DOTA-layout set of phase_data: image sizes (h, w), 4 images of each; DOTA's
@@ -940,10 +965,11 @@ def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
 DATA_SIZES = [(1024, 1024), (768, 1365), (1536, 1152), (600, 800)] * 4
 DATA_BOXES = (2, 40)  # rectangles an image
 FIT_EPOCHS = 2
+FIT_CLOSE_MOSAIC = 1  # the last epoch trains on plain frames (the recipe closes the last 10 of 300)
 VAL_CONF = 0.001
-# validation with a kernel vs with the plain version in the same dtype: detection counts
-# may differ on at most one image in 16 (near-equal scores at conf 0.001), metrics by at
-# most this
+# validation with a kernel vs with the plain version in the same dtype: in f32 detection
+# counts may differ on at most one image in 16 beyond those that the order of near-equal
+# scores explains (phase_val), metrics by at most this
 VAL_METRIC_TOL = 5e-3
 NMS_POOL = 2048  # candidates an image that enter rotated NMS (ops/boxes.py non_max_suppression)
 
@@ -1015,11 +1041,123 @@ def phase_data(root: Path, seed: int = 0):
     return cfg, {"images": len(written), "boxes": n_boxes, "write_s": write_s, **times}
 
 
+# the augmentation fixtures (tests/fixtures/make_augment_fixtures.py): each case's
+# function of the port. The warps may miss OpenCV by one gray level on at most
+# WARP_SHARE of the values (they agree exactly where the fixtures were made);
+# everything else is exact.
+WARP_SHARE = 1e-3
+
+
+def augment_fixture_errors(fixtures: Path):
+    """{case: (values off, values, max abs error)} of the port's pixel functions
+    against the committed OpenCV outputs in ``fixtures``."""
+    from quan_ultralytics_tpu_torch.data import augment as aug
+    from quan_ultralytics_tpu_torch.data.native import pixels
+
+    cases = json.loads((fixtures / "cases.json").read_text())
+    src = np.load(fixtures / "src.npy")
+    got = {}
+    for name, case in cases.items():
+        inp = got.get(case.get("input"), src)
+        if name in ("warp_affine_turn", "warp_affine_mosaic", "warp_perspective"):
+            fn = pixels.warp_perspective if name == "warp_perspective" else pixels.warp_affine
+            got[name] = fn(src, np.array(case["m"]), tuple(case["dsize"]))
+        elif name in ("rgb_to_hsv", "hsv_to_rgb", "rgb_to_gray", "rgb_to_lab", "lab_to_rgb"):
+            got[name] = getattr(pixels, name)(inp)
+        elif name == "random_hsv":
+            hyp = aug.AugmentHyp(*case["gains"])
+            got[name] = aug.random_hsv(src, hyp, np.random.default_rng(case["seed"]))
+        elif name in ("blur", "median_blur"):
+            got[name] = getattr(pixels, name)(src, case["k"])
+        elif name == "clahe":
+            got[name] = pixels.clahe(np.ascontiguousarray(inp[..., case["channel"]]), case["clip"])
+        elif name == "fill_polygons":
+            got[name] = pixels.fill_polygons(np.zeros(src.shape[:2], np.uint8),
+                                             [np.array(q, np.int32) for q in case["polygons"]])
+        else:
+            raise PhaseError(f"augment fixtures: unknown case {name}")
+    out = {}
+    for name, arr in got.items():
+        ref = np.load(fixtures / f"{name}.npy")
+        check(arr.shape == ref.shape, f"augment fixture {name}: shape {arr.shape} != {ref.shape}")
+        d = np.abs(arr.astype(int) - ref.astype(int))
+        out[name] = (int((d > 0).sum()), int(d.size), int(d.max()))
+    return out
+
+
+def augment_fixtures_agree(errors) -> bool:
+    return all(off <= (WARP_SHARE * n if name.startswith("warp") else 0) and worst <= 1
+               for name, (off, n, worst) in errors.items())
+
+
+def phase_augment(cfg):
+    """The native augmentation library built here against the committed OpenCV
+    outputs (the limits of the CPU tests), then the load time of one augmenting
+    batch (mosaic, warp, photometric list, HSV, flips under the default
+    AugmentHyp) and of one plain batch of BATCH at IMGSZ from phase 7's images,
+    and the share of one augmenting batch that mosaic and warp take on one
+    loader thread."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data import build as build_mod
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+
+    errors = augment_fixture_errors(Path(__file__).resolve().parent / "tests" / "fixtures" / "augment")
+    print(f"augment: the library built here against OpenCV's pixels (values off, values, max error): {errors}")
+    check(augment_fixtures_agree(errors), f"augment: the native pixels disagree with OpenCV: {errors}")
+    tds = YOLODataset(cfg, "train", task="obb")
+
+    def load_ms(augment: bool, workers: int = 4, rounds: int = 3):
+        times = []
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            batch = next(build_dataloader(tds, BATCH, IMGSZ, hyp=AugmentHyp() if augment else None,
+                                          augment=augment, seed=r, workers=workers))
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times, batch
+
+    aug_ms, aug_batch = load_ms(True)
+    plain_ms, _ = load_ms(False)
+    check(aug_batch["img"].shape == (BATCH, IMGSZ, IMGSZ, 3) and aug_batch["mask"].any(),
+          "augment: an augmenting batch without labels")
+    check(np.isfinite(aug_batch["bboxes"]).all(), "augment: non-finite boxes")
+    # one thread: the time in mosaic and warp over the batch's time
+    spent = {"mosaic": 0.0, "warp": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    saved = build_mod._mosaic4, build_mod.random_perspective
+    build_mod._mosaic4, build_mod.random_perspective = timed(saved[0], "mosaic"), timed(saved[1], "warp")
+    try:
+        one_ms, _ = load_ms(True, workers=1, rounds=1)
+    finally:
+        build_mod._mosaic4, build_mod.random_perspective = saved
+    share = {k: 1e3 * v / one_ms[0] for k, v in spent.items()}
+    out = {"fixtures": errors, "augment_batch_ms": aug_ms, "plain_batch_ms": plain_ms,
+           "augment_batch_ms_one_thread": one_ms[0], "share_one_thread": share}
+    print(f"augment: load a batch of {BATCH} at {IMGSZ} (4 threads): augmenting "
+          f"{statistics.median(aug_ms):.1f} ms (rounds {[round(t, 1) for t in aug_ms]}), plain "
+          f"{statistics.median(plain_ms):.1f} ms (rounds {[round(t, 1) for t in plain_ms]}); on one thread "
+          f"an augmenting batch takes {one_ms[0]:.1f} ms, mosaic {share['mosaic']:.3f} and warp "
+          f"{share['warp']:.3f} of it (the mosaic's time includes its 4 loads)")
+    return out
+
+
 def phase_fit(cfg, run_dir: Path):
     """Trainer.fit for FIT_EPOCHS epochs at 1024, bf16, batch 8 (nbs 8: an update
-    a micro-step), validating the EMA weights each epoch; then a trainer restored
-    from ``latest()`` runs one more epoch. Returns the EMA weights' state."""
+    a micro-step), validating the EMA weights each epoch, with the DOTA recipe's
+    augmentations (the default AugmentHyp: mosaic 1.0, fliplr 0.5, scale 0.5,
+    translate 0.1, HSV) until close_mosaic (1 here) closes them for the last
+    epoch; then a trainer restored from ``latest()`` runs one more epoch.
+    Returns the EMA weights' state."""
     from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
     from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
     from quan_ultralytics_tpu_torch.engine.validator import Validator
     from quan_ultralytics_tpu_torch.utils.callbacks import Callbacks, CSVLogger
@@ -1036,8 +1174,21 @@ def phase_fit(cfg, run_dir: Path):
         return Trainer(model, TrainConfig(batch=BATCH, nbs=BATCH, epochs=FIT_EPOCHS + 1),
                        steps_per_epoch=steps, device=DEVICE)
 
+    # the JAX facade's loader (quan_ultralytics_tpu/engine/model.py:99-106): the recipe's
+    # augmentations until close_mosaic sets hyp.mosaic to 0, then plain letterboxed frames
+    hyp = AugmentHyp()
+    seen = {}  # epoch -> frames and label count of its batches
+
     def loader(epoch):
-        return build_dataloader(tds, BATCH, IMGSZ, hyp=None, augment=False, seed=epoch)
+        frames, labels = seen.setdefault(epoch, ([], [0]))
+        for batch in build_dataloader(tds, BATCH, IMGSZ, hyp=hyp if hyp.mosaic else None, augment=True,
+                                      seed=epoch):
+            frames.append(batch["img"])
+            labels[0] += int(batch["mask"].sum())
+            yield batch
+
+    def close_mosaic_hook(epoch):
+        hyp.mosaic = 0.0  # reference close_mosaic (trainer.py:354)
 
     val_times = []
 
@@ -1055,10 +1206,24 @@ def phase_fit(cfg, run_dir: Path):
     _reset_counts()
     t0 = time.perf_counter()
     history = tr.fit(loader, validate, epochs=FIT_EPOCHS, save_dir=run_dir, callbacks=cb,
+                     close_mosaic_hook=close_mosaic_hook, close_mosaic=FIT_CLOSE_MOSAIC,
                      log=lambda line: print("fit:", line))  # the main path, driven
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = _counts()
+    # the augmented epochs' frames against the plain loader's, batch by batch; the closed
+    # epochs' frames are the plain loader's
+    closed_from = FIT_EPOCHS - FIT_CLOSE_MOSAIC
+    differ = {}
+    for epoch, (frames, labels) in seen.items():
+        plain = [b["img"] for b in build_dataloader(tds, BATCH, IMGSZ, hyp=None, augment=False, seed=epoch)]
+        differ[epoch] = sum(not np.array_equal(a, b) for a, b in zip(frames, plain))
+        print(f"fit: epoch {epoch}: {len(frames)} batches, {labels[0]} labels, {differ[epoch]} batches "
+              f"whose frames differ from the plain loader's")
+        check(len(frames) == steps and labels[0] > 0, f"fit: epoch {epoch} had {labels[0]} labels")
+        check(differ[epoch] == (len(frames) if epoch < closed_from else 0),
+              f"fit: epoch {epoch}: {differ[epoch]} of {len(frames)} batches differ from the plain loader's")
+    check(hyp.mosaic == 0.0, "fit: close_mosaic did not close the augmentations")
     ema_moved = float((torch.cat([e.reshape(-1) for e in tr.ema]) - ema0).abs().max())
     print(f"fit: {FIT_EPOCHS} epochs of {steps} micro-steps in {secs:.1f} s (validation included); "
           f"launches {got}; EMA moved by up to {ema_moved:.3e}")
@@ -1081,14 +1246,16 @@ def phase_fit(cfg, run_dir: Path):
     start = tr2.restore_checkpoint(latest(run_dir))
     check(start == FIT_EPOCHS, f"the restored trainer starts at epoch {start}")
     t0 = time.perf_counter()
-    h3 = tr2.fit(loader, validate, start_epoch=start, save_dir=run_dir, log=lambda line: print("fit:", line))
+    h3 = tr2.fit(loader, validate, start_epoch=start, save_dir=run_dir, close_mosaic_hook=close_mosaic_hook,
+                 close_mosaic=FIT_CLOSE_MOSAIC, log=lambda line: print("fit:", line))
     torch.cuda.synchronize()
     check([r["epoch"] for r in h3] == [FIT_EPOCHS] and math.isfinite(h3[0]["loss"]),
           f"the restored trainer's epoch {h3}")
     out = {"epochs": FIT_EPOCHS, "micro_steps_per_epoch": steps, "seconds": secs,
            "epoch_s": [r["time_s"] for r in history], "history": history, "launches": got,
            "ema_moved": ema_moved, "restored_epoch_s": time.perf_counter() - t0,
-           "val_speed": val_times}
+           "val_speed": val_times, "augmented_epochs": closed_from,
+           "batches_differing_from_plain": differ}
     print(f"fit: train time an epoch {[r['time_s'] for r in history]} s; the restored trainer's "
           f"epoch {FIT_EPOCHS} loss {h3[0]['loss']:.4f}")
     del tr2
@@ -1176,7 +1343,25 @@ def phase_val(cfg, weights, out_dir: Path):
               f"val, {name}: decoded predictions disagree with {ref}: {rel}")
         check(all(v <= VAL_METRIC_TOL for v in diff.values()), f"val, {name} vs {ref}: metrics differ by {diff}")
         if dtype == f32:  # in bf16 NMS's pool is cut inside a block of tied scores: see below
-            check(same >= len(ds) - 1, f"val, {name} vs {ref}: the same detection count on only {same} images")
+            # greedy NMS keeps the higher of two overlapping boxes, and the two runs' scores
+            # differ by an ulp or so: where near-equal scores overlap, the kernel's order
+            # may keep another box. An image whose count differs is explained when NMS on
+            # the kernel's boxes with the plain run's scores keeps the plain run's count.
+            unexplained = []
+            for bi, x in enumerate(xs):
+                kd, rd = decoded(models[name], x), decoded(models[ref], x)
+                swapped = kd.clone()
+                swapped[..., 4:4 + NC] = rd[..., 4:4 + NC]
+                n_swapped, n_ref = kept_counts(swapped), kept_counts(rd)
+                for i in range(x.shape[0]):
+                    j = bi * BATCH + i
+                    if j < len(ds) and a["detections"][j] != b["detections"][j] and n_swapped[i] != n_ref[i]:
+                        unexplained.append(j)
+            agree[f"{name} vs {ref}"]["count_differs_unexplained"] = unexplained
+            print(f"val, {name} vs {ref}: {len(ds) - same} images keep another count, explained by the "
+                  f"order of near-equal scores on all but {unexplained}")
+            check(len(unexplained) <= 1, f"val, {name} vs {ref}: detection counts differ on images {unexplained}, "
+                  "not explained by the order of near-equal scores")
     # why bf16 keeps fewer boxes, on the first batch: the anchors whose best class score
     # equals the last one NMS_POOL takes, and what NMS keeps of f32 scores rounded to bf16
     pred = {n: decoded(models[n], xs[0]) for n in ("bf16 plain", "f32 plain")}
@@ -1239,6 +1424,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data_cfg, data_out = phase_data(Path(tmp) / "dota")
+        augment_out = phase_augment(data_cfg)
         weights, fit_out = phase_fit(data_cfg, Path(tmp) / "run")
         val_out = phase_val(data_cfg, weights, Path(tmp) / "val")
     if args.profile:
@@ -1249,7 +1435,8 @@ def main() -> int:
             {"card": card, "ptxas": ptxas, "cases": details, "predict": pred_out,
              "agree": agree, "speed": speed, "device": share, "train": train_out,
              "train_grads": train_grads, "train_speed": train_speed,
-             "loss_layer": loss_layer, "data": data_out, "fit": fit_out, "val": val_out}, indent=1))
+             "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
+             "val": val_out}, indent=1))
 
     launches = pred_out["launches"]["K1+K3"]
     on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
@@ -1298,7 +1485,7 @@ def main() -> int:
                                 for name, row in train_speed.items()},
                       "train_grads_f32": train_grads,
                       "loss_layer_ms": {f"M={k}": v for k, v in loss_layer.items()}}))
-    print(json.dumps({"data": data_out,
+    print(json.dumps({"data": data_out, "augment": augment_out,
                       "fit": {k: v for k, v in fit_out.items() if k != "history"},
                       "val": {name: {"metrics": r["metrics"], "speed": r["speed"]}
                               for name, r in val_out["paths"].items()},

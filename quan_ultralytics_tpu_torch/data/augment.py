@@ -1,21 +1,52 @@
-"""Host-side geometry of the data pipeline (counterpart of the JAX package's
-``data/augment.py``): the letterbox, and the oriented-box helpers that turn
-8-corner labels into xywhr.
+"""Host-side data pipeline geometry and the train augmentations (counterpart of
+the JAX package's ``data/augment.py``): the letterbox, the reference
+``v8_transforms`` chain (mosaic in ``build.py``, then copy-paste, the random
+affine or perspective warp, mixup, the photometric list, HSV and flips), and
+the oriented-box helpers that turn 8-corner labels into xywhr.
+
+Labels are point sets (box corners), transformed in numpy line for line as
+the JAX package does, so they agree with it to float64 rounding. The pixel
+work (warps, colour conversions, filters, CLAHE, polygon masks) is C++ in
+``native/augment.cpp`` (`native.pixels`) and gives OpenCV 5.0's pixels. The
+random draws are the JAX package's, in its order, from the generator a
+sample is given.
 
 The letterbox's resize runs in PyTorch on the frame's device (bilinear,
 half-pixel centres, no antialiasing, as OpenCV's ``INTER_LINEAR``) and rounds
 back to uint8; the padding is gray 114. `min_area_rect` is OpenCV's
-``minAreaRect`` in numpy. The train-time augmentations are not ported yet.
+``minAreaRect`` in numpy.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import List, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from quan_ultralytics_tpu_torch.data.native import pixels
+
+
+@dataclass
+class AugmentHyp:
+    """Augmentation gains (the reference's cfg/default.yaml)."""
+
+    hsv_h: float = 0.015
+    hsv_s: float = 0.7
+    hsv_v: float = 0.4
+    degrees: float = 0.0
+    translate: float = 0.1
+    scale: float = 0.5
+    shear: float = 0.0
+    perspective: float = 0.0
+    flipud: float = 0.0
+    fliplr: float = 0.5
+    mosaic: float = 1.0
+    mixup: float = 0.0
+    copy_paste: float = 0.0
 
 
 def letterbox(im: torch.Tensor, new_shape: Union[int, Tuple[int, int]], scaleup: bool = True,
@@ -40,6 +71,188 @@ def letterbox(im: torch.Tensor, new_shape: Union[int, Tuple[int, int]], scaleup:
     out = torch.full((H, W, 3), 114, dtype=torch.uint8, device=im.device)
     out[top:top + nh, left:left + nw] = im
     return out, r, (left, top)
+
+
+# ---------------------------------------------------------------------------
+# Train augmentations (the JAX package's augment.py:70-262)
+# ---------------------------------------------------------------------------
+
+
+def get_rotation_matrix_2d(center: Tuple[float, float], angle: float, scale: float) -> np.ndarray:
+    """OpenCV's ``getRotationMatrix2D``: the 2x3 matrix that turns by ``angle``
+    degrees (counter-clockwise) and scales by ``scale`` about ``center``."""
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def random_hsv(im: np.ndarray, hyp: AugmentHyp, rng: np.random.Generator) -> np.ndarray:
+    """HSV jitter (reference augment.py:1303 RandomHSV): three gains, one LUT
+    each on the 8-bit HSV channels."""
+    if hyp.hsv_h == hyp.hsv_s == hyp.hsv_v == 0:
+        return im
+    r = rng.uniform(-1, 1, 3) * [hyp.hsv_h, hyp.hsv_s, hyp.hsv_v] + 1
+    hsv = pixels.rgb_to_hsv(im)
+    x = np.arange(256)
+    lut_h = ((x * r[0]) % 180).astype(im.dtype)
+    lut_s = np.clip(x * r[1], 0, 255).astype(im.dtype)
+    lut_v = np.clip(x * r[2], 0, 255).astype(im.dtype)
+    hsv = np.stack([lut_h[hsv[..., 0]], lut_s[hsv[..., 1]], lut_v[hsv[..., 2]]], -1)
+    return pixels.hsv_to_rgb(hsv)
+
+
+def _affine_matrix(imgsz: int, hyp: AugmentHyp, rng: np.random.Generator,
+                   border: Tuple[int, int]) -> Tuple[np.ndarray, float]:
+    """Compose the perspective/rotation/shear/translate matrix (reference
+    augment.py:1040-1090 RandomPerspective.affine_transform); returns it and the
+    scale drawn."""
+    C = np.eye(3)
+    C[0, 2] = -imgsz / 2
+    C[1, 2] = -imgsz / 2
+    P = np.eye(3)
+    P[2, 0] = rng.uniform(-hyp.perspective, hyp.perspective)
+    P[2, 1] = rng.uniform(-hyp.perspective, hyp.perspective)
+    R = np.eye(3)
+    a = rng.uniform(-hyp.degrees, hyp.degrees)
+    s = rng.uniform(1 - hyp.scale, 1 + hyp.scale)
+    R[:2] = get_rotation_matrix_2d((0, 0), a, s)
+    S = np.eye(3)
+    S[0, 1] = math.tan(rng.uniform(-hyp.shear, hyp.shear) * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-hyp.shear, hyp.shear) * math.pi / 180)
+    T = np.eye(3)
+    out_w = imgsz + border[1] * 2
+    out_h = imgsz + border[0] * 2
+    T[0, 2] = rng.uniform(0.5 - hyp.translate, 0.5 + hyp.translate) * out_w
+    T[1, 2] = rng.uniform(0.5 - hyp.translate, 0.5 + hyp.translate) * out_h
+    return T @ S @ R @ P @ C, s
+
+
+def random_perspective(im: np.ndarray, corners: np.ndarray, cls: np.ndarray, hyp: AugmentHyp,
+                       rng: np.random.Generator, border: Tuple[int, int] = (0, 0)):
+    """Affine (or perspective) warp of the image and its ``[n, P, 2]`` pixel
+    point labels; the boxes that survive are filtered as the reference's
+    box_candidates (augment.py:1214-1230): hull width and height over 2 px,
+    area ratio over 0.1, aspect under 100, centre inside. Returns (im, corners,
+    cls)."""
+    imgsz = im.shape[0]
+    out_w, out_h = imgsz + border[1] * 2, imgsz + border[0] * 2
+    M, s = _affine_matrix(imgsz, hyp, rng, border)
+    if hyp.perspective:
+        im = pixels.warp_perspective(im, M, (out_w, out_h))
+    else:
+        im = pixels.warp_affine(im, M[:2], (out_w, out_h))
+    n = corners.shape[0]
+    if n:
+        P = corners.shape[1]
+        pts = np.concatenate([corners.reshape(-1, 2), np.ones((n * P, 1))], axis=1) @ M.T
+        pts = pts[:, :2] / pts[:, 2:3] if hyp.perspective else pts[:, :2]
+        new_corners = pts.reshape(n, P, 2)
+        w1, h1 = np.moveaxis(corners.max(axis=1) - corners.min(axis=1), -1, 0)
+        w2, h2 = np.moveaxis(new_corners.max(axis=1) - new_corners.min(axis=1), -1, 0)
+        eps = 1e-9
+        ar = np.maximum(w2 / (h2 + eps), h2 / (w2 + eps))
+        keep = (w2 > 2) & (h2 > 2) & (w2 * h2 / (w1 * h1 * s * s + eps) > 0.1) & (ar < 100)
+        c = new_corners.mean(axis=1)
+        keep &= (c[:, 0] >= 0) & (c[:, 0] < out_w) & (c[:, 1] >= 0) & (c[:, 1] < out_h)
+        corners, cls = new_corners[keep], cls[keep]
+    return im, corners, cls
+
+
+def flip_corners(im: np.ndarray, corners: np.ndarray, hyp: AugmentHyp, rng: np.random.Generator):
+    """Up-down, then left-right flips of the image and its point labels."""
+    h, w = im.shape[:2]
+    if rng.random() < hyp.flipud:
+        im = np.flipud(im)
+        if corners.size:
+            corners = corners.copy()
+            corners[..., 1] = h - corners[..., 1]
+    if rng.random() < hyp.fliplr:
+        im = np.fliplr(im)
+        if corners.size:
+            corners = corners.copy()
+            corners[..., 0] = w - corners[..., 0]
+    return np.ascontiguousarray(im), corners
+
+
+def mixup(im1, c1, cls1, im2, c2, cls2, rng: np.random.Generator):
+    """MixUp (reference augment.py:867): a beta(32, 32) blend of the images in
+    float32, truncated back to uint8, and the union of the labels."""
+    r = rng.beta(32.0, 32.0)
+    im = (im1.astype(np.float32) * r + im2.astype(np.float32) * (1 - r)).astype(im1.dtype)
+    corners = np.concatenate([c1, c2]) if (c1.size or c2.size) else c1
+    return im, corners, np.concatenate([cls1, cls2])
+
+
+def bbox_ioa(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Intersection over box2's area, ``[N, M]``, of xyxy pixel boxes
+    (reference utils/metrics.py bbox_ioa)."""
+    ix1 = np.maximum(box1[:, None, 0], box2[None, :, 0])
+    iy1 = np.maximum(box1[:, None, 1], box2[None, :, 1])
+    ix2 = np.minimum(box1[:, None, 2], box2[None, :, 2])
+    iy2 = np.minimum(box1[:, None, 3], box2[None, :, 3])
+    inter = np.clip(ix2 - ix1, 0, None) * np.clip(iy2 - iy1, 0, None)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area2[None] + eps)
+
+
+def _hulls(corners: np.ndarray) -> np.ndarray:
+    """Unclipped axis-aligned hull xyxy ``[n, 4]`` of point sets ``[n, P, 2]``."""
+    return np.concatenate([corners.min(axis=1), corners.max(axis=1)], axis=1)
+
+
+def copy_paste(im, corners, cls, rng: np.random.Generator, p: float = 0.5):
+    """Polygon CopyPaste, the reference's 'flip' mode (augment.py:1634-1733):
+    the candidates are the horizontally flipped instances whose hull's IoA with
+    every instance is under 0.30; the ``round(p * n)`` least occluding of them
+    are pasted, copying the flipped image's pixels inside their polygons, and
+    their flipped labels are appended.
+
+    The flipped image's column x is the image's column ``w - 1 - x``, so the
+    mask is filled from the polygons at ``w - 1 - x``; the labels keep
+    ``w - x``, the flipped coordinate of a point (the JAX package fills the
+    mask from ``w - x``, one column to the right of the pixels it copies).
+    """
+    n = corners.shape[0]
+    if n == 0 or p == 0:
+        return im, corners, cls
+    h, w = im.shape[:2]
+    flipped = corners.copy()
+    flipped[..., 0] = w - flipped[..., 0]
+    ioa = bbox_ioa(_hulls(flipped), _hulls(corners))  # [n, n]
+    cand = np.nonzero((ioa < 0.30).all(axis=1))[0]
+    if cand.size == 0:
+        return im, corners, cls
+    cand = cand[np.argsort(ioa.max(axis=1)[cand])]  # least occluding first
+    sel = cand[: round(p * cand.size)]
+    if sel.size == 0:
+        return im, corners, cls
+    mask = np.zeros((h, w), np.uint8)
+    pixels.fill_polygons(mask, [(flipped[j] - [1, 0]).astype(np.int32) for j in sel])
+    out = im.copy()
+    np.copyto(out, im[:, ::-1], where=mask[..., None].astype(bool))
+    return out, np.concatenate([corners, flipped[sel]]), np.concatenate([cls, cls[sel]])
+
+
+def photometric_augment(im: np.ndarray, rng: np.random.Generator, p: float = 1.0) -> np.ndarray:
+    """The reference's default Albumentations list (augment.py:1735,
+    1847-1850): Blur, MedianBlur, ToGray and CLAHE, each at p = 0.01, pixels
+    only. The blurs draw an odd kernel from {3, 5, 7}; CLAHE draws its clip
+    limit from U(1, 4) and runs on the Lab L channel with an 8 x 8 grid."""
+    if p <= 0 or rng.random() >= p:
+        return im
+    if rng.random() < 0.01:
+        im = pixels.blur(im, 2 * int(rng.integers(1, 4)) + 1)
+    if rng.random() < 0.01:
+        im = pixels.median_blur(im, 2 * int(rng.integers(1, 4)) + 1)
+    if rng.random() < 0.01:
+        im = np.repeat(pixels.rgb_to_gray(im)[..., None], 3, axis=2)
+    if rng.random() < 0.01:
+        lab = pixels.rgb_to_lab(im)
+        lab[..., 0] = pixels.clahe(np.ascontiguousarray(lab[..., 0]), float(rng.uniform(1.0, 4.0)))
+        im = pixels.lab_to_rgb(lab)
+    return im
 
 
 # ---------------------------------------------------------------------------

@@ -1,27 +1,31 @@
-"""Batches: load -> letterbox -> format -> fixed-shape padded numpy arrays
-(counterpart of the JAX package's ``data/build.py``).
+"""Batches: load -> letterbox -> augment -> format -> fixed-shape padded numpy
+arrays (counterpart of the JAX package's ``data/build.py``).
 
 Every batch has static shapes: images ``[B, H, W, 3]`` uint8 and labels padded
 to ``max_labels`` with a validity mask. The consumer moves a batch to the card.
-The random draws (epoch permutation, multi-scale sizes, one seed a
-sample) are the JAX loader's, in its order, so that both packages give the
-same batches from the same seed. A thread pool overlaps decoding.
+The random draws (epoch permutation, multi-scale sizes, one generator a
+sample for its augmentations) are the JAX loader's, in its order, so that both
+packages give the same batches from the same seed. A thread pool overlaps
+decoding and augmenting (the native code releases the GIL).
 
-Only the non-augmenting path is ported: ``augment=True`` with a ``hyp``
-raises `NotImplementedError` (the train augmentations come with a later
-slice); with ``hyp=None`` the JAX loader skips them too.
+With ``augment=True`` and a ``hyp``, a sample runs the reference's
+``v8_transforms`` order: mosaic (at ``hyp.mosaic``) -> copy-paste -> random
+affine warp (back to ``imgsz`` from the mosaic's 2x canvas) -> mixup ->
+photometric list -> HSV -> flips; a sample without mosaic is warped alone.
 """
 
 from __future__ import annotations
 
 import math
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from quan_ultralytics_tpu_torch.data.augment import (corners_to_xywhr, corners_to_xyxy, letterbox,
+from quan_ultralytics_tpu_torch.data.augment import (AugmentHyp, copy_paste, corners_to_xywhr,
+                                                     corners_to_xyxy, flip_corners, letterbox, mixup,
+                                                     photometric_augment, random_hsv, random_perspective,
                                                      xywh_to_corners)
 from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
 
@@ -46,6 +50,37 @@ def _load_sample_pixels(ds: YOLODataset, i: int, imgsz: Size, with_meta: bool = 
                 "ratio_pad": np.array([r, dw, dh], np.float32)}
         return im, corners.astype(np.float32), s.cls.copy(), meta
     return im, corners.astype(np.float32), s.cls.copy()
+
+
+def _mosaic4(ds: YOLODataset, indices: Sequence[int], imgsz: int, rng: np.random.Generator):
+    """4-image mosaic on a 2x canvas around a random centre (reference
+    augment.py:490 Mosaic); labels shifted with their tiles, none dropped."""
+    s2 = imgsz * 2
+    yc, xc = (int(rng.uniform(imgsz // 2, 3 * imgsz // 2)) for _ in range(2))
+    canvas = np.full((s2, s2, 3), 114, np.uint8)
+    all_c, all_cls = [], []
+    for k, idx in enumerate(indices):
+        im, corners, cls = _load_sample_pixels(ds, int(idx), imgsz)
+        h, w = im.shape[:2]
+        if k == 0:  # top left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+        elif k == 1:  # top right
+            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s2), yc
+            x1b, y1b = 0, h - (y2a - y1a)
+        elif k == 2:  # bottom left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s2, yc + h)
+            x1b, y1b = w - (x2a - x1a), 0
+        else:  # bottom right
+            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s2), min(s2, yc + h)
+            x1b, y1b = 0, 0
+        canvas[y1a:y2a, x1a:x2a] = im[y1b:y1b + (y2a - y1a), x1b:x1b + (x2a - x1a)]
+        if corners.size:
+            all_c.append(corners + [x1a - x1b, y1a - y1b])
+            all_cls.append(cls)
+    corners = np.concatenate(all_c) if all_c else np.zeros((0, 4, 2), np.float32)
+    cls = np.concatenate(all_cls) if all_cls else np.zeros(0, np.int32)
+    return canvas, corners.astype(np.float32), cls
 
 
 def _format(im, corners, cls, task: str, imgsz: Size, max_labels: int) -> Dict[str, np.ndarray]:
@@ -79,15 +114,36 @@ def _format(im, corners, cls, task: str, imgsz: Size, max_labels: int) -> Dict[s
 
 
 def make_sample(ds: YOLODataset, idx: int, imgsz: Size, max_labels: int,
-                with_meta: bool = False) -> Dict[str, np.ndarray]:
-    """One formatted sample; with ``with_meta`` also the letterbox geometry
-    ``ori_shape`` and ``ratio_pad`` for mapping predictions back."""
-    if with_meta:
+                hyp: Optional[AugmentHyp] = None, rng: Optional[np.random.Generator] = None,
+                augment: bool = False, with_meta: bool = False) -> Dict[str, np.ndarray]:
+    """One formatted sample, augmented with ``hyp`` and the sample's own
+    generator ``rng`` when ``augment``; with ``with_meta`` (and no
+    augmentation) also the letterbox geometry ``ori_shape`` and ``ratio_pad``
+    for mapping predictions back."""
+    if with_meta and not augment:
         im, corners, cls, meta = _load_sample_pixels(ds, idx, imgsz, with_meta=True)
         out = _format(im, corners, cls, ds.task, imgsz, max_labels)
         out.update(meta)
         return out
-    im, corners, cls = _load_sample_pixels(ds, idx, imgsz)
+    if not (augment and hyp):
+        im, corners, cls = _load_sample_pixels(ds, idx, imgsz)
+        return _format(im, corners, cls, ds.task, imgsz, max_labels)
+    if rng.random() < hyp.mosaic:
+        im, corners, cls = _mosaic4(ds, [idx, *rng.integers(0, len(ds), 3)], imgsz, rng)
+        if hyp.copy_paste > 0:
+            im, corners, cls = copy_paste(im, corners, cls, rng, hyp.copy_paste)
+        # the 2x canvas warped back to imgsz
+        im, corners, cls = random_perspective(im, corners, cls, hyp, rng, border=(-imgsz // 2, -imgsz // 2))
+        if hyp.mixup > 0 and rng.random() < hyp.mixup:  # a second mosaic (reference v8_transforms)
+            im2, c2, k2 = _mosaic4(ds, list(rng.integers(0, len(ds), 4)), imgsz, rng)
+            im2, c2, k2 = random_perspective(im2, c2, k2, hyp, rng, border=(-imgsz // 2, -imgsz // 2))
+            im, corners, cls = mixup(im, corners, cls, im2, c2, k2, rng)
+    else:
+        im, corners, cls = _load_sample_pixels(ds, idx, imgsz)
+        im, corners, cls = random_perspective(im, corners, cls, hyp, rng, border=(0, 0))
+    im = photometric_augment(im, rng)
+    im = random_hsv(im, hyp, rng)
+    im, corners = flip_corners(im, corners, hyp, rng)
     return _format(im, corners, cls, ds.task, imgsz, max_labels)
 
 
@@ -108,6 +164,9 @@ def build_dataloader(
 ) -> Iterator[Dict[str, Any]]:
     """One epoch of fixed-shape batches (the stacked `make_sample` outputs).
 
+    augment, hyp: the train augmentations run when both are given (an
+    `AugmentHyp`, or any object with its fields); each sample draws from its
+    own generator, seeded from the loader's.
     multi_scale: a per-batch image size from the 0.5-1.5x ladder on the
     32-stride grid (reference detect/train.py:60-72).
     rect: rectangular batching (reference data/base.py set_rectangle): sorted
@@ -118,9 +177,6 @@ def build_dataloader(
     its indices; with ``with_meta`` it carries ``n_real``, the count of real
     samples, and ``im_files``.
     """
-    if augment and hyp:
-        raise NotImplementedError("the train augmentations are not ported yet; "
-                                  "pass augment=False or hyp=None")
     rng = np.random.default_rng(seed)
     order = rng.permutation(len(ds)) if shuffle and not rect else np.arange(len(ds))
     batch_shapes = None
@@ -163,12 +219,13 @@ def build_dataloader(
                 size = int(rng.choice(sizes))
             else:
                 size = imgsz
-            # the JAX loader seeds one generator a sample for its augmentations;
-            # the draws stay so that later batches' draws match it
-            rng.integers(1 << 31, size=len(idxs))
+            # one generator a sample, from the JAX loader's draws (one array
+            # draw gives the stream of its one-at-a-time draws)
+            child_rngs = [np.random.default_rng(s) for s in rng.integers(1 << 31, size=len(idxs))]
             samples = list(pool.map(
-                lambda i: make_sample(ds, int(i), size, max_labels, with_meta=with_meta and not augment),
-                idxs))
+                lambda t: make_sample(ds, int(t[0]), size, max_labels, hyp, t[1], augment,
+                                      with_meta=with_meta and not augment),
+                zip(idxs, child_rngs)))
             batch: Dict[str, Any] = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
             if with_meta:
                 batch["im_files"] = [ds.samples[int(i)].im_file for i in idxs]

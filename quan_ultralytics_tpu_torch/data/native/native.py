@@ -23,17 +23,14 @@ compiler raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import shutil
 import struct
-import subprocess
 import zlib
 from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, locked_build
+from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, build_cxx
 
 SOURCE = Path(__file__).resolve().parent / "imread.cpp"
 LIB_NAME = "libquan_torch_imread.so"
@@ -49,20 +46,9 @@ _lib: Optional[ctypes.CDLL] = None
 PathLike = Union[str, Path]
 
 
-def _compile_to(lib_path: Path) -> None:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the image reader is C++ built at first use")
-    cmd = [cxx, *CXX_FLAGS, str(SOURCE), "-o", str(lib_path)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-
-
 def build() -> Path:
     """Compile ``imread.cpp`` if its source or flags changed; return the library path."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()
-    return locked_build(BUILD_DIR, LIB_NAME, digest, _compile_to)
+    return build_cxx(SOURCE, LIB_NAME, CXX_FLAGS, BUILD_DIR)
 
 
 def library() -> ctypes.CDLL:

@@ -1,7 +1,7 @@
 """Build a shared library at first use, once, under a file lock.
 
-The port's native code (the CUDA kernels in ``csrc/``, the image reader in
-``data/native/``) is compiled when first called into ``build/`` at the
+The port's native code (the CUDA kernels in ``csrc/``, the image reader and
+the augmentations' pixel work in ``data/native/``) is compiled when first called into ``build/`` at the
 repository root. A hash of the sources and flags, stored beside the library,
 decides whether it is rebuilt; a file lock keeps concurrent processes from
 building at once; the library is written to a temporary file of this process
@@ -11,9 +11,12 @@ and moved into place, so no process loads a half-written one.
 from __future__ import annotations
 
 import fcntl
+import hashlib
 import os
+import shutil
+import subprocess
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
@@ -34,3 +37,21 @@ def locked_build(build_dir: Path, lib_name: str, digest: str,
         os.replace(tmp, lib_path)
         stamp.write_text(digest)
     return lib_path
+
+
+def build_cxx(source: Path, lib_name: str, flags: Sequence[str], build_dir: Path = BUILD_DIR) -> Path:
+    """``build_dir / lib_name`` compiled from the one C++ file ``source`` by
+    ``g++ flags``, rebuilt when the source or the flags change. A missing
+    compiler raises."""
+
+    def compile_to(lib_path: Path) -> None:
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"g++ not found: {source.name} is C++ built at first use")
+        cmd = [cxx, *flags, str(source), "-o", str(lib_path)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+
+    digest = hashlib.sha256(" ".join(flags).encode() + source.read_bytes()).hexdigest()
+    return locked_build(build_dir, lib_name, digest, compile_to)

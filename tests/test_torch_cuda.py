@@ -454,3 +454,28 @@ def test_fit_epoch_on_card(cuda, tmp_path):
     assert math.isfinite(history[0]["loss"]) and tr.opt.count == 3
     assert all(0 <= history[0][k] <= 1 for k in ("mAP50", "mAP50-95"))
     assert (tmp_path / "run" / "last.ckpt").exists() and (tmp_path / "run" / "best.ckpt").exists()
+
+
+def test_augmenting_fit_epoch_on_card(cuda, tmp_path):
+    """One epoch of Trainer.fit at imgsz 256 on batches of the train
+    augmentations (the default AugmentHyp: mosaic, warp, HSV, flips), 2
+    micro-steps: finite loss, K1 with statistics and K2 once a micro-step."""
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+
+    cfg = _obb_set(tmp_path / "data", n=4, size=256)
+    tds = YOLODataset(cfg, "train", task="obb")
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, dtype=torch.bfloat16, device=cuda)
+    tr = Trainer(model, TrainConfig(batch=2, nbs=2, epochs=1, warmup_epochs=0), steps_per_epoch=2,
+                 device=cuda)
+    k1, k2 = qattn.launches_stats, qattn.launches_bwd
+    batches = []
+
+    def loader(epoch):
+        for batch in build_dataloader(tds, 2, 256, hyp=AugmentHyp(), augment=True, seed=epoch):
+            batches.append(int(batch["mask"].sum()))
+            yield batch
+
+    history = tr.fit(loader, None, save_dir=tmp_path / "run", log=lambda s: None)
+    assert len(batches) == 2 and sum(batches) > 0
+    assert qattn.launches_stats - k1 == 2 and qattn.launches_bwd - k2 == 2
+    assert math.isfinite(history[0]["loss"]) and tr.opt.count == 2

@@ -409,8 +409,10 @@ def test_loader_matches_jax_resized(tmp_path, task):
 
 
 def test_loader_refuses_augmentation(pad_only_set):
+    # the train augmentations run (tests/test_torch_augment.py); rect batching refuses them
     ds = YOLODataset(pad_only_set, "train", task="obb")
-    with pytest.raises(NotImplementedError, match="augmentations"):
-        next(build_dataloader(ds, 2, 64, hyp=jaug.AugmentHyp(), augment=True))
+    with pytest.raises(ValueError, match="rect batching"):
+        next(build_dataloader(ds, 2, 64, hyp=jaug.AugmentHyp(), augment=True, rect=True))
+    assert next(build_dataloader(ds, 2, 64, hyp=jaug.AugmentHyp(), augment=True))["img"].shape == (2, 64, 64, 3)
     rgb = torch.from_numpy(_image(30, 40, 3))
     assert taug.letterbox(rgb, 64)[0].shape == (64, 64, 3)

@@ -34,6 +34,7 @@ def test_import_loads_no_jax():
             "quan_ultralytics_tpu_torch.losses.detect, quan_ultralytics_tpu_torch.utils.weights, "
             "quan_ultralytics_tpu_torch.engine.validator, quan_ultralytics_tpu_torch.engine.dota_eval, "
             "quan_ultralytics_tpu_torch.data, quan_ultralytics_tpu_torch.data.native.native, "
+            "quan_ultralytics_tpu_torch.data.native.pixels, quan_ultralytics_tpu_torch.data.augment, "
             "quan_ultralytics_tpu_torch.cfg.datasets, quan_ultralytics_tpu_torch.utils.metrics, "
             "quan_ultralytics_tpu_torch.utils.callbacks, quan_ultralytics_tpu_torch.utils.checkpoint, sys; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
