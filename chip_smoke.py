@@ -54,7 +54,14 @@ Phases:
      moved, epoch 0's batches hold labels and differ from the plain loader's,
      epoch 1's equal them, last/best checkpoints, results.json and
      results.csv written, ``latest()`` finds last.ckpt, a restored trainer
-     runs a third epoch; K1 and K2 launched every micro-step;
+     runs a third epoch; K1 and K2 launched every micro-step; the fit feeds
+     its steps through ``prefetch_to_device`` (the loader two batches ahead);
+     then the steady state of a long epoch, augmented and plain: ms a batch
+     loaded then stepped, and prefetched, with the loader's wait and the
+     micro-step in each; the micro-step alone, beside the loader's threads
+     (at the default switch interval and a short one) and beside native
+     warps alone; the share of the time the loader holds the GIL, and the
+     blocking upload of a batch;
  10. val: the Validator at 1024, conf 0.001, on the fitted EMA weights in
      bf16 with K1, with K1+K3 and plain, and f32 with K1 and plain, each
      run's launches counted from 0 (the kernels line's ``val`` is the bf16
@@ -66,7 +73,18 @@ Phases:
      candidate pool is cut inside a block of tied scores: the ties, and what
      NMS keeps of f32 scores rounded to bf16, are printed); img/s and load,
      infer and match ms a batch;
- 11. the ``kernels`` line, then the result line.
+ 11. cli: the user's entry point, ``quan_ultralytics_tpu_torch.cli`` run in
+     this process on that set: ``obb train`` from a facade checkpoint (``.pkl``)
+     of the predict phases' seeded weights, 2 epochs at 1024, batch 8 (nbs 8,
+     close_mosaic 1; bf16 train steps, f32 validation, as the JAX CLI's
+     defaults give), ``obb val`` and ``obb predict`` (f32, save_txt) of its
+     best.pkl; exit codes, files, epoch lines and the launches of K1 (tensor
+     cores with statistics a micro-step, CUDA cores a val batch) and K2 checked;
+     the label files that predict saved (save_conf) read back and held to the
+     facade's boxes, and ``YOLO(..., dtype=bf16, fused_1x1=True).predict``
+     launching K3 at its 37 sites;
+ 12. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+     the facade's fused_1x1 predict), then the result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -75,6 +93,7 @@ result line. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import math
 import statistics
@@ -971,6 +990,7 @@ VAL_CONF = 0.001
 # counts may differ on at most one image in 16 beyond those that the order of near-equal
 # scores explains (phase_val), metrics by at most this
 VAL_METRIC_TOL = 5e-3
+LABEL_TOL = 1e-5  # a saved label's normalized corner or conf off the facade's, over max(1, |value|) (%.6g)
 NMS_POOL = 2048  # candidates an image that enter rotated NMS (ops/boxes.py non_max_suppression)
 
 
@@ -1241,6 +1261,7 @@ def phase_fit(cfg, run_dir: Path):
     check(latest(run_dir) == str(run_dir / "last.ckpt"), f"latest() found {latest(run_dir)}")
     with tr.ema_weights():
         weights = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    overlap = loader_overlap(tr, tds)
     del tr
     tr2 = trainer()
     start = tr2.restore_checkpoint(latest(run_dir))
@@ -1255,12 +1276,192 @@ def phase_fit(cfg, run_dir: Path):
            "epoch_s": [r["time_s"] for r in history], "history": history, "launches": got,
            "ema_moved": ema_moved, "restored_epoch_s": time.perf_counter() - t0,
            "val_speed": val_times, "augmented_epochs": closed_from,
-           "batches_differing_from_plain": differ}
+           "batches_differing_from_plain": differ, "loader_overlap": overlap}
     print(f"fit: train time an epoch {[r['time_s'] for r in history]} s; the restored trainer's "
           f"epoch {FIT_EPOCHS} loss {h3[0]['loss']:.4f}")
     del tr2
     torch.cuda.empty_cache()
     return weights, out
+
+
+OVERLAP_STEPS = 5  # timed batches of each arm of the loader-overlap measurement
+OVERLAP_WARMUP = 2  # batches stepped before an arm's clock starts: the prefetcher's queue drains
+GIL_PROBE_S = 2.0  # seconds the GIL probe samples the loader alone
+SHORT_SWITCH_S = 2e-4  # the interpreter's switch interval in one arm (its default is 5 ms)
+
+
+def _gil_probe(seconds: float, stop=None):
+    """``time.sleep(0)`` (which lets the GIL go and takes it back) in a loop for
+    ``seconds``, or until ``stop`` is set: the loop's count, the seconds spent in
+    those calls, and the seconds in all."""
+    spent, count, t_start = 0.0, 0, time.perf_counter()
+    t_end = t_start + seconds
+    while (stop is None or not stop.is_set()) and time.perf_counter() < t_end:
+        t0 = time.perf_counter()
+        time.sleep(0)
+        spent += time.perf_counter() - t0
+        count += 1
+    return count, spent, time.perf_counter() - t_start
+
+
+def _gil_wait_share(seconds: float, base_s: float, stop=None) -> float:
+    """The share of the time this thread waits to take the GIL back, beyond the
+    ``base_s`` that one ``time.sleep(0)`` takes with nothing else running: about
+    the share of the time the other threads hold the GIL."""
+    count, spent, total = _gil_probe(seconds, stop)
+    return max(0.0, spent - count * base_s) / total
+
+
+def loader_overlap(tr, tds, n: int = OVERLAP_STEPS):
+    """The steady state of a long epoch, host clock, synchronized after each
+    micro-step, for the augmenting loader and for the plain one (the closed
+    epochs'): ``n`` batches of 8 at 1024 loaded and then stepped in turn (the loop
+    before the prefetcher) and ``n`` fed by `prefetch_to_device`, in the order
+    sequential, prefetched, prefetched, sequential, each after OVERLAP_WARMUP
+    untimed batches; ms a batch of each arm (its n batches' time over n), the
+    loader's wait and the micro-step in each. Then what slows the micro-step
+    beside the loader: the micro-step on a batch already on the card alone,
+    beside the augmenting loader's threads, the same at a switch interval of
+    SHORT_SWITCH_S (the main thread takes the GIL back sooner), and beside four
+    threads of the native warp alone (the host's cores, with the GIL free); the
+    share of the time the loader's threads hold the GIL, and the micro-step's
+    main thread, from a probe; and the blocking upload of one batch."""
+    import itertools
+    import threading
+
+    from quan_ultralytics_tpu_torch.data import build_dataloader
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+    from quan_ultralytics_tpu_torch.data.native import pixels
+    from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
+
+    def endless(seed, augment):
+        return (b for e in itertools.count(seed)
+                for b in build_dataloader(tds, BATCH, IMGSZ, hyp=AugmentHyp() if augment else None,
+                                          augment=augment, seed=e))
+
+    def arm(batches):
+        for _ in range(OVERLAP_WARMUP):
+            tr.step(next(batches))
+        torch.cuda.synchronize()
+        wait, step = [], []
+        start = time.perf_counter()
+        for _ in range(n):
+            t0 = time.perf_counter()
+            b = next(batches)
+            t1 = time.perf_counter()
+            tr.step(b)
+            torch.cuda.synchronize()
+            wait.append(1e3 * (t1 - t0))
+            step.append(1e3 * (time.perf_counter() - t1))
+        batch_ms = 1e3 * (time.perf_counter() - start) / n
+        batches.close()
+        return batch_ms, wait, step
+
+    host = next(build_dataloader(tds, BATCH, IMGSZ, hyp=None, augment=False, seed=0))
+    fixed = tr._batch(host)
+
+    def alone(k: int = n):
+        ms = []
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step(fixed)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    def beside(work, threads: int):
+        """The micro-step alone while ``threads`` threads run ``work`` in a loop."""
+        stop = threading.Event()
+
+        def loop():
+            while not stop.is_set():
+                work()
+        ts = [threading.Thread(target=loop, daemon=True) for _ in range(threads)]
+        for t in ts:
+            t.start()
+        time.sleep(0.5)  # the loader's first batch under way
+        try:
+            return alone()
+        finally:
+            stop.set()
+            for t in ts:
+                t.join()
+
+    tr.step(fixed)
+    out = {"steps_timed": n, "warmup": OVERLAP_WARMUP, "intra_op_threads": torch.get_num_threads()}
+    for augment in (True, False):
+        rows = {"sequential": [], "prefetched": []}
+        for i, kind in enumerate(("sequential", "prefetched", "prefetched", "sequential")):
+            src = endless(100 * (i + 1), augment)
+            rows[kind].append(arm(src if kind == "sequential" else prefetch_to_device(src, DEVICE, size=2)))
+        row = {kind: {"batch_ms": [r[0] for r in rs], "wait_ms": [v for r in rs for v in r[1]],
+                      "step_ms": [v for r in rs for v in r[2]]} for kind, rs in rows.items()}
+        row["ratio"] = statistics.mean(row["prefetched"]["batch_ms"]) / statistics.mean(row["sequential"]["batch_ms"])
+        out["augmented" if augment else "plain"] = row
+        seq, pre = row["sequential"], row["prefetched"]
+        print(f"fit: steady state, {'augmenting' if augment else 'plain'} loader, ms a batch of 8 at 1024 "
+              f"({n} batches an arm after {OVERLAP_WARMUP}): loaded then stepped "
+              f"{[round(v, 1) for v in seq['batch_ms']]} (waits median {statistics.median(seq['wait_ms']):.0f}, "
+              f"steps median {statistics.median(seq['step_ms']):.0f}), prefetched "
+              f"{[round(v, 1) for v in pre['batch_ms']]} (waits median {statistics.median(pre['wait_ms']):.0f}, "
+              f"steps median {statistics.median(pre['step_ms']):.0f}); prefetched / sequential {row['ratio']:.3f}")
+
+    # what slows the micro-step beside the loader
+    loader_work = iter(endless(900, True))
+    canvas = np.random.default_rng(0).integers(0, 256, (2 * IMGSZ, 2 * IMGSZ, 3), dtype=np.uint8)
+    warp_m = np.array([[0.5, 0.1, 10.0], [-0.1, 0.5, 20.0]])
+    interval = sys.getswitchinterval()
+    step = {"alone_before": alone()}
+    step["beside_loader"] = beside(lambda: next(loader_work), 1)  # its 4 pool threads
+    sys.setswitchinterval(SHORT_SWITCH_S)
+    try:
+        step["beside_loader_short_switch"] = beside(lambda: next(loader_work), 1)
+    finally:
+        sys.setswitchinterval(interval)
+    step["beside_native_warps"] = beside(lambda: pixels.warp_affine(canvas, warp_m, (IMGSZ, IMGSZ)), 4)
+    step["alone_after"] = alone()
+    loader_work.close()
+    count, spent, _ = _gil_probe(0.5)  # nothing else running
+    base = spent / count
+    stop = threading.Event()
+
+    def load_until_stopped():
+        batches = endless(950, True)
+        for _ in batches:
+            if stop.is_set():
+                break
+        batches.close()
+    worker = threading.Thread(target=load_until_stopped, daemon=True)
+    worker.start()
+    time.sleep(0.5)
+    loader_share = _gil_wait_share(GIL_PROBE_S, base)
+    stop.set()
+    worker.join()
+    done, probe = threading.Event(), {}
+    sampler = threading.Thread(target=lambda: probe.setdefault("share", _gil_wait_share(60.0, base, done)))
+    sampler.start()
+    alone(3)
+    done.set()
+    sampler.join()
+    upload = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._batch(host)
+        torch.cuda.synchronize()
+        upload.append(1e3 * (time.perf_counter() - t0))
+    out["step_ms"] = step
+    out["gil_held_share"] = {"augmenting_loader": loader_share, "micro_step": probe["share"]}
+    out["gil_probe_sleep0_us"] = 1e6 * base
+    out["upload_ms"] = upload
+    out["upload_mb"] = sum(np.asarray(v).nbytes for v in host.values()) / 1e6
+    med = {k: round(statistics.median(v), 1) for k, v in step.items()}
+    print(f"fit: a micro-step (median of {n}, ms): {med}; the GIL held by the augmenting loader's threads "
+          f"{loader_share:.3f} of the time, by the micro-step's main thread {probe['share']:.3f} (a probe's "
+          f"sleep(0) alone {1e6 * base:.1f} us); the blocking upload of a batch ({out['upload_mb']:.1f} MB) "
+          f"{statistics.median(upload):.2f} ms ({[round(v, 2) for v in upload]})")
+    return out
 
 
 def phase_val(cfg, weights, out_dir: Path):
@@ -1380,6 +1581,142 @@ def phase_val(cfg, weights, out_dir: Path):
     return {"paths": res, "launches": res["bf16 K1+K3"]["launches"], "agree": agree, "ties": ties}
 
 
+def _cli(argv):
+    """``cli.main(argv)`` in this process (so the launch counters see it): its
+    exit code, standard output, seconds and launches."""
+    import contextlib
+    import io
+
+    from quan_ultralytics_tpu_torch import cli
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn
+
+    out = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {**_counts(), "qattn_fwd_tensor_cores": qattn.launches_mma, "qattn_fwd_cuda_cores": qattn.launches_simt}
+    text = out.getvalue()
+    for line in text.splitlines():  # the epoch lines and the result; not the tables
+        if line.startswith(("epoch ", "{", "resumed")):
+            print("cli:", line)
+    print(f"cli: {' '.join(argv[:2]) if argv[0] == 'obb' else argv[0]}: exit {rc} in {secs:.1f} s; "
+          f"launches {got}")
+    check(rc == 0, f"cli {argv[:2]} exited {rc}")
+    return text, secs, got
+
+
+def phase_cli(cfg, root: Path):
+    """The user's entry points on the card: ``python -m quan_ultralytics_tpu_torch.cli``
+    run in this process on phase_data's set: ``obb train`` from a facade checkpoint of
+    the predict phases' seeded weights (2 epochs at 1024, batch 8, nbs 8,
+    close_mosaic 1; the CLI gives no dtype, so the trainer casts to its bf16
+    default as the JAX CLI's does, and validation runs in f32), ``obb val`` and
+    ``obb predict`` (f32) of its best.pkl; then the label files predict saved against
+    the facade's boxes, and ``YOLO(..., dtype=bf16, fused_1x1=True).predict``, which
+    runs K3 at its 37 sites."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+
+    import os
+    import pickle
+
+    # the run's settings file lives in the run's directory, with every logger integration
+    # off but TensorBoard (local files): a client library installed here (wandb, ...) would
+    # otherwise try to reach its server
+    os.environ["QUAN_TORCH_SETTINGS"] = str(root / "settings.json")
+    from quan_ultralytics_tpu_torch.utils import settings
+    from quan_ultralytics_tpu_torch.utils.weights import export_jax_variables
+
+    check(settings.SETTINGS.file == root / "settings.json", f"settings file {settings.SETTINGS.file}")
+    off = [f"{k}=False" for k, v in settings.SETTINGS.items() if v is True and k != "tensorboard"]
+    _cli(["settings", *off])
+    check(not any(v is True for k, v in json.loads((root / "settings.json").read_text()).items()
+                  if k != "tensorboard"), "cli settings left an integration on")
+
+    # the predict phases' seeded weights as a facade checkpoint: from a fresh draw every score
+    # is about 2.6e-4, and val and predict would keep no box at conf 0.001
+    start = root / "seeded.pkl"
+    tree = export_jax_variables(seeded_model(None))
+    start.write_bytes(pickle.dumps({"model_yaml": MODEL, "nc": NC, "names": list(cfg["names"].values()),
+                                    **tree, "raw_params": tree["params"], "step": 0}))
+    data = root / "data.yaml"
+    data.write_text(f"path: {cfg['path']}\ntrain: {cfg['train']}\nval: {cfg['val']}\nnames:\n"
+                    + "".join(f"  {k}: {v}\n" for k, v in cfg["names"].items()))
+    run, pred = root / "run", root / "predict"
+    src = Path(cfg["path"]) / cfg["train"]
+    n_images = len(YOLODataset(str(data), "train", task="obb"))
+    steps = n_images // BATCH
+    n_val = math.ceil(n_images / BATCH)
+    text, train_s, train_n = _cli(["obb", "train", f"model={start}", f"data={data}", f"epochs={FIT_EPOCHS}",
+                                   f"batch={BATCH}", f"imgsz={IMGSZ}", f"close_mosaic={FIT_CLOSE_MOSAIC}",
+                                   f"nbs={BATCH}", f"save_dir={run}"])
+    epoch_s = [float(ln.split("time_s=")[1].split()[0]) for ln in text.splitlines() if ln.startswith("epoch ")]
+    check(len(epoch_s) == FIT_EPOCHS, f"cli train: {len(epoch_s)} epoch lines")
+    for name in ("last.pkl", "best.pkl", "last.ckpt", "best.ckpt", "results.csv", "results.json"):
+        check((run / name).exists(), f"cli train wrote no {name}")
+    history = json.loads((run / "results.json").read_text())
+    check(all(math.isfinite(r["loss"]) for r in history), f"cli train history {history}")
+    n_micro = FIT_EPOCHS * steps
+    check(train_n == {"qattn_fwd": n_micro + FIT_EPOCHS * n_val, "qattn_fwd_with_stats": n_micro,
+                      "qattn_bwd": n_micro, "qconv1x1_fused": 0, "qattn_fwd_tensor_cores": n_micro,
+                      "qattn_fwd_cuda_cores": FIT_EPOCHS * n_val},
+          f"cli train launches {train_n}")
+    best = run / "best.pkl"
+    text, val_s, val_n = _cli(["obb", "val", f"model={best}", f"data={data}", f"imgsz={IMGSZ}", f"batch={BATCH}",
+                               f"conf={VAL_CONF}"])
+    metrics = ast.literal_eval(text.strip().splitlines()[-1])  # the CLI prints the metrics dict
+    check(all(0 <= metrics[k] <= 1 for k in ("mAP50", "mAP50-95", "precision", "recall")),
+          f"cli val metrics {metrics}")
+    check(val_n["qattn_fwd"] == val_n["qattn_fwd_cuda_cores"] == n_val and val_n["qattn_bwd"] == 0,
+          f"cli val launches {val_n}")
+    text, pred_s, pred_n = _cli(["obb", "predict", f"model={best}", f"source={src}", f"imgsz={IMGSZ}",
+                                 f"conf={VAL_CONF}", "save_txt=True", "save_conf=True", f"save_dir={pred}"])
+    lines = [ln for ln in text.splitlines() if ln.startswith("image ")]
+    check(len(lines) == n_images and len(list((pred / "labels").glob("im*.txt"))) == n_images,
+          f"cli predict: {len(lines)} image lines")
+    check(pred_n["qattn_fwd"] == pred_n["qattn_fwd_cuda_cores"] == 1, f"cli predict launches {pred_n}")
+    # the label files that `obb predict save_txt=True save_conf=True` wrote, read back and held
+    # to the facade's boxes: the class, the conf and the four corners, computed here from
+    # xywhr (reference ops.py:572 xywhr2xyxyxyxy) and normalized by the frame's size
+    got = YOLO(str(best)).predict(str(src), imgsz=IMGSZ, conf=VAL_CONF)
+    check(len(got) == n_images, f"the facade predicted {len(got)} of {n_images} images")
+    worst = 0.0
+    for i, r in enumerate(got):
+        rows = np.array((pred / "labels" / f"im{i}.txt").read_text().split(), np.float64).reshape(-1, 10)
+        check(len(rows) == len(r), f"im{i}.txt holds {len(rows)} boxes, the facade keeps {len(r)}")
+        if not len(r):
+            continue
+        x, y, w, h, t, conf, c = r.boxes.astype(np.float64).T
+        ctr = np.stack([x, y], -1)
+        v1 = np.stack([w / 2 * np.cos(t), w / 2 * np.sin(t)], -1)
+        v2 = np.stack([-h / 2 * np.sin(t), h / 2 * np.cos(t)], -1)
+        corners = np.stack([ctr + v1 + v2, ctr + v1 - v2, ctr - v1 - v2, ctr - v1 + v2], 1)
+        corners = (corners / [r.orig_shape[1], r.orig_shape[0]]).reshape(-1, 8)
+        check((rows[:, 0] == c).all(), f"im{i}.txt: classes differ from the facade's")
+        saved, facade = rows[:, 1:], np.concatenate([corners, conf[:, None]], 1)
+        worst = max(worst, float((np.abs(saved - facade) / np.maximum(1.0, np.abs(facade))).max()))
+    check(worst <= LABEL_TOL, f"the saved labels are {worst:.3e} off the facade's boxes")
+    check([r.verbose() for r in got] == [ln.split(" ", 3)[3] for ln in lines],
+          "the CLI's per-image lines differ from the facade's predictions")
+    _reset_counts()
+    fused = YOLO(str(best), dtype=torch.bfloat16, fused_1x1=True)
+    n_fused = len(fused.predict(str(src), imgsz=IMGSZ, conf=VAL_CONF))
+    torch.cuda.synchronize()
+    fused_n = _counts()
+    check(n_fused == n_images and fused_n == {"qattn_fwd": 1, "qattn_fwd_with_stats": 0, "qattn_bwd": 0,
+                                              "qconv1x1_fused": 37}, f"facade fused_1x1 launches {fused_n}")
+    print(f"cli: the saved labels of {n_images} images ({sum(len(r) for r in got)} boxes) within {worst:.2e} "
+          f"of the facade's boxes; YOLO(dtype=bf16, fused_1x1=True).predict launches {fused_n}")
+    launches = {k: train_n[k] + val_n[k] + pred_n[k] for k in train_n}
+    return {"train_s": train_s, "epoch_s": epoch_s, "val_s": val_s, "predict_s": pred_s,
+            "val_metrics": metrics, "history": history, "launches_train": train_n, "launches_val": val_n,
+            "launches_predict": pred_n, "launches": launches, "launches_facade_fused": fused_n,
+            "labels_vs_facade": worst}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1427,6 +1764,9 @@ def main() -> int:
         augment_out = phase_augment(data_cfg)
         weights, fit_out = phase_fit(data_cfg, Path(tmp) / "run")
         val_out = phase_val(data_cfg, weights, Path(tmp) / "val")
+        del weights
+        torch.cuda.empty_cache()
+        cli_out = phase_cli(data_cfg, Path(tmp))
     if args.profile:
         out_dir = args.profile
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -1436,19 +1776,21 @@ def main() -> int:
              "agree": agree, "speed": speed, "device": share, "train": train_out,
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
-             "val": val_out}, indent=1))
+             "val": val_out, "cli": cli_out}, indent=1))
 
     launches = pred_out["launches"]["K1+K3"]
     on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
     train_launches = train_out["launches"]
     on_train = train_speed["fused"]["kernel_device_ms"]  # device ms per micro-step
     fit_launches, val_launches = fit_out["launches"], val_out["launches"]
+    cli_launches, facade_launches = cli_out["launches"], cli_out["launches_facade_fused"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:60",
          "launches": launches["qattn_fwd"],
          "launches_by_path": {"predict": launches["qattn_fwd"], "train": train_launches["qattn_fwd"],
-                              "fit": fit_launches["qattn_fwd"], "val": val_launches["qattn_fwd"]},
+                              "fit": fit_launches["qattn_fwd"], "val": val_launches["qattn_fwd"],
+                              "cli": cli_launches["qattn_fwd"], "facade_fused_1x1": facade_launches["qattn_fwd"]},
          "max_abs_err": k1_err,
          "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_"],
          "train_device_ms": on_train["qattn_fwd_"],
@@ -1458,7 +1800,8 @@ def main() -> int:
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:86",
          "launches": train_launches["qattn_bwd"],
          "launches_by_path": {"predict": launches["qattn_bwd"], "train": train_launches["qattn_bwd"],
-                              "fit": fit_launches["qattn_bwd"], "val": val_launches["qattn_bwd"]},
+                              "fit": fit_launches["qattn_bwd"], "val": val_launches["qattn_bwd"],
+                              "cli": cli_launches["qattn_bwd"], "facade_fused_1x1": facade_launches["qattn_bwd"]},
          "max_abs_err": k2_err, "kernel_ms": k2_t["ms"], **k2_t,
          "train_device_ms": on_train["qattn_bwd_"],
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
@@ -1471,7 +1814,9 @@ def main() -> int:
          "launches_by_path": {"predict": launches["qconv1x1_fused"],
                               "train": train_launches["qconv1x1_fused"],
                               "fit": fit_launches["qconv1x1_fused"],
-                              "val": val_launches["qconv1x1_fused"]},
+                              "val": val_launches["qconv1x1_fused"],
+                              "cli": cli_launches["qconv1x1_fused"],
+                              "facade_fused_1x1": facade_launches["qconv1x1_fused"]},
          "max_abs_err": k3_err,
          "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_"],
          "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
@@ -1489,7 +1834,8 @@ def main() -> int:
                       "fit": {k: v for k, v in fit_out.items() if k != "history"},
                       "val": {name: {"metrics": r["metrics"], "speed": r["speed"]}
                               for name, r in val_out["paths"].items()},
-                      "val_agree": val_out["agree"], "val_ties": val_out["ties"]}))
+                      "val_agree": val_out["agree"], "val_ties": val_out["ties"],
+                      "cli": {k: v for k, v in cli_out.items() if k != "history"}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,123 @@
+"""`yolo`-style CLI of the PyTorch port (counterpart of the JAX package's
+``cli.py``; reference ultralytics/cfg/__init__.py entrypoint :825):
+
+    python -m quan_ultralytics_tpu_torch.cli obb train model=yolo11n-obb-quan.yaml data=dota.yaml epochs=10
+    python -m quan_ultralytics_tpu_torch.cli obb val model=runs/train/best.pkl data=dota.yaml
+    python -m quan_ultralytics_tpu_torch.cli obb predict model=runs/train/best.pkl source=img.png
+    python -m quan_ultralytics_tpu_torch.cli settings [reset | k=v ...]
+
+(installed as ``yolo-torch``). It runs on ``cuda`` unless ``device=`` names
+another device (``device=cpu``); with no card and no ``device=cpu`` it exits
+non-zero. The task may be omitted. The export, track, tune and benchmark
+modes and the classify task are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import sys
+from pathlib import Path
+from typing import Any, Dict
+
+MODES = ("train", "val", "predict", "export", "track", "tune", "benchmark",
+         "settings")
+TASKS = ("detect", "obb", "classify", "segment", "pose")
+DEFAULT_MODELS = {
+    "obb": "yolo11n-obb-quan.yaml",
+    "segment": "yolo11n-seg-quan.yaml",
+    "pose": "yolo11n-pose-quan.yaml",
+}
+NOT_PORTED = ("export", "track", "tune", "benchmark")
+
+
+def parse_kv(argv) -> Dict[str, Any]:
+    out = {}
+    for a in argv:
+        if "=" not in a:
+            raise SystemExit(f"expected k=v argument, got {a!r}")
+        k, v = a.split("=", 1)
+        try:
+            out[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            out[k] = v
+    return out
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    task = None
+    if argv and argv[0] in TASKS:
+        task = argv.pop(0)
+    if not argv or argv[0] not in MODES:
+        print(__doc__)
+        raise SystemExit(f"usage: yolo [task] MODE k=v...  (modes: {MODES})")
+    mode = argv.pop(0)
+    if mode == "settings":
+        # reference special mode 'settings' (cfg/__init__.py handle_yolo_settings
+        # :583): no args prints, k=v updates, 'reset' restores defaults
+        from quan_ultralytics_tpu_torch.utils.settings import SETTINGS
+
+        if argv and argv[0] == "reset":
+            SETTINGS.reset()
+            print(f"settings reset to defaults ({SETTINGS.file})")
+            return 0
+        updates = parse_kv(argv)
+        if updates:
+            try:
+                SETTINGS.update(updates)
+            except (KeyError, TypeError) as e:
+                raise SystemExit(f"settings error: {e.args[0]}")
+        print(json.dumps(dict(SETTINGS), indent=2))
+        return 0
+    kv = parse_kv(argv)
+    if mode in NOT_PORTED or task == "classify":
+        what = f"{task} {mode}" if task else mode
+        raise SystemExit(f"yolo {what}: not ported yet to the PyTorch package (ROADMAP Queue 1 item 3b)")
+    from quan_ultralytics_tpu_torch.cfg import validate_overrides
+
+    try:
+        validate_overrides(kv)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"config error: {e.args[0]}")
+    if mode in ("train", "val") and "data" not in kv:
+        raise SystemExit(f"yolo {mode} requires data=<dataset.yaml>")
+    if mode == "predict" and "source" not in kv:
+        raise SystemExit("yolo predict requires source=<image-or-dir>")
+
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.models.tasks import resolve_device
+
+    try:  # no silent CPU run: without a card, only device=cpu runs
+        device = resolve_device(kv.pop("device", None))
+    except RuntimeError as e:
+        raise SystemExit(f"yolo {mode}: {e}")
+    model = YOLO(kv.pop("model", DEFAULT_MODELS.get(task, "yolo11n-quan.yaml")), device=device)
+    if mode == "train":
+        data = kv.pop("data")
+        print(model.train(data, **kv))
+    elif mode == "val":
+        data = kv.pop("data")
+        print(model.val(data, **kv))
+    elif mode == "predict":
+        # reference predictor per-image verbose line + save_txt flags
+        # (engine/predictor.py:222-306, results.py save_txt)
+        source = kv.pop("source")
+        save = kv.pop("save", False)
+        save_txt = kv.pop("save_txt", False)
+        save_conf = kv.pop("save_conf", False)
+        save_dir = Path(kv.pop("save_dir", "runs/predict"))
+        results = model.predict(source, **kv)
+        for i, r in enumerate(results):
+            print(f"image {i + 1}/{len(results)} {r.orig_shape[1]}x{r.orig_shape[0]} "
+                  f"{r.verbose()}")
+            if save:
+                r.plot(filename=str(save_dir / f"im{i}.jpg"))
+            if save_txt:
+                (save_dir / "labels").mkdir(parents=True, exist_ok=True)
+                r.save_txt(save_dir / "labels" / f"im{i}.txt", save_conf=save_conf)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

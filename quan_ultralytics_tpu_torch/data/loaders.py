@@ -1,0 +1,48 @@
+"""Predict sources: images, directories, arrays and lists of them
+(counterpart of the JAX package's ``data/loaders.py``; reference
+ultralytics/data/loaders.py LoadImagesAndVideos).
+
+Image files are read by the port's PNG and JPEG readers
+(`data.native.native.imread`: RGB, the pixels ``cv2.imread`` then
+``cvtColor(BGR2RGB)`` gives). Video files (the JAX package reads them with
+``cv2.VideoCapture``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Generator, Iterable, Union
+
+import numpy as np
+
+from quan_ultralytics_tpu_torch.data.dataset import IMG_EXTS
+from quan_ultralytics_tpu_torch.data.native.native import imread
+
+VID_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v"}
+
+
+def load_source(source: Union[str, Path, np.ndarray, Iterable]) -> Generator[np.ndarray, None, None]:
+    """Yield RGB ``uint8 [h, w, 3]`` images from any supported source; a
+    directory's images in name order."""
+    if isinstance(source, np.ndarray):
+        yield source
+        return
+    if isinstance(source, (list, tuple)):
+        for s in source:
+            yield from load_source(s)
+        return
+    p = Path(str(source))
+    if p.is_dir():
+        for f in sorted(p.iterdir()):
+            if f.suffix.lower() in IMG_EXTS:
+                yield from load_source(f)
+        return
+    if p.suffix.lower() in VID_EXTS:
+        raise NotImplementedError(f"{p}: video sources are not ported yet (ROADMAP Queue 1 item 3b)")
+    if p.suffix.lower() in IMG_EXTS or p.exists():
+        try:
+            yield imread(p)
+        except (OSError, ValueError) as e:  # cv2.imread returns None: the JAX loader raises
+            raise FileNotFoundError(f"could not read {p}") from e
+        return
+    raise FileNotFoundError(f"unsupported source {source!r}")

@@ -1,0 +1,196 @@
+"""YOLO model facade: the user-facing entry point (counterpart of the JAX
+package's ``engine/model.py``; reference engine/model.py Model :29).
+
+``YOLO("yolo11n-obb-quan.yaml")`` then ``.train(...)`` / ``.val(...)`` /
+``.predict(...)``, on ``cuda`` unless ``device`` names another device (with
+no card and no ``device="cpu"`` it raises). Weights live in the port model;
+checkpoints are the JAX facade's pickled payload
+``{model_yaml, nc, names, params, batch_stats, raw_params, step}`` with the
+weights in the flax layout (`utils.weights.export_jax_variables`), so each
+package reads the other's ``.pkl`` files. The OBB task is the one ported.
+
+Where the JAX facade starts training from ``init(PRNGKey(seed))`` whatever
+it loaded, this one trains the weights it holds (the model's seeded draw, or
+a loaded checkpoint), as the reference's ``Model.train`` does.
+"""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import torch
+
+from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+from quan_ultralytics_tpu_torch.data.build import build_dataloader
+from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
+from quan_ultralytics_tpu_torch.engine.predictor import Predictor, Results
+from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+from quan_ultralytics_tpu_torch.engine.validator import Validator
+from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, resolve_device
+from quan_ultralytics_tpu_torch.utils import checkpoint
+from quan_ultralytics_tpu_torch.utils.weights import (export_jax_variables, load_jax_variables,
+                                                      read_checkpoint)
+
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 3b)"
+
+
+class YOLO:
+    """``YOLO(model_yaml_or_ckpt)``; the task follows the head module.
+
+    dtype: the activation dtype of predict and val (None: the input's, f32);
+    training casts to `TrainConfig.dtype` (bf16 by default) as the JAX trainer does.
+    fused_1x1: run the 1x1 Conv+IQBN+SiLU sites through the fused kernel in eval.
+    """
+
+    def __init__(self, model: str = "yolo11n-obb-quan.yaml", nc: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None,
+                 device: Optional[Union[str, torch.device]] = None, fused_1x1: bool = False):
+        self.device = resolve_device(device)
+        self.dtype, self.fused_1x1 = dtype, fused_1x1
+        if str(model).endswith((".pkl", ".ckpt")):
+            payload = read_checkpoint(model)
+            self.model_yaml, self.names = payload["model_yaml"], payload.get("names")
+            self.model = self._build(payload["nc"])
+            load_jax_variables(self.model, {"params": payload["params"],
+                                            "batch_stats": payload["batch_stats"]})
+        else:
+            self.model_yaml, self.names = str(model), None
+            self.model = self._build(nc)
+        self.task = self.model.task
+
+    def _build(self, nc: Optional[int]) -> DetectionModel:
+        return DetectionModel.from_yaml(self.model_yaml, nc=nc, dtype=self.dtype, device=self.device,
+                                        fused_1x1=self.fused_1x1)
+
+    # ------------------------------------------------------------------
+    def train(self, data: Union[str, Dict], epochs: int = 100, batch: int = 16,
+              imgsz: int = 640, max_labels: int = 128, save_dir: str = "runs/train",
+              close_mosaic: int = 10, resume: Union[None, bool, str] = None,
+              cache: Optional[str] = None, log: Callable[[str], Any] = print,
+              **overrides) -> Dict[str, float]:
+        """Train on a YOLO-format dataset yaml (reference Model.train :742).
+
+        overrides: `TrainConfig` fields, `AugmentHyp` gains and ``multi_scale``;
+        other keys are recorded in the loggers' run arguments only.
+        resume: a checkpoint file, a run directory, or True for ``save_dir``;
+        the run continues from its `utils.checkpoint.latest` checkpoint.
+        Writes ``last.pkl`` and ``best.pkl`` (the facade format) beside the
+        trainer's checkpoints and holds the best epoch's EMA weights after.
+        """
+        ds = YOLODataset(data, split="train", task=self.task, cache=cache)
+        if self.model.nc != ds.nc:
+            self.model = self._build(ds.nc)
+        self.names = ds.names
+        aug_overrides = {k: v for k, v in overrides.items()
+                         if hasattr(AugmentHyp, k) and not hasattr(TrainConfig, k)}
+        cfg = TrainConfig(epochs=epochs, batch=batch,
+                          **{k: v for k, v in overrides.items() if hasattr(TrainConfig, k)})
+        multi_scale = bool(overrides.get("multi_scale", False))
+        trainer = Trainer(self.model, cfg, max(len(ds) // batch, 1), device=self.device)
+        start_epoch = 0
+        if resume:
+            where = save_dir if resume is True else resume
+            ck = checkpoint.latest(where) if Path(where).is_dir() else str(where)
+            if ck is None or not Path(ck).exists():
+                raise FileNotFoundError(f"resume={resume!r}: no checkpoint to resume from")
+            start_epoch = trainer.restore_checkpoint(ck)
+            log(f"resumed from {ck} at epoch {start_epoch}")
+        val_ds = YOLODataset(data, split="val", task=self.task)
+        if not len(val_ds):  # no val split: validate on the train images
+            val_ds = ds
+        validator = Validator(self.model, imgsz=imgsz)
+        hyp = AugmentHyp(**aug_overrides)
+
+        def train_loader(epoch):
+            return build_dataloader(ds, batch, imgsz, hyp=hyp if hyp.mosaic else None,
+                                    max_labels=max_labels, seed=epoch,
+                                    augment=hyp.mosaic > 0 or epoch < epochs,
+                                    multi_scale=multi_scale)
+
+        def close_mosaic_hook(epoch):
+            hyp.mosaic = 0.0  # reference close_mosaic (trainer.py:354)
+
+        def validate(tr: Trainer) -> Dict[str, float]:
+            with tr.ema_weights():
+                return validator(val_ds, batch_size=batch)
+
+        # callback bus: CSV results, TensorBoard and any importable logger
+        # integration (reference Model.train wires add_integration_callbacks)
+        from quan_ultralytics_tpu_torch.utils.integrations import build_callbacks
+
+        callbacks = build_callbacks(save_dir, args={
+            "data": data if isinstance(data, str) else "<dict>",
+            "epochs": epochs, "batch": batch, "imgsz": imgsz,
+            "task": self.task, "model": self.model_yaml, **overrides,
+        })
+        trainer.fit(train_loader, validate, epochs=epochs, start_epoch=start_epoch,
+                    save_dir=save_dir, close_mosaic_hook=close_mosaic_hook,
+                    close_mosaic=close_mosaic, log=log, callbacks=callbacks)
+        # facade-format checkpoints too, and the best EMA weights held, as the
+        # reference Model.train (:812-815)
+        out_dir = Path(save_dir)
+        self._save_ckpt(out_dir / "last.pkl", trainer)
+        if (out_dir / "best.ckpt").exists():
+            trainer.restore_checkpoint(out_dir / "best.ckpt")
+            self._save_ckpt(out_dir / "best.pkl", trainer)
+        with torch.no_grad():
+            torch._foreach_copy_(trainer.params, trainer.ema)
+        self.model.eval()
+        return trainer.history[-1] if trainer.history else {}
+
+    def _save_ckpt(self, path: Path, trainer: Trainer) -> None:
+        with trainer.ema_weights() as m:
+            ema = export_jax_variables(m)
+        payload = {
+            "model_yaml": self.model_yaml,
+            "nc": self.model.nc,
+            "names": self.names,
+            "params": ema["params"],
+            "batch_stats": ema["batch_stats"],
+            "raw_params": export_jax_variables(trainer.model)["params"],
+            "step": int(trainer.steps),
+        }
+        path.write_bytes(pickle.dumps(payload))
+
+    def val(self, data: Union[str, Dict], split: str = "val", imgsz: int = 640,
+            batch: int = 8, conf: float = 0.001, iou: float = 0.7,
+            save_json: Optional[str] = None, save_submission: Optional[str] = None,
+            cache: Optional[str] = None, save_dir: Optional[str] = None) -> Dict[str, float]:
+        """Validate on a split (reference Model.val); prints the per-class
+        table and the confusion matrix as the reference's BaseValidator does.
+        save_dir: the per-class table as ``per_class.txt`` (the plots are not
+        ported yet)."""
+        ds = YOLODataset(data, split=split, task=self.task, cache=cache)
+        validator = Validator(self.model, imgsz=imgsz, conf=conf, iou=iou)
+        out = validator(ds, batch_size=batch, save_json=save_json,
+                        save_submission=save_submission, save_dir=save_dir)
+        names = dict(enumerate(ds.names))
+        print(validator.metrics.per_class_table(names))
+        print(validator.confusion.summary(names=list(names.values())))
+        self.confusion = validator.confusion
+        self.metrics = validator.metrics
+        return out
+
+    def predict(self, source, imgsz: int = 640, conf: float = 0.25, iou: float = 0.45,
+                max_det: int = 300) -> List[Results]:
+        """Frames, a path or a directory -> one `Results` each (reference Model.predict)."""
+        self.model.eval()
+        predictor = Predictor(self.model, imgsz=imgsz, conf=conf, iou=iou,
+                              max_det=max_det, names=self.names)
+        return predictor(source)
+
+    __call__ = predict
+
+    def embed(self, *args, **kwargs):
+        raise NotImplementedError(f"YOLO.embed (per-layer features) {_NOT_PORTED}")
+
+    def export(self, *args, **kwargs):
+        raise NotImplementedError(f"YOLO.export {_NOT_PORTED}")
+
+    def tune(self, *args, **kwargs):
+        raise NotImplementedError(f"YOLO.tune {_NOT_PORTED}")
+
+    def track(self, *args, **kwargs):
+        raise NotImplementedError(f"YOLO.track {_NOT_PORTED}")

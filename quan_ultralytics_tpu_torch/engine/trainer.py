@@ -34,6 +34,7 @@ import torch
 
 from quan_ultralytics_tpu_torch.losses.detect import LossHyp, obb_loss
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, resolve_device
+from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
 
 GROUPS = ("weight", "norm", "bias")
 
@@ -229,7 +230,8 @@ class Trainer:
     A batch is a dict of ``img`` ``[B, H, W, 3]`` uint8 (divided by 255 in
     f32, then cast to the compute dtype) or float in [0, 1]; ``cls`` ``[B, M]``
     int; ``bboxes`` ``[B, M, 5]`` normalized xywhr; ``mask`` ``[B, M]`` bool.
-    Tensors or numpy arrays; they are moved to the model's device.
+    Tensors or numpy arrays; they are moved to the model's device (a tensor
+    already there is used as it is). Lists and strings (file names) are left out.
 
     Runs on ``cuda`` unless ``device`` names another device, and raises when
     no card is present and the CPU was not asked for. The model is moved there.
@@ -258,7 +260,9 @@ class Trainer:
         self.steps = 0  # micro-steps taken (skipped ones not counted)
 
     def _batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        # ``to`` returns a tensor already on the device itself: no second copy
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
+                if not isinstance(v, (list, tuple, str))}
 
     def loss(self, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward in train mode (the IQBN running statistics move) and the loss."""
@@ -317,7 +321,9 @@ class Trainer:
             close_mosaic_hook: Optional[Callable[[int], None]] = None, close_mosaic: int = 10,
             log: Callable[[str], Any] = print, callbacks=None) -> List[Dict[str, float]]:
         """The epoch loop (the JAX ``Trainer.fit``; reference BaseTrainer._do_train
-        trainer.py:319-477): train on ``train_loader_fn(epoch)``, validate with
+        trainer.py:319-477): train on ``train_loader_fn(epoch)``, which
+        `prefetch_to_device` runs two batches ahead of the step (the loader of
+        an epoch is made after ``close_mosaic_hook``), validate with
         ``validate_fn(self)`` (which runs the EMA weights through `ema_weights`),
         keep ``last.ckpt`` and ``best.ckpt`` and ``results.json`` in
         ``save_dir``, stop after ``cfg.patience`` epochs without a better fitness.
@@ -342,7 +348,9 @@ class Trainer:
             if callbacks is not None:
                 callbacks.run("on_train_epoch_start")
             t0 = time.time()
-            losses = [self.step(batch)[0] for batch in train_loader_fn(epoch)]
+            batches = prefetch_to_device(train_loader_fn(epoch), self.device, size=2)
+            with contextlib.closing(batches):  # stops the producer if a step raises
+                losses = [self.step(batch)[0] for batch in batches]
             losses = torch.stack(losses).float().cpu().tolist() if losses else []
             row = {"epoch": epoch, "loss": float(sum(losses) / len(losses)) if losses else float("nan"),
                    "time_s": round(time.time() - t0, 2)}

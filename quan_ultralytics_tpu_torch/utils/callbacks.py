@@ -1,9 +1,10 @@
 """Callback event bus (counterpart of the JAX package's ``utils/callbacks.py``;
 reference utils/callbacks/base.py:144-184).
 
-Same event vocabulary as the reference (~25 hooks), and the CSV results log
-(the reference's trainer.save_metrics). The TensorBoard integration comes
-with the other integrations.
+Same event vocabulary as the reference (~25 hooks), the CSV results log
+(the reference's trainer.save_metrics) and TensorBoard where
+``torch.utils.tensorboard`` imports. `utils/integrations.py` attaches them
+and the other loggers.
 """
 
 from __future__ import annotations
@@ -60,3 +61,30 @@ class CSVLogger:
 
     def attach(self, callbacks: Callbacks) -> None:
         callbacks.add("on_fit_epoch_end", self.on_fit_epoch_end)
+
+
+def try_tensorboard(save_dir: str):
+    """Per-epoch scalars to TensorBoard (reference callbacks/tensorboard.py),
+    or None when ``torch.utils.tensorboard`` does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+
+    writer = SummaryWriter(str(save_dir))
+
+    class TB:
+        def on_fit_epoch_end(self, metrics: Dict[str, Any]) -> None:
+            step = int(metrics.get("epoch", 0))
+            for k, v in metrics.items():
+                if isinstance(v, (int, float)):
+                    writer.add_scalar(k, v, step)
+
+        def on_train_end(self, best_path) -> None:
+            writer.close()
+
+        def attach(self, callbacks: Callbacks) -> None:
+            callbacks.add("on_fit_epoch_end", self.on_fit_epoch_end)
+            callbacks.add("on_train_end", self.on_train_end)
+
+    return TB()

@@ -15,12 +15,19 @@ flax leaf                     port state                      layout transform
 ``.../proj/kernel`` (QER)     ``.../proj.weight``             HWIO -> OIHW; input channels stay q-major
 ``.../proj/bias``   (QER)     ``.../proj.bias``               none
 ============================  ==============================  ========================================
+
+`export_jax_variables` is the inverse, so a port model's weights can be
+written in the JAX facade's checkpoint format (`read_checkpoint` reads one
+with numpy alone).
 """
 
 from __future__ import annotations
 
+import io
+import pickle
 import re
-from typing import Dict, Mapping, Tuple
+from pathlib import Path
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,3 +77,56 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
         raise KeyError(f"port state not covered by the JAX variables: {missing}")
     model.load_state_dict(loaded)
     return model
+
+
+def _jax_leaf(name: str, value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """One port state entry -> (flax path, array in the flax layout): `_port_leaf` inverted."""
+    parts = name.split(".")
+    path = []
+    for p in parts:
+        if path and path[-1] == "model" and p.isdigit():
+            path[-1] = f"model_{p}"
+        else:
+            path.append(p)
+    if path[-1] == "weight" and value.ndim == 4:  # QER's conv: OIHW -> HWIO
+        return tuple(path[:-1]) + ("kernel",), value.transpose(2, 3, 1, 0)
+    if path[-1] == "w" and value.ndim == 5:  # QConv2D: [4, Cout, Cin/g, kH, kW] -> [4, kH, kW, Cin/g, Cout]
+        return tuple(path), value.transpose(0, 3, 4, 2, 1)
+    return tuple(path), value
+
+
+def export_jax_variables(model: nn.Module) -> Dict[str, Dict]:
+    """The model's state as a JAX variable tree ``{"params", "batch_stats"}``
+    of float32 numpy arrays in the flax layout: `load_jax_variables` inverted.
+    Parameters go to ``params``, the IQBN running statistics to ``batch_stats``."""
+    params = set(dict(model.named_parameters()))
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, t in model.state_dict().items():
+        path, arr = _jax_leaf(name, t.detach().float().cpu().numpy())
+        node = out["params" if name in params else "batch_stats"]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
+
+
+# the globals a pickle of numpy arrays refers to (numpy 1.x and 2.x module names)
+_NUMPY_GLOBALS = {(m, n) for m in ("numpy", "numpy.core.multiarray", "numpy._core.multiarray")
+                  for n in ("_reconstruct", "ndarray", "dtype")}
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """Unpickles builtin containers and numpy arrays, and refuses every other
+    global: a checkpoint file cannot run code, and needs neither JAX nor flax."""
+
+    def find_class(self, module: str, name: str) -> Any:
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"checkpoint refers to {module}.{name}: only numpy arrays are read")
+
+
+def read_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:
+    """A facade checkpoint (``{model_yaml, nc, names, params, batch_stats,
+    raw_params, step}``, the JAX facade's format, as `engine.model.YOLO`
+    writes it too), unpickled with numpy alone."""
+    return _NumpyUnpickler(io.BytesIO(Path(path).read_bytes())).load()

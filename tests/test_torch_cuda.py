@@ -5,8 +5,9 @@ Conv+IQBN+SiLU) at the main path's shapes (yolo11n-obb-quan at imgsz 1024,
 batch 8), as in chip_smoke.py; and the attention's autograd Function. Then
 the validation path at a small size: the image reader's fixtures decoded by
 the card machine's build of the C++ reader, the Validator on the card
-against the CPU, and one epoch of ``Trainer.fit``. This file imports no JAX,
-so it runs on a machine that has a card and no JAX:
+against the CPU, one epoch of ``Trainer.fit``, and the prefetcher's upload
+across changes of shape. This file imports no JAX, so it runs on a
+machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -479,3 +480,24 @@ def test_augmenting_fit_epoch_on_card(cuda, tmp_path):
     assert len(batches) == 2 and sum(batches) > 0
     assert qattn.launches_stats - k1 == 2 and qattn.launches_bwd - k2 == 2
     assert math.isfinite(history[0]["loss"]) and tr.opt.count == 2
+
+
+def test_prefetch_on_card(cuda):
+    """prefetch_to_device on the card: every batch comes out on the device equal
+    to the host's, across changes of shape (as multi-scale gives), and each
+    batch is still right when all are read at the end; file lists pass through."""
+    from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    sizes = (256, 320, 384)
+    host = [{"img": rng.integers(0, 256, (8, s, s, 3), dtype=np.uint8),
+             "bboxes": rng.normal(size=(8, 128, 5)).astype(np.float32),
+             "mask": rng.random((8, 128)) < 0.5, "im_files": [f"im{i}.png"]}
+            for i, s in enumerate(sizes * 4)]
+    got = list(prefetch_to_device(iter(host), cuda, size=2))
+    assert len(got) == len(host)
+    torch.cuda.synchronize()
+    for g, h in zip(got, host):
+        assert g["im_files"] == h["im_files"]
+        for k in ("img", "bboxes", "mask"):
+            assert g[k].is_cuda and torch.equal(g[k].cpu(), torch.from_numpy(h[k])), k

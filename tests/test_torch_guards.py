@@ -36,7 +36,11 @@ def test_import_loads_no_jax():
             "quan_ultralytics_tpu_torch.data, quan_ultralytics_tpu_torch.data.native.native, "
             "quan_ultralytics_tpu_torch.data.native.pixels, quan_ultralytics_tpu_torch.data.augment, "
             "quan_ultralytics_tpu_torch.cfg.datasets, quan_ultralytics_tpu_torch.utils.metrics, "
-            "quan_ultralytics_tpu_torch.utils.callbacks, quan_ultralytics_tpu_torch.utils.checkpoint, sys; "
+            "quan_ultralytics_tpu_torch.utils.callbacks, quan_ultralytics_tpu_torch.utils.checkpoint, "
+            "quan_ultralytics_tpu_torch.parallel.prefetch, quan_ultralytics_tpu_torch.utils.settings, "
+            "quan_ultralytics_tpu_torch.utils.logging, quan_ultralytics_tpu_torch.utils.integrations, "
+            "quan_ultralytics_tpu_torch.cfg, quan_ultralytics_tpu_torch.data.loaders, "
+            "quan_ultralytics_tpu_torch.engine.model, quan_ultralytics_tpu_torch.cli, sys; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'quan_ultralytics_tpu', 'cv2', 'yaml', 'PIL', 'matplotlib', 'psutil')); "
             "assert not bad, bad")
