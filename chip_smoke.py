@@ -83,8 +83,32 @@ Phases:
      the label files that predict saved (save_conf) read back and held to the
      facade's boxes, and ``YOLO(..., dtype=bf16, fused_1x1=True).predict``
      launching K3 at its 37 sites;
- 12. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
-     the facade's fused_1x1 predict), then the result line.
+ 12. detect data: a COCO-layout set written with the port's PNG writer (16
+     images, 4 each of 640 x 480, 480 x 640, 640 x 427 and 500 x 375, 2-40
+     filled axis-aligned rectangles each over the 80 classes), decoded exactly;
+ 13. detect predict: QUAN-YOLO11n (nc=80, seeded bf16 weights) at 640 on 8 of
+     those frames through the Predictor with K1, K1+K3 (K3 at every site
+     `fused_1x1_sites` finds: 37) and
+     plain; launches; decoded predictions against plain (PRED_TOL) and kept
+     counts (or NMS's on the kernel's boxes with the plain scores); infer ms in
+     interleaved rounds and device busy ms from torch.profiler;
+ 14. detect train: 16 micro-steps at 640 (bf16, K1 + K2 each) on the set's
+     first batch, ms a micro-step, then one f32 micro-step against the plain
+     attention as phase 5 holds the OBB one (gradients into qkv included);
+     then Trainer.fit for 2 epochs of 2 micro-steps with the COCO recipe's
+     augmentations (close_mosaic 1), validating the EMA weights;
+ 15. detect val: the Validator at 640, conf 0.001, rect off and on (N = 400,
+     and the N of the rect batches, recorded), bf16 K1, K1+K3 and plain, f32
+     K1 and plain, each kernel run held to the plain run of its dtype as in
+     phase 10;
+ 16. detect cli: ``detect train`` (2 epochs), ``detect val rect=True`` and
+     ``detect predict save_txt=True`` in this process, the saved label lines
+     held to the facade's boxes, and the facade's bf16 fused_1x1 predict (K3);
+ 17. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+     the facade's fused_1x1 predict, and detect_predict, detect_train,
+     detect_fit, detect_val, detect_val_rect, detect_cli and
+     detect_facade_fused_1x1; each kernel launched on each detect path that
+     runs it), then the result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -520,7 +544,7 @@ def make_frames(seed: int):
     return frames
 
 
-def seeded_model(dtype: torch.dtype, seed: int = 0, **kw):
+def seeded_model(dtype: torch.dtype, seed: int = 0, model: str = MODEL, nc: int = NC, **kw):
     """The n model with every weight, IQBN statistic and head bias drawn from ``seed``.
 
     ``from_yaml`` draws the conv weights; the IQBN statistics and affines and
@@ -532,7 +556,7 @@ def seeded_model(dtype: torch.dtype, seed: int = 0, **kw):
     from quan_ultralytics_tpu_torch.models.head import QER
     from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 
-    model = DetectionModel.from_yaml(MODEL, nc=NC, dtype=dtype, device=DEVICE, seed=seed, **kw)
+    model = DetectionModel.from_yaml(model, nc=nc, dtype=dtype, device=DEVICE, seed=seed, **kw)
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for mod in model.modules():
@@ -546,10 +570,10 @@ def seeded_model(dtype: torch.dtype, seed: int = 0, **kw):
     return model
 
 
-def build_models():
+def build_models(model: str = MODEL, nc: int = NC):
     """The three paths over the same seeded bf16 weights."""
     paths = {"K1": dict(), "K1+K3": dict(fused_1x1=True), "plain": dict(fused_attn=False)}
-    return {name: seeded_model(torch.bfloat16, **kw) for name, kw in paths.items()}
+    return {name: seeded_model(torch.bfloat16, model=model, nc=nc, **kw) for name, kw in paths.items()}
 
 
 def phase_predict(models, frames, n_sites: int):
@@ -591,17 +615,20 @@ def decoded(model, x_u8):
         return model.decode(model(x_u8.float() / 255.0)).float()
 
 
-def kept_counts(pred: torch.Tensor):
-    """Detections NMS keeps an image, at validation's settings (conf VAL_CONF, IoU 0.7)."""
+def kept_counts(pred: torch.Tensor, nc: int = NC, rotated: bool = True, conf: float = None,
+                iou: float = 0.7):
+    """Detections NMS keeps an image, by default at validation's settings (conf VAL_CONF, IoU 0.7)."""
     from quan_ultralytics_tpu_torch.ops.boxes import non_max_suppression
 
-    return non_max_suppression(pred, conf_thres=VAL_CONF, iou_thres=0.7, max_det=300, nc=NC,
-                               rotated=True)[1].sum(1).tolist()
+    return non_max_suppression(pred, conf_thres=VAL_CONF if conf is None else conf, iou_thres=iou,
+                               max_det=300, nc=nc, rotated=rotated)[1].sum(1).tolist()
 
 
 def compare_preds(a: torch.Tensor, ref: torch.Tensor, nc: int):
-    """max abs error over max |ref| for the box, score and angle columns."""
-    groups = {"xywh": slice(0, 4), "scores": slice(4, 4 + nc), "angle": slice(4 + nc, 5 + nc)}
+    """max abs error over max |ref| for the box, score and (OBB) angle columns."""
+    groups = {"xywh": slice(0, 4), "scores": slice(4, 4 + nc)}
+    if ref.shape[-1] > 4 + nc:
+        groups["angle"] = slice(4 + nc, 5 + nc)
     out = {}
     for g, sl in groups.items():
         err = float((a[..., sl] - ref[..., sl]).abs().max())
@@ -741,14 +768,14 @@ def make_train_batch(seed: int):
             "mask": torch.from_numpy(mask).to(DEVICE)}
 
 
-def make_trainer(dtype: torch.dtype, **kw):
+def make_trainer(dtype: torch.dtype, model: str = MODEL, nc: int = NC, **kw):
     """The port's Trainer on the n model (weights from seed 0) with the default
-    TrainConfig at batch 8 and imgsz 1024 (nbs 64: accumulate 8)."""
+    TrainConfig at batch 8 (nbs 64: accumulate 8)."""
     from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
     from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 
     fused_attn = kw.pop("fused_attn", True)
-    model = DetectionModel.from_yaml(MODEL, nc=NC, dtype=dtype, device=DEVICE, fused_attn=fused_attn)
+    model = DetectionModel.from_yaml(model, nc=nc, dtype=dtype, device=DEVICE, fused_attn=fused_attn)
     cfg = TrainConfig(batch=BATCH, dtype="bfloat16" if dtype == torch.bfloat16 else "float32", **kw)
     return Trainer(model, cfg, steps_per_epoch=100, device=DEVICE)
 
@@ -794,28 +821,33 @@ def phase_train(batch):
 
 
 def head_outputs(trainer, batch):
-    """The OBB head's outputs of a train-mode forward on ``batch``, as one flat
-    list, and the number of them that are ``feats`` (the rest are ``angles``)."""
+    """The head's outputs of a train-mode forward on ``batch``, as one flat
+    list, and the number of them that are ``feats`` (the rest are the OBB
+    head's ``angles``)."""
     trainer.model.train()
-    feats, angles = trainer.model((batch["img"].float() / 255.0).to(trainer.dtype))
+    out = trainer.model((batch["img"].float() / 255.0).to(trainer.dtype))
+    feats, angles = out if trainer.model.task == "obb" else (out, [])
     return [*feats, *angles], len(feats)
 
 
-def obb_loss_of(trainer, outs, n_feats, batch):
-    """The trainer's loss of flat head outputs ``outs`` (see `head_outputs`)."""
-    from quan_ultralytics_tpu_torch.losses.detect import obb_loss
+def loss_of(trainer, outs, n_feats, batch):
+    """The trainer's loss (`obb_loss` or `detection_loss`) of flat head outputs
+    ``outs`` (see `head_outputs`)."""
+    from quan_ultralytics_tpu_torch.losses.detect import detection_loss, obb_loss
 
     m = trainer.model
-    return obb_loss((outs[:n_feats], outs[n_feats:]), batch, m.strides, m.nc, m.reg_max,
-                    hyp=trainer.loss_hyp, assigner_bf16=trainer.cfg.assigner_bf16)[0]
+    out = (outs[:n_feats], outs[n_feats:]) if m.task == "obb" else outs[:n_feats]
+    loss_fn = obb_loss if m.task == "obb" else detection_loss
+    return loss_fn(out, batch, m.strides, m.nc, m.reg_max, hyp=trainer.loss_hyp,
+                   assigner_bf16=trainer.cfg.assigner_bf16)[0]
 
 
-def phase_train_grads(batch):
+def phase_train_grads(batch, model: str = MODEL, nc: int = NC, tag: str = "train"):
     """One f32 micro-step (TF32 off, f32 assigner metric) with fused and with plain
     attention from the same weights.
 
     The loss's gradient with respect to the head's outputs is ill-conditioned at
-    f32 rounding (the assignment, and the angle term's arccos near 1), so the
+    f32 rounding (the assignment, and the OBB angle term's arccos near 1), so the
     whole micro-step's gradients of the two paths differ by more than their
     backward does. The networks' backward is held under one cotangent, the
     plain path's gradient of the loss with respect to the head's outputs: per
@@ -825,7 +857,7 @@ def phase_train_grads(batch):
     from quan_ultralytics_tpu_torch.models.block import QAttention
 
     def step(fused, cot=None, perturb=0.0):
-        tr = make_trainer(torch.float32, fused_attn=fused, assigner_bf16=False)
+        tr = make_trainer(torch.float32, model=model, nc=nc, fused_attn=fused, assigner_bf16=False)
         gen = torch.Generator(device=DEVICE).manual_seed(1)
         for mod in tr.model.modules():
             if perturb and isinstance(mod, QAttention):
@@ -833,7 +865,7 @@ def phase_train_grads(batch):
                     o.shape, generator=gen, device=o.device, dtype=o.dtype)))
         outs, n_feats = head_outputs(tr, batch)
         leaves = [t.detach().requires_grad_() for t in outs]
-        total = obb_loss_of(tr, leaves, n_feats, batch)
+        total = loss_of(tr, leaves, n_feats, batch)
         own = torch.autograd.grad(total, leaves)
 
         def backward(cotangent, retain):
@@ -870,15 +902,15 @@ def phase_train_grads(batch):
                        ("noise_floor", noisy["own"])):
         used, used_name, rel, rel_name = share(grads)
         out[key] = {"tolerance_used": used, "leaf": used_name, "worst_rel": rel, "worst_rel_leaf": rel_name}
-        print(f"train f32 gradients [{key}], fused vs plain attention"
+        print(f"{tag} f32 gradients [{key}], fused vs plain attention"
               + (f" (the plain path, attention output x (1 + {ATTN_NOISE} noise))" if key == "noise_floor" else "")
               + f": largest share of the tolerance {used:.3f} ({used_name}); worst max err / "
               f"max|leaf| over leaves above 1e-3 of the largest gradient {rel:.3e} ({rel_name})")
     loss_rel = abs(fused["loss"] - plain["loss"]) / abs(plain["loss"])
     out["loss_rel_err"] = loss_rel
-    print(f"train f32 loss: fused {fused['loss']:.6f}, plain {plain['loss']:.6f} (rel {loss_rel:.2e}); "
+    print(f"{tag} f32 loss: fused {fused['loss']:.6f}, plain {plain['loss']:.6f} (rel {loss_rel:.2e}); "
           f"largest gradient {gmax:.3e}")
-    check(loss_rel <= LOSS_TOL, f"f32 loss, fused vs plain attention: rel err {loss_rel:.3e} > {LOSS_TOL}")
+    check(loss_rel <= LOSS_TOL, f"{tag}: f32 loss, fused vs plain attention: rel err {loss_rel:.3e} > {LOSS_TOL}")
     check(out["same_cotangent"]["tolerance_used"] <= 1.0,
           f"f32 gradient of {out['same_cotangent']['leaf']}, fused vs plain attention under one "
           f"cotangent: {out['same_cotangent']['tolerance_used']:.3f} of the tolerance")
@@ -954,7 +986,7 @@ def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
     leaves = [t.detach().requires_grad_() for t in outs]
 
     def run(b):
-        torch.autograd.grad(obb_loss_of(tr, leaves, n_feats, b), leaves)
+        torch.autograd.grad(loss_of(tr, leaves, n_feats, b), leaves)
 
     out = {}
     for rows in (TRAIN_M, m_cut):
@@ -1602,7 +1634,7 @@ def _cli(argv):
     for line in text.splitlines():  # the epoch lines and the result; not the tables
         if line.startswith(("epoch ", "{", "resumed")):
             print("cli:", line)
-    print(f"cli: {' '.join(argv[:2]) if argv[0] == 'obb' else argv[0]}: exit {rc} in {secs:.1f} s; "
+    print(f"cli: {' '.join(argv[:2]) if argv[0] in ('obb', 'detect') else argv[0]}: exit {rc} in {secs:.1f} s; "
           f"launches {got}")
     check(rc == 0, f"cli {argv[:2]} exited {rc}")
     return text, secs, got
@@ -1717,6 +1749,464 @@ def phase_cli(cfg, root: Path):
             "labels_vs_facade": worst}
 
 
+# ---------------------------------------------------------------- phases 12-16: the detect task
+
+
+DET_MODEL, DET_IMGSZ, DET_NC = "yolo11n-quan.yaml", 640, 80
+# COCO's common frame sizes (h, w): 640 x 480, 480 x 640, 640 x 427 and 500 x 375 (w x h), 4 of each
+DET_SIZES = [(480, 640), (640, 480), (427, 640), (375, 500)] * 4
+# rectangles an image; COCO val2017 holds 7.3 objects an image on average (Lin et al., ECCV 2014)
+DET_BOXES = (2, 40)
+DET_PREDICT_CONF, DET_PREDICT_IOU = 0.25, 0.45  # the Predictor's defaults
+# an image of 8 whose kept count differs from the plain path's and that NMS on the kernel's
+# boxes with the plain run's scores does not explain (the order of near-equal scores)
+DET_UNEXPLAINED = 1
+# f32 validation, kernel vs plain, held by boxes: the share of the rows NMS keeps of the whole
+# candidate pool (no max_det cut, whose 300th place near-equal scores decide) (xyxy, conf, cls
+# in letterbox pixels) of either run within DET_ROW_TOL of max(1, |value|) of a row of the
+# other (greedy NMS may keep the other of two overlapping boxes whose scores are an ulp apart)
+DET_ROW_TOL, DET_ROW_SHARE = 1e-3, 0.99
+
+
+def phase_detect_data(root: Path, seed: int = 1):
+    """A COCO-layout set written with the port's PNG writer: 16 images of COCO's
+    four common frame sizes, 2-40 filled axis-aligned rectangles each over the
+    80 classes, 'cls xc yc w h' labels; every PNG decodes exactly."""
+    from quan_ultralytics_tpu_torch.cfg.datasets import COCO
+    from quan_ultralytics_tpu_torch.data.native import native
+
+    rng = np.random.default_rng(seed)
+    for d in ("images", "labels"):
+        (root / d / "val2017").mkdir(parents=True)
+    n_boxes = 0
+    t0 = time.perf_counter()
+    for i, (h, w) in enumerate(DET_SIZES):
+        yy, xx = np.mgrid[0:h, 0:w]
+        im = np.stack([xx * 160 // w, yy * 160 // h, (xx + yy) * 160 // (h + w)], -1).astype(np.uint8)
+        im = np.clip(im + rng.integers(0, 24, im.shape), 0, 255).astype(np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(DET_BOXES[0], DET_BOXES[1] + 1))):
+            bw, bh = rng.uniform(12, min(h, w) / 3, 2)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            im[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = rng.integers(170, 256, 3)
+            lines.append(f"{rng.integers(0, DET_NC)} {(x0 + bw / 2) / w:.6f} {(y0 + bh / 2) / h:.6f} "
+                         f"{bw / w:.6f} {bh / h:.6f}")
+        path = root / "images" / "val2017" / f"{i:012d}.png"
+        native.imwrite_png(path, im)
+        check(np.array_equal(native.imread(path), im), f"{path.name} does not decode to the pixels written")
+        (root / "labels" / "val2017" / f"{i:012d}.txt").write_text("\n".join(lines) + "\n")
+        n_boxes += len(lines)
+    secs = time.perf_counter() - t0
+    cfg = {"path": str(root), "train": "images/val2017", "val": "images/val2017", "names": COCO["names"]}
+    print(f"detect data: {len(DET_SIZES)} COCO-layout PNG images ({n_boxes} boxes over {DET_NC} classes) "
+          f"written in {secs:.1f} s and decoded exactly")
+    return cfg, {"images": len(DET_SIZES), "boxes": n_boxes, "write_s": secs}
+
+
+def _unexplained_counts(kernel: torch.Tensor, ref: torch.Tensor, n: int, **kw):
+    """Images (of the first ``n``) whose count of kept detections differs between
+    the kernel's and the plain run's decoded predictions and is not the count
+    NMS keeps of the kernel's boxes with the plain run's scores (greedy NMS
+    keeps the higher of two overlapping near-equal boxes)."""
+    swapped = kernel.clone()
+    swapped[..., 4:] = ref[..., 4:]
+    got, mixed, want = (kept_counts(p, **kw) for p in (kernel, swapped, ref))
+    return [i for i in range(n) if got[i] != want[i] and mixed[i] != want[i]]
+
+
+def _matched_rows(kernel: torch.Tensor, ref: torch.Tensor, n: int):
+    """(rows matched, rows) of the detections NMS keeps of the first ``n`` images of
+    two runs' decoded predictions at validation's conf and IoU, with no max_det cut:
+    a row of either run is matched when it lies within DET_ROW_TOL of a row of the other."""
+    from quan_ultralytics_tpu_torch.ops.boxes import non_max_suppression
+
+    runs = [non_max_suppression(p, conf_thres=VAL_CONF, iou_thres=0.7, max_det=NMS_POOL, nc=DET_NC)
+            for p in (kernel, ref)]
+    matched = total = 0
+    for i in range(n):
+        a, b = (det[i][ok[i]] for det, ok in runs)
+        if not (len(a) and len(b)):
+            total += len(a) + len(b)
+            continue
+        d = ((a[:, None] - b[None]).abs() / b.abs().clamp(min=1.0)[None]).amax(-1)
+        matched += int((d.amin(1) <= DET_ROW_TOL).sum()) + int((d.amin(0) <= DET_ROW_TOL).sum())
+        total += len(a) + len(b)
+    return matched, total
+
+
+def phase_detect_predict(cfg, tables=None, rounds: int = 5):
+    """QUAN-YOLO11n (nc=80, seeded bf16 weights) predicts 8 of the set's frames at
+    640 through the Predictor on the K1, K1+K3 and plain paths, each run's launches
+    counted from 0. Each kernel path against the plain one: decoded predictions
+    within PRED_TOL, and the kept counts at the Predictor's conf, or a count that NMS
+    on the kernel's boxes with the plain run's scores keeps. Then ``infer`` ms of each
+    path in interleaved rounds (host clock, synchronized) and its device busy ms."""
+    from quan_ultralytics_tpu_torch.data.augment import letterbox
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.models.tasks import fused_1x1_sites
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    models = build_models(DET_MODEL, DET_NC)
+    n_sites = len(fused_1x1_sites(models["K1+K3"], BATCH, DET_IMGSZ))  # the head's cv3 1x1s included
+    files = sorted((Path(cfg["path"]) / cfg["val"]).glob("*.png"))[:BATCH]
+    frames = [native.imread(f) for f in files]
+    names = list(cfg["names"].values())
+    preds = {name: Predictor(m, imgsz=DET_IMGSZ, conf=DET_PREDICT_CONF, iou=DET_PREDICT_IOU, names=names)
+             for name, m in models.items()}
+    expect = {"K1": (1, 0), "K1+K3": (1, n_sites), "plain": (0, 0)}
+    out = {"launches": {}, "detections": {}, "fused_1x1_sites": n_sites}
+    for name, pred in preds.items():
+        _reset_counts()
+        res = pred(frames)  # the detect predict path, driven once
+        torch.cuda.synchronize()
+        got, counts = (qattn.launches_mma, qconv_fused.launches_mma), _counts()
+        out["launches"][name], out["detections"][name] = counts, [len(r) for r in res]
+        print(f"detect predict [{name}]: launches {counts}, K1 and K3 on the tensor cores {got} (expected "
+              f"{expect[name]}: {n_sites} fused 1x1 sites); kept a frame {out['detections'][name]}")
+        check(got == expect[name] and counts == {"qattn_fwd": got[0], "qattn_fwd_with_stats": 0, "qattn_bwd": 0,
+                                                 "qconv1x1_fused": got[1]},
+              f"detect predict [{name}]: launches {counts}, {got} != {expect[name]}")
+        check(len(res) == len(frames), f"detect predict [{name}]: {len(res)} Results")
+        for r, f in zip(res, frames):
+            b = r.boxes
+            check(b.shape[1] == 6 and np.isfinite(b).all() and (b[:, :4] >= 0).all()
+                  and (b[:, [0, 2]] <= f.shape[1]).all() and (b[:, [1, 3]] <= f.shape[0]).all(),
+                  f"detect predict [{name}]: boxes outside the frame or not finite")
+    x = torch.stack([letterbox(torch.from_numpy(f).to(DEVICE), DET_IMGSZ)[0] for f in frames])
+    ref = decoded(models["plain"], x)
+    agree = {}
+    for name in ("K1", "K1+K3"):
+        kd = decoded(models[name], x)
+        rel = compare_preds(kd, ref, DET_NC)
+        unexplained = _unexplained_counts(kd, ref, len(frames), nc=DET_NC, rotated=False,
+                                          conf=DET_PREDICT_CONF, iou=DET_PREDICT_IOU)
+        agree[name] = {"decoded_rel_err": rel, "count_differs_unexplained": unexplained}
+        print(f"detect predict [{name} vs plain, bf16]: decoded max abs err / max|ref| {rel}; kept counts "
+              f"differ unexplained on frames {unexplained}")
+        check(all(v <= PRED_TOL[torch.bfloat16] for v in rel.values()),
+              f"detect predict [{name}]: decoded predictions disagree with the plain path: {rel}")
+        check(len(unexplained) <= DET_UNEXPLAINED,
+              f"detect predict [{name}]: kept counts differ from the plain path's on frames {unexplained}")
+    for pred in preds.values():  # warm up
+        pred.infer(x)
+    torch.cuda.synchronize()
+    order, times = list(preds), {name: [] for name in preds}
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                preds[name].infer(x)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / 3)
+    speed = {f"detect {n}": {"infer_ms": statistics.median(t), "infer_ms_rounds": t,
+                             "infer_img_s": BATCH * 1e3 / statistics.median(t)} for n, t in times.items()}
+    for name, row in speed.items():
+        print(f"speed [{name}]: infer {row['infer_ms']:.2f} ms a batch of {BATCH} at {DET_IMGSZ} "
+              f"({row['infer_img_s']:.1f} img/s); median of {rounds} rounds "
+              f"{[round(v, 2) for v in row['infer_ms_rounds']]}")
+    share = phase_device_share({f"detect {n}": m for n, m in models.items()}, x, speed, tables)
+    out.update({"agree": agree, "speed": speed, "device": share})
+    del models, preds
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_detect_train(cfg):
+    """16 micro-steps of the detect train step (bf16, K1 + K2; default TrainConfig at
+    batch 8: accumulate 8) at 640 on the set's first batch through the loader
+    (TRAIN_M rows an image, as the JAX loader pads); ms a micro-step on the host clock
+    (each step ends in its NaN guard's sync); then one f32 micro-step with fused and
+    with plain attention, held as `phase_train_grads` holds the OBB one."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn
+
+    host = next(build_dataloader(YOLODataset(cfg, "train"), BATCH, DET_IMGSZ, hyp=None, max_labels=TRAIN_M,
+                                 augment=False, shuffle=False))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    trainer = make_trainer(torch.bfloat16, model=DET_MODEL, nc=DET_NC)
+    losses, times, skipped = [], [], []
+    _reset_counts()
+    for _ in range(TRAIN_STEPS):  # the detect train path, driven
+        t0 = time.perf_counter()
+        loss, aux = trainer.step(batch)
+        losses.append(float(loss))
+        times.append(1e3 * (time.perf_counter() - t0))
+        skipped.append(float(aux["nan_skipped"]))
+    torch.cuda.synchronize()
+    got = {**_counts(), "qattn_fwd_tensor_cores": qattn.launches_mma}
+    ms = statistics.median(times[1:])
+    print(f"detect train: {TRAIN_STEPS} micro-steps at {DET_IMGSZ}, {int(batch['mask'].sum())} boxes in the "
+          f"batch; losses {[round(x, 3) for x in losses]}; {ms:.1f} ms a micro-step (median after the first, "
+          f"{BATCH * 1e3 / ms:.1f} img/s); launches {got}")
+    check(all(math.isfinite(x) for x in losses) and not any(skipped), f"detect train losses {losses}")
+    check(got == {"qattn_fwd": TRAIN_STEPS, "qattn_fwd_with_stats": TRAIN_STEPS, "qattn_bwd": TRAIN_STEPS,
+                  "qconv1x1_fused": 0, "qattn_fwd_tensor_cores": TRAIN_STEPS}, f"detect train launches {got}")
+    check(trainer.opt.count == TRAIN_STEPS // trainer.accumulate, f"detect train: {trainer.opt.count} updates")
+    del trainer
+    grads = phase_train_grads(batch, DET_MODEL, DET_NC, tag="detect train")
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": got, "ms_per_micro_step": ms, "ms_steps": times,
+            "img_s": BATCH * 1e3 / ms, "grads_f32": grads}
+
+
+def phase_detect_fit(cfg, run_dir: Path):
+    """Trainer.fit of the detect model for FIT_EPOCHS epochs at 640, bf16, batch 8
+    (nbs 8) from seeded weights, with the COCO recipe's augmentations
+    (``cfg/recipes/coco_detect.yaml`` over the defaults: mosaic 1.0, mixup 0,
+    fliplr 0.5, scale 0.5, translate 0.1, HSV) until close_mosaic (1 here),
+    validating the EMA weights each epoch; returns the EMA weights' state."""
+    import dataclasses
+
+    import quan_ultralytics_tpu_torch.cfg as cfg_mod
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+    from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+
+    recipe = cfg_mod.get_cfg(cfg=Path(cfg_mod.__file__).parent / "recipes" / "coco_detect.yaml")
+    hyp = AugmentHyp(**{f.name: getattr(recipe, f.name) for f in dataclasses.fields(AugmentHyp)})
+    check(recipe.task == "detect" and hyp.mosaic == 1.0, f"the COCO recipe: {recipe.task}, {hyp}")
+    tds, vds = YOLODataset(cfg, "train"), YOLODataset(cfg, "val")
+    steps = len(tds) // BATCH
+    tr = Trainer(seeded_model(torch.bfloat16, model=DET_MODEL, nc=DET_NC),
+                 TrainConfig(batch=BATCH, nbs=BATCH, epochs=FIT_EPOCHS), steps_per_epoch=steps, device=DEVICE)
+    labels = {}
+
+    def loader(epoch):
+        for batch in build_dataloader(tds, BATCH, DET_IMGSZ, hyp=hyp if hyp.mosaic else None, augment=True,
+                                      seed=epoch):
+            labels[epoch] = labels.get(epoch, 0) + int(batch["mask"].sum())
+            yield batch
+
+    def close_mosaic_hook(epoch):
+        hyp.mosaic = 0.0
+
+    val_times = []
+
+    def validate(trainer):
+        val = Validator(trainer.model, imgsz=DET_IMGSZ, conf=VAL_CONF)
+        with trainer.ema_weights():
+            metrics = val(vds, batch_size=BATCH)
+        val_times.append(val.speed)
+        return metrics
+
+    ema0 = torch.cat([e.reshape(-1) for e in tr.ema]).clone()
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = tr.fit(loader, validate, epochs=FIT_EPOCHS, save_dir=run_dir, close_mosaic_hook=close_mosaic_hook,
+                     close_mosaic=FIT_CLOSE_MOSAIC, log=lambda line: print("detect fit:", line))  # driven
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    ema_moved = float((torch.cat([e.reshape(-1) for e in tr.ema]) - ema0).abs().max())
+    n_micro, n_val = FIT_EPOCHS * steps, FIT_EPOCHS * math.ceil(len(vds) / BATCH)
+    print(f"detect fit: {FIT_EPOCHS} epochs of {steps} micro-steps in {secs:.1f} s (validation included), "
+          f"labels an epoch {labels}; launches {got}; EMA moved by up to {ema_moved:.3e}")
+    check(len(history) == FIT_EPOCHS and all(math.isfinite(r["loss"]) for r in history),
+          f"detect fit history {history}")
+    check(all(0 <= r[k] <= 1 for r in history for k in ("mAP50", "mAP50-95", "precision", "recall")),
+          "detect fit: a metric outside [0, 1]")
+    check(ema_moved > 0 and hyp.mosaic == 0.0 and all(labels.get(e, 0) > 0 for e in range(FIT_EPOCHS)),
+          "detect fit: the EMA did not move, close_mosaic did not close, or an epoch had no labels")
+    check(got == {"qattn_fwd": n_micro + n_val, "qattn_fwd_with_stats": n_micro, "qattn_bwd": n_micro,
+                  "qconv1x1_fused": 0}, f"detect fit launches {got}")
+    check((run_dir / "last.ckpt").exists() and (run_dir / "best.ckpt").exists(), "detect fit wrote no checkpoints")
+    with tr.ema_weights():
+        weights = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    torch.cuda.empty_cache()
+    return weights, {"seconds": secs, "epoch_s": [r["time_s"] for r in history], "history": history,
+                     "launches": got, "ema_moved": ema_moved, "val_speed": val_times}
+
+
+def phase_detect_val(cfg, weights, out_dir: Path, n_sites: int):
+    """The Validator at 640, conf 0.001, on the detect fit's EMA weights, with rect
+    off and on: bf16 with K1, with K1 and K3 and plain, f32 with K1 and plain, each
+    run's launches counted from 0 and the N that K1 saw recorded. Each kernel run
+    against the plain run of its dtype and rect: decoded predictions of every batch
+    within PRED_TOL, every metric within VAL_METRIC_TOL, and in f32 the kept counts
+    per image explained as in `phase_val` and the kept rows matched (DET_ROW_SHARE)."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+    from quan_ultralytics_tpu_torch.models.block import QAttention
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    ds = YOLODataset(cfg, "val")
+    nb = math.ceil(len(ds) / BATCH)
+    bf16, f32 = torch.bfloat16, torch.float32
+    paths = {"bf16 K1": (bf16, {}), "bf16 K1+K3": (bf16, {"fused_1x1": True}),
+             "bf16 plain": (bf16, {"fused_attn": False}),
+             "f32 K1": (f32, {}), "f32 plain": (f32, {"fused_attn": False})}
+    expect = {"bf16 K1": (nb, 0, 0), "bf16 K1+K3": (nb, 0, n_sites * nb),
+              "bf16 plain": (0, 0, 0), "f32 K1": (0, nb, 0), "f32 plain": (0, 0, 0)}
+    seen_n = []
+    models = {}
+    shapes = {(DET_IMGSZ, DET_IMGSZ)} | {b["img"].shape[1:3] for b in build_dataloader(
+        ds, BATCH, DET_IMGSZ, hyp=None, augment=False, shuffle=False, drop_last=False, rect=True)}
+    for name, (dtype, kw) in paths.items():
+        m = DetectionModel.from_yaml(DET_MODEL, nc=DET_NC, dtype=dtype, device=DEVICE, **kw)
+        m.load_state_dict(weights)
+        for mod in m.modules():
+            if isinstance(mod, QAttention):
+                mod.register_forward_pre_hook(lambda _m, a: seen_n.append(a[0].shape[1] * a[0].shape[2]))
+        models[name] = m
+        for h, w in shapes:  # warm up at every batch shape: cuDNN picks its algorithms, the kernels load
+            Validator(m, imgsz=DET_IMGSZ, conf=VAL_CONF).infer(
+                torch.zeros(BATCH, h, w, 3, dtype=torch.uint8, device=DEVICE))
+    torch.cuda.synchronize()
+    res, agree, n_seen = {}, {}, {}
+    for rect in (False, True):
+        for name, m in models.items():
+            key = f"{name}{' rect' if rect else ''}"
+            val = Validator(m, imgsz=DET_IMGSZ, conf=VAL_CONF)
+            js = out_dir / f"{key.replace(' ', '_').replace('+', '_')}.json"
+            js.parent.mkdir(parents=True, exist_ok=True)
+            seen_n.clear()
+            _reset_counts()
+            metrics = val(ds, batch_size=BATCH, save_json=str(js), rect=rect)  # the detect val path
+            torch.cuda.synchronize()
+            got, counts = (qattn.launches_mma, qattn.launches_simt, qconv_fused.launches_mma), _counts()
+            n_seen[key] = sorted(set(seen_n))
+            per_image = {Path(s.im_file).stem: 0 for s in ds.samples}
+            for d in json.loads(js.read_text()):
+                per_image[d["image_id"]] += 1
+            res[key] = {"metrics": metrics, "speed": val.speed, "detections": per_image,
+                        "launches": counts, "attention_n": n_seen[key]}
+            print(f"detect val [{key}]: launches {counts}, K1 tensor / CUDA cores, K3 {got} (expected "
+                  f"{expect[name]}); K1 saw N = {n_seen[key]}; {metrics}; {val.speed['img_s']:.1f} img/s, a batch: "
+                  f"load {val.speed['load_ms']:.1f} ms, infer {val.speed['infer_ms']:.1f} ms, match "
+                  f"{val.speed['match_ms']:.1f} ms; detections an image {list(per_image.values())}")
+            check(got == expect[name] and counts["qattn_fwd"] == sum(got[:2]) and counts["qattn_bwd"] == 0
+                  and counts["qattn_fwd_with_stats"] == 0 and counts["qconv1x1_fused"] == got[2],
+                  f"detect val [{key}]: launches {counts}, {got} != {expect[name]}")
+            check(all(math.isfinite(v) and 0 <= v <= 1 for v in metrics.values()),
+                  f"detect val [{key}]: metrics {metrics}")
+        batches = list(build_dataloader(ds, BATCH, DET_IMGSZ, hyp=None, augment=False, shuffle=False,
+                                        drop_last=False, rect=rect, with_meta=True))
+        xs = [torch.from_numpy(batch["img"]).to(DEVICE) for batch in batches]
+        stems = [[Path(f).stem for f in batch["im_files"][:batch["n_real"]]] for batch in batches]
+        shapes = [tuple(x.shape[1:3]) for x in xs]
+        check(rect == any(h != w for h, w in shapes), f"detect val: rect={rect}, batch shapes {shapes}")
+        sfx = " rect" if rect else ""
+        for name, ref in (("bf16 K1", "bf16 plain"), ("bf16 K1+K3", "bf16 plain"), ("f32 K1", "f32 plain")):
+            a, b = res[name + sfx], res[ref + sfx]
+            pairs = [(decoded(models[name], x), decoded(models[ref], x)) for x in xs]
+            rel = [compare_preds(k, p, DET_NC) for k, p in pairs]
+            rel = {g: max(r[g] for r in rel) for g in rel[0]}
+            same = sum(a["detections"][k] == b["detections"][k] for k in a["detections"])
+            diff = {k: abs(a["metrics"][k] - b["metrics"][k]) for k in a["metrics"]}
+            row = {"decoded_rel_err": rel, "same_count_images": same, "metric_diff": diff, "batch_shapes": shapes}
+            dtype = paths[name][0]
+            check(all(v <= PRED_TOL[dtype] for v in rel.values()),
+                  f"detect val, {name}{sfx}: decoded predictions disagree with {ref}: {rel}")
+            check(all(v <= VAL_METRIC_TOL for v in diff.values()),
+                  f"detect val, {name}{sfx} vs {ref}: metrics differ by {diff}")
+            if dtype == f32:  # in bf16 NMS's pool is cut inside a block of tied scores
+                unexplained = [stems[bi][i] for bi, (k, p) in enumerate(pairs)
+                               for i in _unexplained_counts(k, p, len(stems[bi]), nc=DET_NC, rotated=False)]
+                matched = [_matched_rows(k, p, len(stems[bi])) for bi, (k, p) in enumerate(pairs)]
+                share = sum(m for m, _ in matched) / max(sum(t for _, t in matched), 1)
+                row.update(count_differs_unexplained=unexplained, rows_matched_share=share)
+                print(f"detect val, {name}{sfx} vs {ref}{sfx}: {share:.5f} of the kept rows within "
+                      f"{DET_ROW_TOL} of a row of the other run; counts differ unexplained on {unexplained}")
+                check(len(unexplained) <= 1, f"detect val, {name}{sfx} vs {ref}: detection counts differ on "
+                      f"{unexplained}, not explained by the order of near-equal scores")
+                check(share >= DET_ROW_SHARE, f"detect val, {name}{sfx} vs {ref}: {share:.4f} of the kept rows "
+                      f"match, below {DET_ROW_SHARE}")
+            agree[f"{name}{sfx} vs {ref}{sfx}"] = row
+            print(f"detect val, {name}{sfx} vs {ref}{sfx}: decoded max abs err / max|ref| {rel}; the same "
+                  f"detection count on {same} of {len(ds)} images; metric differences {diff}")
+    square = [(DET_IMGSZ // 32) ** 2]  # 400 at 640
+    check(all(n == square for k, n in n_seen.items() if "K1" in k and "rect" not in k),
+          f"detect val: K1 saw N = {n_seen} without rect")
+    check(any(n != square for k, n in n_seen.items() if "rect" in k), f"detect val: rect left N = {n_seen}")
+    del models
+    torch.cuda.empty_cache()
+    return {"paths": res, "agree": agree, "launches": res["bf16 K1+K3"]["launches"],
+            "launches_rect": res["bf16 K1+K3 rect"]["launches"], "attention_n": n_seen}
+
+
+def phase_detect_cli(cfg, root: Path, n_sites: int):
+    """``python -m quan_ultralytics_tpu_torch.cli detect ...`` in this process on the
+    detect set (after `phase_cli`, whose settings file turns the logger clients off):
+    ``detect train`` from a facade checkpoint of seeded weights (2 epochs at 640,
+    batch 8, nbs 8, close_mosaic 1; bf16 steps, f32 validation), ``detect val rect=True``
+    and ``detect predict save_txt=True`` (f32) of its best.pkl; the saved label lines
+    held to the facade's boxes, and the facade's bf16 ``fused_1x1`` predict (K3)."""
+    import pickle
+
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.utils.weights import export_jax_variables
+
+    start = root / "detect_seeded.pkl"
+    tree = export_jax_variables(seeded_model(None, model=DET_MODEL, nc=DET_NC))
+    start.write_bytes(pickle.dumps({"model_yaml": DET_MODEL, "nc": DET_NC, "names": list(cfg["names"].values()),
+                                    **tree, "raw_params": tree["params"], "step": 0}))
+    data = root / "coco.yaml"
+    data.write_text(f"path: {cfg['path']}\ntrain: {cfg['train']}\nval: {cfg['val']}\nnames:\n"
+                    + "".join(f"  {k}: {v}\n" for k, v in cfg["names"].items()))
+    run, pred = root / "detect_run_cli", root / "detect_predict"
+    src = Path(cfg["path"]) / cfg["val"]
+    n_images = len(DET_SIZES)
+    steps, n_val = n_images // BATCH, math.ceil(n_images / BATCH)
+    text, train_s, train_n = _cli(["detect", "train", f"model={start}", f"data={data}", f"epochs={FIT_EPOCHS}",
+                                   f"batch={BATCH}", f"imgsz={DET_IMGSZ}", f"close_mosaic={FIT_CLOSE_MOSAIC}",
+                                   f"nbs={BATCH}", f"save_dir={run}"])
+    epoch_s = [float(ln.split("time_s=")[1].split()[0]) for ln in text.splitlines() if ln.startswith("epoch ")]
+    check(len(epoch_s) == FIT_EPOCHS and (run / "best.pkl").exists() and (run / "results.csv").exists(),
+          f"cli detect train: {len(epoch_s)} epoch lines")
+    n_micro = FIT_EPOCHS * steps
+    check(train_n == {"qattn_fwd": n_micro + FIT_EPOCHS * n_val, "qattn_fwd_with_stats": n_micro,
+                      "qattn_bwd": n_micro, "qconv1x1_fused": 0, "qattn_fwd_tensor_cores": n_micro,
+                      "qattn_fwd_cuda_cores": FIT_EPOCHS * n_val}, f"cli detect train launches {train_n}")
+    best = run / "best.pkl"
+    text, val_s, val_n = _cli(["detect", "val", f"model={best}", f"data={data}", f"imgsz={DET_IMGSZ}",
+                               f"batch={BATCH}", f"conf={VAL_CONF}", "rect=True"])
+    metrics = ast.literal_eval(text.strip().splitlines()[-1])
+    check(all(0 <= metrics[k] <= 1 for k in ("mAP50", "mAP50-95", "precision", "recall")),
+          f"cli detect val metrics {metrics}")
+    check(val_n["qattn_fwd"] == val_n["qattn_fwd_cuda_cores"] == n_val and val_n["qattn_bwd"] == 0,
+          f"cli detect val launches {val_n}")
+    text, pred_s, pred_n = _cli(["detect", "predict", f"model={best}", f"source={src}", f"imgsz={DET_IMGSZ}",
+                                 f"conf={VAL_CONF}", "save_txt=True", "save_conf=True", f"save_dir={pred}"])
+    lines = [ln for ln in text.splitlines() if ln.startswith("image ")]
+    check(len(lines) == n_images and pred_n["qattn_fwd"] == pred_n["qattn_fwd_cuda_cores"] == 1,
+          f"cli detect predict: {len(lines)} image lines, launches {pred_n}")
+    # the saved 'cls xc yc w h conf' lines, read back and held to the facade's xyxy boxes
+    got = YOLO(str(best)).predict(str(src), imgsz=DET_IMGSZ, conf=VAL_CONF)
+    worst, n_boxes = 0.0, 0
+    for i, r in enumerate(got):
+        rows = np.array((pred / "labels" / f"im{i}.txt").read_text().split(), np.float64).reshape(-1, 6)
+        check(len(rows) == len(r), f"im{i}.txt holds {len(rows)} boxes, the facade keeps {len(r)}")
+        if not len(r):
+            continue
+        h, w = r.orig_shape
+        x1, y1, x2, y2, conf, c = r.boxes.astype(np.float64).T
+        want = np.stack([(x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h, conf], 1)
+        check((rows[:, 0] == c).all(), f"im{i}.txt: classes differ from the facade's")
+        worst = max(worst, float((np.abs(rows[:, 1:] - want) / np.maximum(1.0, np.abs(want))).max()))
+        n_boxes += len(r)
+    check(worst <= LABEL_TOL, f"the saved detect labels are {worst:.3e} off the facade's boxes")
+    check([r.verbose() for r in got] == [ln.split(" ", 3)[3] for ln in lines],
+          "the CLI's per-image lines differ from the facade's detect predictions")
+    _reset_counts()
+    n_fused = len(YOLO(str(best), dtype=torch.bfloat16, fused_1x1=True).predict(str(src), imgsz=DET_IMGSZ,
+                                                                                conf=VAL_CONF))
+    torch.cuda.synchronize()
+    fused_n = _counts()
+    check(n_fused == n_images and fused_n == {"qattn_fwd": 1, "qattn_fwd_with_stats": 0, "qattn_bwd": 0,
+                                              "qconv1x1_fused": n_sites},
+          f"detect facade fused_1x1 launches {fused_n}")
+    print(f"cli detect: the saved labels of {n_images} images ({n_boxes} boxes) within {worst:.2e} of the "
+          f"facade's boxes; YOLO(dtype=bf16, fused_1x1=True).predict launches {fused_n}")
+    return {"train_s": train_s, "epoch_s": epoch_s, "val_s": val_s, "predict_s": pred_s, "val_metrics": metrics,
+            "launches_train": train_n, "launches_val": val_n, "launches_predict": pred_n,
+            "launches": {k: train_n[k] + val_n[k] + pred_n[k] for k in train_n},
+            "launches_facade_fused": fused_n, "labels_vs_facade": worst}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1767,6 +2257,16 @@ def main() -> int:
         del weights
         torch.cuda.empty_cache()
         cli_out = phase_cli(data_cfg, Path(tmp))
+        det_cfg, det_data = phase_detect_data(Path(tmp) / "coco")
+        det_predict = phase_detect_predict(det_cfg, tables)
+        det_train = phase_detect_train(det_cfg)
+        det_weights, det_fit = phase_detect_fit(det_cfg, Path(tmp) / "detect_run")
+        n_sites = det_predict["fused_1x1_sites"]
+        det_val = phase_detect_val(det_cfg, det_weights, Path(tmp) / "detect_val", n_sites)
+        del det_weights
+        det_cli = phase_detect_cli(det_cfg, Path(tmp), n_sites)
+    detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
+              "cli": det_cli}
     if args.profile:
         out_dir = args.profile
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -1776,7 +2276,7 @@ def main() -> int:
              "agree": agree, "speed": speed, "device": share, "train": train_out,
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
-             "val": val_out, "cli": cli_out}, indent=1))
+             "val": val_out, "cli": cli_out, "detect": detect}, indent=1))
 
     launches = pred_out["launches"]["K1+K3"]
     on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
@@ -1784,13 +2284,26 @@ def main() -> int:
     on_train = train_speed["fused"]["kernel_device_ms"]  # device ms per micro-step
     fit_launches, val_launches = fit_out["launches"], val_out["launches"]
     cli_launches, facade_launches = cli_out["launches"], cli_out["launches_facade_fused"]
+    det_launches = {"detect_predict": det_predict["launches"]["K1+K3"], "detect_train": det_train["launches"],
+                    "detect_fit": det_fit["launches"], "detect_val": det_val["launches"],
+                    "detect_val_rect": det_val["launches_rect"], "detect_cli": det_cli["launches"],
+                    "detect_facade_fused_1x1": det_cli["launches_facade_fused"]}
+    # each kernel launched on every detect path that runs it (K3: the fused_1x1 runs)
+    for path in ("detect_predict", "detect_train", "detect_fit", "detect_val", "detect_val_rect", "detect_cli",
+                 "detect_facade_fused_1x1"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+    for path in ("detect_train", "detect_fit", "detect_cli"):
+        check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
+    for path in ("detect_predict", "detect_val", "detect_val_rect", "detect_facade_fused_1x1"):
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:60",
          "launches": launches["qattn_fwd"],
          "launches_by_path": {"predict": launches["qattn_fwd"], "train": train_launches["qattn_fwd"],
                               "fit": fit_launches["qattn_fwd"], "val": val_launches["qattn_fwd"],
-                              "cli": cli_launches["qattn_fwd"], "facade_fused_1x1": facade_launches["qattn_fwd"]},
+                              "cli": cli_launches["qattn_fwd"], "facade_fused_1x1": facade_launches["qattn_fwd"],
+                              **{k: v["qattn_fwd"] for k, v in det_launches.items()}},
          "max_abs_err": k1_err,
          "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_"],
          "train_device_ms": on_train["qattn_fwd_"],
@@ -1801,7 +2314,8 @@ def main() -> int:
          "launches": train_launches["qattn_bwd"],
          "launches_by_path": {"predict": launches["qattn_bwd"], "train": train_launches["qattn_bwd"],
                               "fit": fit_launches["qattn_bwd"], "val": val_launches["qattn_bwd"],
-                              "cli": cli_launches["qattn_bwd"], "facade_fused_1x1": facade_launches["qattn_bwd"]},
+                              "cli": cli_launches["qattn_bwd"], "facade_fused_1x1": facade_launches["qattn_bwd"],
+                              **{k: v["qattn_bwd"] for k, v in det_launches.items()}},
          "max_abs_err": k2_err, "kernel_ms": k2_t["ms"], **k2_t,
          "train_device_ms": on_train["qattn_bwd_"],
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
@@ -1816,7 +2330,8 @@ def main() -> int:
                               "fit": fit_launches["qconv1x1_fused"],
                               "val": val_launches["qconv1x1_fused"],
                               "cli": cli_launches["qconv1x1_fused"],
-                              "facade_fused_1x1": facade_launches["qconv1x1_fused"]},
+                              "facade_fused_1x1": facade_launches["qconv1x1_fused"],
+                              **{k: v["qconv1x1_fused"] for k, v in det_launches.items()}},
          "max_abs_err": k3_err,
          "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_"],
          "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
@@ -1836,6 +2351,14 @@ def main() -> int:
                               for name, r in val_out["paths"].items()},
                       "val_agree": val_out["agree"], "val_ties": val_out["ties"],
                       "cli": {k: v for k, v in cli_out.items() if k != "history"}}))
+    print(json.dumps({"detect": {
+        "data": det_data, "predict": {k: v for k, v in det_predict.items() if k != "device"},
+        "predict_device": det_predict["device"],
+        "train": {k: v for k, v in det_train.items() if k != "ms_steps"},
+        "fit": {k: v for k, v in det_fit.items() if k != "history"},
+        "val": {name: {"metrics": r["metrics"], "speed": r["speed"], "attention_n": r["attention_n"]}
+                for name, r in det_val["paths"].items()},
+        "val_agree": det_val["agree"], "cli": det_cli}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

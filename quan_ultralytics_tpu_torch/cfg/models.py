@@ -45,5 +45,16 @@ YOLO11_OBB_QUAN = {
     ],
 }
 
+# QUAN-YOLO11 (quaternion backbone + axis-aligned Detect head),
+# the JAX package's cfg/models/yolo11-quan.yaml: the OBB graph with a Detect head.
+YOLO11_QUAN = {
+    "nc": 80,
+    "scales": YOLO11_OBB_QUAN["scales"],
+    "backbone": YOLO11_OBB_QUAN["backbone"],
+    "head": YOLO11_OBB_QUAN["head"][:-1] + [
+        [[16, 19, 22], 1, "Detect", ["nc"]],   # 23
+    ],
+}
+
 # base file name (scale letter removed) -> configuration
-MODELS = {"yolo11-obb-quan.yaml": YOLO11_OBB_QUAN}
+MODELS = {"yolo11-obb-quan.yaml": YOLO11_OBB_QUAN, "yolo11-quan.yaml": YOLO11_QUAN}

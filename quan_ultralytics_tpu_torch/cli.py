@@ -1,6 +1,7 @@
 """`yolo`-style CLI of the PyTorch port (counterpart of the JAX package's
 ``cli.py``; reference ultralytics/cfg/__init__.py entrypoint :825):
 
+    python -m quan_ultralytics_tpu_torch.cli detect train data=coco.yaml epochs=10
     python -m quan_ultralytics_tpu_torch.cli obb train model=yolo11n-obb-quan.yaml data=dota.yaml epochs=10
     python -m quan_ultralytics_tpu_torch.cli obb val model=runs/train/best.pkl data=dota.yaml
     python -m quan_ultralytics_tpu_torch.cli obb predict model=runs/train/best.pkl source=img.png
@@ -8,8 +9,10 @@
 
 (installed as ``yolo-torch``). It runs on ``cuda`` unless ``device=`` names
 another device (``device=cpu``); with no card and no ``device=cpu`` it exits
-non-zero. The task may be omitted. The export, track, tune and benchmark
-modes and the classify task are not ported yet.
+non-zero. The task may be omitted; without ``model=`` the task's default
+model is built (``yolo11n-quan.yaml`` for detect). The detect and OBB tasks
+are ported; the export, track, tune and benchmark modes and the classify
+task are not yet.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ MODES = ("train", "val", "predict", "export", "track", "tune", "benchmark",
          "settings")
 TASKS = ("detect", "obb", "classify", "segment", "pose")
 DEFAULT_MODELS = {
+    "detect": "yolo11n-quan.yaml",
     "obb": "yolo11n-obb-quan.yaml",
     "segment": "yolo11n-seg-quan.yaml",
     "pose": "yolo11n-pose-quan.yaml",

@@ -1,9 +1,12 @@
-"""Predictor: uint8 frames -> Results (counterpart of the JAX ``engine/predictor.py``, OBB task).
+"""Predictor: uint8 frames -> Results (counterpart of the JAX
+``engine/predictor.py``, detect and OBB tasks).
 
 Every step after the upload runs on the model's device: letterbox, the
-/255 normalize, forward, `decode_obb`, rotated fast-NMS. The kept boxes come
-back to the host, are mapped to the source frame and regularized. A path
-(an image file or a directory of them) is read by `data.loaders.load_source`.
+/255 normalize, forward, decode (`decode_detect` or `decode_obb`), NMS
+(axis-aligned or rotated). The kept boxes come back to the host and are
+mapped to the source frame: xyxy boxes clipped to it, xywhr boxes
+regularized. A path (an image file or a directory of them) is read by
+`data.loaders.load_source`.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ class Results:
     with the user-facing surface: verbose / save_txt / summary / tojson."""
 
     orig_shape: tuple
-    boxes: np.ndarray  # [n, 7]: xywhr in source pixels, conf, cls
+    boxes: np.ndarray  # [n, 6]: xyxy, conf, cls (detect); [n, 7]: xywhr, conf, cls (OBB); source pixels
     names: Optional[List[str]] = None
     task: str = "obb"
     orig_img: Any = None  # the source frame as given (numpy array or tensor)
@@ -77,14 +80,19 @@ class Results:
                        for c, n in sorted(counts.items()))
 
     def save_txt(self, txt_file: Union[str, Path], save_conf: bool = False) -> None:
-        """Append the reference's label lines (results.py:620 Results.save_txt):
-        'cls x1 y1 ... x4 y4 [conf]', corners normalized by the frame's size."""
+        """Append the reference's label lines (results.py:620 Results.save_txt),
+        normalized by the frame's size: detect 'cls xc yc w h [conf]', OBB
+        'cls x1 y1 ... x4 y4 [conf]' (the four corners)."""
         h0, w0 = self.orig_shape
-        corners = self._corners()
+        corners = self._corners() if self.task == "obb" else None
         lines = []
         for i, row in enumerate(self.boxes):
             c, conf = int(row[-1]), float(row[-2])
-            vals = (corners[i] / np.array([w0, h0])).reshape(-1).tolist()
+            if corners is not None:
+                vals = (corners[i] / np.array([w0, h0])).reshape(-1).tolist()
+            else:
+                x1, y1, x2, y2 = row[:4]
+                vals = [(x1 + x2) / 2 / w0, (y1 + y2) / 2 / h0, (x2 - x1) / w0, (y2 - y1) / h0]
             if save_conf:
                 vals.append(conf)
             lines.append(" ".join([str(c)] + [f"{v:.6g}" for v in vals]))
@@ -93,15 +101,19 @@ class Results:
             fh.write("\n".join(lines) + ("\n" if lines else ""))
 
     def summary(self, decimals: int = 5) -> List[Dict]:
-        """List-of-dicts form with the four corners (reference results.py:700)."""
+        """List-of-dicts form (reference results.py:700): the box as x1 y1 x2 y2
+        (detect) or the four corners (OBB)."""
+        if self.task == "obb":
+            keys, boxes = ("x1", "y1", "x2", "y2", "x3", "y3", "x4", "y4"), self._corners().reshape(-1, 8)
+        else:
+            keys, boxes = ("x1", "y1", "x2", "y2"), self.boxes[:, :4]
         out = []
-        for row, pts in zip(self.boxes, self._corners()):
+        for row, box in zip(self.boxes, boxes):
             c = int(row[-1])
             out.append({
                 "name": self._name(c), "class": c,
                 "confidence": round(float(row[-2]), decimals),
-                "box": {k: round(float(v), decimals) for k, v in zip(
-                    ("x1", "y1", "x2", "y2", "x3", "y3", "x4", "y4"), pts.reshape(-1))},
+                "box": {k: round(float(v), decimals) for k, v in zip(keys, box)},
             })
         return out
 
@@ -111,12 +123,10 @@ class Results:
 
 
 class Predictor:
-    """OBB prediction with a port `DetectionModel` on the model's device."""
+    """Detect or OBB prediction with a port `DetectionModel` on the model's device."""
 
     def __init__(self, model: DetectionModel, imgsz: int = 640, conf: float = 0.25,
                  iou: float = 0.45, max_det: int = 300, names: Optional[List[str]] = None):
-        if model.task != "obb":
-            raise NotImplementedError(f"task {model.task!r} is not ported yet; only 'obb' is")
         self.model = model
         self.imgsz, self.conf, self.iou, self.max_det = imgsz, conf, iou, max_det
         self.names = names
@@ -124,12 +134,14 @@ class Predictor:
 
     @torch.inference_mode()
     def infer(self, x: torch.Tensor):
-        """uint8 ``[B, imgsz, imgsz, 3]`` on the device -> (det ``[B, max_det, 7]``:
-        xywhr, conf, cls in the input's pixels; keep mask ``[B, max_det]``)."""
+        """uint8 ``[B, H, W, 3]`` on the device -> (det ``[B, max_det, 6]``: xyxy,
+        conf, cls, or ``[B, max_det, 7]``: xywhr, conf, cls for OBB, in the
+        input's pixels; keep mask ``[B, max_det]``)."""
         img = x.float() / 255.0
         pred = self.model.decode(self.model(img))
         return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
-                                   max_det=self.max_det, nc=self.model.nc, rotated=True)
+                                   max_det=self.max_det, nc=self.model.nc,
+                                   rotated=self.model.task == "obb")
 
     def __call__(self, images: Union[str, Path, np.ndarray, torch.Tensor,
                                      Sequence[Union[np.ndarray, torch.Tensor]]]) -> List[Results]:
@@ -150,12 +162,17 @@ class Predictor:
         det, ok = self.infer(torch.stack(batch))
         det, ok = det.cpu(), ok.cpu()
 
+        task = self.model.task
         results = []
         for b, (h0, w0, r, dw, dh) in enumerate(meta):
             d = det[b][ok[b]]
-            d[:, 0] = (d[:, 0] - dw) / r
-            d[:, 1] = (d[:, 1] - dh) / r
-            d[:, 2:4] /= r
-            d[:, :5] = regularize_rboxes(d[:, :5])
-            results.append(Results((h0, w0), d.numpy(), self.names, "obb", orig_img=images[b]))
+            if task == "obb":
+                d[:, 0] = (d[:, 0] - dw) / r
+                d[:, 1] = (d[:, 1] - dh) / r
+                d[:, 2:4] /= r
+                d[:, :5] = regularize_rboxes(d[:, :5])
+            else:  # xyxy, clipped to the frame (JAX predictor.py:283-285)
+                d[:, [0, 2]] = ((d[:, [0, 2]] - dw) / r).clamp(0, w0)
+                d[:, [1, 3]] = ((d[:, [1, 3]] - dh) / r).clamp(0, h0)
+            results.append(Results((h0, w0), d.numpy(), self.names, task, orig_img=images[b]))
         return results

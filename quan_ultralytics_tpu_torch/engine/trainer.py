@@ -32,7 +32,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optio
 
 import torch
 
-from quan_ultralytics_tpu_torch.losses.detect import LossHyp, obb_loss
+from quan_ultralytics_tpu_torch.losses.detect import LossHyp, detection_loss, obb_loss
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, resolve_device
 from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
 
@@ -225,11 +225,13 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], updates: int
 
 
 class Trainer:
-    """The train step of detection models (the OBB task so far).
+    """The train step of detection models: the detect task (`detection_loss`)
+    and the OBB task (`obb_loss`), chosen by ``model.task``.
 
     A batch is a dict of ``img`` ``[B, H, W, 3]`` uint8 (divided by 255 in
     f32, then cast to the compute dtype) or float in [0, 1]; ``cls`` ``[B, M]``
-    int; ``bboxes`` ``[B, M, 5]`` normalized xywhr; ``mask`` ``[B, M]`` bool.
+    int; ``bboxes`` ``[B, M, 4]`` normalized xywh (detect) or ``[B, M, 5]``
+    normalized xywhr (OBB); ``mask`` ``[B, M]`` bool.
     Tensors or numpy arrays; they are moved to the model's device (a tensor
     already there is used as it is). Lists and strings (file names) are left out.
 
@@ -239,8 +241,6 @@ class Trainer:
 
     def __init__(self, model: DetectionModel, cfg: TrainConfig, steps_per_epoch: int,
                  device: Optional[Union[str, torch.device]] = None):
-        if model.task != "obb":
-            raise NotImplementedError(f"task {model.task!r}: only the OBB loss is ported yet")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -272,8 +272,9 @@ class Trainer:
             img = img.float() / 255.0
         self.model.train()
         out = self.model(img.to(self.dtype))
-        return obb_loss(out, b, self.model.strides, self.model.nc, self.model.reg_max,
-                        hyp=self.loss_hyp, assigner_bf16=self.cfg.assigner_bf16)
+        loss_fn = obb_loss if self.model.task == "obb" else detection_loss
+        return loss_fn(out, b, self.model.strides, self.model.nc, self.model.reg_max,
+                       hyp=self.loss_hyp, assigner_bf16=self.cfg.assigner_bf16)
 
     def step(self, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One micro-step: loss, gradients, and the optimizer and EMA update

@@ -1,17 +1,18 @@
-"""Validator: run a model over a labelled split and compute rotated mAP
-(counterpart of the JAX package's ``engine/validator.py``, OBB task).
+"""Validator: run a model over a labelled split and compute mAP, axis-aligned
+(detect) or rotated (OBB) (counterpart of the JAX package's
+``engine/validator.py``).
 
 Per batch, one upload of the uint8 images (from pinned memory when the model
-is on the card) and one device pass, `Predictor.infer`'s: forward,
-`decode_obb` and rotated NMS under ``torch.inference_mode``; the kept
-detections come back to the host once. Matching, AP, the confusion matrix,
-COCO-style JSON and the DOTA Task1 files are host work, as in JAX (reference
-engine/validator.py BaseValidator and models/yolo/obb/val.py OBBValidator).
+is on the card) and one device pass, `Predictor.infer`'s: forward, decode
+and NMS under ``torch.inference_mode``; the kept detections come back to the
+host once. Matching, AP, the confusion matrix, COCO-style JSON and the DOTA
+Task1 files are host work, as in JAX (reference engine/validator.py
+BaseValidator, models/yolo/detect/val.py and obb/val.py).
 
 The Validator runs on the device of the model's parameters; a model on the
-card is validated there. The detect, segment and pose tasks and the JAX
-``mesh`` option are not ported yet; nor is ``rect``, which the JAX package
-refuses for the OBB task.
+card is validated there. ``rect`` batches (detect only, as in JAX) are each
+letterboxed to their own stride-32 shape. The segment and pose tasks wait
+for ROADMAP Queue 1 item 6, the JAX ``mesh`` option for item 9.
 """
 
 from __future__ import annotations
@@ -29,20 +30,18 @@ from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
 from quan_ultralytics_tpu_torch.engine.dota_eval import DOTASubmission
 from quan_ultralytics_tpu_torch.engine.predictor import Predictor
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
-from quan_ultralytics_tpu_torch.ops.boxes import scale_rboxes
+from quan_ultralytics_tpu_torch.ops.boxes import scale_boxes, scale_rboxes, xywh2xyxy
 from quan_ultralytics_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
 
 
 class Validator:
     def __init__(self, model: DetectionModel, imgsz: int = 640, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, mesh=None):
-        if model.task != "obb":
-            raise NotImplementedError(f"task {model.task!r}: only the OBB validator is ported yet")
         if mesh is not None:
-            raise NotImplementedError("sharded validation (mesh) is not ported yet")
+            raise NotImplementedError("sharded validation (mesh) is not ported yet (ROADMAP Queue 1 item 9)")
         self.model = model
         self.imgsz = imgsz
-        # the device pass is the Predictor's: forward, decode, rotated NMS
+        # the device pass is the Predictor's: forward, decode, NMS
         self.predictor = Predictor(model, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det)
         self.infer = self.predictor.infer
         self.speed: Dict[str, float] = {}
@@ -59,14 +58,18 @@ class Validator:
 
     def __call__(self, ds: YOLODataset, batch_size: int = 8, max_labels: int = 256,
                  save_json: Optional[str] = None, save_submission: Optional[str] = None,
-                 save_dir: Optional[str] = None) -> Dict[str, float]:
+                 rect: bool = False, save_dir: Optional[str] = None) -> Dict[str, float]:
         """Validate on ``ds``; returns ``{mAP50, mAP50-95, precision, recall}``.
 
         save_json: COCO-style detections in source-image coordinates (reference
-          detect/val.py pred_to_json).
-        save_submission: a DOTA Task1 directory: patch predictions mapped back to
-          their source image by the ``{stem}__{x}_{y}`` naming, merged with
-          rotated NMS, written as ``Task1_{class}.txt`` (`DOTASubmission`).
+          detect/val.py pred_to_json): ``bbox`` ``[x1, y1, w, h]``, and the OBB
+          task's ``angle``.
+        save_submission: a DOTA Task1 directory (OBB only): patch predictions
+          mapped back to their source image by the ``{stem}__{x}_{y}`` naming,
+          merged with rotated NMS, written as ``Task1_{class}.txt`` (`DOTASubmission`).
+        rect: rectangular batches (detect only; reference data/base.py
+          set_rectangle): sorted by aspect ratio, each letterboxed to its own
+          stride-32 shape; ground truths are scaled by the batch's width and height.
         save_dir: the per-class table as ``per_class.txt``. The curve and
           confusion-matrix images need matplotlib and are not written (their
           methods raise `NotImplementedError`).
@@ -76,7 +79,12 @@ class Validator:
         loading and letterboxing (``load_ms``), the device pass with its copies
         (``infer_ms``) and matching (``match_ms``), and ``img_s``.
         """
-        metrics = DetMetrics(nc=self.model.nc, rotated=True)
+        rotated = self.model.task == "obb"
+        if rotated and rect:
+            raise ValueError("rect batching is not supported for the OBB task")
+        if save_submission and not rotated:
+            raise ValueError("DOTA submissions are an OBB-task output")
+        metrics = DetMetrics(nc=self.model.nc, rotated=rotated)
         self.confusion = ConfusionMatrix(nc=self.model.nc)
         json_dets: Optional[List[Dict]] = [] if save_json else None
         submission = DOTASubmission(ds.names) if save_submission else None
@@ -86,7 +94,8 @@ class Validator:
         n_batches = n_images = 0
         t_all = time.perf_counter()
         loader = build_dataloader(ds, batch_size, self.imgsz, hyp=None, max_labels=max_labels,
-                                  augment=False, shuffle=False, drop_last=False, with_meta=True)
+                                  augment=False, shuffle=False, drop_last=False, with_meta=True,
+                                  rect=rect)
         try:
             while True:
                 t0 = time.perf_counter()
@@ -97,32 +106,46 @@ class Validator:
                 det, ok = self.infer(self._upload(batch["img"]))
                 det, ok = det.float().cpu().numpy(), ok.cpu().numpy()
                 t2 = time.perf_counter()
-                Hb = batch["img"].shape[1]  # OBB batches are square
+                Hb, Wb = batch["img"].shape[1:3]  # (imgsz, imgsz) unless rect
                 # the tail batch repeats indices to fill up; only n_real are scored
                 n_real = int(batch.get("n_real", det.shape[0]))
                 for b in range(min(det.shape[0], n_real)):
                     keep = ok[b]
-                    pred_boxes = det[b, keep, :5]  # xywhr, letterbox pixels
-                    conf, cls = det[b, keep, 5], det[b, keep, 6]
                     gmask = batch["mask"][b]
-                    gt_boxes = batch["bboxes"][b][gmask].copy()  # normalized xywhr
-                    gt_boxes[:, :4] *= Hb
+                    gb = batch["bboxes"][b][gmask]  # normalized xywhr (OBB) or xywh
+                    if rotated:
+                        pred_boxes = det[b, keep, :5]  # xywhr, letterbox pixels
+                        conf, cls = det[b, keep, 5], det[b, keep, 6]
+                        gt_boxes = gb.copy()
+                        gt_boxes[:, :4] *= Hb  # OBB batches are square
+                        src_boxes = scale_rboxes(pred_boxes, batch["ratio_pad"][b])
+                    else:
+                        pred_boxes = det[b, keep, :4]  # xyxy, letterbox pixels
+                        conf, cls = det[b, keep, 4], det[b, keep, 5]
+                        scale = np.array([Wb, Hb, Wb, Hb], np.float32)
+                        gt_boxes = xywh2xyxy(torch.from_numpy(gb * scale)).numpy()
+                        src_boxes = scale_boxes(pred_boxes, batch["ratio_pad"][b], batch["ori_shape"][b])
                     gt_cls = batch["cls"][b][gmask].astype(np.float32)
                     metrics.update(pred_boxes, conf, cls.astype(np.float32), gt_boxes, gt_cls)
                     self.confusion.process_batch(pred_boxes, conf, cls, gt_boxes, gt_cls,
-                                                 rotated=True)
-                    src_boxes = scale_rboxes(pred_boxes, batch["ratio_pad"][b])
+                                                 rotated=rotated)
                     stem = Path(batch["im_files"][b]).stem
                     if submission is not None:
                         submission.add_patch(stem, src_boxes, conf, cls)
                     if json_dets is not None:
                         for bi in range(len(src_boxes)):
-                            x, y, w, h, r = src_boxes[bi][:5]
-                            box = [float(x - w / 2), float(y - h / 2), float(w), float(h)]
+                            extra = {}
+                            if rotated:
+                                x, y, w, h, r = src_boxes[bi][:5]
+                                box = [float(x - w / 2), float(y - h / 2), float(w), float(h)]
+                                extra = {"angle": float(r)}
+                            else:
+                                x1, y1, x2, y2 = src_boxes[bi][:4]
+                                box = [float(x1), float(y1), float(x2 - x1), float(y2 - y1)]
                             json_dets.append({
                                 "image_id": stem, "category_id": int(cls[bi]),
                                 "bbox": [round(v, 3) for v in box],
-                                "score": round(float(conf[bi]), 5), "angle": float(r),
+                                "score": round(float(conf[bi]), 5), **extra,
                             })
                 times["load_ms"] += 1e3 * (t1 - t0)
                 times["infer_ms"] += 1e3 * (t2 - t1)

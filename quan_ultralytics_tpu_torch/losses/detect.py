@@ -1,24 +1,24 @@
-"""OBB training loss with the QUAN quaternion angular term (counterpart of the
-JAX ``losses/detect.py``).
+"""Detection and OBB training losses (counterpart of the JAX ``losses/detect.py``).
 
-Reference ultralytics/utils/loss.py v8OBBLoss (:853-1047). Ground truths
-arrive as padded fixed-size tensors with a validity mask, and every
-data-dependent branch is a ``where``. The loss runs in f32 whatever the
-model's compute dtype. The axis-aligned ``detection_loss`` and the segment
-and pose losses come with the slices that bring their heads.
+Reference ultralytics/utils/loss.py v8DetectionLoss (:398-502) and v8OBBLoss
+(:853-1047, with the QUAN quaternion angular term). Ground truths arrive as
+padded fixed-size tensors with a validity mask, and every data-dependent
+branch is a ``where``. The loss runs in f32 whatever the model's compute
+dtype. `detect_terms` is the core the segment and pose losses build on.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from quan_ultralytics_tpu_torch.losses.tal import task_aligned_assigner
+from quan_ultralytics_tpu_torch.losses.tal import AssignResult, task_aligned_assigner
 from quan_ultralytics_tpu_torch.models.block import dfl as dfl_decode
 from quan_ultralytics_tpu_torch.models.head import flatten_levels
-from quan_ultralytics_tpu_torch.ops.boxes import bbox2dist, dist2rbox, make_anchors, probiou, xywh2xyxy
+from quan_ultralytics_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dist2bbox, dist2rbox, make_anchors,
+                                                   probiou, xywh2xyxy)
 
 
 class LossHyp(NamedTuple):
@@ -59,6 +59,96 @@ def _split_preds(feats: Sequence[torch.Tensor], nc: int, reg_max: int):
     if x.shape[-1] != 4 * reg_max + nc:
         raise ValueError(f"head channels {x.shape[-1]} != 4*{reg_max}+{nc}")
     return x[..., :4 * reg_max], x[..., 4 * reg_max:]
+
+
+def detection_loss(
+    feats: Sequence[torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    strides: Sequence[int],
+    nc: int,
+    reg_max: int = 16,
+    hyp: LossHyp = LossHyp(),
+    assigner_bf16: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Axis-aligned v8 detection loss (reference loss.py:398-502).
+
+    batch: ``cls`` ``[B, M]`` int, ``bboxes`` ``[B, M, 4]`` normalized xywh,
+    ``mask`` ``[B, M]`` bool. ``assigner_bf16`` as in `obb_loss`.
+    Returns ``(total, aux)`` with ``total`` = sum of the weighted terms times
+    the batch size (the reference's ``loss.sum() * batch_size``).
+    """
+    loss_iou, loss_cls, loss_dfl, assign, ctx = detect_terms(
+        feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16)
+    total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl) * ctx["B"]
+    aux = {
+        "box": hyp.box * loss_iou,
+        "cls": hyp.cls * loss_cls,
+        "dfl": hyp.dfl * loss_dfl,
+        "num_fg": assign.fg_mask.sum(),
+    }
+    return total, aux
+
+
+def detect_terms(
+    feats: Sequence[torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    strides: Sequence[int],
+    nc: int,
+    reg_max: int = 16,
+    assigner_bf16: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, AssignResult, Dict[str, Any]]:
+    """The detect loss's core, shared with the segment and pose losses: the
+    assigner and the class BCE, box CIoU and DFL terms (loss.py:339-355, :486).
+    Returns ``(loss_iou, loss_cls, loss_dfl, assign, ctx)``; ``ctx`` carries the
+    geometry the task-specific terms need."""
+    pred_distri, pred_scores = _split_preds(feats, nc, reg_max)
+    B, A, _ = pred_scores.shape
+    dev = pred_scores.device
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    anchors, stride_t = make_anchors(shapes, strides, 0.5, device=dev)
+    imgsz_h = feats[0].shape[1] * strides[0]
+    imgsz_w = feats[0].shape[2] * strides[0]
+    scale = torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=torch.float32, device=dev)
+
+    gt_xyxy = xywh2xyxy(batch["bboxes"][..., :4].float() * scale)
+    mask_gt = batch["mask"].bool() & (gt_xyxy.sum(-1) > 0)
+
+    # decode in grid units -> [B, A, 4] xyxy
+    pd = dfl_decode(pred_distri, reg_max)
+    pred_bboxes = dist2bbox(pd, anchors[None], xywh=False)
+
+    assign = task_aligned_assigner(  # the assigner takes no gradient
+        torch.sigmoid(pred_scores.detach()),
+        pred_bboxes.detach() * stride_t[None],
+        anchors * stride_t,
+        batch["cls"],
+        gt_xyxy,
+        mask_gt,
+        num_classes=nc,
+        topk=10,
+        alpha=0.5,
+        beta=6.0,
+        bf16_metric=assigner_bf16,
+    )
+    target_scores_sum = assign.target_scores.sum().clamp(min=1.0)
+    fg = assign.fg_mask
+
+    loss_cls = _bce_logits(pred_scores, assign.target_scores).sum() / target_scores_sum
+
+    # box CIoU + DFL on the foreground, masked, not gathered
+    tb = assign.target_bboxes / stride_t[None]  # grid units, xyxy
+    weight = assign.target_scores.sum(-1) * fg
+    safe_tb = torch.where(fg[..., None], tb, pred_bboxes)  # no NaN on padding
+    iou = bbox_iou(pred_bboxes, safe_tb, xywh=False, ciou=True)
+    loss_iou = ((1.0 - iou) * weight).sum() / target_scores_sum
+
+    target_ltrb = bbox2dist(anchors[None], safe_tb, reg_max - 1)
+    dflv = _dfl_loss(pred_distri.reshape(B, A, 4, reg_max), target_ltrb, reg_max)
+    loss_dfl = (dflv * weight).sum() / target_scores_sum
+
+    ctx = {"B": B, "A": A, "anchors": anchors, "stride_t": stride_t, "weight": weight,
+           "target_scores_sum": target_scores_sum, "imgsz": (imgsz_h, imgsz_w), "fg": fg}
+    return loss_iou, loss_cls, loss_dfl, assign, ctx
 
 
 def _angle_to_quaternion(angles: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,10 @@
 Reference ultralytics/utils/tal.py:14-331 (TaskAlignedAssigner and
 RotatedTaskAlignedAssigner) as fixed-shape tensor math: ground truths arrive
 padded to ``M`` with a validity mask, and every data-dependent branch is a
-``where``. The metric chain runs in f32, or in bf16 with ``bf16_metric``
-(the JAX trainer's choice); targets and the final normalisation stay f32.
+``where``. Overlaps are CIoU for axis-aligned xyxy boxes and probiou for
+rotated xywhr boxes. The metric chain runs in f32, or in bf16 with
+``bf16_metric`` (the JAX trainer's choice); targets and the final
+normalisation stay f32.
 
 Not ported yet: the chunked top-k (``_exact_topk_idx``, the JAX package's
 choice for ``topk > 16``) and the sparse assigner (``impl="sparse"``). Those
@@ -18,7 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from quan_ultralytics_tpu_torch.ops.boxes import probiou, xywhr2xyxyxyxy
+from quan_ultralytics_tpu_torch.ops.boxes import bbox_iou, probiou, xywhr2xyxyxyxy
 
 MAX_ITER_TOPK = 16  # `_iter_topk_idx` serves topk up to this; the JAX package sorts beyond
 
@@ -105,21 +107,19 @@ def task_aligned_assigner(
     """The dense assigner (JAX ``_assigner_jit``). ``bf16_metric`` runs the
     [B, M, A] metric chain (class scores, overlaps, metric powers, top-k) in
     bf16; it is passed by the caller, never read from the environment.
-
-    Only the rotated overlaps (probiou) are ported: the axis-aligned CIoU
-    comes with the detect slice.
+    Overlaps: CIoU of xyxy boxes, or probiou of xywhr boxes when ``rotated``,
+    clipped at 0, in f32.
     """
     if impl != "dense":
         raise NotImplementedError(f"impl={impl!r}: only the dense assigner is ported")
-    if not rotated:
-        raise NotImplementedError("the axis-aligned assigner (CIoU overlaps) is not ported yet")
     B, A, nc = pd_scores.shape
     M = gt_bboxes.shape[1]
     pd_scores = pd_scores.float()
     pd_bboxes = pd_bboxes.float()
     gt_bboxes = gt_bboxes.float()
 
-    mask_in_gts = _candidates_in_rotated_gts(anc_points[None, None], gt_bboxes)
+    cand_fn = _candidates_in_rotated_gts if rotated else _candidates_in_gts
+    mask_in_gts = cand_fn(anc_points[None, None], gt_bboxes)
     mask = mask_in_gts & mask_gt[..., None]  # [B, M, A]
 
     # alignment metric (tal.py:137-156): the anchor's score for the gt class
@@ -131,8 +131,9 @@ def task_aligned_assigner(
     zero = torch.zeros((), dtype=mdt, device=pd_scores.device)
     bbox_scores = torch.where(mask, scores_for_gt, zero)
     # overlaps in f32; only the [B, M, A] result drops to the metric dtype
-    overlaps = torch.where(
-        mask, probiou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :]).clamp(min=0).to(mdt), zero)
+    g, p = gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :]
+    iou = probiou(g, p) if rotated else bbox_iou(g, p, xywh=False, ciou=True)
+    overlaps = torch.where(mask, iou.clamp(min=0).to(mdt), zero)
     align_metric = bbox_scores ** alpha * overlaps ** beta
 
     mask_topk = _select_topk_mask(align_metric, topk, mask_gt)

@@ -243,9 +243,11 @@ class DetectionModel(QUANYOLO):
         return H.decode_detect(out, self.strides, self.nc, self.reg_max)
 
 
-def fused_1x1_sites(model: QUANYOLO, batch: int, imgsz: int) -> List[Tuple[int, int, int]]:
+def fused_1x1_sites(model: QUANYOLO, batch: int,
+                    imgsz: Union[int, Tuple[int, int]]) -> List[Tuple[int, int, int]]:
     """``(Ci, Co, P)`` of every Conv that ``fused_1x1`` routes to the fused
-    kernel, in forward order, for input frames ``[batch, imgsz, imgsz, 3]``.
+    kernel, in forward order, for input frames ``[batch, H, W, 3]`` (``imgsz``
+    is ``H = W`` or ``(H, W)``).
 
     Found by one forward of a copy of the model on the meta device, which
     computes shapes only.
@@ -260,5 +262,6 @@ def fused_1x1_sites(model: QUANYOLO, batch: int, imgsz: int) -> List[Tuple[int, 
             mod.register_forward_pre_hook(lambda m, args: sites.append(
                 (m.conv.cin, m.conv.cout, args[0].shape[0] * args[0].shape[1] * args[0].shape[2])))
     with torch.no_grad():
-        meta(torch.empty(batch, imgsz, imgsz, 3, device="meta"))
+        h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
+        meta(torch.empty(batch, h, w, 3, device="meta"))
     return sites

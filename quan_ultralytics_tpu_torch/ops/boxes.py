@@ -1,9 +1,10 @@
-"""Box math: anchors, DFL decode, rotated boxes, probiou, fixed-shape rotated NMS
-(counterpart of the JAX ``ops/boxes.py``).
+"""Box math: anchors, DFL decode, rotated boxes, IoU / CIoU, probiou and
+fixed-shape NMS (counterpart of the JAX ``ops/boxes.py``).
 
-NMS is the reference's one-shot "fast-NMS": an all-pairs upper-triangular
-suppression over a fixed candidate pool, batched over images. Sorts are
-stable, so ties keep index order as ``jnp.argsort`` and ``lax.top_k`` do.
+Rotated NMS is the reference's one-shot "fast-NMS": an all-pairs
+upper-triangular suppression over a fixed candidate pool, batched over
+images; axis-aligned NMS iterates that map to the greedy fixed point. Sorts
+are stable, so ties keep index order as ``jnp.argsort`` and ``lax.top_k`` do.
 """
 
 from __future__ import annotations
@@ -72,6 +73,11 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([xy - wh / 2, xy + wh / 2, x[..., 4:]], dim=-1)
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    x1y1, x2y2 = x[..., :2], x[..., 2:4]
+    return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1, x[..., 4:]], dim=-1)
+
+
 def xywhr2xyxyxyxy(x: torch.Tensor) -> torch.Tensor:
     """xywhr -> 4 corner points ``[..., 4, 2]`` (reference ops.py:572)."""
     ctr, w, h, angle = x[..., :2], x[..., 2:3], x[..., 3:4], x[..., 4:5]
@@ -121,6 +127,41 @@ def scale_rboxes(rboxes, ratio_pad):
     r, dw, dh = ratio_pad[0], ratio_pad[1], ratio_pad[2]
     return _stack(rboxes, [(rboxes[..., 0] - dw) / r, (rboxes[..., 1] - dh) / r,
                            rboxes[..., 2] / r, rboxes[..., 3] / r, rboxes[..., 4]])
+
+
+# ---------------------------------------------------------------------------
+# IoU family (reference utils/metrics.py:80-277)
+# ---------------------------------------------------------------------------
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, ciou: bool = False,
+             eps: float = 1e-7) -> torch.Tensor:
+    """IoU or CIoU of broadcast-aligned boxes on the last axis (reference
+    metrics.py:80-135), with its asymmetric ``+eps`` on the heights of xyxy boxes."""
+    if xywh:
+        b1, b2 = xywh2xyxy(box1[..., :4]), xywh2xyxy(box2[..., :4])
+        w1, h1 = box1[..., 2], box1[..., 3]
+        w2, h2 = box2[..., 2], box2[..., 3]
+    else:
+        b1, b2 = box1, box2
+        w1, h1 = b1[..., 2] - b1[..., 0], b1[..., 3] - b1[..., 1] + eps
+        w2, h2 = b2[..., 2] - b2[..., 0], b2[..., 3] - b2[..., 1] + eps
+    inter_w = (torch.minimum(b1[..., 2], b2[..., 2]) - torch.maximum(b1[..., 0], b2[..., 0])).clamp(min=0)
+    inter_h = (torch.minimum(b1[..., 3], b2[..., 3]) - torch.maximum(b1[..., 1], b2[..., 1])).clamp(min=0)
+    inter = inter_w * inter_h
+    iou = inter / (w1 * h1 + w2 * h2 - inter + eps)
+    if not ciou:
+        return iou
+    cw = torch.maximum(b1[..., 2], b2[..., 2]) - torch.minimum(b1[..., 0], b2[..., 0])
+    ch = torch.maximum(b1[..., 3], b2[..., 3]) - torch.minimum(b1[..., 1], b2[..., 1])
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = ((b2[..., 0] + b2[..., 2] - b1[..., 0] - b1[..., 2]) ** 2
+            + (b2[..., 1] + b2[..., 3] - b1[..., 1] - b1[..., 3]) ** 2) / 4
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    with torch.no_grad():  # alpha is a constant of the gradient (the reference's no_grad)
+        # v == 0 gives alpha == 0 where the denominator rounds to 0 (bf16: 1 + 1e-7
+        # is 1, so iou == 1 would give 0/0)
+        alpha = torch.where(v > 0, v / (v - iou + (1 + eps)), torch.zeros_like(v))
+    return iou - (rho2 / c2 + v * alpha)
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +238,29 @@ def nms_rotated(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float 
     return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
 
 
+def nms_axis_aligned(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.45,
+                     passes: int = 4) -> torch.Tensor:
+    """Fixed-shape NMS of xyxy boxes, iterated to the greedy fixed point (JAX
+    ``nms_axis_aligned``, DEVIATIONS.md section 1), batched over leading dims.
+
+    Greedy keep is the fixed point of ``keep_i = not any(j < i: keep_j and
+    iou_ij >= thr)`` in score order. Iterating that map from all-true
+    ``passes`` times resolves suppression chains up to that depth exactly
+    (sequential greedy, as torchvision's ``nms``); each pass is one masked
+    ``[n, n]`` reduction. Returns a keep mask in the *input* order.
+    """
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    b = torch.gather(boxes, -2, order[..., None].expand(*order.shape, boxes.shape[-1]))
+    ious = bbox_iou(b[..., :, None, :], b[..., None, :, :], xywh=False)
+    n = boxes.shape[-2]
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=boxes.device), diagonal=1)
+    sup = (ious >= iou_threshold) & upper  # sup[j, i]: the higher-scoring j hits i
+    keep_sorted = torch.ones(order.shape, dtype=torch.bool, device=boxes.device)
+    for _ in range(passes):
+        keep_sorted = ~(sup & keep_sorted[..., :, None]).any(dim=-2)
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+
+
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``lax.top_k`` along the last axis: descending, ties in index order."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
@@ -217,16 +281,17 @@ def non_max_suppression(
     """Fixed-shape batched NMS (reference ops.py:181-333, best-class-only path).
 
     Args:
-      pred: ``[B, A, 4 + nc + 1]`` decoded predictions: xywhr boxes in pixels,
-        class scores, angle (the OBB layout of `decode_obb`).
+      pred: ``[B, A, 4 + nc (+ 1)]`` decoded predictions: xywh boxes in pixels
+        and class scores (`decode_detect`), then the angle when ``rotated``
+        (`decode_obb`).
     Returns:
-      detections ``[B, max_det, 7]`` = (xywhr, conf, cls), zero rows past the
-      valid count, and the valid mask ``[B, max_det]``.
+      detections ``[B, max_det, 6]`` = (xyxy, conf, cls), or ``[B, max_det, 7]``
+      = (xywhr, conf, cls) when ``rotated``, zero rows past the valid count,
+      and the valid mask ``[B, max_det]``.
 
-    Only the rotated branch exists so far; axis-aligned NMS raises.
+    The class offset ``cls * max_wh`` (up to 79 x 7680 = 606,720 px) is added
+    in f32 whatever the boxes' dtype: bf16's step there is 4,096 px.
     """
-    if not rotated:
-        raise NotImplementedError("axis-aligned NMS is not ported yet; pass rotated=True")
     B, A, _ = pred.shape
     n_keep = min(max_nms, A, 2048)  # candidate pool per image
     boxes = pred[..., :4]
@@ -239,19 +304,24 @@ def non_max_suppression(
         return torch.gather(t, 1, idx[..., None].expand(B, n_keep, t.shape[-1]))
 
     boxes_t = take(boxes)
-    angle = take(pred[..., 4 + nc:5 + nc])
     cls_t = torch.gather(cls_id, 1, idx)
     valid_t = score_top > conf_thres
-    offset = (torch.zeros_like(score_top) if agnostic
+    offset = (torch.zeros_like(score_top, dtype=torch.float32) if agnostic
               else cls_t.to(torch.float32) * max_wh)
-    nms_boxes = torch.cat([boxes_t[..., :2] + offset[..., None], boxes_t[..., 2:4], angle], dim=-1)
-    keep = nms_rotated(nms_boxes, score_top, iou_thres) & valid_t
-    out_boxes = torch.cat([boxes_t, angle], dim=-1)
+    if rotated:
+        angle = take(pred[..., 4 + nc:5 + nc])
+        nms_boxes = torch.cat([boxes_t[..., :2] + offset[..., None], boxes_t[..., 2:4], angle], dim=-1)
+        keep = nms_rotated(nms_boxes, score_top, iou_thres)
+        out_boxes = torch.cat([boxes_t, angle], dim=-1)
+    else:
+        out_boxes = xywh2xyxy(boxes_t)
+        keep = nms_axis_aligned(out_boxes.float() + offset[..., None], score_top, iou_thres)
+    keep = keep & valid_t
 
     final_score = torch.where(keep, score_top, torch.zeros_like(score_top))
     k = min(max_det, n_keep)
     sc, order = _top_k(final_score, k)
-    rows = torch.gather(out_boxes, 1, order[..., None].expand(B, k, 5))
+    rows = torch.gather(out_boxes, 1, order[..., None].expand(B, k, out_boxes.shape[-1]))
     cls_o = torch.gather(cls_t, 1, order).to(torch.float32)
     det = torch.cat([rows, sc[..., None], cls_o[..., None]], dim=-1)
     ok = sc > conf_thres

@@ -156,7 +156,7 @@ class ConfusionMatrix:
     def plot(self, save_dir, names=None, normalize=True):
         """The confusion-matrix image needs matplotlib, which the port does not
         use; it comes with ``utils/plotting.py``."""
-        raise NotImplementedError("ConfusionMatrix.plot needs matplotlib: not ported yet")
+        raise NotImplementedError("ConfusionMatrix.plot needs matplotlib: not ported yet (ROADMAP Queue 1 item 3b)")
 
 
 def compute_ap(recall: np.ndarray, precision: np.ndarray):
@@ -311,4 +311,4 @@ class DetMetrics:
     def plot(self, save_dir, names=None):
         """The PR/F1/P/R curve images need matplotlib, which the port does not
         use; they come with ``utils/plotting.py``."""
-        raise NotImplementedError("DetMetrics.plot needs matplotlib: not ported yet")
+        raise NotImplementedError("DetMetrics.plot needs matplotlib: not ported yet (ROADMAP Queue 1 item 3b)")

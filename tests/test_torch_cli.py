@@ -17,9 +17,13 @@ states by how much). Weights are drawn by ``fill_variables``.
 * Port to JAX: the port's CLI trains 2 epochs on the CPU and writes
   ``last.pkl``, ``best.pkl``, ``results.csv`` and ``results.json``; the JAX
   facade predicts from ``best.pkl`` what the port predicts.
+* The detect task: ``detect train`` (yolo11n-quan.yaml when no ``model=``
+  is given), ``detect val`` with ``rect`` and ``detect predict save_txt=True``
+  on the CPU, the saved label lines held to the JAX facade's predictions.
 * No JAX training runs; the JAX side only predicts and validates.
 """
 
+import ast
 import json
 import math
 import pickle
@@ -539,3 +543,67 @@ def test_port_cli_trains_and_jax_reads_its_checkpoint(jax_ckpt, tmp_path, monkey
     for i, r in enumerate(got):
         txt = (pred / "labels" / f"im{i}.txt")
         assert len(txt.read_text().splitlines()) == len(r)
+
+
+# ---------------------------------------------------------------- the detect task
+
+
+def _write_detect_set(root, seed=0):
+    """Seeded PNGs (longer side 64) in train and val, each labelled with 1-4
+    random axis-aligned boxes ('cls xc yc w h', normalized). Returns the data yaml."""
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i, (h, w) in enumerate(SIZES):
+            imwrite_png(root / "images" / split / f"im{i}.png", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            rows = [" ".join([str(int(rng.integers(0, NC)))] + [f"{v:.6f}" for v in (
+                *rng.uniform(0.3, 0.7, 2), *rng.uniform(0.1, 0.5, 2))]) for _ in range(int(rng.integers(1, 5)))]
+            (root / "labels" / split / f"im{i}.txt").write_text("\n".join(rows) + "\n")
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n"
+                         + "".join(f"  {i}: {n}\n" for i, n in enumerate(("person", "car", "dog"))))
+    return yaml_path
+
+
+def test_port_cli_runs_the_detect_task(tmp_path, monkeypatch, capsys):
+    """``detect train`` without ``model=`` builds yolo11n-quan.yaml and trains 2
+    epochs on the CPU; ``detect val`` and ``detect predict save_txt=True`` of its
+    best.pkl run, and the saved 'cls xc yc w h conf' lines hold the JAX
+    facade's predictions from the same best.pkl: classes equal, the numbers
+    within 1e-5 of max(1, |value|) (%.6g) plus the decode tolerance of a box
+    over the frame's side."""
+    for k, v in tsettings.SETTINGS.items():  # no logger client is reached, whatever is installed
+        if v is True:
+            monkeypatch.setitem(tsettings.SETTINGS, k, False)
+    data = _write_detect_set(tmp_path / "data")
+    run = tmp_path / "run"
+    assert tcli.main(["detect", "train", f"data={data}", "epochs=2", "batch=2", "imgsz=64",
+                      "close_mosaic=1", "device=cpu", f"save_dir={run}"]) == 0
+    out = capsys.readouterr().out
+    assert "epoch 0:" in out and "epoch 1:" in out
+    payload = read_checkpoint(run / "best.pkl")
+    assert payload["model_yaml"] == tcli.DEFAULT_MODELS["detect"] == "yolo11n-quan.yaml"
+    assert payload["nc"] == NC and payload["names"] == ["person", "car", "dog"]
+    rows = json.loads((run / "results.json").read_text())
+    assert [r["epoch"] for r in rows] == [0, 1] and all(math.isfinite(r["loss"]) for r in rows)
+    best = run / "best.pkl"
+    assert tcli.main(["detect", "val", f"model={best}", f"data={data}", "imgsz=64", "batch=4",
+                      "device=cpu", "rect=True"]) == 0
+    metrics = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(metrics) == {"mAP50", "mAP50-95", "precision", "recall"}
+    src, pred = tmp_path / "data" / "images" / "val", tmp_path / "pred"
+    assert tcli.main(["detect", "predict", f"model={best}", f"source={src}", "imgsz=64", f"conf={CONF}",
+                      "save_txt=True", "save_conf=True", f"save_dir={pred}", "device=cpu"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("image ")]
+    ref = JaxYOLO(str(best)).predict(str(src), imgsz=IMGSZ, conf=CONF)
+    assert len(lines) == len(ref) == len(SIZES) and sum(len(r.boxes) for r in ref) > 0
+    for i, r in enumerate(ref):
+        saved = np.array((pred / "labels" / f"im{i}.txt").read_text().split(), np.float64).reshape(-1, 6)
+        h, w = r.orig_shape
+        x1, y1, x2, y2, conf, c = r.boxes.astype(np.float64).T
+        want = np.stack([(x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h, conf], 1)
+        assert len(saved) == len(want)
+        np.testing.assert_array_equal(saved[:, 0], c)
+        tol = 1e-5 * np.maximum(1.0, np.abs(want)) + _tol(r.boxes[:, :4]) / min(h, w)
+        assert (np.abs(saved[:, 1:] - want) <= tol).all(), i

@@ -6,7 +6,10 @@ batch 8), as in chip_smoke.py; and the attention's autograd Function. Then
 the validation path at a small size: the image reader's fixtures decoded by
 the card machine's build of the C++ reader, the Validator on the card
 against the CPU, one epoch of ``Trainer.fit``, and the prefetcher's upload
-across changes of shape. This file imports no JAX, so it runs on a
+across changes of shape. Last the detect task (yolo11n-quan, nc = 80): K1
+and K2 at the N values of rect batches at 640, K3 at the detect model's
+sites at 640, the detect Predictor and Validator (rect off and on) on the
+card against the CPU, and one fit epoch. This file imports no JAX, so it runs on a
 machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -501,3 +504,121 @@ def test_prefetch_on_card(cuda):
         assert g["im_files"] == h["im_files"]
         for k in ("img", "bboxes", "mask"):
             assert g[k].is_cuda and torch.equal(g[k].cpu(), torch.from_numpy(h[k])), k
+
+
+# ---------------------------------------------------------------- the detect task at 640
+
+
+# the attention's N at layer 10 under rect validation at 640 (reference
+# set_rectangle, half-stride pad): 640 x 480 frames -> 512 x 672 (N = 16 x 21),
+# 640 x 427 -> 448 x 672 (14 x 21); 300 and 280 are ragged in both kernels' tiles
+RECT_N = (336, 294, 300, 280)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", RECT_N)
+def test_qattn_kernels_at_rect_sizes_on_card(cuda, dtype, n):
+    """K1 within `qattn.FWD_TOL` and K2 within `qattn.BWD_TOL` of their plain
+    versions at the N values that rect batches at 640 give, batch 8."""
+    q, k, v, do = _inputs(cuda, dtype, n, n + 7)
+    scale = 2 ** -0.5
+    _k1_meets_fwd_tol(q, k, v, scale, f"N={n}")
+    before = qattn.launches_bwd
+    got = _k2(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    assert qattn.launches_bwd == before + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, qattn.qattention_bwd_plain(q, k, v, do, scale)):
+        err, rel, ok = qattn.kernel_error(a, b, dtype, qattn.BWD_TOL)
+        assert ok, f"{name} N={n} {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qconv1x1_kernel_at_the_detect_sites_on_card(cuda, dtype):
+    """K3 at every (Ci, Co, P) of yolo11n-quan's fused sites (nc = 80), batch 8
+    at 640 x 640 and in a 512 x 672 rect batch."""
+    model = DetectionModel.from_yaml("yolo11n-quan.yaml", nc=80, device="cpu", fused_1x1=True)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shapes = set(fused_1x1_sites(model, 8, 640)) | set(fused_1x1_sites(model, 8, (512, 672)))
+    for ci, co, p in sorted(shapes):
+        _k3_case(cuda, dtype, ci, co, p, g)
+
+
+def _detect_set(root, n=6, sizes=((96, 128), (128, 96), (128, 128)), nc=80, seed=0):
+    """n PNG images of the given (h, w) sizes with 2-6 filled rectangles each
+    and their 'cls xc yc w h' labels."""
+    rng = np.random.default_rng(seed)
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        im = np.full((h, w, 3), 40, np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(2, 7))):
+            bw, bh = rng.uniform(0.1, 0.4, 2)
+            cx, cy = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+            im[int((cy - bh / 2) * h):int((cy + bh / 2) * h), int((cx - bw / 2) * w):int((cx + bw / 2) * w)] = \
+                rng.integers(60, 256, 3)
+            lines.append(f"{rng.integers(0, nc)} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}")
+        imwrite_png(root / "images" / "val" / f"im{i}.png", im)
+        (root / "labels" / "val" / f"im{i}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "train": "images/val", "val": "images/val",
+            "names": {i: f"c{i}" for i in range(nc)}}
+
+
+def test_detect_predictor_and_validator_on_card_match_the_cpu(cuda, tmp_path):
+    """yolo11n-quan (nc = 80) in f32 on the card (K1 on the CUDA cores, TF32 off)
+    against the same weights on the CPU (the plain attention), the QER biases
+    drawn N(0, 1) so that scores spread: the Predictor keeps the same boxes per
+    frame (xyxy, conf, cls within 1e-4 of max(1, |value|) of a row of the
+    other); the Validator, with rect off and on, launches K1 once a batch and
+    gives the CPU's metrics within 1e-3."""
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.models.head import QER
+
+    cfg = _detect_set(tmp_path)
+    model = DetectionModel.from_yaml("yolo11n-quan.yaml", nc=80, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, QER):
+                mod.proj.bias.copy_(torch.randn(mod.proj.bias.shape, generator=gen))
+    cpu = DetectionModel.from_yaml("yolo11n-quan.yaml", nc=80, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    frames = [imread(tmp_path / "images" / "val" / f"im{i}.png") for i in range(3)]
+    got, ref = (Predictor(m, imgsz=128, conf=0.05)(frames) for m in (model, cpu))
+    for g, r in zip(got, ref):
+        assert len(g) == len(r) > 0 and g.boxes.shape[1] == 6
+        worst = (np.abs(g.boxes[:, None] - r.boxes[None]) / np.maximum(1.0, np.abs(r.boxes[None]))).max(-1)
+        assert worst.min(1).max() <= 1e-4 and worst.min(0).max() <= 1e-4
+    ds = YOLODataset(cfg, "val")
+    for rect in (False, True):
+        before = qattn.launches_simt
+        metrics = Validator(model, imgsz=128)(ds, batch_size=4, rect=rect)
+        assert qattn.launches_simt - before == 2  # one K1 launch a batch
+        ref_metrics = Validator(cpu, imgsz=128)(ds, batch_size=4, rect=rect)
+        for k in ref_metrics:
+            assert abs(metrics[k] - ref_metrics[k]) <= 1e-3, (rect, k, metrics[k], ref_metrics[k])
+
+
+def test_detect_fit_epoch_on_card(cuda, tmp_path):
+    """One epoch of Trainer.fit of yolo11n-quan on the card in bf16 at 128 (K1
+    and K2 every micro-step), validating the EMA weights: finite loss, metrics
+    in [0, 1], checkpoints written."""
+    cfg = _detect_set(tmp_path / "data")
+    ds = YOLODataset(cfg, "val")
+    model = DetectionModel.from_yaml("yolo11n-quan.yaml", nc=80, dtype=torch.bfloat16, device=cuda)
+    tr = Trainer(model, TrainConfig(batch=2, nbs=2, epochs=1, warmup_epochs=0), steps_per_epoch=3,
+                 device=cuda)
+    val = Validator(model, imgsz=128)
+
+    def validate(trainer):
+        with trainer.ema_weights():
+            return val(ds, batch_size=2)
+
+    k1, k2 = qattn.launches_stats, qattn.launches_bwd
+    history = tr.fit(lambda e: build_dataloader(ds, 2, 128, hyp=None, augment=False, seed=e),
+                     validate, save_dir=tmp_path / "run", log=lambda s: None)
+    assert qattn.launches_stats - k1 == 3 and qattn.launches_bwd - k2 == 3
+    assert math.isfinite(history[0]["loss"]) and tr.opt.count == 3
+    assert all(0 <= history[0][k] <= 1 for k in ("mAP50", "mAP50-95"))
+    assert (tmp_path / "run" / "last.ckpt").exists() and (tmp_path / "run" / "best.ckpt").exists()

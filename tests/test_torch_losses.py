@@ -114,13 +114,20 @@ def test_select_topk_mask_matches_jax(topk):
 
 
 def test_assigner_refuses_what_is_not_ported():
+    """The chunked top-k (topk > 16) and the sparse assigner raise, rotated and
+    axis-aligned alike; the axis-aligned dense assigner runs."""
     args = [to_torch(a) for a in _assigner_case("random", B=1)]
-    with pytest.raises(NotImplementedError, match="chunked top-k"):
-        ttal.task_aligned_assigner(*args, num_classes=NC, rotated=True, topk=17)
-    with pytest.raises(NotImplementedError, match="dense"):
-        ttal.task_aligned_assigner(*args, num_classes=NC, rotated=True, impl="sparse")
-    with pytest.raises(NotImplementedError, match="axis-aligned"):
-        ttal.task_aligned_assigner(*args, num_classes=NC)
+
+    def xyxy(t):  # the xywhr boxes' axis-aligned extent
+        return torch.cat([t[..., :2] - t[..., 2:4] / 2, t[..., :2] + t[..., 2:4] / 2], -1)
+
+    aligned = [args[0], xyxy(args[1]), args[2], args[3], xyxy(args[4]), args[5]]
+    for rotated, a in ((True, args), (False, aligned)):
+        with pytest.raises(NotImplementedError, match="chunked top-k"):
+            ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, topk=17)
+        with pytest.raises(NotImplementedError, match="dense"):
+            ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, impl="sparse")
+    assert ttal.task_aligned_assigner(*aligned, num_classes=NC).fg_mask.any()
 
 
 # ---------------------------------------------------------------- the loss
