@@ -104,11 +104,27 @@ Phases:
  16. detect cli: ``detect train`` (2 epochs), ``detect val rect=True`` and
      ``detect predict save_txt=True`` in this process, the saved label lines
      held to the facade's boxes, and the facade's bf16 fused_1x1 predict (K3);
- 17. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
-     the facade's fused_1x1 predict, and detect_predict, detect_train,
+ 17-22. segment and pose at 640, first QUAN-YOLO11n-seg (nc=80), then
+     QUAN-YOLO11n-pose (nc=1, 17 x 3 keypoints), each on a COCO-layout set of
+     16 PNG images of phase 12's sizes (segment: 2-40 filled polygons over the
+     80 classes, labelled as polygons; pose: 1-10 figures of 17 keypoints,
+     mixed visibility): predict on the K1, K1+K3 and plain paths (masks and
+     keypoints held to the plain run: bf16 outputs and prototypes within
+     PRED_TOL, f32 Predictors' masks and keypoints of matched detections),
+     16 train micro-steps (the batch's upload, uint8 masks; a device profile;
+     one f32 micro-step's gradients held to the plain attention), a 2-epoch
+     fit with the default augmentations through the prefetcher (segment:
+     mosaic; pose: photometric list, HSV, flips), val in bf16 K1+K3 and
+     plain and f32 K1 and plain (segment also f32 with ``mask_native``), and
+     ``segment|pose train|val|predict`` in-process, saved labels held to the
+     facade's predictions;
+ 23. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+     the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
-     detect_facade_fused_1x1; each kernel launched on each detect path that
-     runs it), then the result line.
+     detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
+     seg_val_native, seg_cli, pose_predict, pose_train, pose_fit, pose_val
+     and pose_cli; each kernel launched on each path that runs it; K1 and
+     K2 also timed at N = 400, 640's layer 10), then the result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -285,7 +301,7 @@ def phase_k1(gen, details, sfu_rate):
     """K1 against the plain version at the TPU kernel's rounding points (qattn.FWD_TOL)
     and against the einsum path in f32 (K1_TOL), at N = 1024, 400, 200 in bf16 (tensor
     cores) and f32 (CUDA cores); times at the main path's shape (G = 256, N = 1024,
-    dk = 2, dv = 4, bf16)."""
+    dk = 2, dv = 4, bf16) and at 640's N = 400 (``timing["n400"]``)."""
     from quan_ultralytics_tpu_torch.ops.kernels import qattn
 
     dk, dv, heads, scale = 2, 4, 8, 2 ** -0.5
@@ -324,7 +340,7 @@ def phase_k1(gen, details, sfu_rate):
             check(einsum_ok, f"K1 disagrees with the einsum path at N={n} {dtype}")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-            if n == 1024:
+            if n == 1024 or (n == 400 and dtype == torch.bfloat16):  # the main path's N; 640's
                 G = BATCH * 4 * heads
                 ms, host_ms = time_ms(lambda: qattn.qattention_fused(q, k, v, scale))
                 if dtype == torch.float32:
@@ -333,7 +349,7 @@ def phase_k1(gen, details, sfu_rate):
                 isz = q.element_size()
                 b, by = bound_ms(G * n * (2 * dk + 2 * dv) * isz, G * n * n * (2 * dk + 2 * dv),
                                  G * n * n * 3, dtype)
-                timing = {
+                row = {
                     "ms": ms, "host_ms": host_ms,
                     "plain_ms": time_ms(lambda: qattn.qattention_fwd_plain(q, k, v, scale), iters=5)[0],
                     "einsum_ms": time_ms(lambda: qattn.qattention_plain(q, k, v, scale), iters=5)[0],
@@ -343,6 +359,12 @@ def phase_k1(gen, details, sfu_rate):
                     # a tighter floor than the table's rates: one exp2 per score on the SFUs
                     "sfu_bound_ms": 1e3 * G * n * n / sfu_rate,
                 }
+                if n == 1024:
+                    timing = row
+                else:
+                    timing["n400"] = row
+                    print(f"K1 G={G} N=400 bf16 (640): kernel {ms:.4f} ms, bound {b:.4f} ({by}), SFU floor "
+                          f"{row['sfu_bound_ms']:.4f}, plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}")
     print(f"K1 G={BATCH * 4 * heads} N=1024 bf16: kernel {timing['ms']:.4f} ms (host "
           f"{timing['host_ms']:.4f}), bound {timing['bound_ms']:.4f} ({timing['bound_by']}), SFU "
           f"floor {timing['sfu_bound_ms']:.4f}, plain {timing['plain_ms']:.4f}, einsum path "
@@ -381,7 +403,7 @@ def k1_stats_only_under_grad(gen, details):
 def phase_k2(gen, details, sfu_rate):
     """K2, given the row statistics K1 writes, against the plain backward at N = 1024,
     400, 200 in bf16 and f32; times at the main path's shape (G = 256, N = 1024, dk = 2,
-    dv = 4, bf16)."""
+    dv = 4, bf16) and at 640's N = 400 (``timing["n400"]``)."""
     from quan_ultralytics_tpu_torch.ops.kernels import qattn
 
     dk, dv, heads, scale = 2, 4, 8, 2 ** -0.5
@@ -418,7 +440,7 @@ def phase_k2(gen, details, sfu_rate):
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
             del ref, f32
-            if n == 1024 and dtype == torch.bfloat16:
+            if n in (1024, 400) and dtype == torch.bfloat16:  # the main path's N; 640's
                 G, isz = BATCH * 4 * heads, q.element_size()
                 # q, k, v, dO and the row statistics (m, r) read once; dq, dk, dv written once;
                 # per score the products of recomputing S (2dk), dV (2dv), dP (2dv), dQ (2dk),
@@ -437,14 +459,18 @@ def phase_k2(gen, details, sfu_rate):
                     autograd_ms = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
                                                                       retain_graph=True), iters=5)[0]
                 del out
-                timing = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-                          "plain_autograd_ms": autograd_ms,
-                          "library_ms": library_ms, "bound_ms": b, "bound_by": by,
-                          # the floor on the special-function units: this design's 2 exp2 a
-                          # score (the pre-pass for rse and the main pass)
-                          "sfu_bound_ms": 1e3 * 2 * G * n * n / sfu_rate}
+                row = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                       "plain_autograd_ms": autograd_ms,
+                       "library_ms": library_ms, "bound_ms": b, "bound_by": by,
+                       # the floor on the special-function units: this design's 2 exp2 a
+                       # score (the pre-pass for rse and the main pass)
+                       "sfu_bound_ms": 1e3 * 2 * G * n * n / sfu_rate}
+                if n == 1024:
+                    timing = row
+                else:
+                    timing["n400"] = row
                 print(f"K2 G={G} N={n} bf16: kernel {ms:.4f} ms (host {host_ms:.4f}), bound {b:.4f} "
-                      f"({by}), SFU floor {timing['sfu_bound_ms']:.4f} (2 exp2), plain {plain_ms:.4f}, "
+                      f"({by}), SFU floor {row['sfu_bound_ms']:.4f} (2 exp2), plain {plain_ms:.4f}, "
                       f"autograd of the plain forward {autograd_ms:.4f}, SDPA backward {library_ms:.4f}")
     return worst, timing
 
@@ -624,11 +650,13 @@ def kept_counts(pred: torch.Tensor, nc: int = NC, rotated: bool = True, conf: fl
                                max_det=300, nc=nc, rotated=rotated)[1].sum(1).tolist()
 
 
-def compare_preds(a: torch.Tensor, ref: torch.Tensor, nc: int):
-    """max abs error over max |ref| for the box, score and (OBB) angle columns."""
+def compare_preds(a: torch.Tensor, ref: torch.Tensor, nc: int, tail: str = "angle"):
+    """max abs error over max |ref| for the box and score columns and the rest, named
+    ``tail`` (the OBB angle, the segment task's mask coefficients ``mc``, the pose
+    task's decoded keypoints ``kpts``)."""
     groups = {"xywh": slice(0, 4), "scores": slice(4, 4 + nc)}
     if ref.shape[-1] > 4 + nc:
-        groups["angle"] = slice(4 + nc, 5 + nc)
+        groups[tail] = slice(4 + nc, None)
     out = {}
     for g, sl in groups.items():
         err = float((a[..., sl] - ref[..., sl]).abs().max())
@@ -714,36 +742,51 @@ def phase_throughput(models, frames, x, rounds: int = 6):
     return out
 
 
+def _device_profile(fn, calls: int, tag: str, tables=None, top: int = 8):
+    """torch.profiler over ``calls`` calls of ``fn``: device busy ms a call, device ops a
+    call, the port's kernels' device ms a call and the ``top`` device ops by time (null
+    where the profiler records no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return {"device_ms": None}
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / (1e3 * calls)
+    if tables is not None:
+        tables.append(f"== {tag}: {calls} calls")
+        tables.append(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
+    return {"device_ms": sum(by_name.values()), "device_ops": len(ops) / calls,
+            "kernel_device_ms": {k: sum(v for n, v in by_name.items() if k in n)
+                                 for k in ("qattn_fwd_", "qattn_bwd_", "qconv1x1_")},
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
 def phase_device_share(models, x, speed, tables=None):
     """Device time, device operations and busy share of one ``infer``, from
     torch.profiler over three calls (null where it records no device activity)."""
     from quan_ultralytics_tpu_torch.engine.predictor import Predictor
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for name, model in models.items():
         pred = Predictor(model, imgsz=IMGSZ, conf=0.25)
         pred.infer(x)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                pred.infer(x)
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in ops) / 3e3 if ops else None
+        prof = _device_profile(lambda: pred.infer(x), 3, f"{name}: 3 x infer, batch {BATCH} @ {IMGSZ}", tables)
+        busy, wall = prof["device_ms"], speed[name]["infer_ms"]
         # device time of the port's own kernels on this path, per infer
-        own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / 3e3
-               for k in ("qattn_fwd_", "qconv1x1_")}
-        wall = speed[name]["infer_ms"]
-        out[name] = {"device_ms": busy, "device_ops": len(ops) / 3,
-                     "busy_share": busy / wall if ops else None, "kernel_device_ms": own}
-        print(f"device [{name}]: {len(ops) / 3:.0f} device operations per infer, busy "
+        own = {k: prof.get("kernel_device_ms", {}).get(k, 0.0) for k in ("qattn_fwd_", "qconv1x1_")}
+        out[name] = {"device_ms": busy, "device_ops": prof.get("device_ops", 0),
+                     "busy_share": busy / wall if busy is not None else None, "kernel_device_ms": own}
+        print(f"device [{name}]: {prof.get('device_ops', 0):.0f} device operations per infer, busy "
               + (f"{busy:.2f} ms of {wall:.2f} ms, share {busy / wall:.3f}; port kernels {own}"
-                 if ops else "not measured"))
-        if tables is not None:
-            tables.append(f"== {name}: 3 x infer, batch {BATCH} @ {IMGSZ}")
-            tables.append(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+                 if busy is not None else "not measured"))
     return out
 
 
@@ -822,24 +865,28 @@ def phase_train(batch):
 
 def head_outputs(trainer, batch):
     """The head's outputs of a train-mode forward on ``batch``, as one flat
-    list, and the number of them that are ``feats`` (the rest are the OBB
-    head's ``angles``)."""
+    list, and the number of levels: the first that many are ``feats``, the
+    rest the OBB head's ``angles``, the segment head's ``mc`` and ``proto`` or
+    the pose head's ``kpts``."""
     trainer.model.train()
     out = trainer.model((batch["img"].float() / 255.0).to(trainer.dtype))
-    feats, angles = out if trainer.model.task == "obb" else (out, [])
-    return [*feats, *angles], len(feats)
+    if trainer.model.task == "detect":
+        return list(out), len(out)
+    feats, *rest = out
+    return [*feats, *[t for r in rest for t in (r if isinstance(r, (list, tuple)) else [r])]], len(feats)
 
 
 def loss_of(trainer, outs, n_feats, batch):
-    """The trainer's loss (`obb_loss` or `detection_loss`) of flat head outputs
-    ``outs`` (see `head_outputs`)."""
-    from quan_ultralytics_tpu_torch.losses.detect import detection_loss, obb_loss
-
-    m = trainer.model
-    out = (outs[:n_feats], outs[n_feats:]) if m.task == "obb" else outs[:n_feats]
-    loss_fn = obb_loss if m.task == "obb" else detection_loss
-    return loss_fn(out, batch, m.strides, m.nc, m.reg_max, hyp=trainer.loss_hyp,
-                   assigner_bf16=trainer.cfg.assigner_bf16)[0]
+    """The trainer's loss (`Trainer.head_loss`, chosen by the task) of flat head
+    outputs ``outs`` (see `head_outputs`)."""
+    n, task = n_feats, trainer.model.task
+    if task == "detect":
+        out = outs[:n]
+    elif task == "segment":
+        out = (outs[:n], outs[n:2 * n], outs[2 * n])
+    else:  # OBB angles, pose keypoints
+        out = (outs[:n], outs[n:])
+    return trainer.head_loss(out, batch)[0]
 
 
 def phase_train_grads(batch, model: str = MODEL, nc: int = NC, tag: str = "train"):
@@ -927,9 +974,6 @@ def phase_train_speed(batch, rounds: int = 3, tables=None):
     (8 micro-steps, the update included) per round, host clock, synchronized, the
     paths taking turns; then torch.profiler over one accumulation of each path:
     device ms and busy share per micro-step, and the attention kernels' device ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     trainers = {"fused": make_trainer(torch.bfloat16),
                 "plain": make_trainer(torch.bfloat16, fused_attn=False)}
     n = trainers["fused"].accumulate
@@ -948,26 +992,19 @@ def phase_train_speed(batch, rounds: int = 3, tables=None):
             walls[name].append(1e3 * (time.perf_counter() - t0) / n)
     out = {}
     for name, tr in trainers.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                tr.step(batch)
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in ops) / (1e3 * n) if ops else None
-        own = {k: sum(e.time_range.elapsed_us() for e in ops if k in e.name) / (1e3 * n)
-               for k in ("qattn_fwd_", "qattn_bwd_")}
+        prof = _device_profile(lambda: tr.step(batch), n,
+                               f"train [{name}]: {n} micro-steps, batch {BATCH} @ {IMGSZ}, bf16", tables)
+        busy, n_ops = prof["device_ms"], prof.get("device_ops", 0)
+        own = {k: prof.get("kernel_device_ms", {}).get(k, 0.0) for k in ("qattn_fwd_", "qattn_bwd_")}
         ms = statistics.median(walls[name])
         out[name] = {"ms_per_micro_step": ms, "ms_rounds": walls[name],
                      "spread_ms": max(walls[name]) - min(walls[name]),
-                     "img_s": BATCH * 1e3 / ms, "device_ms": busy, "device_ops": len(ops) / n,
-                     "busy_share": busy / ms if ops else None, "kernel_device_ms": own}
+                     "img_s": BATCH * 1e3 / ms, "device_ms": busy, "device_ops": n_ops,
+                     "busy_share": busy / ms if busy is not None else None, "kernel_device_ms": own}
         print(f"train speed [{name}]: {ms:.1f} ms per micro-step of {BATCH} (median of {rounds}, "
               f"rounds {[round(w, 1) for w in walls[name]]}), {BATCH * 1e3 / ms:.1f} img/s; "
-              + (f"device busy {busy:.2f} ms, share {busy / ms:.3f}, {len(ops) / n:.0f} device ops; "
-                 f"attention kernels {own}" if ops else "device time not measured"))
-        if tables is not None:
-            tables.append(f"== train [{name}]: {n} micro-steps, batch {BATCH} @ {IMGSZ}, bf16")
-            tables.append(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+              + (f"device busy {busy:.2f} ms, share {busy / ms:.3f}, {n_ops:.0f} device ops; "
+                 f"attention kernels {own}" if busy is not None else "device time not measured"))
     return out
 
 
@@ -977,9 +1014,6 @@ def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
     batch's TRAIN_M padded rows and with the rows cut to ``m_cut``. Device ms a
     call from torch.profiler (the sum of its kernels' times) and host ms a call
     (host clock, synchronized)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     tr = make_trainer(torch.bfloat16)
     with torch.no_grad():
         outs, n_feats = head_outputs(tr, batch)
@@ -994,16 +1028,12 @@ def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
         run(b)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                run(b)
-            torch.cuda.synchronize()
+        prof = _device_profile(lambda: run(b), calls, f"loss layer, M={rows}")
         wall = 1e3 * (time.perf_counter() - t0) / calls
-        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in ops) / (1e3 * calls) if ops else None
-        out[rows] = {"device_ms": busy, "host_ms": wall, "device_ops": len(ops) / calls}
+        busy, n_ops = prof["device_ms"], prof.get("device_ops", 0)
+        out[rows] = {"device_ms": busy, "host_ms": wall, "device_ops": n_ops}
         print(f"loss layer, M={rows}: obb_loss + backward, device busy "
-              + (f"{busy:.3f} ms over {len(ops) / calls:.0f} device ops" if ops else "not measured")
+              + (f"{busy:.3f} ms over {n_ops:.0f} device ops" if busy is not None else "not measured")
               + f", {wall:.3f} ms a call on the host clock (profiled)")
     return out
 
@@ -1634,7 +1664,8 @@ def _cli(argv):
     for line in text.splitlines():  # the epoch lines and the result; not the tables
         if line.startswith(("epoch ", "{", "resumed")):
             print("cli:", line)
-    print(f"cli: {' '.join(argv[:2]) if argv[0] in ('obb', 'detect') else argv[0]}: exit {rc} in {secs:.1f} s; "
+    print(f"cli: {' '.join(argv[:2]) if argv[0] in ('obb', 'detect', 'segment', 'pose') else argv[0]}: "
+          f"exit {rc} in {secs:.1f} s; "
           f"launches {got}")
     check(rc == 0, f"cli {argv[:2]} exited {rc}")
     return text, secs, got
@@ -1814,13 +1845,14 @@ def _unexplained_counts(kernel: torch.Tensor, ref: torch.Tensor, n: int, **kw):
     return [i for i in range(n) if got[i] != want[i] and mixed[i] != want[i]]
 
 
-def _matched_rows(kernel: torch.Tensor, ref: torch.Tensor, n: int):
+def _matched_rows(kernel: torch.Tensor, ref: torch.Tensor, n: int, nc: int = DET_NC):
     """(rows matched, rows) of the detections NMS keeps of the first ``n`` images of
     two runs' decoded predictions at validation's conf and IoU, with no max_det cut:
-    a row of either run is matched when it lies within DET_ROW_TOL of a row of the other."""
+    a row (xyxy, conf, cls) of either run is matched when it lies within DET_ROW_TOL
+    of a row of the other."""
     from quan_ultralytics_tpu_torch.ops.boxes import non_max_suppression
 
-    runs = [non_max_suppression(p, conf_thres=VAL_CONF, iou_thres=0.7, max_det=NMS_POOL, nc=DET_NC)
+    runs = [non_max_suppression(p, conf_thres=VAL_CONF, iou_thres=0.7, max_det=NMS_POOL, nc=nc)
             for p in (kernel, ref)]
     matched = total = 0
     for i in range(n):
@@ -2207,6 +2239,505 @@ def phase_detect_cli(cfg, root: Path, n_sites: int):
             "launches_facade_fused": fused_n, "labels_vs_facade": worst}
 
 
+# ---------------------------------------------------------------- phases 17-22: segment and pose at 640
+
+# task -> (model, nc): QUAN-YOLO11n-seg on COCO's 80 classes, QUAN-YOLO11n-pose on its one (person)
+SEGPOSE = {"segment": ("yolo11n-seg-quan.yaml", 80), "pose": ("yolo11n-pose-quan.yaml", 1)}
+SEG_POLYGONS = (2, 40)  # filled polygons an image, as DET_BOXES
+POSE_FIGURES = (1, 10)  # figures of 17 keypoints an image
+TAIL = {"segment": "mc", "pose": "kpts"}  # the columns after the scores, in compare_preds
+# f32 Predictor, kernel vs plain path: of each matched detection, the mask pixels that may differ
+# (a logit at the 0.5 threshold may round either way) and the keypoint distance in pixels
+MASK_SHARE, KPT_TOL = 1e-3, RESULT_TOL
+
+
+def phase_segpose_data(root: Path, task: str, seed: int):
+    """A COCO-layout set for the segment or pose task, written with the port's PNG
+    writer: 16 images of DET_SIZES; segment: 2-40 filled polygons (stars of 6-24
+    points) over the 80 classes, labelled as polygons; pose: 1-10 figures of 17
+    keypoints each (a filled body box, a dot a visible point), visibility 0, 1 or 2
+    (1 in 5, 1 in 5, 3 in 5), labelled 'cls cx cy w h' and 17 x 'x y v'. Every PNG
+    decodes exactly."""
+    from quan_ultralytics_tpu_torch.cfg.datasets import COCO
+    from quan_ultralytics_tpu_torch.data.native import native, pixels
+
+    rng = np.random.default_rng(seed)
+    for d in ("images", "labels"):
+        (root / d / "val2017").mkdir(parents=True)
+    nc, n_obj, n_vis = SEGPOSE[task][1], 0, 0
+    t0 = time.perf_counter()
+    for i, (h, w) in enumerate(DET_SIZES):
+        yy, xx = np.mgrid[0:h, 0:w]
+        im = np.stack([xx * 160 // w, yy * 160 // h, (xx + yy) * 160 // (h + w)], -1).astype(np.uint8)
+        im = np.clip(im + rng.integers(0, 24, im.shape), 0, 255).astype(np.uint8)
+        lines = []
+        lo, hi = SEG_POLYGONS if task == "segment" else POSE_FIGURES
+        for _ in range(int(rng.integers(lo, hi + 1))):
+            if task == "segment":
+                r = rng.uniform(8, min(h, w) / 5)
+                cx, cy = rng.uniform(r, w - r), rng.uniform(r, h - r)
+                t = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(6, 25))))
+                pts = np.stack([cx + r * rng.uniform(0.4, 1.0, t.size) * np.cos(t),
+                                cy + r * rng.uniform(0.4, 1.0, t.size) * np.sin(t)], 1)
+                mask = pixels.fill_polygons(np.zeros((h, w), np.uint8), [pts.astype(np.int32)])
+                im[mask > 0] = rng.integers(170, 256, 3)
+                vals = (pts / [w, h]).reshape(-1)
+            else:
+                bw, bh = rng.uniform(24, min(h, w) / 2.5), rng.uniform(48, min(h, w) / 1.5)
+                x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                im[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = rng.integers(170, 256, 3)
+                kx, ky = rng.uniform(x0, x0 + bw, 17), rng.uniform(y0, y0 + bh, 17)
+                v = rng.choice([0, 1, 2], 17, p=[0.2, 0.2, 0.6])
+                for x, y in zip(kx[v > 0].astype(int), ky[v > 0].astype(int)):
+                    im[max(y - 2, 0):y + 3, max(x - 2, 0):x + 3] = (255, 40, 40)
+                n_vis += int((v > 0).sum())
+                vals = [(x0 + bw / 2) / w, (y0 + bh / 2) / h, bw / w, bh / h,
+                        *np.stack([kx / w, ky / h, v], 1).reshape(-1)]
+            lines.append(" ".join([str(rng.integers(0, nc))] + [f"{x:.6f}" for x in vals]))
+        path = root / "images" / "val2017" / f"{i:012d}.png"
+        native.imwrite_png(path, im)
+        check(np.array_equal(native.imread(path), im), f"{path.name} does not decode to the pixels written")
+        (root / "labels" / "val2017" / f"{i:012d}.txt").write_text("\n".join(lines) + "\n")
+        n_obj += len(lines)
+    secs = time.perf_counter() - t0
+    names = COCO["names"] if task == "segment" else {0: "person"}
+    cfg = {"path": str(root), "train": "images/val2017", "val": "images/val2017", "names": names}
+    what = "polygons" if task == "segment" else f"figures ({n_vis} visible keypoints)"
+    print(f"{task} data: {len(DET_SIZES)} PNG images, {n_obj} {what} over {nc} classes, written in {secs:.1f} s "
+          f"and decoded exactly")
+    return cfg, {"images": len(DET_SIZES), "objects": n_obj, "visible_keypoints": n_vis, "write_s": secs}
+
+
+def _matched(a: np.ndarray, b: np.ndarray, tol: float):
+    """For rows ``a`` [n, k] and ``b`` [m, k]: whether every row of each lies within ``tol``
+    (max abs) of a row of the other, and each row of ``a``'s nearest row of ``b``."""
+    if not (len(a) and len(b)):
+        return len(a) == len(b), np.zeros(len(a), int)
+    d = np.abs(a[:, None] - b[None]).max(-1)
+    return bool((d.min(1) <= tol).all() and (d.min(0) <= tol).all()), d.argmin(1)
+
+
+def phase_segpose_predict(cfg, task: str, tables=None, rounds: int = 5):
+    """The segment or pose model (seeded bf16 weights) predicts 8 of the set's frames at
+    640 through the Predictor on the K1, K1+K3 and plain paths, each run's launches
+    counted from 0: masks ``[n, h, w]`` or keypoints ``[n, 17, 3]`` inside the frame.
+    Each kernel path against the plain one: decoded predictions (boxes, scores, and
+    the mask coefficients or keypoints) and the prototypes within PRED_TOL, kept counts
+    as in `phase_detect_predict`. In f32 (TF32 off) the K1+K3 and plain Predictors keep
+    the same detections on 2 frames (RESULT_TOL), with each matched detection's mask
+    unequal on at most MASK_SHARE of its pixels or its keypoints within KPT_TOL px. Then
+    ``infer`` ms in interleaved rounds, the whole Predictor call's ms (masks included),
+    and the device busy ms of ``infer``."""
+    from quan_ultralytics_tpu_torch.data.augment import letterbox
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.models.tasks import fused_1x1_sites
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    name, nc = SEGPOSE[task]
+    models = build_models(name, nc)
+    n_sites = len(fused_1x1_sites(models["K1+K3"], BATCH, DET_IMGSZ))
+    check(n_sites == 37, f"{task}: {n_sites} fused 1x1 sites, not 37 (Proto and cv4 hold only 3x3 convs)")
+    files = sorted((Path(cfg["path"]) / cfg["val"]).glob("*.png"))[:BATCH]
+    frames = [native.imread(f) for f in files]
+    preds = {p: Predictor(m, imgsz=DET_IMGSZ, conf=DET_PREDICT_CONF, iou=DET_PREDICT_IOU) for p, m in models.items()}
+    expect = {"K1": (1, 0), "K1+K3": (1, n_sites), "plain": (0, 0)}
+    out = {"launches": {}, "detections": {}, "fused_1x1_sites": n_sites}
+    for p, pred in preds.items():
+        _reset_counts()
+        res = pred(frames)  # the segment or pose predict path, driven once
+        torch.cuda.synchronize()
+        got, counts = (qattn.launches_mma, qconv_fused.launches_mma), _counts()
+        out["launches"][p], out["detections"][p] = counts, [len(r) for r in res]
+        print(f"{task} predict [{p}]: launches {counts}, K1 and K3 on the tensor cores {got} (expected "
+              f"{expect[p]}); kept a frame {out['detections'][p]}")
+        check(got == expect[p] and counts == {"qattn_fwd": got[0], "qattn_fwd_with_stats": 0, "qattn_bwd": 0,
+                                              "qconv1x1_fused": got[1]},
+              f"{task} predict [{p}]: launches {counts}, {got} != {expect[p]}")
+        for r, f in zip(res, frames):
+            check(r.boxes.shape[1] == 6 and np.isfinite(r.boxes).all(), f"{task} predict [{p}]: bad boxes")
+            if task == "segment":
+                check(r.masks is not None and r.masks.shape == (len(r),) + f.shape[:2] and r.masks.dtype == bool,
+                      f"{task} predict [{p}]: masks {None if r.masks is None else r.masks.shape}")
+            else:
+                k = r.keypoints
+                check(k is not None and k.shape == (len(r), 17, 3) and np.isfinite(k).all()
+                      and (k[..., 0] >= 0).all() and (k[..., 0] <= f.shape[1]).all()
+                      and (k[..., 1] >= 0).all() and (k[..., 1] <= f.shape[0]).all()
+                      and (k[..., 2] >= 0).all() and (k[..., 2] <= 1).all(),
+                      f"{task} predict [{p}]: keypoints outside the frame or not finite")
+        check(sum(len(r) for r in res) > 0, f"{task} predict [{p}]: nothing kept")
+    x = torch.stack([letterbox(torch.from_numpy(f).to(DEVICE), DET_IMGSZ)[0] for f in frames])
+    with torch.inference_mode():
+        raw = {p: models[p](x.float() / 255.0) for p in models}
+    ref = models["plain"].decode(raw["plain"]).float()
+    agree = {}
+    for p in ("K1", "K1+K3"):
+        kd = models[p].decode(raw[p]).float()
+        rel = compare_preds(kd, ref, nc, TAIL[task])
+        if task == "segment":
+            pr = raw["plain"][2].float()
+            rel["proto"] = float((raw[p][2].float() - pr).abs().max()) / float(pr.abs().max())
+        unexplained = _unexplained_counts(kd, ref, len(frames), nc=nc, rotated=False, conf=DET_PREDICT_CONF,
+                                          iou=DET_PREDICT_IOU)
+        agree[p] = {"decoded_rel_err": rel, "count_differs_unexplained": unexplained}
+        print(f"{task} predict [{p} vs plain, bf16]: max abs err / max|ref| {rel}; kept counts differ "
+              f"unexplained on frames {unexplained}")
+        check(all(v <= PRED_TOL[torch.bfloat16] for v in rel.values()),
+              f"{task} predict [{p}]: outputs disagree with the plain path: {rel}")
+        check(len(unexplained) <= DET_UNEXPLAINED, f"{task} predict [{p}]: kept counts differ on {unexplained}")
+    del raw
+    # the f32 Predictors, K1+K3 against plain: masks and keypoints held to the plain run
+    f32 = {p: Predictor(seeded_model(torch.float32, model=name, nc=nc, **kw), imgsz=DET_IMGSZ, conf=0.05)
+           for p, kw in (("K1+K3", dict(fused_1x1=True)), ("plain", dict(fused_attn=False)))}
+    kept = [f32[p](frames[:2]) for p in ("K1+K3", "plain")]
+    worst_mask = worst_kpt = 0.0
+    for ra, rb in zip(*kept):
+        ok, match = _matched(ra.boxes, rb.boxes, RESULT_TOL)
+        check(ok and len(ra) == len(rb) > 0, f"{task} f32 detections differ: {len(ra)} vs {len(rb)}")
+        if task == "segment":
+            worst_mask = max(worst_mask, float((ra.masks != rb.masks[match]).mean(axis=(1, 2)).max()))
+        else:
+            worst_kpt = max(worst_kpt, float(np.abs(ra.keypoints - rb.keypoints[match]).max()))
+    agree["f32"] = {"detections": [len(r) for r in kept[0]], "worst_mask_share": worst_mask,
+                    "worst_kpt_px": worst_kpt}
+    print(f"{task} predict [K1+K3 vs plain, f32, 2 frames]: the same detections {agree['f32']['detections']}; "
+          + (f"masks unequal on at most {worst_mask:.2e} of a mask's pixels" if task == "segment"
+             else f"keypoints within {worst_kpt:.2e} px"))
+    check(worst_mask <= MASK_SHARE and worst_kpt <= KPT_TOL, f"{task} f32 masks or keypoints: {agree['f32']}")
+    del f32, kept
+    for pred in preds.values():  # warm up
+        pred.infer(x)
+    torch.cuda.synchronize()
+    order, times, calls = list(preds), {p: [] for p in preds}, {p: [] for p in preds}
+    for r in range(rounds):
+        for p in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                preds[p].infer(x)
+            torch.cuda.synchronize()
+            times[p].append(1e3 * (time.perf_counter() - t0) / 3)
+            t0 = time.perf_counter()
+            preds[p](frames)
+            calls[p].append(1e3 * (time.perf_counter() - t0))
+    speed = {f"{task} {p}": {"infer_ms": statistics.median(t), "infer_ms_rounds": t,
+                             "infer_img_s": BATCH * 1e3 / statistics.median(t),
+                             "predict_ms": statistics.median(calls[p]), "predict_ms_rounds": calls[p]}
+             for p, t in times.items()}
+    for key, row in speed.items():
+        print(f"speed [{key}]: infer {row['infer_ms']:.2f} ms a batch of {BATCH} at {DET_IMGSZ} "
+              f"({row['infer_img_s']:.1f} img/s); the whole Predictor call {row['predict_ms']:.1f} ms; median of "
+              f"{rounds} rounds {[round(v, 2) for v in row['infer_ms_rounds']]}")
+    share = phase_device_share({f"{task} {p}": m for p, m in models.items()}, x, speed, tables)
+    out.update({"agree": agree, "speed": speed, "device": share})
+    del models, preds
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_segpose_train(cfg, task: str, tables=None):
+    """16 micro-steps of the segment or pose train step (bf16, K1 + K2; default
+    TrainConfig at batch 8: accumulate 8) at 640 on the set's first batch through the
+    loader (TRAIN_M rows an image; segment masks [8, 128, 160, 160] uint8); the
+    batch's upload (and, for segment, the same masks' upload as f32, what the JAX
+    loader's would move); ms a micro-step on the host clock; torch.profiler over 2
+    micro-steps (device busy ms, K1 and K2 device ms at N = 400, the top device ops);
+    then one f32 micro-step with fused and with plain attention, held as
+    `phase_train_grads` holds the OBB one."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn
+
+    name, nc = SEGPOSE[task]
+    host = next(build_dataloader(YOLODataset(cfg, "train", task=task), BATCH, DET_IMGSZ, hyp=None,
+                                 max_labels=TRAIN_M, augment=False, shuffle=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    torch.cuda.synchronize()
+    upload = {"ms": 1e3 * (time.perf_counter() - t0), "bytes": sum(v.nbytes for v in host.values())}
+    if task == "segment":
+        check(host["masks"].dtype == np.uint8
+              and host["masks"].shape == (BATCH, TRAIN_M, DET_IMGSZ // 4, DET_IMGSZ // 4),
+              f"segment masks {host['masks'].dtype} {host['masks'].shape}")
+        as_f32 = host["masks"].astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(as_f32).to(DEVICE)
+        torch.cuda.synchronize()
+        upload.update(masks_bytes=host["masks"].nbytes, masks_f32_bytes=as_f32.nbytes,
+                      masks_f32_ms=1e3 * (time.perf_counter() - t0))
+        del as_f32
+    print(f"{task} train: the batch's upload {upload}")
+    trainer = make_trainer(torch.bfloat16, model=name, nc=nc)
+    losses, times, skipped = [], [], []
+    _reset_counts()
+    for _ in range(TRAIN_STEPS):  # the segment or pose train path, driven
+        t0 = time.perf_counter()
+        loss, aux = trainer.step(batch)
+        losses.append(float(loss))
+        times.append(1e3 * (time.perf_counter() - t0))
+        skipped.append(float(aux["nan_skipped"]))
+    torch.cuda.synchronize()
+    got = {**_counts(), "qattn_fwd_tensor_cores": qattn.launches_mma}
+    ms = statistics.median(times[1:])
+    print(f"{task} train: {TRAIN_STEPS} micro-steps at {DET_IMGSZ}, {int(batch['mask'].sum())} objects in the "
+          f"batch; losses {[round(x, 3) for x in losses]}; {ms:.1f} ms a micro-step (median after the first, "
+          f"{BATCH * 1e3 / ms:.1f} img/s); launches {got}")
+    check(all(math.isfinite(x) for x in losses) and not any(skipped), f"{task} train losses {losses}")
+    check(got == {"qattn_fwd": TRAIN_STEPS, "qattn_fwd_with_stats": TRAIN_STEPS, "qattn_bwd": TRAIN_STEPS,
+                  "qconv1x1_fused": 0, "qattn_fwd_tensor_cores": TRAIN_STEPS}, f"{task} train launches {got}")
+    check(trainer.opt.count == TRAIN_STEPS // trainer.accumulate, f"{task} train: {trainer.opt.count} updates")
+    prof = _device_profile(lambda: trainer.step(batch), 2, f"{task} train micro-step", tables)
+    if prof["device_ms"] is not None:
+        prof["busy_share"] = prof["device_ms"] / ms
+    print(f"{task} train: device profile of a micro-step {prof}")
+    del trainer
+    grads = phase_train_grads(batch, name, nc, tag=f"{task} train")
+    del batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": got, "ms_per_micro_step": ms, "ms_steps": times,
+            "img_s": BATCH * 1e3 / ms, "upload": upload, "device": prof, "grads_f32": grads}
+
+
+def phase_segpose_fit(cfg, task: str, run_dir: Path):
+    """Trainer.fit of the segment or pose model for FIT_EPOCHS epochs of 2 micro-steps at
+    640, bf16, batch 8 (nbs 8) from seeded weights, fed by the prefetcher, with the
+    default augmentations (`AugmentHyp()`: segment mosaic 1.0, warp, HSV, flips; pose
+    `_pose_sample`: the photometric list, HSV, flips) until close_mosaic (1 here),
+    validating the EMA weights each epoch; returns the EMA weights' state."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+    from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+
+    name, nc = SEGPOSE[task]
+    hyp = AugmentHyp()
+    tds, vds = YOLODataset(cfg, "train", task=task), YOLODataset(cfg, "val", task=task)
+    steps = len(tds) // BATCH
+    tr = Trainer(seeded_model(torch.bfloat16, model=name, nc=nc),
+                 TrainConfig(batch=BATCH, nbs=BATCH, epochs=FIT_EPOCHS), steps_per_epoch=steps, device=DEVICE)
+    labels = {}
+
+    def loader(epoch):
+        for batch in build_dataloader(tds, BATCH, DET_IMGSZ, hyp=hyp if hyp.mosaic else None, augment=True,
+                                      seed=epoch):
+            labels[epoch] = labels.get(epoch, 0) + int(batch["mask"].sum())
+            yield batch
+
+    def close_mosaic_hook(epoch):
+        hyp.mosaic = 0.0
+
+    val_times = []
+
+    def validate(trainer):
+        val = Validator(trainer.model, imgsz=DET_IMGSZ, conf=VAL_CONF)
+        with trainer.ema_weights():
+            metrics = val(vds, batch_size=BATCH)
+        val_times.append(val.speed)
+        return metrics
+
+    ema0 = torch.cat([e.reshape(-1) for e in tr.ema]).clone()
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = tr.fit(loader, validate, epochs=FIT_EPOCHS, save_dir=run_dir, close_mosaic_hook=close_mosaic_hook,
+                     close_mosaic=FIT_CLOSE_MOSAIC, log=lambda line: print(f"{task} fit:", line))  # driven
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    ema_moved = float((torch.cat([e.reshape(-1) for e in tr.ema]) - ema0).abs().max())
+    n_micro, n_val = FIT_EPOCHS * steps, FIT_EPOCHS * math.ceil(len(vds) / BATCH)
+    print(f"{task} fit: {FIT_EPOCHS} epochs of {steps} micro-steps in {secs:.1f} s (validation included), "
+          f"labels an epoch {labels}; launches {got}; EMA moved by up to {ema_moved:.3e}")
+    check(len(history) == FIT_EPOCHS and all(math.isfinite(r["loss"]) for r in history),
+          f"{task} fit history {history}")
+    check(all(0 <= v <= 1 for r in history for k, v in r.items() if k.startswith(("mAP", "precision", "recall"))),
+          f"{task} fit: a metric outside [0, 1]")
+    check(ema_moved > 0 and hyp.mosaic == 0.0 and all(labels.get(e, 0) > 0 for e in range(FIT_EPOCHS)),
+          f"{task} fit: the EMA did not move, close_mosaic did not close, or an epoch had no labels")
+    check(got == {"qattn_fwd": n_micro + n_val, "qattn_fwd_with_stats": n_micro, "qattn_bwd": n_micro,
+                  "qconv1x1_fused": 0}, f"{task} fit launches {got}")
+    check((run_dir / "last.ckpt").exists() and (run_dir / "best.ckpt").exists(), f"{task} fit wrote no checkpoints")
+    with tr.ema_weights():
+        weights = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    torch.cuda.empty_cache()
+    return weights, {"seconds": secs, "epoch_s": [r["time_s"] for r in history], "history": history,
+                     "launches": got, "ema_moved": ema_moved, "val_speed": val_times}
+
+
+def phase_segpose_val(cfg, task: str, weights, n_sites: int):
+    """The Validator at 640, conf 0.001, on the fit's EMA weights: bf16 with K1 and K3 and
+    plain, f32 with K1 and plain, and for segment f32 K1 and plain with ``mask_native``
+    (masks at 640 instead of 160); each run's launches counted from 0 and the N that K1
+    saw recorded. Each kernel run against the plain run of its dtype: decoded predictions
+    of every batch within PRED_TOL, every metric (boxes, and masks (M) or OKS (P)) within
+    VAL_METRIC_TOL, and in f32 the kept counts explained and the kept rows matched as in
+    `phase_detect_val`."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+    from quan_ultralytics_tpu_torch.models.block import QAttention
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    name, nc = SEGPOSE[task]
+    ds = YOLODataset(cfg, "val", task=task)
+    nb = math.ceil(len(ds) / BATCH)
+    bf16, f32 = torch.bfloat16, torch.float32
+    paths = {"bf16 K1+K3": (bf16, {"fused_1x1": True}), "bf16 plain": (bf16, {"fused_attn": False}),
+             "f32 K1": (f32, {}), "f32 plain": (f32, {"fused_attn": False})}
+    expect = {"bf16 K1+K3": (nb, 0, n_sites * nb), "bf16 plain": (0, 0, 0), "f32 K1": (0, nb, 0),
+              "f32 plain": (0, 0, 0)}
+    runs = [(p, False) for p in paths] + ([("f32 K1", True), ("f32 plain", True)] if task == "segment" else [])
+    seen_n, models = [], {}
+    for p, (dtype, kw) in paths.items():
+        m = DetectionModel.from_yaml(name, nc=nc, dtype=dtype, device=DEVICE, **kw)
+        m.load_state_dict(weights)
+        for mod in m.modules():
+            if isinstance(mod, QAttention):
+                mod.register_forward_pre_hook(lambda _m, a: seen_n.append(a[0].shape[1] * a[0].shape[2]))
+        models[p] = m
+        Validator(m, imgsz=DET_IMGSZ, conf=VAL_CONF).infer(  # warm up: cuDNN's algorithms, the kernels' load
+            torch.zeros(BATCH, DET_IMGSZ, DET_IMGSZ, 3, dtype=torch.uint8, device=DEVICE))
+    torch.cuda.synchronize()
+    res = {}
+    for p, native in runs:
+        key = f"{p}{' native' if native else ''}"
+        val = Validator(models[p], imgsz=DET_IMGSZ, conf=VAL_CONF)
+        seen_n.clear()
+        _reset_counts()
+        metrics = val(ds, batch_size=BATCH, mask_native=native)  # the segment or pose val path
+        torch.cuda.synchronize()
+        got, counts = (qattn.launches_mma, qattn.launches_simt, qconv_fused.launches_mma), _counts()
+        res[key] = {"metrics": metrics, "speed": val.speed, "launches": counts, "attention_n": sorted(set(seen_n))}
+        print(f"{task} val [{key}]: launches {counts}, K1 tensor / CUDA cores, K3 {got} (expected {expect[p]}); "
+              f"K1 saw N = {res[key]['attention_n']}; {metrics}; {val.speed['img_s']:.1f} img/s, a batch: load "
+              f"{val.speed['load_ms']:.1f} ms, infer {val.speed['infer_ms']:.1f} ms, match "
+              f"{val.speed['match_ms']:.1f} ms")
+        check(got == expect[p] and counts["qattn_fwd"] == sum(got[:2]) and counts["qattn_bwd"] == 0
+              and counts["qattn_fwd_with_stats"] == 0 and counts["qconv1x1_fused"] == got[2],
+              f"{task} val [{key}]: launches {counts}, {got} != {expect[p]}")
+        sfx = "(M)" if task == "segment" else "(P)"
+        check(set(metrics) == {"mAP50", "mAP50-95", "precision", "recall", f"mAP50{sfx}", f"mAP50-95{sfx}"}
+              and all(math.isfinite(v) and 0 <= v <= 1 for v in metrics.values()),
+              f"{task} val [{key}]: metrics {metrics}")
+        check(res[key]["attention_n"] == [(DET_IMGSZ // 32) ** 2],
+              f"{task} val [{key}]: the attention saw N = {res[key]['attention_n']}, not 400")
+    batches = list(build_dataloader(ds, BATCH, DET_IMGSZ, hyp=None, augment=False, shuffle=False, drop_last=False,
+                                    with_meta=True))
+    xs = [torch.from_numpy(b["img"]).to(DEVICE) for b in batches]
+    counts_n = [b["n_real"] for b in batches]
+    agree = {}
+    for k, r, native in (("bf16 K1+K3", "bf16 plain", False), ("f32 K1", "f32 plain", False),
+                         ("f32 K1", "f32 plain", True)):
+        if native and task != "segment":
+            continue
+        sfx = " native" if native else ""
+        a, b = res[k + sfx], res[r + sfx]
+        diff = {m: abs(a["metrics"][m] - b["metrics"][m]) for m in a["metrics"]}
+        row = {"metric_diff": diff}
+        check(all(v <= VAL_METRIC_TOL for v in diff.values()), f"{task} val, {k}{sfx} vs {r}: metrics differ {diff}")
+        if not native:  # the decoded predictions do not depend on mask_native
+            pairs = [(decoded(models[k], x), decoded(models[r], x)) for x in xs]
+            rel = [compare_preds(kk, pp, nc, TAIL[task]) for kk, pp in pairs]
+            rel = {g: max(q[g] for q in rel) for g in rel[0]}
+            row["decoded_rel_err"] = rel
+            dtype = paths[k][0]
+            check(all(v <= PRED_TOL[dtype] for v in rel.values()),
+                  f"{task} val, {k} vs {r}: decoded predictions disagree: {rel}")
+            if dtype == f32:
+                unexplained = [(bi, i) for bi, (kk, pp) in enumerate(pairs)
+                               for i in _unexplained_counts(kk, pp, counts_n[bi], nc=nc, rotated=False)]
+                matched = [_matched_rows(kk, pp, counts_n[bi], nc) for bi, (kk, pp) in enumerate(pairs)]
+                share = sum(m for m, _ in matched) / max(sum(t for _, t in matched), 1)
+                row.update(count_differs_unexplained=unexplained, rows_matched_share=share)
+                check(len(unexplained) <= 1, f"{task} val, {k} vs {r}: counts differ on {unexplained}")
+                check(share >= DET_ROW_SHARE, f"{task} val, {k} vs {r}: {share:.4f} of the kept rows match")
+        agree[f"{k}{sfx} vs {r}{sfx}"] = row
+        print(f"{task} val, {k}{sfx} vs {r}{sfx}: {row}")
+    del models
+    torch.cuda.empty_cache()
+    out = {"paths": res, "agree": agree, "launches": res["bf16 K1+K3"]["launches"]}
+    if task == "segment":
+        out["launches_native"] = res["f32 K1 native"]["launches"]
+    return out
+
+
+def phase_segpose_cli(cfg, root: Path, task: str):
+    """``python -m quan_ultralytics_tpu_torch.cli segment|pose ...`` in this process:
+    ``train`` from a facade checkpoint of seeded weights (2 epochs at 640, batch 8, nbs 8,
+    close_mosaic 1; bf16 steps, f32 validation), ``val`` and ``predict save_txt=True``
+    (f32) of its best.pkl; the saved label lines (pose: with the keypoints) held to the
+    facade's predictions."""
+    import pickle
+
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.utils.weights import export_jax_variables
+
+    name, nc = SEGPOSE[task]
+    start = root / f"{task}_seeded.pkl"
+    tree = export_jax_variables(seeded_model(None, model=name, nc=nc))
+    start.write_bytes(pickle.dumps({"model_yaml": name, "nc": nc, "names": list(cfg["names"].values()),
+                                    **tree, "raw_params": tree["params"], "step": 0}))
+    data = root / f"{task}.yaml"
+    data.write_text(f"path: {cfg['path']}\ntrain: {cfg['train']}\nval: {cfg['val']}\nnames:\n"
+                    + "".join(f"  {k}: {v}\n" for k, v in cfg["names"].items()))
+    run, pred = root / f"{task}_run_cli", root / f"{task}_predict"
+    src = Path(cfg["path"]) / cfg["val"]
+    # predict's conf: a segment detection carries a frame-sized mask, so the Predictor's default
+    conf = DET_PREDICT_CONF if task == "segment" else VAL_CONF
+    n_images = len(DET_SIZES)
+    steps, n_val = n_images // BATCH, math.ceil(n_images / BATCH)
+    text, train_s, train_n = _cli([task, "train", f"model={start}", f"data={data}", f"epochs={FIT_EPOCHS}",
+                                   f"batch={BATCH}", f"imgsz={DET_IMGSZ}", f"close_mosaic={FIT_CLOSE_MOSAIC}",
+                                   f"nbs={BATCH}", f"save_dir={run}"])
+    epoch_s = [float(ln.split("time_s=")[1].split()[0]) for ln in text.splitlines() if ln.startswith("epoch ")]
+    check(len(epoch_s) == FIT_EPOCHS and (run / "best.pkl").exists(), f"cli {task} train: {len(epoch_s)} epoch lines")
+    n_micro = FIT_EPOCHS * steps
+    check(train_n == {"qattn_fwd": n_micro + FIT_EPOCHS * n_val, "qattn_fwd_with_stats": n_micro,
+                      "qattn_bwd": n_micro, "qconv1x1_fused": 0, "qattn_fwd_tensor_cores": n_micro,
+                      "qattn_fwd_cuda_cores": FIT_EPOCHS * n_val}, f"cli {task} train launches {train_n}")
+    best = run / "best.pkl"
+    text, val_s, val_n = _cli([task, "val", f"model={best}", f"data={data}", f"imgsz={DET_IMGSZ}",
+                               f"batch={BATCH}", f"conf={VAL_CONF}"])
+    metrics = ast.literal_eval(text.strip().splitlines()[-1])
+    check(len(metrics) == 6 and all(0 <= v <= 1 for v in metrics.values()), f"cli {task} val metrics {metrics}")
+    check(val_n["qattn_fwd"] == val_n["qattn_fwd_cuda_cores"] == n_val and val_n["qattn_bwd"] == 0,
+          f"cli {task} val launches {val_n}")
+    text, pred_s, pred_n = _cli([task, "predict", f"model={best}", f"source={src}", f"imgsz={DET_IMGSZ}",
+                                 f"conf={conf}", "save_txt=True", "save_conf=True", f"save_dir={pred}"])
+    lines = [ln for ln in text.splitlines() if ln.startswith("image ")]
+    check(len(lines) == n_images and pred_n["qattn_fwd"] == pred_n["qattn_fwd_cuda_cores"] == 1,
+          f"cli {task} predict: {len(lines)} image lines, launches {pred_n}")
+    got = YOLO(str(best)).predict(str(src), imgsz=DET_IMGSZ, conf=conf)
+    worst, n_obj = 0.0, 0
+    for i, r in enumerate(got):
+        vals = np.array((pred / "labels" / f"im{i}.txt").read_text().split(), np.float64)
+        check(vals.size % max(len(r), 1) == 0, f"{task} im{i}.txt: {vals.size} values for {len(r)} objects")
+        if not len(r):
+            check(vals.size == 0, f"{task} im{i}.txt holds labels, the facade keeps none")
+            continue
+        rows = vals.reshape(len(r), -1)
+        h, w = r.orig_shape
+        x1, y1, x2, y2, conf, c = r.boxes.astype(np.float64).T
+        cols = [(x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h]
+        if task == "pose":
+            k = r.keypoints.astype(np.float64) / [w, h, 1.0]
+            cols += list(k.reshape(len(k), -1).T)
+        want = np.stack(cols + [conf], 1)
+        check(rows.shape == (len(r), 1 + want.shape[1]) and (rows[:, 0] == c).all(),
+              f"{task} im{i}.txt: {rows.shape} rows or classes differ from the facade's")
+        worst = max(worst, float((np.abs(rows[:, 1:] - want) / np.maximum(1.0, np.abs(want))).max()))
+        n_obj += len(r)
+    check(n_obj > 0 and worst <= LABEL_TOL, f"the saved {task} labels ({n_obj} objects) are {worst:.3e} off "
+          f"the facade's predictions")
+    check([r.verbose() for r in got] == [ln.split(" ", 3)[3] for ln in lines],
+          f"the CLI's per-image lines differ from the facade's {task} predictions")
+    print(f"cli {task}: the saved labels of {n_images} images ({n_obj} objects) within {worst:.2e} of the facade's")
+    return {"train_s": train_s, "epoch_s": epoch_s, "val_s": val_s, "predict_s": pred_s, "val_metrics": metrics,
+            "launches_train": train_n, "launches_val": val_n, "launches_predict": pred_n,
+            "launches": {k: train_n[k] + val_n[k] + pred_n[k] for k in train_n}, "labels_vs_facade": worst}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2265,6 +2796,17 @@ def main() -> int:
         det_val = phase_detect_val(det_cfg, det_weights, Path(tmp) / "detect_val", n_sites)
         del det_weights
         det_cli = phase_detect_cli(det_cfg, Path(tmp), n_sites)
+        segpose = {}
+        for task, seed in (("segment", 2), ("pose", 3)):
+            sp_cfg, sp_data = phase_segpose_data(Path(tmp) / task, task, seed)
+            sp_predict = phase_segpose_predict(sp_cfg, task, tables)
+            sp_train = phase_segpose_train(sp_cfg, task, tables)
+            sp_weights, sp_fit = phase_segpose_fit(sp_cfg, task, Path(tmp) / f"{task}_run")
+            sp_val = phase_segpose_val(sp_cfg, task, sp_weights, sp_predict["fused_1x1_sites"])
+            del sp_weights
+            sp_cli = phase_segpose_cli(sp_cfg, Path(tmp), task)
+            segpose[task] = {"data": sp_data, "predict": sp_predict, "train": sp_train, "fit": sp_fit,
+                             "val": sp_val, "cli": sp_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
     if args.profile:
@@ -2276,7 +2818,7 @@ def main() -> int:
              "agree": agree, "speed": speed, "device": share, "train": train_out,
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
-             "val": val_out, "cli": cli_out, "detect": detect}, indent=1))
+             "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose}, indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
     on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
@@ -2296,6 +2838,20 @@ def main() -> int:
         check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
     for path in ("detect_predict", "detect_val", "detect_val_rect", "detect_facade_fused_1x1"):
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the segment and pose paths: K1 on each, K2 where it trains, K3 on the fused_1x1 runs
+    for task, tag in (("segment", "seg"), ("pose", "pose")):
+        sp = segpose[task]
+        det_launches.update({f"{tag}_predict": sp["predict"]["launches"]["K1+K3"],
+                             f"{tag}_train": sp["train"]["launches"], f"{tag}_fit": sp["fit"]["launches"],
+                             f"{tag}_val": sp["val"]["launches"], f"{tag}_cli": sp["cli"]["launches"]})
+        if task == "segment":
+            det_launches["seg_val_native"] = sp["val"]["launches_native"]
+    for path in [k for k in det_launches if k.startswith(("seg_", "pose_"))]:
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        if path.endswith(("_train", "_fit", "_cli")):
+            check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
+        if path.endswith(("_predict", "_val")):
+            check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:60",
@@ -2318,6 +2874,9 @@ def main() -> int:
                               **{k: v["qattn_bwd"] for k, v in det_launches.items()}},
          "max_abs_err": k2_err, "kernel_ms": k2_t["ms"], **k2_t,
          "train_device_ms": on_train["qattn_bwd_"],
+         # device ms a micro-step on the segment and pose train paths at 640 (N = 400), from the profiler
+         "train_640_device_ms": {t: segpose[t]["train"]["device"].get("kernel_device_ms", {}).get("qattn_bwd_")
+                                 for t in segpose},
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
          "library": "torch.autograd.grad of torch.nn.functional.scaled_dot_product_attention "
                     "(retained graph)"},
@@ -2359,6 +2918,13 @@ def main() -> int:
         "val": {name: {"metrics": r["metrics"], "speed": r["speed"], "attention_n": r["attention_n"]}
                 for name, r in det_val["paths"].items()},
         "val_agree": det_val["agree"], "cli": det_cli}}))
+    print(json.dumps({"segpose": {task: {
+        "data": sp["data"], "predict": {k: v for k, v in sp["predict"].items() if k != "device"},
+        "predict_device": sp["predict"]["device"],
+        "train": {k: v for k, v in sp["train"].items() if k != "ms_steps"},
+        "fit": {k: v for k, v in sp["fit"].items() if k != "history"},
+        "val": {name: {"metrics": r["metrics"], "speed": r["speed"]} for name, r in sp["val"]["paths"].items()},
+        "val_agree": sp["val"]["agree"], "cli": sp["cli"]} for task, sp in segpose.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

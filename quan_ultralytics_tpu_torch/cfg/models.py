@@ -56,5 +56,29 @@ YOLO11_QUAN = {
     ],
 }
 
+# QUAN-YOLO11-seg (Detect + Proto + mask coefficients), the JAX package's
+# cfg/models/yolo11-seg-quan.yaml: the OBB graph with a Segment head.
+YOLO11_SEG_QUAN = {
+    "nc": 80,
+    "scales": YOLO11_OBB_QUAN["scales"],
+    "backbone": YOLO11_OBB_QUAN["backbone"],
+    "head": YOLO11_OBB_QUAN["head"][:-1] + [
+        [[16, 19, 22], 1, "Segment", ["nc", 32, 256]],  # 23
+    ],
+}
+
+# QUAN-YOLO11-pose (Detect + keypoint branch), the JAX package's
+# cfg/models/yolo11-pose-quan.yaml: the OBB graph with a Pose head, one class.
+YOLO11_POSE_QUAN = {
+    "nc": 1,
+    "kpt_shape": [17, 3],
+    "scales": YOLO11_OBB_QUAN["scales"],
+    "backbone": YOLO11_OBB_QUAN["backbone"],
+    "head": YOLO11_OBB_QUAN["head"][:-1] + [
+        [[16, 19, 22], 1, "Pose", ["nc", [17, 3]]],  # 23
+    ],
+}
+
 # base file name (scale letter removed) -> configuration
-MODELS = {"yolo11-obb-quan.yaml": YOLO11_OBB_QUAN, "yolo11-quan.yaml": YOLO11_QUAN}
+MODELS = {"yolo11-obb-quan.yaml": YOLO11_OBB_QUAN, "yolo11-quan.yaml": YOLO11_QUAN,
+          "yolo11-seg-quan.yaml": YOLO11_SEG_QUAN, "yolo11-pose-quan.yaml": YOLO11_POSE_QUAN}

@@ -5,14 +5,17 @@
     python -m quan_ultralytics_tpu_torch.cli obb train model=yolo11n-obb-quan.yaml data=dota.yaml epochs=10
     python -m quan_ultralytics_tpu_torch.cli obb val model=runs/train/best.pkl data=dota.yaml
     python -m quan_ultralytics_tpu_torch.cli obb predict model=runs/train/best.pkl source=img.png
+    python -m quan_ultralytics_tpu_torch.cli segment val model=runs/train/best.pkl data=coco.yaml
+    python -m quan_ultralytics_tpu_torch.cli pose train data=coco-pose.yaml epochs=10
     python -m quan_ultralytics_tpu_torch.cli settings [reset | k=v ...]
 
 (installed as ``yolo-torch``). It runs on ``cuda`` unless ``device=`` names
 another device (``device=cpu``); with no card and no ``device=cpu`` it exits
 non-zero. The task may be omitted; without ``model=`` the task's default
-model is built (``yolo11n-quan.yaml`` for detect). The detect and OBB tasks
-are ported; the export, track, tune and benchmark modes and the classify
-task are not yet.
+model is built (``yolo11n-quan.yaml`` for detect, ``yolo11n-seg-quan.yaml``
+for segment, ``yolo11n-pose-quan.yaml`` for pose). The detect, OBB, segment
+and pose tasks are ported; the export, track, tune and benchmark modes and
+the classify task are not yet.
 """
 
 from __future__ import annotations

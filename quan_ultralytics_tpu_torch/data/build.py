@@ -12,6 +12,13 @@ With ``augment=True`` and a ``hyp``, a sample runs the reference's
 ``v8_transforms`` order: mosaic (at ``hyp.mosaic``) -> copy-paste -> random
 affine warp (back to ``imgsz`` from the mosaic's 2x canvas) -> mixup ->
 photometric list -> HSV -> flips; a sample without mosaic is warped alone.
+Segment polygons (`SEG_POINTS` points) take the same path as box corners.
+Pose samples take `_pose_sample`: photometric list, HSV and flips (with
+the left/right keypoint swap), no mosaic or warp, as the JAX package does.
+
+Segment batches carry ``masks`` ``[B, M, H/4, W/4]`` uint8 (0/1; the JAX
+loader's are float32 of the same values: a quarter of the bytes to upload,
+cast on the card), pose batches ``keypoints`` ``[B, M, nk, 3]``.
 """
 
 from __future__ import annotations
@@ -27,14 +34,17 @@ from quan_ultralytics_tpu_torch.data.augment import (AugmentHyp, copy_paste, cor
                                                      corners_to_xyxy, flip_corners, letterbox, mixup,
                                                      photometric_augment, random_hsv, random_perspective,
                                                      xywh_to_corners)
-from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
+from quan_ultralytics_tpu_torch.data.dataset import SEG_POINTS, YOLODataset
+from quan_ultralytics_tpu_torch.data.native import pixels
 
 Size = Union[int, Tuple[int, int]]
 
 
 def _load_sample_pixels(ds: YOLODataset, i: int, imgsz: Size, with_meta: bool = False):
     """The image letterboxed to ``imgsz`` (the port's torch letterbox on a CPU
-    tensor) and its labels as pixel-space box corners ``[n, 4, 2]``."""
+    tensor) and its labels as pixel-space point sets: box corners ``[n, 4, 2]``
+    (detect, OBB), polygons ``[n, SEG_POINTS, 2]`` (segment), or box corners
+    and keypoints ``[n, 4 + nk, 2]`` (pose; the visibility stays in the sample)."""
     im = ds.load_image(i)
     h0, w0 = im.shape[:2]
     s = ds.samples[i]
@@ -42,6 +52,12 @@ def _load_sample_pixels(ds: YOLODataset, i: int, imgsz: Size, with_meta: bool = 
     im = lb.numpy()
     if ds.task == "obb":
         corners = s.bboxes.reshape(-1, 4, 2) * [w0, h0]
+    elif ds.task == "segment":
+        corners = s.bboxes.reshape(-1, SEG_POINTS, 2) * [w0, h0]
+    elif ds.task == "pose":
+        kxy = (s.kpts[..., :2] if s.kpts is not None and len(s.kpts)
+               else np.zeros((len(s.bboxes), 17, 2), np.float32)) * [w0, h0]
+        corners = np.concatenate([xywh_to_corners(s.bboxes * [w0, h0, w0, h0]), kxy], axis=1)
     else:
         corners = xywh_to_corners(s.bboxes * [w0, h0, w0, h0])
     corners = corners * r + [dw, dh]
@@ -78,21 +94,43 @@ def _mosaic4(ds: YOLODataset, indices: Sequence[int], imgsz: int, rng: np.random
         if corners.size:
             all_c.append(corners + [x1a - x1b, y1a - y1b])
             all_cls.append(cls)
-    corners = np.concatenate(all_c) if all_c else np.zeros((0, 4, 2), np.float32)
+    # no labels: an empty set of the task's point count (segment polygons have SEG_POINTS)
+    empty = np.zeros((0, SEG_POINTS if ds.task == "segment" else 4, 2), np.float32)
+    corners = np.concatenate(all_c) if all_c else empty
     cls = np.concatenate(all_cls) if all_cls else np.zeros(0, np.int32)
     return canvas, corners.astype(np.float32), cls
 
 
-def _format(im, corners, cls, task: str, imgsz: Size, max_labels: int) -> Dict[str, np.ndarray]:
-    """Pixel corners -> normalized padded label arrays.
+def _hull_xywh(corners: np.ndarray, W: int, H: int) -> np.ndarray:
+    """The clipped axis-aligned hull of point sets ``[n, P, 2]`` as normalized xywh ``[n, 4]``."""
+    xyxy = corners_to_xyxy(corners, W, H)
+    return np.stack([(xyxy[:, 0] + xyxy[:, 2]) / 2, (xyxy[:, 1] + xyxy[:, 3]) / 2,
+                     xyxy[:, 2] - xyxy[:, 0], xyxy[:, 3] - xyxy[:, 1]], axis=1) / [W, H, W, H]
+
+
+def _format(im, corners, cls, task: str, imgsz: Size, max_labels: int,
+            vis: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+    """Pixel point sets -> normalized padded label arrays.
 
     imgsz: int (square) or (H, W); rect batches normalize x by W and y by H.
     OBB needs square batches: per-axis normalization would shear rotated boxes.
+    segment: polygons ``[n, SEG_POINTS, 2]`` -> their hull boxes and ``masks``
+    ``[M, H/4, W/4]`` uint8 at proto resolution (reference downsample_ratio 4),
+    each filled from ``(polygon * scale).astype(int32)`` as ``cv2.fillPoly`` is
+    in the JAX loader. pose: box corners and keypoints ``[n, 4 + nk, 2]`` with
+    ``vis`` ``[n, nk]`` -> boxes and ``keypoints`` ``[M, nk, 3]`` normalized, a
+    keypoint outside the frame made invisible.
     """
     H, W = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
     out_boxes = np.zeros((max_labels, 5 if task == "obb" else 4), np.float32)
     out_cls = np.zeros(max_labels, np.int32)
     out_mask = np.zeros(max_labels, bool)
+    extra = {}
+    if task == "segment":
+        extra["masks"] = np.zeros((max_labels, H // 4, W // 4), np.uint8)
+    elif task == "pose":
+        nk = corners.shape[1] - 4 if corners.size else 17
+        extra["keypoints"] = np.zeros((max_labels, nk, 3), np.float32)
     n = min(corners.shape[0], max_labels)
     if n:
         if task == "obb":
@@ -101,16 +139,61 @@ def _format(im, corners, cls, task: str, imgsz: Size, max_labels: int) -> Dict[s
             xywhr = corners_to_xywhr(corners[:n])
             xywhr[:, :4] /= H
             out_boxes[:n] = xywhr
+        elif task == "segment":
+            out_boxes[:n] = _hull_xywh(corners[:n], W, H)
+            masks = extra["masks"]
+            scale = np.array([masks.shape[2] / W, masks.shape[1] / H], np.float32)
+            for j in range(n):
+                pixels.fill_polygons(masks[j], [(corners[j] * scale).astype(np.int32)])
+        elif task == "pose":
+            out_boxes[:n] = _hull_xywh(corners[:n, :4], W, H)
+            kxy = corners[:n, 4:]
+            v = (vis[:n] if vis is not None else np.ones(kxy.shape[:2], np.float32)).astype(np.float32)
+            inside = (kxy[..., 0] >= 0) & (kxy[..., 0] < W) & (kxy[..., 1] >= 0) & (kxy[..., 1] < H)
+            k = extra["keypoints"]
+            k[:n, :, 0] = kxy[..., 0] / W
+            k[:n, :, 1] = kxy[..., 1] / H
+            k[:n, :, 2] = v * inside
         else:
-            xyxy = corners_to_xyxy(corners[:n], W, H)
-            out_boxes[:n] = np.stack([
-                (xyxy[:, 0] + xyxy[:, 2]) / 2, (xyxy[:, 1] + xyxy[:, 3]) / 2,
-                xyxy[:, 2] - xyxy[:, 0], xyxy[:, 3] - xyxy[:, 1],
-            ], axis=1) / [W, H, W, H]
+            out_boxes[:n] = _hull_xywh(corners[:n], W, H)
         out_cls[:n] = cls[:n]
         out_mask[:n] = True
     # uint8 pixels: the consumer normalizes on the device
-    return {"img": im, "bboxes": out_boxes, "cls": out_cls, "mask": out_mask}
+    return {"img": im, "bboxes": out_boxes, "cls": out_cls, "mask": out_mask, **extra}
+
+
+# COCO-17 left/right keypoint swap under a horizontal flip (reference
+# cfg/datasets/coco-pose.yaml flip_idx)
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def _pose_sample(ds: YOLODataset, idx: int, imgsz: Size, max_labels: int, hyp: Optional[AugmentHyp],
+                 rng: Optional[np.random.Generator], augment: bool) -> Dict[str, np.ndarray]:
+    """A pose sample: letterbox, then with ``augment`` the photometric list, HSV
+    and the flips, a left-right flip swapping the COCO-17 keypoints' sides.
+    Mosaic and the warp drop instances, which would part the keypoints from
+    their visibility, so the pose path leaves them out (as the JAX package and
+    the reference's simpler pose recipes do)."""
+    im, corners, cls = _load_sample_pixels(ds, idx, imgsz)
+    s = ds.samples[idx]
+    vis = (s.kpts[..., 2].copy() if s.kpts is not None and len(s.kpts)
+           else np.ones((len(cls), corners.shape[1] - 4), np.float32))
+    if augment and hyp:
+        im = photometric_augment(im, rng)  # pixels only: the keypoints stay
+        im = random_hsv(im, hyp, rng)
+        h, w = im.shape[:2]
+        if rng.random() < hyp.flipud:
+            im = np.ascontiguousarray(np.flipud(im))
+            if corners.size:
+                corners[..., 1] = h - corners[..., 1]
+        if rng.random() < hyp.fliplr:
+            im = np.ascontiguousarray(np.fliplr(im))
+            if corners.size:
+                corners[..., 0] = w - corners[..., 0]
+                if corners.shape[1] - 4 == 17:
+                    corners[:, 4:] = corners[:, 4:][:, COCO_FLIP_IDX]
+                    vis = vis[:, COCO_FLIP_IDX]
+    return _format(im, corners, cls, "pose", imgsz, max_labels, vis=vis)
 
 
 def make_sample(ds: YOLODataset, idx: int, imgsz: Size, max_labels: int,
@@ -119,12 +202,19 @@ def make_sample(ds: YOLODataset, idx: int, imgsz: Size, max_labels: int,
     """One formatted sample, augmented with ``hyp`` and the sample's own
     generator ``rng`` when ``augment``; with ``with_meta`` (and no
     augmentation) also the letterbox geometry ``ori_shape`` and ``ratio_pad``
-    for mapping predictions back."""
+    for mapping predictions back, and for segment ``polys``, the polygons in
+    letterbox pixels (the Validator's ``mask_native``)."""
     if with_meta and not augment:
         im, corners, cls, meta = _load_sample_pixels(ds, idx, imgsz, with_meta=True)
-        out = _format(im, corners, cls, ds.task, imgsz, max_labels)
+        s = ds.samples[idx]
+        vis = s.kpts[..., 2] if ds.task == "pose" and s.kpts is not None and len(s.kpts) else None
+        out = _format(im, corners, cls, ds.task, imgsz, max_labels, vis=vis)
         out.update(meta)
+        if ds.task == "segment":  # a count of its own an image: collated as a list
+            out["polys"] = corners[:min(corners.shape[0], max_labels)].astype(np.float32)
         return out
+    if ds.task == "pose":
+        return _pose_sample(ds, idx, imgsz, max_labels, hyp, rng, augment)
     if not (augment and hyp):
         im, corners, cls = _load_sample_pixels(ds, idx, imgsz)
         return _format(im, corners, cls, ds.task, imgsz, max_labels)
@@ -226,7 +316,10 @@ def build_dataloader(
                 lambda t: make_sample(ds, int(t[0]), size, max_labels, hyp, t[1], augment,
                                       with_meta=with_meta and not augment),
                 zip(idxs, child_rngs)))
-            batch: Dict[str, Any] = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+            batch: Dict[str, Any] = {k: np.stack([s[k] for s in samples]) for k in samples[0]
+                                     if k != "polys"}
+            if "polys" in samples[0]:
+                batch["polys"] = [s["polys"] for s in samples]
             if with_meta:
                 batch["im_files"] = [ds.samples[int(i)].im_file for i in idxs]
                 batch["n_real"] = n_real

@@ -1,5 +1,5 @@
-"""YOLO-format dataset reader for the OBB and detect tasks (counterpart of the
-JAX package's ``data/dataset.py``).
+"""YOLO-format dataset reader for the detect, OBB, segment and pose tasks
+(counterpart of the JAX package's ``data/dataset.py``).
 
 Reads the standard layout
 
@@ -8,12 +8,15 @@ Reads the standard layout
 
 Detect labels: ``cls cx cy w h`` (normalized). OBB labels: ``cls x1 y1 x2 y2
 x3 y3 x4 y4`` (normalized corners, the DOTA-YOLO format); they stay corners
-here and become pixel-space xywhr in ``build._format``. Data configs have the
-reference schema (``path``, ``train``, ``val``, ``names``), given as a dict or
-as a file read by `cfg.datasets.load_data_cfg`.
+here and become pixel-space xywhr in ``build._format``. Segment labels:
+``cls x1 y1 x2 y2 ...`` (a polygon of any length, resampled to `SEG_POINTS`
+points). Pose labels: ``cls cx cy w h`` and ``nk`` keypoints of 2 or 3
+values (x, y[, visibility]; without it every labelled point is visible).
+Data configs have the reference schema (``path``, ``train``, ``val``,
+``names``), given as a dict or as a file read by `cfg.datasets.load_data_cfg`.
 
 Images are decoded by the port's own PNG and JPEG readers
-(`data.native.native.imread`); the segment and pose tasks are not ported yet.
+(`data.native.native.imread`).
 """
 
 from __future__ import annotations
@@ -29,16 +32,30 @@ from quan_ultralytics_tpu_torch.cfg.datasets import load_data_cfg
 from quan_ultralytics_tpu_torch.data.native.native import imread, read_shape
 
 IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
-TASKS = ("detect", "obb")
+TASKS = ("detect", "obb", "segment", "pose")
+SEG_POINTS = 32  # polygons are resampled to this fixed vertex count
+
+
+def resample_polygon(pts: np.ndarray, n: int = SEG_POINTS) -> np.ndarray:
+    """A closed polygon ``[k, 2]`` resampled to exactly ``n`` vertices evenly
+    spaced by arc length (reference ops.py:329 resample_segments), float32."""
+    closed = np.concatenate([pts, pts[:1]], axis=0)
+    seg = np.linalg.norm(np.diff(closed, axis=0), axis=1)
+    cum = np.concatenate([[0.0], np.cumsum(seg)])
+    t = np.linspace(0.0, max(cum[-1], 1e-9), n, endpoint=False)
+    return np.stack([np.interp(t, cum, closed[:, 0]), np.interp(t, cum, closed[:, 1])],
+                    axis=1).astype(np.float32)
 
 
 @dataclass
 class Sample:
     im_file: str
     cls: np.ndarray  # [n]
-    bboxes: np.ndarray  # detect: [n, 4] xywh normalized; obb: [n, 8] corners normalized
+    # detect, pose: [n, 4] xywh normalized; obb: [n, 8] corners normalized;
+    # segment: [n, 2 * SEG_POINTS] resampled polygon points normalized
+    bboxes: np.ndarray
     shape: Optional[Tuple[int, int]] = None  # (h, w) of the source image
-    kpts: Optional[np.ndarray] = None  # pose (not ported yet)
+    kpts: Optional[np.ndarray] = None  # pose: [n, nk, 3] normalized x, y and visibility
 
 
 def available_memory() -> int:
@@ -61,7 +78,7 @@ class YOLODataset:
     def __init__(self, data_cfg: Union[str, Path, Dict], split: str = "train",
                  task: str = "detect", cache: Optional[str] = None):
         if task not in TASKS:
-            raise NotImplementedError(f"task {task!r}: only {TASKS} are ported yet")
+            raise ValueError(f"task {task!r} is not one of {TASKS}")
         if isinstance(data_cfg, (str, Path)):
             cfg = load_data_cfg(data_cfg)
             cfg_dir = Path(data_cfg).resolve().parent
@@ -114,19 +131,30 @@ class YOLODataset:
 
     def _parse_rows(self, rows: List[List[float]]) -> tuple:
         """Label rows -> (cls, boxes, kpts): detect ``cls cx cy w h``; obb ``cls``
-        and 8 corner coordinates."""
+        and 8 corner coordinates; segment ``cls`` and a polygon; pose ``cls cx cy
+        w h`` and the keypoints (reference data/utils.py verify_image_label)."""
         cls = np.array([r[0] for r in rows], np.int32)
+        if self.task == "segment":
+            polys = [resample_polygon(np.array(r[1:], np.float32).reshape(-1, 2)) for r in rows]
+            return cls, np.stack(polys).reshape(len(rows), -1), None
         arr = np.array(rows, np.float32)
         if self.task == "obb":
             if arr.shape[1] != 9:
                 raise ValueError(f"OBB labels need 8 coords, got {arr.shape[1] - 1}")
             return cls, arr[:, 1:9], None
+        if self.task == "pose":
+            k = arr[:, 5:]
+            ndim = 3 if k.shape[1] % 3 == 0 else 2
+            k = k.reshape(len(rows), -1, ndim)
+            if ndim == 2:  # no visibility column: a labelled point is visible
+                k = np.concatenate([k, np.ones((*k.shape[:2], 1), np.float32)], axis=-1)
+            return cls, arr[:, 1:5], k
         return cls, arr[:, 1:5], None
 
     def _load_labels(self) -> List[Sample]:
         files = sorted(p for p in self.img_dir.rglob("*") if p.suffix.lower() in IMG_EXTS)
         samples = []
-        empty_dim = 8 if self.task == "obb" else 4
+        empty_dim = {"obb": 8, "segment": 2 * SEG_POINTS}.get(self.task, 4)
         for f in files:
             lp = self._label_path(f)
             rows = []
@@ -139,7 +167,8 @@ class YOLODataset:
             if rows:
                 cls, boxes, kpts = self._parse_rows(rows)
             else:
-                cls, boxes, kpts = np.zeros(0, np.int32), np.zeros((0, empty_dim), np.float32), None
+                cls, boxes = np.zeros(0, np.int32), np.zeros((0, empty_dim), np.float32)
+                kpts = np.zeros((0, 17, 3), np.float32) if self.task == "pose" else None
             samples.append(Sample(str(f), cls, boxes, kpts=kpts))
         return samples
 

@@ -1,14 +1,15 @@
 """YOLO model facade: the user-facing entry point (counterpart of the JAX
 package's ``engine/model.py``; reference engine/model.py Model :29).
 
-``YOLO("yolo11n-quan.yaml")`` (detect) or ``YOLO("yolo11n-obb-quan.yaml")``
-(OBB) then ``.train(...)`` / ``.val(...)`` /
+``YOLO("yolo11n-quan.yaml")`` (detect), ``YOLO("yolo11n-obb-quan.yaml")``
+(OBB), ``YOLO("yolo11n-seg-quan.yaml")`` (segment) or
+``YOLO("yolo11n-pose-quan.yaml")`` (pose) then ``.train(...)`` / ``.val(...)`` /
 ``.predict(...)``, on ``cuda`` unless ``device`` names another device (with
 no card and no ``device="cpu"`` it raises). Weights live in the port model;
 checkpoints are the JAX facade's pickled payload
 ``{model_yaml, nc, names, params, batch_stats, raw_params, step}`` with the
 weights in the flax layout (`utils.weights.export_jax_variables`), so each
-package reads the other's ``.pkl`` files. The detect and OBB tasks are ported.
+package reads the other's ``.pkl`` files.
 
 Where the JAX facade starts training from ``init(PRNGKey(seed))`` whatever
 it loaded, this one trains the weights it holds (the model's seeded draw, or
@@ -158,17 +159,19 @@ class YOLO:
     def val(self, data: Union[str, Dict], split: str = "val", imgsz: int = 640,
             batch: int = 8, conf: float = 0.001, iou: float = 0.7,
             save_json: Optional[str] = None, save_submission: Optional[str] = None,
-            cache: Optional[str] = None, rect: bool = False,
+            cache: Optional[str] = None, rect: bool = False, mask_native: bool = False,
             save_dir: Optional[str] = None) -> Dict[str, float]:
         """Validate on a split (reference Model.val); prints the per-class
         table and the confusion matrix as the reference's BaseValidator does.
-        rect: rectangular batches (detect only).
+        rect: rectangular batches (not OBB).
+        mask_native: segment only: masks scored at the input's resolution.
         save_dir: the per-class table as ``per_class.txt`` (the plots are not
         ported yet)."""
         ds = YOLODataset(data, split=split, task=self.task, cache=cache)
         validator = Validator(self.model, imgsz=imgsz, conf=conf, iou=iou)
         out = validator(ds, batch_size=batch, save_json=save_json,
-                        save_submission=save_submission, rect=rect, save_dir=save_dir)
+                        save_submission=save_submission, rect=rect, mask_native=mask_native,
+                        save_dir=save_dir)
         names = dict(enumerate(ds.names))
         print(validator.metrics.per_class_table(names))
         print(validator.confusion.summary(names=list(names.values())))

@@ -1,12 +1,14 @@
 """Predictor: uint8 frames -> Results (counterpart of the JAX
-``engine/predictor.py``, detect and OBB tasks).
+``engine/predictor.py``: the detect, OBB, segment and pose tasks).
 
 Every step after the upload runs on the model's device: letterbox, the
-/255 normalize, forward, decode (`decode_detect` or `decode_obb`), NMS
-(axis-aligned or rotated). The kept boxes come back to the host and are
-mapped to the source frame: xyxy boxes clipped to it, xywhr boxes
-regularized. A path (an image file or a directory of them) is read by
-`data.loaders.load_source`.
+/255 normalize, forward, decode (`decode_detect`, `decode_obb`,
+`decode_segment` or `decode_pose`), NMS (axis-aligned or rotated; the mask
+coefficients or keypoints ride along). Segment masks are assembled there
+too (`process_masks`). The kept boxes come back to the host and are
+mapped to the source frame: xyxy boxes and keypoints clipped to it, xywhr
+boxes regularized. A path (an image file or a directory of them) is read
+by `data.loaders.load_source`.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from quan_ultralytics_tpu_torch.data.augment import letterbox
 from quan_ultralytics_tpu_torch.data.loaders import load_source
@@ -28,14 +31,18 @@ from quan_ultralytics_tpu_torch.ops.boxes import (non_max_suppression, regulariz
 
 @dataclass
 class Results:
-    """Detections of one frame (reference engine/results.py:187, OBB :1596)
-    with the user-facing surface: verbose / save_txt / summary / tojson."""
+    """Detections of one frame (reference engine/results.py:187, OBB :1596,
+    Masks :1305, Keypoints :1417) with the user-facing surface: verbose /
+    save_txt / summary / tojson."""
 
     orig_shape: tuple
-    boxes: np.ndarray  # [n, 6]: xyxy, conf, cls (detect); [n, 7]: xywhr, conf, cls (OBB); source pixels
+    # [n, 6]: xyxy, conf, cls (detect, segment, pose); [n, 7]: xywhr, conf, cls (OBB); source pixels
+    boxes: np.ndarray
     names: Optional[List[str]] = None
     task: str = "obb"
     orig_img: Any = None  # the source frame as given (numpy array or tensor)
+    masks: Optional[np.ndarray] = None  # segment: [n, h0, w0] bool
+    keypoints: Optional[np.ndarray] = None  # pose: [n, nk, ndim], source pixels (and visibility)
 
     @property
     def xyxy(self) -> Optional[np.ndarray]:
@@ -81,8 +88,9 @@ class Results:
 
     def save_txt(self, txt_file: Union[str, Path], save_conf: bool = False) -> None:
         """Append the reference's label lines (results.py:620 Results.save_txt),
-        normalized by the frame's size: detect 'cls xc yc w h [conf]', OBB
-        'cls x1 y1 ... x4 y4 [conf]' (the four corners)."""
+        normalized by the frame's size: detect and segment 'cls xc yc w h
+        [conf]', OBB 'cls x1 y1 ... x4 y4 [conf]' (the four corners), pose
+        'cls xc yc w h' and 'x y vis' a keypoint, then '[conf]'."""
         h0, w0 = self.orig_shape
         corners = self._corners() if self.task == "obb" else None
         lines = []
@@ -93,6 +101,11 @@ class Results:
             else:
                 x1, y1, x2, y2 = row[:4]
                 vals = [(x1 + x2) / 2 / w0, (y1 + y2) / 2 / h0, (x2 - x1) / w0, (y2 - y1) / h0]
+            if self.keypoints is not None:
+                k = self.keypoints[i].astype(np.float64)
+                k[:, 0] /= w0
+                k[:, 1] /= h0
+                vals += k.reshape(-1).tolist()
             if save_conf:
                 vals.append(conf)
             lines.append(" ".join([str(c)] + [f"{v:.6g}" for v in vals]))
@@ -102,19 +115,25 @@ class Results:
 
     def summary(self, decimals: int = 5) -> List[Dict]:
         """List-of-dicts form (reference results.py:700): the box as x1 y1 x2 y2
-        (detect) or the four corners (OBB)."""
+        (detect, segment, pose) or the four corners (OBB); pose adds the
+        keypoints' x, y and visibility."""
         if self.task == "obb":
             keys, boxes = ("x1", "y1", "x2", "y2", "x3", "y3", "x4", "y4"), self._corners().reshape(-1, 8)
         else:
             keys, boxes = ("x1", "y1", "x2", "y2"), self.boxes[:, :4]
         out = []
-        for row, box in zip(self.boxes, boxes):
+        for i, (row, box) in enumerate(zip(self.boxes, boxes)):
             c = int(row[-1])
-            out.append({
+            item = {
                 "name": self._name(c), "class": c,
                 "confidence": round(float(row[-2]), decimals),
                 "box": {k: round(float(v), decimals) for k, v in zip(keys, box)},
-            })
+            }
+            if self.keypoints is not None:
+                k = self.keypoints[i]
+                item["keypoints"] = {name: [round(float(v), decimals) for v in k[:, j]]
+                                     for j, name in enumerate(("x", "y", "visible"))}
+            out.append(item)
         return out
 
     def tojson(self, decimals: int = 5) -> str:
@@ -122,8 +141,51 @@ class Results:
         return json.dumps(self.summary(decimals=decimals), indent=2)
 
 
+MASK_CHUNK = 32  # masks resized at a time: 32 frame-sized f32 masks at 1080p are 265 MB
+
+
+def process_masks(mc: torch.Tensor, proto: torch.Tensor, boxes: torch.Tensor, imgsz: int,
+                  orig: Tuple[int, int], ratio_pad: Tuple[float, int, int]) -> torch.Tensor:
+    """Masks of one frame's kept detections in its source pixels (the JAX
+    Predictor's ``_process_masks``; reference ops.process_mask + scale_masks):
+    ``sigmoid(mc @ proto)`` in f32 at proto resolution, cut to the letterbox's
+    content (its edges rounded half to even, as Python's ``round``), resized
+    bilinearly (half-pixel centres, as ``cv2.resize``'s INTER_LINEAR) to the
+    frame, above 0.5 and inside the box (truncated to whole pixels).
+
+    mc ``[n, nm]``, proto ``[Hp, Wp, nm]``, boxes ``[n, 4]`` xyxy source pixels,
+    ``orig`` ``(h0, w0)``, ``ratio_pad`` ``(r, dw, dh)``. Returns bool ``[n, h0, w0]``
+    on the device of ``proto``.
+    """
+    h0, w0 = orig
+    r, dw, dh = ratio_pad
+    n, dev = mc.shape[0], proto.device
+    out = torch.zeros((n, h0, w0), dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    Hp, Wp, nm = proto.shape
+    sy, sx = Hp / imgsz, Wp / imgsz
+    y0, y1 = max(int(round(dh * sy)), 0), max(int(round((dh + h0 * r) * sy)), 1)
+    x0, x1 = max(int(round(dw * sx)), 0), max(int(round((dw + w0 * r) * sx)), 1)
+    m = torch.sigmoid(mc.float().to(dev) @ proto.float().reshape(-1, nm).T).reshape(n, Hp, Wp)
+    crop = m[:, y0:y1, x0:x1]
+    b = boxes.to(dev)
+    xa, ya = b[:, 0].clamp(min=0).long(), b[:, 1].clamp(min=0).long()
+    xb, yb = b[:, 2].clamp(max=w0).long(), b[:, 3].clamp(max=h0).long()
+    xx = torch.arange(w0, device=dev)
+    yy = torch.arange(h0, device=dev)
+    for i in range(0, n, MASK_CHUNK):
+        j = slice(i, i + MASK_CHUNK)
+        full = F.interpolate(crop[None, j], size=(h0, w0), mode="bilinear", align_corners=False)[0]
+        keep = (((xx >= xa[j, None]) & (xx < xb[j, None]))[:, None, :]
+                & ((yy >= ya[j, None]) & (yy < yb[j, None]))[:, :, None])
+        out[j] = (full > 0.5) & keep
+    return out
+
+
 class Predictor:
-    """Detect or OBB prediction with a port `DetectionModel` on the model's device."""
+    """Prediction with a port `DetectionModel` on the model's device (the
+    detect, OBB, segment and pose tasks)."""
 
     def __init__(self, model: DetectionModel, imgsz: int = 640, conf: float = 0.25,
                  iou: float = 0.45, max_det: int = 300, names: Optional[List[str]] = None):
@@ -134,14 +196,18 @@ class Predictor:
 
     @torch.inference_mode()
     def infer(self, x: torch.Tensor):
-        """uint8 ``[B, H, W, 3]`` on the device -> (det ``[B, max_det, 6]``: xyxy,
-        conf, cls, or ``[B, max_det, 7]``: xywhr, conf, cls for OBB, in the
-        input's pixels; keep mask ``[B, max_det]``)."""
+        """uint8 ``[B, H, W, 3]`` on the device -> (det ``[B, max_det, 6 +
+        extra]``: xyxy, conf, cls and the segment task's mask coefficients or
+        the pose task's decoded keypoints, or ``[B, max_det, 7]``: xywhr, conf,
+        cls for OBB, in the input's pixels; keep mask ``[B, max_det]``; the
+        segment task's prototypes ``[B, Hp, Wp, nm]``, else None), as the JAX
+        package's jitted ``_infer``."""
         img = x.float() / 255.0
-        pred = self.model.decode(self.model(img))
-        return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
-                                   max_det=self.max_det, nc=self.model.nc,
-                                   rotated=self.model.task == "obb")
+        out = self.model(img)
+        det, ok = non_max_suppression(self.model.decode(out), conf_thres=self.conf, iou_thres=self.iou,
+                                      max_det=self.max_det, nc=self.model.nc,
+                                      rotated=self.model.task == "obb", extra_dim=self.model.extra_dim)
+        return det, ok, out[2] if self.model.task == "segment" else None
 
     def __call__(self, images: Union[str, Path, np.ndarray, torch.Tensor,
                                      Sequence[Union[np.ndarray, torch.Tensor]]]) -> List[Results]:
@@ -159,13 +225,15 @@ class Predictor:
             lb, r, (dw, dh) = letterbox(t, self.imgsz)
             batch.append(lb)
             meta.append((t.shape[0], t.shape[1], r, dw, dh))
-        det, ok = self.infer(torch.stack(batch))
+        det, ok, proto = self.infer(torch.stack(batch))
         det, ok = det.cpu(), ok.cpu()
 
-        task = self.model.task
+        task, extra = self.model.task, self.model.extra_dim
         results = []
         for b, (h0, w0, r, dw, dh) in enumerate(meta):
             d = det[b][ok[b]]
+            extras, d = d[:, d.shape[1] - extra:], d[:, :d.shape[1] - extra]
+            masks = keypoints = None
             if task == "obb":
                 d[:, 0] = (d[:, 0] - dw) / r
                 d[:, 1] = (d[:, 1] - dh) / r
@@ -174,5 +242,15 @@ class Predictor:
             else:  # xyxy, clipped to the frame (JAX predictor.py:283-285)
                 d[:, [0, 2]] = ((d[:, [0, 2]] - dw) / r).clamp(0, w0)
                 d[:, [1, 3]] = ((d[:, [1, 3]] - dh) / r).clamp(0, h0)
-            results.append(Results((h0, w0), d.numpy(), self.names, task, orig_img=images[b]))
+            if task == "segment":
+                with torch.inference_mode():
+                    masks = process_masks(extras, proto[b], d[:, :4], self.imgsz, (h0, w0),
+                                          (r, dw, dh)).cpu().numpy()
+            elif task == "pose":
+                k = extras.reshape(len(d), *self.model.kpt_shape).clone()
+                k[..., 0] = ((k[..., 0] - dw) / r).clamp(0, w0)
+                k[..., 1] = ((k[..., 1] - dh) / r).clamp(0, h0)
+                keypoints = k.numpy()
+            results.append(Results((h0, w0), d.numpy(), self.names, task, orig_img=images[b],
+                                   masks=masks, keypoints=keypoints))
         return results

@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optio
 import torch
 
 from quan_ultralytics_tpu_torch.losses.detect import LossHyp, detection_loss, obb_loss
+from quan_ultralytics_tpu_torch.losses.segpose import pose_loss, segmentation_loss
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, resolve_device
 from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
 
@@ -225,13 +226,16 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], updates: int
 
 
 class Trainer:
-    """The train step of detection models: the detect task (`detection_loss`)
-    and the OBB task (`obb_loss`), chosen by ``model.task``.
+    """The train step of detection models, its loss chosen by ``model.task``:
+    `detection_loss` (detect), `obb_loss` (OBB), `segmentation_loss` (segment)
+    and `pose_loss` (pose).
 
     A batch is a dict of ``img`` ``[B, H, W, 3]`` uint8 (divided by 255 in
     f32, then cast to the compute dtype) or float in [0, 1]; ``cls`` ``[B, M]``
-    int; ``bboxes`` ``[B, M, 4]`` normalized xywh (detect) or ``[B, M, 5]``
-    normalized xywhr (OBB); ``mask`` ``[B, M]`` bool.
+    int; ``bboxes`` ``[B, M, 4]`` normalized xywh (detect, segment, pose) or
+    ``[B, M, 5]`` normalized xywhr (OBB); ``mask`` ``[B, M]`` bool; segment
+    adds ``masks`` ``[B, M, H/4, W/4]`` (0/1, uint8 from the loader), pose
+    ``keypoints`` ``[B, M, nk, 3]``.
     Tensors or numpy arrays; they are moved to the model's device (a tensor
     already there is used as it is). Lists and strings (file names) are left out.
 
@@ -271,10 +275,16 @@ class Trainer:
         if img.dtype == torch.uint8:
             img = img.float() / 255.0
         self.model.train()
-        out = self.model(img.to(self.dtype))
-        loss_fn = obb_loss if self.model.task == "obb" else detection_loss
-        return loss_fn(out, b, self.model.strides, self.model.nc, self.model.reg_max,
-                       hyp=self.loss_hyp, assigner_bf16=self.cfg.assigner_bf16)
+        return self.head_loss(self.model(img.to(self.dtype)), b)
+
+    def head_loss(self, out, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The task's loss of the head's output ``out`` on a batch already on the device."""
+        m = self.model
+        kw = dict(hyp=self.loss_hyp, assigner_bf16=self.cfg.assigner_bf16)
+        if m.task == "pose":
+            return pose_loss(out, batch, m.strides, m.nc, m.kpt_shape, m.reg_max, **kw)
+        loss_fn = {"obb": obb_loss, "segment": segmentation_loss}.get(m.task, detection_loss)
+        return loss_fn(out, batch, m.strides, m.nc, m.reg_max, **kw)
 
     def step(self, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One micro-step: loss, gradients, and the optimizer and EMA update

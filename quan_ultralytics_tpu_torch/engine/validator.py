@@ -1,18 +1,22 @@
 """Validator: run a model over a labelled split and compute mAP, axis-aligned
-(detect) or rotated (OBB) (counterpart of the JAX package's
+(detect, segment, pose) or rotated (OBB), and the segment task's mask mAP
+and the pose task's OKS mAP (counterpart of the JAX package's
 ``engine/validator.py``).
 
 Per batch, one upload of the uint8 images (from pinned memory when the model
 is on the card) and one device pass, `Predictor.infer`'s: forward, decode
 and NMS under ``torch.inference_mode``; the kept detections come back to the
-host once. Matching, AP, the confusion matrix, COCO-style JSON and the DOTA
-Task1 files are host work, as in JAX (reference engine/validator.py
-BaseValidator, models/yolo/detect/val.py and obb/val.py).
+host once. The segment task's masks and their IoU are computed on the
+device, an image at a time (the prototypes stay there). Matching, AP, the
+confusion matrix, COCO-style JSON and the DOTA Task1 files are host work,
+as in JAX (reference engine/validator.py
+BaseValidator, models/yolo/detect/val.py, obb/val.py, segment/val.py and
+pose/val.py).
 
 The Validator runs on the device of the model's parameters; a model on the
-card is validated there. ``rect`` batches (detect only, as in JAX) are each
-letterboxed to their own stride-32 shape. The segment and pose tasks wait
-for ROADMAP Queue 1 item 6, the JAX ``mesh`` option for item 9.
+card is validated there. ``rect`` batches (not OBB, as in JAX) are each
+letterboxed to their own stride-32 shape. The JAX ``mesh`` option waits
+for ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -24,14 +28,26 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from quan_ultralytics_tpu_torch.data.build import build_dataloader
 from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
+from quan_ultralytics_tpu_torch.data.native import pixels
 from quan_ultralytics_tpu_torch.engine.dota_eval import DOTASubmission
 from quan_ultralytics_tpu_torch.engine.predictor import Predictor
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 from quan_ultralytics_tpu_torch.ops.boxes import scale_boxes, scale_rboxes, xywh2xyxy
-from quan_ultralytics_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
+from quan_ultralytics_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, kpt_oks_np, mask_iou_np
+
+
+def _crop_to_boxes(m: torch.Tensor, boxes: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
+    """Each mask ``[n, H, W]`` above 0.5 and inside its xyxy box scaled by (sx, sy)."""
+    H, W = m.shape[1:]
+    yy = torch.arange(H, device=m.device)[None, :, None]
+    xx = torch.arange(W, device=m.device)[None, None, :]
+    b = boxes[:, :, None, None]
+    inside = (xx >= b[:, 0] * sx) & (xx < b[:, 2] * sx) & (yy >= b[:, 1] * sy) & (yy < b[:, 3] * sy)
+    return (m > 0.5) & inside
 
 
 class Validator:
@@ -46,6 +62,37 @@ class Validator:
         self.infer = self.predictor.infer
         self.speed: Dict[str, float] = {}
 
+    def _mask_iou(self, batch, b: int, gmask: np.ndarray, mc: np.ndarray, proto: torch.Tensor,
+                  pred_boxes: np.ndarray, native: bool) -> Optional[np.ndarray]:
+        """Mask IoU ``[n_gt, n_pred]`` of image ``b`` (reference segment/val.py
+        _process_batch with masks), computed on the prototypes' device:
+        ``sigmoid(mc @ proto)`` in f32, then either at proto resolution against
+        the loader's masks (reference process_mask), or with ``native`` resized
+        bilinearly to the input's resolution against the polygons filled there
+        (reference process_mask_native; DEVIATIONS.md section 5); each mask cut
+        to its box. Only the IoU matrix comes back to the host (at 640 a batch's
+        300 masks an image are 491 MB in f32)."""
+        n_gt = int(gmask.sum())
+        if not (n_gt and len(mc)):
+            return None
+        Hb, Wb = batch["img"].shape[1:3]
+        Hp, Wp, nm = proto.shape
+        dev = proto.device
+        with torch.inference_mode():
+            prob = torch.sigmoid(torch.from_numpy(mc).to(dev) @ proto.float().reshape(-1, nm).T)
+            prob = prob.reshape(-1, Hp, Wp)
+            boxes = torch.from_numpy(pred_boxes).to(dev)
+            if native:
+                prob = F.interpolate(prob[None], size=(Hb, Wb), mode="bilinear", align_corners=False)[0]
+                gtm = np.zeros((n_gt, Hb, Wb), np.uint8)
+                for j, poly in enumerate(batch["polys"][b][:n_gt]):
+                    pixels.fill_polygons(gtm[j], [poly.astype(np.int32)])
+                pm = _crop_to_boxes(prob, boxes, 1.0, 1.0)
+            else:
+                gtm = batch["masks"][b][gmask]
+                pm = _crop_to_boxes(prob, boxes, Wp / Wb, Hp / Hb)
+            return mask_iou_np(torch.from_numpy(gtm).to(dev) > 0, pm).cpu().numpy()
+
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
@@ -58,8 +105,12 @@ class Validator:
 
     def __call__(self, ds: YOLODataset, batch_size: int = 8, max_labels: int = 256,
                  save_json: Optional[str] = None, save_submission: Optional[str] = None,
-                 rect: bool = False, save_dir: Optional[str] = None) -> Dict[str, float]:
-        """Validate on ``ds``; returns ``{mAP50, mAP50-95, precision, recall}``.
+                 rect: bool = False, mask_native: bool = False,
+                 save_dir: Optional[str] = None) -> Dict[str, float]:
+        """Validate on ``ds``; returns ``{mAP50, mAP50-95, precision, recall}``
+        of the boxes, and for the segment task ``mAP50(M)`` and ``mAP50-95(M)``
+        of the masks, for the pose task ``mAP50(P)`` and ``mAP50-95(P)`` by OKS
+        (with the ground truth's box area times 0.53 as its scale).
 
         save_json: COCO-style detections in source-image coordinates (reference
           detect/val.py pred_to_json): ``bbox`` ``[x1, y1, w, h]``, and the OBB
@@ -67,9 +118,12 @@ class Validator:
         save_submission: a DOTA Task1 directory (OBB only): patch predictions
           mapped back to their source image by the ``{stem}__{x}_{y}`` naming,
           merged with rotated NMS, written as ``Task1_{class}.txt`` (`DOTASubmission`).
-        rect: rectangular batches (detect only; reference data/base.py
+        rect: rectangular batches (not OBB; reference data/base.py
           set_rectangle): sorted by aspect ratio, each letterboxed to its own
           stride-32 shape; ground truths are scaled by the batch's width and height.
+        mask_native: segment only: score the masks at the network input's
+          resolution (upsampled, the ground truth filled from the letterboxed
+          polygons) instead of at the prototypes' (the default).
         save_dir: the per-class table as ``per_class.txt``. The curve and
           confusion-matrix images need matplotlib and are not written (their
           methods raise `NotImplementedError`).
@@ -84,7 +138,10 @@ class Validator:
             raise ValueError("rect batching is not supported for the OBB task")
         if save_submission and not rotated:
             raise ValueError("DOTA submissions are an OBB-task output")
+        task, n_extra = self.model.task, self.model.extra_dim
         metrics = DetMetrics(nc=self.model.nc, rotated=rotated)
+        # the second metric head: mask mAP (segment) or OKS mAP (pose)
+        metrics2 = DetMetrics(nc=self.model.nc) if task in ("segment", "pose") else None
         self.confusion = ConfusionMatrix(nc=self.model.nc)
         json_dets: Optional[List[Dict]] = [] if save_json else None
         submission = DOTASubmission(ds.names) if save_submission else None
@@ -103,7 +160,7 @@ class Validator:
                 if batch is None:
                     break
                 t1 = time.perf_counter()
-                det, ok = self.infer(self._upload(batch["img"]))
+                det, ok, proto = self.infer(self._upload(batch["img"]))
                 det, ok = det.float().cpu().numpy(), ok.cpu().numpy()
                 t2 = time.perf_counter()
                 Hb, Wb = batch["img"].shape[1:3]  # (imgsz, imgsz) unless rect
@@ -111,6 +168,7 @@ class Validator:
                 n_real = int(batch.get("n_real", det.shape[0]))
                 for b in range(min(det.shape[0], n_real)):
                     keep = ok[b]
+                    extras = det[b, keep, det.shape[2] - n_extra:]
                     gmask = batch["mask"][b]
                     gb = batch["bboxes"][b][gmask]  # normalized xywhr (OBB) or xywh
                     if rotated:
@@ -129,6 +187,19 @@ class Validator:
                     metrics.update(pred_boxes, conf, cls.astype(np.float32), gt_boxes, gt_cls)
                     self.confusion.process_batch(pred_boxes, conf, cls, gt_boxes, gt_cls,
                                                  rotated=rotated)
+                    if task == "segment":
+                        iou2 = self._mask_iou(batch, b, gmask, extras, proto[b], pred_boxes,
+                                              mask_native and "polys" in batch)
+                    elif task == "pose":
+                        gk = batch["keypoints"][b][gmask].astype(np.float32)
+                        gk[..., 0] *= Wb
+                        gk[..., 1] *= Hb
+                        area = np.maximum((gt_boxes[:, 2] - gt_boxes[:, 0])
+                                          * (gt_boxes[:, 3] - gt_boxes[:, 1]), 1.0) * 0.53
+                        pk = extras.reshape(-1, *self.model.kpt_shape)
+                        iou2 = kpt_oks_np(gk, area, pk) if len(gk) and len(pk) else None
+                    if metrics2 is not None:
+                        metrics2.update(pred_boxes, conf, cls.astype(np.float32), gt_boxes, gt_cls, iou=iou2)
                     stem = Path(batch["im_files"][b]).stem
                     if submission is not None:
                         submission.add_patch(stem, src_boxes, conf, cls)
@@ -160,6 +231,9 @@ class Validator:
         if submission is not None:
             submission.write(save_submission)
         out = metrics.compute()
+        if metrics2 is not None:
+            suffix = "(M)" if task == "segment" else "(P)"
+            out.update({f"{k}{suffix}": v for k, v in metrics2.compute().items() if k.startswith("mAP")})
         self.metrics = metrics
         if save_dir is not None:
             d = Path(save_dir)

@@ -18,7 +18,7 @@ import torch.nn as nn
 
 from quan_ultralytics_tpu_torch.models.conv import Conv, QConv2D
 from quan_ultralytics_tpu_torch.ops.kernels.qattn import qattention_fused, qattention_plain
-from quan_ultralytics_tpu_torch.ops.pooling import qmax_pool
+from quan_ultralytics_tpu_torch.ops.pooling import qmax_pool, qupsample
 
 
 def qconcat(xs: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
@@ -193,6 +193,25 @@ class QC2PSA(nn.Module):
         for i in range(self.n):
             b = getattr(self, f"m{i}")(b)
         return self.cv2(qconcat([a, b]))
+
+
+class Proto(nn.Module):
+    """Mask prototypes of the segment head (reference block.py:156-174, the JAX
+    package's design): Conv 3x3 -> nearest upsample x2 -> Conv 3x3 -> QER to
+    ``c2`` real channels. Returns ``[B, 2H, 2W, c2]``. The reference's
+    ConvTranspose path cannot take the 5-D quaternion tensors its own Conv
+    gives (broken upstream); this is the alternative its comment names."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32, **kw):
+        super().__init__()
+        from quan_ultralytics_tpu_torch.models.head import QER  # head imports this module
+
+        self.cv1 = Conv(c1, c_, 3, **kw)
+        self.cv2 = Conv(c_, c_, 3, **kw)
+        self.cv3 = QER(c_, c2, 1, dtype=kw.get("dtype"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(qupsample(self.cv1(x), 2, "nearest")))
 
 
 def dfl(x: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

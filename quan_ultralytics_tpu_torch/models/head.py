@@ -1,8 +1,10 @@
-"""Detection heads: QER extraction, Detect, OBB (counterpart of the JAX ``models/head.py``).
+"""Detection heads: QER extraction, Detect, OBB, Segment, Pose (counterpart of
+the JAX ``models/head.py``).
 
-The heads return raw per-level maps; decoding to boxes is the separate
-function `decode_obb` (or `decode_detect`), as in the JAX package.
-Submodule names follow its flax names (``cv2_0_0``, ``detect``, ``proj``, ...).
+The heads return raw per-level maps; decoding to boxes is a separate
+function (`decode_detect`, `decode_obb`, `decode_segment`, `decode_pose`),
+as in the JAX package. Submodule names follow its flax names (``cv2_0_0``,
+``detect``, ``proto``, ``proj``, ...).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from quan_ultralytics_tpu_torch.models.block import dfl
+from quan_ultralytics_tpu_torch.models.block import Proto, dfl
 from quan_ultralytics_tpu_torch.models.conv import Conv, DWConv
 from quan_ultralytics_tpu_torch.ops.boxes import dist2bbox, dist2rbox, make_anchors
 from quan_ultralytics_tpu_torch.ops.qconv import to_nchw
@@ -120,6 +122,56 @@ class OBB(nn.Module):
         return self.detect(xs), angles
 
 
+def _ceil4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+class Segment(nn.Module):
+    """Instance-segmentation head (reference head.py:263-285): Detect, a
+    `Proto` on P3, and per level a mask-coefficient branch cv4 = Conv, Conv,
+    QER -> nm raw coefficients. Returns ``(feats, mc, proto)``: ``proto``
+    ``[B, 2H3, 2W3, nm]`` real-valued, ``mc`` per level ``[B, H, W, nm]``."""
+
+    def __init__(self, nc: int, ch: Sequence[int], nm: int = 32, npr: int = 256,
+                 strides: Sequence[int] = (8, 16, 32), reg_max: int = 16, **kw):
+        super().__init__()
+        self.proto = Proto(ch[0], npr, nm, **kw)
+        c4 = max(ch[0] // 4, _ceil4(nm))  # quaternion-divisible
+        for i, c in enumerate(ch):
+            setattr(self, f"cv4_{i}_0", Conv(c, c4, 3, **kw))
+            setattr(self, f"cv4_{i}_1", Conv(c4, c4, 3, **kw))
+            setattr(self, f"cv4_{i}_2", QER(c4, nm, 1, dtype=kw.get("dtype")))
+        self.detect = Detect(nc, ch, strides, reg_max, **kw)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        proto = self.proto(xs[0])
+        mc = [getattr(self, f"cv4_{i}_2")(getattr(self, f"cv4_{i}_1")(getattr(self, f"cv4_{i}_0")(x)))
+              for i, x in enumerate(xs)]
+        return self.detect(xs), mc, proto
+
+
+class Pose(nn.Module):
+    """Keypoint head (reference head.py:357-392): Detect and per level cv4 =
+    Conv, Conv, QER -> nk * ndim raw keypoint maps. Returns ``(feats, kpts)``;
+    `decode_kpts` maps them to pixels."""
+
+    def __init__(self, nc: int, ch: Sequence[int], kpt_shape: Sequence[int] = (17, 3),
+                 strides: Sequence[int] = (8, 16, 32), reg_max: int = 16, **kw):
+        super().__init__()
+        nk = int(kpt_shape[0]) * int(kpt_shape[1])
+        c4 = max(ch[0] // 4, _ceil4(nk))
+        for i, c in enumerate(ch):
+            setattr(self, f"cv4_{i}_0", Conv(c, c4, 3, **kw))
+            setattr(self, f"cv4_{i}_1", Conv(c4, c4, 3, **kw))
+            setattr(self, f"cv4_{i}_2", QER(c4, nk, 1, dtype=kw.get("dtype")))
+        self.detect = Detect(nc, ch, strides, reg_max, **kw)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        kpts = [getattr(self, f"cv4_{i}_2")(getattr(self, f"cv4_{i}_1")(getattr(self, f"cv4_{i}_0")(x)))
+                for i, x in enumerate(xs)]
+        return self.detect(xs), kpts
+
+
 def flatten_levels(feats: Sequence[torch.Tensor]) -> torch.Tensor:
     """``[B, H, W, C]`` per level -> ``[B, sum(H W), C]``."""
     B = feats[0].shape[0]
@@ -152,3 +204,35 @@ def decode_obb(feats: Sequence[torch.Tensor], angles: Sequence[torch.Tensor],
     dist = dfl(x[..., :4 * reg_max], reg_max)
     boxes = dist2rbox(dist, ang, anchors[None]) * stride_t[None]
     return torch.cat([boxes, torch.sigmoid(x[..., 4 * reg_max:].float()), ang], dim=-1)
+
+
+def decode_segment(feats: Sequence[torch.Tensor], mc: Sequence[torch.Tensor], strides: Sequence[int],
+                   nc: int, reg_max: int = 16) -> torch.Tensor:
+    """Segment decode (reference head.py:276-285): the detect decode with the
+    mask coefficients appended, ``[B, A, 4 + nc + nm]`` f32; the masks are
+    ``sigmoid(mc @ proto)`` after NMS."""
+    return torch.cat([decode_detect(feats, strides, nc, reg_max), flatten_levels(mc).float()], dim=-1)
+
+
+def decode_kpts(kpts: Sequence[torch.Tensor], strides: Sequence[int],
+                kpt_shape: Sequence[int]) -> torch.Tensor:
+    """Keypoint decode (reference head.py:379-392): in f32, xy = (raw * 2 +
+    anchor - 0.5) * stride and visibility = sigmoid. Returns ``[B, A, nk, ndim]``
+    in input pixels."""
+    anchors, stride_t = _anchors(kpts, strides)
+    x = flatten_levels(kpts)
+    B, A, _ = x.shape
+    nk, ndim = kpt_shape
+    y = x.reshape(B, A, nk, ndim).float()
+    xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+    if ndim == 3:
+        return torch.cat([xy, torch.sigmoid(y[..., 2:3])], dim=-1)
+    return xy
+
+
+def decode_pose(feats: Sequence[torch.Tensor], kpts: Sequence[torch.Tensor], strides: Sequence[int],
+                nc: int, kpt_shape: Sequence[int] = (17, 3), reg_max: int = 16) -> torch.Tensor:
+    """Pose decode (reference head.py:369-377): the detect decode with the decoded
+    keypoints flattened on, ``[B, A, 4 + nc + nk * ndim]`` f32."""
+    k = decode_kpts(kpts, strides, kpt_shape)
+    return torch.cat([decode_detect(feats, strides, nc, reg_max), k.reshape(*k.shape[:2], -1)], dim=-1)

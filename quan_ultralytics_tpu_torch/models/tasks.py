@@ -119,6 +119,8 @@ def parse_model(cfg: Dict, scale: str, nc: Optional[int] = None) -> Tuple[List[L
             margs = []
             stride = in_stride[0]
         elif m in _HEADS:
+            if m == "Segment":  # width-scale the proto channels (reference tasks.py:1080)
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             margs = [*args, tuple(in_ch), tuple(in_stride)]
             c2 = 0
             stride = in_stride[0]
@@ -165,12 +167,19 @@ def build_layer(spec: LayerSpec, dtype: Optional[torch.dtype], mapping_type: str
     if m == "OBB":
         nc, ne, ch, strides = a
         return H.OBB(nc, ch, ne, strides, **kw)
+    if m == "Segment":
+        nc, nm, npr, ch, strides = a
+        return H.Segment(nc, ch, nm, npr, strides, **kw)
+    if m == "Pose":
+        nc, kpt_shape, ch, strides = a
+        return H.Pose(nc, ch, tuple(kpt_shape), strides, **kw)
     raise NotImplementedError(f"module {m!r} is not ported yet")
 
 
 class QUANYOLO(nn.Module):
     """The YOLO graph built from a layer-spec tuple. ``forward`` returns the
-    head output: per-level maps for Detect, ``(feats, angles)`` for OBB."""
+    head output: per-level maps for Detect, ``(feats, angles)`` for OBB,
+    ``(feats, mc, proto)`` for Segment, ``(feats, kpts)`` for Pose."""
 
     def __init__(self, specs: Sequence[LayerSpec], save: Sequence[int],
                  dtype: Optional[torch.dtype] = None, mapping_type: str = "poincare",
@@ -200,17 +209,19 @@ class QUANYOLO(nn.Module):
 
 class DetectionModel(QUANYOLO):
     """Task model: the graph plus its metadata (analog of reference nn/tasks.py
-    DetectionModel / OBBModel). Parameters are float32; ``dtype`` is the
-    activation dtype."""
+    DetectionModel / OBBModel / SegmentationModel / PoseModel). Parameters are
+    float32; ``dtype`` is the activation dtype."""
 
     def __init__(self, cfg: Dict, scale: str, nc: Optional[int] = None, **kw):
         specs, save, nc_ = parse_model(cfg, scale, nc)
         super().__init__(specs, save, **kw)
         self.cfg, self.scale, self.nc = cfg, scale, nc_
         head = specs[-1]
-        self.task = {"OBB": "obb"}.get(head.module, "detect")
+        self.task = {"OBB": "obb", "Segment": "segment", "Pose": "pose"}.get(head.module, "detect")
         self.strides = tuple(head.args[-1])
         self.reg_max = 16
+        # pose: (keypoints, values a keypoint)
+        self.kpt_shape = tuple(int(v) for v in head.args[1]) if self.task == "pose" else None
 
     @classmethod
     def from_yaml(cls, model: str = "yolo11n-obb-quan.yaml", nc: Optional[int] = None,
@@ -240,7 +251,21 @@ class DetectionModel(QUANYOLO):
         if self.task == "obb":
             feats, angles = out
             return H.decode_obb(feats, angles, self.strides, self.nc, self.reg_max)
+        if self.task == "segment":
+            feats, mc, _ = out
+            return H.decode_segment(feats, mc, self.strides, self.nc, self.reg_max)
+        if self.task == "pose":
+            feats, kpts = out
+            return H.decode_pose(feats, kpts, self.strides, self.nc, self.kpt_shape, self.reg_max)
         return H.decode_detect(out, self.strides, self.nc, self.reg_max)
+
+    @property
+    def extra_dim(self) -> int:
+        """Columns an anchor carries through NMS after the class scores: the
+        mask coefficients (segment) or the decoded keypoints (pose)."""
+        if self.task == "pose":
+            return self.kpt_shape[0] * self.kpt_shape[1]
+        return int(self.specs[-1].args[1]) if self.task == "segment" else 0
 
 
 def fused_1x1_sites(model: QUANYOLO, batch: int,

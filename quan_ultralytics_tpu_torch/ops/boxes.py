@@ -277,17 +277,20 @@ def non_max_suppression(
     max_nms: int = 30000,
     max_wh: float = 7680.0,
     agnostic: bool = False,
+    extra_dim: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-shape batched NMS (reference ops.py:181-333, best-class-only path).
 
     Args:
-      pred: ``[B, A, 4 + nc (+ 1)]`` decoded predictions: xywh boxes in pixels
-        and class scores (`decode_detect`), then the angle when ``rotated``
-        (`decode_obb`).
+      pred: ``[B, A, 4 + nc (+ 1) (+ extra_dim)]`` decoded predictions: xywh
+        boxes in pixels and class scores (`decode_detect`), then the angle when
+        ``rotated`` (`decode_obb`); the last ``extra_dim`` columns (mask
+        coefficients or decoded keypoints) ride through unchanged (reference
+        ops.py:181 ``nm``).
     Returns:
-      detections ``[B, max_det, 6]`` = (xyxy, conf, cls), or ``[B, max_det, 7]``
-      = (xywhr, conf, cls) when ``rotated``, zero rows past the valid count,
-      and the valid mask ``[B, max_det]``.
+      detections ``[B, max_det, 6 (+ extra_dim)]`` = (xyxy, conf, cls, extras),
+      or ``[B, max_det, 7]`` = (xywhr, conf, cls) when ``rotated``, zero rows
+      past the valid count, and the valid mask ``[B, max_det]``.
 
     The class offset ``cls * max_wh`` (up to 79 x 7680 = 606,720 px) is added
     in f32 whatever the boxes' dtype: bf16's step there is 4,096 px.
@@ -323,7 +326,11 @@ def non_max_suppression(
     sc, order = _top_k(final_score, k)
     rows = torch.gather(out_boxes, 1, order[..., None].expand(B, k, out_boxes.shape[-1]))
     cls_o = torch.gather(cls_t, 1, order).to(torch.float32)
-    det = torch.cat([rows, sc[..., None], cls_o[..., None]], dim=-1)
+    cols = [rows, sc[..., None], cls_o[..., None]]
+    if extra_dim:
+        extras = take(pred[..., pred.shape[-1] - extra_dim:])
+        cols.append(torch.gather(extras, 1, order[..., None].expand(B, k, extra_dim)))
+    det = torch.cat(cols, dim=-1)
     ok = sc > conf_thres
     det = torch.where(ok[..., None], det, torch.zeros_like(det))
     if k < max_det:  # pad to the fixed max_det rows

@@ -1,4 +1,5 @@
-"""Detection metrics: AP / mAP for axis-aligned and oriented boxes
+"""Detection metrics: AP / mAP for axis-aligned and oriented boxes, with mask
+IoU and keypoint OKS as the similarity of the segment and pose tasks
 (counterpart of the JAX package's ``utils/metrics.py``, its numeric part).
 
 Host-side NumPy re-implementation of the reference metric pipeline
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 # numpy 2 renamed trapz; the card's machine may have either
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
@@ -57,6 +59,38 @@ def _box_iou_np(b1: np.ndarray, b2: np.ndarray, eps: float = 1e-7) -> np.ndarray
 
 
 IOUV = np.linspace(0.5, 0.95, 10)
+
+# COCO keypoint OKS sigmas (reference utils/metrics.py OKS_SIGMA)
+OKS_SIGMA = np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62,
+                      1.07, 1.07, 0.87, 0.87, 0.89, 0.89], np.float32) / 10.0
+
+
+def mask_iou_np(gt_masks, pred_masks, eps: float = 1e-7):
+    """Binary mask IoU ``[N, H, W]`` x ``[M, H, W]`` -> ``[N, M]`` (reference
+    metrics.py mask_iou, as a product of the flattened masks in f32: the pixel
+    counts are exact below 2^24). numpy arrays, or torch tensors (the
+    Validator's, on the device)."""
+    def flat(m):
+        m = m.reshape(m.shape[0], -1)
+        return m.float() if isinstance(m, torch.Tensor) else m.astype(np.float32)
+
+    g, p = flat(gt_masks), flat(pred_masks)
+    inter = g @ p.T
+    return inter / (g.sum(1)[:, None] + p.sum(1)[None, :] - inter + eps)
+
+
+def kpt_oks_np(gt_kpts: np.ndarray, gt_area: np.ndarray, pred_kpts: np.ndarray,
+               sigmas: Optional[np.ndarray] = None, eps: float = 1e-7) -> np.ndarray:
+    """Object keypoint similarity ``[N, nk, 3]`` x ``[M, nk, >=2]`` -> ``[N, M]``
+    (reference metrics.py kpt_iou): ``exp(-d^2 / (2 area (2 sigma)^2))`` a
+    keypoint, averaged over the visible ones of the ground truth. The sigmas
+    are `OKS_SIGMA` for 17 keypoints and ``1 / nk`` otherwise."""
+    nk = gt_kpts.shape[1]
+    s = sigmas if sigmas is not None else (OKS_SIGMA if nk == 17 else np.full(nk, 1.0 / nk, np.float32))
+    d2 = ((gt_kpts[:, None, :, :2] - pred_kpts[None, :, :, :2]) ** 2).sum(-1)  # [N, M, nk]
+    vis = (gt_kpts[:, :, 2] > 0)[:, None, :]
+    e = d2 / (2.0 * (2.0 * s[None, None, :]) ** 2 * (gt_area[:, None, None] + eps))
+    return (np.exp(-e) * vis).sum(-1) / np.maximum(vis.sum(-1), 1)
 
 def match_predictions(pred_cls: np.ndarray, gt_cls: np.ndarray, iou: np.ndarray) -> np.ndarray:
     """Reference BaseValidator.match_predictions: for each IoU threshold,

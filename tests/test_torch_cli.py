@@ -607,3 +607,83 @@ def test_port_cli_runs_the_detect_task(tmp_path, monkeypatch, capsys):
         np.testing.assert_array_equal(saved[:, 0], c)
         tol = 1e-5 * np.maximum(1.0, np.abs(want)) + _tol(r.boxes[:, :4]) / min(h, w)
         assert (np.abs(saved[:, 1:] - want) <= tol).all(), i
+
+
+# ---------------------------------------------------------------- the segment and pose tasks
+
+
+def _write_segpose_set(root, task, seed=0):
+    """Seeded PNGs (longer side 64) in train and val: segment images labelled
+    with 1-4 polygons of 5-12 points, pose images with 1-3 figures of 17
+    keypoints (x, y, visibility). Returns the data yaml."""
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i, (h, w) in enumerate(SIZES):
+            imwrite_png(root / "images" / split / f"im{i}.png", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            rows = []
+            for _ in range(int(rng.integers(1, 5 if task == "segment" else 4))):
+                ctr, wh = rng.uniform(0.3, 0.7, 2), rng.uniform(0.1, 0.5, 2)
+                if task == "segment":
+                    t = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(5, 13))))
+                    vals = (ctr + np.stack([np.cos(t), np.sin(t)], 1) * wh / 2).reshape(-1)
+                    c = int(rng.integers(0, NC))
+                else:
+                    k = ctr + rng.uniform(-0.5, 0.5, (17, 2)) * wh
+                    vals = [*ctr, *wh, *np.concatenate([k, rng.integers(0, 3, (17, 1))], 1).reshape(-1)]
+                    c = 0
+                rows.append(" ".join([str(c)] + [f"{v:.6f}" for v in vals]))
+            (root / "labels" / split / f"im{i}.txt").write_text("\n".join(rows) + "\n")
+    names = ("person", "car", "dog") if task == "segment" else ("person",)
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n"
+                         + "".join(f"  {i}: {n}\n" for i, n in enumerate(names)))
+    return yaml_path
+
+
+@pytest.mark.parametrize("task", ["segment", "pose"])
+def test_port_cli_runs_the_segment_and_pose_tasks(task, tmp_path, monkeypatch, capsys):
+    """``segment|pose train`` without ``model=`` builds the task's default model
+    (yolo11n-seg-quan.yaml, yolo11n-pose-quan.yaml) and trains 2 epochs on the
+    CPU; ``val`` reports the box and the mask (M) or OKS (P) metrics; ``predict
+    save_txt=True`` of its best.pkl saves the lines of the JAX facade's
+    predictions from the same best.pkl: classes equal, the numbers (pose: the
+    keypoints' x, y and visibility too) within 1e-5 of max(1, |value|) (%.6g)
+    plus the decode tolerance over the frame's side."""
+    for k, v in tsettings.SETTINGS.items():  # no logger client is reached, whatever is installed
+        if v is True:
+            monkeypatch.setitem(tsettings.SETTINGS, k, False)
+    data = _write_segpose_set(tmp_path / "data", task)
+    run = tmp_path / "run"
+    assert tcli.main([task, "train", f"data={data}", "epochs=2", "batch=2", "imgsz=64",
+                      "close_mosaic=1", "device=cpu", f"save_dir={run}"]) == 0
+    out = capsys.readouterr().out
+    assert "epoch 0:" in out and "epoch 1:" in out
+    payload = read_checkpoint(run / "best.pkl")
+    assert payload["model_yaml"] == tcli.DEFAULT_MODELS[task] == {"segment": "yolo11n-seg-quan.yaml",
+                                                                  "pose": "yolo11n-pose-quan.yaml"}[task]
+    best = run / "best.pkl"
+    assert tcli.main([task, "val", f"model={best}", f"data={data}", "imgsz=64", "batch=4", "device=cpu"]) == 0
+    metrics = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    sfx = "(M)" if task == "segment" else "(P)"
+    assert set(metrics) == {"mAP50", "mAP50-95", "precision", "recall", f"mAP50{sfx}", f"mAP50-95{sfx}"}
+    src, pred = tmp_path / "data" / "images" / "val", tmp_path / "pred"
+    assert tcli.main([task, "predict", f"model={best}", f"source={src}", "imgsz=64", f"conf={CONF}",
+                      "save_txt=True", "save_conf=True", f"save_dir={pred}", "device=cpu"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("image ")]
+    ref = JaxYOLO(str(best)).predict(str(src), imgsz=IMGSZ, conf=CONF)
+    assert len(lines) == len(ref) == len(SIZES) and sum(len(r.boxes) for r in ref) > 0
+    for i, r in enumerate(ref):
+        saved = np.array((pred / "labels" / f"im{i}.txt").read_text().split(), np.float64)
+        h, w = r.orig_shape
+        x1, y1, x2, y2, conf, c = r.boxes.astype(np.float64).T
+        cols = [(x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h]
+        if task == "pose":
+            k = r.keypoints.astype(np.float64) / [w, h, 1.0]
+            cols += list(k.reshape(len(k), -1).T)
+        want = np.stack(cols + [conf], 1)
+        saved = saved.reshape(len(want), -1)
+        np.testing.assert_array_equal(saved[:, 0], c)
+        tol = 1e-5 * np.maximum(1.0, np.abs(want)) + _tol(r.boxes[:, :4]) / min(h, w)
+        assert (np.abs(saved[:, 1:] - want) <= tol).all(), i

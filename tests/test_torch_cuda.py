@@ -9,8 +9,11 @@ against the CPU, one epoch of ``Trainer.fit``, and the prefetcher's upload
 across changes of shape. Last the detect task (yolo11n-quan, nc = 80): K1
 and K2 at the N values of rect batches at 640, K3 at the detect model's
 sites at 640, the detect Predictor and Validator (rect off and on) on the
-card against the CPU, and one fit epoch. This file imports no JAX, so it runs on a
-machine that has a card and no JAX:
+card against the CPU, and one fit epoch; and the segment and pose tasks
+(yolo11n-seg-quan, nc = 80; yolo11n-pose-quan, nc = 1): their Predictor and
+Validator (masks at proto and input resolution, OKS) on the card against the
+CPU, one augmenting fit epoch each, and a train step at 640 (K2 at N = 400).
+This file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -388,7 +391,7 @@ def _kept(val, ds, device):
     out = []
     for batch in build_dataloader(ds, 4, 128, hyp=None, augment=False, shuffle=False, drop_last=False,
                                   with_meta=True):
-        det, ok = val.infer(torch.from_numpy(batch["img"]).to(device))
+        det, ok, _ = val.infer(torch.from_numpy(batch["img"]).to(device))
         out += [det[b][ok[b]].cpu().numpy() for b in range(batch["n_real"])]
     return out
 
@@ -622,3 +625,152 @@ def test_detect_fit_epoch_on_card(cuda, tmp_path):
     assert math.isfinite(history[0]["loss"]) and tr.opt.count == 3
     assert all(0 <= history[0][k] <= 1 for k in ("mAP50", "mAP50-95"))
     assert (tmp_path / "run" / "last.ckpt").exists() and (tmp_path / "run" / "best.ckpt").exists()
+
+
+# ---------------------------------------------------------------- the segment and pose tasks
+
+SEGPOSE = {"segment": ("yolo11n-seg-quan.yaml", 80), "pose": ("yolo11n-pose-quan.yaml", 1)}
+MASK_PIXEL_SHARE = 1e-3  # mask pixels that may flip at 0.5 between two summation orders
+
+
+def _segpose_set(root, task, n=6, sizes=((96, 128), (128, 96), (128, 128)), seed=0):
+    """n PNG images with 2-6 filled rectangles each, labelled as 8-point
+    polygons (segment, 80 classes) or as figures of 17 keypoints inside them,
+    mixed visibility (pose, one class)."""
+    rng = np.random.default_rng(seed)
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    nc = SEGPOSE[task][1]
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        im = np.full((h, w, 3), 40, np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(2, 7))):
+            bw, bh = rng.uniform(0.1, 0.4, 2)
+            cx, cy = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+            im[int((cy - bh / 2) * h):int((cy + bh / 2) * h), int((cx - bw / 2) * w):int((cx + bw / 2) * w)] = \
+                rng.integers(60, 256, 3)
+            if task == "segment":
+                t = np.arange(8) * np.pi / 4
+                vals = np.stack([cx + np.cos(t) * bw / 2, cy + np.sin(t) * bh / 2], 1).reshape(-1)
+            else:
+                k = np.stack([rng.uniform(cx - bw / 2, cx + bw / 2, 17), rng.uniform(cy - bh / 2, cy + bh / 2, 17),
+                              rng.integers(0, 3, 17)], 1)
+                vals = [cx, cy, bw, bh, *k.reshape(-1)]
+            lines.append(" ".join([str(rng.integers(0, nc))] + [f"{v:.6f}" for v in vals]))
+        imwrite_png(root / "images" / "val" / f"im{i}.png", im)
+        (root / "labels" / "val" / f"im{i}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "train": "images/val", "val": "images/val",
+            "names": {i: f"c{i}" for i in range(nc)}}
+
+
+@pytest.mark.parametrize("task", ["segment", "pose"])
+def test_segpose_predictor_and_validator_on_card_match_the_cpu(cuda, tmp_path, task):
+    """yolo11n-seg-quan (nc = 80) and yolo11n-pose-quan (nc = 1) in f32 on the
+    card (K1 on the CUDA cores, TF32 off) against the same weights on the CPU,
+    the QER biases drawn N(0, 1): the Predictor keeps the same boxes per frame
+    (xyxy, conf, cls within 1e-4 of max(1, |value|) of a row of the other), with
+    the matched row's keypoints within 1e-4 of max(1, |value|) or its mask
+    unequal on at most 1e-3 of the frame's pixels; the Validator (segment:
+    ``mask_native`` off and on) launches K1 once a batch and gives the CPU's
+    box and mask or OKS metrics within 1e-3."""
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.models.head import QER
+
+    name, nc = SEGPOSE[task]
+    cfg = _segpose_set(tmp_path, task)
+    model = DetectionModel.from_yaml(name, nc=nc, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, QER):
+                mod.proj.bias.copy_(torch.randn(mod.proj.bias.shape, generator=gen))
+    cpu = DetectionModel.from_yaml(name, nc=nc, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    frames = [imread(tmp_path / "images" / "val" / f"im{i}.png") for i in range(3)]
+    got, ref = (Predictor(m, imgsz=128, conf=0.05)(frames) for m in (model, cpu))
+    unequal = total = 0
+    for g, r in zip(got, ref):
+        assert len(g) == len(r) > 0 and g.boxes.shape[1] == 6
+        worst = (np.abs(g.boxes[:, None] - r.boxes[None]) / np.maximum(1.0, np.abs(r.boxes[None]))).max(-1)
+        assert worst.min(1).max() <= 1e-4 and worst.min(0).max() <= 1e-4
+        match = worst.argmin(1)
+        if task == "pose":
+            k = np.abs(g.keypoints - r.keypoints[match]) / np.maximum(1.0, np.abs(r.keypoints[match]))
+            assert k.max() <= 1e-4
+        else:
+            assert g.masks.shape == r.masks.shape and g.masks.any()
+            unequal += int((g.masks != r.masks[match]).sum())
+            total += g.masks.size
+    assert unequal <= MASK_PIXEL_SHARE * max(total, 1)
+    ds = YOLODataset(cfg, "val", task=task)
+    for native in ((False, True) if task == "segment" else (False,)):
+        before = qattn.launches_simt
+        metrics = Validator(model, imgsz=128)(ds, batch_size=4, mask_native=native)
+        assert qattn.launches_simt - before == 2  # one K1 launch a batch
+        ref_metrics = Validator(cpu, imgsz=128)(ds, batch_size=4, mask_native=native)
+        assert len(ref_metrics) == 6
+        for k in ref_metrics:
+            assert abs(metrics[k] - ref_metrics[k]) <= 1e-3, (native, k, metrics[k], ref_metrics[k])
+
+
+@pytest.mark.parametrize("task", ["segment", "pose"])
+def test_segpose_fit_epoch_on_card(cuda, tmp_path, task):
+    """One epoch of Trainer.fit of each model on the card in bf16 at 128 (K1 and
+    K2 every micro-step) through the augmenting loader (segment: mosaic; pose:
+    the photometric list, HSV and flips), validating the EMA weights: finite
+    loss, metrics in [0, 1], checkpoints written."""
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+
+    name, nc = SEGPOSE[task]
+    cfg = _segpose_set(tmp_path / "data", task)
+    ds = YOLODataset(cfg, "val", task=task)
+    model = DetectionModel.from_yaml(name, nc=nc, dtype=torch.bfloat16, device=cuda)
+    tr = Trainer(model, TrainConfig(batch=2, nbs=2, epochs=1, warmup_epochs=0), steps_per_epoch=3,
+                 device=cuda)
+    val = Validator(model, imgsz=128)
+
+    def validate(trainer):
+        with trainer.ema_weights():
+            return val(ds, batch_size=2)
+
+    k1, k2 = qattn.launches_stats, qattn.launches_bwd
+    history = tr.fit(lambda e: build_dataloader(ds, 2, 128, hyp=AugmentHyp(), augment=True, seed=e),
+                     validate, save_dir=tmp_path / "run", log=lambda s: None)
+    assert qattn.launches_stats - k1 == 3 and qattn.launches_bwd - k2 == 3
+    assert math.isfinite(history[0]["loss"]) and tr.opt.count == 3
+    assert all(0 <= history[0][k] <= 1 for k in history[0] if k.startswith("mAP"))
+    assert (tmp_path / "run" / "last.ckpt").exists() and (tmp_path / "run" / "best.ckpt").exists()
+
+
+@pytest.mark.parametrize("task", ["segment", "pose"])
+def test_segpose_train_step_at_640_runs_k2_at_n400_on_card(cuda, task):
+    """A bf16 train step of each model at 640 (batch 2): K1 with statistics and
+    K2 launch once, on N = 400 tokens at layer 10, and the loss and every
+    gradient are finite."""
+    name, nc = SEGPOSE[task]
+    model = DetectionModel.from_yaml(name, nc=nc, dtype=torch.bfloat16, device=cuda)
+    seen = []
+    for mod in model.modules():
+        if isinstance(mod, QAttention):
+            mod.register_forward_pre_hook(lambda _m, a: seen.append(a[0].shape[1] * a[0].shape[2]))
+    rng = np.random.default_rng(0)
+    M = 6
+    batch = {"img": rng.integers(0, 256, (2, 640, 640, 3), dtype=np.uint8),
+             "cls": rng.integers(0, nc, (2, M)).astype(np.int32),
+             "bboxes": np.concatenate([rng.uniform(0.3, 0.7, (2, M, 2)), rng.uniform(0.1, 0.3, (2, M, 2))],
+                                      -1).astype(np.float32),
+             "mask": np.ones((2, M), bool)}
+    if task == "segment":
+        masks = np.zeros((2, M, 160, 160), np.uint8)
+        masks[:, :, 40:120, 40:120] = 1
+        batch["masks"] = masks
+    else:
+        batch["keypoints"] = np.concatenate([rng.uniform(0.3, 0.7, (2, M, 17, 2)),
+                                             rng.integers(0, 3, (2, M, 17, 1))], -1).astype(np.float32)
+    tr = Trainer(model, TrainConfig(batch=2, nbs=2), steps_per_epoch=1, device=cuda)
+    k1, k2 = qattn.launches_stats, qattn.launches_bwd
+    loss, aux = tr.step(batch)
+    torch.cuda.synchronize()
+    assert qattn.launches_stats - k1 == 1 and qattn.launches_bwd - k2 == 1 and seen == [400]
+    assert math.isfinite(float(loss)) and float(aux["nan_skipped"]) == 0

@@ -345,8 +345,13 @@ def test_dataset_matches_jax(pad_only_set):
                 np.testing.assert_array_equal(a.cls, b.cls)
                 np.testing.assert_array_equal(a.bboxes, b.bboxes)
             np.testing.assert_array_equal(ours.shapes(), ref.shapes())
-    with pytest.raises(NotImplementedError, match="segment"):
-        YOLODataset(pad_only_set, task="segment")
+    # the segment task runs: these 8-value rows are 4-point polygons, resampled as the JAX package does
+    ours, ref = YOLODataset(pad_only_set, "val", task="segment"), JaxDataset(pad_only_set, "val", task="segment")
+    assert len(ours) == len(ref) == len(PAD_ONLY)
+    for a, b in zip(ours.samples, ref.samples):
+        np.testing.assert_array_equal(a.cls, b.cls)
+        np.testing.assert_array_equal(a.bboxes, b.bboxes)
+        assert a.bboxes.shape[1:] == (64,)
 
 
 @pytest.mark.parametrize("cache", [None, "ram", "disk"])

@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: it imports no JAX and nothing of the JAX
 package, its entry points refuse to run without a card unless asked for the
-CPU, and its config literal is the JAX package's YAML."""
+CPU, and its config literals are the JAX package's YAMLs."""
 
 import re
 import subprocess
@@ -81,8 +81,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     assert Trainer(model, TrainConfig(), steps_per_epoch=1, device="cpu").device.type == "cpu"
 
 
-def test_config_literal_equals_yaml():
-    cfg_dir = REPO / "quan_ultralytics_tpu" / "cfg" / "models"
-    for name, literal in MODELS.items():
-        with open(cfg_dir / name) as fh:
-            assert literal == yaml.safe_load(fh), name
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_config_literal_equals_yaml(name):
+    with open(REPO / "quan_ultralytics_tpu" / "cfg" / "models" / name) as fh:
+        assert MODELS[name] == yaml.safe_load(fh), name

@@ -125,7 +125,7 @@ def val_runs(tmp_path_factory):
     for batch in build_dataloader(tds, BATCH, IMGSZ, hyp=None, max_labels=256, augment=False,
                                   shuffle=False, drop_last=False, with_meta=True):
         jdet, jok, _ = jval._infer(v, jnp.asarray(batch["img"]))
-        tdet, tok = tval.infer(torch.from_numpy(batch["img"]))
+        tdet, tok, _ = tval.infer(torch.from_numpy(batch["img"]))
         for b in range(batch["n_real"]):
             dets.append((np.asarray(jdet)[b][np.asarray(jok)[b]], tdet[b][tok[b]].numpy()))
     return out, dets, tmp, tval
