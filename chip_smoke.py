@@ -118,13 +118,34 @@ Phases:
      plain and f32 K1 and plain (segment also f32 with ``mask_native``), and
      ``segment|pose train|val|predict`` in-process, saved labels held to the
      facade's predictions;
- 23. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 23. cls data: a CIFAR-10 folder in the python-pickle format (data_batch_1..5 and
+     test_batch, 256 images each, class-dependent colours and stripes) and an
+     ImageNet-layout folder of PNG images (4 classes x 48 train and x 16 val at
+     500 x 375, 375 x 500, 640 x 480 and 320 x 240, w x h), read back;
+ 24. cls cifar: Q-WRN-16-2 (BASELINE.json #1) through the classification CLI,
+     2 epochs at batch 128 in bf16 from the pickle folder, then ``--resume
+     last.pkl --epochs 3`` (epoch 2 alone); ms a step, img/s and the device's
+     busy share; one f32 step on the card against the same step on the CPU;
+ 25. cls imagenet: Q-ResNet-34 (``qrn34_imagenet``, nc 1000, BASELINE.json #2)
+     at 224 on the PNG folder through ClsTrainer and the folder loader, batch
+     64, bf16, 3 updates under each of poincare, hamilton, raw_normalized and
+     mean_brightness: finite losses, load and step ms, peak memory, top-1/5;
+ 26. cls yolo: QUAN-YOLO11n-cls (``yolo11n-cls-quan.yaml``, nc 1000) at 224,
+     batch 8, K1 (N = 49), K1+K3 (19 sites, the Classify conv channel-tiled at
+     Co = 320) and plain in bf16 and f32, launches counted and logits held to
+     plain (PRED_TOL); K1 at G = 256, N = 49 and K3 at the Classify site timed
+     alone; an f32 cross-entropy's gradients, K1 + K2 against plain attention;
+ 27. cls cli: ``classify train data=cifar10 data_dir=<the pickle folder>`` for
+     one epoch in this process;
+ 28. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
-     seg_val_native, seg_cli, pose_predict, pose_train, pose_fit, pose_val
-     and pose_cli; each kernel launched on each path that runs it; K1 and
-     K2 also timed at N = 400, 640's layer 10), then the result line.
+     seg_val_native, seg_cli, pose_predict, pose_train, pose_fit, pose_val,
+     pose_cli, cls_yolo, cls_yolo_fused and cls_yolo_grad; each kernel
+     launched on each path that runs it; K1 and K2 also timed at N = 400,
+     640's layer 10, and K1 at N = 49 and K3 at the Classify site), then the
+     result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -1643,9 +1664,10 @@ def phase_val(cfg, weights, out_dir: Path):
     return {"paths": res, "launches": res["bf16 K1+K3"]["launches"], "agree": agree, "ties": ties}
 
 
-def _cli(argv):
-    """``cli.main(argv)`` in this process (so the launch counters see it): its
-    exit code, standard output, seconds and launches."""
+def _cli(argv, main=None):
+    """``cli.main(argv)`` (or another entry point's ``main``) in this process (so
+    the launch counters see it): its exit code, standard output, seconds and
+    launches."""
     import contextlib
     import io
 
@@ -1656,15 +1678,15 @@ def _cli(argv):
     _reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(argv)
+        rc = (main or cli.main)(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = {**_counts(), "qattn_fwd_tensor_cores": qattn.launches_mma, "qattn_fwd_cuda_cores": qattn.launches_simt}
     text = out.getvalue()
     for line in text.splitlines():  # the epoch lines and the result; not the tables
-        if line.startswith(("epoch ", "{", "resumed")):
+        if line.startswith(("epoch ", "{", "resumed", "best top1")):
             print("cli:", line)
-    print(f"cli: {' '.join(argv[:2]) if argv[0] in ('obb', 'detect', 'segment', 'pose') else argv[0]}: "
+    print(f"cli: {' '.join(argv[:2])}: "
           f"exit {rc} in {secs:.1f} s; "
           f"launches {got}")
     check(rc == 0, f"cli {argv[:2]} exited {rc}")
@@ -2741,6 +2763,410 @@ def phase_segpose_cli(cfg, root: Path, task: str):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phases 23-27: classification
+
+# CIFAR-10's python-pickle layout, 256 images a file (the real files hold 10,000)
+CLS_CIFAR_PER_FILE = 256
+CLS_CIFAR_BATCH = 128  # the recipe's batch (BASELINE.json #1)
+CLS_CIFAR_EPOCHS = 2
+# ImageNet folder layout: 4 classes x 48 train (3 batches of 64) and x 16 val, at
+# frame sizes (h, w) of ImageNet photographs
+CLS_IN_SIZES = [(375, 500), (500, 375), (480, 640), (240, 320)]
+CLS_IN_CLASSES, CLS_IN_TRAIN, CLS_IN_VAL = 4, 48, 16
+CLS_IN_BATCH = 64
+CLS_IN_MAPPINGS = ("poincare", "hamilton", "raw_normalized", "mean_brightness")  # BASELINE.json #2
+CLS_IN_STEPS = 3
+CLS_YOLO = "yolo11n-cls-quan.yaml"
+CLS_YOLO_IMGSZ, CLS_YOLO_SITES = 224, 19  # QC2PSA at P5: 7 x 7 = 49 tokens; the Classify conv 64 -> 320
+
+
+def _cls_image(rng, h: int, w: int, c: int, n_classes: int) -> np.ndarray:
+    """A uint8 frame whose colour and stripe frequency follow its class ``c``, with noise."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.array([255 * c // max(n_classes - 1, 1), 128, 255 - 255 * c // max(n_classes - 1, 1)])
+    stripes = 60 * np.sin(xx * (c + 1) * np.pi / w)[..., None]
+    return np.clip(base + stripes + rng.integers(-30, 31, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def phase_cls_data(root: Path, seed: int = 4):
+    """A CIFAR-10 folder in the python-pickle format (``cifar-10-batches-py``:
+    data_batch_1..5 and test_batch, 32 x 32 x 3 uint8 rows, CLS_CIFAR_PER_FILE
+    images each, bytes keys) and an ImageNet-layout folder of PNG images
+    (``train/``, ``val/``, one folder a class) at CLS_IN_SIZES, both read back
+    through the port's loaders."""
+    import pickle
+
+    from quan_ultralytics_tpu_torch.classification.data import imagenet_folder_samples, load_cifar
+    from quan_ultralytics_tpu_torch.data.native.native import imwrite_png
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    cifar = root / "cifar" / "cifar-10-batches-py"
+    cifar.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        labels = rng.integers(0, 10, CLS_CIFAR_PER_FILE)
+        ims = np.stack([_cls_image(rng, 32, 32, int(c), 10) for c in labels])
+        with open(cifar / name, "wb") as fh:
+            pickle.dump({b"batch_label": name.encode(), b"labels": [int(c) for c in labels],
+                         b"data": ims.transpose(0, 3, 1, 2).reshape(len(ims), -1),
+                         b"filenames": [f"{name}_{i}.png".encode() for i in range(len(ims))]}, fh)
+    tx, ty, vx, vy = load_cifar(str(root / "cifar"), "cifar10")
+    check(tx.shape == (5 * CLS_CIFAR_PER_FILE, 32, 32, 3) and vx.shape == (CLS_CIFAR_PER_FILE, 32, 32, 3)
+          and tx.dtype == np.uint8 and set(ty) <= set(range(10)), f"CIFAR folder read as {tx.shape}, {vx.shape}")
+    imagenet = root / "imagenet"
+    for split, n in (("train", CLS_IN_TRAIN), ("val", CLS_IN_VAL)):
+        for c in range(CLS_IN_CLASSES):
+            (imagenet / split / f"n{c:08d}").mkdir(parents=True)
+            for i in range(n):
+                h, w = CLS_IN_SIZES[i % len(CLS_IN_SIZES)]
+                imwrite_png(imagenet / split / f"n{c:08d}" / f"im{i:03d}.png",
+                            _cls_image(rng, h, w, c, CLS_IN_CLASSES))
+    files, labels, classes = imagenet_folder_samples(str(imagenet), "train")
+    check(len(files) == CLS_IN_CLASSES * CLS_IN_TRAIN and len(classes) == CLS_IN_CLASSES,
+          f"ImageNet folder: {len(files)} files, {len(classes)} classes")
+    secs = time.perf_counter() - t0
+    print(f"cls data: CIFAR-10 pickles {tx.shape[0]} + {vx.shape[0]} images, ImageNet folder "
+          f"{len(files)} + {CLS_IN_CLASSES * CLS_IN_VAL} PNG at {CLS_IN_SIZES} (h, w), written in {secs:.1f} s")
+    return root / "cifar", imagenet, {"cifar_train": int(tx.shape[0]), "cifar_test": int(vx.shape[0]),
+                                      "imagenet_train": len(files), "imagenet_val": CLS_IN_CLASSES * CLS_IN_VAL,
+                                      "seconds": secs}
+
+
+def _tolerance_used(names, got, ref):
+    """(largest share of its limit, its leaf) over leaves: max abs error within
+    GRAD_TOL x max|leaf| + GRAD_TOL x 1e-3 x the largest |value| of any leaf."""
+    vmax = max(float(r.abs().max()) for r in ref)
+    used, used_name = 0.0, None
+    for name, a, r in zip(names, got, ref):
+        check(bool(torch.isfinite(a).all()), f"non-finite value of {name}")
+        lim = GRAD_TOL * float(r.abs().max()) + GRAD_TOL * 1e-3 * vmax
+        err = float((a - r).abs().max())
+        if err > used * lim:
+            used, used_name = err / lim, name
+    return used, used_name
+
+
+def _only_run(exp_dir: Path) -> Path:
+    runs = list(exp_dir.iterdir())
+    check(len(runs) == 1, f"{exp_dir}: {len(runs)} runs")
+    return runs[0]
+
+
+def phase_cls_cifar(cifar: Path, tmp: Path, tables=None, steps: int = 10):
+    """Q-WRN-16-2 (BASELINE.json #1: poincare, CIFAR-10 at 32, batch 128, bf16,
+    SGD-nesterov lr 0.1, wd 1e-4) through ``classification.cli.main``: 2 epochs
+    from the pickle folder (finite losses, top-1/top-5 in [0, 1], last.pkl and
+    best_model.pkl), then ``--resume last.pkl --epochs 3`` runs epoch 2 alone.
+    Then ms a step and img/s on the host clock over ``steps`` steps, the device's
+    busy share from torch.profiler, and one f32 step on the card against the same
+    step on the CPU (same weights and batch, TF32 off): loss within LOSS_TOL
+    relative, each parameter's and IQBN statistic's change within GRAD_TOL of
+    its max|change| (+ GRAD_TOL x 1e-3 of the largest change)."""
+    from quan_ultralytics_tpu_torch.classification.cli import main as cls_main
+    from quan_ultralytics_tpu_torch.classification.data import CIFAR10_MEAN, CIFAR10_STD, batches, load_cifar
+    from quan_ultralytics_tpu_torch.classification.train import ClsConfig, ClsTrainer
+
+    common = ["--model", "qwrn16_2", "--dataset", "cifar10", "--data_dir", str(cifar),
+              "--batch_size", str(CLS_CIFAR_BATCH)]
+    _, fit_s, launches = _cli(common + ["--epochs", str(CLS_CIFAR_EPOCHS), "--exp_dir", str(tmp / "cls_a")],
+                              cls_main)
+    run = _only_run(tmp / "cls_a")
+    rows = json.loads((run / "metrics.json").read_text())
+    check([r["epoch"] for r in rows] == list(range(CLS_CIFAR_EPOCHS)), f"cifar epochs {rows}")
+    check(all(math.isfinite(r["train_loss"]) and 0 <= r["top1"] <= r["top5"] <= 1 for r in rows),
+          f"cifar metrics {rows}")
+    check((run / "last.pkl").exists() and (run / "best_model.pkl").exists(), "cifar checkpoints missing")
+    _, resume_s, _ = _cli(common + ["--epochs", str(CLS_CIFAR_EPOCHS + 1), "--resume", str(run / "last.pkl"),
+                                    "--exp_dir", str(tmp / "cls_b")], cls_main)
+    resumed = json.loads((_only_run(tmp / "cls_b") / "metrics.json").read_text())
+    check([r["epoch"] for r in resumed] == [CLS_CIFAR_EPOCHS], f"resume ran epochs {[r['epoch'] for r in resumed]}")
+
+    tx, ty, _, _ = load_cifar(str(cifar), "cifar10")
+    batch = next(batches(tx, ty, CLS_CIFAR_BATCH, train=True, mean=CIFAR10_MEAN, std=CIFAR10_STD))
+    steps_per_epoch = len(tx) // CLS_CIFAR_BATCH
+    tr = ClsTrainer(ClsConfig(), steps_per_epoch, device=DEVICE)
+    for _ in range(3):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    prof = _device_profile(lambda: tr.train_step(batch), 3, f"qwrn16_2: 3 train steps, batch {CLS_CIFAR_BATCH} @ 32",
+                           tables)
+    busy = prof["device_ms"]
+    speed = {"step_ms": step_ms, "img_s": CLS_CIFAR_BATCH * 1e3 / step_ms, "device_ms": busy,
+             "device_ops": prof.get("device_ops"), "busy_share": busy / step_ms if busy is not None else None,
+             "top": prof.get("top")}
+    del tr
+
+    # one f32 step, card against CPU, from the same weights (the same seed) and batch
+    cfg32 = ClsConfig(dtype="float32")
+    res = []
+    for device in ("cpu", DEVICE):
+        tr = ClsTrainer(cfg32, steps_per_epoch, device=device)
+        before = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+        loss, _ = tr.train_step(batch)
+        res.append((float(loss), {k: v.detach().cpu() - before[k] for k, v in tr.model.state_dict().items()}))
+    (cpu_loss, cpu_d), (card_loss, card_d) = res
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    used, used_name = _tolerance_used(list(cpu_d), [card_d[n] for n in cpu_d], list(cpu_d.values()))
+    f32 = {"loss_card": card_loss, "loss_cpu": cpu_loss, "loss_rel_err": loss_rel, "tolerance_used": used,
+           "leaf": used_name}
+    out = {"fit_s": fit_s, "resume_s": resume_s, "metrics": rows, "launches": launches, "speed": speed,
+           "f32_card_vs_cpu": f32}
+    print(f"cls cifar: qwrn16_2 2 epochs {fit_s:.1f} s (top1 {rows[-1]['top1']:.4f}, top5 {rows[-1]['top5']:.4f}), "
+          f"resumed epoch 2 in {resume_s:.1f} s; a bf16 step {step_ms:.2f} ms ({speed['img_s']:.0f} img/s), "
+          + (f"device busy {busy:.2f} ms ({speed['busy_share']:.3f}) over {prof['device_ops']:.0f} ops"
+             if busy is not None else "device busy not measured")
+          + f"; f32 step card vs CPU: loss rel {loss_rel:.2e}, {used:.3f} of the tolerance ({used_name}); "
+          f"launches {launches}")
+    check(loss_rel <= LOSS_TOL, f"qwrn16_2 f32 loss, card vs CPU: rel err {loss_rel:.3e} > {LOSS_TOL}")
+    check(used <= 1.0, f"qwrn16_2 f32 update of {used_name}, card vs CPU: {used:.3f} of the tolerance")
+    return out
+
+
+def phase_cls_imagenet(imagenet: Path, tables=None):
+    """``qrn34_imagenet`` (BASELINE.json #2: Q-ResNet-34, base width 64, nc 1000) at
+    224 through ClsTrainer and the folder loader, batch 64, bf16: CLS_IN_STEPS
+    updates under each of poincare, hamilton, raw_normalized and mean_brightness
+    (finite losses), the loader's ms a batch, ms a step and img/s (host clock),
+    the peak device memory, eval top-1/top-5 on the val folder."""
+    from quan_ultralytics_tpu_torch.classification.data import imagenet_batches, imagenet_folder_samples
+    from quan_ultralytics_tpu_torch.classification.train import ClsConfig, ClsTrainer
+
+    tr_files, tr_labels, _ = imagenet_folder_samples(str(imagenet), "train")
+    va_files, va_labels, _ = imagenet_folder_samples(str(imagenet), "val")
+    out = {}
+    for i, mapping in enumerate(CLS_IN_MAPPINGS):
+        cfg = ClsConfig(model="qrn34_imagenet", dataset="imagenet", num_classes=1000, batch_size=CLS_IN_BATCH,
+                        mapping=mapping)
+        tr = ClsTrainer(cfg, len(tr_files) // CLS_IN_BATCH, device=DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        loader = imagenet_batches(tr_files, tr_labels, CLS_IN_BATCH, train=True, seed=i)
+        load_ms, step_ms, losses = [], [], []
+        for _ in range(CLS_IN_STEPS):
+            t0 = time.perf_counter()
+            batch = next(loader)
+            load_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            loss, _ = tr.train_step(batch)
+            losses.append(float(loss))
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        loader.close()
+        peak = torch.cuda.max_memory_allocated()
+        val = tr.evaluate(imagenet_batches(va_files, va_labels, CLS_IN_BATCH, train=False))
+        row = {"losses": losses, "load_ms": load_ms, "step_ms": step_ms,
+               "img_s": CLS_IN_BATCH * 1e3 / statistics.median(step_ms[1:]), "peak_bytes": peak, **val}
+        if mapping == CLS_IN_MAPPINGS[0]:
+            batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in batch.items()}
+            prof = _device_profile(lambda: tr.train_step(batch), 2, f"qrn34_imagenet: 2 train steps, batch "
+                                   f"{CLS_IN_BATCH} @ 224", tables)
+            row["device_ms"], row["device_ops"] = prof["device_ms"], prof.get("device_ops")
+            row["top"] = prof.get("top")
+        out[mapping] = row
+        print(f"cls imagenet [{mapping}]: losses {[round(v, 4) for v in losses]}; load {[round(v, 1) for v in load_ms]} "
+              f"ms a batch of {CLS_IN_BATCH}; step {[round(v, 1) for v in step_ms]} ms ({row['img_s']:.0f} img/s "
+              f"after the first); peak {peak / 2 ** 30:.2f} GiB; val top1 {val['top1']:.4f} top5 {val['top5']:.4f}"
+              + (f"; device busy {row['device_ms']:.2f} ms a step over {row['device_ops']:.0f} ops"
+                 if row.get("device_ms") is not None else ""))
+        check(all(math.isfinite(v) for v in losses), f"qrn34_imagenet {mapping}: losses {losses}")
+        check(0 <= val["top1"] <= val["top5"] <= 1, f"qrn34_imagenet {mapping}: {val}")
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cls_kernels_alone(gen):
+    """K1 at yolo11n-cls-quan's attention (G = 256, N = 49, dk = 2, dv = 4) and K3 at
+    its Classify conv (Ci = 64, Co = 320, P = 392), bf16 and f32, and K2 at K1's
+    shape in bf16, alone: each held to its plain version (qattn.FWD_TOL and BWD_TOL,
+    qconv_fused.K3_TOL) and timed behind the spin kernel, bf16 beside the plain
+    version, the library call and the bound."""
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+    from quan_ultralytics_tpu_torch.ops.mixing import MIX_MATRIX
+    from quan_ultralytics_tpu_torch.ops.qconv import fold_dense_kernel
+
+    dk, dv, heads, scale = 2, 4, 8, 2 ** -0.5
+    G, n = BATCH * 4 * heads, 49
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k = (torch.randn(BATCH, 4, heads, n, dk, generator=gen, device=DEVICE).to(dtype) for _ in range(2))
+        v = torch.randn(BATCH, 4, heads, n, dv, generator=gen, device=DEVICE).to(dtype)
+        err, rel, ok = qattn.kernel_error(qattn.qattention_fused(q, k, v, scale),
+                                          qattn.qattention_fwd_plain(q, k, v, scale), dtype, qattn.FWD_TOL)
+        check(ok, f"K1 at N = 49 {dtype}: max abs err {err:.3e}, mean rel {rel:.3e}")
+        ms = time_ms(lambda: qattn.qattention_fused(q, k, v, scale))[0]
+        row = {"max_abs_err": err, "mean_rel_err": rel, "ms": ms}
+        if dtype == torch.bfloat16:
+            b, by = bound_ms(G * n * (2 * dk + 2 * dv) * q.element_size(), G * n * n * (2 * dk + 2 * dv),
+                             G * n * n * 3, dtype)
+            row.update({"plain_ms": time_ms(lambda: qattn.qattention_fwd_plain(q, k, v, scale), iters=5)[0],
+                        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                            q, k, v, scale=scale))[0], "bound_ms": b, "bound_by": by})
+        timing[f"k1 {dtype}"] = row
+        if dtype == torch.bfloat16:  # K2 at the same shape, given K1's statistics (as phase_k2)
+            do = torch.randn(BATCH, 4, heads, n, dv, generator=gen, device=DEVICE).to(dtype)
+            stats = qattn.new_stats(q)
+            qattn.qattention_fwd(q, k, v, scale, stats)
+            got = qattn.qattention_bwd(q, k, v, do, scale, stats)
+            for name, a, r in zip(("dq", "dk", "dv"), got, qattn.qattention_bwd_plain(q, k, v, do, scale)):
+                err, rel, ok = qattn.kernel_error(a, r, dtype, qattn.BWD_TOL)
+                check(ok, f"K2 {name} at N = 49: max abs err {err:.3e}, mean rel {rel:.3e}")
+            b, by = bound_ms(G * n * (4 * dk + 3 * dv) * q.element_size() + G * n * 2 * 4,
+                             G * n * n * (6 * dk + 4 * dv), G * n * n * 6, dtype)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            with torch.enable_grad():
+                o = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+                library_ms = time_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True))[0]
+            timing["k2 torch.bfloat16"] = {
+                "ms": time_ms(lambda: qattn.qattention_bwd(q, k, v, do, scale, stats))[0],
+                "plain_ms": time_ms(lambda: qattn.qattention_bwd_plain(q, k, v, do, scale), iters=5)[0],
+                "library_ms": library_ms, "bound_ms": b, "bound_by": by}
+    ci, co, p = 64, 320, BATCH * 49
+    w = torch.randn(4, co, ci, 1, 1, generator=gen, device=DEVICE) / math.sqrt(4 * ci)
+    sc = torch.rand(4, co, generator=gen, device=DEVICE) + 0.5
+    sh = torch.randn(4, co, generator=gen, device=DEVICE) * 0.1
+    for dtype in (torch.bfloat16, torch.float32):
+        xk = torch.randn(BATCH, 7, 7, 4, ci, generator=gen, device=DEVICE).to(dtype)
+        err, _, ok = compare(qconv_fused.qconv1x1_fused(xk, w, sc, sh),
+                             qconv_fused.qconv1x1_fused_plain(xk, w, sc, sh), *qconv_fused.K3_TOL[dtype])
+        check(ok, f"K3 at the Classify site {dtype}: max abs err {err:.3e}")
+        row = {"max_abs_err": err, "ms": time_ms(lambda: qconv_fused.qconv1x1_fused(xk, w, sc, sh))[0]}
+        if dtype == torch.bfloat16:
+            dense = fold_dense_kernel(w, torch.tensor(MIX_MATRIX, device=DEVICE)).reshape(4 * co, 4 * ci)
+            dense = dense.t().to(dtype).contiguous()
+            x2 = xk.reshape(p, 4 * ci)
+            isz = xk.element_size()
+            b, by = bound_ms(p * 4 * (ci + co) * isz + 4 * ci * co * isz + 2 * 4 * co * 4, 2 * p * 4 * ci * co,
+                             p * 4 * co * 9, dtype)
+            row.update({"plain_ms": time_ms(lambda: qconv_fused.qconv1x1_fused_plain(xk, w, sc, sh))[0],
+                        "library_ms": time_ms(lambda: torch.matmul(x2, dense))[0], "bound_ms": b, "bound_by": by})
+        timing[f"k3 {dtype}"] = row
+    print(f"cls yolo kernels alone: K1 G={G} N=49 {timing['k1 torch.bfloat16']}, f32 {timing['k1 torch.float32']}; "
+          f"K2 {timing['k2 torch.bfloat16']}; "
+          f"K3 Ci=64 Co=320 P={p} {timing['k3 torch.bfloat16']}, f32 {timing['k3 torch.float32']}")
+    return timing
+
+
+def phase_cls_yolo(gen, tables=None, rounds: int = 5):
+    """QUAN-YOLO11n-cls (``yolo11n-cls-quan.yaml``, nc 1000, seeded weights) at 224,
+    batch 8, on the K1, K1+K3 and plain paths in bf16 and f32, each run's launches
+    counted from 0 (K1: 1, at N = 49; K3: the 19 fused sites, the Classify conv at
+    Ci 64, Co 320 among them); logits against the plain path within PRED_TOL
+    (max abs error over max|ref|). K1 at G = 256, N = 49 and K3 at the Classify
+    site timed alone (behind the spin kernel) beside their plain versions, the
+    library call and the bound; infer ms of each path in interleaved rounds. Then
+    an f32 cross-entropy through the model in train mode, K1 + K2 against plain
+    attention: loss within LOSS_TOL, each parameter's gradient within GRAD_TOL."""
+    from quan_ultralytics_tpu_torch.models.block import QAttention
+    from quan_ultralytics_tpu_torch.models.tasks import fused_1x1_sites
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    paths = {"K1": dict(), "K1+K3": dict(fused_1x1=True), "plain": dict(fused_attn=False)}
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 256, (BATCH, CLS_YOLO_IMGSZ, CLS_YOLO_IMGSZ, 3), dtype=np.uint8)).to(DEVICE)
+    x = x.float() / 255.0
+    out = {"launches": {}, "agree": {}, "attention_n": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        models = {p: seeded_model(dtype, model=CLS_YOLO, nc=1000, **kw) for p, kw in paths.items()}
+        sites = fused_1x1_sites(models["K1+K3"], BATCH, CLS_YOLO_IMGSZ)
+        check(len(sites) == CLS_YOLO_SITES and sites[-1] == (64, 320, BATCH * 49),
+              f"yolo-cls fused sites {len(sites)}, last {sites[-1]}")
+        hooks = [m.register_forward_pre_hook(lambda _m, a: out["attention_n"].append(a[0].shape[1] * a[0].shape[2]))
+                 for m in models["K1"].modules() if isinstance(m, QAttention)]
+        logits = {}
+        for p, model in models.items():
+            _reset_counts()
+            with torch.inference_mode():
+                logits[p] = model(x).float()  # the YOLO-cls forward, driven once
+            torch.cuda.synchronize()
+            counts = _counts()
+            own = (qattn.launches_mma, qconv_fused.launches_mma) if dtype == torch.bfloat16 else (
+                qattn.launches_simt, qconv_fused.launches_simt)
+            expect = {"K1": (1, 0), "K1+K3": (1, CLS_YOLO_SITES), "plain": (0, 0)}[p]
+            out["launches"][f"{p} {dtype}"] = counts
+            print(f"cls yolo [{p} {dtype}]: launches {counts}, on the {dtype}'s cores {own} (expected {expect})")
+            check(own == expect and counts == {"qattn_fwd": own[0], "qattn_fwd_with_stats": 0, "qattn_bwd": 0,
+                                               "qconv1x1_fused": own[1]},
+                  f"yolo-cls [{p} {dtype}]: launches {counts}, {own} != {expect}")
+            check(logits[p].shape == (BATCH, 1000) and bool(torch.isfinite(logits[p]).all()),
+                  f"yolo-cls [{p} {dtype}]: logits {tuple(logits[p].shape)}")
+        for h in hooks:
+            h.remove()
+        ref = logits["plain"]
+        for p in ("K1", "K1+K3"):
+            rel = float((logits[p] - ref).abs().max()) / float(ref.abs().max())
+            agree = (logits[p].argmax(-1) == ref.argmax(-1)).float().mean().item()
+            out["agree"][f"{p} {dtype}"] = {"logits_rel_err": rel, "top1_agree": agree}
+            print(f"cls yolo [{p} vs plain, {dtype}]: logits max abs err / max|ref| {rel:.3e}, top-1 equal on "
+                  f"{agree:.3f} of the batch")
+            check(rel <= PRED_TOL[dtype], f"yolo-cls [{p} {dtype}]: logits {rel:.3e} > {PRED_TOL[dtype]}")
+        if dtype == torch.bfloat16:
+            for m in models.values():  # warm up
+                with torch.inference_mode():
+                    m(x)
+            times = {p: [] for p in models}
+            order = list(models)
+            for r in range(rounds):
+                for p in (order if r % 2 == 0 else order[::-1]):
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        for _ in range(3):
+                            models[p](x)
+                    torch.cuda.synchronize()
+                    times[p].append(1e3 * (time.perf_counter() - t0) / 3)
+            out["infer_ms"] = {p: statistics.median(t) for p, t in times.items()}
+            out["infer_ms_rounds"] = times
+            with torch.inference_mode():
+                prof = _device_profile(lambda: models["K1+K3"](x), 3, f"yolo-cls K1+K3: 3 forwards, batch {BATCH} "
+                                       f"@ {CLS_YOLO_IMGSZ}", tables)
+            out["device"] = {k: prof.get(k) for k in ("device_ms", "device_ops", "kernel_device_ms")}
+            print(f"cls yolo: forward ms a batch of {BATCH} (host clock, median of {rounds}) {out['infer_ms']}; "
+                  f"K1+K3 device {out['device']}")
+        del models
+    check(set(out["attention_n"]) == {49}, f"yolo-cls attention N {set(out['attention_n'])}")
+
+    with torch.no_grad():
+        out["timing"] = _cls_kernels_alone(gen)
+
+    # f32 gradients of a cross-entropy through the model, K1 + K2 against plain attention
+    labels = torch.from_numpy(rng.integers(0, 1000, BATCH)).to(DEVICE)
+    grads = {}
+    for p, kw in (("plain", dict(fused_attn=False)), ("fused", dict())):
+        model = seeded_model(torch.float32, model=CLS_YOLO, nc=1000, **kw).train()
+        _reset_counts()
+        loss = torch.nn.functional.cross_entropy(model(x), labels)
+        names, params = zip(*model.named_parameters())
+        gs = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        grads[p] = (loss.item(), names, gs, _counts())
+    (pl, names, ref, _), (fl, _, got, counts) = grads["plain"], grads["fused"]
+    used, used_name = _tolerance_used(names, got, ref)
+    loss_rel = abs(fl - pl) / abs(pl)
+    out["grad"] = {"loss_plain": pl, "loss_fused": fl, "loss_rel_err": loss_rel, "tolerance_used": used,
+                   "leaf": used_name, "launches": counts}
+    print(f"cls yolo f32 gradients, K1 + K2 vs plain attention: loss rel {loss_rel:.2e}, {used:.3f} of the "
+          f"tolerance ({used_name}); launches {counts}")
+    check(counts["qattn_fwd_with_stats"] == 1 and counts["qattn_bwd"] == 1, f"yolo-cls grad launches {counts}")
+    check(loss_rel <= LOSS_TOL, f"yolo-cls f32 loss, fused vs plain: rel {loss_rel:.3e}")
+    check(used <= 1.0, f"yolo-cls f32 gradient of {used_name}: {used:.3f} of the tolerance")
+    qkv = next(a for n_, a in zip(names, got) if n_.endswith("attn.qkv.w"))
+    check(float(qkv.abs().max()) > 0, "yolo-cls: no gradient reached the attention's qkv")
+    return out
+
+
+def phase_cls_cli(cifar: Path, tmp: Path):
+    """``yolo-torch classify train data=cifar10 data_dir=<the pickle folder>``, one
+    epoch of Q-WRN-16-2 at batch 128, in this process: exit 0, metrics.json."""
+    _, secs, launches = _cli(["classify", "train", "data=cifar10", f"data_dir={cifar}", "epochs=1",
+                              f"batch={CLS_CIFAR_BATCH}", "model=qwrn16_2", f"exp_dir={tmp / 'cls_cli'}"])
+    rows = json.loads((_only_run(tmp / "cls_cli") / "metrics.json").read_text())
+    check([r["epoch"] for r in rows] == [0] and math.isfinite(rows[0]["train_loss"]), f"classify cli rows {rows}")
+    return {"seconds": secs, "launches": launches, "metrics": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
@@ -2807,6 +3233,12 @@ def main() -> int:
             sp_cli = phase_segpose_cli(sp_cfg, Path(tmp), task)
             segpose[task] = {"data": sp_data, "predict": sp_predict, "train": sp_train, "fit": sp_fit,
                              "val": sp_val, "cli": sp_cli}
+        cifar, imagenet, cls_data = phase_cls_data(Path(tmp) / "cls")
+        cls_cifar = phase_cls_cifar(cifar, Path(tmp), tables)
+        cls_imagenet = phase_cls_imagenet(imagenet, tables)
+        cls_yolo = phase_cls_yolo(gen, tables)
+        cls_cli = phase_cls_cli(cifar, Path(tmp))
+    classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
     if args.profile:
@@ -2818,7 +3250,8 @@ def main() -> int:
              "agree": agree, "speed": speed, "device": share, "train": train_out,
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
-             "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose}, indent=1, default=str))
+             "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose, "classify": classify},
+            indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
     on_path = share["K1+K3"]["kernel_device_ms"]  # device ms per forward, from the profiler
@@ -2852,6 +3285,15 @@ def main() -> int:
             check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
         if path.endswith(("_predict", "_val")):
             check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the classification paths: K1 on the YOLO-cls forward, K3 on its fused_1x1 run, K2 under its gradient check
+    det_launches.update({"cls_yolo": cls_yolo["launches"]["K1 torch.bfloat16"],
+                         "cls_yolo_fused": cls_yolo["launches"]["K1+K3 torch.bfloat16"],
+                         "cls_yolo_grad": cls_yolo["grad"]["launches"]})
+    for path in ("cls_yolo", "cls_yolo_fused", "cls_yolo_grad"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+    check(det_launches["cls_yolo_fused"]["qconv1x1_fused"] > 0, "K3 did not launch on cls_yolo_fused")
+    check(det_launches["cls_yolo_grad"]["qattn_bwd"] > 0, "K2 did not launch on cls_yolo_grad")
+    cls_t = cls_yolo["timing"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:60",
@@ -2863,6 +3305,8 @@ def main() -> int:
          "max_abs_err": k1_err,
          "kernel_ms": k1_t["ms"], **k1_t, "path_device_ms": on_path["qattn_fwd_"],
          "train_device_ms": on_train["qattn_fwd_"],
+         # yolo11n-cls-quan at 224: G = 256, N = 49, alone
+         "cls_n49": {"bf16": cls_t["k1 torch.bfloat16"], "f32_ms": cls_t["k1 torch.float32"]["ms"]},
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
          "library": "torch.nn.functional.scaled_dot_product_attention"},
         {"name": "qattn_bwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_bwd.cu",
@@ -2877,6 +3321,7 @@ def main() -> int:
          # device ms a micro-step on the segment and pose train paths at 640 (N = 400), from the profiler
          "train_640_device_ms": {t: segpose[t]["train"]["device"].get("kernel_device_ms", {}).get("qattn_bwd_")
                                  for t in segpose},
+         "cls_n49": {"bf16": cls_t["k2 torch.bfloat16"]},
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
          "library": "torch.autograd.grad of torch.nn.functional.scaled_dot_product_attention "
                     "(retained graph)"},
@@ -2893,6 +3338,8 @@ def main() -> int:
                               **{k: v["qconv1x1_fused"] for k, v in det_launches.items()}},
          "max_abs_err": k3_err,
          "kernel_ms": k3_t["ms"], **k3_t, "path_device_ms": on_path["qconv1x1_"],
+         # yolo11n-cls-quan's Classify conv alone: Ci = 64, Co = 320 (channel tiles), P = 392
+         "cls_classify_site": {"bf16": cls_t["k3 torch.bfloat16"], "f32_ms": cls_t["k3 torch.float32"]["ms"]},
          "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
                   "times summed",
          "library": "torch.matmul with the mixing folded into the weights, no affine or SiLU "
@@ -2925,6 +3372,12 @@ def main() -> int:
         "fit": {k: v for k, v in sp["fit"].items() if k != "history"},
         "val": {name: {"metrics": r["metrics"], "speed": r["speed"]} for name, r in sp["val"]["paths"].items()},
         "val_agree": sp["val"]["agree"], "cli": sp["cli"]} for task, sp in segpose.items()}}))
+    print(json.dumps({"classify": {
+        "data": cls_data, "cifar": {k: v for k, v in cls_cifar.items() if k != "metrics"},
+        "cifar_metrics": cls_cifar["metrics"][-1],
+        "imagenet": {m: {k: v for k, v in r.items() if k != "top"} for m, r in cls_imagenet.items()},
+        "yolo": {k: v for k, v in cls_yolo.items() if k not in ("infer_ms_rounds", "attention_n")},
+        "cli": {k: v for k, v in cls_cli.items() if k != "metrics"}}}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

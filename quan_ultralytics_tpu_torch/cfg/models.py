@@ -79,6 +79,20 @@ YOLO11_POSE_QUAN = {
     ],
 }
 
+# QUAN-YOLO11-cls (quaternion backbone + the working Classify head), the JAX
+# package's cfg/models/yolo11-cls-quan.yaml: no QSPPF, QC2PSA at layer 9.
+YOLO11_CLS_QUAN = {
+    "nc": 1000,
+    "scales": YOLO11_OBB_QUAN["scales"],
+    "backbone": YOLO11_OBB_QUAN["backbone"][:9] + [
+        [-1, 2, "QC2PSA", [1024]],             # 9
+    ],
+    "head": [
+        [-1, 1, "Classify", ["nc"]],           # 10
+    ],
+}
+
 # base file name (scale letter removed) -> configuration
 MODELS = {"yolo11-obb-quan.yaml": YOLO11_OBB_QUAN, "yolo11-quan.yaml": YOLO11_QUAN,
-          "yolo11-seg-quan.yaml": YOLO11_SEG_QUAN, "yolo11-pose-quan.yaml": YOLO11_POSE_QUAN}
+          "yolo11-seg-quan.yaml": YOLO11_SEG_QUAN, "yolo11-pose-quan.yaml": YOLO11_POSE_QUAN,
+          "yolo11-cls-quan.yaml": YOLO11_CLS_QUAN}

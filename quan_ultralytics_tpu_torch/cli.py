@@ -7,15 +7,21 @@
     python -m quan_ultralytics_tpu_torch.cli obb predict model=runs/train/best.pkl source=img.png
     python -m quan_ultralytics_tpu_torch.cli segment val model=runs/train/best.pkl data=coco.yaml
     python -m quan_ultralytics_tpu_torch.cli pose train data=coco-pose.yaml epochs=10
+    python -m quan_ultralytics_tpu_torch.cli classify train data=cifar10 data_dir=data model=qwrn16_2
     python -m quan_ultralytics_tpu_torch.cli settings [reset | k=v ...]
 
 (installed as ``yolo-torch``). It runs on ``cuda`` unless ``device=`` names
 another device (``device=cpu``); with no card and no ``device=cpu`` it exits
 non-zero. The task may be omitted; without ``model=`` the task's default
 model is built (``yolo11n-quan.yaml`` for detect, ``yolo11n-seg-quan.yaml``
-for segment, ``yolo11n-pose-quan.yaml`` for pose). The detect, OBB, segment
-and pose tasks are ported; the export, track, tune and benchmark modes and
-the classify task are not yet.
+for segment, ``yolo11n-pose-quan.yaml`` for pose). ``classify`` trains only
+(it validates every epoch) through the classification CLI
+(`classification.cli`), as the JAX CLI routes it: ``data=cifar10|cifar100|
+svhn|imagenet|synthetic`` names the dataset and ``data=<folder>`` an
+ImageNet-layout folder; ``batch`` is ``--batch_size``, ``lr0`` ``--lr``, and
+every other key passes as its flag. The detect, OBB, segment, pose and
+classify tasks are ported; the export, track, tune and benchmark modes are
+not yet.
 """
 
 from __future__ import annotations
@@ -51,6 +57,29 @@ def parse_kv(argv) -> Dict[str, Any]:
     return out
 
 
+def classify_flags(kv: Dict[str, Any]) -> list:
+    """yolo-style ``k=v`` keys -> the classification CLI's flags: ``data=NAME``
+    -> ``--dataset NAME``, ``data=<folder>`` -> ``--dataset imagenet --data_dir
+    <folder>``, ``batch`` -> ``--batch_size``, ``lr0`` -> ``--lr``, ``k=True`` ->
+    ``--k``, any other ``k=v`` -> ``--k v``."""
+    from quan_ultralytics_tpu_torch.classification.cli import DATASET_CLASSES
+
+    rename = {"batch": "batch_size", "lr0": "lr"}
+    flags = []
+    for k, v in kv.items():
+        if k == "data":
+            if str(v) in DATASET_CLASSES:
+                flags += ["--dataset", str(v)]
+            elif Path(str(v)).is_dir():
+                flags += ["--dataset", "imagenet", "--data_dir", str(v)]
+            else:
+                raise SystemExit(f"classify data must be a known dataset or folder, got {v!r}")
+            continue
+        k = rename.get(k, k)
+        flags += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return flags
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     task = None
@@ -78,9 +107,15 @@ def main(argv=None) -> int:
         print(json.dumps(dict(SETTINGS), indent=2))
         return 0
     kv = parse_kv(argv)
-    if mode in NOT_PORTED or task == "classify":
+    if mode in NOT_PORTED:
         what = f"{task} {mode}" if task else mode
         raise SystemExit(f"yolo {what}: not ported yet to the PyTorch package (ROADMAP Queue 1 item 3b)")
+    if task == "classify":
+        if mode != "train":
+            raise SystemExit("classify supports mode=train (val runs every epoch)")
+        from quan_ultralytics_tpu_torch.classification.cli import main as cls_main
+
+        return cls_main(classify_flags(kv))
     from quan_ultralytics_tpu_torch.cfg import validate_overrides
 
     try:

@@ -49,6 +49,16 @@ class AugmentHyp:
     copy_paste: float = 0.0
 
 
+def resize_linear(im: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of a uint8 ``[h, w, 3]`` frame to ``size = (H, W)``
+    (``cv2.resize``'s INTER_LINEAR sampling: half-pixel centres, no
+    antialias), rounded back to uint8: within one gray level of OpenCV's
+    11-bit fixed-point result."""
+    t = im.permute(2, 0, 1)[None].float()
+    t = F.interpolate(t, size=size, mode="bilinear", align_corners=False, antialias=False)
+    return t[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
+
+
 def letterbox(im: torch.Tensor, new_shape: Union[int, Tuple[int, int]], scaleup: bool = True,
               center: bool = True) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
     """Resize and pad a uint8 ``[h, w, 3]`` frame to ``new_shape`` keeping aspect.
@@ -64,9 +74,7 @@ def letterbox(im: torch.Tensor, new_shape: Union[int, Tuple[int, int]], scaleup:
         r = min(r, 1.0)
     nh, nw = round(h * r), round(w * r)
     if (nh, nw) != (h, w):
-        t = im.permute(2, 0, 1)[None].float()
-        t = F.interpolate(t, size=(nh, nw), mode="bilinear", align_corners=False, antialias=False)
-        im = t[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
+        im = resize_linear(im, (nh, nw))
     top, left = ((H - nh) // 2, (W - nw) // 2) if center else (0, 0)
     out = torch.full((H, W, 3), 114, dtype=torch.uint8, device=im.device)
     out[top:top + nh, left:left + nw] = im

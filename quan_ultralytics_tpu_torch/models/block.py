@@ -26,6 +26,25 @@ def qconcat(xs: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
     return torch.cat(list(xs), dim=dim)
 
 
+class QuaternionDropout(nn.Module):
+    """Drops whole quaternions (reference block.py:135-154): in train, one
+    Bernoulli keep mask ``[B, H, W, 1, C]`` broadcast over the component axis,
+    with no ``1 / (1 - p)`` rescale (as the reference); the identity in eval or
+    at ``p = 0``. The mask is drawn from ``generator`` (None: torch's default
+    generator of the input's device)."""
+
+    def __init__(self, p: float = 0.1, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p, self.generator = p, generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        B, H, W, _, C = x.shape
+        keep = torch.rand((B, H, W, 1, C), generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype)
+
+
 class Bottleneck(nn.Module):
     """Standard bottleneck (reference block.py:447-461)."""
 

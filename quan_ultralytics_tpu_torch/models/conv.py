@@ -23,7 +23,8 @@ from quan_ultralytics_tpu_torch.ops.kernels.qconv_fused import fold_iqbn, qconv1
 from quan_ultralytics_tpu_torch.ops.mappings import rgb_to_quaternion
 from quan_ultralytics_tpu_torch.ops.mixing import MIX_MATRIX
 from quan_ultralytics_tpu_torch.ops.pooling import qupsample
-from quan_ultralytics_tpu_torch.ops.qconv import autopad, fold_dense_kernel, qconv2d, qconv2d_folded
+from quan_ultralytics_tpu_torch.ops.qconv import (autopad, fold_dense_kernel, qconv2d, qconv2d_folded,
+                                                  qdense)
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -209,3 +210,42 @@ class QUpsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return qupsample(x, self.scale, self.mode)
+
+
+class QDense(nn.Module):
+    """Quaternion dense layer with the full Hamilton product (reference
+    classification/quaternion/qconv.py:878-998) on ``[..., 4, f_in / 4]``.
+
+    ``w``: ``[4, f_in/4, f_out/4]`` and ``b``: ``[4, f_out/4]``, float32,
+    drawn per component like the JAX initializer: ``w`` uniform within
+    ``sqrt(3) * sqrt(2 / (1 + 5 s^2)) / sqrt(fi)``, ``b`` within ``s / sqrt(fi)``,
+    with ``s`` the mapping's scale factor of the component.
+    """
+
+    def __init__(self, f_in: int, f_out: int, use_bias: bool = True,
+                 mapping_type: str = "poincare", dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if f_in % 4 or f_out % 4:
+            raise ValueError(f"f_in={f_in} and f_out={f_out} must be multiples of 4")
+        self.fi, self.fo = f_in // 4, f_out // 4
+        self.mapping_type, self.dtype = mapping_type, dtype
+        self.w = nn.Parameter(torch.empty(4, self.fi, self.fo))
+        self.b = nn.Parameter(torch.empty(4, self.fo)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        scales = SCALE_FACTORS.get(self.mapping_type, _DEFAULT_SCALES)
+        with torch.no_grad():
+            for i, s in enumerate(scales):
+                a = math.sqrt(5.0) * s
+                bound = math.sqrt(3.0) * math.sqrt(2.0 / (1.0 + a * a)) / math.sqrt(self.fi)
+                nn.init.uniform_(self.w[i], -bound, bound, generator=generator)
+            if self.b is not None:
+                for i, s in enumerate(scales):
+                    bound = s / math.sqrt(self.fi)
+                    nn.init.uniform_(self.b[i], -bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.fi or x.shape[-2] != 4:
+            raise ValueError(f"expected [..., 4, {self.fi}], got {tuple(x.shape)}")
+        return qdense(x.to(self.dtype or x.dtype), self.w, self.b)

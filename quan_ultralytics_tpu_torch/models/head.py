@@ -1,5 +1,5 @@
-"""Detection heads: QER extraction, Detect, OBB, Segment, Pose (counterpart of
-the JAX ``models/head.py``).
+"""Heads: QER extraction, Detect, OBB, Segment, Pose and Classify (counterpart
+of the JAX ``models/head.py``).
 
 The heads return raw per-level maps; decoding to boxes is a separate
 function (`decode_detect`, `decode_obb`, `decode_segment`, `decode_pose`),
@@ -41,10 +41,8 @@ class QER(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        fan_in = self.proj.weight[0].numel()
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # flax's truncated-normal correction
         with torch.no_grad():
-            nn.init.trunc_normal_(self.proj.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            _lecun_normal_(self.proj.weight, self.proj.weight[0].numel(), generator)
             self.proj.bias.fill_(self.bias_init_value or 0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +120,12 @@ class OBB(nn.Module):
         return self.detect(xs), angles
 
 
+def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    """flax's default kernel init: a normal truncated at 2 sigma, scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # flax's truncated-normal correction
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 def _ceil4(n: int) -> int:
     return (n + 3) // 4 * 4
 
@@ -170,6 +174,37 @@ class Pose(nn.Module):
         kpts = [getattr(self, f"cv4_{i}_2")(getattr(self, f"cv4_{i}_1")(getattr(self, f"cv4_{i}_0")(x)))
                 for i, x in enumerate(xs)]
         return self.detect(xs), kpts
+
+
+class Classify(nn.Module):
+    """Classification head (the JAX package's working ``Classify``; the
+    reference's, head.py:409-431, pools a 5-D tensor as if it were 4-D):
+    ``conv`` = Conv(c1, 1280, 1) (a fused 1x1 site under ``fused_1x1``), the
+    mean over H and W, the ``[B, 4, 320]`` features flattened q-major, and
+    ``linear``, a real dense layer to ``c2`` logits with float32 parameters
+    (flax ``nn.Dense``: lecun-normal weight, zero bias) run in ``dtype``
+    (None: the promotion of the input's and the parameters' dtypes).
+    Returns ``[B, c2]``."""
+
+    def __init__(self, c1: int, c2: int, **kw):
+        super().__init__()
+        c_ = 1280
+        self.dtype = kw.get("dtype")
+        self.conv = Conv(c1, c_, 1, 1, **kw)
+        self.linear = nn.Linear(c_, c2)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draws ``linear`` (``conv`` draws its own weights)."""
+        with torch.no_grad():
+            _lecun_normal_(self.linear.weight, self.linear.in_features, generator)
+            self.linear.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x).mean(dim=(1, 2))  # [B, 4, C]
+        x = x.reshape(x.shape[0], -1)
+        dtype = self.dtype or torch.promote_types(x.dtype, self.linear.weight.dtype)
+        return F.linear(x.to(dtype), self.linear.weight.to(dtype), self.linear.bias.to(dtype))
 
 
 def flatten_levels(feats: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -173,13 +173,16 @@ def build_layer(spec: LayerSpec, dtype: Optional[torch.dtype], mapping_type: str
     if m == "Pose":
         nc, kpt_shape, ch, strides = a
         return H.Pose(nc, ch, tuple(kpt_shape), strides, **kw)
+    if m == "Classify":
+        return H.Classify(*a, **kw)
     raise NotImplementedError(f"module {m!r} is not ported yet")
 
 
 class QUANYOLO(nn.Module):
     """The YOLO graph built from a layer-spec tuple. ``forward`` returns the
     head output: per-level maps for Detect, ``(feats, angles)`` for OBB,
-    ``(feats, mc, proto)`` for Segment, ``(feats, kpts)`` for Pose."""
+    ``(feats, mc, proto)`` for Segment, ``(feats, kpts)`` for Pose, ``[B, nc]``
+    logits for Classify."""
 
     def __init__(self, specs: Sequence[LayerSpec], save: Sequence[int],
                  dtype: Optional[torch.dtype] = None, mapping_type: str = "poincare",
@@ -193,7 +196,7 @@ class QUANYOLO(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Draw every weight anew, in module order, from ``generator``."""
         for mod in self.modules():
-            if isinstance(mod, (C.QConv2D, H.QER)):
+            if isinstance(mod, (C.QConv2D, C.QDense, H.QER, H.Classify)):
                 mod.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor):
@@ -209,16 +212,18 @@ class QUANYOLO(nn.Module):
 
 class DetectionModel(QUANYOLO):
     """Task model: the graph plus its metadata (analog of reference nn/tasks.py
-    DetectionModel / OBBModel / SegmentationModel / PoseModel). Parameters are
-    float32; ``dtype`` is the activation dtype."""
+    DetectionModel / OBBModel / SegmentationModel / PoseModel /
+    ClassificationModel). Parameters are float32; ``dtype`` is the activation
+    dtype. A classify model has no strides."""
 
     def __init__(self, cfg: Dict, scale: str, nc: Optional[int] = None, **kw):
         specs, save, nc_ = parse_model(cfg, scale, nc)
         super().__init__(specs, save, **kw)
         self.cfg, self.scale, self.nc = cfg, scale, nc_
         head = specs[-1]
-        self.task = {"OBB": "obb", "Segment": "segment", "Pose": "pose"}.get(head.module, "detect")
-        self.strides = tuple(head.args[-1])
+        self.task = {"OBB": "obb", "Segment": "segment", "Pose": "pose",
+                     "Classify": "classify"}.get(head.module, "detect")
+        self.strides = () if self.task == "classify" else tuple(head.args[-1])
         self.reg_max = 16
         # pose: (keypoints, values a keypoint)
         self.kpt_shape = tuple(int(v) for v in head.args[1]) if self.task == "pose" else None
@@ -247,7 +252,10 @@ class DetectionModel(QUANYOLO):
         return m.to(dev).eval()
 
     def decode(self, out):
-        """Head output -> ``[B, A, ...]`` predictions in input-pixel units."""
+        """Head output -> ``[B, A, ...]`` predictions in input-pixel units (classify:
+        the ``[B, nc]`` logits as they are)."""
+        if self.task == "classify":
+            return out
         if self.task == "obb":
             feats, angles = out
             return H.decode_obb(feats, angles, self.strides, self.nc, self.reg_max)

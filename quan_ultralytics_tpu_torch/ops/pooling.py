@@ -21,6 +21,21 @@ def qmax_pool(x: torch.Tensor, kernel: IntOr2, stride: Optional[IntOr2] = None,
     return from_nchw(y, x.shape[3])
 
 
+def qavg_pool_global(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    """Global average pool over H, W (adaptive average pool to 1 x 1)."""
+    return x.mean(dim=(1, 2), keepdim=keepdims)
+
+
+def qavg_pool(x: torch.Tensor, kernel: IntOr2, stride: Optional[IntOr2] = None,
+              padding: IntOr2 = 0) -> torch.Tensor:
+    """Average pool over H, W of a ``[B, H, W, 4, C]`` tensor. The zero padding
+    counts: every window divides by ``kh * kw``."""
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    y = F.pad(to_nchw(x), (pw, pw, ph, ph))
+    y = F.avg_pool2d(y, kernel, stride if stride is not None else kernel)
+    return from_nchw(y, x.shape[3])
+
+
 def qupsample(x: torch.Tensor, scale: int = 2, mode: str = "nearest") -> torch.Tensor:
     """Nearest upsample of H, W by an integer factor; quaternion axis untouched."""
     if mode != "nearest":

@@ -17,6 +17,9 @@ component, ``[4, kH, kW, C_in / g, C_out]``; ``utils/weights.py`` transposes.)
 Activations are BHWQC ``[B, H, W, 4, C]``. The ``[B, H, W, 4C]`` view permuted
 to NCHW has channels-last strides, which cuDNN consumes without a copy and
 answers in the same format.
+
+`qdense` is the quaternion dense layer (full Hamilton product) on
+``[..., 4, F]`` features.
 """
 
 from __future__ import annotations
@@ -131,3 +134,48 @@ def qconv2d_folded(
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def _hamilton(p: torch.Tensor) -> torch.Tensor:
+    """``[..., 4(a), 4(d), F]`` products ``a_d`` -> ``[..., 4, F]`` by the Hamilton signs."""
+    (r_r, r_i, r_j, r_k), (i_r, i_i, i_j, i_k), (j_r, j_i, j_j, j_k), (k_r, k_i, k_j, k_k) = (
+        t.unbind(-2) for t in p.unbind(-3))
+    return torch.stack([r_r - i_i - j_j - k_k,
+                        r_i + i_r + j_k - k_j,
+                        r_j - i_k + j_r + k_i,
+                        r_k + i_j - j_i + k_r], dim=-2)
+
+
+def qdense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quaternion dense layer with the full Hamilton product (reference
+    classification/quaternion/qconv.py:878-998).
+
+    Four shared real linears ``w_d`` act on every input component, ``a_d =
+    linear_d(x_a)``, and the 16 products combine as
+
+        out_r = r_r - i_i - j_j - k_k
+        out_i = r_i + i_r + j_k - k_j
+        out_j = r_j - i_k + j_r + k_i
+        out_k = r_k + i_j - j_i + k_r
+
+    Args:
+      x: ``[..., 4, F_in]``.
+      w: ``[4, F_in, F_out]`` (component order r, i, j, k); cast to ``x.dtype``.
+      bias: optional ``[4, F_out]``, added to every product ``a_d``, so it passes
+        through the Hamilton signs too (the real output picks up
+        ``b_r - b_i - b_j - b_k``).
+
+    Returns ``[..., 4, F_out]``. A float32 product runs in full float32, never
+    TF32 (the JAX package's einsum runs at ``Precision.HIGHEST``).
+    """
+    if x.shape[-2] != 4 or w.ndim != 3 or w.shape[0] != 4 or w.shape[1] != x.shape[-1]:
+        raise ValueError(f"qdense: x {tuple(x.shape)} and w {tuple(w.shape)} do not fit")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p = torch.einsum("...af,dfo->...ado", x, w.to(x.dtype))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if bias is not None:
+        p = p + bias.to(p.dtype)  # [d, F_out] broadcasts over the 'a' axis
+    return _hamilton(p)

@@ -2,8 +2,9 @@
 
 The JAX package keeps a flax tree ``{"params": ..., "batch_stats": ...}``; the
 port's state names follow its paths, with ``model_N`` read as ``model.N``:
-``params/model_10/m0/attn/qkv/w`` becomes ``model.10.m0.attn.qkv.w``. Leaf
-by leaf:
+``params/model_10/m0/attn/qkv/w`` becomes ``model.10.m0.attn.qkv.w``; a tree
+without ``model_N`` keys (the classification models: ``stage1_block0/conv1/w``,
+``classifier/w``) carries name for name. Leaf by leaf:
 
 ============================  ==============================  ========================================
 flax leaf                     port state                      layout transform
@@ -12,8 +13,12 @@ flax leaf                     port state                      layout transform
 ``.../b``  (QConv2D)          ``.../b``                       none (``[Cout]``)
 ``.../gamma``, ``beta``       same name (IQBN parameters)     none (``[4, C]``)
 ``batch_stats/.../mean, var`` same name (IQBN buffers)        none (``[4, C]``)
+``.../w``  (QDense)           ``.../w``                       none (``[4, F_in, F_out]``)
+``.../b``  (QDense)           ``.../b``                       none (``[4, F_out]``)
 ``.../proj/kernel`` (QER)     ``.../proj.weight``             HWIO -> OIHW; input channels stay q-major
 ``.../proj/bias``   (QER)     ``.../proj.bias``               none
+``.../linear/kernel`` (Dense) ``.../linear.weight``           ``[in, out]`` -> ``[out, in]``
+``.../linear/bias``           ``.../linear.bias``             none
 ============================  ==============================  ========================================
 
 `export_jax_variables` is the inverse, so a port model's weights can be
@@ -48,8 +53,8 @@ def _port_leaf(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarra
     """One flax leaf -> (port state name, array in the port's layout)."""
     parts = [re.sub(r"^model_(\d+)$", r"model.\1", p) for p in path]
     leaf = parts[-1]
-    if leaf == "kernel":  # QER's flax nn.Conv
-        return ".".join(parts[:-1] + ["weight"]), value.transpose(3, 2, 0, 1)
+    if leaf == "kernel":  # QER's flax nn.Conv (HWIO), Classify's nn.Dense ([in, out])
+        return ".".join(parts[:-1] + ["weight"]), (value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1))
     if leaf == "w" and value.ndim == 5:  # QConv2D
         return ".".join(parts), value.transpose(0, 4, 3, 1, 2)
     return ".".join(parts), value
@@ -90,9 +95,29 @@ def _jax_leaf(name: str, value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray
             path.append(p)
     if path[-1] == "weight" and value.ndim == 4:  # QER's conv: OIHW -> HWIO
         return tuple(path[:-1]) + ("kernel",), value.transpose(2, 3, 1, 0)
+    if path[-1] == "weight" and value.ndim == 2:  # Classify's linear: [out, in] -> [in, out]
+        return tuple(path[:-1]) + ("kernel",), value.T
     if path[-1] == "w" and value.ndim == 5:  # QConv2D: [4, Cout, Cin/g, kH, kW] -> [4, kH, kW, Cin/g, Cout]
         return tuple(path), value.transpose(0, 3, 4, 2, 1)
     return tuple(path), value
+
+
+def to_jax_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Port-named tensors (``stage1_block0.conv1.w``, ...) as one nested tree
+    of float32 numpy arrays in the flax layout: `from_jax_tree` inverted."""
+    out: Dict[str, Any] = {}
+    for name, t in named.items():
+        path, arr = _jax_leaf(name, t.detach().float().cpu().numpy())
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
+
+
+def from_jax_tree(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A nested flax-layout tree as ``{port state name: array in the port's layout}``."""
+    return dict(_port_leaf(path, value) for path, value in _flatten(tree).items())
 
 
 def export_jax_variables(model: nn.Module) -> Dict[str, Dict]:
@@ -100,14 +125,20 @@ def export_jax_variables(model: nn.Module) -> Dict[str, Dict]:
     of float32 numpy arrays in the flax layout: `load_jax_variables` inverted.
     Parameters go to ``params``, the IQBN running statistics to ``batch_stats``."""
     params = set(dict(model.named_parameters()))
-    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    for name, t in model.state_dict().items():
-        path, arr = _jax_leaf(name, t.detach().float().cpu().numpy())
-        node = out["params" if name in params else "batch_stats"]
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
-    return out
+    state = model.state_dict()
+    return {"params": to_jax_tree({n: t for n, t in state.items() if n in params}),
+            "batch_stats": to_jax_tree({n: t for n, t in state.items() if n not in params})}
+
+
+class OptaxState(tuple):
+    """Stands in for an optax state class (``TraceState``, ``ScaleByScheduleState``,
+    ``EmptyState``, ...) met in a JAX checkpoint, whose machine may have no
+    optax: a tuple of the state's fields in order, with the class's ``name``."""
+
+    name = ""
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
 
 
 # the globals a pickle of numpy arrays refers to (numpy 1.x and 2.x module names)
@@ -116,17 +147,22 @@ _NUMPY_GLOBALS = {(m, n) for m in ("numpy", "numpy.core.multiarray", "numpy._cor
 
 
 class _NumpyUnpickler(pickle.Unpickler):
-    """Unpickles builtin containers and numpy arrays, and refuses every other
-    global: a checkpoint file cannot run code, and needs neither JAX nor flax."""
+    """Unpickles builtin containers and numpy arrays, reads any ``optax.*``
+    class as an `OptaxState` (matched on the module's prefix: the path of a
+    state class moves between optax versions), and refuses every other global:
+    a checkpoint file cannot run code, and needs neither JAX, flax nor optax."""
 
     def find_class(self, module: str, name: str) -> Any:
         if (module, name) in _NUMPY_GLOBALS:
             return super().find_class(module, name)
+        if module == "optax" or module.startswith("optax."):
+            return type(name, (OptaxState,), {"name": name, "__module__": module})
         raise pickle.UnpicklingError(f"checkpoint refers to {module}.{name}: only numpy arrays are read")
 
 
 def read_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:
     """A facade checkpoint (``{model_yaml, nc, names, params, batch_stats,
     raw_params, step}``, the JAX facade's format, as `engine.model.YOLO`
-    writes it too), unpickled with numpy alone."""
+    writes it too) or a classification checkpoint (``{epoch, params,
+    batch_stats, opt_state, step, val_acc}``), unpickled with numpy alone."""
     return _NumpyUnpickler(io.BytesIO(Path(path).read_bytes())).load()

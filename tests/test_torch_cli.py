@@ -151,7 +151,7 @@ def test_usage_errors_match_jax(argv, capsys):
 
 @pytest.mark.parametrize("argv", [["obb", "export", "model=yolo11n-obb-quan.yaml"],
                                   ["detect", "track", "source=x.mp4"], ["tune", "data=x.yaml"],
-                                  ["benchmark", "imgsz=64"], ["classify", "train", "data=synthetic"]])
+                                  ["benchmark", "imgsz=64"], ["classify", "export", "model=qwrn16_2"]])
 def test_modes_not_ported_exit_nonzero(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         tcli.main(argv)

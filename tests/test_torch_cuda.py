@@ -13,7 +13,9 @@ card against the CPU, and one fit epoch; and the segment and pose tasks
 (yolo11n-seg-quan, nc = 80; yolo11n-pose-quan, nc = 1): their Predictor and
 Validator (masks at proto and input resolution, OKS) on the card against the
 CPU, one augmenting fit epoch each, and a train step at 640 (K2 at N = 400).
-This file imports no JAX, so it runs on a machine that has a card and no JAX:
+Then the classification slice: K1 and K2 at N = 49 (yolo11n-cls-quan at
+224), K3 at that model's sites (the Classify conv channel-tiled), and one
+Q-WRN-16-2 f32 step on the card against the CPU. This file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -774,3 +776,58 @@ def test_segpose_train_step_at_640_runs_k2_at_n400_on_card(cuda, task):
     torch.cuda.synchronize()
     assert qattn.launches_stats - k1 == 1 and qattn.launches_bwd - k2 == 1 and seen == [400]
     assert math.isfinite(float(loss)) and float(aux["nan_skipped"]) == 0
+
+
+# ---------------------------------------------------------------- the classification slice
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qattn_kernels_at_the_classify_n_on_card(cuda, dtype):
+    """K1 within `qattn.FWD_TOL` and K2 within `qattn.BWD_TOL` of their plain
+    versions at N = 49 (QC2PSA at P5 of yolo11n-cls-quan, 7 x 7 at 224;
+    under half of one query block), G = 32 x 8."""
+    q, k, v, do = _inputs(cuda, dtype, 49, 49)
+    scale = 2 ** -0.5
+    _k1_meets_fwd_tol(q, k, v, scale, "N=49")
+    before = qattn.launches_bwd
+    got = _k2(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    assert qattn.launches_bwd == before + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, qattn.qattention_bwd_plain(q, k, v, do, scale)):
+        err, rel, ok = qattn.kernel_error(a, b, dtype, qattn.BWD_TOL)
+        assert ok, f"{name} N=49 {dtype}: max abs error {err:.3e}, mean rel {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qconv1x1_kernel_at_the_classify_sites_on_card(cuda, dtype):
+    """K3 at every (Ci, Co, P) of yolo11n-cls-quan's fused sites at batch 8 @
+    224, the Classify conv (Ci = 64, Co = 320 a component: its weights pass
+    both kernels' budgets, so Co is split into channel tiles) among them."""
+    model = DetectionModel.from_yaml("yolo11n-cls-quan.yaml", device="cpu", fused_1x1=True)
+    sites = sorted(set(fused_1x1_sites(model, 8, 224)))
+    assert (64, 320, 8 * 7 * 7) in sites
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for ci, co, p in sites:
+        _k3_case(cuda, dtype, ci, co, p, g)
+
+
+def test_qwrn16_2_step_on_card_matches_the_cpu(cuda):
+    """One f32 SGD update of Q-WRN-16-2 (batch 16 at 32, drop 0, TF32 off) on
+    the card and on the CPU from the same weights and batch: loss within 1e-5
+    relative, every parameter and IQBN statistic after the update within
+    1e-4 of its max|value| (cuDNN's and the CPU's summation orders)."""
+    from quan_ultralytics_tpu_torch.classification.train import ClsConfig, ClsTrainer
+
+    cfg = ClsConfig(model="qwrn16_2", num_classes=10, dtype="float32")
+    rng = np.random.default_rng(0)
+    batch = {"img": rng.normal(size=(16, 32, 32, 3)).astype(np.float32),
+             "label": rng.integers(0, 10, 16).astype(np.int32)}
+    runs = []
+    for device in ("cpu", cuda):
+        tr = ClsTrainer(cfg, steps_per_epoch=10, device=device)
+        loss, _ = tr.train_step(batch)
+        runs.append((float(loss), {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}))
+    (cpu_loss, cpu_state), (card_loss, card_state) = runs
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for name, ref in cpu_state.items():
+        _assert_close(card_state[name], ref, 1e-4, 1e-4, msg=name)

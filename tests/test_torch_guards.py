@@ -40,7 +40,9 @@ def test_import_loads_no_jax():
             "quan_ultralytics_tpu_torch.parallel.prefetch, quan_ultralytics_tpu_torch.utils.settings, "
             "quan_ultralytics_tpu_torch.utils.logging, quan_ultralytics_tpu_torch.utils.integrations, "
             "quan_ultralytics_tpu_torch.cfg, quan_ultralytics_tpu_torch.data.loaders, "
-            "quan_ultralytics_tpu_torch.engine.model, quan_ultralytics_tpu_torch.cli, sys; "
+            "quan_ultralytics_tpu_torch.engine.model, quan_ultralytics_tpu_torch.cli, "
+            "quan_ultralytics_tpu_torch.classification.cli, quan_ultralytics_tpu_torch.classification.train, "
+            "quan_ultralytics_tpu_torch.classification.data, quan_ultralytics_tpu_torch.classification.models, sys; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'quan_ultralytics_tpu', 'cv2', 'yaml', 'PIL', 'matplotlib', 'psutil')); "
             "assert not bad, bad")

@@ -22,19 +22,21 @@ def fill_variables(shapes, seed: int = 0):
     Drawn away from the init defaults so that layouts and transposes show:
     quaternion conv weights U(-b, b) with b = sqrt(3 / fan_in) / 2 (the
     mixing sums four component convs, so this keeps the activations' scale
-    from layer to layer); QER kernels with b = sqrt(3 / fan_in); IQBN gamma
-    U(0.5, 1.5), beta and mean N(0, 0.1), var U(0.5, 1.5); biases N(0, 0.1).
+    from layer to layer), QDense weights ``[4, F_in, F_out]`` likewise with
+    fan_in = F_in; QER kernels and dense kernels ``[in, out]`` with b =
+    sqrt(3 / fan_in); IQBN gamma U(0.5, 1.5), beta and mean N(0, 0.1), var
+    U(0.5, 1.5); biases N(0, 0.1).
     """
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
         name = str(path[-1].key)
         shape, dt = leaf.shape, np.float32
-        if name == "w":  # QConv2D [4, kh, kw, cin_pg, cout]
-            b = math.sqrt(3.0 / max(int(np.prod(shape[1:4])), 1)) / 2
+        if name == "w":  # QConv2D [4, kh, kw, cin_pg, cout], QDense [4, fin, fout]
+            b = math.sqrt(3.0 / max(int(np.prod(shape[1:-1])), 1)) / 2
             return rng.uniform(-b, b, shape).astype(dt)
-        if name == "kernel":  # QER [kh, kw, cin, cout]
-            b = math.sqrt(3.0 / max(int(np.prod(shape[:3])), 1))
+        if name == "kernel":  # QER [kh, kw, cin, cout], Dense [in, out]
+            b = math.sqrt(3.0 / max(int(np.prod(shape[:-1])), 1))
             return rng.uniform(-b, b, shape).astype(dt)
         if name in ("gamma", "var"):
             return rng.uniform(0.5, 1.5, shape).astype(dt)
