@@ -56,6 +56,9 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> Non
 
 
 def _conv(c1, c2, k, s=1, p=None, mapping_type="poincare", dtype=None):
+    # `auto` at models/conv.py's thresholds folds every layer of Q-WRN-16-2 (C_out at
+    # most 32 a component): a step at batch 128 takes 4.84 ms of device time so, 7.95
+    # grouped (the JAX library's default) on an H100 80GB HBM3 (chip_smoke.py phase 35)
     return QConv2D(c1, c2, k, s, p, mapping_type=mapping_type, dtype=dtype, impl="auto")
 
 

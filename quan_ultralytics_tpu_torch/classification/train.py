@@ -13,17 +13,19 @@ updates made before it, as ``optax.scale_by_schedule`` does.
 
 Checkpoints are the JAX package's pickles: ``{epoch, params, batch_stats,
 opt_state, step, val_acc}`` with ``params`` and ``batch_stats`` in the flax
-layout, so the JAX ``create_model(...).apply`` runs them. The port writes
-``opt_state`` as ``{"trace": <flax-layout tree>, "count": int}`` and reads
-that and the JAX package's optax state alike (`read_opt_state`). No
-``curves.png`` is drawn: plotting is not ported yet (ROADMAP Queue 1 item 3b).
+layout, so the JAX ``create_model(...).apply`` runs them, and ``opt_state``
+the optax chain's state ``(EmptyState(), (TraceState(trace),
+ScaleByScheduleState(count)))``, written by `utils.weights.write_checkpoint`
+so that JAX's ``pickle.load`` reads optax's own classes: a port checkpoint
+resumes under the JAX CLI's ``--resume``, and the JAX package's resumes here
+(`read_opt_state`). No ``curves.png`` is drawn: plotting is not ported yet
+(ROADMAP Queue 1 item 3b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import pickle
 import signal
 import time
 from pathlib import Path
@@ -37,7 +39,8 @@ from quan_ultralytics_tpu_torch.classification.models import create_model, reset
 from quan_ultralytics_tpu_torch.models.tasks import resolve_device
 from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
 from quan_ultralytics_tpu_torch.utils.weights import (OptaxState, export_jax_variables, from_jax_tree,
-                                                       load_jax_variables, read_checkpoint, to_jax_tree)
+                                                       load_jax_variables, optax_state, read_checkpoint,
+                                                       to_jax_tree, write_checkpoint)
 
 
 @dataclasses.dataclass
@@ -79,9 +82,9 @@ def multistep_lr(cfg: ClsConfig, steps_per_epoch: int) -> Callable[[int], float]
 
 def read_opt_state(opt_state: Any) -> Tuple[Mapping, int]:
     """(momentum trace as a flax-layout tree, update count) of a checkpoint's
-    ``opt_state``: the port's ``{"trace", "count"}`` or the JAX package's
-    optax chain state, read as `OptaxState` stubs (its ``TraceState`` and
-    ``ScaleByScheduleState``)."""
+    ``opt_state``: the optax chain state, read as `OptaxState` stand-ins (its
+    ``TraceState`` and ``ScaleByScheduleState``), or a ``{"trace", "count"}``
+    mapping."""
     if isinstance(opt_state, Mapping):
         return opt_state["trace"], int(opt_state["count"])
     found: Dict[str, OptaxState] = {}
@@ -164,12 +167,15 @@ class ClsTrainer:
         return {"top1": c1 / max(n, 1), "top5": c5 / max(n, 1)}
 
     def state_dict(self) -> Dict[str, Any]:
-        """``{params, batch_stats, opt_state, step}`` in the checkpoint's format."""
+        """``{params, batch_stats, opt_state, step}`` in the checkpoint's format;
+        ``opt_state`` is the JAX ``build_cls_optimizer`` chain's state."""
         params = dict(self.model.named_parameters())
         trace = {name: self.optimizer.state.get(p, {}).get("momentum_buffer", torch.zeros_like(p))
                  for name, p in params.items()}
-        return {**export_jax_variables(self.model),
-                "opt_state": {"trace": to_jax_tree(trace), "count": self.step}, "step": self.step}
+        opt_state = (optax_state("EmptyState"),  # add_decayed_weights
+                     (optax_state("TraceState", to_jax_tree(trace)),  # sgd: trace, then the lr schedule
+                      optax_state("ScaleByScheduleState", np.asarray(self.step, np.int32))))
+        return {**export_jax_variables(self.model), "opt_state": opt_state, "step": self.step}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Restore weights, IQBN statistics, momentum and update count from a
@@ -208,8 +214,7 @@ class ExperimentManager:
     def save_checkpoint(self, trainer: ClsTrainer, epoch: int, val_acc: float, keep_last: int = 5) -> None:
         payload = {"epoch": epoch, **trainer.state_dict(), "val_acc": val_acc}
         p = self.dir / f"checkpoint_epoch{epoch}.pkl"
-        with open(p, "wb") as fh:
-            pickle.dump(payload, fh)
+        write_checkpoint(p, payload)
         (self.dir / "last.pkl").write_bytes(p.read_bytes())
         if val_acc > self.best_acc:
             self.best_acc = val_acc

@@ -3,7 +3,8 @@ package's ``engine/model.py``; reference engine/model.py Model :29).
 
 ``YOLO("yolo11n-quan.yaml")`` (detect), ``YOLO("yolo11n-obb-quan.yaml")``
 (OBB), ``YOLO("yolo11n-seg-quan.yaml")`` (segment) or
-``YOLO("yolo11n-pose-quan.yaml")`` (pose) then ``.train(...)`` / ``.val(...)`` /
+``YOLO("yolo11n-pose-quan.yaml")`` (pose), or ``YOLO("<path>/my-model.yaml")``
+for a model YAML of the user's own, then ``.train(...)`` / ``.val(...)`` /
 ``.predict(...)``, on ``cuda`` unless ``device`` names another device (with
 no card and no ``device="cpu"`` it raises). Weights live in the port model;
 checkpoints are the JAX facade's pickled payload
@@ -30,7 +31,7 @@ from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
 from quan_ultralytics_tpu_torch.engine.predictor import Predictor, Results
 from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
 from quan_ultralytics_tpu_torch.engine.validator import Validator
-from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, resolve_device
+from quan_ultralytics_tpu_torch.models.tasks import FUSED_1X1, DetectionModel, resolve_device
 from quan_ultralytics_tpu_torch.utils import checkpoint
 from quan_ultralytics_tpu_torch.utils.weights import (export_jax_variables, load_jax_variables,
                                                       read_checkpoint)
@@ -43,12 +44,13 @@ class YOLO:
 
     dtype: the activation dtype of predict and val (None: the input's, f32);
     training casts to `TrainConfig.dtype` (bf16 by default) as the JAX trainer does.
-    fused_1x1: run the 1x1 Conv+IQBN+SiLU sites through the fused kernel in eval.
+    fused_1x1: run the 1x1 Conv+IQBN+SiLU sites through the fused kernel in eval
+    (on by default: `models.tasks.FUSED_1X1`).
     """
 
     def __init__(self, model: str = "yolo11n-obb-quan.yaml", nc: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None,
-                 device: Optional[Union[str, torch.device]] = None, fused_1x1: bool = False):
+                 device: Optional[Union[str, torch.device]] = None, fused_1x1: bool = FUSED_1X1):
         self.device = resolve_device(device)
         self.dtype, self.fused_1x1 = dtype, fused_1x1
         if str(model).endswith((".pkl", ".ckpt")):

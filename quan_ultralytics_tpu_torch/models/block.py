@@ -214,6 +214,51 @@ class QC2PSA(nn.Module):
         return self.cv2(qconcat([a, b]))
 
 
+class C2f(nn.Module):
+    """Classic C2f (reference block.py:337-360): C3k2's topology with
+    (3,3)-(3,3) e=1.0 bottlenecks, no shortcut by default."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5, **kw):
+        super().__init__()
+        c = int(c2 * e)
+        self.n, self.cpc = n, c // 4
+        self.cv1 = Conv(c1, 2 * c, 1, 1, **kw)
+        for i in range(n):
+            self.add_module(f"m{i}", Bottleneck(c, c, shortcut, g, k=(3, 3), e=1.0, **kw))
+        self.cv2 = Conv((2 + n) * c, c2, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        ys = [y[..., :self.cpc], y[..., self.cpc:]]
+        for i in range(self.n):
+            ys.append(getattr(self, f"m{i}")(ys[-1]))
+        return self.cv2(qconcat(ys))
+
+
+class QPSA(nn.Module):
+    """Standalone PSA block (reference block.py:1410-1483): 1x1 reduce, split,
+    attention (``attn_ratio`` 1, so key and value widths are equal) and FFN on
+    one half, concat, 1x1 expand."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5, fused_attn: bool = True, **kw):
+        super().__init__()
+        c = (int(c1 * e) // 4) * 4
+        self.cpc = c // 4
+        self.cv1 = Conv(c1, 2 * c, 1, **kw)
+        self.attn = QAttention(c, num_heads=max(c // 16, 1), attn_ratio=1.0, dtype=kw.get("dtype"),
+                               impl=kw.get("impl", "grouped"), fused_attn=fused_attn)
+        self.ffn0 = Conv(c, c * 2, 1, **kw)
+        self.ffn1 = Conv(c * 2, c, 1, act=False, **kw)
+        self.cv2 = Conv(2 * c, c2, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        a, b = y[..., :self.cpc], y[..., self.cpc:]
+        a = self.ffn1(self.ffn0(self.attn(a)))
+        return self.cv2(qconcat([a, b]))
+
+
 class Proto(nn.Module):
     """Mask prototypes of the segment head (reference block.py:156-174, the JAX
     package's design): Conv 3x3 -> nearest upsample x2 -> Conv 3x3 -> QER to

@@ -12,6 +12,8 @@ Parameter names follow the JAX package's flax paths (``conv.w``, ``bn.gamma``,
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple, Union
 
@@ -38,11 +40,36 @@ SCALE_FACTORS = {
 }
 _DEFAULT_SCALES = (0.5, 0.5, 0.5, 0.5)
 
-# `auto` folds a layer whose per-component C_out is below this threshold. The
-# values are the JAX package's (inference 32, training 128, from TPU A/Bs);
-# on the H100 they are still to be measured.
-FOLD_MAX_EVAL = 32
+# `auto` folds a layer whose per-component C_out is below this threshold:
+# FOLD_MAX_TRAIN inside `train_graph()`, FOLD_MAX_EVAL everywhere else (the
+# JAX package's rule; its TPU values are 32 and 128). Set from device busy ms
+# on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 35, mean of two rounds):
+# QUAN-YOLO11n-OBB's infer @1024, batch 8, bf16 takes 10.09 ms at 128, 10.63
+# at 64, 11.68 at 32, 15.67 at 16, 10.10 folded and 17.98 grouped; its train
+# micro-step 48.26 ms at 128 (53.90 at 32, 74.30 grouped); a Q-WRN-16-2 step
+# at batch 128 @32 4.84 ms at 128 (5.42 at 32, 7.95 grouped). The mixing pass
+# that `grouped` adds is an elementwise chain over the whole activation, and
+# at these widths (C_out 4-96 a component) the 4x FLOPs of folding are cheap.
+FOLD_MAX_EVAL = 128
 FOLD_MAX_TRAIN = 128
+
+# Whether the forward running now builds the detection trainer's graph (the
+# JAX package's `train_graph()`, which only its detection trainer enters): a
+# context variable, so each thread sees its own value and the caller's comes
+# back on exit, also after an exception.
+_TRAIN_GRAPH = contextvars.ContextVar("quan_torch_train_graph", default=False)
+
+
+@contextlib.contextmanager
+def train_graph():
+    """Mark the forwards run inside as the detection trainer's: `auto` convs
+    fold up to ``FOLD_MAX_TRAIN`` there, as they do inside the JAX package's
+    ``train_graph()``. ``module.training`` alone does not change the form."""
+    token = _TRAIN_GRAPH.set(True)
+    try:
+        yield
+    finally:
+        _TRAIN_GRAPH.reset(token)
 
 
 def _pair(v: IntOr2) -> Tuple[int, int]:
@@ -57,7 +84,9 @@ class QConv2D(nn.Module):
     ``b``: optional real bias ``[C_out/4]``. ``impl``: ``grouped`` (one conv
     with groups 4g, then the mixing), ``folded`` (the mixing folded into one
     dense kernel; g == 1 only) or ``auto`` (folded when C_out/4 is below the
-    fold threshold and g == 1, else grouped). The three give the same values.
+    fold threshold and g == 1, else grouped; the threshold is
+    ``FOLD_MAX_TRAIN`` inside `train_graph`, else ``FOLD_MAX_EVAL``). The three
+    give the same values.
     """
 
     def __init__(self, c1: int, c2: int, k: IntOr2 = 1, s: IntOr2 = 1,
@@ -103,7 +132,7 @@ class QConv2D(nn.Module):
     def _impl(self) -> str:
         if self.impl != "auto":
             return self.impl
-        fold_max = FOLD_MAX_TRAIN if self.training else FOLD_MAX_EVAL
+        fold_max = FOLD_MAX_TRAIN if _TRAIN_GRAPH.get() else FOLD_MAX_EVAL
         return "folded" if (self.cout < fold_max and self.g == 1) else "grouped"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -161,6 +190,27 @@ class IQBN(nn.Module):
         scale = (self.gamma * inv).to(dtype)
         shift = (self.beta - self.gamma * mean * inv).to(dtype)
         return x.to(dtype) * scale + shift
+
+
+class IQLN(nn.Module):
+    """Quaternion layer norm (reference conv.py:588-611): per sample and
+    component, normalized over (H, W, C) with the biased variance in f32, then
+    ``weight`` and ``bias`` (``[4, C/4]``); returned in the input's dtype."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        if c % 4:
+            raise ValueError(f"c={c} must be a multiple of 4")
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(4, c // 4))
+        self.bias = nn.Parameter(torch.zeros(4, c // 4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+        var = xf.var(dim=(1, 2, 4), unbiased=False, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 class Conv(nn.Module):

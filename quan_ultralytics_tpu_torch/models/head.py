@@ -1,5 +1,5 @@
-"""Heads: QER extraction, Detect, OBB, Segment, Pose and Classify (counterpart
-of the JAX ``models/head.py``).
+"""Heads: QER and QERPreserve extraction, Detect, HybridDetect, OBB, Segment,
+Pose and Classify (counterpart of the JAX ``models/head.py``).
 
 The heads return raw per-level maps; decoding to boxes is a separate
 function (`decode_detect`, `decode_obb`, `decode_segment`, `decode_pose`),
@@ -46,13 +46,43 @@ class QER(nn.Module):
             self.proj.bias.fill_(self.bias_init_value or 0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, Q, C = x.shape
-        if Q * C != self.c1:
-            raise ValueError(f"QER expects {self.c1} flattened channels, got {Q * C}")
-        dtype = self.dtype or torch.promote_types(x.dtype, self.proj.weight.dtype)
-        y = F.conv2d(to_nchw(x.to(dtype)), self.proj.weight.to(dtype), self.proj.bias.to(dtype),
-                     padding=self.proj.padding)
-        return y.permute(0, 2, 3, 1)
+        return _extract(x, self.proj, self.c1, self.dtype)
+
+
+def _extract(x: torch.Tensor, conv: nn.Conv2d, c1: int, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``[B, H, W, 4, C]`` flattened q-major to ``4C`` real channels, through
+    ``conv`` (with its bias), in ``dtype`` (None: the promotion of the input's
+    and the weight's); ``[B, H, W, c2]``."""
+    _, _, _, Q, C = x.shape
+    if Q * C != c1:
+        raise ValueError(f"expected {c1} flattened channels, got {Q * C}")
+    dtype = dtype or torch.promote_types(x.dtype, conv.weight.dtype)
+    y = F.conv2d(to_nchw(x.to(dtype)), conv.weight.to(dtype), conv.bias.to(dtype), padding=conv.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+class QERPreserve(nn.Module):
+    """Quaternion extraction with a learnable mixing (reference head.py:50-83):
+    QER's computation with a xavier-normal kernel (flax's ``xavier_normal``: a
+    normal truncated at 2 sigma, variance 2 / (fan_in + fan_out)) and a zero
+    bias. ``mix`` is an ``nn.Conv2d`` (OIHW; HWIO in the JAX package)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.c1, self.dtype = c1, dtype
+        self.mix = nn.Conv2d(c1, c2, k, padding=k // 2, bias=True)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        w = self.mix.weight
+        rf = w[0, 0].numel()
+        std = math.sqrt(2.0 / (w.shape[1] * rf + w.shape[0] * rf)) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            self.mix.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _extract(x, self.mix, self.c1, self.dtype)
 
 
 class Detect(nn.Module):
@@ -94,6 +124,40 @@ class Detect(nn.Module):
         return outs
 
 
+class HybridDetect(nn.Module):
+    """Detect with a lighter class branch (reference head.py:287-320): per level
+    a box branch cv2 = Conv 3x3, Conv 3x3, QER -> 4 reg_max logits (width
+    ``max(ch[0] / 4, 4 reg_max)``) and a class branch cv3 = Conv 3x3, QER -> nc
+    logits (width ``max(ch[0], min(nc, 100))``). Its output is Detect's: the
+    per-level ``[B, H, W, 4 reg_max + nc]`` maps, so decode, the loss, NMS and
+    the validator take it as they take Detect's."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32),
+                 reg_max: int = 16, **kw):
+        super().__init__()
+        self.nc, self.nl, self.reg_max = nc, len(ch), reg_max
+        dtype = kw.get("dtype")
+        c2 = max(ch[0] // 4, reg_max * 4)
+        c3 = max(ch[0], min(nc, 100))
+        for i, c in enumerate(ch):
+            setattr(self, f"cv2_{i}_0", Conv(c, c2, 3, **kw))
+            setattr(self, f"cv2_{i}_1", Conv(c2, c2, 3, **kw))
+            setattr(self, f"cv2_{i}_2", QER(c2, 4 * reg_max, 1, bias_init_value=1.0, dtype=dtype))
+            setattr(self, f"cv3_{i}_0", Conv(c, c3, 3, **kw))
+            cls_bias = math.log(5 / nc / (640 / strides[i]) ** 2)
+            setattr(self, f"cv3_{i}_1", QER(c3, nc, 1, bias_init_value=cls_bias, dtype=dtype))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        outs = []
+        for i, x in enumerate(xs):
+            b = x
+            for name in ("cv2_{}_0", "cv2_{}_1", "cv2_{}_2"):
+                b = getattr(self, name.format(i))(b)
+            c = getattr(self, f"cv3_{i}_1")(getattr(self, f"cv3_{i}_0")(x))
+            outs.append(torch.cat([b, c], dim=-1))
+        return outs
+
+
 class OBB(nn.Module):
     """Oriented-box head (reference head.py:322-354): Detect + an angle branch
     cv4 = Conv, Conv, QER -> ne logits, mapped in f32 to ``(sigmoid - 0.25) pi``.
@@ -120,9 +184,13 @@ class OBB(nn.Module):
         return self.detect(xs), angles
 
 
+# the standard deviation of a unit normal truncated at 2 sigma: flax divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
     """flax's default kernel init: a normal truncated at 2 sigma, scaled to variance 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # flax's truncated-normal correction
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 

@@ -21,12 +21,21 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 
+from quan_ultralytics_tpu_torch.cfg.model_yaml import load_model_yaml
 from quan_ultralytics_tpu_torch.cfg.models import MODELS
 from quan_ultralytics_tpu_torch.models import block as B
 from quan_ultralytics_tpu_torch.models import conv as C
 from quan_ultralytics_tpu_torch.models import head as H
 
 SCALE_RE = re.compile(r"yolo\d+([nslmx])")
+
+
+# `fused_1x1` by default: on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 35),
+# QUAN-YOLO11n-OBB's infer @1024, batch 8, takes 8.96 ms of device time with the
+# fused 1x1 kernel at its 37 sites against 10.09 without in bf16, and 14.99 against
+# 17.21 in f32, in 1,382 device operations against 1,678 (phase 4); the JAX
+# package's QUAN_FUSED_1X1 is off by default. It acts in eval only.
+FUSED_1X1 = True
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -65,16 +74,22 @@ _ABSORB_N = {"C2f", "C3", "C3k", "C3k2", "QC3k2", "QC2PSA"}
 _HEADS = {"Detect", "OBB", "HybridDetect", "Segment", "Pose"}
 
 
-def resolve_model_cfg(model: str) -> Tuple[Dict, str]:
-    """'yolo11n-obb-quan.yaml' -> (config dict, scale letter). The scale letter
-    follows the architecture number; the base name drops it."""
+def resolve_model_cfg(model: Union[str, Path]) -> Tuple[Dict, str]:
+    """A model YAML path, or a catalog name such as 'yolo11n-obb-quan.yaml', ->
+    (config dict, scale letter). An existing file is read (`load_model_yaml`);
+    otherwise the name, its scale letter dropped, is looked up in ``MODELS``.
+    The scale letter follows the architecture number of the file name
+    ('yolo11n-...' -> 'n'); without one it is the config's first scale."""
     name = Path(model).name
     m = SCALE_RE.search(name)
     base = re.sub(r"(yolo\d+)[nslmx]", r"\1", name)
-    if base not in MODELS:
-        raise FileNotFoundError(f"model config {model!r} is not one of {sorted(MODELS)}")
-    cfg = MODELS[base]
-    scale = m.group(1) if m else next(iter(cfg["scales"]))
+    if Path(model).exists():
+        cfg = load_model_yaml(model)
+    elif base in MODELS:
+        cfg = MODELS[base]
+    else:
+        raise FileNotFoundError(f"model config {model!r} is neither a file nor one of {sorted(MODELS)}")
+    scale = m.group(1) if m else next(iter(cfg.get("scales", {"n": None})))
     return cfg, scale
 
 
@@ -155,8 +170,12 @@ def build_layer(spec: LayerSpec, dtype: Optional[torch.dtype], mapping_type: str
         return B.C3k2(*a, **kw)
     if m == "QSPPF":
         return B.QSPPF(*a, **kw)
+    if m == "C2f":
+        return B.C2f(*a, **kw)
     if m == "QC2PSA":
         return B.QC2PSA(*a, fused_attn=fused_attn, **kw)
+    if m == "QPSA":
+        return B.QPSA(*a, fused_attn=fused_attn, **kw)
     if m == "QUpsample":
         return C.QUpsample(int(a[0]), str(a[1]) if len(a) > 1 else "nearest")
     if m == "Concat":
@@ -164,6 +183,9 @@ def build_layer(spec: LayerSpec, dtype: Optional[torch.dtype], mapping_type: str
     if m == "Detect":
         nc, ch, strides = a
         return H.Detect(nc, ch, strides, **kw)
+    if m == "HybridDetect":
+        nc, ch, strides = a
+        return H.HybridDetect(nc, ch, strides, **kw)
     if m == "OBB":
         nc, ne, ch, strides = a
         return H.OBB(nc, ch, ne, strides, **kw)
@@ -175,7 +197,7 @@ def build_layer(spec: LayerSpec, dtype: Optional[torch.dtype], mapping_type: str
         return H.Pose(nc, ch, tuple(kpt_shape), strides, **kw)
     if m == "Classify":
         return H.Classify(*a, **kw)
-    raise NotImplementedError(f"module {m!r} is not ported yet")
+    raise ValueError(f"unknown module {m!r}")
 
 
 class QUANYOLO(nn.Module):
@@ -186,7 +208,7 @@ class QUANYOLO(nn.Module):
 
     def __init__(self, specs: Sequence[LayerSpec], save: Sequence[int],
                  dtype: Optional[torch.dtype] = None, mapping_type: str = "poincare",
-                 impl: str = "auto", fused_attn: bool = True, fused_1x1: bool = False):
+                 impl: str = "auto", fused_attn: bool = True, fused_1x1: bool = FUSED_1X1):
         super().__init__()
         self.specs, self.save = tuple(specs), tuple(save)
         self.dtype = dtype
@@ -196,7 +218,7 @@ class QUANYOLO(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Draw every weight anew, in module order, from ``generator``."""
         for mod in self.modules():
-            if isinstance(mod, (C.QConv2D, C.QDense, H.QER, H.Classify)):
+            if isinstance(mod, (C.QConv2D, C.QDense, H.QER, H.QERPreserve, H.Classify)):
                 mod.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor):
@@ -233,16 +255,19 @@ class DetectionModel(QUANYOLO):
                   dtype: Optional[torch.dtype] = None,
                   device: Optional[Union[str, torch.device]] = None,
                   mapping_type: str = "poincare", impl: str = "auto",
-                  fused_attn: bool = True, fused_1x1: bool = False,
+                  fused_attn: bool = True, fused_1x1: bool = FUSED_1X1,
                   seed: int = 0) -> "DetectionModel":
-        """Build a model from its config name, with weights drawn from ``seed``.
+        """Build a model from a model YAML path or a catalog name (`resolve_model_cfg`),
+        with weights drawn from ``seed``.
 
         Runs on ``cuda`` unless ``device`` names another device; raises when
         no card is present and the CPU was not asked for. Returned in eval
-        mode. ``impl`` is the quaternion conv mapping (``auto``: the JAX main
-        path's choice); ``fused_attn`` runs the attention kernel (on by
-        default); ``fused_1x1`` the fused 1x1 Conv+IQBN+SiLU kernel (off by
-        default, as ``QUAN_FUSED_1X1`` is in JAX).
+        mode. ``impl`` is the quaternion conv mapping (``auto``, with the
+        fold thresholds of models/conv.py: the form with the least device time
+        on the H100, where ``grouped``, the JAX library's default, takes the
+        most); ``fused_attn`` runs the attention kernel (on by default);
+        ``fused_1x1`` the fused 1x1 Conv+IQBN+SiLU kernel in eval (on by
+        default, ``FUSED_1X1``; off in the JAX package).
         """
         dev = resolve_device(device)
         cfg, scale = resolve_model_cfg(model)

@@ -1,6 +1,7 @@
 """Where a run's checkpoints are (counterpart of the JAX package's
-``utils/checkpoint.py``). The files are what `engine.trainer.Trainer.save_checkpoint`
-writes with ``torch.save``, and `Trainer.restore_checkpoint` reads them."""
+``utils/checkpoint.py``). The files are the JAX trainer's pickles, which
+`engine.trainer.Trainer.save_checkpoint` writes too (`utils.weights.write_checkpoint`)
+and `Trainer.restore_checkpoint` reads (`utils.weights.read_checkpoint`)."""
 
 from __future__ import annotations
 

@@ -23,16 +23,19 @@ flax leaf                     port state                      layout transform
 
 `export_jax_variables` is the inverse, so a port model's weights can be
 written in the JAX facade's checkpoint format (`read_checkpoint` reads one
-with numpy alone).
+with numpy alone). `write_checkpoint` pickles a payload whose optax states
+are `OptaxState` stand-ins so that JAX's ``pickle.load`` reads optax's own
+classes, as a JAX trainer's checkpoint holds them.
 """
 
 from __future__ import annotations
 
+import importlib
 import io
 import pickle
 import re
 from pathlib import Path
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Iterable, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,11 +43,13 @@ import torch.nn as nn
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    """``{path: array}`` of a nested tree; optax's ``MaskedNode`` leaves (the
+    parameters outside a masked optimizer group) are left out."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + (str(k),)))
-        else:
+        elif type(v).__name__ != "MaskedNode":  # optax's, or its stand-in
             out[prefix + (str(k),)] = np.asarray(v)
     return out
 
@@ -102,16 +107,24 @@ def _jax_leaf(name: str, value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray
     return tuple(path), value
 
 
-def to_jax_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+def to_jax_tree(named: Mapping[str, torch.Tensor], masked: Iterable[str] = ()) -> Dict[str, Any]:
     """Port-named tensors (``stage1_block0.conv1.w``, ...) as one nested tree
-    of float32 numpy arrays in the flax layout: `from_jax_tree` inverted."""
+    of float32 numpy arrays in the flax layout: `from_jax_tree` inverted. The
+    tensors named in ``masked`` are optax ``MaskedNode`` leaves instead (the
+    parameters outside an optimizer group, in that group's state)."""
+    masked = set(masked)
     out: Dict[str, Any] = {}
     for name, t in named.items():
-        path, arr = _jax_leaf(name, t.detach().float().cpu().numpy())
+        if name in masked:  # only the path is wanted: a zero-stride stand-in of the shape
+            path, _ = _jax_leaf(name, np.broadcast_to(np.float32(0), tuple(t.shape)))
+            leaf = optax_state("MaskedNode")
+        else:
+            path, arr = _jax_leaf(name, t.detach().float().cpu().numpy())
+            leaf = np.ascontiguousarray(arr)
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = leaf
     return out
 
 
@@ -132,8 +145,9 @@ def export_jax_variables(model: nn.Module) -> Dict[str, Dict]:
 
 class OptaxState(tuple):
     """Stands in for an optax state class (``TraceState``, ``ScaleByScheduleState``,
-    ``EmptyState``, ...) met in a JAX checkpoint, whose machine may have no
-    optax: a tuple of the state's fields in order, with the class's ``name``."""
+    ``EmptyState``, ...) in a checkpoint, on a machine that may have no
+    optax: a tuple of the state's fields in order, with the class's ``name``
+    and, as ``__module__``, the optax module that defines it."""
 
     name = ""
 
@@ -141,28 +155,123 @@ class OptaxState(tuple):
         return super().__new__(cls, fields)
 
 
-# the globals a pickle of numpy arrays refers to (numpy 1.x and 2.x module names)
+# The optax module that defines each state class the port writes, in the optax
+# that the JAX package runs (0.2.6; tests/test_torch_checkpoints.py holds each
+# to `type(state).__module__` there). A pickle names a class by its module.
+OPTAX_MODULES = {
+    "EmptyState": "optax._src.base",
+    "TraceState": "optax.transforms._accumulation",
+    "MultiStepsState": "optax.transforms._accumulation",
+    "PartitionState": "optax.transforms._combining",
+    "MaskedState": "optax.transforms._masking",
+    "MaskedNode": "optax.transforms._masking",
+    "InjectStatefulHyperparamsState": "optax.schedules._inject",
+    "WrappedScheduleState": "optax.schedules._inject",
+    "ScaleByScheduleState": "optax._src.transform",
+}
+_OPTAX_CLASSES: Dict[Tuple[str, str], type] = {}
+
+
+def _optax_class(module: str, name: str) -> type:
+    """The `OptaxState` subclass standing in for ``module.name`` (one per class)."""
+    key = (module, name)
+    if key not in _OPTAX_CLASSES:
+        _OPTAX_CLASSES[key] = type(name, (OptaxState,), {"name": name, "__module__": module})
+    return _OPTAX_CLASSES[key]
+
+
+def optax_state(name: str, *fields) -> OptaxState:
+    """A stand-in for the optax state ``name`` (a key of ``OPTAX_MODULES``)
+    holding ``fields``; `write_checkpoint` writes it as that optax class."""
+    return _optax_class(OPTAX_MODULES[name], name)(*fields)
+
+
+class _Module:
+    """An optax module that a checkpoint names: pickled as
+    ``importlib.import_module(name)``, and what that call gives when
+    `read_checkpoint` reads it back."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+
+class _Global:
+    """An optax state class: pickled as ``getattr(<its module>, name)``; called,
+    a stand-in of it (the pickler wants a callable in that place)."""
+
+    def __init__(self, module: str, name: str):
+        self.module, self.name = module, name
+
+    def __call__(self, *fields) -> OptaxState:
+        return _optax_class(self.module, self.name)(*fields)
+
+
+class _OptaxPickler(pickle.Pickler):
+    """Writes each `OptaxState` as ``getattr(importlib.import_module(module),
+    name)(*fields)``: the optax NamedTuple itself when JAX's ``pickle.load``
+    reads the file. Naming the class as a global would make the pickler import
+    optax, which this machine may not have."""
+
+    def reducer_override(self, obj: Any) -> Any:
+        if isinstance(obj, OptaxState):
+            return _Global(type(obj).__module__, obj.name), tuple(obj)
+        if isinstance(obj, _Global):
+            return getattr, (_Module(obj.module), obj.name)
+        if isinstance(obj, _Module):
+            return importlib.import_module, (obj.name,)
+        return NotImplemented
+
+
+def write_checkpoint(path: Union[str, Path], payload: Mapping[str, Any]) -> None:
+    """Pickle ``payload`` (containers, numpy arrays, numbers, `OptaxState`
+    stand-ins) to ``path``; the JAX package's ``pickle.load`` reads it, optax
+    states included, and so does `read_checkpoint`."""
+    buf = io.BytesIO()
+    _OptaxPickler(buf, protocol=pickle.DEFAULT_PROTOCOL).dump(payload)
+    Path(path).write_bytes(buf.getvalue())
+
+
+def _import_optax_module(name: str) -> _Module:
+    if name != "optax" and not name.startswith("optax."):
+        raise pickle.UnpicklingError(f"checkpoint imports {name}: only optax state classes are read")
+    return _Module(name)
+
+
+def _optax_getattr(module: Any, name: str) -> type:
+    if not isinstance(module, _Module):
+        raise pickle.UnpicklingError(f"checkpoint reads attribute {name} of {module!r}")
+    return _optax_class(module.name, name)
+
+
+# the globals a pickle of numpy arrays and scalars refers to (numpy 1.x and 2.x module names)
 _NUMPY_GLOBALS = {(m, n) for m in ("numpy", "numpy.core.multiarray", "numpy._core.multiarray")
-                  for n in ("_reconstruct", "ndarray", "dtype")}
+                  for n in ("_reconstruct", "ndarray", "dtype", "scalar")}
 
 
 class _NumpyUnpickler(pickle.Unpickler):
     """Unpickles builtin containers and numpy arrays, reads any ``optax.*``
     class as an `OptaxState` (matched on the module's prefix: the path of a
-    state class moves between optax versions), and refuses every other global:
-    a checkpoint file cannot run code, and needs neither JAX, flax nor optax."""
+    state class moves between optax versions), written either as a global or
+    as `write_checkpoint` writes it, and refuses every other global: a
+    checkpoint file cannot run code, and needs neither JAX, flax nor optax."""
 
     def find_class(self, module: str, name: str) -> Any:
         if (module, name) in _NUMPY_GLOBALS:
             return super().find_class(module, name)
         if module == "optax" or module.startswith("optax."):
-            return type(name, (OptaxState,), {"name": name, "__module__": module})
+            return _optax_class(module, name)
+        if (module, name) == ("importlib", "import_module"):
+            return _import_optax_module
+        if (module, name) == ("builtins", "getattr"):
+            return _optax_getattr
         raise pickle.UnpicklingError(f"checkpoint refers to {module}.{name}: only numpy arrays are read")
 
 
 def read_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:
-    """A facade checkpoint (``{model_yaml, nc, names, params, batch_stats,
-    raw_params, step}``, the JAX facade's format, as `engine.model.YOLO`
-    writes it too) or a classification checkpoint (``{epoch, params,
-    batch_stats, opt_state, step, val_acc}``), unpickled with numpy alone."""
+    """A checkpoint of either package, unpickled with numpy alone: a facade
+    checkpoint (``{model_yaml, nc, names, params, batch_stats, raw_params,
+    step}``), a trainer checkpoint (``{epoch, step, params, batch_stats,
+    ema_params, opt_state}``) or a classification one (``{epoch, params,
+    batch_stats, opt_state, step, val_acc}``); optax states come back as
+    `OptaxState` stand-ins."""
     return _NumpyUnpickler(io.BytesIO(Path(path).read_bytes())).load()

@@ -42,10 +42,23 @@ def test_import_loads_no_jax():
             "quan_ultralytics_tpu_torch.cfg, quan_ultralytics_tpu_torch.data.loaders, "
             "quan_ultralytics_tpu_torch.engine.model, quan_ultralytics_tpu_torch.cli, "
             "quan_ultralytics_tpu_torch.classification.cli, quan_ultralytics_tpu_torch.classification.train, "
-            "quan_ultralytics_tpu_torch.classification.data, quan_ultralytics_tpu_torch.classification.models, sys; "
+            "quan_ultralytics_tpu_torch.classification.data, quan_ultralytics_tpu_torch.classification.models, "
+            "quan_ultralytics_tpu_torch.cfg.model_yaml, quan_ultralytics_tpu_torch.models.ensemble, "
+            "quan_ultralytics_tpu_torch.ops.activations, sys; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'quan_ultralytics_tpu', 'cv2', 'yaml', 'PIL', 'matplotlib', 'psutil')); "
             "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("module", ["quan_ultralytics_tpu_torch.cfg.model_yaml",
+                                    "quan_ultralytics_tpu_torch.models.ensemble",
+                                    "quan_ultralytics_tpu_torch.ops.activations"])
+def test_new_module_alone_loads_no_jax_yaml_cv2_or_pil(module):
+    """The model-YAML reader, the ensemble and the activations, each imported alone
+    in a fresh interpreter, load none of jax, the JAX package, yaml, cv2 or PIL."""
+    code = (f"import {module}, sys; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL')); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
