@@ -154,17 +154,39 @@ Phases:
      the OBB ``infer`` and micro-step at 1024 and a Q-WRN-16-2 step at batch
      128, two rounds; the assigner's metric chain in f32 and bf16 is timed in
      phase 6 and ``fused_1x1`` in phases 4 and 13 (the ``defaults`` line);
- 36. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 36. track: QUAN-YOLO11n (nc=80, seeded f32 weights, the facade's K1 + K3) follows
+     a 16-frame clip written by the script (640 x 480 PNG, a textured background
+     panned 2 px right and 1 px down a frame under 6 moving rectangles) through
+     ``YOLO.track`` with ByteTrack and with BoT-SORT: launches a frame, ms a frame
+     split into infer, the tracker's update and GMC, the tracks re-derived by a
+     fresh tracker from the recorded detections, GMC's affine against the pan;
+ 37. benchmark: ``utils.benchmarks.benchmark`` of QUAN-YOLO11n-OBB at 1024 and
+     QUAN-YOLO11n at 640, batch 8, bf16 and f32, 10 timed calls a row;
+ 38. export: ``YOLO.export(format="exported")`` of QUAN-YOLO11n-OBB at 1024, batch
+     8, bf16: the .pt2's graph holds 1 K1 and 37 K3 operators and launches them,
+     its output against the live model's (bf16 by predictions), both infers
+     timed; then ``obb export`` (f32) and ``obb predict`` of that .pt2 through the
+     CLI, the f32 artifact within PRED_TOL of the live f32 model;
+ 39. embed: ``YOLO.embed`` at 1024, batch 8, K1 + K3 against plain;
+ 40. tune: ``YOLO.tune`` on the detect set at 640, 2 iterations of 1 epoch, and
+     ``detect tune`` of one iteration through the CLI (K1 and K2 a micro-step);
+ 41. autobatch's pick at 640 and 1024 from the card's memory, and ``detect track``
+     and ``detect benchmark`` through the CLI;
+ 42. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
      seg_val_native, seg_cli, pose_predict, pose_train, pose_fit, pose_val,
      pose_cli, cls_yolo, cls_yolo_fused, cls_yolo_grad, hybrid_predict,
      hybrid_predict_fused_1x1, hybrid_train, hybrid_val, hybrid_cli,
-     hybrid_ensemble and hybrid_resume; each kernel launched on each path
-     that runs it; K1 and K2 also timed at N = 400, 640's layer 10, at
-     QPSA's N = 400, dk = dv = 4 (``qpsa_n400``), and K1 at N = 49 and K3 at
-     the Classify site), the script's seconds, then the result line.
+     hybrid_ensemble, hybrid_resume, track_bytetrack, track_botsort,
+     benchmark, export (the facade predicting from the .pt2), embed, tune,
+     cli_track, cli_benchmark, cli_tune and cli_export (``obb predict`` of
+     the .pt2); each kernel launched on each path that runs it; K1 and K2
+     also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
+     (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
+     K3's operators counted in the exported graph), the script's seconds,
+     then the result line.
 
 Without a card, or when any phase fails, it exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -3703,6 +3725,399 @@ def fused_1x1_arms(x, tables=None, calls: int = 1, rounds: int = 2):
     return out
 
 
+# ---------------------------------------------------------------- phases 36-41: track, benchmark, export, embed,
+# tune, autobatch and their CLI modes
+
+TRACK_FRAMES = 16  # frames of the clip that the track phases follow
+TRACK_SIZE = (480, 640)  # (h, w) of a clip frame: a COCO frame size
+TRACK_OBJECTS = 6  # filled rectangles moving at constant velocities across the clip
+TRACK_PAN = (2, 1)  # the camera's pan a frame in px (x, y); the background moves by minus this
+# GMC's translation a frame against the pan, px: the method's own error (OpenCV's GMC is up to
+# 0.62 px off the truth at a 320 x 240 test frame's corners, tests/test_torch_trackers.py), and
+# its rotation part within GMC_ROT_TOL of the identity
+GMC_TOL, GMC_ROT_TOL = 1.0, 1e-2
+BENCH_ITERS = 10  # timed calls a row of the benchmark table (the JAX package's default)
+TUNE_ITERS, TUNE_EPOCHS = 2, 1  # tuner iterations and the epochs each trains
+EXPORT_OPS = {"quan_torch.qattention_fwd.default": 1, "quan_torch.qconv1x1_fused.default": 37}
+
+
+def seeded_pkl(path: Path, model: str, nc: int, names=None) -> Path:
+    """A facade checkpoint (``.pkl``) of `seeded_model`'s weights."""
+    import pickle
+
+    from quan_ultralytics_tpu_torch.utils.weights import export_jax_variables
+
+    tree = export_jax_variables(seeded_model(None, model=model, nc=nc))
+    path.write_bytes(pickle.dumps({"model_yaml": model, "nc": nc, "names": names, **tree,
+                                   "raw_params": tree["params"], "step": 0}))
+    return path
+
+
+def make_clip(root: Path, seed: int = 6):
+    """TRACK_FRAMES frames of 640 x 480 written as PNG into ``root``: a textured
+    background (bilinear-upsampled noise with fine noise on it) panned TRACK_PAN a
+    frame, under TRACK_OBJECTS filled rectangles moving at constant velocities."""
+    import torch.nn.functional as F
+
+    from quan_ultralytics_tpu_torch.data.native.native import imwrite_png
+
+    rng = np.random.default_rng(seed)
+    h, w = TRACK_SIZE
+    H, W = h + TRACK_FRAMES * TRACK_PAN[1] + 16, w + TRACK_FRAMES * TRACK_PAN[0] + 16
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, H // 16 + 2, W // 16 + 2)).astype(np.float32))
+    bg = F.interpolate(coarse, scale_factor=16, mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+    bg = np.clip(bg.numpy()[:H, :W] + rng.integers(-12, 13, (H, W, 3)), 0, 255).astype(np.uint8)
+    pos = rng.uniform([0.15 * w, 0.15 * h], [0.85 * w, 0.85 * h], (TRACK_OBJECTS, 2))
+    size = rng.uniform(0.06, 0.17, (TRACK_OBJECTS, 2)) * w
+    vel = rng.uniform(-6, 6, (TRACK_OBJECTS, 2))
+    colour = rng.integers(0, 256, (TRACK_OBJECTS, 3))
+    root.mkdir(parents=True, exist_ok=True)
+    frames = []
+    for t in range(TRACK_FRAMES):
+        x0, y0 = t * TRACK_PAN[0], t * TRACK_PAN[1]
+        im = bg[y0:y0 + h, x0:x0 + w].copy()
+        for p, s, v, c in zip(pos, size, vel, colour):
+            cx, cy = p + v * t
+            im[int(max(cy - s[1] / 2, 0)):int(min(cy + s[1] / 2, h)),
+               int(max(cx - s[0] / 2, 0)):int(min(cx + s[0] / 2, w))] = c
+        imwrite_png(root / f"f{t:02d}.png", im)
+        frames.append(im)
+    return frames
+
+
+def phase_track(root: Path):
+    """QUAN-YOLO11n (nc 80, seeded weights, f32; the facade's default fused_1x1:
+    K1 + K3 a frame) follows the clip at 640 through `YOLO.track` with ByteTrack
+    and with BoT-SORT (GMC on every frame): launches counted, ms a frame split
+    into infer (letterbox, forward, NMS, copy back), the tracker's update and
+    GMC; each tracker's output re-derived by a fresh tracker from the recorded
+    detections (and frames); GMC's affine against the clip's pan. The trackers'
+    thresholds sit at the seeded model's scores on the first frame (a track
+    starts above their 95th percentile, a low-score match above the median):
+    random weights give no score to the default thresholds' scale. f32, not
+    bf16: in bf16 the seeded model's 300 kept scores take 1 to 3 values
+    (0.9728 on all 300 of the first frame on an H100 80GB HBM3), so no
+    threshold separates them.""" 
+    from quan_ultralytics_tpu_torch import trackers
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.trackers import byte_tracker
+
+    frames = make_clip(root / "clip")
+    pkl = seeded_pkl(root / "track_seeded.pkl", DET_MODEL, DET_NC)
+    y = YOLO(str(pkl), device=DEVICE)
+    n_sites = default_k3_sites(DET_MODEL, DET_NC)
+    conf = y.predict(frames[0], imgsz=DET_IMGSZ)[0].conf
+    check(len(conf) >= 2, f"track: the seeded model keeps {len(conf)} detections on the first frame")
+    kw = dict(track_high_thresh=float(np.quantile(conf, 0.95)), track_low_thresh=float(np.quantile(conf, 0.5)),
+              new_track_thresh=float(np.quantile(conf, 0.95)))
+    out = {"thresholds": kw, "frames": TRACK_FRAMES, "size": TRACK_SIZE}
+    for kind in ("bytetrack", "botsort"):
+        tracker = trackers.BOTSORT(**kw) if kind == "botsort" else trackers.BYTETracker(**kw)
+        spent, recorded, affines = {"update": 0.0, "gmc": 0.0}, [], []
+        update = tracker.update
+
+        def timed_update(xyxy, scores, cls, _update=update, _spent=spent, _rec=recorded, **kwargs):
+            _rec.append((xyxy.copy(), scores.copy(), cls.copy()))
+            t0 = time.perf_counter()
+            res = _update(xyxy, scores, cls, **kwargs)
+            _spent["update"] += time.perf_counter() - t0
+            return res
+
+        tracker.update = timed_update
+        if kind == "botsort":
+            apply = tracker.gmc.apply
+
+            def timed_apply(frame, _apply=apply, _spent=spent, _aff=affines):
+                t0 = time.perf_counter()
+                H = _apply(frame)
+                _spent["gmc"] += time.perf_counter() - t0
+                _aff.append(H)
+                return H
+
+            tracker.gmc.apply = timed_apply
+        y._tracker = tracker
+        byte_tracker.STrack._count = 0
+        _reset_counts()
+        t0 = time.perf_counter()
+        tracks = y.track(frames, imgsz=DET_IMGSZ, tracker=kind, persist=True)  # the track path, driven once
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        got = _counts()
+        check(got == {"qattn_fwd": TRACK_FRAMES, "qattn_fwd_with_stats": 0, "qattn_bwd": 0,
+                      "qconv1x1_fused": TRACK_FRAMES * n_sites}, f"track [{kind}]: launches {got}")
+        check(len(tracks) == TRACK_FRAMES and all(t.ndim == 2 and t.shape[1] == 7 and np.isfinite(t).all()
+                                                  and (t[:, 4] >= 1).all() for t in tracks),
+              f"track [{kind}]: bad track arrays")
+        # the same detections (and frames) through a fresh tracker give the same tracks
+        fresh = trackers.BOTSORT(**kw) if kind == "botsort" else trackers.BYTETracker(**kw)
+        byte_tracker.STrack._count = 0
+        again = [fresh.update(*det, **({"frame": f} if kind == "botsort" else {}))
+                 for det, f in zip(recorded, frames)]
+        check(all(np.array_equal(a, b) for a, b in zip(tracks, again)),
+              f"track [{kind}]: the facade's tracks differ from the trackers' on its detections")
+        ids = {}
+        for t in tracks:
+            for i in t[:, 4].astype(int):
+                ids[i] = ids.get(i, 0) + 1
+        row = {"launches": got, "ms_a_frame": 1e3 * total / TRACK_FRAMES,
+               "infer_ms_a_frame": 1e3 * (total - spent["update"]) / TRACK_FRAMES,
+               "update_ms_a_frame": 1e3 * (spent["update"] - spent["gmc"]) / TRACK_FRAMES,
+               "gmc_ms_a_frame": 1e3 * spent["gmc"] / TRACK_FRAMES,
+               "tracks_a_frame": [len(t) for t in tracks], "ids": len(ids),
+               "longest_track_frames": max(ids.values(), default=0)}
+        if kind == "botsort":
+            Hs = np.stack(affines[1:]).astype(np.float64)
+            shift = float(np.abs(Hs[:, :, 2] + np.array(TRACK_PAN)).max())
+            rot = float(np.abs(Hs[:, :, :2] - np.eye(2)).max())
+            row.update({"gmc_shift_err_px": shift, "gmc_rot_err": rot})
+            check(shift <= GMC_TOL and rot <= GMC_ROT_TOL,
+                  f"track [botsort]: GMC's affine is {shift:.3f} px / {rot:.4f} off the clip's pan")
+        out[kind] = row
+        print(f"track [{kind}]: {row['ms_a_frame']:.1f} ms a frame at {DET_IMGSZ} (infer "
+              f"{row['infer_ms_a_frame']:.1f}, update {row['update_ms_a_frame']:.2f}, GMC "
+              f"{row['gmc_ms_a_frame']:.1f}); launches {got}; tracks a frame {row['tracks_a_frame']}, "
+              f"{row['ids']} IDs, the longest over {row['longest_track_frames']} frames"
+              + (f"; GMC off the pan by {row['gmc_shift_err_px']:.3f} px" if kind == "botsort" else ""))
+    return out
+
+
+def phase_benchmark():
+    """`utils.benchmarks.benchmark`: QUAN-YOLO11n-OBB at 1024 and QUAN-YOLO11n at 640,
+    batch 8, bf16 and f32, BENCH_ITERS timed calls of forward + decode + NMS each
+    (CUDA events, one synchronization); the table printed, launches counted."""
+    from quan_ultralytics_tpu_torch.utils.benchmarks import WARMUP, benchmark, print_table
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = (benchmark((MODEL,), (IMGSZ,), batch=BATCH, dtypes=("bfloat16", "float32"), iters=BENCH_ITERS, nc=NC)
+            + benchmark((DET_MODEL,), (DET_IMGSZ,), batch=BATCH, dtypes=("bfloat16", "float32"),
+                        iters=BENCH_ITERS, nc=DET_NC))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    calls = WARMUP + BENCH_ITERS
+    k3 = 2 * calls * (default_k3_sites(MODEL, NC) + default_k3_sites(DET_MODEL, DET_NC))
+    check(got == {"qattn_fwd": 4 * calls, "qattn_fwd_with_stats": 0, "qattn_bwd": 0, "qconv1x1_fused": k3},
+          f"benchmark: launches {got}")
+    check(len(rows) == 4 and all(r["ms_per_batch"] > 0 for r in rows), f"benchmark rows {rows}")
+    print_table(rows)
+    print(f"benchmark: {len(rows)} rows in {secs:.1f} s; launches {got}")
+    return {"rows": rows, "launches": got, "seconds": secs}
+
+
+def _graph_ops(backend):
+    from collections import Counter
+
+    return dict(Counter(str(n.target) for n in backend._fn.graph.nodes
+                        if n.op == "call_function" and str(n.target).startswith("quan_torch")))
+
+
+def phase_export(root: Path, data_cfg, frames, x):
+    """``YOLO(.pkl, dtype=bf16).export(format="exported", imgsz=1024, batch=8)`` of
+    QUAN-YOLO11n-OBB's seeded weights: the ``.pt2``'s graph holds 1 K1 and 37 K3
+    operators; run, it launches them; its decoded output against the live
+    model's on the phase-3 frames (bf16: PRED_TOL, and the kept counts at conf
+    0.25 equal or explained); the artifact's and the live ``infer`` in
+    interleaved rounds, and each one's device busy ms and operations. Then ``obb export`` (f32) and ``obb predict`` of that
+    ``.pt2`` through the CLI, in this process: its decoded output within the f32
+    PRED_TOL of the live f32 model, the predictions of the CLI and of the facade's
+    ``YOLO(<.pt2>)`` on the DOTA set's val images."""
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+
+    pkl = seeded_pkl(root / "obb_seeded.pkl", MODEL, NC, names=list(data_cfg["names"].values()))
+    live = YOLO(str(pkl), dtype=torch.bfloat16, device=DEVICE)
+    t0 = time.perf_counter()
+    pt2 = live.export(format="exported", imgsz=IMGSZ, batch=BATCH, path=str(root / "obb_bf16.pt2"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = YOLO(pt2, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    ops = _graph_ops(art.model)
+    check(ops == EXPORT_OPS, f"export: the .pt2's graph holds {ops}, expected {EXPORT_OPS}")
+    n_nodes = sum(n.op == "call_function" for n in art.model._fn.graph.nodes)  # operator calls a run
+    with torch.inference_mode():
+        _reset_counts()
+        got = art.model(x.float() / 255.0).float()
+        torch.cuda.synchronize()
+        run_n = _counts()
+    check(run_n == {"qattn_fwd": 1, "qattn_fwd_with_stats": 0, "qattn_bwd": 0, "qconv1x1_fused": 37},
+          f"export: the artifact's run launched {run_n}")
+    ref = decoded(live.model, x)
+    rel16 = compare_preds(got, ref, NC)
+    unexplained = _unexplained_counts(got, ref, len(frames), nc=NC, rotated=True, conf=0.25, iou=0.45)
+    print(f"export [bf16 .pt2 vs the live model]: decoded max abs err / max|ref| {rel16}; kept counts differ "
+          f"unexplained on frames {unexplained}; graph {ops} of {n_nodes} operator calls; export {export_s:.1f} s, "
+          f"load {load_s:.1f} s")
+    check(all(v <= PRED_TOL[torch.bfloat16] for v in rel16.values()) and not unexplained,
+          f"export: the bf16 artifact's predictions disagree with the live model's: {rel16}, {unexplained}")
+    preds = {"artifact": Predictor(art.model, imgsz=IMGSZ), "live": Predictor(live.model, imgsz=IMGSZ)}
+    for p in preds.values():
+        p.infer(x)
+    torch.cuda.synchronize()
+    times = {k: [] for k in preds}
+    for r in range(4):
+        for name in (list(preds) if r % 2 == 0 else list(preds)[::-1]):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                preds[name].infer(x)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / 3)
+    infer_ms = {k: statistics.median(v) for k, v in times.items()}
+    device = {k: _device_profile(lambda p=p: p.infer(x), 3, f"export [{k}]: 3 x infer") for k, p in preds.items()}
+    device = {k: {"device_ms": d["device_ms"], "device_ops": d.get("device_ops")} for k, d in device.items()}
+    print(f"export: infer {infer_ms['artifact']:.2f} ms (artifact) vs {infer_ms['live']:.2f} ms (live), "
+          f"bf16, batch {BATCH} @ {IMGSZ}; rounds {times}; device {device}")
+    _reset_counts()
+    res = art.predict(frames)  # the export path: the facade predicts from the artifact
+    torch.cuda.synchronize()
+    facade_n = _counts()
+    check(len(res) == len(frames) and facade_n == run_n, f"export: YOLO(.pt2).predict launches {facade_n}")
+    # the CLI: obb export (f32, the CLI's dtype) and obb predict from the artifact
+    cli_pt2 = root / "obb_f32.pt2"
+    text, cli_export_s, export_n = _cli(["obb", "export", f"model={pkl}", "format=exported", f"imgsz={IMGSZ}",
+                                         f"batch={BATCH}", f"path={cli_pt2}"])
+    check(f"exported: {cli_pt2}" in text and sum(export_n.values()) == 0,
+          f"cli obb export: {text.strip()[-200:]}, launches {export_n} (tracing launches nothing)")
+    art32 = YOLO(str(cli_pt2), device=DEVICE)
+    check(_graph_ops(art32.model) == EXPORT_OPS, f"cli obb export: graph {_graph_ops(art32.model)}")
+    live32 = YOLO(str(pkl), device=DEVICE)
+    with torch.inference_mode():
+        rel32 = compare_preds(art32.model(x.float() / 255.0).float(), decoded(live32.model, x), NC)
+    print(f"export [f32 .pt2 of the CLI vs the live f32 model]: decoded max abs err / max|ref| {rel32}")
+    check(all(v <= PRED_TOL[torch.float32] for v in rel32.values()),
+          f"export: the f32 artifact disagrees with the live model: {rel32}")
+    src = Path(data_cfg["path"]) / data_cfg["val"]
+    n_images = len(list(src.glob("*.png")))
+    text, cli_predict_s, cli_n = _cli(["obb", "predict", f"model={cli_pt2}", f"source={src}", "conf=0.25"])
+    lines = [ln for ln in text.splitlines() if ln.startswith("image ")]
+    pieces = math.ceil(n_images / BATCH)
+    check(len(lines) == n_images and cli_n["qattn_fwd"] == cli_n["qattn_fwd_cuda_cores"] == pieces
+          and cli_n["qconv1x1_fused"] == 37 * pieces, f"cli obb predict (.pt2): {len(lines)} lines, {cli_n}")
+    check([r.verbose() for r in art32.predict(str(src), conf=0.25)] == [ln.split(" ", 3)[3] for ln in lines],
+          "cli obb predict (.pt2): the lines differ from the facade's predictions")
+    return {"graph_ops": ops, "graph_calls": n_nodes, "launches": facade_n, "launches_run": run_n, "export_s": export_s,
+            "load_s": load_s, "bf16_vs_live": rel16, "f32_vs_live": rel32, "infer_ms": infer_ms, "device": device,
+            "infer_ms_rounds": times, "cli_export_s": cli_export_s, "cli_predict_s": cli_predict_s,
+            "launches_cli": {k: export_n[k] + cli_n[k] for k in cli_n}}
+
+
+def phase_embed(root: Path, frames):
+    """``YOLO.embed`` of QUAN-YOLO11n-OBB's seeded bf16 weights at 1024 on the 8
+    phase-3 frames (layer len(specs) - 2), with K1 + K3 (the facade's default)
+    against the plain attention and unfused convs on the same weights."""
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+
+    pkl = root / "obb_seeded.pkl"
+    fused = YOLO(str(pkl), dtype=torch.bfloat16, device=DEVICE)
+    plain = YOLO(str(pkl), dtype=torch.bfloat16, device=DEVICE, fused_1x1=False)
+    plain_attention(plain.model)
+    fused.embed(frames[:1], imgsz=IMGSZ)  # warm up
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = fused.embed(frames, imgsz=IMGSZ)  # the embed path, driven once
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got_n = _counts()
+    check(got_n == {"qattn_fwd": 1, "qattn_fwd_with_stats": 0, "qattn_bwd": 0, "qconv1x1_fused": 37},
+          f"embed: launches {got_n}")
+    _reset_counts()
+    ref = plain.embed(frames, imgsz=IMGSZ)
+    check(sum(_counts().values()) == 0, f"embed [plain]: launched {_counts()}")
+    rel = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
+    print(f"embed: [{len(frames)}, {got.shape[1]}] in {ms:.1f} ms at {IMGSZ}, bf16; K1+K3 vs plain max abs err / "
+          f"max|ref| {rel:.2e}; launches {got_n}")
+    check(got.shape == ref.shape == (len(frames), got.shape[1]) and np.isfinite(got).all()
+          and rel <= PRED_TOL[torch.bfloat16], f"embed: {got.shape}, rel {rel}")
+    return {"launches": got_n, "ms": ms, "dim": int(got.shape[1]), "rel_err_vs_plain": rel}
+
+
+def phase_tune(root: Path, det_cfg):
+    """``YOLO.tune`` of QUAN-YOLO11n (the facade of its seeded checkpoint) on the
+    16-image detect set at 640: TUNE_ITERS iterations of TUNE_EPOCHS epoch each
+    (batch 8, nbs 8: an update a micro-step; bf16 steps, f32 validation), launches
+    counted (K1 and K2 a micro-step, K1 and K3 a validation batch), seconds an
+    iteration; then ``detect tune`` of one iteration through the CLI."""
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+
+    data = write_data_yaml(det_cfg, root / "coco_tune.yaml")
+    pkl = seeded_pkl(root / "tune_seeded.pkl", DET_MODEL, DET_NC, names=list(det_cfg["names"].values()))
+    n_images = len(DET_SIZES)
+    steps, n_val, k3 = n_images // BATCH, math.ceil(n_images / BATCH), default_k3_sites(DET_MODEL, DET_NC)
+
+    def expect(iters):
+        return {"qattn_fwd": iters * TUNE_EPOCHS * (steps + n_val), "qattn_fwd_with_stats": iters * TUNE_EPOCHS * steps,
+                "qattn_bwd": iters * TUNE_EPOCHS * steps, "qconv1x1_fused": iters * TUNE_EPOCHS * n_val * k3}
+
+    y = YOLO(str(pkl), device=DEVICE)
+    _reset_counts()
+    t0 = time.perf_counter()
+    best = y.tune(str(data), iterations=TUNE_ITERS, epochs=TUNE_EPOCHS, imgsz=DET_IMGSZ, batch=BATCH, nbs=BATCH,
+                  save_dir=str(root / "tune"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    hist = json.loads((root / "tune" / "tune_results.json").read_text())
+    print(f"tune: {TUNE_ITERS} iterations in {secs:.1f} s ({secs / TUNE_ITERS:.1f} s an iteration); fitness "
+          f"{[h['fitness'] for h in hist]}; launches {got}; best {best}")
+    check(got == expect(TUNE_ITERS), f"tune: launches {got} != {expect(TUNE_ITERS)}")
+    check(len(hist) == TUNE_ITERS and all(math.isfinite(h["fitness"]) for h in hist)
+          and (root / "tune" / "best_hyperparameters.json").exists(), f"tune: history {hist}")
+    text, cli_s, cli_n = _cli(["detect", "tune", f"model={pkl}", f"data={data}", "iterations=1",
+                               f"epochs={TUNE_EPOCHS}", f"imgsz={DET_IMGSZ}", f"batch={BATCH}", f"nbs={BATCH}",
+                               f"save_dir={root / 'tune_cli'}"])
+    check(cli_n == {**expect(1), "qattn_fwd_tensor_cores": TUNE_EPOCHS * steps,
+                    "qattn_fwd_cuda_cores": TUNE_EPOCHS * n_val}
+          and "lr0" in text.strip().splitlines()[-1], f"cli detect tune: launches {cli_n}")
+    return {"launches": got, "seconds": secs, "s_an_iteration": secs / TUNE_ITERS,
+            "fitness": [h["fitness"] for h in hist], "cli_s": cli_s, "launches_cli": cli_n}
+
+
+def phase_autobatch():
+    """`utils.autobatch.auto_batch` of QUAN-YOLO11n-OBB on the card at 640 and 1024:
+    the memory it reads is the card's."""
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+    from quan_ultralytics_tpu_torch.utils.autobatch import auto_batch, device_hbm_bytes
+
+    m = DetectionModel.from_yaml(MODEL, nc=NC, device=DEVICE)
+    hbm = device_hbm_bytes()
+    picks = {size: auto_batch(m, size) for size in (640, 1024)}
+    print(f"autobatch: {hbm / 2 ** 30:.1f} GiB on the card; batch {picks[640]} at 640, {picks[1024]} at 1024")
+    check(hbm == torch.cuda.get_device_properties(0).total_memory, f"autobatch: memory {hbm}")
+    check(all(p >= 1 and p & (p - 1) == 0 for p in picks.values()) and picks[640] >= picks[1024],
+          f"autobatch: picks {picks}")
+    return {"hbm_bytes": hbm, "batch": picks}
+
+
+def phase_cli_track_benchmark(root: Path):
+    """``detect track`` of the clip (the facade's default tracker, ByteTrack; f32, K1
+    and K3 a frame) and ``detect benchmark`` at 640 (bf16, 2 timed calls) through
+    the CLI, in this process."""
+    pkl = root / "track_seeded.pkl"
+    k3 = default_k3_sites(DET_MODEL, DET_NC)
+    text, track_s, track_n = _cli(["detect", "track", f"model={pkl}", f"source={root / 'clip'}",
+                                   f"imgsz={DET_IMGSZ}"])
+    lines = [ln for ln in text.splitlines() if ln.startswith("frame ")]
+    check(len(lines) == TRACK_FRAMES and track_n["qattn_fwd"] == track_n["qattn_fwd_cuda_cores"] == TRACK_FRAMES
+          and track_n["qconv1x1_fused"] == TRACK_FRAMES * k3, f"cli detect track: {len(lines)} lines, {track_n}")
+    from quan_ultralytics_tpu_torch.utils.benchmarks import WARMUP
+
+    text, bench_s, bench_n = _cli(["detect", "benchmark", f"model={DET_MODEL}", f"imgsz={DET_IMGSZ}",
+                                   f"batch={BATCH}", "iters=2", f"nc={DET_NC}"])
+    table = text.strip().splitlines()
+    print("\n".join(table))
+    check(len(table) == 2 and table[1].split()[:4] == [DET_MODEL, str(DET_IMGSZ), "bfloat16", str(BATCH)]
+          and bench_n["qattn_fwd"] == WARMUP + 2 and bench_n["qconv1x1_fused"] == (WARMUP + 2) * k3,
+          f"cli detect benchmark: {table}, {bench_n}")
+    return {"track_s": track_s, "launches_track": track_n, "benchmark_s": bench_s, "launches_benchmark": bench_n}
+
+
+
+def lap(t_start: float, what: str) -> None:
+    """Print the script's seconds so far, after ``what``."""
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
@@ -3725,6 +4140,7 @@ def main() -> int:
         k1_err, k1_t = phase_k1(gen, details, sfu_rate)
         k2_err, k2_t = phase_k2(gen, details, sfu_rate)
         k3_err, k3_t = phase_k3(gen, sites, details)
+    lap(t_start, "the kernel phases")
 
     frames = make_frames(0)
     pred_out = phase_predict(models, frames, len(sites))
@@ -3734,6 +4150,7 @@ def main() -> int:
     share = phase_device_share(models, x, speed, tables)
     del models
     torch.cuda.empty_cache()
+    lap(t_start, "the OBB predict phases")
 
     batch = make_train_batch(0)
     train_out = phase_train(batch)
@@ -3742,6 +4159,7 @@ def main() -> int:
     loss_layer = phase_loss_layer(batch)
     del batch
     torch.cuda.empty_cache()
+    lap(t_start, "the OBB train phases")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data_cfg, data_out = phase_data(Path(tmp) / "dota")
@@ -3751,6 +4169,7 @@ def main() -> int:
         del weights
         torch.cuda.empty_cache()
         cli_out = phase_cli(data_cfg, Path(tmp))
+        lap(t_start, "the OBB data, fit, val and cli phases")
         det_cfg, det_data = phase_detect_data(Path(tmp) / "coco")
         det_predict = phase_detect_predict(det_cfg, tables)
         det_train = phase_detect_train(det_cfg)
@@ -3759,6 +4178,7 @@ def main() -> int:
         det_val = phase_detect_val(det_cfg, det_weights, Path(tmp) / "detect_val", n_sites)
         del det_weights
         det_cli = phase_detect_cli(det_cfg, Path(tmp), n_sites)
+        lap(t_start, "the detect phases")
         segpose = {}
         for task, seed in (("segment", 2), ("pose", 3)):
             sp_cfg, sp_data = phase_segpose_data(Path(tmp) / task, task, seed)
@@ -3770,11 +4190,13 @@ def main() -> int:
             sp_cli = phase_segpose_cli(sp_cfg, Path(tmp), task)
             segpose[task] = {"data": sp_data, "predict": sp_predict, "train": sp_train, "fit": sp_fit,
                              "val": sp_val, "cli": sp_cli}
+            lap(t_start, f"the {task} phases")
         cifar, imagenet, cls_data = phase_cls_data(Path(tmp) / "cls")
         cls_cifar = phase_cls_cifar(cifar, Path(tmp), tables)
         cls_imagenet = phase_cls_imagenet(imagenet, tables)
         cls_yolo = phase_cls_yolo(gen, tables)
         cls_cli = phase_cls_cli(cifar, Path(tmp))
+        lap(t_start, "the classification phases")
         t_hybrid = time.perf_counter()
         hybrid_path = Path(tmp) / "user_models" / HYBRID_NAME
         hybrid_path.parent.mkdir()
@@ -3787,9 +4209,19 @@ def main() -> int:
                   "resume": phase_hybrid_resume(det_cfg, hybrid_path, Path(tmp))}
         hybrid["seconds"] = time.perf_counter() - t_hybrid
         print(f"hybrid phases: {hybrid['seconds']:.1f} s")
+        t_tools = time.perf_counter()
+        tools_root = Path(tmp) / "tools"
+        tools_root.mkdir()
+        tools = {"track": phase_track(tools_root), "benchmark": phase_benchmark(),
+                 "export": phase_export(tools_root, data_cfg, frames, x), "embed": phase_embed(tools_root, frames),
+                 "tune": phase_tune(tools_root, det_cfg), "autobatch": phase_autobatch(),
+                 "cli": phase_cli_track_benchmark(tools_root)}
+        tools["seconds"] = time.perf_counter() - t_tools
+        print(f"track, benchmark, export, embed, tune, autobatch phases: {tools['seconds']:.1f} s")
     t_forms = time.perf_counter()
     forms = phase_conv_forms(x, tables)
     print(f"conv forms phase: {time.perf_counter() - t_forms:.1f} s")
+    lap(t_start, "the conv forms phase")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -3803,7 +4235,7 @@ def main() -> int:
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
              "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose, "classify": classify,
-             "hybrid": hybrid, "conv_forms": forms},
+             "hybrid": hybrid, "tools": tools, "conv_forms": forms},
             indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
@@ -3859,6 +4291,21 @@ def main() -> int:
         check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
     check(det_launches["hybrid_predict_fused_1x1"]["qconv1x1_fused"] == HYBRID_SITES,
           "K3 did not launch at every fused site on hybrid_predict_fused_1x1")
+    # the track, benchmark, export (the facade predicting from the .pt2), embed and tune paths, and
+    # the CLI's track, benchmark, tune and export (obb export, then obb predict of the .pt2)
+    det_launches.update({"track_bytetrack": tools["track"]["bytetrack"]["launches"],
+                         "track_botsort": tools["track"]["botsort"]["launches"],
+                         "benchmark": tools["benchmark"]["launches"], "export": tools["export"]["launches"],
+                         "embed": tools["embed"]["launches"], "tune": tools["tune"]["launches"],
+                         "cli_track": tools["cli"]["launches_track"],
+                         "cli_benchmark": tools["cli"]["launches_benchmark"],
+                         "cli_tune": tools["tune"]["launches_cli"], "cli_export": tools["export"]["launches_cli"]})
+    for path in ("track_bytetrack", "track_botsort", "benchmark", "export", "embed", "tune", "cli_track",
+                 "cli_benchmark", "cli_tune", "cli_export"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    for path in ("tune", "cli_tune"):
+        check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
     cls_t = cls_yolo["timing"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
@@ -3874,6 +4321,8 @@ def main() -> int:
          # yolo11n-cls-quan at 224: G = 256, N = 49, alone
          "cls_n49": {"bf16": cls_t["k1 torch.bfloat16"], "f32_ms": cls_t["k1 torch.float32"]["ms"]},
          "shape": f"G={BATCH * 32} N=1024 dk=2 dv=4 bf16",
+         # operators quan_torch::qattention_fwd in the exported OBB graph (.pt2, bf16 and f32)
+         "export_graph_nodes": tools["export"]["graph_ops"]["quan_torch.qattention_fwd.default"],
          "library": "torch.nn.functional.scaled_dot_product_attention"},
         {"name": "qattn_bwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_bwd.cu",
          "replaces": "quan_ultralytics_tpu/ops/pallas/qattn.py:86",
@@ -3908,6 +4357,7 @@ def main() -> int:
          "cls_classify_site": {"bf16": cls_t["k3 torch.bfloat16"], "f32_ms": cls_t["k3 torch.float32"]["ms"]},
          "shape": f"the {len(sites)} fused sites of one forward, batch {BATCH} @ {IMGSZ}, bf16, "
                   "times summed",
+         "export_graph_nodes": tools["export"]["graph_ops"]["quan_torch.qconv1x1_fused.default"],
          "library": "torch.matmul with the mixing folded into the weights, no affine or SiLU "
                     "(a partial yardstick)"},
     ]
@@ -3949,6 +4399,11 @@ def main() -> int:
         "predict": {k: v for k, v in hp.items() if k != "device"}, "predict_device": hp["device"],
         "train": {k: v for k, v in hybrid["train"].items() if k != "ms_steps"},
         **{k: hybrid[k] for k in ("val", "cli", "ensemble", "resume", "seconds")}}}, default=str))
+    print(json.dumps({"tools": {
+        "track": tools["track"], "benchmark": tools["benchmark"]["rows"],
+        "export": {k: v for k, v in tools["export"].items() if k != "infer_ms_rounds"},
+        "embed": tools["embed"], "tune": tools["tune"], "autobatch": tools["autobatch"],
+        "cli": tools["cli"], "seconds": tools["seconds"]}}, default=str))
     # ROADMAP item 4: the TPU-chosen defaults, by the numbers of this run
     print(json.dumps({"defaults": {
         "conv_forms": {w: {"mean_device_ms": r["mean_device_ms"], "best": r["best"],

@@ -19,9 +19,11 @@ for segment, ``yolo11n-pose-quan.yaml`` for pose). ``classify`` trains only
 (`classification.cli`), as the JAX CLI routes it: ``data=cifar10|cifar100|
 svhn|imagenet|synthetic`` names the dataset and ``data=<folder>`` an
 ImageNet-layout folder; ``batch`` is ``--batch_size``, ``lr0`` ``--lr``, and
-every other key passes as its flag. The detect, OBB, segment, pose and
-classify tasks are ported; the export, track, tune and benchmark modes are
-not yet.
+every other key passes as its flag. ``export`` writes ``format=exported``
+(a ``.pt2``) or ``format=params`` (a ``.pkl``); ``track`` reads a directory of
+frames (video sources are not ported yet); ``tune`` evolves the training
+hyperparameters; ``benchmark`` prints the speed table of
+`utils.benchmarks.benchmark`.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ DEFAULT_MODELS = {
     "segment": "yolo11n-seg-quan.yaml",
     "pose": "yolo11n-pose-quan.yaml",
 }
-NOT_PORTED = ("export", "track", "tune", "benchmark")
 
 
 def parse_kv(argv) -> Dict[str, Any]:
@@ -107,9 +108,8 @@ def main(argv=None) -> int:
         print(json.dumps(dict(SETTINGS), indent=2))
         return 0
     kv = parse_kv(argv)
-    if mode in NOT_PORTED:
-        what = f"{task} {mode}" if task else mode
-        raise SystemExit(f"yolo {what}: not ported yet to the PyTorch package (ROADMAP Queue 1 item 3b)")
+    if mode == "benchmark":
+        return benchmark_mode(kv)
     if task == "classify":
         if mode != "train":
             raise SystemExit("classify supports mode=train (val runs every epoch)")
@@ -126,6 +126,16 @@ def main(argv=None) -> int:
         raise SystemExit(f"yolo {mode} requires data=<dataset.yaml>")
     if mode == "predict" and "source" not in kv:
         raise SystemExit("yolo predict requires source=<image-or-dir>")
+    if mode == "track":
+        from quan_ultralytics_tpu_torch.data.loaders import VID_EXTS
+
+        if "source" not in kv:
+            raise SystemExit("yolo track requires source=<video-or-dir>")
+        if Path(str(kv["source"])).suffix.lower() in VID_EXTS:
+            raise SystemExit(f"yolo track: {kv['source']}: video sources are not ported yet "
+                             "(ROADMAP Queue 1 item 3b); pass a directory of frames")
+    if mode == "tune" and "data" not in kv:
+        raise SystemExit("yolo tune requires data=<dataset.yaml>")
 
     from quan_ultralytics_tpu_torch.engine.model import YOLO
     from quan_ultralytics_tpu_torch.models.tasks import resolve_device
@@ -158,6 +168,58 @@ def main(argv=None) -> int:
             if save_txt:
                 (save_dir / "labels").mkdir(parents=True, exist_ok=True)
                 r.save_txt(save_dir / "labels" / f"im{i}.txt", save_conf=save_conf)
+    elif mode == "export":
+        # reference cfg/__init__.py MODES 'export' -> Model.export (:851)
+        try:  # an unknown option (the JAX package's tflite half=, int8=) is a TypeError
+            path = model.export(**kv)
+        except (TypeError, ValueError, RuntimeError) as e:
+            raise SystemExit(f"yolo export: {e}")
+        print(f"exported: {path}")
+    elif mode == "track":
+        # reference 'track' mode (Model.track): a directory of frames -> per-frame
+        # associations through ByteTrack or BoT-SORT
+        from quan_ultralytics_tpu_torch.data.loaders import load_source
+
+        tracks = model.track(load_source(kv.pop("source")), **kv)
+        for fi, t in enumerate(tracks):
+            print(f"frame {fi}: {len(t)} tracks")
+    elif mode == "tune":
+        data = kv.pop("data")
+        print(model.tune(data, **kv))
+    return 0
+
+
+def _seq(v, cast) -> tuple:
+    """A ``k=v`` value as a tuple: parse_kv gives "640,1024" as a tuple already;
+    a bare scalar or a comma string ("a.yaml,b.yaml") is split here."""
+    if isinstance(v, (tuple, list)):
+        return tuple(cast(s) for s in v)
+    if isinstance(v, (int, float)):
+        return (cast(v),)
+    return tuple(cast(s.strip()) for s in str(v).split(","))
+
+
+def benchmark_mode(kv: Dict[str, Any]) -> int:
+    """``yolo benchmark [model=a.yaml,b.yaml] [imgsz=640,1024] [batch=] [iters=]
+    [nc=] [dtype=bfloat16,float32] [device=]``: the speed table of
+    `utils.benchmarks.benchmark` (reference MODES 'benchmark', utils/benchmarks.py :51)."""
+    from quan_ultralytics_tpu_torch.models.tasks import resolve_device
+    from quan_ultralytics_tpu_torch.utils.benchmarks import benchmark, print_table
+
+    try:
+        kw: Dict[str, Any] = {"device": resolve_device(kv.get("device"))}
+    except RuntimeError as e:
+        raise SystemExit(f"yolo benchmark: {e}")
+    if "model" in kv:
+        kw["models"] = _seq(kv["model"], str)
+    if "imgsz" in kv:
+        kw["imgsz"] = _seq(kv["imgsz"], int)
+    for k in ("batch", "iters", "nc"):
+        if k in kv:
+            kw[k] = int(kv[k])
+    if "dtype" in kv:
+        kw["dtypes"] = _seq(kv["dtype"], str)
+    print_table(benchmark(**kw))
     return 0
 
 

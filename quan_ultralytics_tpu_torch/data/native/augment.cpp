@@ -14,6 +14,7 @@
 //   aug_median_blur       cv2.medianBlur(k), BORDER_REPLICATE
 //   aug_clahe             cv2.createCLAHE(clip, (tx, ty)).apply (one channel)
 //   aug_fill_polygons     cv2.drawContours(mask, contours, -1, 1, FILLED)
+//   aug_optical_flow_lk   cv2.calcOpticalFlowPyrLK (one channel, BoT-SORT's GMC)
 //
 // The arithmetic follows OpenCV's own: the integer tables of its 8-bit colour
 // conversions, the float32 steps of its vectorised warp (a fused multiply-add
@@ -27,6 +28,8 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <limits>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -662,6 +665,210 @@ void aug_fill_polygons(uint8_t* mask, int h, int w, const int32_t* pts, const in
         at += counts[j];
     }
     fill_edges(m, edges);
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ pyramidal Lucas-Kanade
+//
+// OpenCV 5.0's calcOpticalFlowPyrLK (lkpyramid.cpp, the scalar path) on one
+// channel: pyrDown levels while a level stays larger than the window, Scharr
+// derivatives (3, 10, 3) of the previous image, windows sampled bilinearly
+// with 14-bit weights (the image scaled by 32, the derivatives as they are),
+// the 2 x 2 gradient matrix and its minimum eigenvalue, then Newton steps
+// until a step is below eps or two steps cancel. Images are padded by
+// win + 1 (BORDER_REFLECT_101; the derivatives by zeros), so every tap of a
+// window whose corner passes the bounds check lies inside the padding.
+
+namespace {
+
+constexpr int kWBits = 14;
+constexpr double kFltScale = 1.0 / (1 << 20);
+
+std::vector<uint8_t> pyr_down(const std::vector<uint8_t>& src, int h, int w, int oh, int ow) {
+    static const int k[5] = {1, 4, 6, 4, 1};
+    std::vector<int32_t> rows((size_t)oh * w);
+    for (int y = 0; y < oh; ++y)
+        for (int x = 0; x < w; ++x) {
+            int s = 0;
+            for (int i = 0; i < 5; ++i) s += k[i] * src[(size_t)reflect101(2 * y + i - 2, h) * w + x];
+            rows[(size_t)y * w + x] = s;
+        }
+    std::vector<uint8_t> out((size_t)oh * ow);
+    for (int y = 0; y < oh; ++y)
+        for (int x = 0; x < ow; ++x) {
+            int s = 0;
+            for (int j = 0; j < 5; ++j) s += k[j] * rows[(size_t)y * w + reflect101(2 * x + j - 2, w)];
+            out[(size_t)y * ow + x] = (uint8_t)((s + 128) >> 8);
+        }
+    return out;
+}
+
+struct Padded {  // an image padded by `pad` on every side, int32, rows of `width`
+    int width = 0, pad = 0;
+    std::vector<int32_t> px;
+    int32_t at(int y, int x) const { return px[(size_t)(y + pad) * width + (x + pad)]; }
+};
+
+Padded pad_reflect(const std::vector<uint8_t>& im, int h, int w, int pad) {
+    Padded p;
+    p.width = w + 2 * pad;
+    p.pad = pad;
+    p.px.resize((size_t)(h + 2 * pad) * p.width);
+    std::vector<int> cols(p.width);
+    for (int x = -pad; x < w + pad; ++x) cols[x + pad] = reflect101(x, w);
+    for (int y = -pad; y < h + pad; ++y) {
+        const uint8_t* row = &im[(size_t)reflect101(y, h) * w];
+        int32_t* dst = &p.px[(size_t)(y + pad) * p.width];
+        for (int x = 0; x < p.width; ++x) dst[x] = row[cols[x]];
+    }
+    return p;
+}
+
+// Scharr derivatives (OpenCV's calcSharrDeriv) of the image that I pads by
+// BORDER_REFLECT_101, zero-padded like I.
+void scharr(const Padded& I, int h, int w, Padded& dx, Padded& dy) {
+    for (Padded* d : {&dx, &dy}) {
+        d->width = I.width;
+        d->pad = I.pad;
+        d->px.assign(I.px.size(), 0);
+    }
+    std::vector<int32_t> t0(w + 2), t1(w + 2);  // columns -1 .. w
+    for (int y = 0; y < h; ++y) {
+        for (int x = -1; x <= w; ++x) {
+            const int32_t up = I.at(y - 1, x), mid = I.at(y, x), dn = I.at(y + 1, x);
+            t0[x + 1] = (up + dn) * 3 + mid * 10;
+            t1[x + 1] = dn - up;
+        }
+        const size_t o = (size_t)(y + I.pad) * I.width + I.pad;
+        for (int x = 0; x < w; ++x) {
+            dx.px[o + x] = t0[x + 2] - t0[x];
+            dy.px[o + x] = (t1[x] + t1[x + 2]) * 3 + t1[x + 1] * 10;
+        }
+    }
+}
+
+struct Corner {  // integer corner and 14-bit bilinear weights of a float32 point
+    int x, y;
+    int32_t w00, w01, w10, w11;
+};
+
+Corner corner(float px, float py) {
+    Corner c;
+    float fx = std::floor(px), fy = std::floor(py);
+    c.x = (int)fx;
+    c.y = (int)fy;
+    float a = px - fx, b = py - fy, s = (float)(1 << kWBits);
+    c.w00 = (int32_t)std::lrint((1.f - a) * (1.f - b) * s);
+    c.w01 = (int32_t)std::lrint(a * (1.f - b) * s);
+    c.w10 = (int32_t)std::lrint((1.f - a) * b * s);
+    c.w11 = (1 << kWBits) - c.w00 - c.w01 - c.w10;
+    return c;
+}
+
+// the window of `img` at corner c, win x win, descaled by `shift` bits
+void sample(const Padded& img, const Corner& c, int win, int shift, int32_t* out) {
+    for (int r = 0; r < win; ++r) {
+        const int32_t* p0 = &img.px[(size_t)(c.y + r + img.pad) * img.width + (c.x + img.pad)];
+        const int32_t* p1 = p0 + img.width;
+        for (int q = 0; q < win; ++q)
+            out[r * win + q] = descale(p0[q] * c.w00 + p0[q + 1] * c.w01 + p1[q] * c.w10 + p1[q + 1] * c.w11, shift);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Track n points (x, y float32 pairs in pts) from prev to next (uint8 [h, w]):
+// the tracked points into out (n x 2 float32) and 1 or 0 into status (uint8).
+void aug_optical_flow_lk(const uint8_t* prev, const uint8_t* next, int h, int w, const float* pts, int n,
+                         float* out, uint8_t* status, int win, int max_level, int max_iter, double eps,
+                         double min_eig) {
+    std::vector<std::vector<uint8_t>> P{std::vector<uint8_t>(prev, prev + (size_t)h * w)};
+    std::vector<std::vector<uint8_t>> Q{std::vector<uint8_t>(next, next + (size_t)h * w)};
+    std::vector<std::pair<int, int>> size{{h, w}};
+    for (int l = 0; l < max_level; ++l) {
+        int lh = size.back().first, lw = size.back().second, oh = (lh + 1) / 2, ow = (lw + 1) / 2;
+        if (ow <= win || oh <= win) break;
+        P.push_back(pyr_down(P.back(), lh, lw, oh, ow));
+        Q.push_back(pyr_down(Q.back(), lh, lw, oh, ow));
+        size.push_back({oh, ow});
+    }
+    const int top = (int)P.size() - 1, pad = win + 1, area = win * win;
+    const float half = (float)((win - 1) * 0.5);
+    const double eps2 = eps * eps;
+    std::fill(status, status + n, (uint8_t)1);
+    std::vector<int32_t> Iv(area), Ix(area), Iy(area), Jv(area);
+    for (int level = top; level >= 0; --level) {
+        const int lh = size[level].first, lw = size[level].second;
+        Padded I = pad_reflect(P[level], lh, lw, pad), J = pad_reflect(Q[level], lh, lw, pad), dx, dy;
+        scharr(I, lh, lw, dx, dy);
+        const float inv = 1.f / (float)(1 << level);
+        for (int k = 0; k < n; ++k) {
+            float* o = out + 2 * k;
+            const float px = pts[2 * k] * inv, py = pts[2 * k + 1] * inv;
+            if (level == top) {
+                o[0] = px;
+                o[1] = py;
+            } else {
+                o[0] *= 2.f;
+                o[1] *= 2.f;
+            }
+            Corner c = corner(px - half, py - half);
+            if (c.x < -win || c.x >= lw || c.y < -win || c.y >= lh) {
+                if (level == 0) status[k] = 0;
+                continue;
+            }
+            sample(I, c, win, kWBits - 5, Iv.data());
+            sample(dx, c, win, kWBits, Ix.data());
+            sample(dy, c, win, kWBits, Iy.data());
+            int64_t s11 = 0, s12 = 0, s22 = 0;
+            for (int i = 0; i < area; ++i) {
+                s11 += (int64_t)Ix[i] * Ix[i];
+                s12 += (int64_t)Ix[i] * Iy[i];
+                s22 += (int64_t)Iy[i] * Iy[i];
+            }
+            const float A11 = (float)(s11 * kFltScale), A12 = (float)(s12 * kFltScale),
+                        A22 = (float)(s22 * kFltScale);
+            const float D = A11 * A22 - A12 * A12;
+            const float eig = (A22 + A11 - std::sqrt((A11 - A22) * (A11 - A22) + 4.f * A12 * A12)) / (float)(2 * area);
+            if (eig < (float)min_eig || D < std::numeric_limits<float>::epsilon()) {
+                if (level == 0) status[k] = 0;
+                continue;
+            }
+            const float Dinv = 1.f / D;
+            float ptx = o[0] - half, pty = o[1] - half, prevx = 0.f, prevy = 0.f;
+            for (int j = 0; j < max_iter; ++j) {
+                Corner cn = corner(ptx, pty);
+                if (cn.x < -win || cn.x >= lw || cn.y < -win || cn.y >= lh) {
+                    if (level == 0) status[k] = 0;
+                    break;
+                }
+                sample(J, cn, win, kWBits - 5, Jv.data());
+                int64_t s1 = 0, s2 = 0;
+                for (int i = 0; i < area; ++i) {
+                    const int64_t diff = Jv[i] - Iv[i];
+                    s1 += diff * Ix[i];
+                    s2 += diff * Iy[i];
+                }
+                const float b1 = (float)(s1 * kFltScale), b2 = (float)(s2 * kFltScale);
+                const float ddx = (A12 * b2 - A22 * b1) * Dinv, ddy = (A12 * b1 - A11 * b2) * Dinv;
+                ptx += ddx;
+                pty += ddy;
+                o[0] = ptx + half;
+                o[1] = pty + half;
+                if ((double)ddx * ddx + (double)ddy * ddy <= eps2) break;
+                if (j > 0 && std::fabs(ddx + prevx) < 0.01f && std::fabs(ddy + prevy) < 0.01f) {
+                    o[0] -= ddx * 0.5f;
+                    o[1] -= ddy * 0.5f;
+                    break;
+                }
+                prevx = ddx;
+                prevy = ddy;
+            }
+        }
+    }
 }
 
 }  // extern "C"

@@ -10,7 +10,9 @@ one channel.
 ``augment.cpp`` is compiled with ``g++`` at first use into ``build/`` at the
 repository root, keyed by a hash of its source and flags, under a file lock
 (`utils.native_build`); a missing compiler raises. ctypes releases the GIL
-for each call, so loader threads run them at once.
+for each call, so loader threads run them at once. `optical_flow_pyr_lk` is
+the Lucas-Kanade tracker of BoT-SORT's motion compensation
+(`trackers.gmc`), held to ``cv2.calcOpticalFlowPyrLK``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ _SIGNATURES = {
     "aug_median_blur": [_P, _I, _I, _I, _P, _I],
     "aug_clahe": [_P, _I, _I, _P, _D, _I, _I],
     "aug_fill_polygons": [_P, _I, _I, _P, _P, _I],
+    "aug_optical_flow_lk": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _D, _D],
 }
 
 
@@ -179,3 +182,24 @@ def fill_polygons(mask: np.ndarray, polygons: Sequence[np.ndarray]) -> np.ndarra
     library().aug_fill_polygons(mask.ctypes.data, mask.shape[0], mask.shape[1], pts.ctypes.data,
                                 counts.ctypes.data, len(polys))
     return mask
+
+
+# cv2.calcOpticalFlowPyrLK's defaults: a 21 x 21 window, 3 levels above the frame,
+# 30 iterations or a step below 0.01 px, a minimum eigenvalue of 1e-4
+LK_WIN, LK_LEVELS, LK_ITERS, LK_EPS, LK_MIN_EIG = 21, 3, 30, 0.01, 1e-4
+
+
+def optical_flow_pyr_lk(prev: np.ndarray, nxt: np.ndarray, pts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``cv2.calcOpticalFlowPyrLK(prev, nxt, pts, None)`` on uint8 ``[h, w]``
+    images: ``(next points [n, 1, 2] float32, status [n, 1] uint8)`` for
+    float32 ``pts [n, 1, 2]``."""
+    prev, nxt = _gray(prev), _gray(nxt)
+    if prev.shape != nxt.shape:
+        raise ValueError(f"the images differ in size: {prev.shape}, {nxt.shape}")
+    p = np.ascontiguousarray(pts, dtype=np.float32).reshape(-1, 2)
+    out = np.empty_like(p)
+    status = np.empty(len(p), np.uint8)
+    library().aug_optical_flow_lk(prev.ctypes.data, nxt.ctypes.data, prev.shape[0], prev.shape[1],
+                                  p.ctypes.data, len(p), out.ctypes.data, status.ctypes.data, LK_WIN,
+                                  LK_LEVELS, LK_ITERS, LK_EPS, LK_MIN_EIG)
+    return out.reshape(-1, 1, 2), status.reshape(-1, 1)

@@ -15,19 +15,25 @@ package reads the other's ``.pkl`` files.
 Where the JAX facade starts training from ``init(PRNGKey(seed))`` whatever
 it loaded, this one trains the weights it holds (the model's seeded draw, or
 a loaded checkpoint), as the reference's ``Model.train`` does.
+
+``YOLO("m.pt2")`` takes an artifact of ``export(format="exported")``
+(`engine.exporter.ExportedBackend`): it predicts at its fixed size, on the
+device it was exported on, and does nothing else.
 """
 
 from __future__ import annotations
 
 import pickle
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+from quan_ultralytics_tpu_torch.data.augment import AugmentHyp, letterbox
 from quan_ultralytics_tpu_torch.data.build import build_dataloader
 from quan_ultralytics_tpu_torch.data.dataset import YOLODataset
+from quan_ultralytics_tpu_torch.data.loaders import load_source
 from quan_ultralytics_tpu_torch.engine.predictor import Predictor, Results
 from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
 from quan_ultralytics_tpu_torch.engine.validator import Validator
@@ -35,9 +41,6 @@ from quan_ultralytics_tpu_torch.models.tasks import FUSED_1X1, DetectionModel, r
 from quan_ultralytics_tpu_torch.utils import checkpoint
 from quan_ultralytics_tpu_torch.utils.weights import (export_jax_variables, load_jax_variables,
                                                       read_checkpoint)
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 3b)"
-
 
 class YOLO:
     """``YOLO(model_yaml_or_ckpt)``; the task follows the head module.
@@ -53,6 +56,13 @@ class YOLO:
                  device: Optional[Union[str, torch.device]] = None, fused_1x1: bool = FUSED_1X1):
         self.device = resolve_device(device)
         self.dtype, self.fused_1x1 = dtype, fused_1x1
+        if str(model).endswith(".pt2"):
+            from quan_ultralytics_tpu_torch.engine.exporter import ExportedBackend
+
+            self.model = ExportedBackend(str(model))
+            self.model_yaml, self.names = self.model.meta.get("model_yaml"), self.model.names
+            self.task = self.model.task
+            return
         if str(model).endswith((".pkl", ".ckpt")):
             payload = read_checkpoint(model)
             self.model_yaml, self.names = payload["model_yaml"], payload.get("names")
@@ -183,22 +193,104 @@ class YOLO:
 
     def predict(self, source, imgsz: int = 640, conf: float = 0.25, iou: float = 0.45,
                 max_det: int = 300) -> List[Results]:
-        """Frames, a path or a directory -> one `Results` each (reference Model.predict)."""
+        """Frames, a path or a directory -> one `Results` each (reference
+        Model.predict). An exported artifact predicts at its own size."""
         self.model.eval()
+        imgsz = getattr(self.model, "imgsz", imgsz)
         predictor = Predictor(self.model, imgsz=imgsz, conf=conf, iou=iou,
                               max_det=max_det, names=self.names)
         return predictor(source)
 
     __call__ = predict
 
-    def embed(self, *args, **kwargs):
-        raise NotImplementedError(f"YOLO.embed (per-layer features) {_NOT_PORTED}")
+    @torch.inference_mode()
+    def embed(self, source, layers: Optional[Sequence[int]] = None, imgsz: int = 640) -> np.ndarray:
+        """Feature embeddings (reference engine/model.py:465 Model.embed,
+        nn/tasks.py:163-166; the JAX facade's ``embed``): each frame's
+        letterboxed features at ``layers`` (default: the second-to-last layer,
+        the reference's ``embed=[len(model) - 2]``), averaged over space to
+        ``[4 C]`` and concatenated in layer order. Returns ``[B, D]`` float32."""
+        if isinstance(source, (str, Path)):
+            images = list(load_source(source))
+        elif isinstance(source, np.ndarray) and source.ndim == 3:
+            images = [source]
+        else:
+            images = list(source)
+        x = torch.stack([letterbox(torch.as_tensor(im).to(self.device), imgsz)[0] for im in images])
+        layers = sorted(layers or [len(self.model.specs) - 2])
+        self.model.eval()
+        _, feats = self.model.features(x.float() / 255.0, layers=layers)
+        pooled = [feats[i].float().mean(dim=(1, 2)).reshape(len(images), -1) for i in layers]
+        return torch.cat(pooled, dim=1).cpu().numpy()
 
-    def export(self, *args, **kwargs):
-        raise NotImplementedError(f"YOLO.export {_NOT_PORTED}")
+    def export(self, format: str = "exported", imgsz: int = 640, batch: int = 1,
+               path: Optional[str] = None) -> str:
+        """mode=export (reference Model.export :851; engine/exporter.py):
+        ``exported``, a ``torch.export`` artifact of forward + decode (``.pt2``,
+        reloaded by ``YOLO("model.pt2")``), or ``params``, the weights in the
+        JAX payload (``.pkl``, read by ``YOLO`` of either package). The JAX
+        package's stablehlo, tflite, saved_model and onnx formats raise, and
+        so do its tflite options ``half`` and ``int8`` (unknown arguments)."""
+        from quan_ultralytics_tpu_torch.engine import exporter
 
-    def tune(self, *args, **kwargs):
-        raise NotImplementedError(f"YOLO.tune {_NOT_PORTED}")
+        if format == "exported":
+            return exporter.export_compiled(self.model, imgsz=imgsz, batch=batch,
+                                            path=path or "model.pt2", names=self.names,
+                                            model_yaml=self.model_yaml)
+        if format == "params":
+            return exporter.export_params(self.model, self.model_yaml, names=self.names,
+                                          path=path or "model.pkl")
+        exporter.refuse(format)
 
-    def track(self, *args, **kwargs):
-        raise NotImplementedError(f"YOLO.track {_NOT_PORTED}")
+    def tune(self, data: Union[str, Dict], iterations: int = 10, epochs: int = 5,
+             imgsz: int = 640, batch: int = 16, save_dir: str = "runs/tune",
+             **overrides) -> Dict[str, float]:
+        """mode=tune (reference Model.tune :871; engine/tuner.py): mutation
+        evolution over the training hyperparameters; each iteration trains a
+        fresh model of this YAML for ``epochs`` epochs and scores its fitness
+        (0.9 mAP50-95 + 0.1 mAP50, or minus the loss without one)."""
+        from quan_ultralytics_tpu_torch.engine.tuner import Tuner
+
+        base = {"lr0": 0.01, "lrf": 0.01, "momentum": 0.937, "weight_decay": 5e-4,
+                "warmup_epochs": 3.0, "box": 7.5, "cls": 0.5, "dfl": 1.5}
+        it_count = [0]
+
+        def train_fn(hyp):
+            m = YOLO(self.model_yaml, dtype=self.dtype, device=self.device, fused_1x1=self.fused_1x1)
+            it_dir = str(Path(save_dir) / f"iter{it_count[0]}")
+            it_count[0] += 1
+            row = m.train(data, epochs=epochs, batch=batch, imgsz=imgsz,
+                          save_dir=it_dir, log=lambda *a: None, **hyp, **overrides)
+            return row.get("fitness", -row.get("loss", float("inf")))
+
+        return Tuner(train_fn, base, save_dir=save_dir)(iterations)
+
+    def track(self, frames: Iterable, imgsz: int = 640, conf: float = 0.25, iou: float = 0.45,
+              tracker: str = "bytetrack", persist: bool = False) -> List[np.ndarray]:
+        """mode=track (reference Model.track): detect each frame, then associate.
+
+        frames: an iterable of uint8 RGB frames (a directory's images through
+        `data.loaders.load_source`). Returns one ``[n, 7]`` array a frame: xyxy,
+        track_id, score, cls. Detect-task models only, as the reference.
+        ``tracker``: ``bytetrack`` or ``botsort`` (which gets each frame for
+        its motion compensation), with or without the reference's ``.yaml``
+        (the config's ``tracker: botsort.yaml``); ``persist`` keeps the
+        tracker of the last call.
+        """
+        from quan_ultralytics_tpu_torch.trackers import BOTSORT, BYTETracker
+
+        if self.task != "detect":
+            raise ValueError("track mode requires a detect-task model")
+        kind = tracker[:-len(".yaml")] if tracker.endswith(".yaml") else tracker
+        if kind not in ("bytetrack", "botsort"):
+            raise ValueError(f"tracker must be bytetrack or botsort, got {tracker!r}")
+        if not persist or not hasattr(self, "_tracker"):
+            self._tracker = BOTSORT() if kind == "botsort" else BYTETracker()
+        self.model.eval()
+        predictor = Predictor(self.model, imgsz=imgsz, conf=conf, iou=iou, names=self.names)
+        outputs = []
+        for frame in frames:
+            res = predictor(frame)[0]
+            kwargs = {"frame": np.asarray(frame)} if isinstance(self._tracker, BOTSORT) else {}
+            outputs.append(self._tracker.update(res.boxes[:, :4], res.conf, res.cls, **kwargs))
+        return outputs

@@ -16,7 +16,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,6 +27,9 @@ from quan_ultralytics_tpu_torch.data.loaders import load_source
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 from quan_ultralytics_tpu_torch.ops.boxes import (non_max_suppression, regularize_rboxes,
                                                    xywhr2xyxyxyxy)
+
+if TYPE_CHECKING:
+    from quan_ultralytics_tpu_torch.engine.exporter import ExportedBackend
 
 
 @dataclass
@@ -185,10 +188,13 @@ def process_masks(mc: torch.Tensor, proto: torch.Tensor, boxes: torch.Tensor, im
 
 class Predictor:
     """Prediction with a port `DetectionModel` on the model's device (the
-    detect, OBB, segment and pose tasks)."""
+    detect, OBB, segment and pose tasks), or with an exported artifact
+    (`engine.exporter.ExportedBackend`, detect and OBB at its fixed
+    ``imgsz``, which has the model's surface used here)."""
 
-    def __init__(self, model: DetectionModel, imgsz: int = 640, conf: float = 0.25,
-                 iou: float = 0.45, max_det: int = 300, names: Optional[List[str]] = None):
+    def __init__(self, model: Union[DetectionModel, "ExportedBackend"], imgsz: int = 640,
+                 conf: float = 0.25, iou: float = 0.45, max_det: int = 300,
+                 names: Optional[List[str]] = None):
         self.model = model
         self.imgsz, self.conf, self.iou, self.max_det = imgsz, conf, iou, max_det
         self.names = names

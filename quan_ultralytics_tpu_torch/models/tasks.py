@@ -221,7 +221,12 @@ class QUANYOLO(nn.Module):
             if isinstance(mod, (C.QConv2D, C.QDense, H.QER, H.QERPreserve, H.Classify)):
                 mod.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, upto: Optional[int] = None,
+                capture: Optional[Dict[int, torch.Tensor]] = None):
+        """The head output, or with ``upto`` the output of layer ``upto`` (the
+        graph's prefix runs alone: `utils.profiler.profile_layers`). ``capture``
+        collects each layer's output that is one tensor, by layer index (a
+        head's tuple is left out)."""
         saved: Dict[int, Any] = {}
         y = x
         for spec, layer in zip(self.specs, self.model):
@@ -229,6 +234,10 @@ class QUANYOLO(nn.Module):
             y = layer(inputs if spec.module in _HEADS or spec.module == "Concat" else inputs[0])
             if spec.i in self.save:
                 saved[spec.i] = y
+            if capture is not None and isinstance(y, torch.Tensor):
+                capture[spec.i] = y
+            if spec.i == upto:
+                break
         return y
 
 
@@ -291,6 +300,31 @@ class DetectionModel(QUANYOLO):
             feats, kpts = out
             return H.decode_pose(feats, kpts, self.strides, self.nc, self.kpt_shape, self.reg_max)
         return H.decode_detect(out, self.strides, self.nc, self.reg_max)
+
+    def features(self, x: torch.Tensor, layers: Optional[Sequence[int]] = None):
+        """Per-layer feature maps (the JAX ``DetectionModel.features``; reference
+        nn/tasks.py:140 ``_predict_once`` with visualize/embed): ``(head output,
+        {layer: [B, H, W, 4, C] tensor})`` for every layer whose output is one
+        tensor (heads return tuples and are left out), or for ``layers`` only."""
+        feats: Dict[int, torch.Tensor] = {}
+        out = self(x, capture=feats)
+        if layers is not None:
+            feats = {int(i): feats[int(i)] for i in layers}
+        return out, feats
+
+    def info(self, imgsz: int = 640, log=print) -> Dict[str, Any]:
+        """The layer table and the params / GFLOPs summary (the JAX
+        ``DetectionModel.info``; reference model_info, torch_utils.py:299, and
+        parse_model's build log); returns `utils.profiler.summary`."""
+        from quan_ultralytics_tpu_torch.utils.profiler import summary
+
+        log(f"{'':>3}{'from':>14}{'n':>3}  {'module':<14}{'args'}")
+        for s in self.specs:
+            log(f"{s.i:>3}{str(list(s.f)):>14}{s.n:>3}  {s.module:<14}{list(s.args)}")
+        info = summary(self, imgsz)
+        log(f"{self.scale}-scale {self.task}: {info['params']:,} params, "
+            f"~{info['approx_conv_gflops']:.1f} conv GFLOPs @ {imgsz}px")
+        return info
 
     @property
     def extra_dim(self) -> int:

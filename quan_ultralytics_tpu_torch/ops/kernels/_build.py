@@ -5,6 +5,15 @@ together; one more ``nvcc`` links them into ``build/libquan_torch_kernels.so``
 beside the package (`utils.native_build.locked_build`: once, keyed by a hash
 of the sources and flags, under a file lock). The library has a plain C
 interface, so no PyTorch header is compiled.
+
+The launchers that `torch.export` must capture are registered as operators of
+the ``quan_torch`` namespace (`register_op`): a CUDA implementation (the
+launcher, which calls the library) and a fake one that gives the output's
+shape and dtype, so that tracing with fake tensors needs no card. Each
+kernel's Python wrapper checks and lays out the inputs once (`check_device`
+and the module's own checks) and calls the operator, whose CUDA
+implementation only launches; the call costs one pass through PyTorch's
+dispatcher, with no ``custom_op`` wrapper around it.
 """
 
 from __future__ import annotations
@@ -16,7 +25,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, locked_build
 
@@ -24,6 +35,9 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 LIB_NAME = "libquan_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+NAMESPACE = "quan_torch"  # the operators' namespace: torch.ops.quan_torch.<name>
+_ops = torch.library.Library(NAMESPACE, "FRAGMENT")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of the last build in this process
@@ -114,3 +128,22 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = library().quan_error_string(status).decode()
         raise RuntimeError(f"{what} failed: CUDA error {status} ({msg})")
+
+
+def check_device(what: str, *ts: torch.Tensor) -> None:
+    """Raise unless ``ts`` lie on one device that the operators take: a CUDA
+    device, or the meta device (shapes only, as `torch.export` may trace)."""
+    dev = ts[0].device
+    if dev.type not in ("cuda", "meta") or any(t.device != dev for t in ts):
+        raise ValueError(f"{what} must lie on one CUDA device, got {', '.join(str(t.device) for t in ts)}")
+
+
+def register_op(schema: str, cuda_impl: Callable, fake_impl: Callable):
+    """Define ``quan_torch::<name>`` by ``schema`` with ``cuda_impl`` for CUDA
+    tensors and ``fake_impl`` for fake and meta ones; returns the operator's
+    overload (``torch.ops.quan_torch.<name>.default``)."""
+    name = schema.split("(", 1)[0]
+    _ops.define(schema)
+    _ops.impl(name, cuda_impl, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake_impl, lib=_ops)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default

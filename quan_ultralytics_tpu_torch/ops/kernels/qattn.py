@@ -24,7 +24,7 @@ _DTYPES = (torch.float32, torch.bfloat16)  # the dtypes the kernels take
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
-launches = 0  # K1 launches made by `qattention_fwd`, both dtypes
+launches = 0  # K1 launches made by `qattention_fwd` (its operator's CUDA implementation), both dtypes
 launches_mma = 0  # of those, bf16 launches of the tensor-core kernel
 launches_simt = 0  # and f32 launches of the CUDA-core kernel
 launches_stats = 0  # of all K1 launches, those that also wrote the row statistics
@@ -141,9 +141,8 @@ def qattention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """(G, N, dk, dv) of CUDA q, k, v the kernels take; raises on anything else."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"q, k, v must lie on one CUDA device, got {q.device}, {k.device}, {v.device}")
+    """(G, N, dk, dv) of the q, k, v the kernels take; raises on anything else
+    (the device is checked apart: `_build.check_device`)."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 5 or k.shape != q.shape or v.shape[:-1] != q.shape[:-1]:
@@ -166,17 +165,15 @@ def _check_stats(stats: torch.Tensor, q: torch.Tensor) -> None:
                          f"got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
 
 
-def qattention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1 on CUDA q, k, v (no autograd): the bf16 kernel on the tensor
-    cores or the f32 one on the CUDA cores, by dtype. With ``stats``
-    (`new_stats`) it also writes each query row's m and r there, for
-    `qattention_bwd`."""
+def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                stats: Optional[torch.Tensor]) -> torch.Tensor:
+    """CUDA implementation of ``quan_torch::qattention_fwd``: launch K1 (the bf16
+    kernel on the tensor cores or the f32 one on the CUDA cores, by dtype) on
+    the contiguous q, k, v that `qattention_fwd` checked, writing the row
+    statistics into ``stats`` when it is given."""
     global launches, launches_mma, launches_simt, launches_stats
-    G, N, dk, dv = _check(q, k, v)
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    if stats is not None:
-        _check_stats(stats, q)
+    B, Q, H, N, dk = q.shape
+    dv = v.shape[-1]
     out = torch.empty_like(v)
     lib = _build.library()
     if q.dtype == torch.bfloat16:
@@ -186,7 +183,7 @@ def qattention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     else:
         fn, name = lib.qattn_fwd_f32, "qattn_fwd_f32"
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if stats is None else stats.data_ptr(), G, N, dk, dv, scale * _LOG2E,
+                None if stats is None else stats.data_ptr(), B * Q * H, N, dk, dv, scale * _LOG2E,
                 q.device.index or 0, _stream(q))
     _build.check(status, name)
     launches += 1
@@ -196,6 +193,31 @@ def qattention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
         launches_simt += 1
     launches_stats += stats is not None
     return out
+
+
+def _fwd_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              stats: Optional[torch.Tensor]) -> torch.Tensor:
+    return v.new_empty(v.shape)
+
+
+_fwd_op = _build.register_op(
+    "qattention_fwd(Tensor q, Tensor k, Tensor v, float scale, Tensor(a!)? stats) -> Tensor",
+    _fwd_launch, _fwd_fake)
+
+
+def qattention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K1 on CUDA q, k, v (no autograd) through the registered operator
+    ``torch.ops.quan_torch.qattention_fwd``: the bf16 kernel on the tensor
+    cores or the f32 one on the CUDA cores, by dtype. With ``stats``
+    (`new_stats`) it also writes each query row's m and r there, for
+    `qattention_bwd`. A fake or meta tensor gets the output's shape from the
+    operator (what `torch.export` traces)."""
+    _check(q, k, v)
+    _build.check_device("q, k, v", q, k, v)
+    if stats is not None:
+        _check_stats(stats, q)
+    return _fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), scale, stats)
 
 
 def qattention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
@@ -208,6 +230,8 @@ def qattention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.
         return qattention_bwd_plain(q, k, v, do, scale, stats)
     global launches_bwd
     G, N, dk, dv = _check(q, k, v)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v must lie on one CUDA device, got {q.device}, {k.device}, {v.device}")
     if do.shape != v.shape or do.device != v.device:
         raise ValueError(f"do {tuple(do.shape)} on {do.device} must match v {tuple(v.shape)}")
     if stats is None:
@@ -244,7 +268,7 @@ class QAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale: float, with_stats: bool):
         q, k, v = (t.contiguous() for t in (q, k, v))
         stats = new_stats(q) if with_stats else None
-        out = qattention_fwd(q, k, v, scale, stats)
+        out = qattention_fwd(q, k, v, scale, stats)  # the registered operator
         ctx.save_for_backward(q, k, v, stats)
         ctx.scale = scale
         return out
@@ -269,6 +293,8 @@ def qattention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if q.device.type == "cpu":
         return qattention_plain(q, k, v, scale)
-    # K1 writes the row statistics only when a backward will follow
-    with_stats = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return QAttention.apply(q, k, v, scale, with_stats)
+    # K1 writes the row statistics only when a backward will follow; without one
+    # the operator is called alone (the graph `torch.export` captures)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return QAttention.apply(q, k, v, scale, True)
+    return qattention_fwd(q, k, v, scale)

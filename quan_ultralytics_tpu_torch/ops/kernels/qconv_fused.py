@@ -19,7 +19,7 @@ from quan_ultralytics_tpu_torch.ops.qconv import qconv2d
 
 _DTYPES = (torch.float32, torch.bfloat16)  # the dtypes the kernels take
 
-launches = 0  # kernel launches made by `qconv1x1_fused`, both dtypes
+launches = 0  # kernel launches made by `qconv1x1_fused` (its operator's CUDA implementation), both dtypes
 launches_mma = 0  # of those, bf16 launches of the tensor-core kernel
 launches_simt = 0  # and f32 launches of the CUDA-core kernel
 
@@ -61,6 +61,46 @@ def qconv1x1_fused_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+            apply_silu: bool) -> torch.Tensor:
+    """CUDA implementation of ``quan_torch::qconv1x1_fused``: launch the kernel of
+    ``x.dtype`` on contiguous ``[B, H, W, 4, Ci]`` x, ``[4, Co, Ci]`` w in
+    ``x.dtype`` and float32 ``[4, Co]`` scale and shift, all on one CUDA
+    device (what `qconv1x1_fused` checks and lays out before it calls the
+    operator)."""
+    global launches, launches_mma, launches_simt
+    B, H, W, _, ci = x.shape
+    co = w.shape[1]
+    out = torch.empty(B, H, W, 4, co, dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    if x.dtype == torch.bfloat16:
+        # the kernel copies x and w in pieces of up to 16 bytes
+        x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+        fn, name = lib.qconv1x1_mma_bf16, "qconv1x1_mma_bf16"
+    else:
+        fn, name = lib.qconv1x1_simt_f32, "qconv1x1_simt_f32"
+    status = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                B * H * W, ci, co, int(apply_silu), x.device.index or 0,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, name)
+    launches += 1
+    if x.dtype == torch.bfloat16:
+        launches_mma += 1
+    else:
+        launches_simt += 1
+    return out
+
+
+def _fake(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+          apply_silu: bool) -> torch.Tensor:
+    return x.new_empty((*x.shape[:4], w.shape[1]))
+
+
+_op = _build.register_op(
+    "qconv1x1_fused(Tensor x, Tensor w, Tensor scale, Tensor shift, bool apply_silu) -> Tensor",
+    _launch, _fake)
+
+
 def qconv1x1_fused(x: torch.Tensor, w: torch.Tensor,
                    scale: Optional[torch.Tensor] = None,
                    shift: Optional[torch.Tensor] = None,
@@ -73,45 +113,23 @@ def qconv1x1_fused(x: torch.Tensor, w: torch.Tensor,
     `qconv1x1_fused_plain`; a CUDA tensor launches the kernel of its dtype
     (bf16: tensor cores, Ci up to about 700 and any Co, split into channel
     tiles where the weights of all of Co do not fit a block; f32: CUDA cores)
-    or raises.
+    through the registered operator ``torch.ops.quan_torch.qconv1x1_fused``,
+    or raises. A fake or meta tensor gets the output's shape from the
+    operator (what `torch.export` traces).
     """
     if x.device.type == "cpu":
         return qconv1x1_fused_plain(x, w, scale, shift, apply_silu)
-    global launches, launches_mma, launches_simt
     if x.ndim != 5 or x.shape[3] != 4:
         raise ValueError(f"expected BHWQC input, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    B, H, W, _, ci = x.shape
-    wk = _weights(w, ci)
+    wk = _weights(w, x.shape[-1])
     co = wk.shape[1]
     if scale is None:
         scale = torch.ones(4, co, device=x.device)
         shift = torch.zeros(4, co, device=x.device)
     if scale.shape != (4, co) or shift.shape != (4, co):
         raise ValueError(f"scale/shift must be [4, {co}], got {tuple(scale.shape)}, {tuple(shift.shape)}")
-    tensors = (x, wk, scale, shift)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError(f"x, w, scale, shift must lie on one CUDA device, got {[str(t.device) for t in tensors]}")
-    xc = x.contiguous()
-    wc = wk.to(x.dtype).contiguous()
-    sc = scale.float().contiguous()
-    sh = shift.float().contiguous()
-    out = torch.empty(B, H, W, 4, co, dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    if x.dtype == torch.bfloat16:
-        # the kernel copies x and w in pieces of up to 16 bytes
-        xc, wc = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xc, wc))
-        fn, name = lib.qconv1x1_mma_bf16, "qconv1x1_mma_bf16"
-    else:
-        fn, name = lib.qconv1x1_simt_f32, "qconv1x1_simt_f32"
-    status = fn(xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), sh.data_ptr(), out.data_ptr(),
-                B * H * W, ci, co, int(apply_silu), x.device.index or 0,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, name)
-    launches += 1
-    if x.dtype == torch.bfloat16:
-        launches_mma += 1
-    else:
-        launches_simt += 1
-    return out
+    _build.check_device("x, w, scale, shift", x, wk, scale, shift)
+    return _op(x.contiguous(), wk.to(x.dtype).contiguous(), scale.float().contiguous(),
+               shift.float().contiguous(), apply_silu)

@@ -149,12 +149,62 @@ def test_usage_errors_match_jax(argv, capsys):
     assert codes[0] == codes[1] and codes[0] not in ("0", "None")
 
 
-@pytest.mark.parametrize("argv", [["obb", "export", "model=yolo11n-obb-quan.yaml"],
+@pytest.mark.parametrize("argv", [["obb", "export", "model=yolo11n-obb-quan.yaml", "format=params"],
                                   ["detect", "track", "source=x.mp4"], ["tune", "data=x.yaml"],
-                                  ["benchmark", "imgsz=64"], ["classify", "export", "model=qwrn16_2"]])
-def test_modes_not_ported_exit_nonzero(argv):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tcli.main(argv)
+                                  ["benchmark", "imgsz=64", "device=cpu", "batch=2", "iters=1"],
+                                  ["classify", "export", "model=qwrn16_2"]])
+def test_modes_not_ported_exit_nonzero(argv, tmp_path, monkeypatch, capsys):
+    """The four modes that were not ported route now (the name is kept): ``obb
+    export`` writes its file, ``tune`` reaches ``YOLO.tune`` with its keys (as
+    the JAX package's ``test_tune_mode_dispatch``), ``benchmark`` prints the
+    table; a video source of ``track`` and ``classify export`` still exit
+    non-zero, naming the video item and, as the JAX CLI does, classify's one
+    mode."""
+    monkeypatch.chdir(tmp_path)
+    mode = "classify" if argv[0] == "classify" else argv[1] if argv[0] in tcli.TASKS else argv[0]
+    if mode == "export":
+        assert tcli.main(argv + ["path=m.pkl", "device=cpu"]) == 0
+        assert read_checkpoint(tmp_path / "m.pkl")["model_yaml"] == "yolo11n-obb-quan.yaml"
+        assert "exported: m.pkl" in capsys.readouterr().out
+    elif mode == "tune":
+        calls = {}
+
+        def fake_tune(self, data, **kw):
+            calls.update(data=data, **kw)
+            return {"lr0": 0.01}
+
+        monkeypatch.setattr(YOLO, "tune", fake_tune)
+        assert tcli.main(argv + ["iterations=2", "epochs=1", "device=cpu"]) == 0
+        assert calls == {"data": "x.yaml", "iterations": 2, "epochs": 1}
+        assert "{'lr0': 0.01}" in capsys.readouterr().out
+    elif mode == "benchmark":
+        assert tcli.main(argv) == 0
+        lines = capsys.readouterr().out.splitlines()
+        assert lines[0].split() == ["model", "imgsz", "dtype", "batch", "ms_per_batch", "img_per_s"]
+        assert lines[1].split()[:4] == ["yolo11n-obb-quan.yaml", "64", "bfloat16", "2"]
+    elif mode == "track":
+        with pytest.raises(SystemExit, match="video sources are not ported yet"):
+            tcli.main(argv + ["device=cpu"])
+    else:
+        for mod in (tcli, jcli):
+            with pytest.raises(SystemExit, match="classify supports mode=train"):
+                mod.main(list(argv))
+
+
+def test_track_mode(tmp_path, capsys):
+    """``detect track source=<dir>`` prints a line a frame (the JAX package's
+    ``test_track_mode``, its frames written as PNG)."""
+    src = tmp_path / "frames"
+    src.mkdir()
+    for i in range(3):
+        im = np.full((64, 64, 3), 30, np.uint8)
+        im[10:35, 10 + 4 * i:35 + 4 * i] = (255, 0, 0)
+        imwrite_png(src / f"f{i}.png", im)
+    for tracker in ("bytetrack", "botsort.yaml"):
+        assert tcli.main(["detect", "track", "model=yolo11n-quan.yaml", f"source={src}", "imgsz=64",
+                          "conf=0.001", f"tracker={tracker}", "device=cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "frame 0:" in out and "frame 2:" in out and "frame 3:" not in out
 
 
 def test_no_silent_cpu_run(monkeypatch, tmp_path):

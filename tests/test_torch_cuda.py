@@ -15,7 +15,11 @@ Validator (masks at proto and input resolution, OKS) on the card against the
 CPU, one augmenting fit epoch each, and a train step at 640 (K2 at N = 400).
 Then the classification slice: K1 and K2 at N = 49 (yolo11n-cls-quan at
 224), K3 at that model's sites (the Classify conv channel-tiled), and one
-Q-WRN-16-2 f32 step on the card against the CPU. This file imports no JAX, so it runs on a machine that has a card and no JAX:
+Q-WRN-16-2 f32 step on the card against the CPU. Last the registered
+operators ``quan_torch::qattention_fwd`` and ``quan_torch::qconv1x1_fused``
+(called directly and under ``torch.export``), an exported OBB graph on the
+card against the live model, and ``YOLO.embed`` and ``YOLO.track`` on the
+card against the CPU. This file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -831,3 +835,87 @@ def test_qwrn16_2_step_on_card_matches_the_cpu(cuda):
     assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
     for name, ref in cpu_state.items():
         _assert_close(card_state[name], ref, 1e-4, 1e-4, msg=name)
+
+
+# ---------------------------------------------------------------- registered operators, export, embed, track
+
+
+def test_registered_operators_launch_the_kernels_on_card(cuda):
+    """``torch.ops.quan_torch.*`` on CUDA tensors laid out as the wrappers lay
+    them out run the launchers (the counters move) and equal the wrappers'
+    results; on meta tensors they give shapes."""
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, 400, 3)
+    n0 = qattn.launches
+    got = torch.ops.quan_torch.qattention_fwd(q, k, v, 0.5, None)
+    assert qattn.launches == n0 + 1
+    assert torch.equal(got, qattn.qattention_fwd(q, k, v, 0.5))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 8, 8, 4, 16, generator=g, device=cuda).bfloat16()
+    w = torch.randn(4, 24, 16, generator=g, device=cuda) * 0.1
+    sc, sh = torch.rand(4, 24, device=cuda) + 0.5, torch.randn(4, 24, device=cuda) * 0.1
+    n0 = qconv_fused.launches
+    w16 = w.bfloat16()  # the operator takes the weights in x's dtype (the wrapper casts them)
+    got = torch.ops.quan_torch.qconv1x1_fused(x, w16, sc, sh, True)
+    assert qconv_fused.launches == n0 + 1 and torch.equal(got, qconv_fused.qconv1x1_fused(x, w, sc, sh))
+    meta = torch.ops.quan_torch.qconv1x1_fused(x.to("meta"), w16.to("meta"), sc.to("meta"), sh.to("meta"), True)
+    assert meta.shape == (2, 8, 8, 4, 24) and meta.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_obb_graph_on_card_matches_the_live_model(cuda, tmp_path, dtype):
+    """yolo11n-obb-quan (nc 15) at 256, batch 2, with K1 and K3 (37 sites):
+    the ``.pt2``'s graph calls 1 K1 and 37 K3 operators, launches them when
+    run, and its decoded output equals the live model's (the same kernels on
+    the same inputs: 0 in f32 and in bf16 up to the order of the ATen ops
+    around them, so within qconv_fused.K3_TOL)."""
+    from collections import Counter
+
+    from quan_ultralytics_tpu_torch.engine import exporter
+
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, dtype=dtype, device=cuda, fused_1x1=True)
+    path = exporter.export_compiled(model, imgsz=256, batch=2, path=str(tmp_path / "m.pt2"))
+    backend = exporter.ExportedBackend(path)
+    ops = Counter(str(n.target) for n in backend._fn.graph.nodes if n.op == "call_function")
+    assert ops["quan_torch.qattention_fwd.default"] == 1 and ops["quan_torch.qconv1x1_fused.default"] == 37
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    k1, k3 = qattn.launches, qconv_fused.launches
+    with torch.inference_mode():
+        got = backend(x)
+        assert (qattn.launches - k1, qconv_fused.launches - k3) == (1, 37)
+        ref = model.decode(model(x))
+    _assert_close(got, ref, *qconv_fused.K3_TOL[dtype])
+
+
+def test_embed_and_track_on_card(cuda, tmp_path):
+    """``YOLO.embed`` of yolo11n-quan (nc 80, f32, K1 + K3) at 256 on the card
+    against the same weights on the CPU: within 1e-3 of max|ref| (f32 summation
+    order, TF32 off). ``YOLO.track`` (ByteTrack, then BoT-SORT) on the card: its
+    tracks are those of a fresh tracker fed the card's own detections (and
+    frames), array for array."""
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.trackers import BOTSORT, BYTETracker
+    from quan_ultralytics_tpu_torch.trackers.byte_tracker import STrack
+
+    rng = np.random.default_rng(0)
+    frames = []
+    for t in range(4):
+        im = rng.integers(0, 60, (240, 320, 3), dtype=np.uint8)
+        im[40 + 3 * t:120 + 3 * t, 50 + 5 * t:150 + 5 * t] = (230, 30, 40)
+        frames.append(im)
+    card, cpu = YOLO("yolo11n-quan.yaml", device=cuda), YOLO("yolo11n-quan.yaml", device="cpu")
+    got, ref = card.embed(frames, imgsz=256), cpu.embed(frames, imgsz=256)
+    assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()
+    dets = [r for f in frames for r in card.predict(f, imgsz=256, conf=0.0)]
+    conf = dets[0].conf
+    kw = dict(track_high_thresh=float(np.quantile(conf, 0.9)), new_track_thresh=float(np.quantile(conf, 0.9)),
+              track_low_thresh=float(np.quantile(conf, 0.5)))
+    for cls in (BYTETracker, BOTSORT):
+        STrack._count = 0
+        card._tracker = cls(**kw)
+        tracks = card.track(frames, imgsz=256, conf=0.0, persist=True)
+        STrack._count = 0
+        fresh = cls(**kw)
+        again = [fresh.update(d.boxes[:, :4], d.conf, d.cls, **({"frame": f} if cls is BOTSORT else {}))
+                 for d, f in zip(dets, frames)]
+        assert sum(len(t) for t in tracks) > 0
+        assert all(np.array_equal(a, b) for a, b in zip(tracks, again))

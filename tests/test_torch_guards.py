@@ -44,7 +44,10 @@ def test_import_loads_no_jax():
             "quan_ultralytics_tpu_torch.classification.cli, quan_ultralytics_tpu_torch.classification.train, "
             "quan_ultralytics_tpu_torch.classification.data, quan_ultralytics_tpu_torch.classification.models, "
             "quan_ultralytics_tpu_torch.cfg.model_yaml, quan_ultralytics_tpu_torch.models.ensemble, "
-            "quan_ultralytics_tpu_torch.ops.activations, sys; "
+            "quan_ultralytics_tpu_torch.ops.activations, quan_ultralytics_tpu_torch.trackers, "
+            "quan_ultralytics_tpu_torch.trackers.gmc, quan_ultralytics_tpu_torch.engine.tuner, "
+            "quan_ultralytics_tpu_torch.engine.exporter, quan_ultralytics_tpu_torch.utils.profiler, "
+            "quan_ultralytics_tpu_torch.utils.autobatch, quan_ultralytics_tpu_torch.utils.benchmarks, sys; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'quan_ultralytics_tpu', 'cv2', 'yaml', 'PIL', 'matplotlib', 'psutil')); "
             "assert not bad, bad")
@@ -53,12 +56,25 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize("module", ["quan_ultralytics_tpu_torch.cfg.model_yaml",
                                     "quan_ultralytics_tpu_torch.models.ensemble",
-                                    "quan_ultralytics_tpu_torch.ops.activations"])
+                                    "quan_ultralytics_tpu_torch.ops.activations",
+                                    "quan_ultralytics_tpu_torch.trackers.kalman",
+                                    "quan_ultralytics_tpu_torch.trackers.matching",
+                                    "quan_ultralytics_tpu_torch.trackers.byte_tracker",
+                                    "quan_ultralytics_tpu_torch.trackers.bot_sort",
+                                    "quan_ultralytics_tpu_torch.trackers.gmc",
+                                    "quan_ultralytics_tpu_torch.engine.tuner",
+                                    "quan_ultralytics_tpu_torch.engine.exporter",
+                                    "quan_ultralytics_tpu_torch.utils.profiler",
+                                    "quan_ultralytics_tpu_torch.utils.autobatch",
+                                    "quan_ultralytics_tpu_torch.utils.benchmarks"])
 def test_new_module_alone_loads_no_jax_yaml_cv2_or_pil(module):
-    """The model-YAML reader, the ensemble and the activations, each imported alone
-    in a fresh interpreter, load none of jax, the JAX package, yaml, cv2 or PIL."""
+    """The model-YAML reader, the ensemble, the activations, the trackers, the
+    tuner, the exporter, the profiler, AutoBatch and the benchmarks, each
+    imported alone in a fresh interpreter, load none of jax, the JAX package,
+    yaml, cv2, PIL, matplotlib or psutil."""
     code = (f"import {module}, sys; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL')); assert not bad, bad")
+            "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'psutil')); "
+            "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
