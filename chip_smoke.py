@@ -172,7 +172,21 @@ Phases:
      ``detect tune`` of one iteration through the CLI (K1 and K2 a micro-step);
  41. autobatch's pick at 640 and 1024 from the card's memory, and ``detect track``
      and ``detect benchmark`` through the CLI;
- 42. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 42. predict save: ``obb predict save=True visualize=<dir>`` through the CLI on
+     the 8 frames at 1024 (f32): im{i}.jpg read back at each frame's size, 23
+     feature grids an image; the bf16 facade's predict and predict(visualize=),
+     and a 1024 frame's ``Results.plot`` split into drawing and JPEG encoding;
+ 43. segment and pose ``Results.plot`` (masks, keypoints) at 640, timed;
+ 44. ``Validator(save_dir=)`` on the detect set at 640: the six images (curves
+     at 1800 x 1200, confusion matrices at 2400 x 1800), timed;
+ 45. ``--autoaugment``: one Q-WRN-16-2 epoch on the CIFAR folder with and
+     without it (``curves.png`` written), AutoAugment of 128 images beside the
+     step;
+ 46. reference weights: an OBB state dict in the reference's names and
+     layouts, drawn with numpy, through ``port_state_dict``; its ``infer`` at
+     1024 with K1 + K3 held to the plain path at PRED_TOL; a Q-WRN-16-2 dict
+     through ``port_cls_state_dict``, every leaf exact;
+ 47. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -182,7 +196,9 @@ Phases:
      hybrid_ensemble, hybrid_resume, track_bytetrack, track_botsort,
      benchmark, export (the facade predicting from the .pt2), embed, tune,
      cli_track, cli_benchmark, cli_tune and cli_export (``obb predict`` of
-     the .pt2); each kernel launched on each path that runs it; K1 and K2
+     the .pt2), cli_predict_save, predict_plot, predict_visualize, seg_plot,
+     pose_plot, val_plots and reference_weights; each kernel launched on each
+     path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
      K3's operators counted in the exported graph), the script's seconds,
@@ -4113,6 +4129,291 @@ def phase_cli_track_benchmark(root: Path):
 
 
 
+
+# ---------------------------------------------------------------- phases 42-46
+
+
+VIS_LAYERS = 23  # QUAN-YOLO11n-OBB layers 0-22 return one tensor each; the head (23) a tuple
+PLOT_LABELS = (50, 200)  # OBB rows a 1024 frame's plot is timed with (DOTA tiles hold tens to hundreds)
+
+
+def _reference_state_dict(model, prefix_fn, seed: int, dense=()):
+    """A state dict in the PyTorch reference's names and layouts, drawn from
+    ``seed`` with numpy: each flax leaf of ``model`` (`export_jax_variables`)
+    drawn as the tests draw JAX variables (QConv2D weights U(-b, b), b =
+    sqrt(3 / fan_in) / 2; QER kernels b = sqrt(3 / fan_in); IQBN gamma, var
+    U(0.5, 1.5), beta, mean N(0, 0.1); QConv2D biases N(0, 0.1), QER biases
+    N(0, 1)), then put in the reference's layout under ``prefix_fn``'s name
+    by `utils.torch_port.to_reference_state_dict`. Returns (state dict, the
+    drawn flax leaves by path)."""
+    from quan_ultralytics_tpu_torch.utils.torch_port import to_reference_state_dict
+    from quan_ultralytics_tpu_torch.utils.weights import _flatten, export_jax_variables
+
+    rng = np.random.default_rng(seed)
+    drawn, tree = {}, {}
+    for coll, leaves in export_jax_variables(model).items():
+        for path, leaf in _flatten(leaves).items():
+            parent, name, shape = path[:-1], path[-1], leaf.shape
+            if name == "w":
+                v = rng.uniform(-1, 1, shape) * math.sqrt(3.0 / max(int(np.prod(shape[1:-1])), 1)) / 2
+            elif name == "kernel":
+                v = rng.uniform(-1, 1, shape) * math.sqrt(3.0 / max(int(np.prod(shape[:-1])), 1))
+            elif name in ("gamma", "var"):
+                v = rng.uniform(0.5, 1.5, shape)
+            elif name == "bias" and parent[-1] in ("proj", "mix"):
+                v = rng.normal(size=shape)
+            else:
+                v = rng.normal(size=shape) * 0.1
+            drawn[path] = v.astype(np.float32)
+            node = tree.setdefault(coll, {})
+            for key in parent:
+                node = node.setdefault(key, {})
+            node[name] = drawn[path]
+    return to_reference_state_dict(tree, prefix_fn, dense), drawn
+
+
+def phase_predict_save(root: Path, frames, card: str):
+    """42. ``obb predict save=True visualize=<dir>`` through ``cli.main`` on the 8
+    phase-3 frames (PNG) from the seeded OBB checkpoint at 1024 (the CLI gives no
+    dtype: f32, K1 and K3 on the CUDA cores): every ``im{i}.jpg`` read back by the
+    port's JPEG reader at its frame's size, one ``stage{i}_*_features.png`` a layer
+    in each ``im{i}`` directory. Then the facade in bf16 (K1 and K3 on the tensor
+    cores): ``predict`` and ``predict(visualize=)`` of the 8 frames (the grids' s
+    by difference), and the 1024 x 1024 frame's ``Results.plot`` split into
+    drawing and JPEG encoding, with its own detections and with PLOT_LABELS
+    seeded rotated boxes."""
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.engine.predictor import Results
+
+    src = root / "plot_frames"
+    src.mkdir()
+    for i, f in enumerate(frames):
+        native.imwrite_png(src / f"f{i}.png", f)
+    pkl = root / "obb_seeded.pkl"
+    _, cli_s, cli_n = _cli(["obb", "predict", f"model={pkl}", f"source={src}", f"imgsz={IMGSZ}", "save=True",
+                            f"save_dir={root / 'pred_save'}", f"visualize={root / 'vis'}"])
+    check(cli_n["qattn_fwd"] > 0 and cli_n["qconv1x1_fused"] > 0, f"predict save: launches {cli_n}")
+    for i, f in enumerate(frames):
+        im = native.imread(root / "pred_save" / f"im{i}.jpg")
+        check(im.shape == f.shape, f"im{i}.jpg is {im.shape}, its frame {f.shape}")
+        grids = sorted((root / "vis" / f"im{i}").glob("stage*_features.png"))
+        check(len(grids) == VIS_LAYERS and all(native.imread(g).shape[2] == 3 for g in grids[:2]),
+              f"im{i}: {len(grids)} feature grids")
+    y = YOLO(str(pkl), dtype=torch.bfloat16, device=DEVICE)
+    y.predict(frames[:1], imgsz=IMGSZ)  # warm up
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = y.predict(frames, imgsz=IMGSZ)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_n = _counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    y.predict(frames, imgsz=IMGSZ, visualize=root / "vis_bf16")
+    torch.cuda.synchronize()
+    vis_total_s = time.perf_counter() - t0
+    vis_n = _counts()
+    check(pred_n["qattn_fwd"] == 1 and pred_n["qconv1x1_fused"] == 37, f"predict [plot]: launches {pred_n}")
+    check(vis_n["qattn_fwd"] == 2 and vis_n["qconv1x1_fused"] == 74, f"predict [visualize]: launches {vis_n}")
+    r = res[0]
+    check(r.orig_shape == (1024, 1024), f"frame 0 is {r.orig_shape}")
+    draw, enc = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = r.plot()
+        draw.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        data = native.encode_jpeg(out)
+        enc.append(1e3 * (time.perf_counter() - t0))
+    check(out.shape == (1024, 1024, 3) and data[:2] == b"\xff\xd8", "Results.plot of frame 0")
+    # DOTA-like label loads on the same frame: rows drawn from a seed (centres
+    # inside the frame, sides 12-90 px, any angle, conf 0.25-1, NC classes)
+    rng = np.random.default_rng(5)
+    by_labels = {}
+    for n_rows in PLOT_LABELS:
+        rows = np.concatenate([rng.uniform(40, 984, (n_rows, 2)), rng.uniform(12, 90, (n_rows, 2)),
+                               rng.uniform(0, np.pi, (n_rows, 1)), rng.uniform(0.25, 1, (n_rows, 1)),
+                               rng.integers(0, NC, (n_rows, 1))], 1).astype(np.float32)
+        rr = Results(orig_shape=r.orig_shape, boxes=rows, names=r.names, task="obb", orig_img=r.orig_img)
+        d_ms, e_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            o = rr.plot()
+            d_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            native.encode_jpeg(o)
+            e_ms.append(1e3 * (time.perf_counter() - t0))
+        check(o.shape == (1024, 1024, 3) and not np.array_equal(o, out), f"Results.plot of {n_rows} labels")
+        by_labels[n_rows] = {"draw_ms": statistics.median(d_ms), "jpeg_ms": statistics.median(e_ms)}
+    out_d = {"cli_s": cli_s, "launches_cli": cli_n, "launches_predict": pred_n, "launches_visualize": vis_n,
+             "predict_s": pred_s, "visualize_s": vis_total_s - pred_s, "detections": [len(q) for q in res],
+             "plot_draw_ms": statistics.median(draw), "plot_jpeg_ms": statistics.median(enc),
+             "jpeg_bytes": len(data), "plot_by_labels": by_labels}
+    print(f"predict save: obb predict save=True visualize= (f32) in {cli_s:.1f} s, {len(frames)} im*.jpg and "
+          f"{VIS_LAYERS} grids each, launches {cli_n}; bf16 facade: predict {pred_s:.3f} s, visualize adds "
+          f"{out_d['visualize_s']:.3f} s; a 1024 frame's plot ({len(r)} detections): draw "
+          f"{out_d['plot_draw_ms']:.1f} ms + JPEG {out_d['plot_jpeg_ms']:.1f} ms ({len(data)} bytes); "
+          + "; ".join(f"{n} labels: draw {v['draw_ms']:.1f} ms + JPEG {v['jpeg_ms']:.1f} ms"
+                      for n, v in by_labels.items()) + f"; {card}")
+    return out_d
+
+
+def phase_segpose_plot(root: Path, det_cfg, card: str):
+    """43. ``Results.plot(filename=)`` of the segment (masks) and pose (keypoints)
+    tasks at 640: seeded bf16 facades (K1 + K3) predict two of the detect set's
+    frames at conf 0.01 (at most 30 detections a frame); the first frame's plot is
+    timed and written."""
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+
+    frames, _ = det_frames(det_cfg, 2)
+    out = {}
+    for task, tag in (("segment", "seg"), ("pose", "pose")):
+        model, nc = SEGPOSE[task]
+        y = YOLO(str(seeded_pkl(root / f"{task}_plot.pkl", model, nc)), dtype=torch.bfloat16, device=DEVICE)
+        _reset_counts()
+        res = y.predict(frames, imgsz=DET_IMGSZ, conf=0.01, max_det=30)
+        torch.cuda.synchronize()
+        n = _counts()
+        r = res[0]
+        check(len(r) > 0 and (r.masks is not None if task == "segment" else r.keypoints is not None),
+              f"{task} plot: {len(r)} detections")
+        ms = []
+        for k in range(3):
+            t0 = time.perf_counter()
+            im = r.plot(filename=str(root / f"{task}_plot{k}.jpg"))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        check(native.imread(root / f"{task}_plot0.jpg").shape == im.shape == frames[0].shape,
+              f"{task} plot written at {im.shape}")
+        check(n["qattn_fwd"] == 1 and n["qconv1x1_fused"] > 0, f"{task} plot predict: launches {n}")
+        out[tag] = {"launches": n, "detections": len(r), "plot_ms": statistics.median(ms)}
+        print(f"{task} plot: {len(r)} detections, Results.plot + JPEG {out[tag]['plot_ms']:.1f} ms a "
+              f"{frames[0].shape[1]}x{frames[0].shape[0]} frame; launches {n}; {card}")
+    return out
+
+
+def phase_val_plots(det_cfg, root: Path, card: str):
+    """44. ``Validator(save_dir=)`` of seeded QUAN-YOLO11n (bf16, K1 + K3) on the
+    detect set at 640: the six images (four curves at 1800 x 1200, both
+    confusion matrices at 2400 x 1800) and per_class.txt; then the six images
+    drawn again, timed. Random weights give metrics near 0: this holds the
+    writers, not the metrics."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+
+    model = seeded_model(torch.bfloat16, model=DET_MODEL, nc=DET_NC, fused_1x1=True)
+    v = Validator(model, imgsz=DET_IMGSZ)
+    ds = YOLODataset(det_cfg, "val")
+    d = root / "val_plots"
+    _reset_counts()
+    v(ds, batch_size=BATCH, save_dir=str(d))
+    torch.cuda.synchronize()
+    n = _counts()
+    sizes = {"PR_curve.png": (1200, 1800), "F1_curve.png": (1200, 1800), "P_curve.png": (1200, 1800),
+             "R_curve.png": (1200, 1800), "confusion_matrix.png": (1800, 2400),
+             "confusion_matrix_normalized.png": (1800, 2400)}
+    for name, hw in sizes.items():
+        check((d / name).exists() and native.imread(d / name).shape[:2] == hw, f"val save_dir: {name}")
+    check((d / "per_class.txt").exists(), "val save_dir: per_class.txt")
+    t0 = time.perf_counter()
+    v.metrics.plot(root / "val_plots2", ds.names)
+    v.confusion.plot(root / "val_plots2", ds.names, normalize=False)
+    v.confusion.plot(root / "val_plots2", ds.names, normalize=True)
+    six_s = time.perf_counter() - t0
+    check(n["qattn_fwd"] > 0 and n["qconv1x1_fused"] > 0, f"val plots: launches {n}")
+    print(f"val plots: the six images written ({', '.join(sizes)}), drawn again in {six_s:.2f} s; "
+          f"launches {n}; {card}")
+    return {"launches": n, "six_images_s": six_s}
+
+
+def phase_autoaugment(cifar: Path, tmp: Path, cls_cifar, card: str):
+    """45. ``--autoaugment``: one epoch of Q-WRN-16-2 on the CIFAR folder (batch
+    128) through the classification CLI without and with the flag (each writes
+    ``curves.png``), and AutoAugment of 128 CIFAR images on the host against
+    phase 24's bf16 step."""
+    from quan_ultralytics_tpu_torch.classification.cli import main as cls_main
+    from quan_ultralytics_tpu_torch.classification.data import autoaugment, load_cifar
+    from quan_ultralytics_tpu_torch.data.native import native
+
+    common = ["--model", "qwrn16_2", "--dataset", "cifar10", "--data_dir", str(cifar),
+              "--batch_size", str(CLS_CIFAR_BATCH), "--epochs", "1"]
+    secs = {}
+    for tag, flag in (("plain", []), ("autoaugment", ["--autoaugment"])):
+        _, secs[tag], _ = _cli(common + ["--exp_dir", str(tmp / f"aa_{tag}")] + flag, cls_main)
+        run = _only_run(tmp / f"aa_{tag}")
+        rows = json.loads((run / "metrics.json").read_text())
+        check(len(rows) == 1 and math.isfinite(rows[0]["train_loss"]), f"{tag} epoch: {rows}")
+        check(native.imread(run / "curves.png").ndim == 3, f"{tag}: curves.png")
+    tx, _, _, _ = load_cifar(str(cifar), "cifar10")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    augmented = [autoaugment(im, rng) for im in tx[:CLS_CIFAR_BATCH]]
+    aa_ms = 1e3 * (time.perf_counter() - t0)
+    check(all(a.shape == (32, 32, 3) and a.dtype == np.uint8 for a in augmented), "autoaugment output")
+    step_ms = cls_cifar["speed"]["step_ms"]
+    print(f"autoaugment: an epoch {secs['plain']:.1f} s plain, {secs['autoaugment']:.1f} s with --autoaugment; "
+          f"AutoAugment of {CLS_CIFAR_BATCH} images {aa_ms:.1f} ms on the host against a {step_ms:.2f} ms bf16 "
+          f"step; {card}")
+    return {"epoch_s": secs, "autoaugment_batch_ms": aa_ms, "step_ms": step_ms}
+
+
+def phase_reference_weights(x, card: str):
+    """46. Reference-layout checkpoints: a state dict of QUAN-YOLO11n-OBB in the
+    PyTorch reference's names and layouts, drawn from a seed with numpy,
+    through ``utils.torch_port.port_state_dict`` into a bf16 model with K1 + K3
+    and into one on the plain path (einsum attention, unfused 1x1 convs); the
+    former's ``infer`` of phase 3's batch at 1024 held to the latter's at
+    PRED_TOL. Then a Q-WRN-16-2 dict through ``port_cls_state_dict``: every
+    leaf carried exactly, finite logits."""
+    from quan_ultralytics_tpu_torch.classification.models import create_model
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+    from quan_ultralytics_tpu_torch.utils.torch_port import (_cls_prefix, port_cls_state_dict, port_state_dict,
+                                                             torch_prefix)
+    from quan_ultralytics_tpu_torch.utils.weights import _flatten, export_jax_variables
+
+    fused = DetectionModel.from_yaml(MODEL, nc=NC, dtype=torch.bfloat16, device=DEVICE, fused_1x1=True)
+    sd, _ = _reference_state_dict(fused, torch_prefix, seed=11)
+    t0 = time.perf_counter()
+    port_state_dict(sd, fused)
+    port_s = time.perf_counter() - t0
+    plain = plain_attention(DetectionModel.from_yaml(MODEL, nc=NC, dtype=torch.bfloat16, device=DEVICE,
+                                                     fused_1x1=False))
+    port_state_dict(sd, plain)
+    fused.eval()
+    plain.eval()
+    _reset_counts()
+    got = decoded(fused, x)
+    torch.cuda.synchronize()
+    n = _counts()
+    _reset_counts()
+    ref = decoded(plain, x)
+    check(sum(_counts().values()) == 0, f"reference weights [plain]: launched {_counts()}")
+    rel = compare_preds(got, ref, NC)
+    check(n["qattn_fwd"] == 1 and n["qconv1x1_fused"] == 37, f"reference weights: launches {n}")
+    check(bool(torch.isfinite(got).all()) and all(v <= PRED_TOL[torch.bfloat16] for v in rel.values()),
+          f"reference weights: K1+K3 vs plain {rel}")
+    cls = create_model("qwrn16_2", 10).to(DEVICE)
+    csd, drawn = _reference_state_dict(cls, lambda parent: _cls_prefix(parent, "wrn_cifar"), seed=12,
+                                       dense=("classifier",))
+    t0 = time.perf_counter()
+    port_cls_state_dict(csd, cls)
+    cls_port_s = time.perf_counter() - t0
+    carried = {p: a for tree in export_jax_variables(cls).values() for p, a in _flatten(tree).items()}
+    check(carried.keys() == drawn.keys() and all(np.array_equal(carried[p], drawn[p]) for p in drawn),
+          "qwrn16_2: a carried leaf differs from the drawn one")
+    with torch.no_grad():
+        logits = cls.eval()(torch.from_numpy(np.random.default_rng(0).normal(size=(8, 32, 32, 3))
+                                             .astype(np.float32)).to(DEVICE))
+    check(logits.shape == (8, 10) and bool(torch.isfinite(logits).all()), f"qwrn16_2 logits {logits.shape}")
+    print(f"reference weights: OBB dict of {len(sd)} tensors ported in {port_s:.2f} s; infer at {IMGSZ} K1+K3 vs "
+          f"plain {rel}, launches {n}; qwrn16_2 dict of {len(csd)} tensors in {cls_port_s:.3f} s, every leaf "
+          f"exact; {card}")
+    return {"launches": n, "port_s": port_s, "cls_port_s": cls_port_s, "rel_err_vs_plain": rel,
+            "n_tensors": len(sd)}
+
+
 def lap(t_start: float, what: str) -> None:
     """Print the script's seconds so far, after ``what``."""
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
@@ -4218,6 +4519,15 @@ def main() -> int:
                  "cli": phase_cli_track_benchmark(tools_root)}
         tools["seconds"] = time.perf_counter() - t_tools
         print(f"track, benchmark, export, embed, tune, autobatch phases: {tools['seconds']:.1f} s")
+        t_plots = time.perf_counter()
+        plots = {"predict_save": phase_predict_save(tools_root, frames, card),
+                 "segpose": phase_segpose_plot(tools_root, det_cfg, card),
+                 "val": phase_val_plots(det_cfg, tools_root, card),
+                 "autoaugment": phase_autoaugment(cifar, Path(tmp), cls_cifar, card),
+                 "reference_weights": phase_reference_weights(x, card)}
+        plots["seconds"] = time.perf_counter() - t_plots
+        print(f"plot, autoaugment and reference-weights phases: {plots['seconds']:.1f} s")
+        lap(t_start, "the plot, autoaugment and reference-weights phases")
     t_forms = time.perf_counter()
     forms = phase_conv_forms(x, tables)
     print(f"conv forms phase: {time.perf_counter() - t_forms:.1f} s")
@@ -4235,7 +4545,7 @@ def main() -> int:
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
              "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose, "classify": classify,
-             "hybrid": hybrid, "tools": tools, "conv_forms": forms},
+             "hybrid": hybrid, "tools": tools, "plots": plots, "conv_forms": forms},
             indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
@@ -4306,6 +4616,19 @@ def main() -> int:
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     for path in ("tune", "cli_tune"):
         check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
+    # predict save / visualize (f32 through the CLI, bf16 through the facade), the segment and pose
+    # plots, the validator's images and the reference-weights infer: K1 and K3 on each
+    det_launches.update({"cli_predict_save": plots["predict_save"]["launches_cli"],
+                         "predict_plot": plots["predict_save"]["launches_predict"],
+                         "predict_visualize": plots["predict_save"]["launches_visualize"],
+                         "seg_plot": plots["segpose"]["seg"]["launches"],
+                         "pose_plot": plots["segpose"]["pose"]["launches"],
+                         "val_plots": plots["val"]["launches"],
+                         "reference_weights": plots["reference_weights"]["launches"]})
+    for path in ("cli_predict_save", "predict_plot", "predict_visualize", "seg_plot", "pose_plot", "val_plots",
+                 "reference_weights"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     cls_t = cls_yolo["timing"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
@@ -4404,6 +4727,7 @@ def main() -> int:
         "export": {k: v for k, v in tools["export"].items() if k != "infer_ms_rounds"},
         "embed": tools["embed"], "tune": tools["tune"], "autobatch": tools["autobatch"],
         "cli": tools["cli"], "seconds": tools["seconds"]}}, default=str))
+    print(json.dumps({"plots": plots}, default=str))
     # ROADMAP item 4: the TPU-chosen defaults, by the numbers of this run
     print(json.dumps({"defaults": {
         "conv_forms": {w: {"mean_device_ms": r["mean_device_ms"], "best": r["best"],

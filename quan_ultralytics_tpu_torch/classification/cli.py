@@ -7,7 +7,8 @@ JAX ``classification/cli.py``; reference classification/classification.py:43-291
 The JAX CLI's flags, plus ``--device`` (default ``cuda``; without a card it
 exits non-zero unless ``--device cpu`` is given). ``--resume`` takes a
 checkpoint of either package; ``--dataset synthetic`` needs no files;
-``--autoaugment`` raises (not ported yet).
+``--autoaugment`` applies the CIFAR-10 AutoAugment policy to the train images
+of the array datasets (CIFAR, SVHN, synthetic), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import argparse
 
 from quan_ultralytics_tpu_torch.classification.data import (
-    AUTOAUGMENT_TODO, CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
+    CIFAR10_MEAN, CIFAR10_STD, CIFAR100_MEAN, CIFAR100_STD,
     batches, imagenet_batches, imagenet_folder_samples, load_cifar, load_svhn, make_synthetic,
 )
 from quan_ultralytics_tpu_torch.classification.models import MODEL_FACTORIES
@@ -54,8 +55,6 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"classification: {e}")
-    if args.autoaugment:
-        raise NotImplementedError(AUTOAUGMENT_TODO)
     nc = DATASET_CLASSES[args.dataset]
     cfg = ClsConfig(
         model=args.model, dataset=args.dataset, data_dir=args.data_dir,
@@ -86,7 +85,8 @@ def main(argv=None) -> int:
 
         def train_loader(epoch):
             return batches(tx, ty, cfg.batch_size, train=True, mean=mean, std=std,
-                           cutout_len=args.cutout, seed=cfg.seed + epoch, num_augments=args.num_augments)
+                           cutout_len=args.cutout, seed=cfg.seed + epoch, num_augments=args.num_augments,
+                           auto_augment=args.autoaugment)
 
         def val_loader():
             return batches(vx, vy, cfg.batch_size, train=False, mean=mean, std=std)

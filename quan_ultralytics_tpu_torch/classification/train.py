@@ -18,8 +18,8 @@ the optax chain's state ``(EmptyState(), (TraceState(trace),
 ScaleByScheduleState(count)))``, written by `utils.weights.write_checkpoint`
 so that JAX's ``pickle.load`` reads optax's own classes: a port checkpoint
 resumes under the JAX CLI's ``--resume``, and the JAX package's resumes here
-(`read_opt_state`). No ``curves.png`` is drawn: plotting is not ported yet
-(ROADMAP Queue 1 item 3b).
+(`read_opt_state`). Each epoch also redraws ``curves.png``, one panel a
+logged metric (`utils.plotting.plot_curves`).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from quan_ultralytics_tpu_torch.classification.models import create_model, reset_parameters, set_generator
 from quan_ultralytics_tpu_torch.models.tasks import resolve_device
 from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
+from quan_ultralytics_tpu_torch.utils.plotting import plot_curves
 from quan_ultralytics_tpu_torch.utils.weights import (OptaxState, export_jax_variables, from_jax_tree,
                                                        load_jax_variables, optax_state, read_checkpoint,
                                                        to_jax_tree, write_checkpoint)
@@ -209,6 +210,7 @@ class ExperimentManager:
         row = {"epoch": epoch, "train_loss": train_loss, "train_acc": train_acc, "lr": lr, **val}
         self.metrics.append(row)
         (self.dir / "metrics.json").write_text(json.dumps(self.metrics, indent=2))
+        plot_curves(self.metrics, str(self.dir / "curves.png"))  # reference experiment_manager.py:95-178
         return row
 
     def save_checkpoint(self, trainer: ClsTrainer, epoch: int, val_acc: float, keep_last: int = 5) -> None:

@@ -152,8 +152,9 @@ def main(argv=None) -> int:
         data = kv.pop("data")
         print(model.val(data, **kv))
     elif mode == "predict":
-        # reference predictor per-image verbose line + save_txt flags
-        # (engine/predictor.py:222-306, results.py save_txt)
+        # reference predictor per-image verbose line + save/save_txt flags
+        # (engine/predictor.py:222-306, results.py save_txt/plot); visualize=
+        # passes to YOLO.predict (per-layer feature grids)
         source = kv.pop("source")
         save = kv.pop("save", False)
         save_txt = kv.pop("save_txt", False)

@@ -1,4 +1,4 @@
-"""PNG and JPEG reading and PNG writing on the host, without OpenCV or PIL.
+"""PNG and JPEG reading and writing on the host, without OpenCV or PIL.
 
 The port's counterpart of ``cv2.imread(path, IMREAD_COLOR)`` followed by
 ``cvtColor(BGR2RGB)``: `imread` returns an RGB ``uint8 [h, w, 3]`` array with
@@ -14,10 +14,19 @@ the pixels OpenCV gives (gray replicated to three channels, alpha dropped).
   lossless, 12-bit and CMYK files, and files whose EXIF orientation asks for
   a rotation, raise `NotImplementedError`.
 
-``imread.cpp`` is compiled with ``g++`` at first use into ``build/`` at the
-repository root, keyed by a hash of its source and flags, under a file lock
-so that concurrent processes build it once (`utils.native_build`). A missing
-compiler raises.
+`imwrite` is the counterpart of ``cv2.imwrite`` of an RGB (or gray) array,
+chosen by the file's suffix:
+
+* JPEG: baseline, quality 95, 4:2:0, the standard Huffman tables, encoded in
+  C++ with libjpeg-turbo's arithmetic (``imwrite.cpp``): the bytes OpenCV
+  writes for the same pixels (given to OpenCV as BGR).
+* PNG: 8-bit gray or RGB, deflated with ``zlib`` (`imwrite_png`); decoded,
+  the pixels OpenCV reads back are the array's.
+
+``imread.cpp`` and ``imwrite.cpp`` are compiled with ``g++`` at first use into
+``build/`` at the repository root, keyed by a hash of the source and flags,
+under a file lock so that concurrent processes build each once
+(`utils.native_build`). A missing compiler raises.
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, build_cxx
 
 SOURCE = Path(__file__).resolve().parent / "imread.cpp"
 LIB_NAME = "libquan_torch_imread.so"
+WRITE_SOURCE = SOURCE.with_name("imwrite.cpp")
+WRITE_LIB_NAME = "libquan_torch_imwrite.so"
+JPEG_QUALITY = 95  # cv2.imwrite's default
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # imread.cpp's status codes that mean "a kind of file this reader does not take"
 _NOT_IMPLEMENTED = {3, 4, 5, 6, 7, 8, 14}
@@ -42,6 +54,7 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 _lib: Optional[ctypes.CDLL] = None
+_write_lib: Optional[ctypes.CDLL] = None
 
 PathLike = Union[str, Path]
 
@@ -64,6 +77,18 @@ def library() -> ctypes.CDLL:
         lib.imread_error.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def write_library() -> ctypes.CDLL:
+    """The loaded JPEG encoder (``imwrite.cpp``), built on first call."""
+    global _write_lib
+    if _write_lib is None:
+        lib = ctypes.CDLL(str(build_cxx(WRITE_SOURCE, WRITE_LIB_NAME, CXX_FLAGS, BUILD_DIR)))
+        lib.jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_long]
+        lib.jpeg_encode.restype = ctypes.c_long
+        _write_lib = lib
+    return _write_lib
 
 
 def _ptr(a: np.ndarray):
@@ -241,11 +266,55 @@ def read_shape(path: PathLike) -> Tuple[int, int]:
         return _jpeg_header(head + fh.read(), path)
 
 
-def imwrite_png(path: PathLike, im: np.ndarray, palette: Optional[np.ndarray] = None) -> None:
+def _pixels(im: np.ndarray) -> np.ndarray:
+    im = np.asarray(im)
+    if im.dtype != np.uint8:
+        raise TypeError(f"image writers take uint8 pixels, got {im.dtype}")
+    if im.ndim == 3 and im.shape[2] == 1:
+        im = im[..., 0]
+    if not (im.ndim == 2 or (im.ndim == 3 and im.shape[2] == 3)) or 0 in im.shape[:2]:
+        raise ValueError(f"expected a non-empty [h, w] gray or [h, w, 3] RGB image, got {im.shape}")
+    return np.ascontiguousarray(im)
+
+
+def encode_jpeg(im: np.ndarray) -> bytes:
+    """A baseline JPEG file of uint8 ``[h, w, 3]`` RGB or ``[h, w]`` gray
+    pixels: the bytes of ``cv2.imencode(".jpg", im_bgr)`` (quality 95)."""
+    im = _pixels(im)
+    h, w = im.shape[:2]
+    nch = 1 if im.ndim == 2 else 3
+    cap = h * w * nch + 4096
+    while True:
+        buf = np.empty(cap, np.uint8)
+        n = write_library().jpeg_encode(im.ctypes.data, h, w, nch, JPEG_QUALITY, buf.ctypes.data, cap)
+        if n == -2:
+            raise ValueError(f"cannot encode a {im.shape} image")
+        if n >= 0:
+            return buf[:n].tobytes()
+        cap *= 4
+
+
+def imwrite(path: PathLike, im: np.ndarray) -> str:
+    """Write uint8 ``[h, w, 3]`` RGB or ``[h, w]`` gray pixels to ``path``, as
+    ``cv2.imwrite`` writes the same image (BGR for OpenCV): ``.jpg``/``.jpeg``
+    a baseline JPEG at quality 95, ``.png`` an 8-bit PNG. Returns the path."""
+    suffix = Path(path).suffix.lower()
+    if suffix in (".jpg", ".jpeg"):
+        Path(path).write_bytes(encode_jpeg(im))
+    elif suffix == ".png":
+        imwrite_png(path, _pixels(im), filters="sub")
+    else:
+        raise ValueError(f"{path}: only .jpg, .jpeg and .png files are written")
+    return str(path)
+
+
+def imwrite_png(path: PathLike, im: np.ndarray, palette: Optional[np.ndarray] = None,
+                filters: str = "cycle") -> None:
     """Write ``uint8`` pixels as an 8-bit PNG: ``[h, w]`` or ``[h, w, 1]`` gray,
     ``[h, w, 3]`` RGB, ``[h, w, 4]`` RGBA; or, with ``palette`` (``[n, 3]``,
-    n <= 256), ``im`` holds palette indices. Row ``y`` is filtered with type
-    ``y % 5``, so every filter occurs."""
+    n <= 256), ``im`` holds palette indices. ``filters="cycle"`` filters row
+    ``y`` with type ``y % 5``, so every filter occurs (the readers' tests);
+    ``"sub"`` filters every row with type 1."""
     im = np.asarray(im)
     if im.dtype != np.uint8:
         raise TypeError(f"imwrite_png takes uint8 pixels, got {im.dtype}")
@@ -270,12 +339,16 @@ def imwrite_png(path: PathLike, im: np.ndarray, palette: Optional[np.ndarray] = 
     b[1:] = x[:-1]  # above
     cc = np.zeros_like(x)
     cc[1:, c:] = x[:-1, :-c]  # above-left
-    p = a + b - cc
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
-    filtered = np.stack([x, x - a, x - b, x - (a + b) // 2, x - paeth])  # types 0..4
-    kind = np.arange(h) % 5
-    rows = filtered[kind, np.arange(h)].astype(np.uint8)  # mod 256
+    if filters == "sub":
+        kind = np.ones(h, np.int64)
+        rows = (x - a).astype(np.uint8)  # mod 256
+    else:
+        p = a + b - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+        filtered = np.stack([x, x - a, x - b, x - (a + b) // 2, x - paeth])  # types 0..4
+        kind = np.arange(h) % 5
+        rows = filtered[kind, np.arange(h)].astype(np.uint8)  # mod 256
     raw = np.concatenate([kind.astype(np.uint8)[:, None], rows], axis=1).tobytes()
 
     def chunk(kind_: bytes, payload: bytes) -> bytes:

@@ -177,8 +177,8 @@ class YOLO:
         table and the confusion matrix as the reference's BaseValidator does.
         rect: rectangular batches (not OBB).
         mask_native: segment only: masks scored at the input's resolution.
-        save_dir: the per-class table as ``per_class.txt`` (the plots are not
-        ported yet)."""
+        save_dir: the per-class table as ``per_class.txt``, the validation
+        curves and the confusion matrices (`Validator`)."""
         ds = YOLODataset(data, split=split, task=self.task, cache=cache)
         validator = Validator(self.model, imgsz=imgsz, conf=conf, iou=iou)
         out = validator(ds, batch_size=batch, save_json=save_json,
@@ -192,14 +192,38 @@ class YOLO:
         return out
 
     def predict(self, source, imgsz: int = 640, conf: float = 0.25, iou: float = 0.45,
-                max_det: int = 300) -> List[Results]:
+                max_det: int = 300, visualize=False) -> List[Results]:
         """Frames, a path or a directory -> one `Results` each (reference
-        Model.predict). An exported artifact predicts at its own size."""
+        Model.predict). An exported artifact predicts at its own size.
+
+        visualize: a directory (or True for ``runs/visualize``) to write the
+          feature grid of every layer into, ``stage{i}_{Module}_features.png``
+          (reference nn/tasks.py:140 and utils/plotting.py:1346), one ``im{b}``
+          directory per image when there are several; one batched `features`
+          pass over the letterboxed frames. An exported artifact has no
+          `features` and writes none, as the JAX facade skips them."""
         self.model.eval()
         imgsz = getattr(self.model, "imgsz", imgsz)
         predictor = Predictor(self.model, imgsz=imgsz, conf=conf, iou=iou,
                               max_det=max_det, names=self.names)
-        return predictor(source)
+        results = predictor(source)
+        if visualize and hasattr(self.model, "features") and results:
+            self._visualize(results, imgsz, Path(visualize if isinstance(visualize, (str, Path))
+                                                 else "runs/visualize"))
+        return results
+
+    @torch.inference_mode()
+    def _visualize(self, results: List[Results], imgsz: int, out_dir: Path) -> None:
+        from quan_ultralytics_tpu_torch.utils.plotting import feature_visualization
+
+        x = torch.stack([letterbox(torch.as_tensor(r.orig_img).to(self.device), imgsz)[0]
+                         for r in results])
+        _, feats = self.model.features(x.float() / 255.0)
+        for bi in range(len(results)):
+            d = out_dir if len(results) == 1 else out_dir / f"im{bi}"
+            d.mkdir(parents=True, exist_ok=True)
+            for i, f in sorted(feats.items()):
+                feature_visualization(f[bi:bi + 1], d / f"stage{i}_{self.model.specs[i].module}_features.png")
 
     __call__ = predict
 

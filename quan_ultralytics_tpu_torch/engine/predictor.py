@@ -74,9 +74,42 @@ class Results:
         return xywhr2xyxyxyxy(torch.from_numpy(self.boxes[:, :5])).numpy()
 
     def plot(self, filename: Optional[str] = None) -> np.ndarray:
-        """Annotated frames need a line and text rasterizer and an image
-        writer, which come with the port's ``utils/plotting.py``."""
-        raise NotImplementedError("Results.plot is not ported yet (ROADMAP Queue 1 item 3b)")
+        """The source frame annotated with the detections (reference
+        results.py:484; the JAX ``Results.plot``): masks blended at 0.6 / 0.4
+        in a colour of their index, boxes or rotated boxes with "{name}
+        {conf:.2f}" labels, keypoints with visibility above 0.5 as green
+        filled circles of radius 3. Returns the RGB array; ``filename``
+        writes it (a ``.jpg`` is OpenCV's JPEG of it)."""
+        from quan_ultralytics_tpu_torch.data.native import pixels
+        from quan_ultralytics_tpu_torch.data.native.native import imwrite
+        from quan_ultralytics_tpu_torch.utils.plotting import Annotator
+
+        if self.orig_img is None:
+            raise ValueError("Results.plot needs orig_img (predict stores it)")
+        im = self.orig_img
+        im = (im.detach().cpu().numpy() if isinstance(im, torch.Tensor) else np.asarray(im)).copy()
+        if self.masks is not None and len(self.masks):
+            for i, mk in enumerate(self.masks):
+                color = np.array([(37 * (i + 1)) % 255, (97 * (i + 1)) % 255,
+                                  (173 * (i + 1)) % 255], np.uint8)
+                mk = np.asarray(mk, bool)
+                im[mk] = (0.6 * im[mk] + 0.4 * color).astype(np.uint8)
+        ann = Annotator(im, self.names)
+        for row in self.boxes:
+            c = int(row[-1])
+            label = f"{self._name(c)} {row[-2]:.2f}"
+            (ann.obb_label if self.task == "obb" else ann.box_label)(
+                row[:5] if self.task == "obb" else row[:4], label, c)
+        if self.keypoints is not None:
+            for k in self.keypoints:
+                for x, y, v in k[:, :3]:
+                    if v > 0.5:
+                        pixels.circle(ann.im, (int(x), int(y)), 3, (0, 255, 0), -1)
+        out = ann.result()
+        if filename:
+            Path(filename).parent.mkdir(parents=True, exist_ok=True)
+            imwrite(str(filename), out)
+        return out
 
     def verbose(self) -> str:
         """Per-class count string, '4 planes, 1 ship, ' style

@@ -124,9 +124,10 @@ class Validator:
         mask_native: segment only: score the masks at the network input's
           resolution (upsampled, the ground truth filled from the letterboxed
           polygons) instead of at the prototypes' (the default).
-        save_dir: the per-class table as ``per_class.txt``. The curve and
-          confusion-matrix images need matplotlib and are not written (their
-          methods raise `NotImplementedError`).
+        save_dir: the per-class table as ``per_class.txt``, the four curves
+          (``PR_curve.png``, ``F1_curve.png``, ``P_curve.png``, ``R_curve.png``)
+          and both confusion matrices (``confusion_matrix.png``,
+          ``confusion_matrix_normalized.png``), as the JAX Validator writes them.
 
         ``self.confusion`` and ``self.metrics`` hold the run's confusion matrix
         and accumulated matches; ``self.speed`` the host-clock ms a batch of
@@ -238,6 +239,9 @@ class Validator:
         if save_dir is not None:
             d = Path(save_dir)
             d.mkdir(parents=True, exist_ok=True)
+            metrics.plot(d, ds.names)
+            self.confusion.plot(d, ds.names, normalize=False)
+            self.confusion.plot(d, ds.names, normalize=True)
             (d / "per_class.txt").write_text(metrics.per_class_table(ds.names) + "\n")
         wall = time.perf_counter() - t_all
         self.speed = {k: v / max(n_batches, 1) for k, v in times.items()}

@@ -7,13 +7,18 @@ Host-side NumPy re-implementation of the reference metric pipeline
 OBBMetrics :1226). Matching logic follows the reference: per-image IoU
 matching at 10 thresholds (0.5:0.95), greedy de-duplication by IoU order,
 101-point interpolated AP. Rotated IoU uses probiou like the reference's
-OBBValidator (models/yolo/obb/val.py:40). The plots need matplotlib and are
-not ported yet: their methods raise `NotImplementedError`.
+OBBValidator (models/yolo/obb/val.py:40). The plots (the four validation
+curves and the confusion matrices) are drawn by the port's raster
+(`utils.plotting.Chart`) from the arrays the JAX package hands matplotlib, at
+its file names and pixel sizes. Two labels differ from the JAX package's on
+purpose: a dict of names labels the confusion matrix by its values (JAX: its
+keys), and a list of names labels the curves by name (JAX: a function object).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -187,10 +192,64 @@ class ConfusionMatrix:
                          + "".join(f"{int(self.matrix[i, j])}".rjust(w) for j in range(n)))
         return "\n".join(lines)
 
+    def plot_data(self, names=None, normalize: bool = True):
+        """(array, tick labels) of the confusion-matrix image: columns are the
+        ground truth, rows the predictions; normalised, each column divided by
+        its total. ``names`` (a list, or a dict of class index -> name) gives
+        the labels when it names every class."""
+        array = self.matrix / ((self.matrix.sum(0, keepdims=True) + 1e-9) if normalize else 1.0)
+        if isinstance(names, dict):
+            names = [names.get(i, str(i)) for i in range(self.nc)] if len(names) == self.nc else None
+        labels = [str(v) for v in names] if names and len(names) == self.nc else [str(i) for i in range(self.nc)]
+        if self.task == "detect":
+            labels = labels + ["background"]
+        return array, labels
+
     def plot(self, save_dir, names=None, normalize=True):
-        """The confusion-matrix image needs matplotlib, which the port does not
-        use; it comes with ``utils/plotting.py``."""
-        raise NotImplementedError("ConfusionMatrix.plot needs matplotlib: not ported yet (ROADMAP Queue 1 item 3b)")
+        """Confusion-matrix image (reference metrics.py ConfusionMatrix.plot
+        :397-440; the JAX package's 12 x 9 in @ 200 dpi, 2400 x 1800 px):
+        the matrix coloured by "Blues" from 0 to its maximum with a colour
+        bar, each cell's value written when there are fewer than 30 classes
+        (white on cells above half the maximum), "True" and "Predicted" axes.
+        Returns the written path."""
+        from quan_ultralytics_tpu_torch.utils.plotting import Chart, blues_table
+
+        array, labels = self.plot_data(names, normalize)
+        n = array.shape[0]
+        title = "Confusion Matrix" + " Normalized" * normalize
+        chart = Chart((12, 9), 200)
+        u = chart.unit
+        x0, y0 = int(0.12 * chart.width), int(0.08 * chart.height)
+        side = min(int(0.70 * chart.width), int(0.80 * chart.height))
+        cell = side / max(n, 1)
+        vmax = float(array.max()) if array.size and array.max() > 0 else 1.0
+        lut = blues_table()
+        idx = np.clip((array / vmax * 256).astype(np.int64), 0, 255)
+        for i in range(n):
+            for j in range(n):
+                ya, yb = int(round(y0 + i * cell)), int(round(y0 + (i + 1) * cell)) - 1
+                xa, xb = int(round(x0 + j * cell)), int(round(x0 + (j + 1) * cell)) - 1
+                chart.im[ya:yb + 1, xa:xb + 1] = lut[idx[i, j]]
+                v = array[i, j]
+                if n < 30 and v >= (0.005 if normalize else 1):
+                    chart.text(f"{v:.2f}" if normalize else f"{int(v)}", ((xa + xb) // 2, (ya + yb) // 2 + int(4 * u)),
+                               0.32, (255, 255, 255) if v > vmax / 2 else (0, 0, 0), anchor="center")
+        for k, lab in enumerate(labels):
+            c = int(round(x0 + (k + 0.5) * cell)), int(round(y0 + (k + 0.5) * cell))
+            chart.text(lab, (c[0] + int(3 * u), y0 + side + int(6 * u)), 0.32, anchor="right", vertical=True)
+            chart.text(lab, (x0 - int(6 * u), c[1] + int(3 * u)), 0.32, anchor="right")
+        chart.text("True", (x0 + side // 2, chart.height - int(12 * u)), 0.45, anchor="center")
+        chart.text("Predicted", (int(18 * u), y0 + side // 2), 0.45, anchor="center", vertical=True)
+        chart.text(title, (x0 + side // 2, y0 - int(10 * u)), 0.5, anchor="center")
+        bx = x0 + side + int(20 * u)  # colour bar
+        for y in range(side):
+            chart.im[y0 + y, bx:bx + int(14 * u)] = lut[255 - int(y / max(side - 1, 1) * 255)]
+        for t in np.linspace(0, vmax, 6):
+            y = y0 + side - 1 - int(round(t / vmax * (side - 1)))
+            chart.text(f"{t:.2f}" if normalize else f"{t:.0f}", (bx + int(18 * u), y + int(4 * u)), 0.32)
+        out = Path(save_dir) / f"{title.lower().replace(' ', '_')}.png"
+        chart.save(out)
+        return out
 
 
 def compute_ap(recall: np.ndarray, precision: np.ndarray):
@@ -342,7 +401,57 @@ class DetMetrics:
                         f"{res['recall'][c]:>8.3f} {ap[c, 0]:>8.3f} {ap[c].mean():>9.3f}")
         return "\n".join([head] + rows)
 
+    def curves(self, names=None) -> List[Dict]:
+        """The four validation charts as data (reference metrics.py
+        plot_pr_curve :456 / plot_mc_curve :481): each ``{file, title,
+        xlabel, ylabel, x, series}`` with ``series`` a list of (label, y,
+        linewidth, colour or None): one line a seen class, then the
+        all-classes line (the mean precision at IoU 0.5 for the PR curve, the
+        smoothed mean for F1, P and R). Empty without predictions."""
+        if getattr(self, "last", None) is None:
+            self.compute()
+        res = self.last
+        if res is None:
+            return []
+        names = names or {}
+        seen = res["classes"]
+
+        def label(c) -> str:
+            if isinstance(names, dict):
+                return str(names.get(int(c), int(c)))
+            return str(names[int(c)]) if int(c) < len(names) else str(c)
+
+        pr = [(f"{label(c)} {res['ap'][c, 0]:.3f}", res["prec_values"][c], 1, None) for c in seen]
+        if len(seen):
+            pr.append((f"all classes {res['ap'][seen, 0].mean():.3f} mAP@0.5",
+                       res["prec_values"][seen].mean(0), 3, "blue"))
+        out = [{"file": "PR_curve.png", "title": "Precision-Recall Curve", "xlabel": "Recall",
+                "ylabel": "Precision", "x": res["rx"], "series": pr}]
+        for key, ylabel, fname in (("f1_curve", "F1", "F1_curve.png"), ("p_curve", "Precision", "P_curve.png"),
+                                   ("r_curve", "Recall", "R_curve.png")):
+            series = [(label(c), res[key][c], 1, None) for c in seen]
+            if len(seen):
+                y = smooth(res[key][seen].mean(0), 0.05)
+                series.append((f"all classes {y.max():.2f} at {res['px'][y.argmax()]:.3f}", y, 3, "blue"))
+            out.append({"file": fname, "title": f"{ylabel}-Confidence Curve", "xlabel": "Confidence",
+                        "ylabel": ylabel, "x": res["px"], "series": series})
+        return out
+
     def plot(self, save_dir, names=None):
-        """The PR/F1/P/R curve images need matplotlib, which the port does not
-        use; they come with ``utils/plotting.py``."""
-        raise NotImplementedError("DetMetrics.plot needs matplotlib: not ported yet (ROADMAP Queue 1 item 3b)")
+        """Write the reference's four validation curves (`curves`):
+        ``PR_curve.png``, ``F1_curve.png``, ``P_curve.png``, ``R_curve.png``,
+        9 x 6 in @ 200 dpi (1800 x 1200 px), both axes 0..1, the legend to
+        the right. Returns the list of written paths."""
+        from quan_ultralytics_tpu_torch.utils.plotting import BLUE, SERIES_COLORS, Chart
+
+        save_dir = Path(save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        out = []
+        for spec in self.curves(names):
+            chart = Chart((9, 6), 200)
+            ax = chart.axes((0.08, 0.1, 0.66, 0.82), (0, 1), (0, 1), spec["title"], spec["xlabel"], spec["ylabel"])
+            for k, (lab, y, lw, color) in enumerate(spec["series"]):
+                ax.plot(spec["x"], y, BLUE if color == "blue" else SERIES_COLORS[k % len(SERIES_COLORS)], lw, lab)
+            ax.legend()
+            out.append(Path(chart.save(save_dir / spec["file"])))
+        return out

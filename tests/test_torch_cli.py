@@ -418,8 +418,10 @@ def test_results_output_matches_jax(tmp_path, seed, n):
             assert a[0] == b[0] and len(a) == len(b) == 9 + save_conf
             np.testing.assert_allclose([float(v) for v in a[1:]], [float(v) for v in b[1:]],
                                        rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        got.plot()
+    out = got.plot()  # ported: tests/test_torch_plotting.py holds it to the JAX one outside the glyphs
+    assert out.shape == im.shape and out.dtype == np.uint8
+    if n == 0:
+        np.testing.assert_array_equal(out, ref.plot())
 
 
 # ---------------------------------------------------------------- facade and checkpoints

@@ -39,6 +39,7 @@ import torch
 
 from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
 from quan_ultralytics_tpu_torch.data.native.native import imread, imwrite_png
+from quan_ultralytics_tpu_torch.engine.predictor import Results
 from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
 from quan_ultralytics_tpu_torch.engine.validator import Validator
 from quan_ultralytics_tpu_torch.models.block import QAttention
@@ -919,3 +920,89 @@ def test_embed_and_track_on_card(cuda, tmp_path):
                  for d, f in zip(dets, frames)]
         assert sum(len(t) for t in tracks) > 0
         assert all(np.array_equal(a, b) for a, b in zip(tracks, again))
+
+
+def test_predict_save_and_visualize_on_card(cuda, tmp_path):
+    """``obb predict save=True visualize=<dir>`` through the CLI on the card
+    (QUAN-YOLO11n-OBB, nc 15, seeded f32 weights, imgsz 256): K1 and K3 launch,
+    ``im{i}.jpg`` reads back at each frame's size, 23 feature grids an image;
+    ``Results.plot`` of the card's rows and two fixed ones gives the same
+    pixels and the same JPEG bytes from the frame on the card and on the
+    host."""
+    from quan_ultralytics_tpu_torch import cli
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+
+    rng = np.random.default_rng(0)
+    src = tmp_path / "src"
+    src.mkdir()
+    for i, (h, w) in enumerate(((240, 320), (256, 200))):
+        imwrite_png(src / f"f{i}.png", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    torch.manual_seed(0)
+    pkl = YOLO("yolo11n-obb-quan.yaml", nc=15, device="cpu").export(format="params", path=str(tmp_path / "m.pkl"))
+    k1, k3 = qattn.launches, qconv_fused.launches
+    assert cli.main(["obb", "predict", f"model={pkl}", f"source={src}", "imgsz=256", "save=True",
+                     f"save_dir={tmp_path / 'pred'}", f"visualize={tmp_path / 'vis'}"]) == 0
+    assert qattn.launches - k1 == 2 and qconv_fused.launches - k3 == 2 * 37  # predict + the features pass
+    for i, hw in enumerate(((240, 320), (256, 200))):
+        assert imread(tmp_path / "pred" / f"im{i}.jpg").shape[:2] == hw
+        assert len(list((tmp_path / "vis" / f"im{i}").glob("stage*_features.png"))) == 23
+    frame = imread(src / "f0.png")
+    res = YOLO(pkl, device=cuda).predict(frame, imgsz=256)[0]
+    assert res.boxes.shape[1:] == (7,)
+    # the rows the card predicted and two fixed ones, drawn on the frame held
+    # on the card and on the host: the same pixels
+    rows = np.concatenate([res.boxes, np.array([[120, 100, 60, 30, 0.4, 0.91, 3],
+                                                [60, 180, 40, 40, -0.2, 0.52, 7]], np.float32)])
+    kw = {"orig_shape": frame.shape[:2], "boxes": rows, "names": res.names, "task": "obb"}
+    on_card = Results(**kw, orig_img=torch.from_numpy(frame).to(cuda)).plot(tmp_path / "card.jpg")
+    on_host = Results(**kw, orig_img=frame).plot(tmp_path / "host.jpg")
+    np.testing.assert_array_equal(on_card, on_host)
+    assert (tmp_path / "card.jpg").read_bytes() == (tmp_path / "host.jpg").read_bytes()
+    assert not np.array_equal(on_host, frame)
+
+
+def test_reference_weights_infer_on_card_matches_the_plain_path(cuda):
+    """A reference-layout state dict of QUAN-YOLO11n-OBB (reference names and
+    layouts, drawn with numpy) through ``port_state_dict``: the bf16 model's
+    ``infer`` at 1024 with K1 + K3 against the plain path (einsum attention,
+    unfused 1x1 convs) on the same dict, within 5e-2 of max|ref| (chip_smoke's
+    PRED_TOL in bf16)."""
+    from quan_ultralytics_tpu_torch.utils.torch_port import port_state_dict, to_reference_state_dict
+    from quan_ultralytics_tpu_torch.utils.weights import export_jax_variables
+
+    fused = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, dtype=torch.bfloat16, device=cuda,
+                                     fused_1x1=True).eval()
+    rng = np.random.default_rng(11)
+
+    def draw(tree):  # the seeded draws of tests/torch_port_helpers.fill_variables
+        out = {}
+        for k, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[k] = draw(leaf)
+                continue
+            shape = leaf.shape
+            if k == "w":
+                out[k] = rng.uniform(-1, 1, shape) * math.sqrt(3.0 / max(int(np.prod(shape[1:-1])), 1)) / 2
+            elif k == "kernel":
+                out[k] = rng.uniform(-1, 1, shape) * math.sqrt(3.0 / int(np.prod(shape[:-1])))
+            elif k in ("gamma", "var"):
+                out[k] = rng.uniform(0.5, 1.5, shape)
+            else:
+                out[k] = rng.normal(size=shape) * 0.1
+        return out
+
+    sd = to_reference_state_dict({c: draw(t) for c, t in export_jax_variables(fused).items()})
+    port_state_dict(sd, fused)
+    plain = port_state_dict(sd, DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, dtype=torch.bfloat16,
+                                                         device=cuda, fused_1x1=False)).eval()
+    for m in plain.modules():
+        if isinstance(m, QAttention):
+            m.fused_attn = False
+    x = torch.rand(8, 1024, 1024, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    k1, k3 = qattn.launches, qconv_fused.launches
+    with torch.inference_mode():
+        got = fused.decode(fused(x)).float()
+        assert (qattn.launches - k1, qconv_fused.launches - k3) == (1, 37)
+        ref = plain.decode(plain(x)).float()
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 5e-2 * float(ref.abs().max())

@@ -54,28 +54,64 @@ def test_import_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
-@pytest.mark.parametrize("module", ["quan_ultralytics_tpu_torch.cfg.model_yaml",
-                                    "quan_ultralytics_tpu_torch.models.ensemble",
-                                    "quan_ultralytics_tpu_torch.ops.activations",
-                                    "quan_ultralytics_tpu_torch.trackers.kalman",
-                                    "quan_ultralytics_tpu_torch.trackers.matching",
-                                    "quan_ultralytics_tpu_torch.trackers.byte_tracker",
-                                    "quan_ultralytics_tpu_torch.trackers.bot_sort",
-                                    "quan_ultralytics_tpu_torch.trackers.gmc",
-                                    "quan_ultralytics_tpu_torch.engine.tuner",
-                                    "quan_ultralytics_tpu_torch.engine.exporter",
-                                    "quan_ultralytics_tpu_torch.utils.profiler",
-                                    "quan_ultralytics_tpu_torch.utils.autobatch",
-                                    "quan_ultralytics_tpu_torch.utils.benchmarks"])
-def test_new_module_alone_loads_no_jax_yaml_cv2_or_pil(module):
+ALONE_MODULES = [
+    "quan_ultralytics_tpu_torch.cfg.model_yaml",
+    "quan_ultralytics_tpu_torch.models.ensemble",
+    "quan_ultralytics_tpu_torch.ops.activations",
+    "quan_ultralytics_tpu_torch.trackers.kalman",
+    "quan_ultralytics_tpu_torch.trackers.matching",
+    "quan_ultralytics_tpu_torch.trackers.byte_tracker",
+    "quan_ultralytics_tpu_torch.trackers.bot_sort",
+    "quan_ultralytics_tpu_torch.trackers.gmc",
+    "quan_ultralytics_tpu_torch.engine.tuner",
+    "quan_ultralytics_tpu_torch.engine.exporter",
+    "quan_ultralytics_tpu_torch.utils.profiler",
+    "quan_ultralytics_tpu_torch.utils.autobatch",
+    "quan_ultralytics_tpu_torch.utils.benchmarks",
+]
+PLOT_MODULES = [  # the plots, the text raster, the reference-weights loader, the metrics' charts
+    "quan_ultralytics_tpu_torch.utils.plotting",
+    "quan_ultralytics_tpu_torch.utils.font",
+    "quan_ultralytics_tpu_torch.utils.torch_port",
+    "quan_ultralytics_tpu_torch.utils.metrics",
+]
+_ALONE_CODE = ("import {}, sys; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'psutil')); "
+               "assert not bad, bad")
+
+
+@pytest.fixture(scope="module")
+def imported_alone():
+    """Each of ALONE_MODULES and PLOT_MODULES imported in a fresh interpreter
+    of its own, all started at once: module -> (exit code, standard error)."""
+    procs = {m: subprocess.Popen([sys.executable, "-c", _ALONE_CODE.format(m)], cwd=REPO,
+                                 stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+             for m in ALONE_MODULES + PLOT_MODULES}
+    out = {}
+    for m, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        out[m] = (proc.returncode, err)
+    return out
+
+
+@pytest.mark.parametrize("module", ALONE_MODULES)
+def test_new_module_alone_loads_no_jax_yaml_cv2_or_pil(module, imported_alone):
     """The model-YAML reader, the ensemble, the activations, the trackers, the
     tuner, the exporter, the profiler, AutoBatch and the benchmarks, each
     imported alone in a fresh interpreter, load none of jax, the JAX package,
     yaml, cv2, PIL, matplotlib or psutil."""
-    code = (f"import {module}, sys; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'psutil')); "
-            "assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+    rc, err = imported_alone[module]
+    assert rc == 0, err
+
+
+def test_plot_modules_alone_load_no_jax_cv2_pil_or_matplotlib(imported_alone):
+    """The plots, the text raster, the reference-weights loader and the
+    metrics (their charts), each imported alone in a fresh interpreter, load
+    none of jax, the JAX package, yaml, cv2, PIL, matplotlib or psutil (one
+    test, so that this file keeps its place in pytest-xdist's queue)."""
+    for module in PLOT_MODULES:
+        rc, err = imported_alone[module]
+        assert rc == 0, f"{module}: {err}"
 
 
 def test_source_scan_finds_no_jax_import():

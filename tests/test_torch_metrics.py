@@ -129,12 +129,13 @@ def test_perfect_predictions_score_the_ceiling():
     assert out["precision"] == out["recall"] == pytest.approx(1.0, abs=1e-12)
 
 
-def test_empty_metrics_and_plots():
+def test_empty_metrics_and_plots(tmp_path):
+    """Empty metrics compute as JAX's; their plots are ported: no curve is
+    written without predictions (as in JAX), the empty confusion matrix is."""
     assert tm.DetMetrics(nc=3).compute() == jm.DetMetrics(nc=3).compute()
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        tm.DetMetrics(nc=3).plot("/nonexistent")
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        tm.ConfusionMatrix(nc=3).plot("/nonexistent")
+    assert tm.DetMetrics(nc=3).plot(tmp_path) == jm.DetMetrics(nc=3).plot(tmp_path) == []
+    assert tm.ConfusionMatrix(nc=3).plot(tmp_path).name == "confusion_matrix_normalized.png"
+    assert (tmp_path / "confusion_matrix_normalized.png").exists()
 
 
 def test_dota_submission_matches_jax(tmp_path):

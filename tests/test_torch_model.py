@@ -1,7 +1,8 @@
 """The slice as a whole: yolo11n-obb-quan (nc=15) eval forward, decode_obb and
 rotated NMS in the port vs the JAX package at imgsz 64, batch 2, f32 on the
 CPU, with the JAX weights carried by ``load_jax_variables``; the port's
-Predictor end to end; and the weight carrying itself."""
+Predictor end to end; the weight carrying itself; and a reference-layout
+state dict ported by each package, forward against forward."""
 
 import jax
 import jax.numpy as jnp
@@ -11,9 +12,11 @@ import torch
 
 from quan_ultralytics_tpu.models.tasks import DetectionModel as JaxDetectionModel
 from quan_ultralytics_tpu.ops.boxes import non_max_suppression as jax_nms
+from quan_ultralytics_tpu.utils import torch_port as jport
 from quan_ultralytics_tpu_torch.engine.predictor import Predictor, Results
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 from quan_ultralytics_tpu_torch.ops.boxes import non_max_suppression
+from quan_ultralytics_tpu_torch.utils import torch_port as tport
 from quan_ultralytics_tpu_torch.utils.weights import load_jax_variables
 from torch_port_helpers import assert_close, jax_variables, to_torch, torch_threads  # noqa: F401
 
@@ -25,7 +28,8 @@ CONF, IOU = 0.25, 0.45
 
 @pytest.fixture(scope="module")
 def pair():
-    """(JAX model, its seeded variables, the port model carrying them, input, JAX outputs)."""
+    """(JAX model, its seeded variables, the port model carrying them, input,
+    JAX outputs, the jitted JAX forward + decode + NMS)."""
     jm = JaxDetectionModel.from_yaml(CFG, nc=NC)
     x = np.random.default_rng(0).uniform(0, 1, (2, IMGSZ, IMGSZ, 3)).astype(np.float32)
     v = jax_variables(jm.module, jnp.asarray(x[:1]), train=False)
@@ -39,11 +43,11 @@ def pair():
     ref = run(v, jnp.asarray(x))
     tm = DetectionModel.from_yaml(CFG, nc=NC, device="cpu")
     load_jax_variables(tm, v)
-    return jm, v, tm, x, ref
+    return jm, v, tm, x, ref, run
 
 
 def test_forward_decode_and_nms_match_jax(pair):
-    _, _, tm, x, ((rfeats, rangles), rpred, (rdet, rok)) = pair
+    _, _, tm, x, ((rfeats, rangles), rpred, (rdet, rok)), _ = pair
     with torch.no_grad():
         feats, angles = tm(to_torch(x))
         pred = tm.decode((feats, angles))
@@ -65,7 +69,7 @@ def test_forward_decode_and_nms_match_jax(pair):
 
 
 def test_load_jax_variables_covers_every_leaf(pair):
-    _, v, tm, _, _ = pair
+    _, v, tm, _, _, _ = pair
     assert sum(p.numel() for p in tm.parameters()) == 693_568
     n_leaves = len(jax.tree_util.tree_leaves(v))
     assert n_leaves == len(tm.state_dict())
@@ -89,7 +93,7 @@ def test_load_jax_variables_covers_every_leaf(pair):
 
 
 def test_predictor_end_to_end_on_cpu(pair):
-    _, _, tm, _, _ = pair
+    _, _, tm, _, _, _ = pair
     frame = np.random.default_rng(3).integers(0, 256, (100, 140, 3), dtype=np.uint8)
     results = Predictor(tm, imgsz=IMGSZ, conf=CONF, iou=IOU)(frame)
     assert len(results) == 1
@@ -102,3 +106,24 @@ def test_predictor_end_to_end_on_cpu(pair):
     assert (w >= h).all() and (t >= 0).all() and (t < np.pi).all()
     assert len(r.summary()) == len(r) and set(r.summary()[0]["box"]) == {
         "x1", "y1", "x2", "y2", "x3", "y3", "x4", "y4"}
+
+
+def test_reference_state_dict_forward_matches_jax(pair):
+    """A state dict in the PyTorch reference's names and layouts (the seeded
+    variables through ``to_reference_state_dict``), loaded by each package's
+    ``port_state_dict``: the port model's eval forward and decode against the
+    JAX model's on the same input, at the forward tolerance above."""
+    _, v, _, x, _, run = pair
+    sd = tport.to_reference_state_dict(v, jport.torch_prefix)
+    (rfeats, rangles), rpred, _ = run(jport.port_state_dict(sd, v), jnp.asarray(x))
+    tm = tport.port_state_dict({k: to_torch(a) for k, a in sd.items()},
+                               DetectionModel.from_yaml(CFG, nc=NC, device="cpu")).eval()
+    with torch.no_grad():
+        feats, angles = tm(to_torch(x))
+        pred = tm.decode((feats, angles))
+    for g, r in zip(feats + angles, list(rfeats) + list(rangles)):
+        assert g.shape == r.shape
+        assert_close(g, r, rtol=2e-4, atol=2e-5)
+    rpred = np.asarray(rpred)
+    assert pred.shape == rpred.shape
+    assert float(np.abs(pred.numpy() - rpred).max()) <= 1e-4 * float(np.abs(rpred).max()) + 1e-5
