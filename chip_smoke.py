@@ -152,8 +152,9 @@ Phases:
  35. the TPU-chosen defaults (ROADMAP item 4): the conv form (grouped,
      folded, auto at fold thresholds 16, 32, 64, 128) by device busy ms of
      the OBB ``infer`` and micro-step at 1024 and a Q-WRN-16-2 step at batch
-     128, two rounds; the assigner's metric chain in f32 and bf16 is timed in
-     phase 6 and ``fused_1x1`` in phases 4 and 13 (the ``defaults`` line);
+     128, one round (the defaults were chosen from two); the assigner's
+     metric chain in f32 and bf16 is timed in phase 6 and ``fused_1x1`` in
+     phases 4 and 13 (the ``defaults`` line);
  36. track: QUAN-YOLO11n (nc=80, seeded f32 weights, the facade's K1 + K3) follows
      a 16-frame clip written by the script (640 x 480 PNG, a textured background
      panned 2 px right and 1 px down a frame under 6 moving rectangles) through
@@ -186,7 +187,27 @@ Phases:
      layouts, drawn with numpy, through ``port_state_dict``; its ``infer`` at
      1024 with K1 + K3 held to the plain path at PRED_TOL; a Q-WRN-16-2 dict
      through ``port_cls_state_dict``, every leaf exact;
- 47. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 47. data parallelism over NCCL at world size 1: 8 bf16 micro-steps (one update)
+     of the OBB train step at 1024 through ``Trainer(mesh=)``, whose IQBN
+     moments, loss normalisers and gradients go through NCCL's collectives,
+     against the same Trainer without a mesh (bf16: differences printed);
+ 48-50. two ranks on the one card over gloo (NCCL refuses two ranks on one
+     card), started by ``parallel.distributed.launch`` under a deadline: one f32
+     update of the OBB step at 1024 on ranks of batch 4 against one process of
+     batch 8 (loss within 2e-5, parameters and IQBN statistics within
+     tests/test_mesh.py's tolerances or twice the single process's own
+     reorder noise; the ranks bitwise equal; K1 and K2 on each rank); the
+     Validator and the Predictor sharded (f32, K1 + K3) against one process's;
+     one Q-WRN-16-2 update at batch 128 against one process;
+ 51. int8 serving of the OBB model at 1024, batch 8 (``impl="int8"``,
+     calibrated on the 8 frames): every int8 conv's accumulator on the card
+     equal to its exact plain version (the widest also to the CPU's), device
+     busy ms and host ms of ``infer`` with fused_1x1 on and off against bf16
+     and f32 ``auto``, the share of bf16's kept boxes that int8 keeps, K1 and
+     K3 launches;
+ 52. ``split_dota.split_image`` of a 4000 x 4000 scene with 200 objects into
+     1024 windows (gap 200): windows, seconds, bytes;
+ 53. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -197,8 +218,9 @@ Phases:
      benchmark, export (the facade predicting from the .pt2), embed, tune,
      cli_track, cli_benchmark, cli_tune and cli_export (``obb predict`` of
      the .pt2), cli_predict_save, predict_plot, predict_visualize, seg_plot,
-     pose_plot, val_plots and reference_weights; each kernel launched on each
-     path that runs it; K1 and K2
+     pose_plot, val_plots, reference_weights, dp_nccl_train,
+     dp_gloo_{train,val,predict}_rank{0,1}, int8_fused_1x1 and int8; each
+     kernel launched on each path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
      K3's operators counted in the exported graph), the script's seconds,
@@ -908,14 +930,15 @@ def make_train_batch(seed: int):
 
 def make_trainer(dtype: torch.dtype, model: str = MODEL, nc: int = NC, **kw):
     """The port's Trainer on the n model (weights from seed 0) with the default
-    TrainConfig at batch 8 (nbs 64: accumulate 8)."""
+    TrainConfig at batch 8 (nbs 64: accumulate 8); ``mesh`` in ``kw`` goes to the Trainer."""
     from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
     from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 
     fused_attn = kw.pop("fused_attn", True)
+    mesh = kw.pop("mesh", None)
     model = DetectionModel.from_yaml(model, nc=nc, dtype=dtype, device=DEVICE, fused_attn=fused_attn)
     cfg = TrainConfig(batch=BATCH, dtype="bfloat16" if dtype == torch.bfloat16 else "float32", **kw)
-    return Trainer(model, cfg, steps_per_epoch=100, device=DEVICE)
+    return Trainer(model, cfg, steps_per_epoch=100, device=DEVICE, mesh=mesh)
 
 
 def phase_train(batch):
@@ -3636,6 +3659,9 @@ def phase_hybrid_resume(cfg, path: Path, root: Path):
 
 # the conv forms measured: (impl, fold threshold) -- `auto` folds a layer whose C_out a component
 # is below the threshold (FOLD_MAX_EVAL and FOLD_MAX_TRAIN both set to it in its arm)
+# rounds of phase 35: the defaults were set from two (the arms forward, then backward); one
+# keeps them checked at half the script time
+FORM_ROUNDS = 1
 FORM_ARMS = (("grouped", None), ("folded", None), ("auto", 16), ("auto", 32), ("auto", 64), ("auto", 128))
 
 
@@ -3654,9 +3680,10 @@ def phase_conv_forms(x, tables=None, calls: int = 1):
     """The quaternion conv's form (ROADMAP item 4), measured where it is chosen:
     QUAN-YOLO11n-OBB's ``infer`` at 1024 (batch 8, bf16, K1) and its train micro-step
     (the same, accumulating: no update in the window), and a Q-WRN-16-2 train step at
-    batch 128 @ 32 (bf16), under each of FORM_ARMS, in two rounds (the arms forward,
-    then backward). Device busy ms a call from torch.profiler decides; host ms a call
-    (synchronized) is printed beside it. The module's thresholds are put back after."""
+    batch 128 @ 32 (bf16), under each of FORM_ARMS, in FORM_ROUNDS rounds (the arms
+    forward, then backward). Device busy ms a call from torch.profiler decides; host
+    ms a call (synchronized) is printed beside it. The module's thresholds are put
+    back after."""
     from quan_ultralytics_tpu_torch.classification.train import ClsConfig, ClsTrainer
     from quan_ultralytics_tpu_torch.engine.predictor import Predictor
     from quan_ultralytics_tpu_torch.models import conv
@@ -3675,7 +3702,7 @@ def phase_conv_forms(x, tables=None, calls: int = 1):
             "qwrn16_2_step": lambda: cls.train_step(cls_batch)}
     rows = {}
     try:
-        for arms in (FORM_ARMS, FORM_ARMS[::-1]):
+        for arms in (FORM_ARMS, FORM_ARMS[::-1])[:FORM_ROUNDS]:
             for impl, fold_max in arms:
                 arm = impl if fold_max is None else f"auto{fold_max}"
                 set_conv_form([obb, tr.model, cls.model], impl, fold_max)
@@ -3698,7 +3725,7 @@ def phase_conv_forms(x, tables=None, calls: int = 1):
         mean = {arm: statistics.mean(r["device_ms"] for r in rs) for arm, rs in arms.items()}
         best = min(mean, key=mean.get)
         out[w] = {"arms": arms, "mean_device_ms": mean, "best": best}
-        print(f"conv forms [{w}]: device busy ms a call by arm (two rounds) "
+        print(f"conv forms [{w}]: device busy ms a call by arm ({FORM_ROUNDS} round(s)) "
               + ", ".join(f"{arm} {[round(r['device_ms'], 3) for r in rs]} (host "
                           f"{[round(r['host_ms'], 1) for r in rs]})" for arm, rs in arms.items())
               + f"; least: {best}")
@@ -4414,6 +4441,387 @@ def phase_reference_weights(x, card: str):
             "n_tensors": len(sd)}
 
 
+# ---------------------------------------------------------------- phases 47-52
+
+DP_TIMEOUT_S = 420.0  # the two-rank phases' deadline: ranks still running then are killed, the phase fails
+# tests/test_mesh.py:77-82 (f32): the loss within DP_LOSS_RTOL, every parameter and IQBN statistic
+# within DP_RTOL |ref| + DP_ATOL (the ranks' sums and the single process's differ in order only)
+DP_LOSS_RTOL, DP_RTOL, DP_ATOL = 2e-5, 1e-3, 2e-5
+# at 1024 a single process's own update moves by more than those tolerances when its rows
+# are summed in another order (model.0.bn.beta: 1.34 of them at 128 on the CPU, the
+# bias group's warm-up lr 0.1 on a gradient of cancelling terms): the ranks are held within
+# max(1, DP_NOISE times that reorder excess)
+DP_NOISE = 2.0
+DP_NCCL_STEPS = 8  # micro-steps of the NCCL phase: one update at accumulate 8
+CLS_DP_BATCH = 128  # Q-WRN-16-2's global batch (the recipe's), 64 a rank
+SPLIT_SIZE = (4000, 4000)  # (h, w): a large DOTA-v1.0 scene (800 to 4000 px a side)
+SPLIT_LABELS = 200  # objects in it (DOTA-v1.0's densest scenes hold hundreds)
+
+
+def _trainer_state(trainer):
+    """The parameters and IQBN statistics of ``trainer`` as float32 numpy arrays by name."""
+    out = {f"p:{n}": p.detach().float().cpu().numpy() for n, p in zip(trainer.param_names, trainer.params)}
+    bufs = [n for n, _ in trainer.model.named_buffers() if n in trainer.model.state_dict()]
+    out.update({f"s:{n}": b.float().cpu().numpy() for n, b in zip(bufs, trainer.stats)})
+    return out
+
+
+def _state_excess(got, ref):
+    """max over leaves of |got - ref| / (DP_ATOL + DP_RTOL |ref|) (at most 1 is within
+    tolerance), and the leaf where it is largest."""
+    worst = max(((float(np.max(np.abs(got[k] - ref[k]) / (DP_ATOL + DP_RTOL * np.abs(ref[k])))), k) for k in ref),
+                default=(0.0, None))
+    return worst
+
+
+def _same_detections(a, b, tol: float = RESULT_TOL):
+    """Whether two lists of Results-box arrays hold the same rows, frame by frame, in any order."""
+    for ra, rb in zip(a, b):
+        if len(ra) != len(rb):
+            return False
+        if len(ra):
+            d = np.abs(ra[:, None, :] - rb[None, :, :]).max(-1)
+            if not ((d.min(1) <= tol).all() and (d.min(0) <= tol).all()):
+                return False
+    return len(a) == len(b)
+
+
+def cls_dp_batch(seed: int = 5):
+    """A seeded CIFAR-shaped batch of CLS_DP_BATCH normalized images and labels."""
+    rng = np.random.default_rng(seed)
+    return {"img": rng.normal(size=(CLS_DP_BATCH, 32, 32, 3)).astype(np.float32),
+            "label": rng.integers(0, 10, CLS_DP_BATCH).astype(np.int64)}
+
+
+def _dp_rank(rank: int, device: str, imgsz: int, data_cfg) -> dict:
+    """One rank of phases 48-50 (two ranks on one card over gloo): the f32 OBB train
+    step on its rows of phase 5's batch, the Validator and the Predictor sharded,
+    and one Q-WRN-16-2 update on its rows; each with its launches."""
+    global DEVICE, IMGSZ
+    DEVICE, IMGSZ = device, imgsz  # this process's copy of the script's settings
+    from quan_ultralytics_tpu_torch.classification.train import ClsConfig, ClsTrainer
+    from quan_ultralytics_tpu_torch.data import YOLODataset
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+    from quan_ultralytics_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(2, device=device)
+    out = {"rank": mesh.rank}
+    tr = make_trainer(torch.float32, nbs=BATCH, mesh=mesh)
+    rows = shard_batch(mesh, make_train_batch(0))
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss, _ = tr.step(rows)
+    _sync()
+    out["train"] = {"loss": float(loss), "seconds": time.perf_counter() - t0, "launches": _counts(),
+                    "state": _trainer_state(tr)}
+    del tr, rows
+    model = seeded_model(torch.float32, fused_1x1=True)
+    ds = YOLODataset(data_cfg, "val", task="obb")
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = Validator(model, imgsz=imgsz, conf=VAL_CONF, mesh=mesh)(ds, batch_size=BATCH)
+    out["val"] = {"metrics": metrics, "seconds": time.perf_counter() - t0, "launches": _counts()}
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = Predictor(model, imgsz=imgsz, conf=0.05, mesh=mesh)(make_frames(0))
+    out["predict"] = {"boxes": [r.boxes for r in res], "seconds": time.perf_counter() - t0,
+                      "launches": _counts()}
+    del model
+    ct = ClsTrainer(ClsConfig(model="qwrn16_2", dtype="float32", batch_size=CLS_DP_BATCH), 10,
+                    device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    loss, acc = ct.train_step(shard_batch(mesh, cls_dp_batch()))
+    _sync()
+    out["cls"] = {"loss": float(loss), "acc": float(acc), "seconds": time.perf_counter() - t0,
+                  "state": {n: p.detach().float().cpu().numpy() for n, p in ct.model.state_dict().items()}}
+    return out
+
+
+def _sync():
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_dp_nccl(batch, card: str):
+    """47. Data parallelism over NCCL at world size 1 on the card: 8 bf16 micro-steps
+    (one update) of the OBB train step at 1024, batch 8, through ``Trainer(mesh=)``
+    (IQBN moments, loss normalisers and gradients through NCCL's collectives)
+    against the same Trainer without a mesh. bf16: differences printed, not held."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from quan_ultralytics_tpu_torch.parallel import distributed
+    from quan_ultralytics_tpu_torch.parallel.mesh import make_mesh
+
+    backend = distributed.default_backend(DEVICE)
+    distributed.initialize(backend=backend, init_method=f"tcp://localhost:{distributed.free_port()}",
+                           world_size=1, rank=0, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1, device=DEVICE)
+        runs = {}
+        for name, m in (("single", None), (backend, mesh)):
+            tr = make_trainer(torch.bfloat16, mesh=m)
+            _reset_counts()
+            losses, ms = [], []
+            for _ in range(DP_NCCL_STEPS):
+                t0 = time.perf_counter()
+                losses.append(tr.step(batch)[0])
+                _sync()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            runs[name] = {"losses": [float(v) for v in losses], "launches": _counts(),
+                          # the first micro-step of each run picks cuDNN's algorithms: left out
+                          "ms_a_micro_step": statistics.median(ms[1:]), "ms_steps": ms,
+                          "state": _trainer_state(tr), "updates": tr.opt.count}
+            del tr
+    finally:
+        dist.destroy_process_group()
+    a, b = runs[backend], runs["single"]
+    loss_rel = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a["losses"], b["losses"]))
+    excess, leaf = _state_excess(a["state"], b["state"])
+    print(f"dp {backend} (world 1, bf16): a micro-step {a['ms_a_micro_step']:.1f} ms (median of 2-{DP_NCCL_STEPS}) "
+          f"against {b['ms_a_micro_step']:.1f} without a mesh; loss max rel diff {loss_rel:.2e}, state excess "
+          f"{excess:.3g} at {leaf} (bf16: printed, not held); launches {a['launches']}; {card}")
+    check(all(math.isfinite(v) for v in a["losses"]) and a["updates"] == b["updates"] == 1,
+          f"dp {backend}: losses {a['losses']}, updates {a['updates']}")
+    check(a["launches"]["qattn_fwd"] == DP_NCCL_STEPS and a["launches"]["qattn_bwd"] == DP_NCCL_STEPS,
+          f"dp {backend}: launches {a['launches']}")
+    for r in runs.values():
+        del r["state"]
+    return {"backend": backend, "runs": runs, "loss_max_rel_diff": loss_rel, "state_excess": excess,
+            "launches": a["launches"]}
+
+
+def phase_dp_gloo(data_cfg, card: str):
+    """48-50. Two ranks on one card over gloo (NCCL refuses two ranks on one
+    card), each naming the card itself, started by ``parallel.distributed.launch``
+    under DP_TIMEOUT_S: (48) one f32 update of the OBB train step at 1024, ranks
+    of batch 4 against one process of batch 8 (loss, parameters, IQBN
+    statistics within tests/test_mesh.py's tolerances; the ranks' states
+    bitwise equal; K1 and K2 on each rank); (49) the Validator and the
+    Predictor sharded on phase 7's set and phase 3's frames in f32 with K1 + K3,
+    gathered detections and metrics against the single process's; (50) one
+    Q-WRN-16-2 update at batch 128 against one process."""
+    from quan_ultralytics_tpu_torch.classification.train import ClsConfig, ClsTrainer
+    from quan_ultralytics_tpu_torch.data import YOLODataset
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+    from quan_ultralytics_tpu_torch.parallel import distributed
+
+    dev = torch.device(DEVICE)
+    shared = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)  # both ranks name the one card
+    t0 = time.perf_counter()
+    ranks = distributed.launch(_dp_rank, 2, args=(shared, IMGSZ, data_cfg), backend="gloo", timeout_s=DP_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # 48: the single-process step on the global batch, and on its rows in another order: the
+    # single process's own reduction-order noise, which no sharded run can undercut
+    batch = make_train_batch(0)
+    states = []
+    for order in (torch.arange(BATCH), torch.arange(BATCH).roll(BATCH // 2)):
+        tr = make_trainer(torch.float32, nbs=BATCH)
+        loss, _ = tr.step({k: v[order.to(v.device)] for k, v in batch.items()})
+        states.append((float(loss), _trainer_state(tr)))
+        del tr
+    (ref_loss, ref_state), (_, rolled) = states
+    noise, noise_leaf = _state_excess(rolled, ref_state)
+    limit = max(1.0, DP_NOISE * noise)
+    print(f"dp gloo: the single process against itself with its rows reordered: state excess {noise:.3g} "
+          f"at {noise_leaf}; the ranks are held within {limit:.3g} tolerances")
+    out = {"launch_s": launch_s, "ranks": [], "reorder_excess": noise, "limit": limit}
+    for r in ranks:
+        t = r["train"]
+        excess, leaf = _state_excess(t["state"], ref_state)
+        rel = abs(t["loss"] - ref_loss) / abs(ref_loss)
+        print(f"dp gloo rank {r['rank']} (f32, batch 4 of 8): loss {t['loss']:.6f} against {ref_loss:.6f} "
+              f"(rel {rel:.2e}), state excess {excess:.3g} at {leaf}, step {t['seconds']:.2f} s, "
+              f"launches {t['launches']}")
+        check(rel <= DP_LOSS_RTOL, f"dp gloo rank {r['rank']}: loss {t['loss']} against {ref_loss}")
+        check(excess <= limit, f"dp gloo rank {r['rank']}: {leaf} off the single process's by {excess:.3g} tolerances")
+        check(t["launches"]["qattn_fwd"] == 1 and t["launches"]["qattn_bwd"] == 1,
+              f"dp gloo rank {r['rank']}: launches {t['launches']}")
+        out["ranks"].append({"rank": r["rank"], "loss_rel": rel, "state_excess": excess, "step_s": t["seconds"],
+                             "launches_train": t["launches"], "launches_val": r["val"]["launches"],
+                             "launches_predict": r["predict"]["launches"], "val_s": r["val"]["seconds"],
+                             "predict_s": r["predict"]["seconds"], "cls_step_s": r["cls"]["seconds"]})
+    a, b = (r["train"]["state"] for r in ranks)
+    check(all(np.array_equal(a[k], b[k]) for k in a), "dp gloo: the ranks' parameters or statistics differ")
+    # 49: sharded val and predict against the single process
+    model = seeded_model(torch.float32, fused_1x1=True)
+    ref_metrics = Validator(model, imgsz=IMGSZ, conf=VAL_CONF)(YOLODataset(data_cfg, "val", task="obb"),
+                                                               batch_size=BATCH)
+    ref_boxes = [res.boxes for res in Predictor(model, imgsz=IMGSZ, conf=0.05)(make_frames(0))]
+    del model
+    for r in ranks:
+        m = r["val"]["metrics"]
+        diff = max(abs(m[k] - ref_metrics[k]) for k in ref_metrics)
+        print(f"dp gloo rank {r['rank']}: sharded val {m} (max diff {diff:.2e} from one process), "
+              f"{r['val']['seconds']:.1f} s; predict {[len(x) for x in r['predict']['boxes']]} boxes "
+              f"({[len(x) for x in ref_boxes]} in one process); launches val {r['val']['launches']}, "
+              f"predict {r['predict']['launches']}")
+        check(diff <= VAL_METRIC_TOL, f"dp gloo rank {r['rank']}: metrics {m} against {ref_metrics}")
+        check(_same_detections(r["predict"]["boxes"], ref_boxes),
+              f"dp gloo rank {r['rank']}: sharded predict differs from one process's")
+        for what in ("val", "predict"):
+            n = r[what]["launches"]
+            check(n["qattn_fwd"] > 0 and n["qconv1x1_fused"] > 0, f"dp gloo rank {r['rank']} {what}: launches {n}")
+    out["val_metrics"], out["val_metrics_single"] = ranks[0]["val"]["metrics"], ref_metrics
+    # 50: Q-WRN-16-2, two ranks of 64 against one of 128
+    ct = ClsTrainer(ClsConfig(model="qwrn16_2", dtype="float32", batch_size=CLS_DP_BATCH), 10, device=DEVICE)
+    loss, acc = ct.train_step(cls_dp_batch())
+    ref = {n: p.detach().float().cpu().numpy() for n, p in ct.model.state_dict().items()}
+    for r in ranks:
+        c = r["cls"]
+        excess, leaf = _state_excess(c["state"], ref)
+        rel = abs(c["loss"] - float(loss)) / abs(float(loss))
+        print(f"dp gloo rank {r['rank']}: Q-WRN-16-2 loss {c['loss']:.6f} against {float(loss):.6f} (rel {rel:.2e}), "
+              f"state excess {excess:.3g} at {leaf}, step {c['seconds']:.2f} s")
+        check(rel <= DP_LOSS_RTOL and excess <= 1.0 and abs(c["acc"] - float(acc)) < 1e-6,
+              f"dp gloo rank {r['rank']}: Q-WRN-16-2 off the single process (loss rel {rel}, {leaf} {excess})")
+    print(f"dp gloo: two ranks on one card in {launch_s:.1f} s (start, build load, three paths); {card}")
+    return out
+
+
+def phase_int8(x, frames, card: str, tables=None, rounds: int = 3):
+    """51. int8 serving (``impl="int8"``, calibrated on the 8 frames) of the OBB model at
+    1024, batch 8: every int8 conv's int32 accumulator on the card (``torch._int_mm``)
+    equal to its plain version (an exact float64 product), the widest layer's also to
+    the plain CPU version; device busy ms and host ms of ``infer`` with fused_1x1 on
+    and off against bf16 and f32 ``auto``; the share of bf16's kept boxes that int8
+    keeps (printed: random weights); launches of K1 and K3 (37 with fused_1x1)."""
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.models import conv as conv_mod
+    from quan_ultralytics_tpu_torch.ops import qconv as qc
+    from quan_ultralytics_tpu_torch.ops.quant import calibrate_int8
+
+    bf16 = torch.bfloat16
+    arms = {"int8 fused_1x1": seeded_model(bf16, impl="int8", fused_1x1=True),
+            "int8": seeded_model(bf16, impl="int8"),
+            "bf16 auto": seeded_model(bf16, fused_1x1=True),
+            "f32 auto": seeded_model(torch.float32, fused_1x1=True)}
+    t0 = time.perf_counter()
+    for name in ("int8 fused_1x1", "int8"):
+        calibrate_int8(arms[name], [x])
+    calib_s = (time.perf_counter() - t0) / 2
+    n_scales = sum(1 for n, _ in arms["int8"].named_buffers() if n.endswith("act_absmax"))
+    # every int8 conv's operands, recorded through one infer of the unfused arm
+    calls, original = [], conv_mod.qconv2d_int8
+
+    def record(x_, dk, b=None, **kw):
+        calls.append((x_, dk, kw))
+        return original(x_, dk, b, **kw)
+
+    conv_mod.qconv2d_int8 = record
+    try:
+        Predictor(arms["int8"], imgsz=IMGSZ).infer(x)
+    finally:
+        conv_mod.qconv2d_int8 = original
+    mismatched = [i for i, (x_, dk, kw) in enumerate(calls)
+                  if not torch.equal(qc.int8_accumulator(x_, dk, **kw)[0],
+                                     qc.int8_accumulator(x_, dk, matmul=qc.int8_matmul_plain, **kw)[0])]
+    check(calls and not mismatched, f"int8: the card's accumulator differs from the plain one at convs {mismatched}")
+    widest = max(range(len(calls)), key=lambda i: calls[i][1].shape[0] * calls[i][1][0].numel())
+    x_, dk, kw = calls[widest]
+    kw_cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+    acc_cpu = qc.int8_accumulator(x_.cpu(), dk.cpu(), **kw_cpu)[0]
+    check(torch.equal(qc.int8_accumulator(x_, dk, **kw)[0].cpu(), acc_cpu),
+          "int8: the widest layer's accumulator differs from the plain CPU version")
+    widths = sorted({(tuple(dk_.shape), tuple(x__.shape[:3])) for x__, dk_, _ in calls})
+    print(f"int8: {len(calls)} int8 convs (calibrated {n_scales} scales in {calib_s:.2f} s), accumulators equal the "
+          f"plain version at every width; widest {tuple(dk.shape)} on {tuple(x_.shape)} equal the CPU's bit for bit")
+    preds = {name: Predictor(m, imgsz=IMGSZ) for name, m in arms.items()}
+    launches = {}
+    for name in ("int8 fused_1x1", "int8"):
+        _reset_counts()
+        qc.int8_launches = 0
+        det, ok, _ = preds[name].infer(x)
+        torch.cuda.synchronize()
+        launches[name] = {**_counts(), "int8_matmul": qc.int8_launches}
+        check(bool(torch.isfinite(det[ok]).all()), f"{name}: non-finite detections")
+    check(launches["int8 fused_1x1"]["qattn_fwd"] == 1 and launches["int8 fused_1x1"]["qconv1x1_fused"] == 37,
+          f"int8 fused_1x1: launches {launches['int8 fused_1x1']}")
+    check(launches["int8"]["qattn_fwd"] == 1 and launches["int8"]["qconv1x1_fused"] == 0,
+          f"int8: launches {launches['int8']}")
+    times = {name: [] for name in arms}
+    for name, p in preds.items():  # warm up: cuDNN picks its algorithms
+        p.infer(x)
+    for _ in range(rounds):  # interleaved rounds, host clock, synchronized
+        for name, p in preds.items():
+            _sync()
+            t0 = time.perf_counter()
+            p.infer(x)
+            _sync()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    speed = {}
+    for name, p in preds.items():  # device busy ms from the profiler (NMS syncs: no event trick)
+        prof = _device_profile(lambda p=p: p.infer(x), 3, f"int8 phase [{name}]: 3 x infer, batch {BATCH} "
+                               f"@ {IMGSZ}", tables, top=6)
+        host = statistics.median(times[name])
+        busy = prof["device_ms"]
+        speed[name] = {"host_ms": host, "device_ms": busy, "device_ops": prof.get("device_ops"),
+                       "busy_share": busy / host if busy is not None else None, "top": prof.get("top")}
+    kept = {name: preds[name](frames) for name in ("int8 fused_1x1", "bf16 auto")}
+    share = []
+    for ri, rb in zip(kept["int8 fused_1x1"], kept["bf16 auto"]):
+        if not len(rb):
+            continue
+        if not len(ri):
+            share.append(0.0)
+            continue
+        d = np.abs(rb.boxes[:, None, :2] - ri.boxes[None, :, :2]).max(-1)
+        same_cls = rb.boxes[:, None, -1] == ri.boxes[None, :, -1]
+        share.append(float(((d <= 4.0) & same_cls).any(1).mean()))
+    kept_share = float(np.mean(share)) if share else float("nan")
+    brief = {k: {m: (round(v, 3) if isinstance(v, float) else v) for m, v in r.items() if m != "top"}
+             for k, r in speed.items()}
+    print(f"int8: infer {json.dumps(brief)}; top device ops of int8 fused_1x1 {speed['int8 fused_1x1']['top']}; "
+          f"int8 keeps {kept_share:.3f} of bf16's boxes (centres within 4 px, same class; random weights, "
+          f"not held); launches {launches}; {card}")
+    return {"launches": launches, "speed": speed, "rounds": times, "kept_share": kept_share,
+            "int8_convs": len(calls), "scales": n_scales, "calibrate_s": calib_s, "widths": len(widths)}
+
+
+def phase_split_dota(root: Path, card: str, seed: int = 9):
+    """52. ``data.split_dota.split_image`` of a synthetic SPLIT_SIZE PNG scene with
+    SPLIT_LABELS rotated objects into 1024 windows with a 200 gap: windows, seconds,
+    bytes written; every crop decodes at 1024 x 1024 and every label is kept by a window."""
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.data.split_dota import get_windows, split_image
+
+    rng = np.random.default_rng(seed)
+    h, w = SPLIT_SIZE
+    im = np.clip(rng.integers(0, 40, (h, w, 3)) + 60, 0, 255).astype(np.uint8)
+    lines = []
+    for _ in range(SPLIT_LABELS):
+        bw, bh = rng.uniform(12, 120, 2)
+        cx, cy = rng.uniform(bw, w - bw), rng.uniform(bh, h - bh)
+        t = rng.uniform(0, math.pi)
+        c, sn = math.cos(t), math.sin(t)
+        pts = [(cx + dx * c - dy * sn, cy + dx * sn + dy * c)
+               for dx, dy in ((-bw / 2, -bh / 2), (bw / 2, -bh / 2), (bw / 2, bh / 2), (-bw / 2, bh / 2))]
+        _fill_rotated(im, cx, cy, bw, bh, t, rng.integers(170, 256, 3))
+        lines.append(" ".join([str(rng.integers(0, NC))] + [f"{x / w:.6f} {y / h:.6f}" for x, y in pts]))
+    src, lbl = root / "P9999.png", root / "P9999.txt"
+    native.imwrite_png(src, im)
+    lbl.write_text("\n".join(lines) + "\n")
+    t0 = time.perf_counter()
+    n = split_image(str(src), str(lbl), root / "split" / "images", root / "split" / "labels")
+    secs = time.perf_counter() - t0
+    crops = sorted((root / "split" / "images").glob("*.jpg"))
+    nbytes = sum(p.stat().st_size for p in crops)
+    rows = sum(len(p.read_text().splitlines()) for p in (root / "split" / "labels").glob("*.txt"))
+    check(n == len(get_windows((h, w))) == len(crops) == 25, f"split_dota: {n} windows, {len(crops)} crops")
+    check(all(native.read_shape(p) == (1024, 1024) for p in crops), "split_dota: a crop is not 1024 x 1024")
+    check(rows >= SPLIT_LABELS, f"split_dota: {rows} label rows for {SPLIT_LABELS} objects")
+    print(f"split_dota: a {w} x {h} scene with {SPLIT_LABELS} objects into {n} windows of 1024 (gap 200) in "
+          f"{secs:.2f} s, {nbytes / 1e6:.1f} MB of JPEG, {rows} label rows; {card}")
+    return {"windows": n, "seconds": secs, "bytes": nbytes, "label_rows": rows}
+
+
 def lap(t_start: float, what: str) -> None:
     """Print the script's seconds so far, after ``what``."""
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
@@ -4528,6 +4936,12 @@ def main() -> int:
         plots["seconds"] = time.perf_counter() - t_plots
         print(f"plot, autoaugment and reference-weights phases: {plots['seconds']:.1f} s")
         lap(t_start, "the plot, autoaugment and reference-weights phases")
+        t_dp = time.perf_counter()
+        dp = {"nccl": phase_dp_nccl(make_train_batch(0), card), "gloo": phase_dp_gloo(data_cfg, card),
+              "int8": phase_int8(x, frames, card, tables), "split_dota": phase_split_dota(tools_root, card)}
+        dp["seconds"] = time.perf_counter() - t_dp
+        print(f"data-parallel, int8 and split_dota phases: {dp['seconds']:.1f} s")
+        lap(t_start, "the data-parallel, int8 and split_dota phases")
     t_forms = time.perf_counter()
     forms = phase_conv_forms(x, tables)
     print(f"conv forms phase: {time.perf_counter() - t_forms:.1f} s")
@@ -4545,7 +4959,7 @@ def main() -> int:
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
              "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose, "classify": classify,
-             "hybrid": hybrid, "tools": tools, "plots": plots, "conv_forms": forms},
+             "hybrid": hybrid, "tools": tools, "plots": plots, "conv_forms": forms, "data_parallel": dp},
             indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
@@ -4629,6 +5043,20 @@ def main() -> int:
                  "reference_weights"):
         check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # data parallelism (NCCL at world size 1; two gloo ranks on the card: train, val, predict)
+    # and int8 serving: K1 and K2 where it trains, K1 and K3 where it infers
+    det_launches["dp_nccl_train"] = dp["nccl"]["launches"]
+    for r in dp["gloo"]["ranks"]:
+        for what in ("train", "val", "predict"):
+            det_launches[f"dp_gloo_{what}_rank{r['rank']}"] = r[f"launches_{what}"]
+    det_launches.update({"int8_fused_1x1": dp["int8"]["launches"]["int8 fused_1x1"],
+                         "int8": dp["int8"]["launches"]["int8"]})
+    for path in [k for k in det_launches if k.startswith(("dp_", "int8"))]:
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        if "train" in path:
+            check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
+        elif path != "int8":
+            check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     cls_t = cls_yolo["timing"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
@@ -4728,6 +5156,9 @@ def main() -> int:
         "embed": tools["embed"], "tune": tools["tune"], "autobatch": tools["autobatch"],
         "cli": tools["cli"], "seconds": tools["seconds"]}}, default=str))
     print(json.dumps({"plots": plots}, default=str))
+    print(json.dumps({"data_parallel": {"nccl": dp["nccl"], "gloo": dp["gloo"]}, "int8": {
+        k: v for k, v in dp["int8"].items() if k != "rounds"}, "split_dota": dp["split_dota"],
+        "seconds": dp["seconds"]}, default=str))
     # ROADMAP item 4: the TPU-chosen defaults, by the numbers of this run
     print(json.dumps({"defaults": {
         "conv_forms": {w: {"mean_device_ms": r["mean_device_ms"], "best": r["best"],

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from quan_ultralytics_tpu_torch.classification.models import create_model, reset_parameters, set_generator
 from quan_ultralytics_tpu_torch.models.tasks import resolve_device
+from quan_ultralytics_tpu_torch.parallel.mesh import Mesh, all_reduce_, data_parallel, replicate
 from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
 from quan_ultralytics_tpu_torch.utils.plotting import plot_curves
 from quan_ultralytics_tpu_torch.utils.weights import (OptaxState, export_jax_variables, from_jax_tree,
@@ -109,17 +110,26 @@ class ClsTrainer:
 
     Weights are drawn from ``torch.Generator().manual_seed(cfg.seed)``; the
     dropout masks from a generator on the device seeded with ``cfg.seed + 1``.
+
+    With a ``mesh`` over a process group (the JAX ``make_mesh()``) `train_step`
+    takes this rank's rows of the global batch: IQBN statistics are the
+    global batch's, the ranks' gradients are summed, and every rank makes
+    the single-process update on the global batch (each rank draws the same
+    dropout masks for its rows, so the equality holds without dropout).
     """
 
     def __init__(self, cfg: ClsConfig, steps_per_epoch: int,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and mesh is not None else device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         model = create_model(cfg.model, cfg.num_classes, cfg.drop_rate, cfg.mapping,
                              dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else None)
         reset_parameters(model, torch.Generator().manual_seed(cfg.seed))
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicate(mesh, self.model)
         set_generator(self.model, torch.Generator(self.device).manual_seed(cfg.seed + 1))
         self.optimizer = torch.optim.SGD(self.model.parameters(), lr=cfg.lr, momentum=cfg.momentum,
                                          nesterov=True, weight_decay=cfg.weight_decay)
@@ -130,17 +140,35 @@ class ClsTrainer:
         img, label = (torch.as_tensor(batch[k]).to(self.device, non_blocking=True) for k in ("img", "label"))
         return img, label.long()
 
-    def train_step(self, batch: Mapping[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+    def train_step(self, batch: Mapping[str, Any], sharded: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update on ``batch`` (``img`` ``[B, H, W, 3]`` normalized, ``label``
         ``[B]``): the input cast to the compute dtype, cross-entropy in float32
-        on the norm logits. Returns the (loss, accuracy) tensors, detached."""
+        on the norm logits. Returns the (loss, accuracy) tensors, detached.
+        Under a mesh ``batch`` is this rank's rows (``sharded``, the default)
+        and the loss and accuracy returned are the global batch's;
+        ``sharded=False`` marks a batch every rank holds whole."""
+        dp = self.mesh is not None and self.mesh.grouped and sharded is not False
         img, label = self._upload(batch)
         self.model.train()
-        logits = self.model(img.to(self.dtype))
-        loss = F.cross_entropy(logits.float(), label)
-        acc = (logits.argmax(-1) == label).float().mean()
+        with data_parallel(self.mesh if dp else None):
+            logits = self.model(img.to(self.dtype))
+        if dp:  # this rank's part of the global mean; the parts' sums are the global batch's
+            n = label.shape[0] * self.mesh.world_size
+            loss = F.cross_entropy(logits.float(), label, reduction="sum") / n
+            acc = (logits.argmax(-1) == label).float().sum() / n
+        else:
+            loss = F.cross_entropy(logits.float(), label)
+            acc = (logits.argmax(-1) == label).float().mean()
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if dp:
+            params = list(self.model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            loss, acc = loss.detach().clone(), acc.detach().clone()
+            all_reduce_(self.mesh, [loss, acc, *(p.grad for p in params)])
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
         self.optimizer.step()

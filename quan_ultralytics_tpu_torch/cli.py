@@ -24,6 +24,13 @@ every other key passes as its flag. ``export`` writes ``format=exported``
 frames (video sources are not ported yet); ``tune`` evolves the training
 hyperparameters; ``benchmark`` prints the speed table of
 `utils.benchmarks.benchmark`.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) ``train`` and ``val`` run data
+parallel, one process a rank, each on ``cuda:LOCAL_RANK`` unless ``device=``
+names one (nccl for cards, gloo for ``device=cpu``); ``batch`` is the global
+batch and rank 0 writes and prints:
+
+    torchrun --nproc_per_node=2 -m quan_ultralytics_tpu_torch.cli obb train data=dota.yaml batch=16
 """
 
 from __future__ import annotations
@@ -140,17 +147,33 @@ def main(argv=None) -> int:
     from quan_ultralytics_tpu_torch.engine.model import YOLO
     from quan_ultralytics_tpu_torch.models.tasks import resolve_device
 
+    from quan_ultralytics_tpu_torch.parallel import distributed
+
+    mesh = None
     try:  # no silent CPU run: without a card, only device=cpu runs
-        device = resolve_device(kv.pop("device", None))
+        device = kv.pop("device", None)
+        if mode in ("train", "val") and distributed.env_world_size() > 1:
+            # under torchrun: one process a rank, data parallelism over the group
+            from quan_ultralytics_tpu_torch.parallel.mesh import make_mesh
+
+            device = resolve_device(distributed.local_device() if device is None else device)
+            distributed.initialize(device=device)
+            mesh = make_mesh(device=device)
+        device = resolve_device(device)
     except RuntimeError as e:
         raise SystemExit(f"yolo {mode}: {e}")
     model = YOLO(kv.pop("model", DEFAULT_MODELS.get(task, "yolo11n-quan.yaml")), device=device)
+    main_rank = mesh is None or mesh.rank == 0
     if mode == "train":
         data = kv.pop("data")
-        print(model.train(data, **kv))
+        out = model.train(data, mesh=mesh, **kv)
+        if main_rank:
+            print(out)
     elif mode == "val":
         data = kv.pop("data")
-        print(model.val(data, **kv))
+        out = model.val(data, mesh=mesh, **kv)
+        if main_rank:
+            print(out)
     elif mode == "predict":
         # reference predictor per-image verbose line + save/save_txt flags
         # (engine/predictor.py:222-306, results.py save_txt/plot); visualize=

@@ -251,6 +251,7 @@ def build_dataloader(
     multi_scale: bool = False,
     with_meta: bool = False,
     rect: bool = False,
+    rows: Optional[slice] = None,
 ) -> Iterator[Dict[str, Any]]:
     """One epoch of fixed-shape batches (the stacked `make_sample` outputs).
 
@@ -266,6 +267,10 @@ def build_dataloader(
     ``drop_last``, or a data set smaller than one batch) is filled by repeating
     its indices; with ``with_meta`` it carries ``n_real``, the count of real
     samples, and ``im_files``.
+    rows: the rows of every batch this process builds (a data-parallel rank's,
+    `parallel.distributed.process_batch_slice`). Every sample's generator is
+    drawn as for the whole batch, so the ranks' rows together are the
+    single-process batch; ``n_real`` stays the whole batch's.
     """
     rng = np.random.default_rng(seed)
     order = rng.permutation(len(ds)) if shuffle and not rect else np.arange(len(ds))
@@ -312,6 +317,8 @@ def build_dataloader(
             # one generator a sample, from the JAX loader's draws (one array
             # draw gives the stream of its one-at-a-time draws)
             child_rngs = [np.random.default_rng(s) for s in rng.integers(1 << 31, size=len(idxs))]
+            if rows is not None:
+                idxs, child_rngs = idxs[rows], child_rngs[rows]
             samples = list(pool.map(
                 lambda t: make_sample(ds, int(t[0]), size, max_labels, hyp, t[1], augment,
                                       with_meta=with_meta and not augment),

@@ -38,6 +38,8 @@ from quan_ultralytics_tpu_torch.engine.predictor import Predictor, Results
 from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
 from quan_ultralytics_tpu_torch.engine.validator import Validator
 from quan_ultralytics_tpu_torch.models.tasks import FUSED_1X1, DetectionModel, resolve_device
+from quan_ultralytics_tpu_torch.parallel.distributed import process_batch_slice
+from quan_ultralytics_tpu_torch.parallel.mesh import Mesh, replicate
 from quan_ultralytics_tpu_torch.utils import checkpoint
 from quan_ultralytics_tpu_torch.utils.weights import (export_jax_variables, load_jax_variables,
                                                       read_checkpoint)
@@ -83,8 +85,14 @@ class YOLO:
               imgsz: int = 640, max_labels: int = 128, save_dir: str = "runs/train",
               close_mosaic: int = 10, resume: Union[None, bool, str] = None,
               cache: Optional[str] = None, log: Callable[[str], Any] = print,
-              **overrides) -> Dict[str, float]:
+              mesh: Optional[Mesh] = None, **overrides) -> Dict[str, float]:
         """Train on a YOLO-format dataset yaml (reference Model.train :742).
+
+        mesh: data parallelism over the ranks of a process group
+        (`parallel.mesh.make_mesh`; one process a rank, as ``torchrun``
+        starts them): ``batch`` is the global batch, each rank loads and steps
+        on its rows, validates with a mesh `Validator`, and rank 0 writes the
+        checkpoints and logs.
 
         overrides: `TrainConfig` fields, `AugmentHyp` gains and ``multi_scale``;
         other keys are recorded in the loggers' run arguments only.
@@ -102,7 +110,8 @@ class YOLO:
         cfg = TrainConfig(epochs=epochs, batch=batch,
                           **{k: v for k, v in overrides.items() if hasattr(TrainConfig, k)})
         multi_scale = bool(overrides.get("multi_scale", False))
-        trainer = Trainer(self.model, cfg, max(len(ds) // batch, 1), device=self.device)
+        rows = None if mesh is None or mesh.world_size == 1 else process_batch_slice(mesh.world_size, batch)
+        trainer = Trainer(self.model, cfg, max(len(ds) // batch, 1), device=self.device, mesh=mesh)
         start_epoch = 0
         if resume:
             where = save_dir if resume is True else resume
@@ -114,14 +123,14 @@ class YOLO:
         val_ds = YOLODataset(data, split="val", task=self.task)
         if not len(val_ds):  # no val split: validate on the train images
             val_ds = ds
-        validator = Validator(self.model, imgsz=imgsz)
+        validator = Validator(self.model, imgsz=imgsz, mesh=mesh)
         hyp = AugmentHyp(**aug_overrides)
 
         def train_loader(epoch):
             return build_dataloader(ds, batch, imgsz, hyp=hyp if hyp.mosaic else None,
                                     max_labels=max_labels, seed=epoch,
                                     augment=hyp.mosaic > 0 or epoch < epochs,
-                                    multi_scale=multi_scale)
+                                    multi_scale=multi_scale, rows=rows)
 
         def close_mosaic_hook(epoch):
             hyp.mosaic = 0.0  # reference close_mosaic (trainer.py:354)
@@ -134,21 +143,27 @@ class YOLO:
         # integration (reference Model.train wires add_integration_callbacks)
         from quan_ultralytics_tpu_torch.utils.integrations import build_callbacks
 
+        main_rank = mesh is None or mesh.rank == 0
         callbacks = build_callbacks(save_dir, args={
             "data": data if isinstance(data, str) else "<dict>",
             "epochs": epochs, "batch": batch, "imgsz": imgsz,
             "task": self.task, "model": self.model_yaml, **overrides,
-        })
+        }) if main_rank else None
         trainer.fit(train_loader, validate, epochs=epochs, start_epoch=start_epoch,
                     save_dir=save_dir, close_mosaic_hook=close_mosaic_hook,
                     close_mosaic=close_mosaic, log=log, callbacks=callbacks)
         # facade-format checkpoints too, and the best EMA weights held, as the
         # reference Model.train (:812-815)
         out_dir = Path(save_dir)
-        self._save_ckpt(out_dir / "last.pkl", trainer)
-        if (out_dir / "best.ckpt").exists():
-            trainer.restore_checkpoint(out_dir / "best.ckpt")
-            self._save_ckpt(out_dir / "best.pkl", trainer)
+        if main_rank:
+            self._save_ckpt(out_dir / "last.pkl", trainer)
+            if (out_dir / "best.ckpt").exists():
+                trainer.restore_checkpoint(out_dir / "best.ckpt")
+                self._save_ckpt(out_dir / "best.pkl", trainer)
+        if mesh is not None:  # every rank holds rank 0's (the best epoch's) weights
+            replicate(mesh, trainer.params)
+            replicate(mesh, trainer.ema)
+            replicate(mesh, trainer.stats)
         with torch.no_grad():
             torch._foreach_copy_(trainer.params, trainer.ema)
         self.model.eval()
@@ -172,27 +187,30 @@ class YOLO:
             batch: int = 8, conf: float = 0.001, iou: float = 0.7,
             save_json: Optional[str] = None, save_submission: Optional[str] = None,
             cache: Optional[str] = None, rect: bool = False, mask_native: bool = False,
-            save_dir: Optional[str] = None) -> Dict[str, float]:
+            save_dir: Optional[str] = None, mesh: Optional[Mesh] = None) -> Dict[str, float]:
         """Validate on a split (reference Model.val); prints the per-class
         table and the confusion matrix as the reference's BaseValidator does.
         rect: rectangular batches (not OBB).
         mask_native: segment only: masks scored at the input's resolution.
         save_dir: the per-class table as ``per_class.txt``, the validation
-        curves and the confusion matrices (`Validator`)."""
+        curves and the confusion matrices (`Validator`).
+        mesh: each rank infers its rows of every batch (the JAX ``mesh=``);
+        every rank returns the single-process metrics."""
         ds = YOLODataset(data, split=split, task=self.task, cache=cache)
-        validator = Validator(self.model, imgsz=imgsz, conf=conf, iou=iou)
+        validator = Validator(self.model, imgsz=imgsz, conf=conf, iou=iou, mesh=mesh)
         out = validator(ds, batch_size=batch, save_json=save_json,
                         save_submission=save_submission, rect=rect, mask_native=mask_native,
                         save_dir=save_dir)
         names = dict(enumerate(ds.names))
-        print(validator.metrics.per_class_table(names))
-        print(validator.confusion.summary(names=list(names.values())))
+        if mesh is None or mesh.rank == 0:
+            print(validator.metrics.per_class_table(names))
+            print(validator.confusion.summary(names=list(names.values())))
         self.confusion = validator.confusion
         self.metrics = validator.metrics
         return out
 
     def predict(self, source, imgsz: int = 640, conf: float = 0.25, iou: float = 0.45,
-                max_det: int = 300, visualize=False) -> List[Results]:
+                max_det: int = 300, visualize=False, mesh: Optional[Mesh] = None) -> List[Results]:
         """Frames, a path or a directory -> one `Results` each (reference
         Model.predict). An exported artifact predicts at its own size.
 
@@ -201,11 +219,13 @@ class YOLO:
           (reference nn/tasks.py:140 and utils/plotting.py:1346), one ``im{b}``
           directory per image when there are several; one batched `features`
           pass over the letterboxed frames. An exported artifact has no
-          `features` and writes none, as the JAX facade skips them."""
+          `features` and writes none, as the JAX facade skips them.
+        mesh: each rank infers its rows of the frames and every rank returns
+          every frame's Results (`Predictor`)."""
         self.model.eval()
         imgsz = getattr(self.model, "imgsz", imgsz)
         predictor = Predictor(self.model, imgsz=imgsz, conf=conf, iou=iou,
-                              max_det=max_det, names=self.names)
+                              max_det=max_det, names=self.names, mesh=mesh)
         results = predictor(source)
         if visualize and hasattr(self.model, "features") and results:
             self._visualize(results, imgsz, Path(visualize if isinstance(visualize, (str, Path))

@@ -27,6 +27,7 @@ from quan_ultralytics_tpu_torch.data.loaders import load_source
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 from quan_ultralytics_tpu_torch.ops.boxes import (non_max_suppression, regularize_rboxes,
                                                    xywhr2xyxyxyxy)
+from quan_ultralytics_tpu_torch.parallel.mesh import Mesh, gather_rows, replicate
 
 if TYPE_CHECKING:
     from quan_ultralytics_tpu_torch.engine.exporter import ExportedBackend
@@ -227,11 +228,14 @@ class Predictor:
 
     def __init__(self, model: Union[DetectionModel, "ExportedBackend"], imgsz: int = 640,
                  conf: float = 0.25, iou: float = 0.45, max_det: int = 300,
-                 names: Optional[List[str]] = None):
+                 names: Optional[List[str]] = None, mesh: Optional[Mesh] = None):
         self.model = model
         self.imgsz, self.conf, self.iou, self.max_det = imgsz, conf, iou, max_det
         self.names = names
         self.device = next(model.parameters()).device
+        self.mesh = mesh
+        if mesh is not None and isinstance(model, torch.nn.Module):
+            replicate(mesh, model)
 
     @torch.inference_mode()
     def infer(self, x: torch.Tensor):
@@ -240,7 +244,17 @@ class Predictor:
         the pose task's decoded keypoints, or ``[B, max_det, 7]``: xywhr, conf,
         cls for OBB, in the input's pixels; keep mask ``[B, max_det]``; the
         segment task's prototypes ``[B, Hp, Wp, nm]``, else None), as the JAX
-        package's jitted ``_infer``."""
+        package's jitted ``_infer``.
+
+        Under a mesh (the JAX ``mesh=``) each rank infers its rows of ``x``
+        and the results are gathered, so every rank returns the whole
+        batch's; a batch whose rows do not divide runs whole on every rank."""
+        mesh = self.mesh
+        if mesh is None or not mesh.shards(x.shape[0]):
+            return self._infer(x)
+        return tuple(gather_rows(mesh, t) for t in self._infer(x[mesh.rows(x.shape[0])]))
+
+    def _infer(self, x: torch.Tensor):
         img = x.float() / 255.0
         out = self.model(img)
         det, ok = non_max_suppression(self.model.decode(out), conf_thres=self.conf, iou_thres=self.iou,

@@ -20,6 +20,13 @@ non-finite loss or gradient leaves the whole state unchanged. Parameters
 are updated in place. Checkpoints are the JAX trainer's pickles, optax state
 included (`Trainer.save_checkpoint`), so a run that either package started
 resumes in the other.
+
+Under a ``mesh`` (`parallel.mesh`, one process a rank) each rank steps on
+its rows of the global batch: IQBN statistics and the loss normalisers are
+the global batch's, the ranks' gradients and the NaN guard's decision are
+reduced before the update, so every rank makes the single-process update
+on the global batch and the ranks' parameters, EMA and statistics stay
+equal. Rank 0 alone writes checkpoints, ``results.json`` and logs.
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ import torch
 
 from quan_ultralytics_tpu_torch.losses.detect import LossHyp, detection_loss, obb_loss
 from quan_ultralytics_tpu_torch.losses.segpose import pose_loss, segmentation_loss
-from quan_ultralytics_tpu_torch.models.conv import train_graph
+from quan_ultralytics_tpu_torch.models.conv import QConv2D, train_graph
 from quan_ultralytics_tpu_torch.models.tasks import DetectionModel, resolve_device
+from quan_ultralytics_tpu_torch.parallel.mesh import Mesh, all_reduce_, data_parallel, replicate
 from quan_ultralytics_tpu_torch.parallel.prefetch import prefetch_to_device
 from quan_ultralytics_tpu_torch.utils.weights import (export_jax_variables, from_jax_tree, load_jax_variables,
                                                       optax_state, read_checkpoint, to_jax_tree,
@@ -298,14 +306,24 @@ class Trainer:
     Tensors or numpy arrays; they are moved to the model's device (a tensor
     already there is used as it is). Lists and strings (file names) are left out.
 
-    Runs on ``cuda`` unless ``device`` names another device, and raises when
-    no card is present and the CPU was not asked for. The model is moved there.
+    Runs on ``cuda`` unless ``device`` names another device (the ``mesh``'s
+    device when one is given), and raises when no card is present and the CPU
+    was not asked for. The model is moved there. With a ``mesh`` of several
+    ranks its state is first made rank 0's (`parallel.mesh.replicate`), and
+    `step` takes this rank's rows of each global batch. A model with int8
+    convs is refused: that form rounds its operands and has no gradient.
     """
 
     def __init__(self, model: DetectionModel, cfg: TrainConfig, steps_per_epoch: int,
-                 device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+                 device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
+        if any(isinstance(m, QConv2D) and m.impl == "int8" for m in model.modules()):
+            raise RuntimeError("impl='int8' is inference-only (its rounding has no gradient); "
+                               "build the model with another impl to train it")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and mesh is not None else device)
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicate(mesh, self.model)
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.loss_hyp = LossHyp(box=cfg.box, cls=cfg.cls, dfl=cfg.dfl)
@@ -347,16 +365,29 @@ class Trainer:
         loss_fn = {"obb": obb_loss, "segment": segmentation_loss}.get(m.task, detection_loss)
         return loss_fn(out, batch, m.strides, m.nc, m.reg_max, **kw)
 
-    def step(self, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def step(self, batch: Mapping, sharded: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One micro-step: loss, gradients, and the optimizer and EMA update
         when it completes an accumulation. Returns ``(loss, aux)``; ``aux``
         holds the loss terms and ``nan_skipped`` (1.0 when a non-finite loss
-        or gradient left the state unchanged)."""
+        or gradient left the state unchanged).
+
+        Under a mesh over a process group ``batch`` is this rank's rows of the
+        global batch (``sharded``, the default), and the loss and terms
+        returned are the global batch's; ``sharded=False`` marks a batch
+        that every rank holds whole (`parallel.mesh.shard_batch` of rows that
+        do not divide), which needs no reduction."""
+        dp = self.mesh is not None and self.mesh.grouped and sharded is not False
         with torch.no_grad():
             torch._foreach_copy_(self._stats_before, self.stats)
-        total, aux = self.loss(batch)
+        with data_parallel(self.mesh if dp else None):
+            total, aux = self.loss(batch)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        if dp:  # the ranks' parts of the global loss: their sums are the global batch's
+            total = total.detach().clone()
+            aux = {k: v.detach().clone() for k, v in aux.items()}
+            all_reduce_(self.mesh, [total, *aux.values(), *grads])
         # one host sync a micro-step
         finite = not self.cfg.guard_nan or _all_finite([total.detach(), *grads])
         if finite:
@@ -399,6 +430,9 @@ class Trainer:
         ``validate_fn(self)`` (which runs the EMA weights through `ema_weights`),
         keep ``last.ckpt`` and ``best.ckpt`` and ``results.json`` in
         ``save_dir``, stop after ``cfg.patience`` epochs without a better fitness.
+        Under a mesh ``train_loader_fn`` gives this rank's rows of each batch
+        (``build_dataloader(rows=process_batch_slice(...))``); every rank
+        validates (a mesh `Validator` gathers the detections), rank 0 writes.
 
         Fitness is 0.9 mAP50-95 + 0.1 mAP50, or minus the mean loss without a
         validator; the first epoch is always the best so far. Each epoch's
@@ -409,6 +443,8 @@ class Trainer:
         best_fitness: Optional[float] = None
         best_epoch = -1
         history: List[Dict[str, float]] = []
+        if self.mesh is not None and self.mesh.rank > 0:  # rank 0 writes and logs for all
+            save_dir, callbacks, log = None, None, (lambda msg: None)
         out = Path(save_dir) if save_dir else None
         if out:
             out.mkdir(parents=True, exist_ok=True)

@@ -15,8 +15,10 @@ pose/val.py).
 
 The Validator runs on the device of the model's parameters; a model on the
 card is validated there. ``rect`` batches (not OBB, as in JAX) are each
-letterboxed to their own stride-32 shape. The JAX ``mesh`` option waits
-for ROADMAP Queue 1 item 9.
+letterboxed to their own stride-32 shape. With a ``mesh`` (the JAX option)
+every rank loads each batch, infers its rows of it, and gathers the
+detections (`Predictor.infer`), so every rank's matching and metrics are
+the single-process ones.
 """
 
 from __future__ import annotations
@@ -53,12 +55,10 @@ def _crop_to_boxes(m: torch.Tensor, boxes: torch.Tensor, sx: float, sy: float) -
 class Validator:
     def __init__(self, model: DetectionModel, imgsz: int = 640, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("sharded validation (mesh) is not ported yet (ROADMAP Queue 1 item 9)")
         self.model = model
         self.imgsz = imgsz
-        # the device pass is the Predictor's: forward, decode, NMS
-        self.predictor = Predictor(model, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det)
+        # the device pass is the Predictor's: forward, decode, NMS (sharded under a mesh)
+        self.predictor = Predictor(model, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det, mesh=mesh)
         self.infer = self.predictor.infer
         self.speed: Dict[str, float] = {}
 

@@ -5,6 +5,11 @@ Reference ultralytics/utils/loss.py v8DetectionLoss (:398-502) and v8OBBLoss
 padded fixed-size tensors with a validity mask, and every data-dependent
 branch is a ``where``. The loss runs in f32 whatever the model's compute
 dtype. `detect_terms` is the core the segment and pose losses build on.
+
+Inside `parallel.mesh.data_parallel` a rank's loss is its part of the global
+batch's: the normalisers (``target_scores_sum``, the foreground count) are
+summed over the ranks and the batch size is the global one, so the ranks'
+losses and gradients sum to the single-process ones (JAX's sharded step).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from quan_ultralytics_tpu_torch.models.block import dfl as dfl_decode
 from quan_ultralytics_tpu_torch.models.head import flatten_levels
 from quan_ultralytics_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dist2bbox, dist2rbox, make_anchors,
                                                    probiou, xywh2xyxy)
+from quan_ultralytics_tpu_torch.parallel.mesh import global_rows, global_sum
 
 
 class LossHyp(NamedTuple):
@@ -79,7 +85,7 @@ def detection_loss(
     """
     loss_iou, loss_cls, loss_dfl, assign, ctx = detect_terms(
         feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16)
-    total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl) * ctx["B"]
+    total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl) * global_rows(ctx["B"])
     aux = {
         "box": hyp.box * loss_iou,
         "cls": hyp.cls * loss_cls,
@@ -130,7 +136,7 @@ def detect_terms(
         beta=6.0,
         bf16_metric=assigner_bf16,
     )
-    target_scores_sum = assign.target_scores.sum().clamp(min=1.0)
+    target_scores_sum = global_sum(assign.target_scores.sum()).clamp(min=1.0)
     fg = assign.fg_mask
 
     loss_cls = _bce_logits(pred_scores, assign.target_scores).sum() / target_scores_sum
@@ -221,7 +227,7 @@ def obb_loss(
         rotated=True,
         bf16_metric=assigner_bf16,
     )
-    target_scores_sum = assign.target_scores.sum().clamp(min=1.0)
+    target_scores_sum = global_sum(assign.target_scores.sum()).clamp(min=1.0)
     fg = assign.fg_mask
 
     loss_cls = _bce_logits(pred_scores, assign.target_scores).sum() / target_scores_sum
@@ -245,11 +251,11 @@ def obb_loss(
     # unit-norm regulariser (loss.py:913-922), mean over foreground; ~0, since
     # q_pred is unit by construction, kept for the value's parity
     norm_sq = (q_pred ** 2).sum(-1)
-    reg = (((norm_sq - 1.0) ** 2) * fg).sum() / fg.sum().clamp(min=1)
+    reg = (((norm_sq - 1.0) ** 2) * fg).sum() / global_sum(fg.sum()).clamp(min=1)
     loss_quat = loss_ang + hyp.lambda_reg * reg
 
     total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl
-             + hyp.lambda_angular * loss_quat) * B
+             + hyp.lambda_angular * loss_quat) * global_rows(B)
     aux = {
         "box": hyp.box * loss_iou,
         "cls": hyp.cls * loss_cls,

@@ -18,6 +18,7 @@ import torch
 from quan_ultralytics_tpu_torch.losses.detect import LossHyp, _bce_logits, detect_terms
 from quan_ultralytics_tpu_torch.models.head import decode_kpts, flatten_levels
 from quan_ultralytics_tpu_torch.ops.boxes import _top_k
+from quan_ultralytics_tpu_torch.parallel.mesh import global_rows, global_sum
 from quan_ultralytics_tpu_torch.utils.metrics import OKS_SIGMA
 
 
@@ -78,7 +79,7 @@ def segmentation_loss(
     per_anchor = bce.sum(dim=(2, 3)) / area  # [B, K]
     loss_mask = (per_anchor * (sel_w > 0)).sum() / ctx["target_scores_sum"]
 
-    total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl + hyp.box * loss_mask) * B
+    total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl + hyp.box * loss_mask) * global_rows(B)
     aux = {"box": hyp.box * loss_iou, "cls": hyp.cls * loss_cls, "dfl": hyp.dfl * loss_dfl,
            "seg": hyp.box * loss_mask, "num_fg": assign.fg_mask.sum()}
     return total, aux
@@ -127,17 +128,17 @@ def pose_loss(
     kpt_loss_factor = nk / kpt_mask.sum(-1, keepdim=True).clamp(min=1.0)
     fg_sel = (sel_w > 0).float()[..., None]
     loc = ((kpt_loss_factor * (1.0 - torch.exp(-e)) * kpt_mask * fg_sel).sum()
-           / (kpt_mask * fg_sel).sum().clamp(min=1.0))
+           / global_sum((kpt_mask * fg_sel).sum()).clamp(min=1.0))
 
     if ndim == 3:  # visibility: BCE(raw visibility logit, labelled visible)
         raw = flatten_levels(kpts).reshape(B, A, nk, ndim).float()
         sel_v = _gather_rows(raw, sel_idx)[..., 2]
-        loss_kobj = (_bce_logits(sel_v, kpt_mask) * fg_sel).sum() / (fg_sel.sum() * nk).clamp(min=1.0)
+        loss_kobj = (_bce_logits(sel_v, kpt_mask) * fg_sel).sum() / global_sum(fg_sel.sum() * nk).clamp(min=1.0)
     else:
         loss_kobj = torch.zeros((), device=dev)
 
     total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl
-             + pose_gain * loc + kobj_gain * loss_kobj) * B
+             + pose_gain * loc + kobj_gain * loss_kobj) * global_rows(B)
     aux = {"box": hyp.box * loss_iou, "cls": hyp.cls * loss_cls, "dfl": hyp.dfl * loss_dfl,
            "pose": pose_gain * loc, "kobj": kobj_gain * loss_kobj, "num_fg": assign.fg_mask.sum()}
     return total, aux

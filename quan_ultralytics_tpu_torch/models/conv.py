@@ -26,7 +26,8 @@ from quan_ultralytics_tpu_torch.ops.mappings import rgb_to_quaternion
 from quan_ultralytics_tpu_torch.ops.mixing import MIX_MATRIX
 from quan_ultralytics_tpu_torch.ops.pooling import qupsample
 from quan_ultralytics_tpu_torch.ops.qconv import (autopad, fold_dense_kernel, qconv2d, qconv2d_folded,
-                                                  qdense)
+                                                  qconv2d_int8, qdense)
+from quan_ultralytics_tpu_torch.parallel.mesh import active_mesh
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -86,19 +87,27 @@ class QConv2D(nn.Module):
     dense kernel; g == 1 only) or ``auto`` (folded when C_out/4 is below the
     fold threshold and g == 1, else grouped; the threshold is
     ``FOLD_MAX_TRAIN`` inside `train_graph`, else ``FOLD_MAX_EVAL``). The three
-    give the same values.
+    give the same values. ``int8`` is the inference-only serving form
+    (`qconv2d_int8`, the JAX ``QUAN_QCONV_IMPL=int8``): an ungrouped conv with
+    ``c2 >= int8_min_c`` (JAX's ``QUAN_INT8_MIN_C``) quantizes its folded
+    kernel and its input; narrower ones run folded, grouped ones grouped.
+    Its activation scale is the ``act_absmax`` buffer that
+    `ops.quant.calibrate_int8` adds (static), else each call's |x| max. The
+    buffer exists only after calibration, so an uncalibrated state dict is
+    unchanged.
     """
 
     def __init__(self, c1: int, c2: int, k: IntOr2 = 1, s: IntOr2 = 1,
                  p: Optional[IntOr2] = None, g: int = 1, d: IntOr2 = 1,
                  use_bias: bool = True, mapping_type: str = "poincare",
-                 dtype: Optional[torch.dtype] = None, impl: str = "grouped"):
+                 dtype: Optional[torch.dtype] = None, impl: str = "grouped",
+                 int8_min_c: int = 0):
         super().__init__()
         if c2 % 4:
             raise ValueError(f"c2={c2} must be a multiple of 4")
         if c1 != 3 and c1 % 4:
             raise ValueError(f"c1={c1} must be a multiple of 4 (or 3 for RGB)")
-        if impl not in ("grouped", "folded", "auto"):
+        if impl not in ("grouped", "folded", "auto", "int8"):
             raise ValueError(f"unknown impl {impl!r}")
         self.c1, self.c2, self.g = c1, c2, g
         self.k, self.s, self.d = _pair(k), _pair(s), _pair(d)
@@ -106,6 +115,9 @@ class QConv2D(nn.Module):
         self.mapping_type = mapping_type
         self.dtype = dtype
         self.impl = impl
+        self.int8_min_c = int8_min_c
+        self.calibrating = False  # `ops.quant.calibrate_int8` collects |x| max into `calib_absmax`
+        self.calib_absmax: Optional[torch.Tensor] = None
         cin = 1 if c1 == 3 else c1 // 4
         if cin % g:
             raise ValueError(f"per-component c1 {cin} is not divisible by g={g}")
@@ -130,6 +142,8 @@ class QConv2D(nn.Module):
                 nn.init.uniform_(self.b, -bound, bound, generator=generator)
 
     def _impl(self) -> str:
+        if self.impl == "int8":
+            return "folded" if self.c2 < self.int8_min_c else "int8"
         if self.impl != "auto":
             return self.impl
         fold_max = FOLD_MAX_TRAIN if _TRAIN_GRAPH.get() else FOLD_MAX_EVAL
@@ -144,11 +158,27 @@ class QConv2D(nn.Module):
         elif x.shape[-1] != self.cin or x.shape[-2] != 4:
             raise ValueError(f"expected [..., 4, {self.cin}], got {tuple(x.shape)}")
         x = x.to(self.dtype or x.dtype)
-        if self._impl() == "folded" and self.g == 1:
+        impl = self._impl()
+        if impl == "int8" and self.g == 1:
+            dk = fold_dense_kernel(self.w, self.mix)
+            return qconv2d_int8(x, dk, self.b, stride=self.s, padding=self.pad, dilation=self.d,
+                                act_absmax=self._int8_act_absmax(x))
+        if impl == "folded" and self.g == 1:
             dk = fold_dense_kernel(self.w, self.mix)
             return qconv2d_folded(x, dk, self.b, stride=self.s, padding=self.pad, dilation=self.d)
         return qconv2d(x, self.w, self.b, stride=self.s, padding=self.pad, dilation=self.d,
                        groups=self.g)
+
+
+    def _int8_act_absmax(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The int8 activation scale's |x| max (the JAX ``_int8_act_absmax``):
+        while calibrating, the running max is updated and the call runs with
+        its own (dynamic) scale; after calibration the stored one."""
+        if self.calibrating:
+            m = x.detach().abs().amax().float()
+            self.calib_absmax = m if self.calib_absmax is None else torch.maximum(self.calib_absmax, m)
+            return None
+        return getattr(self, "act_absmax", None)
 
 
 class IQBN(nn.Module):
@@ -159,7 +189,10 @@ class IQBN(nn.Module):
     batch statistics over (B, H, W) with the biased variance plus the
     reference's extra 1e-8, which feeds both the running update and the
     normalization. The affine ``scale, shift`` is computed in f32 and cast to
-    the compute dtype before it is applied.
+    the compute dtype before it is applied. Inside `parallel.mesh.data_parallel`
+    the statistics are the global batch's over every rank (DEVIATIONS.md
+    section 2: JAX normalises with the sharded batch's global moments), so the
+    running ``mean`` and ``var`` come out equal on every rank.
     """
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1,
@@ -177,8 +210,13 @@ class IQBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 1, 2))
-            var = xf.var(dim=(0, 1, 2), unbiased=False) + 1e-8
+            mesh = active_mesh()
+            if mesh is None:
+                mean = xf.mean(dim=(0, 1, 2))
+                var = xf.var(dim=(0, 1, 2), unbiased=False) + 1e-8
+            else:  # the global batch's moments, as JAX's GSPMD reduction over a sharded batch
+                mean, var = mesh.global_moments(xf)
+                var = var + 1e-8
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(1.0 - m).add_(m * mean)

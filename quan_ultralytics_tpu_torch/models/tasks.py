@@ -265,7 +265,7 @@ class DetectionModel(QUANYOLO):
                   device: Optional[Union[str, torch.device]] = None,
                   mapping_type: str = "poincare", impl: str = "auto",
                   fused_attn: bool = True, fused_1x1: bool = FUSED_1X1,
-                  seed: int = 0) -> "DetectionModel":
+                  seed: int = 0, int8_min_c: int = 0) -> "DetectionModel":
         """Build a model from a model YAML path or a catalog name (`resolve_model_cfg`),
         with weights drawn from ``seed``.
 
@@ -276,13 +276,19 @@ class DetectionModel(QUANYOLO):
         on the H100, where ``grouped``, the JAX library's default, takes the
         most); ``fused_attn`` runs the attention kernel (on by default);
         ``fused_1x1`` the fused 1x1 Conv+IQBN+SiLU kernel in eval (on by
-        default, ``FUSED_1X1``; off in the JAX package).
+        default, ``FUSED_1X1``; off in the JAX package). ``impl="int8"`` is the
+        inference-only int8 serving form (`models.conv.QConv2D`; calibrate it
+        with `ops.quant.calibrate_int8`), ``int8_min_c`` its width threshold;
+        the fused 1x1 sites keep ``fused_1x1``'s kernel, as in JAX.
         """
         dev = resolve_device(device)
         cfg, scale = resolve_model_cfg(model)
         m = cls(cfg, scale, nc, dtype=dtype, mapping_type=mapping_type, impl=impl,
                 fused_attn=fused_attn, fused_1x1=fused_1x1)
         m.reset_parameters(torch.Generator().manual_seed(seed))
+        for mod in m.modules():
+            if isinstance(mod, C.QConv2D):
+                mod.int8_min_c = int8_min_c
         return m.to(dev).eval()
 
     def decode(self, out):

@@ -179,3 +179,114 @@ def qdense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
     if bias is not None:
         p = p + bias.to(p.dtype)  # [d, F_out] broadcasts over the 'a' axis
     return _hamilton(p)
+
+
+# `int8_matmul`'s launches of `torch._int_mm` on a card (chip_smoke.py counts them)
+int8_launches = 0
+
+
+def int8_matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ w [N, K]^T`` of int8 values as exact int32: a float64
+    product, exact while every partial sum stays below 2^53 (|acc| <=
+    127^2 K), on any device."""
+    return (a.double() @ w.double().t()).to(torch.int32)
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    if t.shape[dim] == size:
+        return t
+    pad = [0, 0] * (t.ndim - 1 - dim) + [0, size - t.shape[dim]]
+    return F.pad(t, pad)
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ w [N, K]^T``, int8 x int8 -> exact int32, as XLA's s8 x s8
+    conv with ``preferred_element_type=int32``.
+
+    On a card: ``torch._int_mm`` (cuBLASLt's int8 tensor-core product), which
+    takes M > 16 and K, N multiples of 8: the operands are padded with exact
+    zeros and the result cut back. On the CPU: `int8_matmul_plain`.
+    """
+    global int8_launches
+    if a.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8 operands expected, got {a.dtype} and {w.dtype}")
+    if a.device.type == "cpu":
+        return int8_matmul_plain(a, w)
+    if a.device.type != "cuda":
+        raise RuntimeError(f"no int8 product on {a.device}")
+    M, K = a.shape
+    N = w.shape[0]
+    k8, n8 = -(-K // 8) * 8, -(-N // 8) * 8
+    m_pad = max(M, 24)  # more than 16 rows, a multiple of 8 when padded
+    a_p = _pad_to(_pad_to(a, 1, k8), 0, m_pad).contiguous()
+    w_p = _pad_to(_pad_to(w, 1, k8), 0, n8).contiguous()
+    int8_launches += 1
+    return torch._int_mm(a_p, w_p.t())[:M, :N]
+
+
+def int8_im2col(xq: torch.Tensor, k: Tuple[int, int], stride: Tuple[int, int],
+                padding: Tuple[int, int], dilation: Tuple[int, int]) -> Tuple[torch.Tensor, int, int]:
+    """NHWC int8 ``[B, H, W, C]`` -> its patches ``[B Ho Wo, kH kW C]`` (taps
+    row-major, channels last; zero padding), Ho and Wo."""
+    B, H, W, C = xq.shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = k, stride, padding, dilation
+    if (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0):
+        return xq.reshape(B * H * W, C), H, W
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
+    p = xp.unfold(1, dh * (kh - 1) + 1, sh).unfold(2, dw * (kw - 1) + 1, sw)[..., ::dh, ::dw]
+    Ho, Wo = p.shape[1], p.shape[2]  # p: [B, Ho, Wo, C, kh, kw]
+    return p.permute(0, 1, 2, 4, 5, 3).reshape(B * Ho * Wo, kh * kw * C), Ho, Wo
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale), -127, 127)`` as int8 (round half to even, as ``jnp.round``)."""
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def int8_accumulator(x: torch.Tensor, dense_kernel: torch.Tensor, *, stride: IntOr2 = 1,
+                     padding: IntOr2 = 0, dilation: IntOr2 = 1, eps: float = 1e-8,
+                     act_absmax: Optional[torch.Tensor] = None, matmul=None):
+    """The int8 conv's int32 accumulator and scales: ``(acc [B, Ho, Wo, 4 C_out]
+    int32, sx, swt [4 C_out])`` of `qconv2d_int8`; ``matmul`` is its int8
+    product (`int8_matmul`; `int8_matmul_plain` to hold it to its plain version)."""
+    B, H, W, _, cin = x.shape
+    cout4, cin4, kh, kw = dense_kernel.shape
+    if cin4 != 4 * cin:
+        raise ValueError(f"dense kernel takes {cin4} channels, input has 4 * {cin}")
+    xf = x.reshape(B, H, W, 4 * cin).float()
+    amax = xf.abs().amax() if act_absmax is None else act_absmax.float().to(xf.device)
+    sx = amax / 127.0 + eps
+    xq = quantize_int8(xf, sx)
+    kf = dense_kernel.float()
+    swt = kf.abs().amax(dim=(1, 2, 3)) / 127.0 + eps  # per output channel
+    wq = quantize_int8(kf, swt[:, None, None, None])
+    cols, Ho, Wo = int8_im2col(xq, (kh, kw), _pair(stride), _pair(padding), _pair(dilation))
+    acc = (matmul or int8_matmul)(cols, wq.permute(0, 2, 3, 1).reshape(cout4, kh * kw * cin4))
+    return acc.reshape(B, Ho, Wo, cout4), sx, swt
+
+
+def qconv2d_int8(
+    x: torch.Tensor,
+    dense_kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    stride: IntOr2 = 1,
+    padding: IntOr2 = 0,
+    dilation: IntOr2 = 1,
+    eps: float = 1e-8,
+    act_absmax: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The int8 qconv (the JAX ``qconv2d_int8``, an inference-only opt-in): the
+    folded dense kernel (`fold_dense_kernel`, OIHW) quantized per output
+    channel, the activation per tensor (scale ``absmax / 127 + eps``; the
+    calibrated ``act_absmax`` when given, else this call's), int8 x int8 ->
+    int32 exactly (`int8_matmul`), then ``acc * (sx * swt)`` in f32, the
+    bias, and the input's dtype.
+    """
+    acc, sx, swt = int8_accumulator(x, dense_kernel, stride=stride, padding=padding,
+                                    dilation=dilation, eps=eps, act_absmax=act_absmax)
+    B, Ho, Wo, cout4 = acc.shape
+    y = (acc.float() * (sx * swt)).reshape(B, Ho, Wo, 4, cout4 // 4)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)

@@ -8,8 +8,10 @@ consumer needs no event. The upload (about 25 MB for 8 frames at 1024) is
 not staged in page-locked buffers on a stream of its own: no measurement
 has shown it costing the step time.
 
-The JAX ``mesh`` argument (a sharded batch) comes with the port's multi-GPU
-path.
+The JAX ``mesh`` argument (a sharded batch) has no counterpart here: under
+data parallelism each rank's loader builds that rank's rows
+(`data.build.build_dataloader`'s ``rows``) and its prefetcher moves them to
+the rank's device.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ flax leaf                     port state                      layout transform
 ``.../proj/bias``   (QER)     ``.../proj.bias``               none
 ``.../linear/kernel`` (Dense) ``.../linear.weight``           ``[in, out]`` -> ``[out, in]``
 ``.../linear/bias``           ``.../linear.bias``             none
+``quant/.../act_absmax``      same name (int8 scale buffer)   none (a 0-d scalar; made on load)
 ============================  ==============================  ========================================
 
 `export_jax_variables` is the inverse, so a port model's weights can be
@@ -71,9 +72,14 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     Every leaf must land on a port parameter or buffer of the same shape, and
     every parameter and buffer must be covered; anything else raises.
     """
+    for path, _ in _flatten(variables.get("quant", {})).items():
+        # calibrated int8 scales: a conv holds its ``act_absmax`` buffer only once calibrated
+        owner = model.get_submodule(_port_leaf(path, None)[0].rsplit(".", 1)[0])
+        if not hasattr(owner, path[-1]):
+            owner.register_buffer(path[-1], torch.zeros((), device=owner.w.device))
     state = model.state_dict()
     loaded = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant"):
         for path, value in _flatten(variables.get(collection, {})).items():
             name, arr = _port_leaf(path, value)
             if name not in state:
@@ -136,11 +142,18 @@ def from_jax_tree(tree: Mapping) -> Dict[str, np.ndarray]:
 def export_jax_variables(model: nn.Module) -> Dict[str, Dict]:
     """The model's state as a JAX variable tree ``{"params", "batch_stats"}``
     of float32 numpy arrays in the flax layout: `load_jax_variables` inverted.
-    Parameters go to ``params``, the IQBN running statistics to ``batch_stats``."""
+    Parameters go to ``params``, the IQBN running statistics to ``batch_stats``,
+    and a calibrated int8 model's ``act_absmax`` scales to ``quant`` (present
+    only then, as in JAX)."""
     params = set(dict(model.named_parameters()))
     state = model.state_dict()
-    return {"params": to_jax_tree({n: t for n, t in state.items() if n in params}),
-            "batch_stats": to_jax_tree({n: t for n, t in state.items() if n not in params})}
+    quant = {n for n in state if n.endswith(".act_absmax")}
+    out = {"params": to_jax_tree({n: t for n, t in state.items() if n in params}),
+           "batch_stats": to_jax_tree({n: t for n, t in state.items()
+                                       if n not in params and n not in quant})}
+    if quant:
+        out["quant"] = to_jax_tree({n: state[n] for n in quant})
+    return out
 
 
 class OptaxState(tuple):

@@ -1006,3 +1006,40 @@ def test_reference_weights_infer_on_card_matches_the_plain_path(cuda):
         ref = plain.decode(plain(x)).float()
     assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= 5e-2 * float(ref.abs().max())
+
+
+def test_int8_product_on_card_equals_its_plain_version(cuda, monkeypatch):
+    """The int8 serving path's product (`ops.qconv.int8_matmul`: ``torch._int_mm``,
+    zero-padded to its rules M > 16 and K, N multiples of 8) against the exact
+    float64 product, at every int8 conv of QUAN-YOLO11n-OBB (batch 2 at 256) and
+    at odd shapes; and a whole int8 conv on the card against the CPU, bit for bit."""
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.models import conv as conv_mod
+    from quan_ultralytics_tpu_torch.ops import qconv as qc
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for m, k, n in ((1, 3, 1), (16, 36, 16), (17, 40, 7), (100, 2305, 64), (4096, 576, 256)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        got = qc.int8_matmul(a, w)
+        assert got.dtype == torch.int32 and got.shape == (m, n)
+        assert torch.equal(got, qc.int8_matmul_plain(a, w)), (m, k, n)
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=15, dtype=torch.bfloat16, device="cuda",
+                                     impl="int8", fused_1x1=False)
+    calls, original = [], conv_mod.qconv2d_int8
+
+    def record(x, dk, b=None, **kw):
+        calls.append((x, dk, b, kw))
+        return original(x, dk, b, **kw)
+
+    monkeypatch.setattr(conv_mod, "qconv2d_int8", record)
+    Predictor(model, imgsz=256).infer(torch.randint(0, 256, (2, 256, 256, 3), device="cuda", dtype=torch.uint8))
+    assert len(calls) > 50
+    for x, dk, b, kw in calls:
+        assert torch.equal(qc.int8_accumulator(x, dk, **kw)[0],
+                           qc.int8_accumulator(x, dk, matmul=qc.int8_matmul_plain, **kw)[0]), tuple(dk.shape)
+    for x, dk, b, kw in calls[:3] + calls[-3:]:
+        cpu_kw = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        got = qc.qconv2d_int8(x, dk, b, **kw).cpu()
+        ref = qc.qconv2d_int8(x.cpu(), dk.cpu(), None if b is None else b.cpu(), **cpu_kw)
+        assert torch.equal(got, ref), tuple(dk.shape)

@@ -75,6 +75,17 @@ PLOT_MODULES = [  # the plots, the text raster, the reference-weights loader, th
     "quan_ultralytics_tpu_torch.utils.torch_port",
     "quan_ultralytics_tpu_torch.utils.metrics",
 ]
+SLICE14_MODULES = [  # data parallelism, int8 serving and the last tooling modules
+    "quan_ultralytics_tpu_torch.parallel.distributed",
+    "quan_ultralytics_tpu_torch.parallel.mesh",
+    "quan_ultralytics_tpu_torch.ops.quant",
+    "quan_ultralytics_tpu_torch.ops.qgeo",
+    "quan_ultralytics_tpu_torch.ops.qinit",
+    "quan_ultralytics_tpu_torch.losses.prototypes",
+    "quan_ultralytics_tpu_torch.utils.instance",
+    "quan_ultralytics_tpu_torch.data.converter",
+    "quan_ultralytics_tpu_torch.data.split_dota",
+]
 _ALONE_CODE = ("import {}, sys; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'psutil')); "
                "assert not bad, bad")
@@ -86,7 +97,7 @@ def imported_alone():
     of its own, all started at once: module -> (exit code, standard error)."""
     procs = {m: subprocess.Popen([sys.executable, "-c", _ALONE_CODE.format(m)], cwd=REPO,
                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-             for m in ALONE_MODULES + PLOT_MODULES}
+             for m in ALONE_MODULES + PLOT_MODULES + SLICE14_MODULES}
     out = {}
     for m, proc in procs.items():
         _, err = proc.communicate(timeout=300)
@@ -112,6 +123,16 @@ def test_plot_modules_alone_load_no_jax_cv2_pil_or_matplotlib(imported_alone):
     for module in PLOT_MODULES:
         rc, err = imported_alone[module]
         assert rc == 0, f"{module}: {err}"
+
+
+@pytest.mark.parametrize("module", SLICE14_MODULES)
+def test_parallel_int8_and_tool_modules_alone_load_no_jax_cv2_pil_or_matplotlib(module, imported_alone):
+    """`parallel.distributed`, `parallel.mesh`, `ops.quant`, `ops.qgeo`,
+    `ops.qinit`, `losses.prototypes`, `utils.instance`, `data.converter` and
+    `data.split_dota`, each imported alone in a fresh interpreter, load none
+    of jax, the JAX package, yaml, cv2, PIL, matplotlib or psutil."""
+    rc, err = imported_alone[module]
+    assert rc == 0, err
 
 
 def test_source_scan_finds_no_jax_import():
@@ -152,3 +173,28 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 def test_config_literal_equals_yaml(name):
     with open(REPO / "quan_ultralytics_tpu" / "cfg" / "models" / name) as fh:
         assert MODELS[name] == yaml.safe_load(fh), name
+
+
+def test_a_process_group_that_cannot_form_raises(monkeypatch):
+    """`initialize` and `make_mesh` raise, and never fall back to one process,
+    when asked for a backend or a device that cannot serve the group."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from quan_ultralytics_tpu_torch.parallel import distributed
+    from quan_ultralytics_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(world_size=1, rank=0, timeout=datetime.timedelta(seconds=10))
+    if not dist.is_nccl_available():  # a torch without nccl refuses it
+        with pytest.raises(RuntimeError, match="nccl"):
+            distributed.initialize(backend="nccl", init_method=f"tcp://localhost:{distributed.free_port()}", **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="nccl|CUDA"):  # nccl without a card
+        distributed.initialize(device="cuda", init_method=f"tcp://localhost:{distributed.free_port()}", **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group of 2"):  # two ranks wanted, none formed
+        make_mesh(2, device="cpu")
+    assert distributed.initialize() is False  # no torchrun environment: one process
