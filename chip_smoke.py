@@ -207,7 +207,24 @@ Phases:
      K3 launches;
  52. ``split_dota.split_image`` of a 4000 x 4000 scene with 200 objects into
      1024 windows (gap 200): windows, seconds, bytes;
- 53. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 53. the stem's forms (``stem_s2d``, ``stem_deep`` 1-3, deep 1 with ``stem_l0="fine"``,
+     and the plain stem) on the OBB predict path at 1024, bf16, K1+K3: launches
+     (K3 at `fused_1x1_sites`), device busy ms and host ms of ``infer`` (medians
+     of 3 interleaved rounds), the bf16 predictions and the f32 head outputs
+     against the plain stem, and the default these numbers choose;
+ 54. a bf16 train micro-step under the plain stem, stem_s2d and deep 1 and 2,
+     each without and with ``stem_remat``: ms, peak memory, K1 and K2; the f32
+     loss and gradients of each against the plain stem;
+ 55. stem_deep=1 through a one-rank NCCL group: the packed IQBNs' statistics
+     against one process's;
+ 56. the assigner at M = 128 on the OBB train batch: ``impl="sparse"`` against
+     dense (targets bit for bit, the loss layer's device ms and peak memory),
+     topk 32 (``chunk``) against topk 16 (``iter``); NMS's ``defer_argmax``
+     against the default (the same detections, ``infer`` ms);
+ 57. the readers' newer formats (the committed progressive, EXIF-rotated and
+     Adam7 fixtures) through the val loader, against their OpenCV digests,
+     with their decode ms;
+ 58. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -219,7 +236,9 @@ Phases:
      cli_track, cli_benchmark, cli_tune and cli_export (``obb predict`` of
      the .pt2), cli_predict_save, predict_plot, predict_visualize, seg_plot,
      pose_plot, val_plots, reference_weights, dp_nccl_train,
-     dp_gloo_{train,val,predict}_rank{0,1}, int8_fused_1x1 and int8; each
+     dp_gloo_{train,val,predict}_rank{0,1}, int8_fused_1x1, int8,
+     stem_<form>_predict, stem_<form>[_remat]_train and
+     stem_deep1_dp_nccl_train; each
      kernel launched on each path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
@@ -936,7 +955,8 @@ def make_trainer(dtype: torch.dtype, model: str = MODEL, nc: int = NC, **kw):
 
     fused_attn = kw.pop("fused_attn", True)
     mesh = kw.pop("mesh", None)
-    model = DetectionModel.from_yaml(model, nc=nc, dtype=dtype, device=DEVICE, fused_attn=fused_attn)
+    model_kw = kw.pop("model_kw", {})  # the model's own options (the stem's form)
+    model = DetectionModel.from_yaml(model, nc=nc, dtype=dtype, device=DEVICE, fused_attn=fused_attn, **model_kw)
     cfg = TrainConfig(batch=BATCH, dtype="bfloat16" if dtype == torch.bfloat16 else "float32", **kw)
     return Trainer(model, cfg, steps_per_epoch=100, device=DEVICE, mesh=mesh)
 
@@ -4822,6 +4842,346 @@ def phase_split_dota(root: Path, card: str, seed: int = 9):
     return {"windows": n, "seconds": secs, "bytes": nbytes, "label_rows": rows}
 
 
+
+# ---------------------------------------------------------------- phases 53-57
+
+
+# the stem's forms (models/tasks.py QUANYOLO, ops/stem.py) that phase 53 drives
+STEM_MODES = {"plain": {}, "stem_s2d": {"stem_s2d": True}, "deep1": {"stem_deep": 1}, "deep2": {"stem_deep": 2},
+              "deep3": {"stem_deep": 3}, "deep1_fine": {"stem_deep": 1, "stem_l0": "fine"}}
+STEM_TRAIN = ("plain", "stem_s2d", "deep1", "deep2")  # phase 54's forms, each without and with stem_remat
+STEM_TRAIN_STEPS = 3  # timed micro-steps of each (median), after one warm-up
+STEM_ROUNDS = 3  # interleaved rounds of phase 53's device profiles and phase 56's times (medians)
+STEM_HOST_ROUNDS = 10  # interleaved rounds of phase 53's host clock (5 calls each; medians)
+# a stem form's head outputs in f32 (TF32 off) against the plain stem's: max abs diff
+# within STEM_F32_TOL of max|ref| (the same products in other cuDNN algorithms)
+STEM_F32_TOL = 1e-3
+# phase 54's f32 micro-step against the plain stem's: the loss within STEM_LOSS_TOL
+# relative, the parameters' gradient within STEM_GRAD_TOL relative L2
+STEM_LOSS_TOL, STEM_GRAD_TOL = 1e-4, 2e-3
+# phase 55's IQBN statistics through the collectives against one process's: each
+# buffer within STEM_STATS_TOL of its max |value| (two f32 reductions: the mesh's
+# two-pass sums against torch.var; tests/test_torch_parallel.py holds rtol 1e-3)
+STEM_STATS_TOL = 1e-4
+
+
+def _stem_models(dtype: torch.dtype, modes, **kw):
+    """The seeded n model in each stem form, all holding the plain model's weights."""
+    models = {}
+    for name in modes:
+        models[name] = seeded_model(dtype, **kw, **STEM_MODES[name])
+        if name != "plain":
+            models[name].load_state_dict(models["plain"].state_dict())
+    return models
+
+
+def _head_flat(out):
+    feats, angles = out
+    return list(feats) + list(angles)
+
+
+def phase_stem_predict(x, card: str, tables=None, rounds: int = STEM_ROUNDS):
+    """53. The stem's forms on the OBB predict path at 1024, batch 8, bf16, K1+K3
+    (``infer`` of the letterboxed phase-3 batch): K1 and K3 launches (K3 at
+    `fused_1x1_sites`, which leaves out the packed region's 1x1 convs), device
+    busy ms from torch.profiler and host ms of ``infer`` (medians of interleaved
+    rounds), decoded predictions against the plain stem in bf16 and the head
+    outputs of one frame in f32 (STEM_F32_TOL); then which default these
+    numbers choose."""
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.models.tasks import fused_1x1_sites
+    from quan_ultralytics_tpu_torch.ops.kernels import qattn, qconv_fused
+
+    models = _stem_models(torch.bfloat16, STEM_MODES, fused_1x1=True)
+    preds = {n: Predictor(m, imgsz=IMGSZ, conf=0.25) for n, m in models.items()}
+    out, ref = {}, decoded(models["plain"], x)
+    for name, pred in preds.items():
+        sites = len(fused_1x1_sites(models[name], BATCH, IMGSZ))
+        pred.infer(x)
+        torch.cuda.synchronize()
+        _reset_counts()
+        pred.infer(x)  # the path, driven once
+        torch.cuda.synchronize()
+        launches = {"qattn_fwd": qattn.launches_mma, "qattn_bwd": qattn.launches_bwd,
+                    "qconv1x1_fused": qconv_fused.launches_mma}
+        check(launches == {"qattn_fwd": 1, "qattn_bwd": 0, "qconv1x1_fused": sites}
+              and qattn.launches == qattn.launches_mma and qconv_fused.launches == qconv_fused.launches_mma,
+              f"stem {name}: launches {launches}, expected K1 1 and K3 {sites}")
+        rel = compare_preds(decoded(models[name], x), ref, NC)
+        check(all(v <= PRED_TOL[torch.bfloat16] for v in rel.values()),
+              f"stem {name}: bf16 predictions disagree with the plain stem: {rel}")
+        out[name] = {"launches": launches, "fused_1x1_sites": sites, "agree_bf16": rel,
+                     "deep_k": models[name].deep_k}
+    names = list(preds)
+    host, dev = {n: [] for n in names}, {n: [] for n in names}
+    for r in range(max(rounds, STEM_HOST_ROUNDS)):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            pred = preds[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                pred.infer(x)
+            torch.cuda.synchronize()
+            host[name].append(1e3 * (time.perf_counter() - t0) / 5)
+            if r < rounds:
+                prof = _device_profile(lambda: pred.infer(x), 1, f"stem {name}: infer, round {r}",
+                                       tables if r == 0 else None)
+                dev[name].append(prof["device_ms"])
+                out[name]["device_ops"] = prof.get("device_ops")
+    del models, preds
+    f32 = _stem_models(torch.float32, STEM_MODES, fused_1x1=True)
+    with torch.inference_mode():
+        xs = x[:1].float() / 255.0
+        ref32 = _head_flat(f32["plain"](xs))
+        for name in names:
+            got = _head_flat(f32[name](xs))
+            err = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-6) for g, r in zip(got, ref32))
+            out[name]["agree_f32_head"] = err
+            check(err <= STEM_F32_TOL, f"stem {name}: f32 head outputs off the plain stem's by {err:.2e}")
+    del f32
+    for name in names:
+        d = [v for v in dev[name] if v is not None]
+        # host ms against the plain stem's in the same round (the two ran one after the other)
+        diff = [a - b for a, b in zip(host[name], host["plain"])]
+        out[name].update({"device_ms": statistics.median(d) if d else None, "device_ms_rounds": dev[name],
+                          "host_ms": statistics.median(host[name]), "host_ms_rounds": host[name],
+                          "host_ms_vs_plain": statistics.median(diff),
+                          "host_ms_vs_plain_q3": statistics.quantiles(diff, n=4)[2]})
+        print(f"stem [{name}]: deep level {out[name]['deep_k']}, launches K1 {out[name]['launches']['qattn_fwd']} "
+              f"K3 {out[name]['launches']['qconv1x1_fused']} (= fused_1x1_sites); infer device busy "
+              + (f"{out[name]['device_ms']:.3f} ms" if d else "not measured")
+              + f" (median of {rounds} rounds) over {out[name]['device_ops']} device ops, host "
+              f"{out[name]['host_ms']:.3f} ms (median of {max(rounds, STEM_HOST_ROUNDS)}; against the plain stem "
+              f"in the same round: median {out[name]['host_ms_vs_plain']:+.3f}, upper quartile "
+              f"{out[name]['host_ms_vs_plain_q3']:+.3f} ms); vs plain: bf16 "
+              f"{out[name]['agree_bf16']}, f32 head max abs diff / max|ref| {out[name]['agree_f32_head']:.2e}; {card}")
+    # the default: a form that takes less device time than the plain stem in every profiled round and
+    # is shown no slower on the host clock: no slower than the plain stem in at least three rounds of
+    # four (the upper quartile of the same-round differences at most 0). The host clock's spread
+    # between rounds is far wider than the device's, so a median alone decides nothing.
+    better = [n for n in names if n != "plain" and None not in dev[n] + dev["plain"]
+              and all(a < b for a, b in zip(dev[n], dev["plain"])) and out[n]["host_ms_vs_plain_q3"] <= 0]
+    choice = min(better, key=lambda n: out[n]["device_ms"]) if better else "plain"
+    print(f"stem default: {choice} (faster in device ms in every round and no slower on the host clock in "
+          f"three rounds of four: {better or 'none'})")
+    return {"modes": out, "default": choice, "faster": better}
+
+
+def phase_stem_train(batch, card: str):
+    """54. bf16 micro-steps of the OBB train step at 1024, batch 8 (K1 and K2
+    once each a micro-step) under each of STEM_TRAIN, without and with
+    ``stem_remat``: after one warm-up, the launches and peak memory of one
+    micro-step and the median ms of STEM_TRAIN_STEPS; then one f32
+    micro-step's loss and parameter gradients in each form against the plain
+    stem's (STEM_LOSS_TOL, STEM_GRAD_TOL)."""
+    out = {}
+    for name in STEM_TRAIN:
+        for remat in (False, True):
+            key = f"{name}{' remat' if remat else ''}"
+            tr = make_trainer(torch.bfloat16, model_kw={**STEM_MODES[name], "stem_remat": remat})
+            tr.step(batch)  # cuDNN picks its algorithms
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            loss, _ = tr.step(batch)  # the path, driven once
+            torch.cuda.synchronize()
+            steps = [1e3 * (time.perf_counter() - t0)]
+            launches = _counts()
+            for _ in range(STEM_TRAIN_STEPS - 1):
+                t0 = time.perf_counter()
+                tr.step(batch)
+                torch.cuda.synchronize()
+                steps.append(1e3 * (time.perf_counter() - t0))
+            ms = statistics.median(steps)
+            out[key] = {"ms": ms, "ms_steps": steps, "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                        "loss": float(loss), "launches": launches}
+            check(math.isfinite(float(loss)) and launches["qattn_fwd"] == launches["qattn_bwd"] == 1,
+                  f"stem train {key}: loss {float(loss)}, launches {launches}")
+            print(f"stem train [{key}]: micro-step {ms:.1f} ms (median of {STEM_TRAIN_STEPS}), peak "
+                  f"{out[key]['peak_mib']:.0f} MiB, "
+                  f"launches {launches}; {card}")
+            del tr
+            torch.cuda.empty_cache()
+    grads = {}
+    for name in STEM_TRAIN:
+        tr = make_trainer(torch.float32, model_kw=STEM_MODES[name])
+        outs, n_feats = head_outputs(tr, batch)
+        loss = loss_of(tr, outs, n_feats, batch)
+        g = torch.autograd.grad(loss, tr.params, allow_unused=True)
+        grads[name] = (float(loss.detach()), torch.cat([(t if t is not None else torch.zeros_like(p)).reshape(-1)
+                                               for t, p in zip(g, tr.params)]))
+        del tr, outs, g
+        torch.cuda.empty_cache()
+    l0, g0 = grads["plain"]
+    for name, (loss, g) in grads.items():
+        rel_l, rel_g = abs(loss - l0) / abs(l0), float((g - g0).norm() / g0.norm())
+        out[f"{name} f32"] = {"loss": loss, "loss_rel": rel_l, "grad_rel_l2": rel_g}
+        print(f"stem train [{name}, f32]: loss {loss:.6f} (rel diff {rel_l:.2e}), gradient rel L2 {rel_g:.2e} "
+              f"vs the plain stem")
+        check(rel_l <= STEM_LOSS_TOL and rel_g <= STEM_GRAD_TOL,
+              f"stem train {name} f32: loss rel {rel_l:.2e}, gradient rel {rel_g:.2e}")
+    return out
+
+
+def phase_stem_dp(batch, card: str):
+    """55. stem_deep=1 through NCCL at world size 1: one f32 micro-step of
+    ``Trainer(mesh=)`` (the packed IQBNs' moments through the collectives) against
+    the same micro-step without a mesh: each IQBN running statistic within
+    STEM_STATS_TOL of its max |value|, the loss within STEM_LOSS_TOL."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from quan_ultralytics_tpu_torch.parallel import distributed
+    from quan_ultralytics_tpu_torch.parallel.mesh import make_mesh
+
+    backend = distributed.default_backend(DEVICE)
+    distributed.initialize(backend=backend, init_method=f"tcp://localhost:{distributed.free_port()}",
+                           world_size=1, rank=0, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        runs = {}
+        for name, mesh in (("single", None), (backend, make_mesh(1, device=DEVICE))):
+            tr = make_trainer(torch.float32, mesh=mesh, model_kw={"stem_deep": 1})
+            _reset_counts()
+            loss, _ = tr.step(batch)
+            stats = {n: b.detach().clone() for n, b in tr.model.named_buffers() if n.endswith((".mean", ".var"))}
+            runs[name] = (float(loss), stats, _counts())
+            del tr
+    finally:
+        dist.destroy_process_group()
+    (la, sa, ca), (lb, sb, _) = runs[backend], runs["single"]
+    err = max(float((sa[n] - sb[n]).abs().max()) / max(float(sb[n].abs().max()), 1e-6) for n in sb)
+    loss_rel = abs(la - lb) / abs(lb)
+    print(f"stem dp [{backend}, world 1, deep 1, f32]: IQBN statistics max abs diff / max|value| {err:.2e} over {len(sb)} "
+          f"buffers, loss rel diff {loss_rel:.2e}, launches {ca}; {card}")
+    check(err <= STEM_STATS_TOL and loss_rel <= STEM_LOSS_TOL and ca["qattn_bwd"] == 1,
+          f"stem dp: IQBN statistics {err:.2e}, loss {loss_rel:.2e}, launches {ca}")
+    return {"backend": backend, "iqbn_max_rel_diff": err, "loss_rel_diff": loss_rel, "launches": ca}
+
+
+def phase_assigner(batch, x, card: str, calls: int = 3):
+    """56. The assigner's forms on the OBB train batch (1024, M = 128 padded boxes
+    an image): the assigner's inputs of one ``obb_loss`` call, captured; the
+    sparse form's targets against the dense form's, bit for bit, in bf16 (the
+    trainer's) and f32; the loss layer (obb_loss + backward) dense and sparse:
+    device ms and peak memory; the assigner alone at topk 16 (``iter``) and 32
+    (``chunk``; and sparse); then NMS with ``defer_argmax`` against the default
+    on the predict batch: the same detections, and ``infer`` ms."""
+    from quan_ultralytics_tpu_torch.engine.predictor import Predictor
+    from quan_ultralytics_tpu_torch.losses import detect as ld
+    from quan_ultralytics_tpu_torch.losses import tal
+
+    tr = make_trainer(torch.bfloat16)
+    with torch.no_grad():
+        outs, n_feats = head_outputs(tr, batch)
+    leaves = [t.detach().requires_grad_() for t in outs]
+    captured = []
+    original = ld.task_aligned_assigner
+    ld.task_aligned_assigner = lambda *a, **kw: captured.append((a, kw)) or original(*a, **kw)
+    try:
+        loss_of(tr, leaves, n_feats, batch)
+    finally:
+        ld.task_aligned_assigner = original
+    args, kw = captured[0]
+    out = {"bitwise": {}}
+    for bf16 in (True, False):
+        k = {**kw, "bf16_metric": bf16}
+        dense, sparse = (tal.task_aligned_assigner(*args, **{**k, "impl": impl}) for impl in ("dense", "sparse"))
+        same = all(torch.equal(getattr(dense, f), getattr(sparse, f)) for f in tal.AssignResult._fields)
+        out["bitwise"]["bf16" if bf16 else "f32"] = same
+        check(same and bool(dense.fg_mask.any()), f"assigner: sparse != dense (bf16 metric {bf16})")
+
+    def measure(fn, tag):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        prof = _device_profile(fn, calls, tag)
+        return {"device_ms": prof["device_ms"], "device_ops": prof.get("device_ops"), "peak_mib": peak}
+
+    for impl in ("dense", "sparse"):
+        tr.cfg.assigner_impl = impl
+        out[f"loss_layer {impl}"] = measure(
+            lambda: torch.autograd.grad(loss_of(tr, leaves, n_feats, batch), leaves), f"loss layer {impl}")
+    tr.cfg.assigner_impl = "dense"
+    for name, k in (("topk16 iter", dict(topk=16, topk_impl="iter")), ("topk32 chunk", dict(topk=32)),
+                    ("topk32 sparse", dict(topk=32, impl="sparse")), ("topk10 sparse", dict(impl="sparse")),
+                    ("topk10 iter", {})):
+        out[f"assigner {name}"] = measure(lambda: tal.task_aligned_assigner(*args, **{**kw, **k}), name)
+    for key, r in out.items():
+        if key != "bitwise":
+            print(f"assigner [{key}], M = {TRAIN_M}: device busy "
+                  + (f"{r['device_ms']:.3f} ms" if r["device_ms"] is not None else "not measured")
+                  + f", peak {r['peak_mib']:.1f} MiB above the inputs; {card}")
+    print(f"assigner: sparse targets == dense bit for bit {out['bitwise']}")
+    del tr, leaves, outs
+    model = seeded_model(torch.bfloat16, fused_1x1=True)
+    preds = {d: Predictor(model, imgsz=IMGSZ, conf=0.25, defer_argmax=d) for d in (False, True)}
+    res = {d: p.infer(x) for d, p in preds.items()}
+    same = all(torch.equal(a, b) for a, b in zip(res[False][:2], res[True][:2]))
+    check(same and int(res[False][1].sum()) > 0, "defer_argmax: the detections differ")
+    ms = {False: [], True: []}
+    for r in range(STEM_ROUNDS):
+        for d in ((False, True) if r % 2 == 0 else (True, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                preds[d].infer(x)
+            torch.cuda.synchronize()
+            ms[d].append(1e3 * (time.perf_counter() - t0) / 5)
+    out["defer_argmax"] = {"same_detections": same, "infer_ms": statistics.median(ms[True]),
+                           "infer_ms_default": statistics.median(ms[False])}
+    print(f"defer_argmax: the same detections ({int(res[True][1].sum())}); infer {out['defer_argmax']['infer_ms']:.3f} "
+          f"ms against {out['defer_argmax']['infer_ms_default']:.3f} by default (host clock, medians of "
+          f"{STEM_ROUNDS} rounds); {card}")
+    return out
+
+
+def phase_readers(root: Path, card: str, reps: int = 20):
+    """57. The readers' newer formats (tests/fixtures/reader_fixtures.json:
+    progressive JPEG, an EXIF-rotated JPEG, an Adam7 PNG) through the val loader
+    of a set made of them: each image against its OpenCV pixel digest, and the
+    decode ms of each (`native.imread`, mean of ``reps``)."""
+    import hashlib
+    import shutil
+
+    from quan_ultralytics_tpu_torch.cfg.datasets import DOTA_V1
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data.native import native
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
+    digests = json.loads((fixtures / "reader_fixtures.json").read_text())
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    for name in digests:
+        shutil.copy(fixtures / name, root / "images" / "val" / name)
+        (root / "labels" / "val" / f"{Path(name).stem}.txt").write_text("0 0.2 0.2 0.6 0.2 0.6 0.6 0.2 0.6\n")
+    cfg = {"path": str(root), "train": "images/val", "val": "images/val", "names": DOTA_V1["names"]}
+    ds = YOLODataset(cfg, "val", task="obb")
+    out = {}
+    for i in range(len(ds)):
+        name = Path(ds.samples[i].im_file).name
+        im = ds.load_image(i)
+        ok = list(im.shape) == digests[name]["shape"] and \
+            hashlib.sha256(np.ascontiguousarray(im).tobytes()).hexdigest() == digests[name]["sha256"]
+        check(ok, f"readers: {name} does not decode to its OpenCV pixels")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            native.imread(root / "images" / "val" / name)
+        out[name] = {"decode_ms": 1e3 * (time.perf_counter() - t0) / reps, "shape": list(im.shape)}
+    loader = build_dataloader(ds, batch_size=len(ds), imgsz=256, augment=False, shuffle=False)
+    n = sum(int(b["img"].shape[0]) for b in loader)
+    check(n == len(digests), f"readers: the val loader gave {n} images")
+    times = ", ".join(f"{k} {v['shape']} {v['decode_ms']:.3f} ms" for k, v in out.items())
+    print(f"readers: {times} (decode, mean of {reps}); through the val loader, each equal to its OpenCV "
+          f"digest; {card}")
+    return out
+
+
 def lap(t_start: float, what: str) -> None:
     """Print the script's seconds so far, after ``what``."""
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
@@ -4946,6 +5306,17 @@ def main() -> int:
     forms = phase_conv_forms(x, tables)
     print(f"conv forms phase: {time.perf_counter() - t_forms:.1f} s")
     lap(t_start, "the conv forms phase")
+    t_stem = time.perf_counter()
+    stem_batch = make_train_batch(0)
+    stem = {"predict": phase_stem_predict(x, card, tables), "train": phase_stem_train(stem_batch, card),
+            "dp": phase_stem_dp(stem_batch, card), "assigner": phase_assigner(stem_batch, x, card)}
+    del stem_batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_readers_") as tmp:
+        stem["readers"] = phase_readers(Path(tmp) / "readers", card)
+    stem["seconds"] = time.perf_counter() - t_stem
+    print(f"stem, assigner and readers phases: {stem['seconds']:.1f} s")
+    lap(t_start, "the stem, assigner and readers phases")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -4959,7 +5330,8 @@ def main() -> int:
              "train_grads": train_grads, "train_speed": train_speed,
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
              "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose, "classify": classify,
-             "hybrid": hybrid, "tools": tools, "plots": plots, "conv_forms": forms, "data_parallel": dp},
+             "hybrid": hybrid, "tools": tools, "plots": plots, "conv_forms": forms, "data_parallel": dp,
+             "stem": stem},
             indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
@@ -5056,6 +5428,19 @@ def main() -> int:
         if "train" in path:
             check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
         elif path != "int8":
+            check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the stem's forms: predict (K1 and K3), a train micro-step with and without stem_remat (K1 and K2), NCCL
+    for name, r in stem["predict"]["modes"].items():
+        det_launches[f"stem_{name}_predict"] = r["launches"]
+    for key, r in stem["train"].items():
+        if "launches" in r:
+            det_launches[f"stem_{key.replace(' ', '_')}_train"] = r["launches"]
+    det_launches["stem_deep1_dp_nccl_train"] = stem["dp"]["launches"]
+    for path in [k for k in det_launches if k.startswith("stem_")]:
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        if path.endswith("_train"):
+            check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
+        else:
             check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     cls_t = cls_yolo["timing"]
     kernels = [
@@ -5159,8 +5544,16 @@ def main() -> int:
     print(json.dumps({"data_parallel": {"nccl": dp["nccl"], "gloo": dp["gloo"]}, "int8": {
         k: v for k, v in dp["int8"].items() if k != "rounds"}, "split_dota": dp["split_dota"],
         "seconds": dp["seconds"]}, default=str))
+    print(json.dumps({"stem": {
+        "predict": {n: {k: v for k, v in r.items() if not k.endswith("_rounds")}
+                    for n, r in stem["predict"]["modes"].items()},
+        "train": stem["train"], "dp": stem["dp"], "assigner": stem["assigner"], "readers": stem["readers"],
+        "seconds": stem["seconds"]}}, default=str))
     # ROADMAP item 4: the TPU-chosen defaults, by the numbers of this run
     print(json.dumps({"defaults": {
+        "stem": {"choice": stem["predict"]["default"], "faster": stem["predict"]["faster"],
+                 "device_ms": {n: r["device_ms"] for n, r in stem["predict"]["modes"].items()},
+                 "host_ms": {n: r["host_ms"] for n, r in stem["predict"]["modes"].items()}},
         "conv_forms": {w: {"mean_device_ms": r["mean_device_ms"], "best": r["best"],
                            "host_ms": {a: [x["host_ms"] for x in rs] for a, rs in r["arms"].items()}}
                        for w, r in forms.items() if w != "fused_1x1"},

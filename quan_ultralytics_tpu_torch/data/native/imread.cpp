@@ -4,10 +4,15 @@
 // called through ctypes from native.py, which parses PNG chunks and inflates
 // their data with Python's zlib.
 //
-// JPEG: baseline and extended sequential Huffman files, 8-bit samples,
-// interleaved or not, restart intervals, any integer chroma subsampling. The
-// arithmetic is libjpeg-turbo's, so the pixels equal what OpenCV (built with
-// libjpeg-turbo) gives:
+// JPEG: baseline, extended sequential and progressive Huffman files, 8-bit
+// samples, interleaved or not, restart intervals, any integer chroma
+// subsampling. A progressive file's scans (spectral selection and successive
+// approximation: DC first and refinement, AC first and refinement with EOB
+// runs, jdphuff.c) fill a coefficient buffer, which the same IDCT and
+// upsampling then turn into pixels once its last scan is read, as libjpeg
+// does without buffered-image mode (a complete file's coefficients take no
+// block smoothing). The arithmetic is libjpeg-turbo's, so the pixels equal
+// what OpenCV (built with libjpeg-turbo) gives:
 //   * the accurate integer IDCT (jidctint.c, jpeg_idct_islow) and its range
 //     limit table (jdmaster.c, prepare_range_limit_table);
 //   * "fancy" triangle upsampling of 2x1, 2x2 and 1x2 subsampled chroma
@@ -15,9 +20,8 @@
 //     replicated as the main controller's context rows are (jdmainct.c), and
 //     replication for the other ratios (int_upsample);
 //   * the fixed-point YCbCr->RGB tables (jdcolor.c, build_ycc_rgb_table).
-// Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and CMYK
-// files are refused with an error code that native.py raises as
-// NotImplementedError.
+// Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files are
+// refused with an error code that native.py raises as NotImplementedError.
 
 #include <cmath>
 #include <cstdint>
@@ -30,7 +34,7 @@ enum Status {
   OK = 0,
   E_TRUNCATED = 1,
   E_NOT_JPEG = 2,
-  E_PROGRESSIVE = 3,
+  E_HIERARCHICAL = 3,
   E_ARITHMETIC = 4,
   E_LOSSLESS = 5,
   E_PRECISION = 6,
@@ -48,7 +52,7 @@ const char* const kMessages[] = {
     "ok",
     "the data ends before the image does",
     "not a JPEG file",
-    "progressive JPEG is not supported",
+    "hierarchical progressive JPEG is not supported",
     "arithmetic-coded JPEG is not supported",
     "lossless or hierarchical JPEG is not supported",
     "only 8-bit JPEG samples are supported",
@@ -179,6 +183,12 @@ inline int decode(BitReader& br, const Huffman& h) {
 
 inline int extend(uint32_t v, int s) {
   return (v < (1u << (s - 1))) ? (int)v - (1 << s) + 1 : (int)v;
+}
+
+inline uint32_t bits(BitReader& br, int n) {  // n in 0..16
+  if (n == 0) return 0;
+  if (br.cnt < n) br.fill();
+  return br.get(n);
 }
 
 // ---- the accurate integer IDCT, jidctint.c jpeg_idct_islow -----------------
@@ -322,6 +332,9 @@ struct Component {
   int plane_w = 0, plane_h = 0;  // samples, whole MCUs
   int comp_w = 0, comp_h = 0;    // libjpeg's downsampled_width / _height
   std::vector<uint8_t> plane;
+  std::vector<int16_t> coef;     // progressive: 64 a block, plane_w / 8 blocks a row
+  uint16_t qt_latched[64];       // progressive: the table at the component's first scan
+  bool latched = false;
 };
 
 struct Decoder {
@@ -333,6 +346,8 @@ struct Decoder {
   bool frame = false, jfif = false, adobe = false;
   int adobe_transform = -1;
   int restart_interval = 0;
+  bool progressive = false;
+  int eobrun = 0;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -353,9 +368,10 @@ struct Decoder {
     size_t s;
     int len, st = read_segment(&s, &len);
     if (st) return st;
-    if (marker == 0xC2 || marker == 0xC6) return E_PROGRESSIVE;
+    if (marker == 0xC6) return E_HIERARCHICAL;
     if (marker >= 0xC9) return E_ARITHMETIC;
-    if (marker != 0xC0 && marker != 0xC1) return E_LOSSLESS;
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2) return E_LOSSLESS;
+    progressive = marker == 0xC2;
     if (len < 8) return E_BAD_DATA;
     if (data[s] != 8) return E_PRECISION;
     height = u16(s + 1);
@@ -386,6 +402,7 @@ struct Decoder {
       c.comp_w = (int)(((long)width * c.h + hmax - 1) / hmax);
       c.comp_h = (int)(((long)height * c.v + vmax - 1) / vmax);
       c.plane.assign((size_t)c.plane_w * c.plane_h, 0);
+      if (progressive) c.coef.assign((size_t)c.plane_w * c.plane_h, 0);
     }
     frame = true;
     return OK;
@@ -461,6 +478,108 @@ struct Decoder {
     return OK;
   }
 
+  // ---- progressive scans (jdphuff.c decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine)
+
+  int16_t* block_at(Component& c, long by, long bx) {
+    return c.coef.data() + ((size_t)by * (c.plane_w / 8) + bx) * 64;
+  }
+
+  int dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    int s = decode(br, dc[c.dc_tbl]);
+    if (s < 0 || s > 15) return E_HUFFMAN;
+    if (s) c.pred += extend(bits(br, s), s);
+    blk[0] = (int16_t)(c.pred * (1 << al));
+    return OK;
+  }
+
+  void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (bits(br, 1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  int ac_first(BitReader& br, const Huffman& h, int16_t* blk, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return OK;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode(br, h);
+      if (rs < 0) return E_HUFFMAN;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) return E_BAD_DATA;
+        blk[kNatural[k]] = (int16_t)(extend(bits(br, s), s) * (1 << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits(br, r);
+        --eobrun;
+        break;
+      }
+    }
+    return OK;
+  }
+
+  int ac_refine(BitReader& br, const Huffman& h, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    auto correct = [&](int16_t* coef) {  // a refinement bit of a nonzero coefficient
+      if (bits(br, 1) && (*coef & p1) == 0) *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode(br, h);
+        if (rs < 0) return E_HUFFMAN;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits(br, 1) ? p1 : m1;  // a newly nonzero coefficient (s == 1 in a valid file)
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits(br, r);
+          break;
+        }
+        // skip r zero coefficients, refining the nonzero ones met on the way
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > 63) return E_BAD_DATA;
+          blk[kNatural[k]] = (int16_t)s;
+        }
+      }
+    }
+    if (eobrun > 0) {  // the band's rest is in an EOB run: refine its nonzero coefficients
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) correct(coef);
+      }
+      --eobrun;
+    }
+    return OK;
+  }
+
+  // the coefficient buffers through the IDCT into the planes, after the last scan
+  void idct_planes() {
+    int32_t blk[64];
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      const uint16_t* q = c.latched ? c.qt_latched : qt[c.tq];
+      for (int by = 0; by < c.plane_h / 8; ++by)
+        for (int bx = 0; bx < c.plane_w / 8; ++bx) {
+          const int16_t* src = block_at(c, by, bx);
+          for (int k = 0; k < 64; ++k) blk[k] = src[k];
+          idct_islow(blk, q, c.plane.data() + (size_t)by * 8 * c.plane_w + bx * 8, c.plane_w);
+        }
+    }
+  }
+
   // finds the RSTn marker that ends a restart interval and moves past it
   int next_restart(BitReader& br) {
     const uint8_t* p = br.p;
@@ -492,12 +611,28 @@ struct Decoder {
       if (!sc[i]) return E_BAD_DATA;
       sc[i]->dc_tbl = data[s + 2 + 2 * i] >> 4;
       sc[i]->ac_tbl = data[s + 2 + 2 * i] & 15;
-      if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3 || !dc[sc[i]->dc_tbl].defined ||
-          !ac[sc[i]->ac_tbl].defined || !qt_defined[sc[i]->tq])
-        return E_HUFFMAN;
+      if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3 || !qt_defined[sc[i]->tq]) return E_HUFFMAN;
       sc[i]->pred = 0;
     }
     int ss = data[s + 1 + 2 * ns], se = data[s + 2 + 2 * ns], ahal = data[s + 3 + 2 * ns];
+    int ah = ahal >> 4, al = ahal & 15;
+    if (progressive) {
+      // a DC scan (Ss = 0) takes Se = 0, an AC scan one component (jdinput.c / jdphuff.c start_pass)
+      if ((ss == 0 && se != 0) || (ss > 0 && (se < ss || se > 63 || ns != 1)) || ah > 13 || al > 13)
+        return E_BAD_DATA;
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[i];
+        bool need_dc = ss == 0 && ah == 0, need_ac = ss > 0;
+        if ((need_dc && !dc[c.dc_tbl].defined) || (need_ac && !ac[c.ac_tbl].defined)) return E_HUFFMAN;
+        if (!c.latched) {  // jdinput.c latch_quant_tables
+          memcpy(c.qt_latched, qt[c.tq], sizeof(c.qt_latched));
+          c.latched = true;
+        }
+      }
+      return progressive_scan(sc, ns, ss, se, ah, al);
+    }
+    for (int i = 0; i < ns; ++i)
+      if (!dc[sc[i]->dc_tbl].defined || !ac[sc[i]->ac_tbl].defined) return E_HUFFMAN;
     if (ss != 0 || se != 63 || ahal != 0) return E_BAD_DATA;
 
     BitReader br;
@@ -542,12 +677,60 @@ struct Decoder {
       }
     }
     (void)total;
-    // continue the marker loop at the marker that ends the scan
+    end_scan(br);
+    return OK;
+  }
+
+  // continue the marker loop at the marker that ends the scan
+  void end_scan(const BitReader& br) {
     const uint8_t* p = br.p;
     while (p + 1 < br.end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF &&
                                !(p[1] >= 0xD0 && p[1] <= 0xD7)))
       ++p;
     pos = (size_t)(p - data);
+  }
+
+  int progressive_scan(Component** sc, int ns, int ss, int se, int ah, int al) {
+    BitReader br;
+    br.p = data + pos;
+    br.end = data + n;
+    eobrun = 0;
+    long mcus_x = mcux, mcus_y = mcuy;
+    if (ns == 1) {  // non-interleaved: the component's own blocks
+      mcus_x = (sc[0]->comp_w + 7) / 8;
+      mcus_y = (sc[0]->comp_h + 7) / 8;
+    }
+    long done = 0;
+    for (long my = 0; my < mcus_y; ++my) {
+      for (long mx = 0; mx < mcus_x; ++mx) {
+        if (restart_interval && done && done % restart_interval == 0) {
+          int st = next_restart(br);
+          if (st) return st;
+          for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+          eobrun = 0;
+        }
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[i];
+          int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+          for (int by = 0; by < nv; ++by)
+            for (int bx = 0; bx < nh; ++bx) {
+              int16_t* blk = block_at(c, my * nv + by, mx * nh + bx);
+              int st = OK;
+              if (ss == 0) {
+                if (ah == 0) st = dc_first(br, c, blk, al);
+                else dc_refine(br, blk, al);
+              } else {
+                st = ah == 0 ? ac_first(br, ac[c.ac_tbl], blk, ss, se, al)
+                             : ac_refine(br, ac[c.ac_tbl], blk, ss, se, al);
+              }
+              if (st) return st;
+            }
+        }
+        if (br.overrun()) return E_TRUNCATED;
+        ++done;
+      }
+    }
+    end_scan(br);
     return OK;
   }
 
@@ -722,6 +905,7 @@ int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int height, int width
   if (st) return st;
   if (!d.frame) return E_NO_FRAME;
   if (d.height != height || d.width != width) return E_SIZE;
+  if (d.progressive) d.idct_planes();
   size_t npix = (size_t)width * height;
   if (d.ncomp == 1) {
     std::vector<uint8_t> y(npix);

@@ -6,13 +6,17 @@ the pixels OpenCV gives (gray replicated to three channels, alpha dropped).
 
 * PNG: chunks are parsed and their data inflated here with ``zlib``; the row
   filters are undone in C++ (Paeth and Average depend on the left neighbour,
-  so a row cannot be vectorised in numpy). 8-bit gray, gray+alpha, RGB, RGBA
-  and palette images, and 1/2/4-bit gray and palette images; 16-bit and
-  interlaced (Adam7) files raise `NotImplementedError`.
-* JPEG: baseline and extended sequential Huffman files, decoded in C++ with
-  libjpeg-turbo's arithmetic (``imread.cpp``); progressive, arithmetic-coded,
-  lossless, 12-bit and CMYK files, and files whose EXIF orientation asks for
-  a rotation, raise `NotImplementedError`.
+  so a row cannot be vectorised in numpy). 8- and 16-bit gray, gray+alpha,
+  RGB and RGBA, palette images and 1/2/4-bit gray and palette images, plain
+  or interlaced (Adam7: each of the seven passes unfiltered alone, then put
+  in place). 16-bit samples keep their high byte, as OpenCV 5's
+  ``IMREAD_COLOR`` gives them.
+* JPEG: baseline, extended sequential and progressive Huffman files, decoded
+  in C++ with libjpeg-turbo's arithmetic (``imread.cpp``); arithmetic-coded,
+  lossless, hierarchical, 12-bit and CMYK files raise `NotImplementedError`.
+* EXIF orientation (a JPEG's APP1 ``Exif`` segment, a PNG's ``eXIf`` chunk):
+  orientations 2-8 flip and transpose the pixels as ``IMREAD_COLOR`` does
+  (`apply_orientation`), and `read_shape` gives the turned size.
 
 `imwrite` is the counterpart of ``cv2.imwrite`` of an RGB (or gray) array,
 chosen by the file's suffix:
@@ -122,20 +126,33 @@ def _exif_orientation(tiff: bytes) -> int:
     return 1
 
 
-def _refuse_rotation(orientation: int, path: PathLike) -> None:
-    # OpenCV's IMREAD_COLOR turns the image by its EXIF orientation; this reader does not
-    if orientation not in (0, 1):
-        raise NotImplementedError(f"{path}: EXIF orientation {orientation} (a rotated image)")
+def apply_orientation(im: np.ndarray, orientation: int) -> np.ndarray:
+    """``im`` ``[h, w, c]`` turned by its EXIF orientation as OpenCV's
+    ``IMREAD_COLOR`` turns it (imgcodecs ``ExifTransform``): 2 flips left-right,
+    3 turns by 180 degrees, 4 flips top-bottom, 5 transposes, 6-8 transpose and
+    then flip left-right, both ways or top-bottom. Other values leave it."""
+    if orientation in (5, 6, 7, 8):
+        im = im.transpose(1, 0, 2)
+    flip = {2: (False, True), 3: (True, True), 4: (True, False), 6: (False, True),
+            7: (True, True), 8: (True, False)}.get(orientation)
+    if flip is not None:
+        im = im[::-1 if flip[0] else 1, ::-1 if flip[1] else 1]
+    return np.ascontiguousarray(im)
+
+
+def _turned(shape: Tuple[int, int], orientation: int) -> Tuple[int, int]:
+    """``(h, w)`` after `apply_orientation`."""
+    return shape[::-1] if orientation in (5, 6, 7, 8) else shape
 
 
 # ---------------------------------------------------------------- JPEG
 
 
-def _jpeg_header(data: bytes, path: PathLike) -> Tuple[int, int]:
-    """(h, w) from the frame header, after checking the EXIF orientation."""
+def _jpeg_header(data: bytes, path: PathLike) -> Tuple[int, int, int]:
+    """(h, w) from the frame header, and the EXIF orientation (1 without one)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG file")
-    pos = 2
+    pos, orientation = 2, 1
     while pos + 4 <= len(data):
         if data[pos] != 0xFF:
             pos += 1
@@ -146,13 +163,13 @@ def _jpeg_header(data: bytes, path: PathLike) -> Tuple[int, int]:
             continue
         length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
         seg = data[pos + 4:pos + 2 + length]
-        if marker == 0xE1 and seg[:6] == b"Exif\x00\x00":
-            _refuse_rotation(_exif_orientation(seg[6:]), path)
+        if marker == 0xE1 and seg[:6] == b"Exif\x00\x00" and orientation == 1:
+            orientation = _exif_orientation(seg[6:])
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             if len(seg) < 5:
                 break
             h, w = struct.unpack(">HH", seg[1:5])
-            return h, w
+            return h, w, orientation
         if marker in (0xD9, 0xDA):
             break
         pos += 2 + length
@@ -160,11 +177,11 @@ def _jpeg_header(data: bytes, path: PathLike) -> Tuple[int, int]:
 
 
 def _decode_jpeg(data: bytes, path: PathLike) -> np.ndarray:
-    h, w = _jpeg_header(data, path)
+    h, w, orientation = _jpeg_header(data, path)
     buf = np.frombuffer(data, np.uint8)
     out = np.empty((h, w, 3), np.uint8)
     _check(library().jpeg_decode(_ptr(buf), len(data), _ptr(out), h, w), path)
-    return out
+    return apply_orientation(out, orientation)
 
 
 # ---------------------------------------------------------------- PNG
@@ -194,48 +211,73 @@ def _png_header(data: bytes, path: PathLike):
     return struct.unpack(">IIBBBBB", data[16:29])  # w, h, depth, colour, compression, filter, interlace
 
 
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(raw: np.ndarray, w: int, h: int, depth: int, colour: int, path: PathLike
+                 ) -> Tuple[np.ndarray, int]:
+    """Unfilter ``h`` rows of a ``w``-pixel (sub)image from ``raw``: ``([h, w, c]``
+    samples (uint8, or uint16 at depth 16), bytes consumed)."""
+    channels = _PNG_CHANNELS[colour]
+    rowbytes = (w * channels * depth + 7) // 8
+    need = h * (rowbytes + 1)
+    if raw.size < need:
+        raise ValueError(f"{path}: the image data is shorter than its header says")
+    rows = np.empty((h, rowbytes), np.uint8)
+    bpp = max(1, channels * depth // 8)
+    _check(library().png_unfilter(_ptr(raw), h, rowbytes, bpp, _ptr(rows)), path)
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w, channels), need
+    if depth < 8:  # unpack the samples, most significant bits first
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+        rows = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+        if colour == 0:  # libpng's expand_gray_1_2_4_to_8 scales to 0..255
+            rows = rows * np.uint8(255 // ((1 << depth) - 1))
+    return rows.reshape(h, w, channels), need
+
+
 def _decode_png(data: bytes, path: PathLike) -> np.ndarray:
     w, h, depth, colour, compression, filt, interlace = _png_header(data, path)
-    if colour not in _PNG_CHANNELS or compression or filt:
+    if colour not in _PNG_CHANNELS or compression or filt or interlace > 1:
         raise ValueError(f"{path}: bad PNG header")
-    if depth == 16:
-        raise NotImplementedError(f"{path}: 16-bit PNG is not supported")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced (Adam7) PNG is not supported")
-    if depth != 8 and not (colour in (0, 3) and depth in (1, 2, 4)):
+    if not (depth in (8, 16) and colour != 3) and not (colour in (0, 3) and depth in (1, 2, 4, 8)):
         raise ValueError(f"{path}: bit depth {depth} is not allowed for colour type {colour}")
-    idat, palette = [], None
+    idat, palette, orientation = [], None, 1
     for kind, payload in _png_chunks(data, path):
         if kind == b"IDAT":
             idat.append(payload)
         elif kind == b"PLTE":
             palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
         elif kind == b"eXIf":
-            _refuse_rotation(_exif_orientation(payload), path)
-    channels = _PNG_CHANNELS[colour]
-    rowbytes = (w * channels * depth + 7) // 8
+            orientation = _exif_orientation(payload)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (rowbytes + 1):
-        raise ValueError(f"{path}: the image data is shorter than its header says")
-    rows = np.empty((h, rowbytes), np.uint8)
-    bpp = max(1, channels * depth // 8)
-    _check(library().png_unfilter(_ptr(raw), h, rowbytes, bpp, _ptr(rows)), path)
-    if depth < 8:  # unpack the samples, most significant bits first
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
-        rows = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
-        if colour == 0:  # libpng's expand_gray_1_2_4_to_8 scales to 0..255
-            rows = rows * np.uint8(255 // ((1 << depth) - 1))
-    px = rows.reshape(h, w, channels)
+    if not interlace:
+        px = _png_samples(raw, w, h, depth, colour, path)[0]
+    else:  # Adam7: seven reduced images one after the other, each filtered alone
+        px = np.zeros((h, w, _PNG_CHANNELS[colour]), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no rows, not even filter bytes
+            sub, used = _png_samples(raw[at:], pw, ph, depth, colour, path)
+            px[y0::dy, x0::dx] = sub
+            at += used
+    if depth == 16:  # IMREAD_COLOR keeps the high byte (libpng's png_set_strip_16)
+        px = (px >> 8).astype(np.uint8)
     if colour == 3:
         if palette is None:
             raise ValueError(f"{path}: palette image without a PLTE chunk")
         idx = px[..., 0]
         if idx.size and int(idx.max()) >= len(palette):
             raise ValueError(f"{path}: palette index out of range")
-        return palette[idx]
-    if colour in (0, 4):
-        return np.repeat(px[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(px[..., :3])
+        out = palette[idx]
+    elif colour in (0, 4):
+        out = np.repeat(px[..., :1], 3, axis=-1)
+    else:
+        out = np.ascontiguousarray(px[..., :3])
+    return apply_orientation(out, orientation)
 
 
 # ---------------------------------------------------------------- public
@@ -255,15 +297,27 @@ def imread(path: PathLike) -> np.ndarray:
 
 
 def read_shape(path: PathLike) -> Tuple[int, int]:
-    """``(h, w)`` of a PNG or JPEG file from its header, without decoding it."""
+    """``(h, w)`` of a PNG or JPEG file as `imread` returns it (turned by its
+    EXIF orientation, as OpenCV's), from its headers, without decoding it."""
     with open(path, "rb") as fh:
-        head = fh.read(64)
+        head = fh.read(33)
         if head[:8] == PNG_SIGNATURE:
             w, h = _png_header(head, path)[:2]
-            return h, w
+            orientation = 1
+            while True:  # the chunks before the image data, skipping their payloads
+                length, kind = struct.unpack(">I4s", fh.read(8).rjust(8, b"\0"))
+                if kind in (b"IDAT", b"IEND", b"\0\0\0\0"):
+                    break
+                if kind == b"eXIf":
+                    orientation = _exif_orientation(fh.read(length))
+                    fh.seek(4, 1)
+                else:
+                    fh.seek(length + 4, 1)
+            return _turned((h, w), orientation)
         if head[:2] != b"\xff\xd8":
             raise NotImplementedError(f"{path}: only PNG and JPEG files are read")
-        return _jpeg_header(head + fh.read(), path)
+        h, w, orientation = _jpeg_header(head + fh.read(), path)
+    return _turned((h, w), orientation)
 
 
 def _pixels(im: np.ndarray) -> np.ndarray:

@@ -37,7 +37,8 @@ from quan_ultralytics_tpu_torch.data.loaders import load_source
 from quan_ultralytics_tpu_torch.engine.predictor import Predictor, Results
 from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
 from quan_ultralytics_tpu_torch.engine.validator import Validator
-from quan_ultralytics_tpu_torch.models.tasks import FUSED_1X1, DetectionModel, resolve_device
+from quan_ultralytics_tpu_torch.models.tasks import (FUSED_1X1, STEM_DEEP, STEM_S2D, DetectionModel,
+                                                     resolve_device)
 from quan_ultralytics_tpu_torch.parallel.distributed import process_batch_slice
 from quan_ultralytics_tpu_torch.parallel.mesh import Mesh, replicate
 from quan_ultralytics_tpu_torch.utils import checkpoint
@@ -51,13 +52,18 @@ class YOLO:
     training casts to `TrainConfig.dtype` (bf16 by default) as the JAX trainer does.
     fused_1x1: run the 1x1 Conv+IQBN+SiLU sites through the fused kernel in eval
     (on by default: `models.tasks.FUSED_1X1`).
+    stem_s2d, stem_deep: the stem's form (`models.tasks.QUANYOLO`; defaults
+    `models.tasks.STEM_S2D` and `STEM_DEEP`), where the JAX facade reads
+    ``QUAN_STEM_S2D`` and ``QUAN_STEM_DEEP``; the weights are the same.
     """
 
     def __init__(self, model: str = "yolo11n-obb-quan.yaml", nc: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None,
-                 device: Optional[Union[str, torch.device]] = None, fused_1x1: bool = FUSED_1X1):
+                 device: Optional[Union[str, torch.device]] = None, fused_1x1: bool = FUSED_1X1,
+                 stem_s2d: bool = STEM_S2D, stem_deep: int = STEM_DEEP):
         self.device = resolve_device(device)
         self.dtype, self.fused_1x1 = dtype, fused_1x1
+        self.stem = {"stem_s2d": stem_s2d, "stem_deep": stem_deep}
         if str(model).endswith(".pt2"):
             from quan_ultralytics_tpu_torch.engine.exporter import ExportedBackend
 
@@ -78,7 +84,7 @@ class YOLO:
 
     def _build(self, nc: Optional[int]) -> DetectionModel:
         return DetectionModel.from_yaml(self.model_yaml, nc=nc, dtype=self.dtype, device=self.device,
-                                        fused_1x1=self.fused_1x1)
+                                        fused_1x1=self.fused_1x1, **self.stem)
 
     # ------------------------------------------------------------------
     def train(self, data: Union[str, Dict], epochs: int = 100, batch: int = 16,
@@ -300,7 +306,8 @@ class YOLO:
         it_count = [0]
 
         def train_fn(hyp):
-            m = YOLO(self.model_yaml, dtype=self.dtype, device=self.device, fused_1x1=self.fused_1x1)
+            m = YOLO(self.model_yaml, dtype=self.dtype, device=self.device, fused_1x1=self.fused_1x1,
+                     **self.stem)
             it_dir = str(Path(save_dir) / f"iter{it_count[0]}")
             it_count[0] += 1
             row = m.train(data, epochs=epochs, batch=batch, imgsz=imgsz,

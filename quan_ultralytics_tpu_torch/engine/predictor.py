@@ -228,9 +228,11 @@ class Predictor:
 
     def __init__(self, model: Union[DetectionModel, "ExportedBackend"], imgsz: int = 640,
                  conf: float = 0.25, iou: float = 0.45, max_det: int = 300,
-                 names: Optional[List[str]] = None, mesh: Optional[Mesh] = None):
+                 names: Optional[List[str]] = None, mesh: Optional[Mesh] = None,
+                 defer_argmax: bool = False):
         self.model = model
         self.imgsz, self.conf, self.iou, self.max_det = imgsz, conf, iou, max_det
+        self.defer_argmax = defer_argmax  # NMS's class id from the candidate rows (JAX's QUAN_NMS_DEFER_ARGMAX)
         self.names = names
         self.device = next(model.parameters()).device
         self.mesh = mesh
@@ -259,7 +261,8 @@ class Predictor:
         out = self.model(img)
         det, ok = non_max_suppression(self.model.decode(out), conf_thres=self.conf, iou_thres=self.iou,
                                       max_det=self.max_det, nc=self.model.nc,
-                                      rotated=self.model.task == "obb", extra_dim=self.model.extra_dim)
+                                      rotated=self.model.task == "obb", extra_dim=self.model.extra_dim,
+                                      defer_argmax=self.defer_argmax)
         return det, ok, out[2] if self.model.task == "segment" else None
 
     def __call__(self, images: Union[str, Path, np.ndarray, torch.Tensor,

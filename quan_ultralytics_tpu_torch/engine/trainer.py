@@ -87,6 +87,11 @@ class TrainConfig:
     # (chip_smoke.py phase 6) obb_loss and its backward at 128 padded boxes an
     # image take 10.32 ms of device time with it and 11.31 in f32.
     assigner_bf16: bool = True
+    # the assigner's form (losses/tal.py; the same targets either way): `dense`
+    # or `sparse`, and its top-k (`iter`, `chunk`, None: by topk), JAX's
+    # QUAN_ASSIGNER_IMPL and QUAN_TOPK_IMPL
+    assigner_impl: str = "dense"
+    topk_impl: Optional[str] = None
 
 
 def _param_label(name: str) -> str:
@@ -359,7 +364,8 @@ class Trainer:
     def head_loss(self, out, batch: Mapping) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The task's loss of the head's output ``out`` on a batch already on the device."""
         m = self.model
-        kw = dict(hyp=self.loss_hyp, assigner_bf16=self.cfg.assigner_bf16)
+        kw = dict(hyp=self.loss_hyp, assigner_bf16=self.cfg.assigner_bf16,
+                  assigner_impl=self.cfg.assigner_impl, topk_impl=self.cfg.topk_impl)
         if m.task == "pose":
             return pose_loss(out, batch, m.strides, m.nc, m.kpt_shape, m.reg_max, **kw)
         loss_fn = {"obb": obb_loss, "segment": segmentation_loss}.get(m.task, detection_loss)

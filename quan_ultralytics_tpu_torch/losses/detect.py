@@ -14,7 +14,7 @@ losses and gradients sum to the single-process ones (JAX's sharded step).
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,16 +75,20 @@ def detection_loss(
     reg_max: int = 16,
     hyp: LossHyp = LossHyp(),
     assigner_bf16: bool = False,
+    assigner_impl: str = "dense",
+    topk_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Axis-aligned v8 detection loss (reference loss.py:398-502).
 
     batch: ``cls`` ``[B, M]`` int, ``bboxes`` ``[B, M, 4]`` normalized xywh,
-    ``mask`` ``[B, M]`` bool. ``assigner_bf16`` as in `obb_loss`.
+    ``mask`` ``[B, M]`` bool. ``assigner_bf16``, ``assigner_impl`` and
+    ``topk_impl`` as in `obb_loss`.
     Returns ``(total, aux)`` with ``total`` = sum of the weighted terms times
     the batch size (the reference's ``loss.sum() * batch_size``).
     """
     loss_iou, loss_cls, loss_dfl, assign, ctx = detect_terms(
-        feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16)
+        feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16,
+        assigner_impl=assigner_impl, topk_impl=topk_impl)
     total = (hyp.box * loss_iou + hyp.cls * loss_cls + hyp.dfl * loss_dfl) * global_rows(ctx["B"])
     aux = {
         "box": hyp.box * loss_iou,
@@ -102,6 +106,8 @@ def detect_terms(
     nc: int,
     reg_max: int = 16,
     assigner_bf16: bool = False,
+    assigner_impl: str = "dense",
+    topk_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, AssignResult, Dict[str, Any]]:
     """The detect loss's core, shared with the segment and pose losses: the
     assigner and the class BCE, box CIoU and DFL terms (loss.py:339-355, :486).
@@ -135,6 +141,8 @@ def detect_terms(
         alpha=0.5,
         beta=6.0,
         bf16_metric=assigner_bf16,
+        impl=assigner_impl,
+        topk_impl=topk_impl,
     )
     target_scores_sum = global_sum(assign.target_scores.sum()).clamp(min=1.0)
     fg = assign.fg_mask
@@ -181,6 +189,8 @@ def obb_loss(
     reg_max: int = 16,
     hyp: LossHyp = LossHyp(),
     assigner_bf16: bool = False,
+    assigner_impl: str = "dense",
+    topk_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """OBB loss with the QUAN quaternion angular term (loss.py:853-1047).
 
@@ -188,7 +198,10 @@ def obb_loss(
     batch: ``cls`` ``[B, M]`` int, ``bboxes`` ``[B, M, 5]`` normalized xywhr
     (x, y, w, h in [0, 1], r in radians), ``mask`` ``[B, M]`` bool.
     ``assigner_bf16`` runs the assigner's metric chain in bf16 (the trainer
-    passes True; a standalone call keeps exact f32).
+    passes True; a standalone call keeps exact f32). ``assigner_impl``
+    (``dense`` | ``sparse``) and ``topk_impl`` (``iter`` | ``chunk``, None: by
+    ``topk``) pick the assigner's form (`losses.tal.task_aligned_assigner`):
+    the same targets either way.
     Returns ``(total, aux)`` with ``total`` = sum of the weighted terms times
     the batch size (the reference's ``loss.sum() * batch_size``).
     """
@@ -226,6 +239,8 @@ def obb_loss(
         beta=6.0,
         rotated=True,
         bf16_metric=assigner_bf16,
+        impl=assigner_impl,
+        topk_impl=topk_impl,
     )
     target_scores_sum = global_sum(assign.target_scores.sum()).clamp(min=1.0)
     fg = assign.fg_mask

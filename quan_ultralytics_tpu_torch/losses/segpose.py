@@ -11,7 +11,7 @@ decides which anchors enter, as in the JAX package. Everything runs in f32.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,6 +43,8 @@ def segmentation_loss(
     hyp: LossHyp = LossHyp(),
     max_fg: int = 64,
     assigner_bf16: bool = False,
+    assigner_impl: str = "dense",
+    topk_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Detect terms + mask BCE (reference loss.py:504-604): each selected
     anchor's mask ``mc @ proto`` (f32 logits) against its target's mask, inside
@@ -54,7 +56,8 @@ def segmentation_loss(
     """
     feats, mc, proto = preds
     loss_iou, loss_cls, loss_dfl, assign, ctx = detect_terms(
-        feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16)
+        feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16,
+        assigner_impl=assigner_impl, topk_impl=topk_impl)
     B, A = ctx["B"], ctx["A"]
     Hp, Wp = proto.shape[1:3]
     imgsz_h, imgsz_w = ctx["imgsz"]
@@ -97,6 +100,8 @@ def pose_loss(
     kobj_gain: float = 1.0,
     max_fg: int = 64,
     assigner_bf16: bool = False,
+    assigner_impl: str = "dense",
+    topk_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Detect terms + the OKS-style keypoint location loss (reference
     KeypointLoss, loss.py:90-110) + the visibility BCE (loss.py:687-786). The
@@ -107,7 +112,8 @@ def pose_loss(
     """
     feats, kpts = preds
     loss_iou, loss_cls, loss_dfl, assign, ctx = detect_terms(
-        feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16)
+        feats, batch, strides, nc, reg_max, assigner_bf16=assigner_bf16,
+        assigner_impl=assigner_impl, topk_impl=topk_impl)
     B, A = ctx["B"], ctx["A"]
     imgsz_h, imgsz_w = ctx["imgsz"]
     nk, ndim = kpt_shape

@@ -45,15 +45,22 @@ class QuaternionDropout(nn.Module):
         return x * keep.to(x.dtype)
 
 
+def _packed_kw(kw: dict, packed: bool) -> dict:
+    """A block's Conv keyword arguments, with the deep-packed stem's
+    ``packed="both"`` when its activations stay packed (ops/stem.py)."""
+    return {**kw, "packed": "both"} if packed else kw
+
+
 class Bottleneck(nn.Module):
-    """Standard bottleneck (reference block.py:447-461)."""
+    """Standard bottleneck (reference block.py:447-461). ``packed``: the input and
+    output are the deep-packed stem's channel-major r=2 packing."""
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
-                 k: Tuple[int, int] = (3, 3), e: float = 0.5, **kw):
+                 k: Tuple[int, int] = (3, 3), e: float = 0.5, packed: bool = False, **kw):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, k[0], 1, **kw)
-        self.cv2 = Conv(c_, c2, k[1], 1, g=g, **kw)
+        self.cv1 = Conv(c1, c_, k[0], 1, **_packed_kw(kw, packed))
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g, **_packed_kw(kw, packed))
         self.add = shortcut and c1 == c2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,18 +69,21 @@ class Bottleneck(nn.Module):
 
 
 class C3(nn.Module):
-    """CSP bottleneck with 3 convs (reference block.py:362-377)."""
+    """CSP bottleneck with 3 convs (reference block.py:362-377); ``packed`` as
+    `Bottleneck`'s (the concat of two packed tensors is the packing of theirs)."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
-                 e: float = 0.5, k: int = 3, bottleneck_e: float = 1.0, **kw):
+                 e: float = 0.5, k: int = 3, bottleneck_e: float = 1.0, packed: bool = False, **kw):
         super().__init__()
         c_ = int(c2 * e)
         self.n = n
-        self.cv1 = Conv(c1, c_, 1, 1, **kw)
-        self.cv2 = Conv(c1, c_, 1, 1, **kw)
+        pkw = _packed_kw(kw, packed)
+        self.cv1 = Conv(c1, c_, 1, 1, **pkw)
+        self.cv2 = Conv(c1, c_, 1, 1, **pkw)
         for i in range(n):
-            self.add_module(f"m{i}", Bottleneck(c_, c_, shortcut, g, k=(k, k), e=bottleneck_e, **kw))
-        self.cv3 = Conv(2 * c_, c2, 1, **kw)
+            self.add_module(f"m{i}", Bottleneck(c_, c_, shortcut, g, k=(k, k), e=bottleneck_e,
+                                                packed=packed, **kw))
+        self.cv3 = Conv(2 * c_, c2, 1, **pkw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.cv1(x)
@@ -83,25 +93,28 @@ class C3(nn.Module):
         return self.cv3(qconcat([a, b]))
 
 
-def C3k(c1, c2, n=1, shortcut=True, g=1, e=0.5, k=3, **kw) -> C3:
+def C3k(c1, c2, n=1, shortcut=True, g=1, e=0.5, k=3, packed=False, **kw) -> C3:
     """C3 with a custom bottleneck kernel size (reference block.py:888-897)."""
-    return C3(c1, c2, n, shortcut, g, e, k=k, bottleneck_e=1.0, **kw)
+    return C3(c1, c2, n, shortcut, g, e, k=k, bottleneck_e=1.0, packed=packed, **kw)
 
 
 class C3k2(nn.Module):
-    """Faster CSP bottleneck, YOLO11's workhorse (reference block.py:876-885)."""
+    """Faster CSP bottleneck, YOLO11's workhorse (reference block.py:876-885).
+    ``packed``: the deep-packed stem's channel-major layout throughout; the split
+    then takes the first ``c/4`` channels' groups of 4 phase entries."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
-                 g: int = 1, shortcut: bool = True, **kw):
+                 g: int = 1, shortcut: bool = True, packed: bool = False, **kw):
         super().__init__()
         c = int(c2 * e)  # hidden width in total quaternion channels
-        self.n, self.cpc = n, c // 4
-        self.cv1 = Conv(c1, 2 * c, 1, 1, **kw)
+        self.n, self.cpc = n, (c // 4) * (4 if packed else 1)
+        pkw = _packed_kw(kw, packed)
+        self.cv1 = Conv(c1, 2 * c, 1, 1, **pkw)
         for i in range(n):
-            m = (C3k(c, c, 2, shortcut, g, **kw) if c3k
-                 else Bottleneck(c, c, shortcut, g, k=(3, 3), e=0.5, **kw))
+            m = (C3k(c, c, 2, shortcut, g, packed=packed, **kw) if c3k
+                 else Bottleneck(c, c, shortcut, g, k=(3, 3), e=0.5, packed=packed, **kw))
             self.add_module(f"m{i}", m)
-        self.cv2 = Conv((2 + n) * c, c2, 1, **kw)
+        self.cv2 = Conv((2 + n) * c, c2, 1, **pkw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv1(x)

@@ -20,13 +20,17 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.checkpoint import checkpoint
 
 from quan_ultralytics_tpu_torch.ops.kernels.qconv_fused import fold_iqbn, qconv1x1_fused
 from quan_ultralytics_tpu_torch.ops.mappings import rgb_to_quaternion
 from quan_ultralytics_tpu_torch.ops.mixing import MIX_MATRIX
 from quan_ultralytics_tpu_torch.ops.pooling import qupsample
-from quan_ultralytics_tpu_torch.ops.qconv import (autopad, fold_dense_kernel, qconv2d, qconv2d_folded,
-                                                  qconv2d_int8, qdense)
+from quan_ultralytics_tpu_torch.ops.qconv import (autopad, fold_dense_kernel, packed_conv_kernel, packed_pads,
+                                                  packed_qconv, qconv2d, qconv2d_folded, qconv2d_int8, qdense)
+from quan_ultralytics_tpu_torch.ops.stem import (expand, l0_index, l0_s2d4_index, l1_index,
+                                                 packed_index, s2d4_rgb_mapped)
 from quan_ultralytics_tpu_torch.parallel.mesh import active_mesh
 
 IntOr2 = Union[int, Tuple[int, int]]
@@ -95,13 +99,39 @@ class QConv2D(nn.Module):
     `ops.quant.calibrate_int8` adds (static), else each call's |x| max. The
     buffer exists only after calibration, so an uncalibrated state dict is
     unchanged.
+
+    The stem forms (ops/stem.py; the parameters are the plain conv's,
+    rearranged at apply time by one gather through the ``stem_index`` buffer):
+
+    * ``stem_mode="phase_out"``: layer 0 of the phase-composite stem, a k=3,
+      s=2 conv whose output is space-to-depth packed phase-major (on the RGB
+      layer the input is packed by 4 first, `ops.stem.s2d4_rgb_mapped`);
+      ``"phase_in"``: layer 1, consuming that packing. Grouped or folded as
+      ``impl`` resolves (int8: grouped, as in JAX).
+    * ``packed="out" | "in" | "both"``: the deep-packed stem's channel-major
+      r=2 packing of the output, the input or both (`ops.qconv.qconv2d_packed`,
+      ``packed_impl``: ``folded``, ``grouped`` or ``int8``; None: ``int8`` when
+      ``impl`` is, else ``folded``, as JAX's ``QUAN_PACKED_IMPL``). On the RGB
+      layer ``stem_l0`` picks the input: ``"prepack"`` (packed by 4) or
+      ``"fine"`` (the mapped image as it is: a k=5, s=4 conv), JAX's
+      ``QUAN_STEM_L0``.
+    * ``stem_remat`` (RGB layer, training under grad): the mapping and the
+      conv run inside one `torch.utils.checkpoint`, so the backward recomputes
+      the mapped image instead of keeping it (JAX's ``QUAN_STEM_REMAT``; the
+      JAX package wraps the deep-packed layer 0 so, and the port every form of
+      layer 0).
+
+    In eval without grad, the expanded (and folded) kernel of a stem form is
+    kept and reused until the weights change (their version counter).
     """
 
     def __init__(self, c1: int, c2: int, k: IntOr2 = 1, s: IntOr2 = 1,
                  p: Optional[IntOr2] = None, g: int = 1, d: IntOr2 = 1,
                  use_bias: bool = True, mapping_type: str = "poincare",
                  dtype: Optional[torch.dtype] = None, impl: str = "grouped",
-                 int8_min_c: int = 0):
+                 int8_min_c: int = 0, stem_mode: Optional[str] = None,
+                 packed: Optional[str] = None, stem_l0: str = "prepack",
+                 stem_remat: bool = False, packed_impl: Optional[str] = None):
         super().__init__()
         if c2 % 4:
             raise ValueError(f"c2={c2} must be a multiple of 4")
@@ -127,7 +157,46 @@ class QConv2D(nn.Module):
         # kept on the module's device: a host-to-device copy of it on every
         # folded call would make the host wait for the card each time
         self.register_buffer("mix", torch.tensor(MIX_MATRIX), persistent=False)
+        self.stem_remat = stem_remat
+        self._init_stem(stem_mode, packed, stem_l0, packed_impl)
         self.reset_parameters()
+
+    def _init_stem(self, stem_mode, packed, stem_l0, packed_impl) -> None:
+        """The stem form's geometry and index map (see the class docstring)."""
+        self.stem_mode, self.packed, self.packed_impl = stem_mode, packed, packed_impl
+        self.stem = None
+        self._kernel_cache = None
+        if stem_mode is None and packed is None:
+            return
+        if stem_mode is not None and packed is not None:
+            raise ValueError("stem_mode and packed exclude each other")
+        if stem_mode not in (None, "phase_out", "phase_in") or packed not in (None, "in", "out", "both"):
+            raise ValueError(f"unknown stem_mode {stem_mode!r} or packed {packed!r}")
+        if stem_l0 not in ("prepack", "fine"):
+            raise ValueError(f"unknown stem_l0 {stem_l0!r}")
+        if packed_impl not in (None, "folded", "grouped", "int8"):
+            raise ValueError(f"unknown packed_impl {packed_impl!r}")
+        if self.g != 1 or self.d != (1, 1) or self.s[0] != self.s[1] or self.pad[0] != self.pad[1]:
+            raise ValueError("a stem form takes g=1, d=1 and a square stride and padding")
+        first = self.c1 == 3
+        if stem_mode is not None:
+            if self.k != (3, 3) or self.s != (2, 2):
+                raise ValueError(f"stem_mode {stem_mode!r} takes k=3, s=2")
+            # phase_out: expand_w_l0 (k=5, s=4), on the RGB layer the r=4
+            # prepack and expand_w_l0_s2d4; phase_in: expand_w_l1
+            if stem_mode == "phase_in":
+                ri, ro, pl, S, idx = 2, 1, 1, 1, l1_index(self.cout, self.cin)
+            elif first:
+                ri, ro, pl, S, idx = 4, 2, 1, 1, l0_s2d4_index(self.cout, self.cin)
+            else:
+                ri, ro, pl, S, idx = 1, 2, 1, 4, l0_index(self.cout, self.cin)
+        else:
+            ri, ro = {"in": (2, 1), "out": (1, 2), "both": (2, 2)}[packed]
+            if first:
+                ri = 4 if stem_l0 == "prepack" else 1
+            idx, pl, S = packed_index(self.cout, self.cin, *self.k, self.s[0], self.pad[0], ri, ro)
+        self.stem = {"ri": ri, "ro": ro, "pl": pl, "S": S, "KH": idx.shape[3], "KW": idx.shape[4]}
+        self.register_buffer("stem_index", torch.as_tensor(idx), persistent=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         scales = SCALE_FACTORS.get(self.mapping_type, _DEFAULT_SCALES)
@@ -149,15 +218,64 @@ class QConv2D(nn.Module):
         fold_max = FOLD_MAX_TRAIN if _TRAIN_GRAPH.get() else FOLD_MAX_EVAL
         return "folded" if (self.cout < fold_max and self.g == 1) else "grouped"
 
+    def _stem_impl(self) -> str:
+        if self.stem_mode is not None:  # the JAX phase convs are grouped; folded where the port folds
+            return "folded" if self._impl() == "folded" else "grouped"
+        impl = self.packed_impl or ("int8" if self.impl == "int8" else "folded")
+        return "folded" if impl == "int8" and self.c2 < self.int8_min_c else impl
+
+    def _stem_kernel(self, impl: str, dtype: torch.dtype) -> torch.Tensor:
+        """The stem form's conv kernel (`packed_conv_kernel` of the expanded
+        weights), in ``dtype`` (int8: f32, quantized by the conv). Kept in eval
+        without grad, against the weights' version, pointer, device and dtype."""
+        w = self.w
+        keep = (not (torch.is_grad_enabled() and w.requires_grad) and w.device.type != "meta"
+                and not torch.compiler.is_compiling() and not is_fake(w))
+        key = (impl, dtype, w._version, w.data_ptr(), w.device) if keep else None
+        if keep and self._kernel_cache is not None and self._kernel_cache[0] == key:
+            return self._kernel_cache[1]
+        kernel = packed_conv_kernel(expand(w, self.stem_index), self.mix, impl)
+        kernel = kernel.float() if impl == "int8" else kernel.to(dtype)
+        self._kernel_cache = (key, kernel) if keep else None
+        return kernel
+
+    def _stem_conv(self, x: torch.Tensor, impl: str) -> torch.Tensor:
+        st = self.stem
+        pr_h, pr_w = packed_pads(x.shape[1], x.shape[2], self.k, self.s[0], self.pad, st["ri"], st["ro"],
+                                 st["KH"], st["KW"], st["pl"], st["S"])
+        b = self.b
+        if b is not None and st["ro"] > 1:  # the bias repeats over the output's phases
+            b = b.repeat(4) if self.stem_mode == "phase_out" else b.repeat_interleave(4)
+        return packed_qconv(x, self._stem_kernel(impl, x.dtype), b, stride=st["S"], pl=st["pl"],
+                            pr_h=pr_h, pr_w=pr_w, impl=impl,
+                            act_absmax=self._int8_act_absmax(x) if impl == "int8" else None)
+
+    def _map(self, x: torch.Tensor) -> torch.Tensor:
+        """The RGB layer's mapping, in the compute dtype as in the JAX package:
+        ``[B, H, W, 4, 1]``, or packed by 4 (``[B, H/4, W/4, 4, 16]``) for a stem form
+        whose input is (`ops.stem.s2d4_rgb_mapped`)."""
+        x = x.to(self.dtype or x.dtype)
+        if self.stem is not None and self.stem["ri"] == 4:
+            return s2d4_rgb_mapped(x, self.mapping_type)
+        return rgb_to_quaternion(x, self.mapping_type)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.c1 == 3:
             if x.ndim != 4 or x.shape[-1] != 3:
                 raise ValueError(f"RGB first layer expects NHWC, got {tuple(x.shape)}")
-            # the mapping runs in the compute dtype, as in the JAX package
-            x = rgb_to_quaternion(x.to(self.dtype or x.dtype), self.mapping_type)
-        elif x.shape[-1] != self.cin or x.shape[-2] != 4:
-            raise ValueError(f"expected [..., 4, {self.cin}], got {tuple(x.shape)}")
+            if self.stem_remat and self.training and torch.is_grad_enabled():
+                # mapping and conv in one checkpoint: the mapped image is recomputed, not kept
+                return checkpoint(lambda t: self._conv(self._map(t)), x, use_reentrant=False)
+            return self._conv(self._map(x))
+        want = self.cin * (4 if self.stem_mode == "phase_in" or self.packed in ("in", "both") else 1)
+        if x.shape[-1] != want or x.shape[-2] != 4:
+            raise ValueError(f"expected [..., 4, {want}], got {tuple(x.shape)}")
+        return self._conv(x)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype or x.dtype)
+        if self.stem is not None:
+            return self._stem_conv(x, self._stem_impl())
         impl = self._impl()
         if impl == "int8" and self.g == 1:
             dk = fold_dense_kernel(self.w, self.mix)
@@ -193,29 +311,43 @@ class IQBN(nn.Module):
     the statistics are the global batch's over every rank (DEVIATIONS.md
     section 2: JAX normalises with the sharded batch's global moments), so the
     running ``mean`` and ``var`` come out equal on every rank.
+
+    ``phase_packed`` / ``packed_cmajor``: the input is the stem's space-to-depth
+    packing ``[..., 4, 4C]``, phase-major ``(a, b, c)`` or channel-major ``(c,
+    a, b)`` (ops/stem.py). The statistics reduce over the phases too, which
+    gives the unpacked ones (the phases partition the positions), and the
+    affine is tiled or repeated over them.
     """
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, phase_packed: bool = False,
+                 packed_cmajor: bool = False):
         super().__init__()
         if c % 4:
             raise ValueError(f"c={c} must be a multiple of 4")
         C = c // 4
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
+        self.phase_packed, self.packed_cmajor = phase_packed, packed_cmajor
         self.gamma = nn.Parameter(torch.ones(4, C))
         self.beta = nn.Parameter(torch.zeros(4, C))
         self.register_buffer("mean", torch.zeros(4, C))
         self.register_buffer("var", torch.ones(4, C))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        packed = self.phase_packed or self.packed_cmajor
         if self.training:
-            xf = x.float()
+            xf, dims = x.float(), (0, 1, 2)
+            if packed:
+                B, H, W, Q, C4 = xf.shape
+                C = C4 // 4
+                xf = xf.reshape(B, H, W, Q, C, 4) if self.packed_cmajor else xf.reshape(B, H, W, Q, 4, C)
+                dims = (0, 1, 2, 5) if self.packed_cmajor else (0, 1, 2, 4)
             mesh = active_mesh()
             if mesh is None:
-                mean = xf.mean(dim=(0, 1, 2))
-                var = xf.var(dim=(0, 1, 2), unbiased=False) + 1e-8
+                mean = xf.mean(dim=dims)
+                var = xf.var(dim=dims, unbiased=False) + 1e-8
             else:  # the global batch's moments, as JAX's GSPMD reduction over a sharded batch
-                mean, var = mesh.global_moments(xf)
+                mean, var = mesh.global_moments(xf, dims)
                 var = var + 1e-8
             with torch.no_grad():
                 m = self.momentum
@@ -227,6 +359,10 @@ class IQBN(nn.Module):
         inv = torch.rsqrt(var + self.eps)
         scale = (self.gamma * inv).to(dtype)
         shift = (self.beta - self.gamma * mean * inv).to(dtype)
+        if self.phase_packed:
+            scale, shift = scale.repeat(1, 4), shift.repeat(1, 4)
+        elif self.packed_cmajor:
+            scale, shift = scale.repeat_interleave(4, dim=-1), shift.repeat_interleave(4, dim=-1)
         return x.to(dtype) * scale + shift
 
 
@@ -258,20 +394,27 @@ class Conv(nn.Module):
     runs as one fused conv + mixing + folded-IQBN + SiLU kernel
     (`qconv1x1_fused`), the counterpart of the JAX package's ``QUAN_FUSED_1X1``.
     The parameters are the same either way.
+
+    ``stem_mode``, ``packed`` and the stem options go to the `QConv2D` (and the
+    packing to the `IQBN`); a stem-form layer never takes the fused kernel,
+    as in JAX.
     """
 
     def __init__(self, c1: int, c2: int, k: IntOr2 = 1, s: IntOr2 = 1,
                  p: Optional[IntOr2] = None, g: int = 1, d: IntOr2 = 1, act: bool = True,
                  mapping_type: str = "poincare", dtype: Optional[torch.dtype] = None,
-                 impl: str = "grouped", fused_1x1: bool = False):
+                 impl: str = "grouped", fused_1x1: bool = False, stem_mode: Optional[str] = None,
+                 packed: Optional[str] = None, **stem):
         super().__init__()
         self.conv = QConv2D(c1, c2, k, s, p, g, d, use_bias=False, mapping_type=mapping_type,
-                            dtype=dtype, impl=impl)
-        self.bn = IQBN(c2, dtype=dtype)
+                            dtype=dtype, impl=impl, stem_mode=stem_mode, packed=packed, **stem)
+        self.bn = IQBN(c2, dtype=dtype, phase_packed=stem_mode == "phase_out",
+                       packed_cmajor=packed in ("out", "both"))
         self.act = act
         self.dtype = dtype
         self.fused = (fused_1x1 and _pair(k) == (1, 1) and _pair(s) == (1, 1)
-                      and p in (None, 0, (0, 0)) and g == 1 and c1 != 3)
+                      and p in (None, 0, (0, 0)) and g == 1 and c1 != 3
+                      and stem_mode is None and packed is None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and not self.training:

@@ -5,8 +5,9 @@
 gives a static layer spec; `QUANYOLO` builds one module per layer into
 ``model`` (so state names read ``model.10.m0.attn.qkv.w``, the JAX package's
 flax path ``model_10/m0/attn/qkv/w``) and walks the skip-connection save
-list in ``forward``. Only the plain graph is ported: the JAX package's
-``stem_s2d`` / ``stem_deep`` are TPU layout rewrites of the same math.
+list in ``forward``. ``stem_s2d`` and ``stem_deep`` are the JAX package's
+phase-composite and deep-packed stems (ops/stem.py, `stem_layout`): the same
+math and parameters on space-to-depth packed activations.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from quan_ultralytics_tpu_torch.cfg.models import MODELS
 from quan_ultralytics_tpu_torch.models import block as B
 from quan_ultralytics_tpu_torch.models import conv as C
 from quan_ultralytics_tpu_torch.models import head as H
+from quan_ultralytics_tpu_torch.ops.stem import depth_to_space_cmajor, depth_to_space_phasemajor
 
 SCALE_RE = re.compile(r"yolo\d+([nslmx])")
 
@@ -36,6 +38,22 @@ SCALE_RE = re.compile(r"yolo\d+([nslmx])")
 # 17.21 in f32, in 1,382 device operations against 1,678 (phase 4); the JAX
 # package's QUAN_FUSED_1X1 is off by default. It acts in eval only.
 FUSED_1X1 = True
+
+# The stem's default form: the plain stem (STEM_S2D False, STEM_DEEP 0). The
+# JAX package builds every model with its phase-composite stem (stem_s2d on),
+# chosen on a TPU, which pads narrow activations to 128 lanes; an H100 does
+# not. On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 53, run three times
+# in one call by scripts/stem_phases.py --repeat 3), QUAN-YOLO11n-OBB's infer
+# @1024, batch 8, bf16, K1+K3 takes 10.03-10.23 ms of device time with the
+# plain stem, 9.66-9.89 with stem_s2d, 9.67-9.83 at stem_deep 1, 9.87-10.05
+# at 2, 9.99-10.23 at 3 and 9.84-10.05 at 1 with stem_l0 "fine", lower in
+# every round for stem_s2d and deep 1 (8.67, 8.56 and 8.58 ms in a whole run
+# of chip_smoke.py). But this infer is bound by the host's launches, and on
+# the host clock no form is shown no slower: its same-round difference from
+# the plain stem has a median of -3.2 to +5.1 ms over 10 rounds, either sign,
+# inside a spread of 10.6-16.4 ms between rounds. So the plain stem stays.
+STEM_S2D = False
+STEM_DEEP = 0
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -157,17 +175,78 @@ class Concat(nn.Module):
         return B.qconcat(xs)
 
 
+def _is_conv_k3s2(spec: LayerSpec) -> bool:
+    return spec.module == "Conv" and tuple(spec.args[2:4]) == (3, 2)
+
+
+def stem_layout(specs: Sequence[LayerSpec], save: Sequence[int], stem_s2d: bool = False,
+                stem_deep: int = 0) -> Tuple[List[Dict[str, Any]], int]:
+    """Each layer's stem form and the deep-packing level taken (the JAX
+    ``QUANYOLO`` rules, models/tasks.py): ``[{"stem_mode", "packed",
+    "packed_out"}]`` a layer, ``packed_out`` the layout of its output
+    (``"cmajor"``, ``"phase"`` or None: unpacked), and K.
+
+    * ``stem_deep`` = K >= 1 needs layers 0, 1, 3 to be Conv(k=3, s=2), layer 2
+      a C3k2, and no save-list tap of layers 0-2: then layer 0 packs its output
+      (``out``), the odd Convs up to 2K-1 stay packed (``both``) and so do the
+      C3k2s up to 2K, and Conv 2K+1 unpacks (``in``). Each level above 1 needs
+      a C3k2 at 2K and a Conv(3, 2) at 2K+1 whose input is no tap; K is cut to
+      what the graph allows.
+    * else ``stem_s2d``, where layers 0 and 1 are Conv(3, 2) and layer 0 is no
+      tap: layer 0 ``phase_out``, layer 1 ``phase_in``.
+    """
+    n = len(specs)
+    layout = [{"stem_mode": None, "packed": None, "packed_out": None} for _ in specs]
+    deep_k = 0
+    if (stem_deep and n > 3 and not any(i in save for i in (0, 1, 2))
+            and all(_is_conv_k3s2(specs[i]) for i in (0, 1, 3))
+            and specs[2].module in ("C3k2", "QC3k2")):
+        deep_k = 1
+        while deep_k < int(stem_deep):
+            i_c3, i_cv = 2 * (deep_k + 1), 2 * (deep_k + 1) + 1
+            if (n > i_cv and (i_c3 - 1) not in save and specs[i_c3].module in ("C3k2", "QC3k2")
+                    and _is_conv_k3s2(specs[i_cv])):
+                deep_k += 1
+            else:
+                break
+    if deep_k:
+        for i in range(2 * deep_k + 2):
+            if i == 0:
+                layout[i].update(packed="out", packed_out="cmajor")
+            elif i == 2 * deep_k + 1:
+                layout[i]["packed"] = "in"
+            elif i % 2:
+                layout[i].update(packed="both", packed_out="cmajor")
+            else:  # a C3k2
+                layout[i].update(packed=True, packed_out="cmajor")
+    elif (stem_s2d and 0 not in save and n > 1 and _is_conv_k3s2(specs[0])
+          and _is_conv_k3s2(specs[1])):
+        layout[0].update(stem_mode="phase_out", packed_out="phase")
+        layout[1]["stem_mode"] = "phase_in"
+    return layout, deep_k
+
+
+def unpack(y: torch.Tensor, packed_out: Optional[str]) -> torch.Tensor:
+    """A layer's output in the public ``[B, H, W, 4, C]`` form."""
+    if packed_out == "cmajor":
+        return depth_to_space_cmajor(y)
+    if packed_out == "phase":
+        return depth_to_space_phasemajor(y)
+    return y
+
+
 def build_layer(spec: LayerSpec, dtype: Optional[torch.dtype], mapping_type: str, impl: str,
-                fused_attn: bool, fused_1x1: bool) -> nn.Module:
-    """The module of one layer spec."""
+                fused_attn: bool, fused_1x1: bool, stem: Optional[Dict[str, Any]] = None) -> nn.Module:
+    """The module of one layer spec; ``stem``: its Conv or C3k2's stem form and
+    options (`stem_layout`, ``stem_l0``, ``stem_remat``, ``packed_impl``)."""
     m, a = spec.module, spec.args
     kw = dict(dtype=dtype, impl=impl, fused_1x1=fused_1x1)
     if m == "Conv":
-        return C.Conv(*a, mapping_type=mapping_type, **kw)
+        return C.Conv(*a, mapping_type=mapping_type, **kw, **(stem or {}))
     if m == "DWConv":
         return C.DWConv(*a, **kw)
     if m in ("C3k2", "QC3k2"):
-        return B.C3k2(*a, **kw)
+        return B.C3k2(*a, **kw, **(stem or {}))
     if m == "QSPPF":
         return B.QSPPF(*a, **kw)
     if m == "C2f":
@@ -204,16 +283,36 @@ class QUANYOLO(nn.Module):
     """The YOLO graph built from a layer-spec tuple. ``forward`` returns the
     head output: per-level maps for Detect, ``(feats, angles)`` for OBB,
     ``(feats, mc, proto)`` for Segment, ``(feats, kpts)`` for Pose, ``[B, nc]``
-    logits for Classify."""
+    logits for Classify.
+
+    ``stem_s2d``, ``stem_deep`` (level K): the JAX package's phase-composite
+    and deep-packed stems, as `stem_layout` applies them; ``stem_l0``,
+    ``stem_remat`` and ``packed_impl`` are their options (`models.conv.QConv2D`,
+    JAX's ``QUAN_STEM_L0``, ``QUAN_STEM_REMAT`` and ``QUAN_PACKED_IMPL``). The
+    parameters and outputs are the plain graph's; a packed tap of the save
+    list is unpacked once, and captured and ``upto`` outputs are unpacked."""
 
     def __init__(self, specs: Sequence[LayerSpec], save: Sequence[int],
                  dtype: Optional[torch.dtype] = None, mapping_type: str = "poincare",
-                 impl: str = "auto", fused_attn: bool = True, fused_1x1: bool = FUSED_1X1):
+                 impl: str = "auto", fused_attn: bool = True, fused_1x1: bool = FUSED_1X1,
+                 stem_s2d: bool = STEM_S2D, stem_deep: int = STEM_DEEP, stem_l0: str = "prepack",
+                 stem_remat: bool = False, packed_impl: Optional[str] = None):
         super().__init__()
         self.specs, self.save = tuple(specs), tuple(save)
         self.dtype = dtype
+        layout, self.deep_k = stem_layout(self.specs, self.save, stem_s2d, stem_deep)
+        self.packed_out = [lay["packed_out"] for lay in layout]
+        stems = []
+        for i, (spec, lay) in enumerate(zip(self.specs, layout)):
+            st = {k: lay[k] for k in ("stem_mode", "packed") if lay[k] is not None}
+            if st:
+                st["packed_impl"] = packed_impl
+            if i == 0 and spec.module == "Conv":
+                st.update(stem_l0=stem_l0, stem_remat=stem_remat)
+            stems.append(st)
         self.model = nn.ModuleList(
-            build_layer(s, dtype, mapping_type, impl, fused_attn, fused_1x1) for s in self.specs)
+            build_layer(s, dtype, mapping_type, impl, fused_attn, fused_1x1, st)
+            for s, st in zip(self.specs, stems))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Draw every weight anew, in module order, from ``generator``."""
@@ -229,15 +328,15 @@ class QUANYOLO(nn.Module):
         head's tuple is left out)."""
         saved: Dict[int, Any] = {}
         y = x
-        for spec, layer in zip(self.specs, self.model):
+        for spec, layer, packed_out in zip(self.specs, self.model, self.packed_out):
             inputs = [y if j == -1 else saved[j] for j in spec.f]
             y = layer(inputs if spec.module in _HEADS or spec.module == "Concat" else inputs[0])
             if spec.i in self.save:
-                saved[spec.i] = y
+                saved[spec.i] = unpack(y, packed_out)
             if capture is not None and isinstance(y, torch.Tensor):
-                capture[spec.i] = y
+                capture[spec.i] = unpack(y, packed_out)
             if spec.i == upto:
-                break
+                return unpack(y, packed_out)
         return y
 
 
@@ -265,7 +364,9 @@ class DetectionModel(QUANYOLO):
                   device: Optional[Union[str, torch.device]] = None,
                   mapping_type: str = "poincare", impl: str = "auto",
                   fused_attn: bool = True, fused_1x1: bool = FUSED_1X1,
-                  seed: int = 0, int8_min_c: int = 0) -> "DetectionModel":
+                  seed: int = 0, int8_min_c: int = 0, stem_s2d: bool = STEM_S2D,
+                  stem_deep: int = STEM_DEEP, stem_l0: str = "prepack", stem_remat: bool = False,
+                  packed_impl: Optional[str] = None) -> "DetectionModel":
         """Build a model from a model YAML path or a catalog name (`resolve_model_cfg`),
         with weights drawn from ``seed``.
 
@@ -280,11 +381,15 @@ class DetectionModel(QUANYOLO):
         inference-only int8 serving form (`models.conv.QConv2D`; calibrate it
         with `ops.quant.calibrate_int8`), ``int8_min_c`` its width threshold;
         the fused 1x1 sites keep ``fused_1x1``'s kernel, as in JAX.
+        ``stem_s2d``, ``stem_deep``, ``stem_l0``, ``stem_remat`` and
+        ``packed_impl``: the stem's form (`QUANYOLO`; defaults ``STEM_S2D`` and
+        ``STEM_DEEP``), keyword arguments where JAX reads ``QUAN_STEM_*``.
         """
         dev = resolve_device(device)
         cfg, scale = resolve_model_cfg(model)
         m = cls(cfg, scale, nc, dtype=dtype, mapping_type=mapping_type, impl=impl,
-                fused_attn=fused_attn, fused_1x1=fused_1x1)
+                fused_attn=fused_attn, fused_1x1=fused_1x1, stem_s2d=stem_s2d, stem_deep=stem_deep,
+                stem_l0=stem_l0, stem_remat=stem_remat, packed_impl=packed_impl)
         m.reset_parameters(torch.Generator().manual_seed(seed))
         for mod in m.modules():
             if isinstance(mod, C.QConv2D):

@@ -278,6 +278,7 @@ def non_max_suppression(
     max_wh: float = 7680.0,
     agnostic: bool = False,
     extra_dim: int = 0,
+    defer_argmax: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-shape batched NMS (reference ops.py:181-333, best-class-only path).
 
@@ -294,12 +295,16 @@ def non_max_suppression(
 
     The class offset ``cls * max_wh`` (up to 79 x 7680 = 606,720 px) is added
     in f32 whatever the boxes' dtype: bf16's step there is 4,096 px.
+
+    ``defer_argmax`` (JAX's ``QUAN_NMS_DEFER_ARGMAX``): the class id is the
+    argmax of the gathered candidate rows instead of a gather of the whole
+    tensor's argmax; the same detections.
     """
     B, A, _ = pred.shape
     n_keep = min(max_nms, A, 2048)  # candidate pool per image
     boxes = pred[..., :4]
     cls = pred[..., 4:4 + nc]
-    conf, cls_id = cls.amax(dim=-1), cls.argmax(dim=-1)
+    conf = cls.amax(dim=-1)
     score = torch.where(conf > conf_thres, conf, torch.zeros_like(conf))
     score_top, idx = _top_k(score, n_keep)
 
@@ -307,7 +312,7 @@ def non_max_suppression(
         return torch.gather(t, 1, idx[..., None].expand(B, n_keep, t.shape[-1]))
 
     boxes_t = take(boxes)
-    cls_t = torch.gather(cls_id, 1, idx)
+    cls_t = take(cls).argmax(dim=-1) if defer_argmax else torch.gather(cls.argmax(dim=-1), 1, idx)
     valid_t = score_top > conf_thres
     offset = (torch.zeros_like(score_top, dtype=torch.float32) if agnostic
               else cls_t.to(torch.float32) * max_wh)

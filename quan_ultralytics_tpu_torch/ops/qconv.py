@@ -29,7 +29,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from quan_ultralytics_tpu_torch.ops.mixing import mix_components
+from quan_ultralytics_tpu_torch.ops.mixing import MIX_MATRIX, mix_components
+from quan_ultralytics_tpu_torch.ops.stem import expand_w_l0, expand_w_l0_s2d4, expand_w_l1, expand_w_packed
 
 IntOr2 = Union[int, Tuple[int, int], Sequence[int]]
 
@@ -290,3 +291,150 @@ def qconv2d_int8(
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- packed (space-to-depth) convs
+#
+# The phase-composite and deep-packed stem (ops/stem.py): the same separable
+# qconv on space-to-depth packed activations, its weights rearranged by one
+# gather. Each is a cuDNN conv, as its JAX counterpart is an XLA conv. The
+# forms: `grouped` (groups = 4, then the mixing; the JAX phase convs'),
+# `folded` (the mixing folded into one dense kernel; the JAX packed conv's
+# default) and `int8` (that kernel quantized, `qconv2d_int8`; packed only).
+# The bias of a packed output repeats over its phases.
+
+
+def packed_pads(H: int, W: int, k: Tuple[int, int], s: int, p: Tuple[int, int], ri: int, ro: int,
+                KH: int, KW: int, pl: int, S: int) -> Tuple[int, int]:
+    """Bottom and right padding of a packed conv (left and top: ``pl``) on a
+    packed input ``[H, W]``, so that its output covers the original conv's."""
+    jh = ((H * ri + 2 * p[0] - k[0]) // s + 1) // ro
+    jw = ((W * ri + 2 * p[1] - k[1]) // s + 1) // ro
+    return S * (jh - 1) + KH - 1 - pl - (H - 1), S * (jw - 1) + KW - 1 - pl - (W - 1)
+
+
+def _conv_padded(x: torch.Tensor, kernel: torch.Tensor, stride: int, pl: int, pr_h: int, pr_w: int,
+                 groups: int) -> torch.Tensor:
+    """``F.conv2d`` of NCHW ``x`` padded ``pl`` top and left, ``pr_h`` bottom and
+    ``pr_w`` right: conv padding ``pl`` and a crop where ``pr <= pl`` (no copy
+    of the input), else an explicit pad."""
+    if pr_h <= pl and pr_w <= pl:
+        y = F.conv2d(x, kernel, None, stride, pl, 1, groups)
+        KH, KW = kernel.shape[2:]
+        ho = (x.shape[2] + pl + pr_h - KH) // stride + 1
+        wo = (x.shape[3] + pl + pr_w - KW) // stride + 1
+        return y if y.shape[2:] == (ho, wo) else y[:, :, :ho, :wo]
+    return F.conv2d(F.pad(x, (pl, pr_w, pl, pr_h)), kernel, None, stride, 0, 1, groups)
+
+
+def packed_conv_kernel(wk: torch.Tensor, mix: torch.Tensor, impl: str) -> torch.Tensor:
+    """An expanded per-component kernel ``[4, C_out', C_in', KH, KW]`` as the conv
+    kernel of ``impl``: grouped ``[4 C_out', C_in', KH, KW]``, else folded
+    ``[4 C_out', 4 C_in', KH, KW]`` (`fold_dense_kernel`)."""
+    if impl == "grouped":
+        _, co, ci, kh, kw = wk.shape
+        return wk.reshape(4 * co, ci, kh, kw)
+    return fold_dense_kernel(wk, mix)
+
+
+def packed_qconv(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor], *, stride: int,
+                 pl: int, pr_h: int, pr_w: int, impl: str,
+                 act_absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A packed qconv of BHWQC ``x`` through its `packed_conv_kernel`; ``bias``
+    as repeated over the output's phases. Returns BHWQC in ``x.dtype``."""
+    if impl == "int8":
+        xp = F.pad(x, (0, 0, 0, 0, pl, pr_w, pl, pr_h))
+        return qconv2d_int8(xp, kernel, bias, stride=stride, padding=0, act_absmax=act_absmax)
+    y = _conv_padded(to_nchw(x), kernel.to(x.dtype), stride, pl, pr_h, pr_w,
+                     4 if impl == "grouped" else 1)
+    y = from_nchw(y)
+    if impl == "grouped":
+        y = mix_components(y, dim=-2)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def _run_packed(x, wk, bias_p, k, s, p, ri, ro, pl, S, impl, mix, act_absmax=None):
+    if impl not in ("grouped", "folded", "int8"):
+        raise ValueError(f"unknown packed impl {impl!r}")
+    KH, KW = wk.shape[3:]
+    pr_h, pr_w = packed_pads(x.shape[1], x.shape[2], k, s, p, ri, ro, KH, KW, pl, S)
+    kernel = packed_conv_kernel(wk, torch.tensor(MIX_MATRIX, device=wk.device) if mix is None else mix, impl)
+    return packed_qconv(x, kernel, bias_p, stride=S, pl=pl, pr_h=pr_h, pr_w=pr_w, impl=impl,
+                        act_absmax=act_absmax)
+
+
+def _stem_check(x: torch.Tensor, w: torch.Tensor, groups: int, cin: int) -> None:
+    if groups != 1:
+        # phase-major packed outputs put the phase outermost, so a grouped
+        # conv's channel groups would cross the phases
+        raise ValueError(f"the phase-composite stem takes groups=1, got {groups}")
+    if w.shape[3:] != (3, 3):
+        raise ValueError(f"the phase-composite stem takes 3x3 kernels, got {tuple(w.shape)}")
+    if x.ndim != 5 or x.shape[3] != 4 or x.shape[4] != cin:
+        raise ValueError(f"expected [B, H, W, 4, {cin}], got {tuple(x.shape)}")
+
+
+def qconv2d_phase0(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                   groups: int = 1, impl: str = "grouped", mix: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Stem layer 0, phase-composite: the k=3, s=2, p=1 qconv with its output
+    space-to-depth packed, as one k=5, s=4 conv (`ops.stem.expand_w_l0`).
+
+    x ``[B, H, W, 4, cin]``, w ``[4, cout, cin, 3, 3]`` -> ``[B, H/4, W/4, 4,
+    4*cout]`` (a component's channels phase-major)."""
+    _stem_check(x, w, groups, w.shape[2])
+    b = None if bias is None else bias.repeat(4)
+    return _run_packed(x, expand_w_l0(w), b, (3, 3), 2, (1, 1), 1, 2, 1, 4, impl, mix)
+
+
+def qconv2d_phase0_packed(x_packed: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                          impl: str = "grouped", mix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stem layer 0 on an r=4 packed input (`ops.stem.s2d4_rgb_mapped`): a k=2,
+    s=1 conv over 16*cin channels (`ops.stem.expand_w_l0_s2d4`); the output is
+    `qconv2d_phase0`'s.
+
+    x ``[B, H/4, W/4, 4, 16*cin]``, w ``[4, cout, cin, 3, 3]`` -> ``[B, H/4, W/4, 4, 4*cout]``."""
+    _stem_check(x_packed, w, 1, 16 * w.shape[2])
+    b = None if bias is None else bias.repeat(4)
+    return _run_packed(x_packed, expand_w_l0_s2d4(w), b, (3, 3), 2, (1, 1), 4, 2, 1, 1, impl, mix)
+
+
+def qconv2d_phase1(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                   groups: int = 1, impl: str = "grouped", mix: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Stem layer 1, phase-composite: the k=3, s=2, p=1 qconv on the phase-major
+    packed output of `qconv2d_phase0`, as one k=2, s=1 conv padded top-left
+    (`ops.stem.expand_w_l1`), giving the ORIGINAL (unpacked) output.
+
+    x ``[B, H', W', 4, 4*cin]``, w ``[4, cout, cin, 3, 3]`` -> ``[B, H', W', 4, cout]``."""
+    _stem_check(x, w, groups, 4 * w.shape[2])
+    return _run_packed(x, expand_w_l1(w), bias, (3, 3), 2, (1, 1), 2, 1, 1, 1, impl, mix)
+
+
+def qconv2d_packed(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                   stride: IntOr2 = 1, padding: IntOr2 = 0, ri: int = 2, ro: int = 2,
+                   impl: str = "folded", act_absmax: Optional[torch.Tensor] = None,
+                   mix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Separable qconv on channel-major space-to-depth packed activations (the
+    deep-packed stem, `ops.stem.expand_w_packed`).
+
+    Args:
+      x: ``[B, Hc, Wc, 4, C_in * ri * ri]`` packed input (``ri == 1``: unpacked).
+      w: the plain conv's weights ``[4, C_out, C_in, kH, kW]``, rearranged here.
+      stride, padding: the plain conv's; square only.
+      impl: ``folded`` (the default, as JAX's ``QUAN_PACKED_IMPL``),
+        ``grouped`` or ``int8`` (``act_absmax``: the calibrated |x| max).
+
+    Returns ``[B, Ho, Wo, 4, C_out * ro * ro]`` packed (``ro == 1``: unpacked).
+    """
+    _, cout, cin, kh, kw = w.shape
+    if x.ndim != 5 or x.shape[3] != 4 or x.shape[4] != cin * ri * ri:
+        raise ValueError(f"expected [B, Hc, Wc, 4, {cin}*{ri}^2], got {tuple(x.shape)}")
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    if sh != sw or ph != pw:
+        raise ValueError("packed conv: square stride and padding only")
+    wk, pl, S = expand_w_packed(w, sh, ph, ri, ro)
+    b = None if bias is None else bias.repeat_interleave(ro * ro)
+    return _run_packed(x, wk, b, (kh, kw), sh, (ph, pw), ri, ro, pl, S, impl, mix, act_absmax)

@@ -1043,3 +1043,69 @@ def test_int8_product_on_card_equals_its_plain_version(cuda, monkeypatch):
         got = qc.qconv2d_int8(x, dk, b, **kw).cpu()
         ref = qc.qconv2d_int8(x.cpu(), dk.cpu(), None if b is None else b.cpu(), **cpu_kw)
         assert torch.equal(got, ref), tuple(dk.shape)
+
+
+@pytest.mark.parametrize("k,s,p,ri,ro", [(3, 2, 1, 2, 2), (3, 1, 1, 2, 2), (1, 1, 0, 2, 2),
+                                         (3, 2, 1, 2, 1), (3, 2, 1, 1, 2), (3, 2, 1, 4, 2)])
+def test_packed_convs_bf16_on_card_match_their_plain_f32(cuda, k, s, p, ri, ro):
+    """The stem's packed convs (cuDNN, channels-last) in bf16 on the card, folded
+    and grouped, against the plain f32 conv of the unpacked tensors (TF32 off),
+    within bf16's 2e-2 of max|ref|; the phase-composite pair likewise."""
+    from quan_ultralytics_tpu_torch.ops import qconv as qc
+    from quan_ultralytics_tpu_torch.ops import stem
+
+    gen = torch.Generator(device="cuda").manual_seed(k * 10 + ri)
+    cin, cout = (1, 4) if ri == 4 else (8, 16)
+    x = torch.randn(2, 256, 256, 4, cin, generator=gen, device="cuda")
+    w = torch.randn(4, cout, cin, k, k, generator=gen, device="cuda") * 0.2
+    b = torch.randn(cout, generator=gen, device="cuda")
+    ref = qc.qconv2d(x, w, b, stride=s, padding=p)
+    B, H, W, Q, C = x.shape
+    xin = x if ri == 1 else x.reshape(B, H // ri, ri, W // ri, ri, Q, C).permute(0, 1, 3, 5, 6, 2, 4).reshape(
+        B, H // ri, W // ri, Q, C * ri * ri)
+    for impl in ("folded", "grouped"):
+        got = qc.qconv2d_packed(xin.bfloat16(), w, b, stride=s, padding=p, ri=ri, ro=ro, impl=impl)
+        got = stem.depth_to_space_cmajor(got, ro) if ro > 1 else got
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert float((got.float() - ref).abs().max()) <= 2e-2 * float(ref.abs().max()), impl
+    x0 = x[..., :1]  # the RGB layer's width
+    w0 = torch.randn(4, 8, 1, 3, 3, generator=gen, device="cuda") * 0.2
+    w1 = torch.randn(4, 8, 8, 3, 3, generator=gen, device="cuda") * 0.2
+    ref2 = qc.qconv2d(qc.qconv2d(x0, w0, stride=2, padding=1), w1, stride=2, padding=1)
+    got2 = qc.qconv2d_phase1(qc.qconv2d_phase0(x0.bfloat16(), w0, impl="folded"), w1, impl="folded")
+    assert float((got2.float() - ref2).abs().max()) <= 2e-2 * float(ref2.abs().max())
+
+
+def test_sparse_assigner_on_card_equals_dense_bitwise(cuda):
+    """The sparse assigner and the chunked top-k on the card against the dense
+    form, bit for bit: the OBB train batch's geometry (1024, 21,504 anchors,
+    128 padded boxes an image, 34-100 valid), f32 and the bf16 metric, topk 10
+    and 32."""
+    from quan_ultralytics_tpu_torch.losses import tal
+    from quan_ultralytics_tpu_torch.ops.boxes import make_anchors
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, M, nc, imgsz = 4, 128, 15, 1024
+    anchors, stride_t = make_anchors([(imgsz // s, imgsz // s) for s in (8, 16, 32)], (8, 16, 32), 0.5,
+                                     device="cuda")
+    anc = anchors * stride_t
+    A = anc.shape[0]
+    gt = torch.cat([torch.rand(B, M, 2, generator=gen, device="cuda") * 800 + 100,
+                    torch.rand(B, M, 2, generator=gen, device="cuda") * 180 + 20,
+                    torch.rand(B, M, 1, generator=gen, device="cuda") * 3 - 1.5], -1)
+    near = gt[torch.arange(B, device="cuda")[:, None], torch.randint(0, M, (B, A), generator=gen, device="cuda")]
+    boxes = near + torch.randn(B, A, 5, generator=gen, device="cuda") * torch.tensor(
+        [3.0, 3.0, 2.0, 2.0, 0.1], device="cuda")
+    scores = torch.rand(B, A, nc, generator=gen, device="cuda")
+    labels = torch.randint(0, nc, (B, M), generator=gen, device="cuda")
+    valid = torch.arange(M, device="cuda")[None] < torch.randint(34, 101, (B, 1), generator=gen, device="cuda")
+    args = (scores, boxes, anc, labels, gt, valid)
+    for bf16 in (False, True):
+        for topk in (10, 32):
+            kw = dict(num_classes=nc, rotated=True, bf16_metric=bf16, topk=topk)
+            dense = tal.task_aligned_assigner(*args, **kw)
+            for other in (tal.task_aligned_assigner(*args, impl="sparse", **kw),
+                          tal.task_aligned_assigner(*args, topk_impl="chunk", **kw)):
+                for name in tal.AssignResult._fields:
+                    assert torch.equal(getattr(dense, name), getattr(other, name)), (bf16, topk, name)
+            assert bool(dense.fg_mask.any())

@@ -7,6 +7,12 @@
   at quality 75 and 95, with and without restart intervals, at odd sizes; the
   committed fixtures decode to their committed OpenCV pixels; ``read_shape``
   equals the decoded shape; what the readers do not take raises.
+  Progressive JPEG (written by OpenCV and by PIL, 4:4:4, 4:2:2, 4:2:0 and
+  gray, with and without restart intervals), EXIF orientations 1-8 (JPEG and
+  PNG, written through PIL), 16-bit gray, gray+alpha, RGB and RGBA PNG, and
+  Adam7 PNG (written here from a known image at 1, 2, 4, 8 and 16 bits) all
+  exact against ``cv2.imread`` (OpenCV 5.0); the committed fixtures of these
+  against their OpenCV pixel digests (tests/fixtures/reader_fixtures.json).
 * ``min_area_rect`` against ``cv2.minAreaRect``: every one of the five
   numbers within 1e-4 (absolute; pixels and degrees) on seeded rectangles at
   every angle, squares, axis-aligned boxes, integer-rounded rectangles,
@@ -152,40 +158,201 @@ def _with_exif_orientation(jpg: bytes, orientation: int) -> bytes:
     return jpg[:2] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1 + jpg[2:]
 
 
+def _with_marker(jpg: bytes, old: int, new: int) -> bytes:
+    """The file with its first ``FF old`` marker made ``FF new``."""
+    i = jpg.index(bytes([0xFF, old]))
+    return jpg[:i + 1] + bytes([new]) + jpg[i + 2:]
+
+
 def test_unsupported_images_raise(tmp_path):
+    """What the readers refuse: arithmetic-coded, lossless, hierarchical,
+    12-bit and CMYK JPEG, other formats, cut and missing files. The kinds once
+    refused here (progressive JPEG, 16-bit and interlaced PNG, EXIF-rotated
+    files) decode as OpenCV decodes them."""
+    from PIL import Image
+
     im = _image(16, 16, 3)
-    prog = tmp_path / "progressive.jpg"
-    cv2.imwrite(str(prog), im, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive"):
-        imread(prog)
-    deep = tmp_path / "deep.png"
-    cv2.imwrite(str(deep), (im.astype(np.uint16) * 257))
-    with pytest.raises(NotImplementedError, match="16-bit"):
-        imread(deep)
-    p = tmp_path / "plain.png"
-    imwrite_png(p, im)
-    data = bytearray(p.read_bytes())
-    data[28] = 1  # the interlace byte of IHDR, and its CRC
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
-    (tmp_path / "adam7.png").write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="interlaced"):
-        imread(tmp_path / "adam7.png")
     plain = tmp_path / "plain.jpg"
     cv2.imwrite(str(plain), im)
-    (tmp_path / "rotated.jpg").write_bytes(_with_exif_orientation(plain.read_bytes(), 6))
-    with pytest.raises(NotImplementedError, match="EXIF orientation 6"):
-        imread(tmp_path / "rotated.jpg")
+    jpg = plain.read_bytes()
+    for marker, what in ((0xC9, "arithmetic"), (0xC3, "lossless"), (0xC6, "hierarchical")):
+        (tmp_path / f"m{marker}.jpg").write_bytes(_with_marker(jpg, 0xC0, marker))
+        with pytest.raises(NotImplementedError, match=what):
+            imread(tmp_path / f"m{marker}.jpg")
+    sof = jpg.index(b"\xff\xc0")
+    (tmp_path / "p12.jpg").write_bytes(jpg[:sof + 4] + b"\x0c" + jpg[sof + 5:])
+    with pytest.raises(NotImplementedError, match="8-bit"):
+        imread(tmp_path / "p12.jpg")
+    Image.fromarray(im).convert("CMYK").save(tmp_path / "cmyk.jpg")
+    with pytest.raises(NotImplementedError, match="CMYK"):
+        imread(tmp_path / "cmyk.jpg")
+    prog = tmp_path / "progressive.jpg"
+    cv2.imwrite(str(prog), im, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    deep = tmp_path / "deep.png"
+    cv2.imwrite(str(deep), (im.astype(np.uint16) * 257))
+    adam7 = tmp_path / "adam7.png"
+    _fixture_maker().write_png(adam7, im)
+    (tmp_path / "rotated.jpg").write_bytes(_with_exif_orientation(jpg, 6))
     upright = tmp_path / "upright.jpg"
-    upright.write_bytes(_with_exif_orientation(plain.read_bytes(), 1))
-    np.testing.assert_array_equal(imread(upright), _cv2_rgb(upright))
+    upright.write_bytes(_with_exif_orientation(jpg, 1))
+    for p in (prog, deep, adam7, tmp_path / "rotated.jpg", upright):
+        np.testing.assert_array_equal(imread(p), _cv2_rgb(p), err_msg=p.name)
     cv2.imwrite(str(tmp_path / "a.bmp"), im)
     with pytest.raises(NotImplementedError, match="only PNG and JPEG"):
         imread(tmp_path / "a.bmp")
-    (tmp_path / "cut.jpg").write_bytes(plain.read_bytes()[:len(plain.read_bytes()) // 2])
+    (tmp_path / "cut.jpg").write_bytes(jpg[:len(jpg) // 2])
     with pytest.raises(ValueError, match="ends before"):
         imread(tmp_path / "cut.jpg")
     with pytest.raises(FileNotFoundError):
         imread(tmp_path / "missing.png")
+
+
+# ---------------------------------------------------------------- progressive JPEG, EXIF, 16-bit and Adam7 PNG
+
+
+def _fixture_maker():
+    """tests/fixtures/make_reader_fixtures.py as a module (its Adam7 PNG writer)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_reader_fixtures",
+                                                  FIXTURES / "make_reader_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _markers(data: bytes):
+    return {data[i + 1] for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] not in (0, 0xFF)}
+
+
+@pytest.mark.parametrize("size", [(1, 1), (37, 53), (121, 200)])
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "gray"])
+@pytest.mark.parametrize("restart", [0, 3])
+def test_progressive_jpeg_by_opencv_decodes_as_opencv(tmp_path, size, sampling, restart):
+    im = _image(*size, 1 if sampling == "gray" else 3, seed=restart)
+    p = tmp_path / "p.jpg"
+    cv2.imwrite(str(p), im, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 90,
+                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
+                             cv2.IMWRITE_JPEG_RST_INTERVAL, restart])
+    found = _markers(p.read_bytes())
+    assert 0xC2 in found and (0xDD in found) == bool(restart)  # progressive; restart intervals
+    np.testing.assert_array_equal(imread(p), _cv2_rgb(p))
+    assert read_shape(p) == size
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+def test_progressive_jpeg_by_pil_decodes_as_opencv(tmp_path, subsampling):
+    from PIL import Image
+
+    for i, size in enumerate([(37, 53), (64, 48), (150, 97)]):
+        p = tmp_path / f"p{i}.jpg"
+        Image.fromarray(_image(*size, 3, seed=i)).save(p, quality=80, progressive=True,
+                                                        subsampling=subsampling)
+        assert 0xC2 in _markers(p.read_bytes())
+        np.testing.assert_array_equal(imread(p), _cv2_rgb(p), err_msg=str(size))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_exif_orientation_as_opencv(tmp_path, orientation):
+    """JPEG and PNG written through PIL with each orientation: the pixels and
+    ``read_shape`` as OpenCV's IMREAD_COLOR turns them."""
+    from PIL import Image
+
+    ex = Image.Exif()
+    ex[0x0112] = orientation
+    im = Image.fromarray(_image(29, 46, 3, seed=orientation))
+    for name in ("o.jpg", "o.png"):
+        p = tmp_path / name
+        im.save(p, exif=ex.tobytes())
+        ref = _cv2_rgb(p)
+        np.testing.assert_array_equal(imread(p), ref, err_msg=name)
+        assert read_shape(p) == ref.shape[:2], name
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_sixteen_bit_png_as_opencv(tmp_path, channels):
+    """16-bit PNG reduced to 8 bits as OpenCV 5.0's IMREAD_COLOR reduces it
+    (the high byte); gray+alpha written by this suite's PNG writer (OpenCV writes
+    no two-channel PNG), the rest by OpenCV."""
+    rng = np.random.default_rng(channels)
+    px = rng.integers(0, 65536, (19, 31, channels), dtype=np.uint16)
+    px[0, :8, 0] = [0, 127, 128, 255, 256, 32767, 32768, 65535]  # the rounding's edges
+    p = tmp_path / "d.png"
+    if channels == 2:
+        _fixture_maker().write_png(p, px, interlace=False)
+    else:
+        cv2.imwrite(str(p), px[..., ::-1] if channels >= 3 else px)
+    assert p.read_bytes()[24] == 16
+    np.testing.assert_array_equal(imread(p), _cv2_rgb(p))
+
+
+@pytest.mark.parametrize("size", [(1, 1), (3, 5), (8, 8), (45, 67), (130, 9)])
+@pytest.mark.parametrize("kind", ["gray", "gray_alpha", "rgb", "rgba", "rgb16", "gray2", "palette4"])
+def test_adam7_png_as_opencv(tmp_path, size, kind):
+    """An interlaced PNG built here from a known image (every filter type in
+    every pass) decodes to that image and to OpenCV's pixels."""
+    maker = _fixture_maker()
+    h, w = size
+    c = {"gray": 1, "gray_alpha": 2, "rgb": 3, "rgba": 4, "rgb16": 3}.get(kind, 1)
+    im = _image(h, w, c, seed=h * w)
+    p = tmp_path / "i.png"
+    if kind == "rgb16":
+        px = im.astype(np.uint16) * 257 + np.random.default_rng(0).integers(0, 256, im.shape).astype(np.uint16)
+        maker.write_png(p, px)
+        want = (px >> 8).astype(np.uint8)
+    elif kind in ("gray2", "palette4"):  # sub-byte samples, written by swapping the depth and packing
+        depth = 2 if kind == "gray2" else 4
+        idx = (im[..., 0] >> (8 - depth)).astype(np.uint8)
+        _write_packed_adam7(p, idx, depth, colour=0 if kind == "gray2" else 3)
+        if kind == "gray2":
+            want = np.repeat((idx * (255 // 3))[..., None], 3, -1)
+        else:
+            want = _PALETTE[idx]
+    else:
+        maker.write_png(p, im)
+        want = np.repeat(im[..., :1], 3, -1) if c <= 2 else im[..., :3]
+    assert p.read_bytes()[28] == 1  # interlaced
+    np.testing.assert_array_equal(imread(p), want)
+    np.testing.assert_array_equal(imread(p), _cv2_rgb(p))
+
+
+_PALETTE = np.random.default_rng(5).integers(0, 256, (16, 3)).astype(np.uint8)
+
+
+def _write_packed_adam7(path, idx: np.ndarray, depth: int, colour: int) -> None:
+    """An Adam7 PNG of ``depth``-bit samples ``idx`` (gray, or palette indices into `_PALETTE`)."""
+    maker = _fixture_maker()
+    h, w = idx.shape
+    raw = b""
+    for x0, y0, dx, dy in maker.ADAM7:
+        sub = idx[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        bits = np.unpackbits(sub[..., None], axis=-1)[..., 8 - depth:].reshape(sub.shape[0], -1)
+        rows = np.packbits(bits, axis=1)
+        raw += b"".join(b"\x00" + r.tobytes() for r in rows)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return struct.pack(">I", len(payload)) + kind + payload + struct.pack(">I", zlib.crc32(kind + payload))
+
+    body = [chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 1))]
+    if colour == 3:
+        body.append(chunk(b"PLTE", _PALETTE.tobytes()))
+    body += [chunk(b"IDAT", zlib.compress(raw)), chunk(b"IEND", b"")]
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + b"".join(body))
+
+
+def test_committed_reader_fixtures():
+    """The committed progressive, EXIF-rotated and Adam7 fixtures against their
+    OpenCV pixel digests, and against OpenCV itself."""
+    import hashlib
+    import json
+
+    for name, ref in json.loads((FIXTURES / "reader_fixtures.json").read_text()).items():
+        got = imread(FIXTURES / name)
+        assert list(got.shape) == ref["shape"] and read_shape(FIXTURES / name) == tuple(ref["shape"][:2]), name
+        assert hashlib.sha256(got.tobytes()).hexdigest() == ref["sha256"], name
+        np.testing.assert_array_equal(got, _cv2_rgb(FIXTURES / name), err_msg=name)
 
 
 def test_missing_compiler_raises(tmp_path, monkeypatch):

@@ -124,6 +124,34 @@ def test_exported_graph_calls_the_kernels_as_registered_operators(made):
     assert ours == {"quan_torch.qattention_fwd.default": 1, "quan_torch.qconv1x1_fused.default": 37}
 
 
+def test_deep_stem_model_exports(made):
+    """A model built with stem_deep=1 exports (the index-map gathers of its
+    packed weights are traced like any operator): the .pt2 gives the live
+    model's outputs on the CPU, and on the card's graph (traced on the meta
+    device) K1 and K3 stay ``quan_torch`` operators, K3 at the 35 sites outside
+    the packed region."""
+    from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
+
+    live = DetectionModel.from_yaml(CFG, nc=NC, device="cpu", stem_deep=1)
+    live.load_state_dict(made["port"].model.state_dict())
+    path = exporter.export_compiled(live, imgsz=IMGSZ, batch=2, path=str(made["tmp"] / "deep.pt2"),
+                                    model_yaml=CFG)
+    x = torch.rand(2, IMGSZ, IMGSZ, 3, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref = live.decode(live(x))
+        plain = made["port"].model.decode(made["port"].model(x))
+    got = YOLO(path, device="cpu").model(x)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got, plain, rtol=0, atol=_tol(plain.numpy()))
+    meta = copy.deepcopy(live).to("meta").eval()
+    with torch.no_grad():
+        program = torch.export.export(exporter._Inference(meta), (torch.empty(2, 1024, 1024, 3, device="meta"),),
+                                      strict=False)
+    ops = Counter(str(n.target) for n in program.graph.nodes if n.op == "call_function")
+    ours = {k: v for k, v in ops.items() if k.startswith(("quan_torch", "quan"))}
+    assert ours == {"quan_torch.qattention_fwd.default": 1, "quan_torch.qconv1x1_fused.default": 35}
+
+
 def test_params_export_reads_both_ways(made):
     port_pkl = made["port"].export(format="params", path=str(made["tmp"] / "port.pkl"))
     got, ref = read_checkpoint(port_pkl), pickle.loads(Path(made["jax_pkl"]).read_bytes())

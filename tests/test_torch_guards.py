@@ -86,6 +86,7 @@ SLICE14_MODULES = [  # data parallelism, int8 serving and the last tooling modul
     "quan_ultralytics_tpu_torch.data.converter",
     "quan_ultralytics_tpu_torch.data.split_dota",
 ]
+STEM_MODULES = ["quan_ultralytics_tpu_torch.ops.stem"]  # the phase-packed stem's expansions
 _ALONE_CODE = ("import {}, sys; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'psutil')); "
                "assert not bad, bad")
@@ -97,7 +98,7 @@ def imported_alone():
     of its own, all started at once: module -> (exit code, standard error)."""
     procs = {m: subprocess.Popen([sys.executable, "-c", _ALONE_CODE.format(m)], cwd=REPO,
                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-             for m in ALONE_MODULES + PLOT_MODULES + SLICE14_MODULES}
+             for m in ALONE_MODULES + PLOT_MODULES + SLICE14_MODULES + STEM_MODULES}
     out = {}
     for m, proc in procs.items():
         _, err = proc.communicate(timeout=300)
@@ -133,6 +134,21 @@ def test_parallel_int8_and_tool_modules_alone_load_no_jax_cv2_pil_or_matplotlib(
     of jax, the JAX package, yaml, cv2, PIL, matplotlib or psutil."""
     rc, err = imported_alone[module]
     assert rc == 0, err
+
+
+def test_stem_module_alone_loads_no_jax_and_every_jax_module_has_its_counterpart(imported_alone):
+    """`ops.stem`, imported alone in a fresh interpreter, loads none of jax, the
+    JAX package, yaml, cv2, PIL, matplotlib or psutil; and every module of the
+    JAX package's tree outside ``ops/pallas/`` has a module of the same path in
+    the port."""
+    for module in STEM_MODULES:
+        rc, err = imported_alone[module]
+        assert rc == 0, f"{module}: {err}"
+    jax_pkg = REPO / "quan_ultralytics_tpu"
+    missing = [str(p.relative_to(jax_pkg)) for p in sorted(jax_pkg.rglob("*.py"))
+               if "pallas" not in p.relative_to(jax_pkg).parts
+               and not (PORT / p.relative_to(jax_pkg)).exists()]
+    assert not missing, missing
 
 
 def test_source_scan_finds_no_jax_import():

@@ -114,8 +114,10 @@ def test_select_topk_mask_matches_jax(topk):
 
 
 def test_assigner_refuses_what_is_not_ported():
-    """The chunked top-k (topk > 16) and the sparse assigner raise, rotated and
-    axis-aligned alike; the axis-aligned dense assigner runs."""
+    """What the assigner refuses, rotated and axis-aligned alike: the iterative
+    top-k beyond topk 16 (as JAX's explicit ``topk_impl='iter'``) and unknown
+    forms; the chunked top-k (topk > 16) and the sparse assigner, once refused
+    here, run and give the dense form's targets."""
     args = [to_torch(a) for a in _assigner_case("random", B=1)]
 
     def xyxy(t):  # the xywhr boxes' axis-aligned extent
@@ -123,10 +125,14 @@ def test_assigner_refuses_what_is_not_ported():
 
     aligned = [args[0], xyxy(args[1]), args[2], args[3], xyxy(args[4]), args[5]]
     for rotated, a in ((True, args), (False, aligned)):
-        with pytest.raises(NotImplementedError, match="chunked top-k"):
-            ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, topk=17)
-        with pytest.raises(NotImplementedError, match="dense"):
-            ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, impl="sparse")
+        with pytest.raises(ValueError, match="topk <= 16"):
+            ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, topk=17, topk_impl="iter")
+        with pytest.raises(ValueError, match="dense|sparse"):
+            ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, impl="banded")
+        dense = ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, topk=17)
+        sparse = ttal.task_aligned_assigner(*a, num_classes=NC, rotated=rotated, topk=17, impl="sparse")
+        for name in ttal.AssignResult._fields:
+            assert torch.equal(getattr(dense, name), getattr(sparse, name)), name
     assert ttal.task_aligned_assigner(*aligned, num_classes=NC).fg_mask.any()
 
 
@@ -210,3 +216,149 @@ def test_loss_parts_match_jax():
                          -1).astype(np.float32)
     assert_close(bbox2dist(to_torch(anc), to_torch(box), 15),
                  jax_bbox2dist(jnp.asarray(anc), jnp.asarray(box), 15), rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------- the sparse assigner and the chunked top-k
+
+
+def _rand_assigner_case(seed, imgsz, B=3, M=8, nc=7, rotated=False, tie_heavy=False, n_valid=None):
+    """tests/test_losses.py's ``_rand_assigner_case``: random predicted boxes
+    anywhere (many overlaps near 0), optional exact metric ties."""
+    rng = np.random.default_rng(seed)
+    shapes = [(imgsz // s, imgsz // s) for s in STRIDES]
+    anchors, stride_t = jax_make_anchors(shapes, STRIDES, 0.5)
+    anc = np.asarray(anchors * stride_t)
+    A = anc.shape[0]
+    scores = rng.uniform(0, 1, (B, A, nc)).astype(np.float32)
+    ctr = rng.uniform(0, imgsz, (B, A, 2)).astype(np.float32)
+    wh = rng.uniform(4, imgsz / 2, (B, A, 2)).astype(np.float32)
+    if rotated:
+        boxes = np.concatenate([ctr, wh, rng.uniform(-1.5, 1.5, (B, A, 1)).astype(np.float32)], -1)
+    else:
+        boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    gctr = rng.uniform(imgsz * 0.2, imgsz * 0.8, (B, M, 2)).astype(np.float32)
+    gwh = rng.uniform(8, imgsz / 2, (B, M, 2)).astype(np.float32)
+    if rotated:
+        gt = np.concatenate([gctr, gwh, rng.uniform(-1.5, 1.5, (B, M, 1)).astype(np.float32)], -1)
+    else:
+        gt = np.concatenate([gctr - gwh / 2, gctr + gwh / 2], -1)
+    if tie_heavy:
+        boxes = np.tile(boxes[:, :1], (1, A, 1))
+        scores = np.where(scores > 0.5, 0.5, 0.25).astype(np.float32)
+    labels = rng.integers(0, nc, (B, M)).astype(np.int32)
+    mask = np.zeros((B, M), bool)
+    for b in range(B):
+        mask[b, :int(rng.integers(0, M + 1)) if n_valid is None else n_valid] = True
+    return [to_torch(a) for a in (scores, boxes, anc, labels, gt, mask)]
+
+
+SPARSE_CASES = {
+    "axis_aligned": ((0, 256), {}), "rotated": ((1, 128), {"rotated": True}),
+    "bf16": ((2, 256), {"bf16_metric": True}), "rotated_bf16": ((3, 128), {"rotated": True, "bf16_metric": True}),
+    "ties": ((4, 256), {"tie_heavy": True}), "rotated_ties": ((5, 128), {"rotated": True, "tie_heavy": True}),
+    "no_gt": ((6, 128), {"n_valid": 0}), "all_gt": ((7, 128), {"n_valid": 8}), "topk1": ((8, 128), {"topk": 1}),
+    "many_chunks": ((9, 512), {"B": 2}), "topk32": ((10, 256), {"topk": 32}),
+    "rotated_topk32_bf16": ((11, 256), {"rotated": True, "topk": 32, "bf16_metric": True}),
+}
+
+
+@pytest.mark.parametrize("case", list(SPARSE_CASES))
+def test_sparse_assigner_equals_dense_bitwise(case):
+    """tests/test_losses.py's sparse cases: every output of ``impl="sparse"``
+    equals the dense form's bit for bit (dtype too), ties and the index-0
+    quirks included; and the dense form's under ``topk_impl`` iter and chunk."""
+    (seed, imgsz), kw = SPARSE_CASES[case]
+    case_kw = {k: kw[k] for k in ("rotated", "tie_heavy", "n_valid", "B") if k in kw}
+    args = _rand_assigner_case(seed, imgsz, **case_kw)
+    run = {k: kw[k] for k in ("rotated", "bf16_metric", "topk") if k in kw}
+    dense = ttal.task_aligned_assigner(*args, num_classes=7, impl="dense", **run)
+    sparse = ttal.task_aligned_assigner(*args, num_classes=7, impl="sparse", **run)
+    others = [sparse]
+    if run.get("topk", 10) <= 16:
+        others.append(ttal.task_aligned_assigner(*args, num_classes=7, topk_impl="chunk", **run))
+    for other in others:
+        for name in ttal.AssignResult._fields:
+            a, b = getattr(dense, name), getattr(other, name)
+            assert a.dtype == b.dtype and torch.equal(a, b), f"{name}: {int((a != b).sum())} differ"
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "padded"])
+@pytest.mark.parametrize("topk", [10, 32])
+def test_sparse_and_chunked_assigner_match_jax(kind, topk):
+    """The port's sparse assigner against JAX's sparse one (and its chunked
+    top-k at topk 32): the selection exactly, boxes and scores as
+    `test_rotated_assigner_matches_jax` holds them."""
+    args = _assigner_case(kind)
+    ref = jtal.task_aligned_assigner(*(jnp.asarray(a) for a in args), num_classes=NC, rotated=True,
+                                     topk=topk, bf16_metric=False, impl="sparse", topk_impl="chunk")
+    got = ttal.task_aligned_assigner(*(to_torch(a) for a in args), num_classes=NC, rotated=True,
+                                     topk=topk, impl="sparse")
+    assert np.asarray(ref.fg_mask).any()
+    for name in ("fg_mask", "target_gt_idx", "target_labels"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)), err_msg=name)
+    assert_close(got.target_bboxes, ref.target_bboxes, rtol=1e-5, atol=1e-6)
+    assert_close(got.target_scores, ref.target_scores, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("topk", [1, 10, 17, 40])
+def test_chunked_topk_matches_jax(topk):
+    """`_exact_topk_idx` (A = 700 > 4 chunks, exact ties across chunks, a
+    zero tail) equals JAX's: values, order and lowest-index ties; and the
+    select mask built on it."""
+    rng = np.random.default_rng(topk)
+    metrics = rng.uniform(0, 1, (2, 5, 700)).astype(np.float32)
+    metrics[..., 300:340] = metrics[..., 0:40]  # ties across chunks
+    metrics[..., 600:] = 0.0
+    ref = np.asarray(jtal._exact_topk_idx(jnp.asarray(metrics), topk))
+    np.testing.assert_array_equal(ttal._exact_topk_idx(to_torch(metrics), topk).numpy(), ref)
+    valid = rng.uniform(size=(2, 5)) > 0.4
+    ref_mask = jtal._select_topk_mask(jnp.asarray(metrics), topk, jnp.asarray(valid), topk_impl="chunk")
+    got_mask = ttal._select_topk_mask(to_torch(metrics), topk, to_torch(valid), topk_impl="chunk")
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(ref_mask))
+
+
+def test_obb_loss_sparse_assigner_equals_dense():
+    """Through obb_loss: the sparse assigner's loss and gradients equal the
+    dense form's bit for bit (tests/test_losses.py's end-to-end case)."""
+    feats, angles = _head_outputs(3, nc=15)
+    batch = {k: to_torch(v) for k, v in _obb_batch(3, nc=15).items()}
+    out = []
+    for impl in ("dense", "sparse"):
+        tf = [to_torch(f).requires_grad_() for f in feats]
+        ta = [to_torch(a).requires_grad_() for a in angles]
+        total, aux = td.obb_loss((tf, ta), batch, STRIDES, 15, assigner_impl=impl, topk_impl="chunk")
+        out.append((total, aux, torch.autograd.grad(total, tf + ta)))
+    (t0, a0, g0), (t1, a1, g1) = out
+    assert torch.equal(t0, t1) and int(a0["num_fg"]) > 0
+    for k in a0:
+        assert torch.equal(a0[k], a1[k]), k
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+def test_nms_defer_argmax_keeps_the_same_detections(monkeypatch):
+    """``defer_argmax`` (the class id from the gathered candidate rows) gives
+    the default's detections, and JAX's ``QUAN_NMS_DEFER_ARGMAX=1`` ones, on
+    rotated and axis-aligned predictions with tied class scores."""
+    from quan_ultralytics_tpu.ops import boxes as jbx
+    from quan_ultralytics_tpu_torch.ops import boxes as tbx
+
+    rng = np.random.default_rng(12)
+    nc, A = 5, 600
+    xywhr = np.concatenate([rng.uniform(0, 256, (2, A, 2)), rng.uniform(4, 40, (2, A, 2))], -1)
+    cls = rng.uniform(0, 1, (2, A, nc))
+    cls[:, :50, 1] = cls[:, :50, 3]  # tied best classes
+    for rotated in (True, False):
+        pred = np.concatenate([xywhr, cls] + ([rng.uniform(-0.7, 2.3, (2, A, 1))] if rotated else []),
+                              -1).astype(np.float32)
+        kw = dict(conf_thres=0.25, iou_thres=0.45, nc=nc, rotated=rotated, max_det=100)
+        det, ok = tbx.non_max_suppression(to_torch(pred), **kw)
+        det2, ok2 = tbx.non_max_suppression(to_torch(pred), defer_argmax=True, **kw)
+        assert torch.equal(det, det2) and torch.equal(ok, ok2) and int(ok.sum()) > 0
+        monkeypatch.setenv("QUAN_NMS_DEFER_ARGMAX", "1")
+        rdet, rok = jbx.non_max_suppression(jnp.asarray(pred), **kw)
+        monkeypatch.delenv("QUAN_NMS_DEFER_ARGMAX")
+        np.testing.assert_array_equal(ok2.numpy(), np.asarray(rok))
+        np.testing.assert_array_equal(det2[..., 6 if rotated else 5].numpy(),
+                                      np.asarray(rdet)[..., 6 if rotated else 5])
+        assert_close(det2, rdet, rtol=1e-5, atol=1e-5)

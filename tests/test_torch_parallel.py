@@ -59,6 +59,16 @@ def test_two_rank_step_is_the_global_batch_step(dp, torch_threads):
         _close(r["step"]["state"], W.trainer_state(tr), what="after one step")
 
 
+def test_two_rank_deep_stem_step_is_the_global_batch_step(dp, torch_threads):
+    """stem_deep=1 on two ranks: the packed IQBNs' synced statistics, and the
+    whole step, are the single process's deep-stem step on the global batch."""
+    tr = W.make_trainer(stem_deep=1)
+    loss, _ = tr.step(W.obb_batch(0))
+    for r in dp["ranks"]:
+        np.testing.assert_allclose(r["deep_step"]["loss"], float(loss), rtol=2e-5)
+        _close(r["deep_step"]["state"], W.trainer_state(tr), what="deep stem, after one step")
+
+
 def test_ranks_stay_bitwise_equal_after_k_steps(dp):
     a, b = (r["k_steps"]["state"] for r in dp["ranks"])
     assert np.isfinite(dp["ranks"][0]["k_steps"]["loss"])

@@ -118,10 +118,11 @@ def _jax_runs():
     return runs
 
 
-def _port_trainer_at(state, nbs: int):
+def _port_trainer_at(state, nbs: int, **model_kw):
     """A port Trainer holding the JAX train state ``state``: weights, batch
-    statistics, EMA, and the optimizer's momentum, accumulator and counters."""
-    model = DetectionModel.from_yaml(CFG, nc=NC, device="cpu")
+    statistics, EMA, and the optimizer's momentum, accumulator and counters;
+    ``model_kw`` go to the model (the stem's form)."""
+    model = DetectionModel.from_yaml(CFG, nc=NC, device="cpu", **model_kw)
     load_jax_variables(model, {"params": state.params, "batch_stats": state.batch_stats})
     cfg = tt.TrainConfig(epochs=10, batch=B, nbs=nbs, dtype="float32", assigner_bf16=False)
     trainer = tt.Trainer(model, cfg, steps_per_epoch=STEPS_PER_EPOCH, device="cpu")
@@ -234,6 +235,21 @@ def test_each_step_from_the_jax_state_matches_jax(runs, nbs):
                                                                   int(opt.mini_step))
         else:
             assert trainer.opt.count == int(opt.inner_states["bias"].inner_state[2].count) == k
+
+
+@pytest.mark.parametrize("stem", [{"stem_s2d": True}, {"stem_deep": 1}, {"stem_deep": 2},
+                                  {"stem_deep": 1, "stem_remat": True}])
+def test_stem_forms_step_from_the_jax_state_matches_jax(runs, stem):
+    """The port's phase-composite and deep-packed stems (the JAX Trainer builds
+    its model with the JAX default, stem_s2d): one step from JAX state 1 at
+    accumulate 1 gives JAX state 2, loss and every state leaf as above."""
+    states, jlosses, _, _, _ = runs[2]
+    trainer = _port_trainer_at(states[1], 2, **stem)
+    loss, _ = trainer.step(_batch())
+    assert float(loss) == pytest.approx(jlosses[1]["loss"], rel=1e-5)
+    ref, got = _jax_state(states[2], 2), _port_state(trainer)
+    for what in ref:
+        _assert_leaves(got[what], ref[what], f"{stem} {what}")
 
 
 def test_ema_moves_only_on_optimizer_updates(runs):

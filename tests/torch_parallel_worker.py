@@ -27,11 +27,11 @@ def obb_batch(seed: int, batch: int = BATCH, imgsz: int = IMGSZ):
     }
 
 
-def make_trainer(nbs: int = BATCH, mesh=None, batch: int = BATCH):
+def make_trainer(nbs: int = BATCH, mesh=None, batch: int = BATCH, **model_kw):
     from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
     from quan_ultralytics_tpu_torch.models.tasks import DetectionModel
 
-    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=NC, device="cpu")
+    model = DetectionModel.from_yaml("yolo11n-obb-quan.yaml", nc=NC, device="cpu", **model_kw)
     cfg = TrainConfig(epochs=2, batch=batch, nbs=nbs, warmup_epochs=0.0, dtype="float32")
     return Trainer(model, cfg, steps_per_epoch=4, device="cpu", mesh=mesh)
 
@@ -145,6 +145,11 @@ def run_all(rank: int, data_yaml: str):
     x, cot = iqbn_case()
     rows = process_batch_slice(2, 8)
     out["iqbn"] = iqbn_forward(x[rows], cot[rows], mesh)
+
+    # one sharded step of the deep-packed stem (its packed IQBNs take the global moments)
+    tr = make_trainer(mesh=mesh, stem_deep=1)
+    loss, aux = tr.step(global_batch(mesh, shard_batch(mesh, batch)))
+    out["deep_step"] = {"loss": float(loss), "state": trainer_state(tr)}
 
     # sharded validation and prediction
     ds = YOLODataset(data_yaml, split="val", task="obb")
