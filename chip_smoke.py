@@ -224,7 +224,25 @@ Phases:
  57. the readers' newer formats (the committed progressive, EXIF-rotated and
      Adam7 fixtures) through the val loader, against their OpenCV digests,
      with their decode ms;
- 58. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 58. video decode: every committed video fixture (tests/fixtures/video/,
+     MPEG-4 Part 2 and Motion-JPEG in ISO-BMFF, AVI and Matroska) through the
+     port's demuxers and decoders (``data/native/video.cpp``, built in phase
+     1), each frame against the port's digest in video_fixtures.json (which
+     also records OpenCV's and how far they agree), the decode ms a frame of
+     the 640 x 480 MPEG-4 and Motion-JPEG clips (mean of several passes) and
+     the VP8 WebM's named refusal;
+ 59. ``detect track`` of the 640 x 480 MPEG-4 clip through ``cli.main``
+     (ByteTrack, f32: K1 on the CUDA cores and K3 at every fused site, each
+     frame), then ``YOLO.track(..., tracker="botsort")`` of the file streamed
+     through ``load_source``: its tracks equal those of ``YOLO.track`` over
+     the decoded frames held as arrays, ms a frame split into decode, infer
+     and update;
+ 60. ``obb predict save=True`` of the same clip at 1024 through ``cli.main``
+     (f32): an ``im{i}.jpg`` a frame, its lines those of the facade's
+     predict of the decoded arrays; then the facade in bf16 (K1 + K3 on the
+     tensor cores): ``predict(<clip>)`` gives the boxes of
+     ``predict(<decoded arrays>)``, with its ms a frame;
+ 61. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -237,8 +255,9 @@ Phases:
      the .pt2), cli_predict_save, predict_plot, predict_visualize, seg_plot,
      pose_plot, val_plots, reference_weights, dp_nccl_train,
      dp_gloo_{train,val,predict}_rank{0,1}, int8_fused_1x1, int8,
-     stem_<form>_predict, stem_<form>[_remat]_train and
-     stem_deep1_dp_nccl_train; each
+     stem_<form>_predict, stem_<form>[_remat]_train,
+     stem_deep1_dp_nccl_train, video_cli_track, video_track_botsort,
+     video_cli_predict and video_predict; each
      kernel launched on each path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
@@ -401,12 +420,12 @@ def phase_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     from concurrent.futures import ThreadPoolExecutor
 
-    from quan_ultralytics_tpu_torch.data.native import native, pixels
+    from quan_ultralytics_tpu_torch.data.native import native, pixels, video
     from quan_ultralytics_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # the host libraries (g++) build beside the kernels (nvcc)
-        host = [pool.submit(native.build), pool.submit(pixels.build)]
+    with ThreadPoolExecutor(3) as pool:  # the host libraries (g++) build beside the kernels (nvcc)
+        host = [pool.submit(native.build), pool.submit(pixels.build), pool.submit(video.build)]
         _build.library()
         for f in host:
             f.result()
@@ -5182,6 +5201,195 @@ def phase_readers(root: Path, card: str, reps: int = 20):
     return out
 
 
+# ---------------------------------------------------------------- phases 58-60
+
+
+VIDEO_PASSES = 3  # timed decodes of each 640 x 480 clip in phase 58
+VIDEO_CLIP = "track_640x480.mp4"  # make_clip's frames as mp4v MPEG-4 Part 2, the track and predict source
+
+
+def phase_video_decode(card: str):
+    """58. Every committed video fixture through `video.frames`, each frame
+    against the port's SHA-256 in video_fixtures.json; the ms a frame of the
+    640 x 480 clips (demux once, then decode and convert to RGB, mean of
+    VIDEO_PASSES); the VP8 WebM's NotImplementedError."""
+    import hashlib
+
+    from quan_ultralytics_tpu_torch.data.native import video
+
+    videos = Path(__file__).resolve().parent / "tests" / "fixtures" / "video"
+    digests = json.loads((videos.parent / "video_fixtures.json").read_text())
+    out = {"fixtures": {}, "ms_a_frame": {}}
+    for name, d in sorted(digests.items()):
+        if "refused" in d:
+            try:
+                list(video.frames(videos / name))
+                check(False, f"video decode: {name} decoded; it should be refused")
+            except NotImplementedError as e:
+                out["fixtures"][name] = {"refused": str(e).replace(str(videos / name), name)}
+            continue
+        got = list(video.frames(videos / name))
+        shas = [hashlib.sha256(np.ascontiguousarray(f).tobytes()).hexdigest() for f in got]
+        check(len(got) == d["frames"] and shas == [f["port"] for f in d["per_frame"]],
+              f"video decode: {name} gives {len(got)} frames, not its {d['frames']} digests")
+        out["fixtures"][name] = {"frames": len(got), "codec": d["codec"], "container": d["container"],
+                                 "cv2_equal": all(f["port"] == f["cv2"] for f in d["per_frame"]),
+                                 "cv2_max_diff": max(f["max_diff"] for f in d["per_frame"])}
+    for name in ("track_640x480.mp4", "track_640x480.avi"):
+        t0 = time.perf_counter()
+        stream = video.demux(videos / name)
+        demux_ms = 1e3 * (time.perf_counter() - t0)
+        spent = {"decode": 0.0, "rgb": 0.0}
+        n = 0
+        for _ in range(VIDEO_PASSES):
+            dec = video.Decoder(stream.codec, stream.private, stream.tag)
+            for packet in stream.packets:
+                t0 = time.perf_counter()
+                ready = dec.send(packet)
+                t1 = time.perf_counter()
+                if ready:
+                    dec.rgb()
+                    n += 1
+                spent["decode"] += t1 - t0
+                spent["rgb"] += time.perf_counter() - t1
+            dec.close()
+        out["ms_a_frame"][name] = {"codec": stream.codec, "demux_ms": demux_ms,
+                                   "decode_ms": 1e3 * spent["decode"] / n, "rgb_ms": 1e3 * spent["rgb"] / n,
+                                   "total_ms": 1e3 * (spent["decode"] + spent["rgb"]) / n}
+    print("video decode: " + ", ".join(f"{k}: {v['frames']} frames equal to the port's digests"
+                                       + (" (= OpenCV's)" if v["cv2_equal"] else "")
+                                       for k, v in out["fixtures"].items() if "frames" in v)
+          + "; " + "; ".join(f"{k} ({v['codec']}) {v['decode_ms']:.2f} ms decode + {v['rgb_ms']:.2f} ms RGB a "
+                             f"frame, demux {v['demux_ms']:.1f} ms" for k, v in out["ms_a_frame"].items())
+          + f" (mean of {VIDEO_PASSES} passes); {card}")
+    return out
+
+
+def phase_video_track(root: Path, card: str):
+    """59. ``detect track model=<seeded pkl> source=<clip.mp4>`` through
+    ``cli.main`` (ByteTrack, the CLI's defaults, f32): a line a frame, K1 on
+    the CUDA cores and K3 at every fused site each frame. Then
+    ``YOLO.track(load_source(<clip.mp4>), tracker="botsort")`` with the
+    thresholds of phase 36 (at the seeded model's first-frame scores): its
+    tracks equal, frame by frame, those of ``YOLO.track`` over the decoded
+    frames held as arrays (the model run again on them, a fresh BoT-SORT),
+    and its ms a frame split into decode (the generator's next), infer and
+    the tracker's update."""
+    from quan_ultralytics_tpu_torch import trackers
+    from quan_ultralytics_tpu_torch.data.loaders import load_source
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+    from quan_ultralytics_tpu_torch.trackers import byte_tracker
+
+    clip = Path(__file__).resolve().parent / "tests" / "fixtures" / "video" / VIDEO_CLIP
+    pkl = seeded_pkl(root / "video_track_seeded.pkl", DET_MODEL, DET_NC)
+    k3 = default_k3_sites(DET_MODEL, DET_NC)
+    text, cli_s, cli_n = _cli(["detect", "track", f"model={pkl}", f"source={clip}", f"imgsz={DET_IMGSZ}"])
+    lines = [ln for ln in text.splitlines() if ln.startswith("frame ")]
+    check(len(lines) == TRACK_FRAMES and cli_n["qattn_fwd"] == cli_n["qattn_fwd_cuda_cores"] == TRACK_FRAMES
+          and cli_n["qconv1x1_fused"] == TRACK_FRAMES * k3, f"video cli track: {len(lines)} lines, {cli_n}")
+    arrays = list(load_source(clip))
+    y = YOLO(str(pkl), device=DEVICE)
+    conf = y.predict(arrays[0], imgsz=DET_IMGSZ)[0].conf
+    check(len(conf) >= 2, f"video track: the seeded model keeps {len(conf)} detections on the first frame")
+    kw = dict(track_high_thresh=float(np.quantile(conf, 0.95)), track_low_thresh=float(np.quantile(conf, 0.5)),
+              new_track_thresh=float(np.quantile(conf, 0.95)))
+    spent = {"decode": 0.0, "update": 0.0}
+    tracker = trackers.BOTSORT(**kw)
+    update = tracker.update
+
+    def timed_update(xyxy, scores, cls, **kwargs):
+        t0 = time.perf_counter()
+        res = update(xyxy, scores, cls, **kwargs)
+        spent["update"] += time.perf_counter() - t0
+        return res
+
+    def timed_frames():
+        gen = load_source(clip)
+        while True:
+            t0 = time.perf_counter()
+            frame = next(gen, None)
+            spent["decode"] += time.perf_counter() - t0
+            if frame is None:
+                return
+            yield frame
+
+    tracker.update = timed_update
+    y._tracker = tracker
+    byte_tracker.STrack._count = 0
+    _reset_counts()
+    t0 = time.perf_counter()
+    tracks = y.track(timed_frames(), imgsz=DET_IMGSZ, tracker="botsort", persist=True)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got = _counts()
+    check(got == {"qattn_fwd": TRACK_FRAMES, "qattn_fwd_with_stats": 0, "qattn_bwd": 0,
+                  "qconv1x1_fused": TRACK_FRAMES * k3}, f"video track [botsort]: launches {got}")
+    y._tracker = trackers.BOTSORT(**kw)
+    byte_tracker.STrack._count = 0
+    again = y.track(arrays, imgsz=DET_IMGSZ, tracker="botsort", persist=True)
+    check(len(tracks) == len(again) == TRACK_FRAMES and all(np.array_equal(a, b) for a, b in zip(tracks, again)),
+          "video track [botsort]: the tracks of the streamed file differ from YOLO.track's over its decoded frames")
+    row = {"cli_s": cli_s, "launches_cli": cli_n, "launches": got, "ms_a_frame": 1e3 * total / TRACK_FRAMES,
+           "decode_ms_a_frame": 1e3 * spent["decode"] / TRACK_FRAMES,
+           "update_ms_a_frame": 1e3 * spent["update"] / TRACK_FRAMES,
+           "infer_ms_a_frame": 1e3 * (total - spent["decode"] - spent["update"]) / TRACK_FRAMES,
+           "tracks_a_frame": [len(t) for t in tracks], "thresholds": kw}
+    print(f"video track: detect track of {VIDEO_CLIP} through the CLI in {cli_s:.1f} s, {len(lines)} lines, "
+          f"launches {cli_n}; YOLO.track [botsort] {row['ms_a_frame']:.1f} ms a frame (decode "
+          f"{row['decode_ms_a_frame']:.2f}, infer {row['infer_ms_a_frame']:.1f}, update "
+          f"{row['update_ms_a_frame']:.2f}); launches {got}; tracks a frame {row['tracks_a_frame']}; {card}")
+    return row
+
+
+def phase_video_predict(root: Path, card: str):
+    """60. ``obb predict model=<seeded pkl> source=<clip.mp4> save=True`` at
+    1024 through ``cli.main`` (f32): an im{i}.jpg a frame at the frame's size
+    and the facade's lines for the decoded arrays; then the facade in bf16
+    (K1 + K3 on the tensor cores): ``predict(<clip.mp4>)`` against
+    ``predict(<decoded arrays>)``, the same detections within PRED_TOL, and
+    its ms a frame."""
+    from quan_ultralytics_tpu_torch.data.loaders import load_source
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+
+    clip = Path(__file__).resolve().parent / "tests" / "fixtures" / "video" / VIDEO_CLIP
+    pkl = seeded_pkl(root / "video_obb_seeded.pkl", MODEL, NC)
+    arrays = list(load_source(clip))
+    text, cli_s, cli_n = _cli(["obb", "predict", f"model={pkl}", f"source={clip}", f"imgsz={IMGSZ}", "save=True",
+                               f"save_dir={root / 'video_pred'}"])
+    check(cli_n["qattn_fwd"] > 0 and cli_n["qconv1x1_fused"] == 37 * cli_n["qattn_fwd"],
+          f"video cli predict: launches {cli_n}")
+    for i, f in enumerate(arrays):
+        check(native.imread(root / "video_pred" / f"im{i}.jpg").shape == f.shape, f"video predict: im{i}.jpg")
+    ref = YOLO(str(pkl), device=DEVICE).predict(arrays, imgsz=IMGSZ)
+    want = [f"image {i + 1}/{len(ref)} {r.orig_shape[1]}x{r.orig_shape[0]} {r.verbose()}" for i, r in enumerate(ref)]
+    check([ln for ln in text.splitlines() if ln.startswith("image ")] == want,
+          "video cli predict: its lines differ from the facade's for the decoded frames")
+    y = YOLO(str(pkl), dtype=torch.bfloat16, device=DEVICE)
+    y.predict(arrays[:1], imgsz=IMGSZ)  # warm up
+    base = y.predict(arrays, imgsz=IMGSZ)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = y.predict(str(clip), imgsz=IMGSZ)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    check(got["qattn_fwd"] > 0 and got["qconv1x1_fused"] == 37 * got["qattn_fwd"] and got["qattn_bwd"] == 0,
+          f"video predict: launches {got}")
+    tol = PRED_TOL[torch.bfloat16]
+    same = len(res) == len(base) == TRACK_FRAMES and all(
+        len(a) == len(b) and np.array_equal(a.cls, b.cls)
+        and np.abs(a.boxes - b.boxes).max(initial=0.0) <= tol * max(1.0, float(np.abs(b.boxes).max(initial=0.0)))
+        for a, b in zip(res, base))
+    check(same, "video predict: the clip's detections differ from those of its decoded frames")
+    row = {"cli_s": cli_s, "launches_cli": cli_n, "launches": got, "ms_a_frame": 1e3 * secs / TRACK_FRAMES,
+           "detections": [len(r) for r in res]}
+    print(f"video predict: obb predict save=True of {VIDEO_CLIP} at {IMGSZ} through the CLI (f32) in {cli_s:.1f} s, "
+          f"{len(arrays)} im*.jpg, launches {cli_n}; bf16 facade: {row['ms_a_frame']:.1f} ms a frame from the file, "
+          f"launches {got}, detections {row['detections']}; {card}")
+    return row
+
+
 def lap(t_start: float, what: str) -> None:
     """Print the script's seconds so far, after ``what``."""
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
@@ -5317,6 +5525,13 @@ def main() -> int:
     stem["seconds"] = time.perf_counter() - t_stem
     print(f"stem, assigner and readers phases: {stem['seconds']:.1f} s")
     lap(t_start, "the stem, assigner and readers phases")
+    t_video = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
+        videos = {"decode": phase_video_decode(card), "track": phase_video_track(Path(tmp), card),
+                  "predict": phase_video_predict(Path(tmp), card)}
+    videos["seconds"] = time.perf_counter() - t_video
+    print(f"video phases: {videos['seconds']:.1f} s")
+    lap(t_start, "the video phases")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -5331,7 +5546,7 @@ def main() -> int:
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
              "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose, "classify": classify,
              "hybrid": hybrid, "tools": tools, "plots": plots, "conv_forms": forms, "data_parallel": dp,
-             "stem": stem},
+             "stem": stem, "video": videos},
             indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
@@ -5442,6 +5657,14 @@ def main() -> int:
             check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
         else:
             check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the video sources: detect track (CLI, ByteTrack; facade, BoT-SORT) and obb predict (CLI; bf16 facade)
+    det_launches.update({"video_cli_track": videos["track"]["launches_cli"],
+                         "video_track_botsort": videos["track"]["launches"],
+                         "video_cli_predict": videos["predict"]["launches_cli"],
+                         "video_predict": videos["predict"]["launches"]})
+    for path in ("video_cli_track", "video_track_botsort", "video_cli_predict", "video_predict"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     cls_t = cls_yolo["timing"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
@@ -5549,6 +5772,7 @@ def main() -> int:
                     for n, r in stem["predict"]["modes"].items()},
         "train": stem["train"], "dp": stem["dp"], "assigner": stem["assigner"], "readers": stem["readers"],
         "seconds": stem["seconds"]}}, default=str))
+    print(json.dumps({"video": videos}, default=str))
     # ROADMAP item 4: the TPU-chosen defaults, by the numbers of this run
     print(json.dumps({"defaults": {
         "stem": {"choice": stem["predict"]["default"], "faster": stem["predict"]["faster"],

@@ -20,8 +20,8 @@ for segment, ``yolo11n-pose-quan.yaml`` for pose). ``classify`` trains only
 svhn|imagenet|synthetic`` names the dataset and ``data=<folder>`` an
 ImageNet-layout folder; ``batch`` is ``--batch_size``, ``lr0`` ``--lr``, and
 every other key passes as its flag. ``export`` writes ``format=exported``
-(a ``.pt2``) or ``format=params`` (a ``.pkl``); ``track`` reads a directory of
-frames (video sources are not ported yet); ``tune`` evolves the training
+(a ``.pt2``) or ``format=params`` (a ``.pkl``); ``track`` reads a video file
+or a directory of frames; ``tune`` evolves the training
 hyperparameters; ``benchmark`` prints the speed table of
 `utils.benchmarks.benchmark`.
 
@@ -133,14 +133,8 @@ def main(argv=None) -> int:
         raise SystemExit(f"yolo {mode} requires data=<dataset.yaml>")
     if mode == "predict" and "source" not in kv:
         raise SystemExit("yolo predict requires source=<image-or-dir>")
-    if mode == "track":
-        from quan_ultralytics_tpu_torch.data.loaders import VID_EXTS
-
-        if "source" not in kv:
-            raise SystemExit("yolo track requires source=<video-or-dir>")
-        if Path(str(kv["source"])).suffix.lower() in VID_EXTS:
-            raise SystemExit(f"yolo track: {kv['source']}: video sources are not ported yet "
-                             "(ROADMAP Queue 1 item 3b); pass a directory of frames")
+    if mode == "track" and "source" not in kv:
+        raise SystemExit("yolo track requires source=<video-or-dir>")
     if mode == "tune" and "data" not in kv:
         raise SystemExit("yolo tune requires data=<dataset.yaml>")
 
@@ -200,8 +194,8 @@ def main(argv=None) -> int:
             raise SystemExit(f"yolo export: {e}")
         print(f"exported: {path}")
     elif mode == "track":
-        # reference 'track' mode (Model.track): a directory of frames -> per-frame
-        # associations through ByteTrack or BoT-SORT
+        # reference 'track' mode (Model.track): a video file or a directory of
+        # frames -> per-frame associations through ByteTrack or BoT-SORT
         from quan_ultralytics_tpu_torch.data.loaders import load_source
 
         tracks = model.track(load_source(kv.pop("source")), **kv)

@@ -4,8 +4,12 @@ ultralytics/data/loaders.py LoadImagesAndVideos).
 
 Image files are read by the port's PNG and JPEG readers
 (`data.native.native.imread`: RGB, the pixels ``cv2.imread`` then
-``cvtColor(BGR2RGB)`` gives). Video files (the JAX package reads them with
-``cv2.VideoCapture``) are not ported yet.
+``cvtColor(BGR2RGB)`` gives). Video files are read by the port's demuxers and
+decoders (`data.native.video.frames`: RGB frames in display order, the pixels
+``cv2.VideoCapture`` then ``cvtColor(BGR2RGB)`` gives), streamed one frame at
+a time. As with ``cv2.VideoCapture``, a missing or unreadable video yields no
+frames and a damaged one the frames before the damage; a codec or coding tool
+the port does not decode raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 
 from quan_ultralytics_tpu_torch.data.dataset import IMG_EXTS
 from quan_ultralytics_tpu_torch.data.native.native import imread
+from quan_ultralytics_tpu_torch.data.native.video import frames
 
 VID_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v"}
 
@@ -38,7 +43,8 @@ def load_source(source: Union[str, Path, np.ndarray, Iterable]) -> Generator[np.
                 yield from load_source(f)
         return
     if p.suffix.lower() in VID_EXTS:
-        raise NotImplementedError(f"{p}: video sources are not ported yet (ROADMAP Queue 1 item 3b)")
+        yield from frames(p)
+        return
     if p.suffix.lower() in IMG_EXTS or p.exists():
         try:
             yield imread(p)

@@ -352,6 +352,9 @@ struct Decoder {
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
   Component comp[4];
+  // dequantises and inverse-transforms a block of quantised coefficients
+  // (natural order) into 8x8 samples; the Motion-JPEG decoder puts FFmpeg's here
+  void (*recon)(const int32_t* coef, const uint16_t* q, uint8_t* out, int stride) = idct_islow;
 
   int u16(size_t at) const { return (data[at] << 8) | data[at + 1]; }
 
@@ -474,7 +477,7 @@ struct Decoder {
       }
     }
     if (br.overrun()) return E_TRUNCATED;
-    idct_islow(coef, qt[c.tq], out, stride);
+    recon(coef, qt[c.tq], out, stride);
     return OK;
   }
 
@@ -575,7 +578,7 @@ struct Decoder {
         for (int bx = 0; bx < c.plane_w / 8; ++bx) {
           const int16_t* src = block_at(c, by, bx);
           for (int k = 0; k < 64; ++k) blk[k] = src[k];
-          idct_islow(blk, q, c.plane.data() + (size_t)by * 8 * c.plane_w + bx * 8, c.plane_w);
+          recon(blk, q, c.plane.data() + (size_t)by * 8 * c.plane_w + bx * 8, c.plane_w);
         }
     }
   }

@@ -87,7 +87,8 @@ def write_library() -> ctypes.CDLL:
     """The loaded JPEG encoder (``imwrite.cpp``), built on first call."""
     global _write_lib
     if _write_lib is None:
-        lib = ctypes.CDLL(str(build_cxx(WRITE_SOURCE, WRITE_LIB_NAME, CXX_FLAGS, BUILD_DIR)))
+        lib = ctypes.CDLL(str(build_cxx(WRITE_SOURCE, WRITE_LIB_NAME, CXX_FLAGS, BUILD_DIR,
+                                          depends=[SOURCE.with_name("jpeg_tables.h")])))
         lib.jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_long]
         lib.jpeg_encode.restype = ctypes.c_long

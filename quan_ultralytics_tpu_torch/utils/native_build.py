@@ -39,10 +39,11 @@ def locked_build(build_dir: Path, lib_name: str, digest: str,
     return lib_path
 
 
-def build_cxx(source: Path, lib_name: str, flags: Sequence[str], build_dir: Path = BUILD_DIR) -> Path:
+def build_cxx(source: Path, lib_name: str, flags: Sequence[str], build_dir: Path = BUILD_DIR,
+              depends: Sequence[Path] = ()) -> Path:
     """``build_dir / lib_name`` compiled from the one C++ file ``source`` by
-    ``g++ flags``, rebuilt when the source or the flags change. A missing
-    compiler raises."""
+    ``g++ flags``, rebuilt when the source, the files it includes
+    (``depends``) or the flags change. A missing compiler raises."""
 
     def compile_to(lib_path: Path) -> None:
         cxx = shutil.which("g++")
@@ -53,5 +54,6 @@ def build_cxx(source: Path, lib_name: str, flags: Sequence[str], build_dir: Path
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
 
-    digest = hashlib.sha256(" ".join(flags).encode() + source.read_bytes()).hexdigest()
+    digest = hashlib.sha256(" ".join(flags).encode() + b"".join(
+        p.read_bytes() for p in (source, *depends))).hexdigest()
     return locked_build(build_dir, lib_name, digest, compile_to)

@@ -157,9 +157,10 @@ def test_modes_not_ported_exit_nonzero(argv, tmp_path, monkeypatch, capsys):
     """The four modes that were not ported route now (the name is kept): ``obb
     export`` writes its file, ``tune`` reaches ``YOLO.tune`` with its keys (as
     the JAX package's ``test_tune_mode_dispatch``), ``benchmark`` prints the
-    table; a video source of ``track`` and ``classify export`` still exit
-    non-zero, naming the video item and, as the JAX CLI does, classify's one
-    mode."""
+    table; ``track`` of a video source goes through ``load_source`` as the
+    JAX CLI's does (a missing clip gives no frames, so both print nothing and
+    exit 0); ``classify export`` still exits non-zero, naming, as the JAX CLI
+    does, classify's one mode."""
     monkeypatch.chdir(tmp_path)
     mode = "classify" if argv[0] == "classify" else argv[1] if argv[0] in tcli.TASKS else argv[0]
     if mode == "export":
@@ -183,8 +184,10 @@ def test_modes_not_ported_exit_nonzero(argv, tmp_path, monkeypatch, capsys):
         assert lines[0].split() == ["model", "imgsz", "dtype", "batch", "ms_per_batch", "img_per_s"]
         assert lines[1].split()[:4] == ["yolo11n-obb-quan.yaml", "64", "bfloat16", "2"]
     elif mode == "track":
-        with pytest.raises(SystemExit, match="video sources are not ported yet"):
-            tcli.main(argv + ["device=cpu"])
+        assert tcli.main(argv + ["device=cpu"]) == 0
+        got = capsys.readouterr().out
+        assert jcli.main(list(argv)) == 0
+        assert got == capsys.readouterr().out == ""
     else:
         for mod in (tcli, jcli):
             with pytest.raises(SystemExit, match="classify supports mode=train"):
@@ -386,8 +389,8 @@ def test_load_source_matches_jax(tmp_path):
         for bad in (broken, tmp_path / "missing.png", tmp_path / "missing"):
             with pytest.raises(FileNotFoundError):
                 list(fn(bad))
-    with pytest.raises(NotImplementedError, match="video"):
-        list(load_source(tmp_path / "clip.mp4"))
+    # a missing video: cv2.VideoCapture opens nothing, so neither package yields a frame
+    assert list(load_source(tmp_path / "clip.mp4")) == list(jax_load_source(str(tmp_path / "clip.mp4"))) == []
 
 
 @pytest.mark.parametrize("seed,n", [(0, 7), (1, 1), (2, 0)])

@@ -25,7 +25,8 @@ FORBIDDEN = re.compile(
 # packages the card's machine does not have: the port reads images, YAML and
 # memory sizes without them
 ABSENT_ON_CARD = re.compile(
-    r"^\s*(?:import|from)\s+(?:cv2|yaml|PIL|matplotlib|psutil)\b", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:cv2|yaml|PIL|matplotlib|psutil|av|imageio|decord|ffmpeg|skvideo)\b",
+    re.MULTILINE)
 
 
 def test_import_loads_no_jax():
@@ -87,6 +88,10 @@ SLICE14_MODULES = [  # data parallelism, int8 serving and the last tooling modul
     "quan_ultralytics_tpu_torch.data.split_dota",
 ]
 STEM_MODULES = ["quan_ultralytics_tpu_torch.ops.stem"]  # the phase-packed stem's expansions
+VIDEO_MODULES = [  # the video demuxers and decoders, and the sources that read them
+    "quan_ultralytics_tpu_torch.data.native.video",
+    "quan_ultralytics_tpu_torch.data.loaders",
+]
 _ALONE_CODE = ("import {}, sys; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'quan_ultralytics_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'psutil')); "
                "assert not bad, bad")
@@ -98,7 +103,7 @@ def imported_alone():
     of its own, all started at once: module -> (exit code, standard error)."""
     procs = {m: subprocess.Popen([sys.executable, "-c", _ALONE_CODE.format(m)], cwd=REPO,
                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-             for m in ALONE_MODULES + PLOT_MODULES + SLICE14_MODULES + STEM_MODULES}
+             for m in ALONE_MODULES + PLOT_MODULES + SLICE14_MODULES + STEM_MODULES + VIDEO_MODULES}
     out = {}
     for m, proc in procs.items():
         _, err = proc.communicate(timeout=300)
@@ -151,6 +156,16 @@ def test_stem_module_alone_loads_no_jax_and_every_jax_module_has_its_counterpart
     assert not missing, missing
 
 
+@pytest.mark.parametrize("module", VIDEO_MODULES)
+def test_video_modules_alone_load_no_jax_cv2_pil_or_video_library(module, imported_alone):
+    """The video demuxers and decoders, and the predict sources that read
+    them, each imported alone in a fresh interpreter, load none of jax, the
+    JAX package, yaml, cv2, PIL, matplotlib or psutil; the scans below find no
+    import of a video library in the port."""
+    rc, err = imported_alone[module]
+    assert rc == 0, err
+
+
 def test_source_scan_finds_no_jax_import():
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
@@ -167,7 +182,7 @@ def test_source_scan_finds_no_package_the_card_lacks():
            for p in files for m in ABSENT_ON_CARD.finditer(p.read_text())]
     assert not bad, bad
     for line in ("import cv2", "    import yaml", "from PIL import Image", "import matplotlib.pyplot",
-                 "import psutil"):
+                 "import psutil", "import av", "from imageio import v3"):
         assert ABSENT_ON_CARD.search(line), line
     assert not ABSENT_ON_CARD.search("import yamlish")
 
