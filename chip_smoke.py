@@ -242,7 +242,20 @@ Phases:
      predict of the decoded arrays; then the facade in bf16 (K1 + K3 on the
      tensor cores): ``predict(<clip>)`` gives the boxes of
      ``predict(<decoded arrays>)``, with its ms a frame;
- 61. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 61. image formats, val: phase 7's set written again with the port's writers
+     as BMP, TIFF (LZW with predictor 2; Deflate in 256 tiles) and lossless
+     WebP, the Validator at 1024 (bf16, K1 + K3) on each: the PNG set's
+     detections and metrics bit for bit, and the load ms a batch;
+ 62. image formats, fit: one ``Trainer.fit`` epoch at 1024, bf16, batch 8 on
+     the BMP set and on the PNG set (K1 and K2): the loader's batches bit for
+     bit the same, and the micro-steps' losses against each other;
+ 63. image sources: the committed BMP, TIFF and WebP fixtures through the val
+     loader against their OpenCV digests (refusals by name), the decode ms of
+     a 1024 x 1024 frame in each format, phase 52's scene as a tiled Deflate
+     TIFF split into crops byte-equal to the PNG scene's, and ``obb predict``
+     through the CLI on a folder of all seven suffixes, its labels those of
+     the same pixels as PNG;
+ 64. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -257,7 +270,9 @@ Phases:
      dp_gloo_{train,val,predict}_rank{0,1}, int8_fused_1x1, int8,
      stem_<form>_predict, stem_<form>[_remat]_train,
      stem_deep1_dp_nccl_train, video_cli_track, video_track_botsort,
-     video_cli_predict and video_predict; each
+     video_cli_predict, video_predict, image_val_{png,bmp,tiff_lzw_pred2,
+     tiff_tiled_deflate,webp_lossless}, image_fit_{bmp,png} and
+     image_cli_predict_{mixed,png}; each
      kernel launched on each path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
@@ -4824,13 +4839,8 @@ def phase_int8(x, frames, card: str, tables=None, rounds: int = 3):
             "int8_convs": len(calls), "scales": n_scales, "calibrate_s": calib_s, "widths": len(widths)}
 
 
-def phase_split_dota(root: Path, card: str, seed: int = 9):
-    """52. ``data.split_dota.split_image`` of a synthetic SPLIT_SIZE PNG scene with
-    SPLIT_LABELS rotated objects into 1024 windows with a 200 gap: windows, seconds,
-    bytes written; every crop decodes at 1024 x 1024 and every label is kept by a window."""
-    from quan_ultralytics_tpu_torch.data.native import native
-    from quan_ultralytics_tpu_torch.data.split_dota import get_windows, split_image
-
+def split_scene(seed: int):
+    """A SPLIT_SIZE scene of SPLIT_LABELS filled rotated rectangles and its DOTA-YOLO label lines."""
     rng = np.random.default_rng(seed)
     h, w = SPLIT_SIZE
     im = np.clip(rng.integers(0, 40, (h, w, 3)) + 60, 0, 255).astype(np.uint8)
@@ -4844,6 +4854,18 @@ def phase_split_dota(root: Path, card: str, seed: int = 9):
                for dx, dy in ((-bw / 2, -bh / 2), (bw / 2, -bh / 2), (bw / 2, bh / 2), (-bw / 2, bh / 2))]
         _fill_rotated(im, cx, cy, bw, bh, t, rng.integers(170, 256, 3))
         lines.append(" ".join([str(rng.integers(0, NC))] + [f"{x / w:.6f} {y / h:.6f}" for x, y in pts]))
+    return im, lines
+
+
+def phase_split_dota(root: Path, card: str, seed: int = 9):
+    """52. ``data.split_dota.split_image`` of a synthetic SPLIT_SIZE PNG scene with
+    SPLIT_LABELS rotated objects into 1024 windows with a 200 gap: windows, seconds,
+    bytes written; every crop decodes at 1024 x 1024 and every label is kept by a window."""
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.data.split_dota import get_windows, split_image
+
+    h, w = SPLIT_SIZE
+    im, lines = split_scene(seed)
     src, lbl = root / "P9999.png", root / "P9999.txt"
     native.imwrite_png(src, im)
     lbl.write_text("\n".join(lines) + "\n")
@@ -5390,6 +5412,273 @@ def phase_video_predict(root: Path, card: str):
     return row
 
 
+# ---------------------------------------------------------------- phases 61-63
+
+# the formats phase 61 writes phase_data's set in, with the port's writers: (suffix, encoder)
+IMAGE_SETS = {"bmp": ".bmp", "tiff_lzw_pred2": ".tif", "tiff_tiled_deflate": ".tiff", "webp_lossless": ".webp"}
+TIFF_TILE = 256  # the tiled TIFFs' tile side (GeoTIFF scenes are commonly tiled at 256 or 512)
+MIXED_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff")
+MIXED_SIZE = (480, 640)  # (h, w) of phase 63's predict images
+
+
+def _encode_as(name: str, im: np.ndarray) -> bytes:
+    """``im`` in one of IMAGE_SETS' formats, by the port's writers."""
+    from quan_ultralytics_tpu_torch.data.native import bmp, tiff, webp
+
+    if name == "bmp":
+        return bmp.encode(im)
+    if name == "tiff_lzw_pred2":
+        return tiff.encode(im, compression="lzw", predictor=True)
+    if name == "tiff_tiled_deflate":
+        return tiff.encode(im, compression="deflate", predictor=False, tile=TIFF_TILE)
+    return webp.encode(im)
+
+
+def phase_image_val(root: Path, card: str):
+    """61. phase_data's 16-image set written again with the port's writers as
+    BMP, TIFF (LZW with predictor 2 in one strip; Deflate in 256 tiles) and
+    lossless WebP; the Validator at 1024 (conf 0.001, bf16, K1 + K3 on the
+    tensor cores, seeded weights) on the PNG set and on each: the same kept
+    detections, bit for bit, and the same metrics; the load + letterbox ms a
+    batch and the write seconds of each format."""
+    import shutil
+
+    from quan_ultralytics_tpu_torch.data import YOLODataset
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+
+    png_cfg, _ = phase_data(root / "png")
+    src = Path(png_cfg["path"])
+    cfgs, write_s = {"png": png_cfg}, {}
+    for name, suffix in IMAGE_SETS.items():
+        dst = root / name
+        shutil.copytree(src / "labels", dst / "labels")
+        (dst / "images" / "train").mkdir(parents=True)
+        t0 = time.perf_counter()
+        for p in sorted((src / "images" / "train").glob("*.png")):
+            (dst / "images" / "train" / (p.stem + suffix)).write_bytes(_encode_as(name, native.imread(p)))
+        write_s[name] = time.perf_counter() - t0
+        cfgs[name] = {**png_cfg, "path": str(dst)}
+    m = seeded_model(torch.bfloat16, fused_1x1=True)
+    Validator(m, imgsz=IMGSZ, conf=VAL_CONF).infer(torch.zeros(BATCH, IMGSZ, IMGSZ, 3, dtype=torch.uint8,
+                                                               device=DEVICE))
+    nb = math.ceil(len(DATA_SIZES) / BATCH)
+    out = {}
+    for name, cfg in cfgs.items():
+        ds = YOLODataset(cfg, "val", task="obb")
+        check({Path(s.im_file).suffix for s in ds.samples} == {IMAGE_SETS.get(name, ".png")},
+              f"image val [{name}]: the set holds other files")
+        val = Validator(m, imgsz=IMGSZ, conf=VAL_CONF)
+        js = root / f"{name}_dets.json"
+        _reset_counts()
+        metrics = val(ds, batch_size=BATCH, save_json=str(js))  # the main path
+        torch.cuda.synchronize()
+        got = _counts()
+        check(got == {"qattn_fwd": nb, "qattn_fwd_with_stats": 0, "qattn_bwd": 0, "qconv1x1_fused": 37 * nb},
+              f"image val [{name}]: launches {got}")
+        out[name] = {"metrics": metrics, "load_ms_a_batch": val.speed["load_ms"], "infer_ms": val.speed["infer_ms"],
+                     "detections": json.loads(js.read_text()), "launches": got, "write_s": write_s.get(name)}
+    ref = out["png"]
+    for name, r in out.items():
+        same = r["detections"] == ref["detections"] and r["metrics"] == ref["metrics"]
+        check(same, f"image val [{name}]: the detections or metrics differ from the PNG set's")
+    print("image val: " + "; ".join(
+        f"{name}: load + letterbox {r['load_ms_a_batch']:.1f} ms a batch of {BATCH}"
+        + (f", written in {r['write_s']:.2f} s" if r["write_s"] is not None else "") for name, r in out.items())
+        + f"; {len(ref['detections'])} detections and metrics {ref['metrics']} the same bit for bit on every "
+        f"format; K1 + K3 launches {ref['launches']}; {card}")
+    for r in out.values():
+        del r["detections"]
+    return cfgs, out
+
+
+def phase_image_fit(cfgs, card: str):
+    """62. ``Trainer.fit`` for one epoch at 1024, bf16, batch 8 (nbs 8), the
+    recipe's augmentations, seeded weights, on the BMP set (HRSC2016's
+    format) and on the PNG set: the loader's batches bit for bit the same,
+    K1 and K2 every micro-step, and the micro-steps' losses against each
+    other (cuDNN deterministic)."""
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+    from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("png", "bmp"):
+            tds = YOLODataset(cfgs[name], "train", task="obb")
+            steps = len(tds) // BATCH
+            tr = Trainer(seeded_model(torch.bfloat16), TrainConfig(batch=BATCH, nbs=BATCH, epochs=1),
+                         steps_per_epoch=steps, device=DEVICE)
+            batches, losses = [], []
+
+            def loader(epoch, tds=tds, batches=batches):
+                for b in build_dataloader(tds, BATCH, IMGSZ, hyp=AugmentHyp(), augment=True, seed=epoch):
+                    batches.append({k: v for k, v in b.items() if isinstance(v, np.ndarray)})
+                    yield b
+
+            step = tr.step
+
+            def record(batch, step=step, losses=losses):
+                res = step(batch)
+                losses.append(res[0].detach().float().clone())
+                return res
+
+            tr.step = record
+            _reset_counts()
+            t0 = time.perf_counter()
+            history = tr.fit(loader, None, epochs=1)  # the main path
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = _counts()
+            check(got == {"qattn_fwd": steps, "qattn_fwd_with_stats": steps, "qattn_bwd": steps,
+                          "qconv1x1_fused": 0}, f"image fit [{name}]: launches {got}")
+            check(len(history) == 1 and math.isfinite(history[0]["loss"]), f"image fit [{name}]: {history}")
+            runs[name] = {"batches": batches, "losses": torch.stack(losses).cpu().tolist(), "seconds": secs,
+                          "launches": got, "loss": history[0]["loss"]}
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["bmp"], runs["png"]
+    check(len(a["batches"]) == len(b["batches"]) > 0 and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(a["batches"], b["batches"])),
+        "image fit: the BMP set's batches differ from the PNG set's")
+    diff = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    out = {name: {k: v for k, v in r.items() if k != "batches"} for name, r in runs.items()}
+    out["loss_max_abs_diff"] = diff
+    print(f"image fit: one epoch of {len(a['losses'])} micro-steps at {IMGSZ} on the BMP set in {a['seconds']:.1f} s "
+          f"(PNG {b['seconds']:.1f} s), its batches bit for bit the PNG set's; losses {a['losses']} vs "
+          f"{b['losses']}, max abs difference {diff}; launches {a['launches']}; {card}")
+    return out
+
+
+def phase_image_sources(root: Path, png_cfg, card: str, reps: int = 5):
+    """63. The committed BMP, TIFF and WebP fixtures (tests/fixtures/image)
+    through the val loader, each against its OpenCV digest (a file OpenCV
+    refuses, or a kind not ported, raises its named error); the decode ms of
+    a 1024 x 1024 frame in BMP, TIFF LZW, TIFF tiled Deflate, lossless WebP
+    and lossy WebP (q75); phase 52's 4000 x 4000 scene as a tiled Deflate
+    TIFF, its split_dota crops byte-equal to those of the PNG scene; and
+    ``obb predict`` through the CLI on a folder of all seven suffixes, its
+    saved labels equal to those of the same pixels as PNG."""
+    import hashlib
+    import shutil
+
+    from quan_ultralytics_tpu_torch.cfg.datasets import DOTA_V1
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data.native import native, tiff
+    from quan_ultralytics_tpu_torch.data.split_dota import get_windows, split_image
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
+    digests = json.loads((fixtures / "image_fixtures.json").read_text())
+    (root / "fixtures" / "images" / "val").mkdir(parents=True)
+    (root / "fixtures" / "labels" / "val").mkdir(parents=True)
+    refused = 0
+    for name, ref in digests.items():
+        if "raises" in ref:
+            try:
+                native.imread(fixtures / "image" / name)
+            except (NotImplementedError, ValueError) as e:
+                check(type(e).__name__ == ref["raises"], f"image fixtures: {name} raised {type(e).__name__}")
+            else:
+                check(False, f"image fixtures: {name} decoded; it should raise {ref['raises']}")
+            refused += 1
+            continue
+        shutil.copy(fixtures / "image" / name, root / "fixtures" / "images" / "val" / name)
+        (root / "fixtures" / "labels" / "val" / f"{Path(name).stem}.txt").write_text("0 0.2 0.2 0.6 0.2 0.6 0.6 0.2 0.6\n")
+    cfg = {"path": str(root / "fixtures"), "train": "images/val", "val": "images/val", "names": DOTA_V1["names"]}
+    ds = YOLODataset(cfg, "val", task="obb")
+    for i in range(len(ds)):
+        name = Path(ds.samples[i].im_file).name
+        im = ds.load_image(i)
+        check(list(im.shape) == digests[name]["shape"]
+              and hashlib.sha256(np.ascontiguousarray(im).tobytes()).hexdigest() == digests[name]["sha256"],
+              f"image fixtures: {name} does not decode to its OpenCV pixels")
+    n = sum(int(b["img"].shape[0]) for b in build_dataloader(ds, batch_size=len(ds), imgsz=256, augment=False,
+                                                             shuffle=False))
+    check(n == len(ds) == len(digests) - refused, f"image fixtures: the val loader gave {n} images")
+    # decode ms of a 1024 x 1024 frame in each format
+    stem = next(Path(s.im_file).stem for s in YOLODataset(png_cfg, "val", task="obb").samples
+                if native.read_shape(s.im_file) == (1024, 1024))
+    files = {"bmp": "bmp", "tiff_lzw_pred2": "tiff_lzw_pred2", "tiff_tiled_deflate": "tiff_tiled_deflate",
+             "webp_lossless": "webp_lossless"}
+    paths = {k: Path(png_cfg["path"]).parent / d / "images" / "train" / (stem + IMAGE_SETS[k]) for k, d in files.items()}
+    paths["png"] = Path(png_cfg["path"]) / "images" / "train" / f"{stem}.png"
+    paths["webp_q75"] = fixtures / "image" / "webp_1024_q75.webp"
+    decode_ms = {}
+    for k, p in paths.items():
+        native.imread(p)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            im = native.imread(p)
+        decode_ms[k] = 1e3 * (time.perf_counter() - t0) / reps
+        check(im.shape == (1024, 1024, 3), f"image decode: {p.name} is {im.shape}")
+    # the 4000 x 4000 scene as a tiled Deflate TIFF against the PNG scene
+    im, lines = split_scene(9)
+    crops = {}
+    for kind, data in (("png", None), ("tif", tiff.encode(im, compression="deflate", predictor=True, tile=TIFF_TILE))):
+        d = root / f"scene_{kind}"
+        d.mkdir()
+        src = d / f"P9999.{kind}"
+        if data is None:
+            native.imwrite_png(src, im)
+        else:
+            src.write_bytes(data)
+        (d / "P9999.txt").write_text("\n".join(lines) + "\n")
+        t0 = time.perf_counter()
+        split_image(str(src), str(d / "P9999.txt"), d / "split" / "images", d / "split" / "labels")
+        crops[kind] = {"seconds": time.perf_counter() - t0, "files": sorted((d / "split").rglob("*.*")),
+                       "bytes": src.stat().st_size}
+    a, b = crops["tif"]["files"], crops["png"]["files"]
+    n_crops = sum(x.suffix == ".jpg" for x in a)
+    check(len(a) == len(b) and n_crops == len(get_windows(SPLIT_SIZE))
+          and all(x.name == y.name and x.read_bytes() == y.read_bytes() for x, y in zip(a, b)),
+          "split_dota: the tiled TIFF scene's crops differ from the PNG scene's")
+    # obb predict through the CLI on all seven suffixes, against the same pixels as PNG
+    pkl = seeded_pkl(root / "images_obb_seeded.pkl", MODEL, NC)
+    rng = np.random.default_rng(12)
+    mixed, as_png = root / "mixed", root / "mixed_png"
+    mixed.mkdir()
+    as_png.mkdir()
+    for i, suffix in enumerate(MIXED_SUFFIXES):
+        h, w = MIXED_SIZE
+        yy, xx = np.mgrid[0:h, 0:w]
+        frame = np.stack([xx * 200 // w, yy * 200 // h, (xx + yy) * 100 // (h + w)], -1).astype(np.uint8)
+        for _ in range(int(rng.integers(2, 12))):
+            y0, x0 = int(rng.integers(0, h - 80)), int(rng.integers(0, w - 80))
+            frame[y0:y0 + int(rng.integers(20, 80)), x0:x0 + int(rng.integers(20, 80))] = rng.integers(150, 256, 3)
+        path = mixed / f"im{i}{suffix}"
+        native.imwrite(path, frame)
+        native.imwrite_png(as_png / f"im{i}.png", native.imread(path))  # the decoded pixels (JPEG is lossy)
+    labels, launches, secs = {}, {}, {}
+    for kind, src in (("mixed", mixed), ("png", as_png)):
+        _, secs[kind], launches[kind] = _cli(["obb", "predict", f"model={pkl}", f"source={src}", f"imgsz={IMGSZ}",
+                                              f"conf={VAL_CONF}", "save_txt=True", "save_conf=True",
+                                              f"save_dir={root / ('pred_' + kind)}"])
+        labels[kind] = sorted((root / f"pred_{kind}" / "labels").glob("*.txt"))
+        check(launches[kind]["qattn_fwd"] > 0 and launches[kind]["qconv1x1_fused"] == 37 * launches[kind]["qattn_fwd"],
+              f"image cli predict [{kind}]: launches {launches[kind]}")
+    check(len(labels["mixed"]) > 0 and [p.name for p in labels["mixed"]]
+          == [p.name for p in labels["png"]] and all(x.read_bytes() == y.read_bytes()
+                                                     for x, y in zip(labels["mixed"], labels["png"])),
+          "image cli predict: the labels of the mixed folder differ from those of its pixels as PNG")
+    rows = sum(len(p.read_text().splitlines()) for p in labels["mixed"])
+    out = {"fixtures": len(ds), "fixtures_refused": refused, "decode_1024_ms": decode_ms, "crops": n_crops,
+           "split_tiff_s": crops["tif"]["seconds"], "split_png_s": crops["png"]["seconds"],
+           "scene_bytes": {k: v["bytes"] for k, v in crops.items()}, "cli_predict_s": secs,
+           "launches_cli": launches["mixed"], "launches_cli_png": launches["png"], "label_rows": rows}
+    print(f"image sources: {len(ds)} fixtures through the val loader equal to their OpenCV digests, {refused} "
+          f"refused by name; decode of a 1024 x 1024 frame "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items())
+          + f" (mean of {reps}); the {SPLIT_SIZE[1]} x {SPLIT_SIZE[0]} scene as a tiled Deflate TIFF "
+          f"({crops['tif']['bytes'] / 1e6:.1f} MB) split in {crops['tif']['seconds']:.2f} s, its {n_crops} crops and labels "
+          f"byte-equal to the PNG scene's ({crops['png']['seconds']:.2f} s); obb predict of {'/'.join(MIXED_SUFFIXES)} "
+          f"through the CLI in {secs['mixed']:.1f} s, {rows} label rows equal to the PNG copies'; {card}")
+    return out
+
+
 def lap(t_start: float, what: str) -> None:
     """Print the script's seconds so far, after ``what``."""
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
@@ -5532,6 +5821,14 @@ def main() -> int:
     videos["seconds"] = time.perf_counter() - t_video
     print(f"video phases: {videos['seconds']:.1f} s")
     lap(t_start, "the video phases")
+    t_images = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_images_") as tmp:
+        image_cfgs, image_val = phase_image_val(Path(tmp) / "sets", card)
+        images = {"val": image_val, "fit": phase_image_fit(image_cfgs, card),
+                  "sources": phase_image_sources(Path(tmp) / "sources", image_cfgs["png"], card)}
+    images["seconds"] = time.perf_counter() - t_images
+    print(f"image phases: {images['seconds']:.1f} s")
+    lap(t_start, "the image phases")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -5546,7 +5843,7 @@ def main() -> int:
              "loss_layer": loss_layer, "data": data_out, "augment": augment_out, "fit": fit_out,
              "val": val_out, "cli": cli_out, "detect": detect, "segpose": segpose, "classify": classify,
              "hybrid": hybrid, "tools": tools, "plots": plots, "conv_forms": forms, "data_parallel": dp,
-             "stem": stem, "video": videos},
+             "stem": stem, "video": videos, "images": images},
             indent=1, default=str))
 
     launches = pred_out["launches"]["K1+K3"]
@@ -5665,6 +5962,19 @@ def main() -> int:
     for path in ("video_cli_track", "video_track_botsort", "video_cli_predict", "video_predict"):
         check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the image formats: val on each set (K1 and K3), the BMP and PNG fit epochs (K1 and K2), obb predict
+    # of the mixed folder and of its PNG copies through the CLI (K1 and K3)
+    det_launches.update({f"image_val_{name}": r["launches"] for name, r in images["val"].items()})
+    det_launches.update({"image_fit_bmp": images["fit"]["bmp"]["launches"],
+                         "image_fit_png": images["fit"]["png"]["launches"],
+                         "image_cli_predict_mixed": images["sources"]["launches_cli"],
+                         "image_cli_predict_png": images["sources"]["launches_cli_png"]})
+    for path in [k for k in det_launches if k.startswith("image_")]:
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        if path.startswith("image_fit"):
+            check(det_launches[path]["qattn_bwd"] > 0, f"K2 did not launch on {path}")
+        else:
+            check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     cls_t = cls_yolo["timing"]
     kernels = [
         {"name": "qattn_fwd", "route": "cuda", "source": "quan_ultralytics_tpu_torch/csrc/qattn_fwd.cu",
@@ -5773,6 +6083,7 @@ def main() -> int:
         "train": stem["train"], "dp": stem["dp"], "assigner": stem["assigner"], "readers": stem["readers"],
         "seconds": stem["seconds"]}}, default=str))
     print(json.dumps({"video": videos}, default=str))
+    print(json.dumps({"images": images}, default=str))
     # ROADMAP item 4: the TPU-chosen defaults, by the numbers of this run
     print(json.dumps({"defaults": {
         "stem": {"choice": stem["predict"]["default"], "faster": stem["predict"]["faster"],

@@ -6,7 +6,7 @@ The numpy code is the JAX package's, so with one seed it gives the same
 arrays bit for bit: CIFAR python pickles parsed directly, SVHN through
 ``scipy.io``, pad-4 reflect crop + flip (+ Cutout, reference
 data_loading.py:8-34) and MultiAugment copies. The ImageNet loader reads
-images with the port's own PNG/JPEG readers (``data/native``) and resizes
+images with the port's own image readers (``data/native``) and resizes
 with torch's bilinear interpolation where the JAX loader calls
 ``cv2.resize``: the same half-pixel sampling, within one gray level of
 OpenCV's fixed-point rounding. The crop and flip draws are the JAX loader's.

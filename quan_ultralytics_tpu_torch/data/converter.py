@@ -2,8 +2,9 @@
 (counterpart of the JAX ``data/converter.py``; reference
 ultralytics/data/converter.py:421-516 convert_dota_to_yolo_obb and the COCO
 converters). The DOTA class vocabulary is DOTA-v1.0's. An image's size comes
-from its file header (`data.native.native.read_shape`, PNG or JPEG), where
-JAX decodes the whole image; the label files are the same bytes.
+from its file header (`data.native.native.read_shape`: PNG, JPEG, BMP, TIFF or
+WebP, turned by an EXIF orientation as OpenCV turns it), where JAX decodes
+the whole image; the label files are the same bytes.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 
 Reads the standard layout
 
-    root/images/{split}/*.png|jpg
+    root/images/{split}/*.png|jpg|jpeg|bmp|tif|tiff|webp
     root/labels/{split}/*.txt
 
 Detect labels: ``cls cx cy w h`` (normalized). OBB labels: ``cls x1 y1 x2 y2
@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from quan_ultralytics_tpu_torch.cfg.datasets import load_data_cfg
-from quan_ultralytics_tpu_torch.data.native.native import imread, read_shape
+from quan_ultralytics_tpu_torch.data.native.native import imread, read_stored_shape
 
 IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
 TASKS = ("detect", "obb", "segment", "pose")
@@ -114,10 +114,12 @@ class YOLODataset:
         return per * len(self.samples) < available_memory() * safety_margin
 
     def _read_shape(self, i: int) -> Tuple[int, int]:
-        """(h, w) without a full decode (a header read)."""
+        """(h, w) without a full decode: the stored size from the header, not
+        turned by an EXIF orientation, as the JAX package's PIL header read
+        gives it (a loaded image then records its turned shape)."""
         s = self.samples[i]
         if s.shape is None:
-            s.shape = read_shape(s.im_file)
+            s.shape = read_stored_shape(s.im_file)
         return s.shape
 
     def shapes(self) -> np.ndarray:

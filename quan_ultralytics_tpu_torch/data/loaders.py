@@ -2,7 +2,7 @@
 (counterpart of the JAX package's ``data/loaders.py``; reference
 ultralytics/data/loaders.py LoadImagesAndVideos).
 
-Image files are read by the port's PNG and JPEG readers
+Image files (PNG, JPEG, BMP, TIFF, WebP) are read by the port's readers
 (`data.native.native.imread`: RGB, the pixels ``cv2.imread`` then
 ``cvtColor(BGR2RGB)`` gives). Video files are read by the port's demuxers and
 decoders (`data.native.video.frames`: RGB frames in display order, the pixels

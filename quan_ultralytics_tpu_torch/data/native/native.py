@@ -1,4 +1,4 @@
-"""PNG and JPEG reading and writing on the host, without OpenCV or PIL.
+"""Image reading and writing on the host, without OpenCV or PIL.
 
 The port's counterpart of ``cv2.imread(path, IMREAD_COLOR)`` followed by
 ``cvtColor(BGR2RGB)``: `imread` returns an RGB ``uint8 [h, w, 3]`` array with
@@ -14,9 +14,13 @@ the pixels OpenCV gives (gray replicated to three channels, alpha dropped).
 * JPEG: baseline, extended sequential and progressive Huffman files, decoded
   in C++ with libjpeg-turbo's arithmetic (``imread.cpp``); arithmetic-coded,
   lossless, hierarchical, 12-bit and CMYK files raise `NotImplementedError`.
-* EXIF orientation (a JPEG's APP1 ``Exif`` segment, a PNG's ``eXIf`` chunk):
-  orientations 2-8 flip and transpose the pixels as ``IMREAD_COLOR`` does
-  (`apply_orientation`), and `read_shape` gives the turned size.
+* BMP (`bmp`), TIFF (`tiff`) and WebP (`webp`, lossless VP8L and lossy VP8
+  key frames): each module's docstring lists what it reads. A file is taken
+  by its signature, not its suffix.
+* EXIF orientation (a JPEG's APP1 ``Exif`` segment, a PNG's ``eXIf`` chunk,
+  a WebP's ``EXIF`` chunk): orientations 2-8 flip and transpose the pixels as
+  ``IMREAD_COLOR`` does (`apply_orientation`), and `read_shape` gives the
+  turned size; `read_stored_shape` gives the stored one, as PIL does.
 
 `imwrite` is the counterpart of ``cv2.imwrite`` of an RGB (or gray) array,
 chosen by the file's suffix:
@@ -26,8 +30,12 @@ chosen by the file's suffix:
   writes for the same pixels (given to OpenCV as BGR).
 * PNG: 8-bit gray or RGB, deflated with ``zlib`` (`imwrite_png`); decoded,
   the pixels OpenCV reads back are the array's.
+* BMP: OpenCV's bytes (24-bit, or 8-bit with a gray palette).
+* TIFF: LZW with horizontal differencing in one strip, the layout OpenCV
+  writes (not its bytes); `tiff.encode` writes the other layouts.
+* WebP: lossless VP8L (OpenCV's default), this encoder's bytes.
 
-``imread.cpp`` and ``imwrite.cpp`` are compiled with ``g++`` at first use into
+``imread.cpp``, ``imwrite.cpp``, ``codecs.cpp`` and ``webp.cpp`` are compiled with ``g++`` at first use into
 ``build/`` at the repository root, keyed by a hash of the source and flags,
 under a file lock so that concurrent processes build each once
 (`utils.native_build`). A missing compiler raises.
@@ -49,6 +57,10 @@ SOURCE = Path(__file__).resolve().parent / "imread.cpp"
 LIB_NAME = "libquan_torch_imread.so"
 WRITE_SOURCE = SOURCE.with_name("imwrite.cpp")
 WRITE_LIB_NAME = "libquan_torch_imwrite.so"
+CODECS_SOURCE = SOURCE.with_name("codecs.cpp")
+CODECS_LIB_NAME = "libquan_torch_codecs.so"
+WEBP_SOURCE = SOURCE.with_name("webp.cpp")
+WEBP_LIB_NAME = "libquan_torch_webp.so"
 JPEG_QUALITY = 95  # cv2.imwrite's default
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # imread.cpp's status codes that mean "a kind of file this reader does not take"
@@ -59,6 +71,8 @@ _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 _lib: Optional[ctypes.CDLL] = None
 _write_lib: Optional[ctypes.CDLL] = None
+_codecs_lib: Optional[ctypes.CDLL] = None
+_webp_lib: Optional[ctypes.CDLL] = None
 
 PathLike = Union[str, Path]
 
@@ -94,6 +108,41 @@ def write_library() -> ctypes.CDLL:
         lib.jpeg_encode.restype = ctypes.c_long
         _write_lib = lib
     return _write_lib
+
+
+def codecs_library() -> ctypes.CDLL:
+    """BMP's RLE and TIFF's LZW, PackBits and predictor (``codecs.cpp``), built on first call."""
+    global _codecs_lib
+    if _codecs_lib is None:
+        lib = ctypes.CDLL(str(build_cxx(CODECS_SOURCE, CODECS_LIB_NAME, CXX_FLAGS, BUILD_DIR)))
+        vp, lg = ctypes.c_void_p, ctypes.c_long
+        lib.bmp_rle_decode.argtypes = [vp, lg, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+        lib.bmp_rle_decode.restype = ctypes.c_int
+        for fn in (lib.tiff_lzw_decode, lib.tiff_lzw_encode, lib.tiff_packbits_decode):
+            fn.argtypes = [vp, lg, vp, lg]
+            fn.restype = lg
+        lib.tiff_undo_predictor.argtypes = [vp, lg, lg, ctypes.c_int, ctypes.c_int]
+        lib.tiff_undo_predictor.restype = None
+        _codecs_lib = lib
+    return _codecs_lib
+
+
+def webp_library() -> ctypes.CDLL:
+    """The VP8L and VP8 decoders and the VP8L encoder (``webp.cpp``), built on first call."""
+    global _webp_lib
+    if _webp_lib is None:
+        lib = ctypes.CDLL(str(build_cxx(WEBP_SOURCE, WEBP_LIB_NAME, CXX_FLAGS, BUILD_DIR,
+                                        depends=[SOURCE.with_name("webp_tables.h")])))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.vp8l_decode, lib.vp8_decode):
+            fn.argtypes = [vp, ctypes.c_long, vp, i, i]
+            fn.restype = i
+        lib.vp8l_encode.argtypes = [vp, i, i, i, vp, ctypes.c_long]
+        lib.vp8l_encode.restype = ctypes.c_long
+        lib.webp_error.argtypes = [i]
+        lib.webp_error.restype = ctypes.c_char_p
+        _webp_lib = lib
+    return _webp_lib
 
 
 def _ptr(a: np.ndarray):
@@ -284,41 +333,88 @@ def _decode_png(data: bytes, path: PathLike) -> np.ndarray:
 # ---------------------------------------------------------------- public
 
 
+def _format(head: bytes):
+    """The module of the other formats whose signature ``head`` starts with, or None."""
+    from quan_ultralytics_tpu_torch.data.native import bmp, tiff, webp
+
+    if head[:2] == b"BM":
+        return bmp
+    if head[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return tiff
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return webp
+    return None
+
+
+def _unknown(path: PathLike, head: bytes) -> NotImplementedError:
+    kind = "GIF" if head[:3] == b"GIF" else "this kind of"
+    return NotImplementedError(f"{path}: {kind} file is not read (PNG, JPEG, BMP, TIFF and WebP are)")
+
+
 def imread(path: PathLike) -> np.ndarray:
-    """RGB ``uint8 [h, w, 3]`` pixels of a PNG or JPEG file, as OpenCV's
-    IMREAD_COLOR (then BGR->RGB) gives them. Raises `FileNotFoundError` for a
-    missing file, `NotImplementedError` for a kind of PNG or JPEG this reader
-    does not take, `ValueError` for anything else it cannot read."""
+    """RGB ``uint8 [h, w, 3]`` pixels of a PNG, JPEG, BMP, TIFF or WebP file,
+    as OpenCV's IMREAD_COLOR (then BGR->RGB) gives them. Raises
+    `FileNotFoundError` for a missing file, `NotImplementedError` for a kind
+    of file this reader does not take, `ValueError` where OpenCV reads
+    nothing or the file is broken."""
     data = Path(path).read_bytes()
     if data[:8] == PNG_SIGNATURE:
         return _decode_png(data, path)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data, path)
-    raise NotImplementedError(f"{path}: only PNG and JPEG files are read")
+    fmt = _format(data[:12])
+    if fmt is None:
+        raise _unknown(path, data)
+    return fmt.decode(data, path)
+
+
+def _png_shape(fh, head: bytes, path: PathLike) -> Tuple[Tuple[int, int], int]:
+    """A PNG's stored ``(h, w)`` and its eXIf orientation, from the chunks
+    before the image data (their payloads skipped)."""
+    w, h = _png_header(head, path)[:2]
+    orientation = 1
+    while True:
+        length, kind = struct.unpack(">I4s", fh.read(8).rjust(8, b"\0"))
+        if kind in (b"IDAT", b"IEND", b"\0\0\0\0"):
+            break
+        if kind == b"eXIf":
+            orientation = _exif_orientation(fh.read(length))
+            fh.seek(4, 1)
+        else:
+            fh.seek(length + 4, 1)
+    return (h, w), orientation
 
 
 def read_shape(path: PathLike) -> Tuple[int, int]:
-    """``(h, w)`` of a PNG or JPEG file as `imread` returns it (turned by its
-    EXIF orientation, as OpenCV's), from its headers, without decoding it."""
+    """``(h, w)`` of an image as `imread` returns it (turned by its EXIF
+    orientation, as OpenCV's), from its headers, without decoding it."""
     with open(path, "rb") as fh:
         head = fh.read(33)
         if head[:8] == PNG_SIGNATURE:
-            w, h = _png_header(head, path)[:2]
-            orientation = 1
-            while True:  # the chunks before the image data, skipping their payloads
-                length, kind = struct.unpack(">I4s", fh.read(8).rjust(8, b"\0"))
-                if kind in (b"IDAT", b"IEND", b"\0\0\0\0"):
-                    break
-                if kind == b"eXIf":
-                    orientation = _exif_orientation(fh.read(length))
-                    fh.seek(4, 1)
-                else:
-                    fh.seek(length + 4, 1)
+            return _turned(*_png_shape(fh, head, path))
+        if head[:2] == b"\xff\xd8":
+            h, w, orientation = _jpeg_header(head + fh.read(), path)
             return _turned((h, w), orientation)
-        if head[:2] != b"\xff\xd8":
-            raise NotImplementedError(f"{path}: only PNG and JPEG files are read")
-        h, w, orientation = _jpeg_header(head + fh.read(), path)
-    return _turned((h, w), orientation)
+        fmt = _format(head)
+        if fmt is None:
+            raise _unknown(path, head)
+        data = head + fh.read()
+    return fmt.shape(data, path)
+
+
+def read_stored_shape(path: PathLike) -> Tuple[int, int]:
+    """``(h, w)`` of an image as stored, not turned by an EXIF orientation:
+    what PIL's ``Image.open(path).size`` gives (reversed), from the headers."""
+    with open(path, "rb") as fh:
+        head = fh.read(33)
+        if head[:8] == PNG_SIGNATURE:
+            return _png_shape(fh, head, path)[0]
+        if head[:2] == b"\xff\xd8":
+            return _jpeg_header(head + fh.read(), path)[:2]
+        fmt = _format(head)
+        if fmt is None:
+            raise _unknown(path, head)
+        return fmt.stored_shape(head + fh.read(), path)
 
 
 def _pixels(im: np.ndarray) -> np.ndarray:
@@ -351,15 +447,25 @@ def encode_jpeg(im: np.ndarray) -> bytes:
 
 def imwrite(path: PathLike, im: np.ndarray) -> str:
     """Write uint8 ``[h, w, 3]`` RGB or ``[h, w]`` gray pixels to ``path``, as
-    ``cv2.imwrite`` writes the same image (BGR for OpenCV): ``.jpg``/``.jpeg``
-    a baseline JPEG at quality 95, ``.png`` an 8-bit PNG. Returns the path."""
+    ``cv2.imwrite`` writes the same image (BGR for OpenCV), by suffix:
+    ``.jpg``/``.jpeg`` a baseline JPEG at quality 95, ``.png`` an 8-bit PNG,
+    ``.bmp`` OpenCV's BMP, ``.tif``/``.tiff`` an LZW TIFF with horizontal
+    differencing, ``.webp`` a lossless WebP. Returns the path."""
+    from quan_ultralytics_tpu_torch.data.native import bmp, tiff, webp
+
     suffix = Path(path).suffix.lower()
     if suffix in (".jpg", ".jpeg"):
         Path(path).write_bytes(encode_jpeg(im))
     elif suffix == ".png":
         imwrite_png(path, _pixels(im), filters="sub")
+    elif suffix == ".bmp":
+        Path(path).write_bytes(bmp.encode(_pixels(im)))
+    elif suffix in (".tif", ".tiff"):
+        Path(path).write_bytes(tiff.encode(_pixels(im)))
+    elif suffix == ".webp":
+        Path(path).write_bytes(webp.encode(_pixels(im)))
     else:
-        raise ValueError(f"{path}: only .jpg, .jpeg and .png files are written")
+        raise ValueError(f"{path}: only .jpg, .jpeg, .png, .bmp, .tif, .tiff and .webp files are written")
     return str(path)
 
 

@@ -9,7 +9,7 @@ area) >= 0.7 and re-normalized to window coordinates.
 Labels in/out are the 8-coordinate normalized DOTA-YOLO format.
 
 Counterpart of the JAX ``data/split_dota.py``: images are read with the
-port's PNG/JPEG reader and the crops written with its JPEG writer
+port's image readers (PNG, JPEG, BMP, TIFF, WebP) and the crops written with its JPEG writer
 (`data.native.native`), the bytes OpenCV writes; `engine.dota_eval` merges
 the windows' predictions back. Where JAX asserts, this raises ``ValueError``.
 """

@@ -6,7 +6,8 @@ The annotations are drawn by the port's raster (``data/native/pixels``), which
 gives OpenCV 5.0's pixels for the lines, polygons, rectangles and circles the
 JAX package draws with cv2; label boxes have ``cv2.getTextSize``'s size and
 place (``utils/font``), and only their glyphs differ from OpenCV's. Images are
-written by ``data.native.native.imwrite`` (OpenCV's JPEG bytes; PNG).
+written by ``data.native.native.imwrite`` (OpenCV's JPEG and BMP bytes; PNG,
+TIFF and lossless WebP that OpenCV reads back to the same pixels).
 
 The charts that the JAX package draws with matplotlib (training curves,
 validation curves, confusion matrices) are drawn here by the same raster, at

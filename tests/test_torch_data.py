@@ -197,9 +197,9 @@ def test_unsupported_images_raise(tmp_path):
     upright.write_bytes(_with_exif_orientation(jpg, 1))
     for p in (prog, deep, adam7, tmp_path / "rotated.jpg", upright):
         np.testing.assert_array_equal(imread(p), _cv2_rgb(p), err_msg=p.name)
-    cv2.imwrite(str(tmp_path / "a.bmp"), im)
-    with pytest.raises(NotImplementedError, match="only PNG and JPEG"):
-        imread(tmp_path / "a.bmp")
+    Image.fromarray(im).save(tmp_path / "a.gif")  # BMP, TIFF and WebP are read now: a GIF is not
+    with pytest.raises(NotImplementedError, match="GIF file is not read"):
+        imread(tmp_path / "a.gif")
     (tmp_path / "cut.jpg").write_bytes(jpg[:len(jpg) // 2])
     with pytest.raises(ValueError, match="ends before"):
         imread(tmp_path / "cut.jpg")

@@ -76,7 +76,7 @@ def test_png_decodes_equal_in_opencv_and_writers_refuse_other_files(tmp_path):
 
 def _check_refusals(tmp_path):
     with pytest.raises(ValueError, match="only .jpg"):
-        native.imwrite(tmp_path / "a.bmp", np.zeros((4, 4, 3), np.uint8))
+        native.imwrite(tmp_path / "a.gif", np.zeros((4, 4, 3), np.uint8))
     with pytest.raises(TypeError):
         native.imwrite(tmp_path / "a.jpg", np.zeros((4, 4, 3), np.float32))
     with pytest.raises(ValueError):
