@@ -224,13 +224,13 @@ Phases:
  57. the readers' newer formats (the committed progressive, EXIF-rotated and
      Adam7 fixtures) through the val loader, against their OpenCV digests,
      with their decode ms;
- 58. video decode: every committed video fixture (tests/fixtures/video/,
-     MPEG-4 Part 2 and Motion-JPEG in ISO-BMFF, AVI and Matroska) through the
-     port's demuxers and decoders (``data/native/video.cpp``, built in phase
-     1), each frame against the port's digest in video_fixtures.json (which
-     also records OpenCV's and how far they agree), the decode ms a frame of
-     the 640 x 480 MPEG-4 and Motion-JPEG clips (mean of several passes) and
-     the VP8 WebM's named refusal;
+ 58. video decode: the committed Motion-JPEG and MPEG-4 Simple Profile
+     fixtures (tests/fixtures/video/, in ISO-BMFF, AVI and Matroska) through
+     the port's demuxers and decoders (``data/native/video.cpp``, built in
+     phase 1), each frame against the port's digest in video_fixtures.json
+     (which also records OpenCV's and how far they agree), the decode ms a
+     frame of the 640 x 480 MPEG-4 and Motion-JPEG clips (mean of several
+     passes);
  59. ``detect track`` of the 640 x 480 MPEG-4 clip through ``cli.main``
      (ByteTrack, f32: K1 on the CUDA cores and K3 at every fused site, each
      frame), then ``YOLO.track(..., tracker="botsort")`` of the file streamed
@@ -255,7 +255,20 @@ Phases:
      TIFF split into crops byte-equal to the PNG scene's, and ``obb predict``
      through the CLI on a folder of all seven suffixes, its labels those of
      the same pixels as PNG;
- 64. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 64. video decode of this slice's codecs: the VP8 fixtures (cv2's WebM,
+     libvpx's profiles 1 and 3 and error-resilient mode, golden-frame boosts)
+     and the MPEG-4 Advanced Simple Profile ones (B-VOPs, quarter-pel, MPEG
+     quantisation, Xvid's and DivX's user data, DivX's packed B-VOPs) against
+     their digests, the VP9 WebM's refusal against its message, and the
+     decode and RGB ms a frame of the 640 x 480 clip as VP8 WebM and as the
+     Xvid ASP AVI (``vp8.h`` and ``video.cpp`` on the card's host);
+ 65. phase 59 on the VP8 WebM: ``detect track`` through ``cli.main`` and
+     ``YOLO.track`` with BoT-SORT at 640 (K1 + K3), the streamed file's
+     tracks equal to those of its decoded frames;
+ 66. phase 60 on the Xvid ASP AVI: ``obb predict save=True`` at 1024 through
+     ``cli.main`` and the bf16 facade (K1 + K3), the file's boxes equal to
+     those of its decoded frames;
+ 67. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -270,7 +283,9 @@ Phases:
      dp_gloo_{train,val,predict}_rank{0,1}, int8_fused_1x1, int8,
      stem_<form>_predict, stem_<form>[_remat]_train,
      stem_deep1_dp_nccl_train, video_cli_track, video_track_botsort,
-     video_cli_predict, video_predict, image_val_{png,bmp,tiff_lzw_pred2,
+     video_cli_predict, video_predict, video_vp8_cli_track,
+     video_vp8_track_botsort, video_asp_cli_predict, video_asp_predict,
+     image_val_{png,bmp,tiff_lzw_pred2,
      tiff_tiled_deflate,webp_lossless}, image_fit_{bmp,png} and
      image_cli_predict_{mixed,png}; each
      kernel launched on each path that runs it; K1 and K2
@@ -5230,65 +5245,113 @@ VIDEO_PASSES = 3  # timed decodes of each 640 x 480 clip in phase 58
 VIDEO_CLIP = "track_640x480.mp4"  # make_clip's frames as mp4v MPEG-4 Part 2, the track and predict source
 
 
-def phase_video_decode(card: str):
-    """58. Every committed video fixture through `video.frames`, each frame
-    against the port's SHA-256 in video_fixtures.json; the ms a frame of the
-    640 x 480 clips (demux once, then decode and convert to RGB, mean of
-    VIDEO_PASSES); the VP8 WebM's NotImplementedError."""
+VIDEOS = Path(__file__).resolve().parent / "tests" / "fixtures" / "video"
+# phase 64's fixtures: VP8 and MPEG-4 Advanced Simple Profile (with Xvid's and DivX's
+# streams), and the refused VP9 WebM; phase 58 holds the others
+VIDEO_ASP_VP8 = {"vp8_64x48.webm", "vp8_p1_64x48.avi", "vp8_p3_er_64x48.avi", "vp8_p0_golden_64x48.avi",
+                 "mpeg4_bvop_88x40.avi", "mpeg4_qpel_88x40.avi", "mpeg4_mq_88x40.avi", "mpeg4_asp_88x40.avi",
+                 "xvid_asp_88x40.avi", "divx_asp_88x40.avi", "divx_packed_88x40.avi", "vp9_64x48.webm",
+                 "track_640x480.webm", "track_640x480_xvid.avi"}
+VIDEO_VP8_CLIP = "track_640x480.webm"  # make_clip's frames as cv2's VP80 WebM: phase 65's track source
+VIDEO_ASP_CLIP = "track_640x480_xvid.avi"  # B-VOPs and quarter-pel under Xvid's user data: phase 66's source
+
+
+def _video_fixtures(names, tag: str) -> dict:
+    """Each of ``names`` through `video.frames` against the port's SHA-256 in
+    video_fixtures.json, or its refusal against the message recorded there."""
     import hashlib
 
     from quan_ultralytics_tpu_torch.data.native import video
 
-    videos = Path(__file__).resolve().parent / "tests" / "fixtures" / "video"
-    digests = json.loads((videos.parent / "video_fixtures.json").read_text())
-    out = {"fixtures": {}, "ms_a_frame": {}}
-    for name, d in sorted(digests.items()):
+    digests = json.loads((VIDEOS.parent / "video_fixtures.json").read_text())
+    out = {}
+    for name in sorted(names):
+        d = digests[name]
         if "refused" in d:
             try:
-                list(video.frames(videos / name))
-                check(False, f"video decode: {name} decoded; it should be refused")
+                list(video.frames(VIDEOS / name))
+                check(False, f"{tag}: {name} decoded; it should be refused")
             except NotImplementedError as e:
-                out["fixtures"][name] = {"refused": str(e).replace(str(videos / name), name)}
+                msg = str(e).replace(str(VIDEOS / name), name)
+                check(msg == d["refused"], f"{tag}: {name} refused with {msg!r}, not {d['refused']!r}")
+                out[name] = {"refused": msg}
             continue
-        got = list(video.frames(videos / name))
+        got = list(video.frames(VIDEOS / name))
         shas = [hashlib.sha256(np.ascontiguousarray(f).tobytes()).hexdigest() for f in got]
         check(len(got) == d["frames"] and shas == [f["port"] for f in d["per_frame"]],
-              f"video decode: {name} gives {len(got)} frames, not its {d['frames']} digests")
-        out["fixtures"][name] = {"frames": len(got), "codec": d["codec"], "container": d["container"],
-                                 "cv2_equal": all(f["port"] == f["cv2"] for f in d["per_frame"]),
-                                 "cv2_max_diff": max(f["max_diff"] for f in d["per_frame"])}
-    for name in ("track_640x480.mp4", "track_640x480.avi"):
-        t0 = time.perf_counter()
-        stream = video.demux(videos / name)
-        demux_ms = 1e3 * (time.perf_counter() - t0)
-        spent = {"decode": 0.0, "rgb": 0.0}
-        n = 0
-        for _ in range(VIDEO_PASSES):
-            dec = video.Decoder(stream.codec, stream.private, stream.tag)
-            for packet in stream.packets:
-                t0 = time.perf_counter()
-                ready = dec.send(packet)
-                t1 = time.perf_counter()
-                if ready:
-                    dec.rgb()
-                    n += 1
-                spent["decode"] += t1 - t0
-                spent["rgb"] += time.perf_counter() - t1
-            dec.close()
-        out["ms_a_frame"][name] = {"codec": stream.codec, "demux_ms": demux_ms,
-                                   "decode_ms": 1e3 * spent["decode"] / n, "rgb_ms": 1e3 * spent["rgb"] / n,
-                                   "total_ms": 1e3 * (spent["decode"] + spent["rgb"]) / n}
-    print("video decode: " + ", ".join(f"{k}: {v['frames']} frames equal to the port's digests"
-                                       + (" (= OpenCV's)" if v["cv2_equal"] else "")
-                                       for k, v in out["fixtures"].items() if "frames" in v)
-          + "; " + "; ".join(f"{k} ({v['codec']}) {v['decode_ms']:.2f} ms decode + {v['rgb_ms']:.2f} ms RGB a "
-                             f"frame, demux {v['demux_ms']:.1f} ms" for k, v in out["ms_a_frame"].items())
-          + f" (mean of {VIDEO_PASSES} passes); {card}")
+              f"{tag}: {name} gives {len(got)} frames, not its {d['frames']} digests")
+        out[name] = {"frames": len(got), "codec": d["codec"], "container": d["container"],
+                     "cv2_equal": all(f["port"] == f["cv2"] for f in d["per_frame"]),
+                     "cv2_max_diff": max(f["max_diff"] for f in d["per_frame"])}
     return out
 
 
-def phase_video_track(root: Path, card: str):
-    """59. ``detect track model=<seeded pkl> source=<clip.mp4>`` through
+def _video_ms(name: str) -> dict:
+    """The ms a frame of a clip: demux once, then decode (packets and the
+    flush of a held reference) and convert to RGB, VIDEO_PASSES times."""
+    from quan_ultralytics_tpu_torch.data.native import video
+
+    t0 = time.perf_counter()
+    stream = video.demux(VIDEOS / name)
+    demux_ms = 1e3 * (time.perf_counter() - t0)
+    spent = {"decode": 0.0, "rgb": 0.0}
+    n = 0
+    for _ in range(VIDEO_PASSES):
+        dec = video.Decoder(stream.codec, stream.private, stream.tag)
+        for packet in [*stream.packets, None]:
+            t0 = time.perf_counter()
+            ready = dec.send(packet) if packet is not None else dec.flush()
+            t1 = time.perf_counter()
+            if ready:
+                dec.rgb()
+                n += 1
+            spent["decode"] += t1 - t0
+            spent["rgb"] += time.perf_counter() - t1
+        dec.close()
+    return {"codec": stream.codec, "frames": n // VIDEO_PASSES, "demux_ms": demux_ms,
+            "decode_ms": 1e3 * spent["decode"] / n, "rgb_ms": 1e3 * spent["rgb"] / n,
+            "total_ms": 1e3 * (spent["decode"] + spent["rgb"]) / n}
+
+
+def _print_video(tag: str, out: dict, card: str) -> None:
+    print(f"{tag}: " + ", ".join(f"{k}: {v['frames']} frames equal to the port's digests"
+                                 + (" (= OpenCV's)" if v["cv2_equal"] else "")
+                                 for k, v in out["fixtures"].items() if "frames" in v)
+          + "".join(f"; {k} refused: {v['refused']}" for k, v in out["fixtures"].items() if "refused" in v)
+          + "; " + "; ".join(f"{k} ({v['codec']}) {v['decode_ms']:.2f} ms decode + {v['rgb_ms']:.2f} ms RGB a "
+                             f"frame, demux {v['demux_ms']:.1f} ms" for k, v in out["ms_a_frame"].items())
+          + f" (mean of {VIDEO_PASSES} passes); {card}")
+
+
+def phase_video_decode(card: str):
+    """58. The committed Motion-JPEG and MPEG-4 Simple Profile fixtures
+    through `video.frames`, each frame against the port's SHA-256 in
+    video_fixtures.json; the ms a frame of the 640 x 480 MPEG-4 and
+    Motion-JPEG clips (demux once, then decode and convert to RGB, mean of
+    VIDEO_PASSES)."""
+    digests = json.loads((VIDEOS.parent / "video_fixtures.json").read_text())
+    out = {"fixtures": _video_fixtures(set(digests) - VIDEO_ASP_VP8, "video decode"),
+           "ms_a_frame": {name: _video_ms(name) for name in ("track_640x480.mp4", "track_640x480.avi")}}
+    _print_video("video decode", out, card)
+    return out
+
+
+def phase_video_asp_vp8_decode(card: str):
+    """64. The VP8 and MPEG-4 Advanced Simple Profile fixtures (B-VOPs,
+    quarter-pel, MPEG quantisation; Xvid's and DivX's streams, DivX's packed
+    B-VOPs) through `video.frames`, each frame against the port's SHA-256,
+    the VP9 WebM's refusal against its recorded message; the decode and RGB
+    ms a frame of the 640 x 480 clip as VP8 WebM and as the Xvid ASP AVI."""
+    out = {"fixtures": _video_fixtures(VIDEO_ASP_VP8, "video VP8/ASP decode"),
+           "ms_a_frame": {name: _video_ms(name) for name in (VIDEO_VP8_CLIP, VIDEO_ASP_CLIP)}}
+    check(all(v["frames"] == TRACK_FRAMES for v in out["ms_a_frame"].values()),
+          f"video VP8/ASP decode: the clips' frames {out['ms_a_frame']}")
+    _print_video("video VP8/ASP decode", out, card)
+    return out
+
+
+def phase_video_track(root: Path, card: str, clip_name: str = VIDEO_CLIP):
+    """59 (and 65 with the VP8 WebM). ``detect track model=<seeded pkl> source=<clip>`` through
     ``cli.main`` (ByteTrack, the CLI's defaults, f32): a line a frame, K1 on
     the CUDA cores and K3 at every fused site each frame. Then
     ``YOLO.track(load_source(<clip.mp4>), tracker="botsort")`` with the
@@ -5302,7 +5365,7 @@ def phase_video_track(root: Path, card: str):
     from quan_ultralytics_tpu_torch.engine.model import YOLO
     from quan_ultralytics_tpu_torch.trackers import byte_tracker
 
-    clip = Path(__file__).resolve().parent / "tests" / "fixtures" / "video" / VIDEO_CLIP
+    clip = VIDEOS / clip_name
     pkl = seeded_pkl(root / "video_track_seeded.pkl", DET_MODEL, DET_NC)
     k3 = default_k3_sites(DET_MODEL, DET_NC)
     text, cli_s, cli_n = _cli(["detect", "track", f"model={pkl}", f"source={clip}", f"imgsz={DET_IMGSZ}"])
@@ -5356,15 +5419,15 @@ def phase_video_track(root: Path, card: str):
            "update_ms_a_frame": 1e3 * spent["update"] / TRACK_FRAMES,
            "infer_ms_a_frame": 1e3 * (total - spent["decode"] - spent["update"]) / TRACK_FRAMES,
            "tracks_a_frame": [len(t) for t in tracks], "thresholds": kw}
-    print(f"video track: detect track of {VIDEO_CLIP} through the CLI in {cli_s:.1f} s, {len(lines)} lines, "
+    print(f"video track: detect track of {clip_name} through the CLI in {cli_s:.1f} s, {len(lines)} lines, "
           f"launches {cli_n}; YOLO.track [botsort] {row['ms_a_frame']:.1f} ms a frame (decode "
           f"{row['decode_ms_a_frame']:.2f}, infer {row['infer_ms_a_frame']:.1f}, update "
           f"{row['update_ms_a_frame']:.2f}); launches {got}; tracks a frame {row['tracks_a_frame']}; {card}")
     return row
 
 
-def phase_video_predict(root: Path, card: str):
-    """60. ``obb predict model=<seeded pkl> source=<clip.mp4> save=True`` at
+def phase_video_predict(root: Path, card: str, clip_name: str = VIDEO_CLIP):
+    """60 (and 66 with the Xvid ASP AVI). ``obb predict model=<seeded pkl> source=<clip> save=True`` at
     1024 through ``cli.main`` (f32): an im{i}.jpg a frame at the frame's size
     and the facade's lines for the decoded arrays; then the facade in bf16
     (K1 + K3 on the tensor cores): ``predict(<clip.mp4>)`` against
@@ -5374,7 +5437,7 @@ def phase_video_predict(root: Path, card: str):
     from quan_ultralytics_tpu_torch.data.native import native
     from quan_ultralytics_tpu_torch.engine.model import YOLO
 
-    clip = Path(__file__).resolve().parent / "tests" / "fixtures" / "video" / VIDEO_CLIP
+    clip = VIDEOS / clip_name
     pkl = seeded_pkl(root / "video_obb_seeded.pkl", MODEL, NC)
     arrays = list(load_source(clip))
     text, cli_s, cli_n = _cli(["obb", "predict", f"model={pkl}", f"source={clip}", f"imgsz={IMGSZ}", "save=True",
@@ -5406,7 +5469,7 @@ def phase_video_predict(root: Path, card: str):
     check(same, "video predict: the clip's detections differ from those of its decoded frames")
     row = {"cli_s": cli_s, "launches_cli": cli_n, "launches": got, "ms_a_frame": 1e3 * secs / TRACK_FRAMES,
            "detections": [len(r) for r in res]}
-    print(f"video predict: obb predict save=True of {VIDEO_CLIP} at {IMGSZ} through the CLI (f32) in {cli_s:.1f} s, "
+    print(f"video predict: obb predict save=True of {clip_name} at {IMGSZ} through the CLI (f32) in {cli_s:.1f} s, "
           f"{len(arrays)} im*.jpg, launches {cli_n}; bf16 facade: {row['ms_a_frame']:.1f} ms a frame from the file, "
           f"launches {got}, detections {row['detections']}; {card}")
     return row
@@ -5829,6 +5892,14 @@ def main() -> int:
     images["seconds"] = time.perf_counter() - t_images
     print(f"image phases: {images['seconds']:.1f} s")
     lap(t_start, "the image phases")
+    t_asp_vp8 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_asp_vp8_") as tmp:
+        videos["asp_vp8"] = {"decode": phase_video_asp_vp8_decode(card),
+                             "track": phase_video_track(Path(tmp), card, VIDEO_VP8_CLIP),
+                             "predict": phase_video_predict(Path(tmp), card, VIDEO_ASP_CLIP)}
+    videos["asp_vp8"]["seconds"] = time.perf_counter() - t_asp_vp8
+    print(f"VP8 and ASP video phases: {videos['asp_vp8']['seconds']:.1f} s")
+    lap(t_start, "the VP8 and ASP video phases")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -5960,6 +6031,16 @@ def main() -> int:
                          "video_cli_predict": videos["predict"]["launches_cli"],
                          "video_predict": videos["predict"]["launches"]})
     for path in ("video_cli_track", "video_track_botsort", "video_cli_predict", "video_predict"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the VP8 and ASP video sources: detect track of the VP8 WebM (CLI, ByteTrack; facade, BoT-SORT) and
+    # obb predict of the Xvid ASP AVI (CLI; bf16 facade)
+    asp_vp8 = videos["asp_vp8"]
+    det_launches.update({"video_vp8_cli_track": asp_vp8["track"]["launches_cli"],
+                         "video_vp8_track_botsort": asp_vp8["track"]["launches"],
+                         "video_asp_cli_predict": asp_vp8["predict"]["launches_cli"],
+                         "video_asp_predict": asp_vp8["predict"]["launches"]})
+    for path in ("video_vp8_cli_track", "video_vp8_track_botsort", "video_asp_cli_predict", "video_asp_predict"):
         check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     # the image formats: val on each set (K1 and K3), the BMP and PNG fit epochs (K1 and K2), obb predict

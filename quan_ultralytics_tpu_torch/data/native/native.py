@@ -132,7 +132,7 @@ def webp_library() -> ctypes.CDLL:
     global _webp_lib
     if _webp_lib is None:
         lib = ctypes.CDLL(str(build_cxx(WEBP_SOURCE, WEBP_LIB_NAME, CXX_FLAGS, BUILD_DIR,
-                                        depends=[SOURCE.with_name("webp_tables.h")])))
+                                        depends=[SOURCE.with_name("webp_tables.h"), SOURCE.with_name("vp8.h")])))
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.vp8l_decode, lib.vp8_decode):
             fn.argtypes = [vp, ctypes.c_long, vp, i, i]

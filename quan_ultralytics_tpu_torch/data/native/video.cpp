@@ -1,6 +1,7 @@
-// Video decoding on the host: Motion-JPEG and MPEG-4 Part 2 Simple Profile
-// packets into planar YUV, and YUV into RGB as OpenCV's FFmpeg capture
-// converts it. Called through ctypes from video.py, which demuxes the file.
+// Video decoding on the host: Motion-JPEG, MPEG-4 Part 2 (Simple and Advanced
+// Simple Profile) and VP8 packets into planar YUV, and YUV into RGB as
+// OpenCV's FFmpeg capture converts it. Called through ctypes from video.py,
+// which demuxes the file.
 //
 // OpenCV 5.0 decodes with FFmpeg's libavcodec and converts each frame to
 // BGR24 with libswscale (sws_scale at the same size, SWS_BICUBIC). This file
@@ -9,40 +10,55 @@
 //     idctRowCondDC with its DC-only shortcut, idctSparseColPut/Add; W1..W7,
 //     ROW_SHIFT 11, COL_SHIFT 20). FFmpeg's x86 build selects
 //     ff_simple_idct8_sse2 instead; on the fixtures its output equals the C
-//     version's, so the C version is the one written here.
+//     version's, so the C version is the one written here. Streams of the
+//     Xvid encoder take the Xvid IDCT (xvididct.c's C version; the x86
+//     build's SSE2 one equals it on every stream tried).
 //   * Motion-JPEG (mjpegdec.c): the entropy decoding is the JPEG reader's
 //     (imread.cpp, included below); each block is then dequantised as FFmpeg
 //     does (DC predicted in the dequantised domain from 1024, clipped to int16)
 //     and put through the simple IDCT into planes at their own subsampling,
 //     with no upsampling (FFmpeg's yuvj420p/yuvj422p). A frame without DHT
 //     segments takes Annex K's tables (init_default_huffman_tables).
-//   * MPEG-4 Part 2 Simple Profile (ISO/IEC 14496-2; mpeg4videodec.c,
-//     h263dec.c, mpegvideo_motion.c): VOS/VO/VOL headers from the decoder
-//     configuration or in band, GOV and user data headers, I- and P-VOPs,
-//     not coded VOPs (no frame, as FFmpeg outputs none), MCBPC/CBPY/MVD/TCOEF
-//     VLCs with the three escape modes, intra DC VLC below intra_dc_vlc_thr,
-//     DC and AC prediction with AC rescaling across quantisers, H.263 inverse
-//     quantisation, DQUANT, not coded macroblocks, 1 and 4 motion vectors
-//     with median prediction, half-pel motion compensation with
-//     vop_rounding_type, unrestricted vectors (edge samples repeated), and
-//     resync markers (video packets). Data partitioning, RVLC, interlace,
-//     quarter-pel, GMC/sprites, B-VOPs, MPEG quantisation matrices,
-//     short_video_header, non-8-bit video, shapes other than rectangular,
-//     newpred, reduced-resolution VOPs, scalability and complexity estimation
-//     are refused with a message that names them, as are streams from the
-//     Xvid and DivX encoders, which FFmpeg decodes with their own IDCT and
-//     bug workarounds.
+//   * MPEG-4 Part 2 (ISO/IEC 14496-2; mpeg4videodec.c, h263dec.c,
+//     mpegvideo_motion.c, qpeldsp.c): VOS/VO/VOL headers from the decoder
+//     configuration or in band, GOV and user data headers, I-, P- and B-VOPs,
+//     not coded VOPs (no frame, as FFmpeg outputs none; the last frame again
+//     when one ends the stream), MCBPC/CBPY/MVD/TCOEF VLCs with the three
+//     escape modes, intra DC VLC below intra_dc_vlc_thr, DC and AC prediction
+//     with AC rescaling across quantisers, H.263 or MPEG inverse quantisation
+//     (default matrices or those carried in the VOL, mismatch control),
+//     DQUANT, not coded macroblocks, 1 and 4 motion vectors with median
+//     prediction, half-pel motion compensation with vop_rounding_type and
+//     quarter-pel with its mirrored 8-tap filters, unrestricted vectors
+//     (edge samples repeated), resync markers (video packets); B-VOPs with
+//     MODB, MB_TYPE and DBQUANT, direct mode (the co-located vectors scaled
+//     by TRB/TRD from modulo_time_base and vop_time_increment), forward,
+//     backward and interpolated prediction, macroblocks skipped with their
+//     co-located one, and the display order of h263dec.c (a reference held
+//     back until the next one, vdec_flush at the end). The encoder named by
+//     the user data or fourcc selects ff_mpeg4_workaround_bugs's behaviour:
+//     the Xvid IDCT, the old qpel filters, the quarter-pel chroma rounding of
+//     old Xvid and DivX builds, edges at the picture size, unclipped DC,
+//     low_delay detection, and DivX 5's packed B-VOPs. Data partitioning,
+//     RVLC, interlace, GMC/sprites, short_video_header, non-8-bit video,
+//     shapes other than rectangular, newpred, reduced-resolution VOPs,
+//     scalability and complexity estimation are refused with a message that
+//     names them.
+//   * VP8 (vp8.h, as vp8.c decodes a stream): key and inter frames, the
+//     golden and altref references, invisible frames (no output).
 //   * YUV -> BGR24 (libswscale's unscaled yuv2rgb path for 4:2:0 and 4:2:2
-//     frames of even width and height; other frames are refused):
+//     frames of even width and height; other frames, and a frame whose size
+//     changed mid-stream, which OpenCV scales, are refused):
 //     one chroma sample for each 2x2 (4:2:0) or 2x1 (4:2:2) block of luma;
-//     BT.601 coefficients, limited range for MPEG-4's yuv420p and full range
-//     for Motion-JPEG's yuvj formats; the arithmetic is the x86 kernels'
-//     16-bit fixed point (samples << 3, pmulhw by coefficients scaled by
-//     2^13, no rounding), which the C path of the same libswscale also gives
-//     on every (Y, U, V): held against it exhaustively.
+//     BT.601 coefficients, limited range for MPEG-4's and VP8's yuv420p and
+//     full range for Motion-JPEG's yuvj formats; the arithmetic is the x86
+//     kernels' 16-bit fixed point (samples << 3, pmulhw by coefficients
+//     scaled by 2^13, no rounding), which the C path of the same libswscale
+//     also gives on every (Y, U, V): held against it exhaustively.
 
 #include "imread.cpp"
 #include "jpeg_tables.h"
+#include "vp8.h"
 
 #include <algorithm>
 #include <cstdio>
@@ -163,6 +179,210 @@ void idct_add(uint8_t* dst, int stride, int16_t* blk) {
     for (int r = 0; r < 8; ++r) dst[r * stride + c] = clip_u8(dst[r * stride + c] + out[r]);
   }
 }
+
+// ---- Xvid's IDCT (libavcodec/xvididct.c), for streams from the Xvid encoder --
+
+namespace xvid {
+
+const int kTab04[7] = {22725, 21407, 19266, 16384, 12873, 8867, 4520};
+const int kTab17[7] = {31521, 29692, 26722, 22725, 17855, 12299, 6270};
+const int kTab26[7] = {29692, 27969, 25172, 21407, 16819, 11585, 5906};
+const int kTab35[7] = {26722, 25172, 22654, 19266, 15137, 10426, 5315};
+constexpr int ROW_SHIFT = 11, COL_SHIFT = 6;
+constexpr uint32_t TAN1 = 0x32EC, TAN2 = 0x6A0A, TAN3 = 0xAB0E, SQRT2 = 0x5A82;
+
+// (int)(c * (unsigned)x) >> n, as xvididct.c's MULT
+inline int mult(uint32_t c, int x, int n) { return (int)(c * (uint32_t)x) >> n; }
+
+// idct_row: 0 if the row is all zero (and left so)
+int idct_row(int16_t* in, const int* tab, int rnd) {
+  const uint32_t c1 = tab[0], c2 = tab[1], c3 = tab[2], c4 = tab[3], c5 = tab[4], c6 = tab[5], c7 = tab[6];
+  const int right = in[5] | in[6] | in[7], left = in[1] | in[2] | in[3];
+  auto put = [&](uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0, uint32_t b1, uint32_t b2,
+                 uint32_t b3) {
+    in[0] = (int16_t)((int)(a0 + b0) >> ROW_SHIFT);
+    in[7] = (int16_t)((int)(a0 - b0) >> ROW_SHIFT);
+    in[1] = (int16_t)((int)(a1 + b1) >> ROW_SHIFT);
+    in[6] = (int16_t)((int)(a1 - b1) >> ROW_SHIFT);
+    in[2] = (int16_t)((int)(a2 + b2) >> ROW_SHIFT);
+    in[5] = (int16_t)((int)(a2 - b2) >> ROW_SHIFT);
+    in[3] = (int16_t)((int)(a3 + b3) >> ROW_SHIFT);
+    in[4] = (int16_t)((int)(a3 - b3) >> ROW_SHIFT);
+  };
+  const uint32_t i0 = (uint32_t)in[0], i1 = (uint32_t)in[1], i2 = (uint32_t)in[2], i3 = (uint32_t)in[3];
+  const uint32_t i4 = (uint32_t)in[4], i5 = (uint32_t)in[5], i6 = (uint32_t)in[6], i7 = (uint32_t)in[7];
+  const uint32_t k = c4 * i0 + (uint32_t)rnd;
+  if (!(right | in[4])) {
+    if (left) {
+      put(k + c2 * i2, k + c6 * i2, k - c6 * i2, k - c2 * i2, c1 * i1 + c3 * i3, c3 * i1 - c7 * i3,
+          c5 * i1 - c1 * i3, c7 * i1 - c5 * i3);
+    } else {
+      const int a0 = (int)k >> ROW_SHIFT;
+      if (!a0) return 0;
+      for (int i = 0; i < 8; ++i) in[i] = (int16_t)a0;
+    }
+  } else {
+    put(k + c2 * i2 + c4 * i4 + c6 * i6, k + c6 * i2 - c4 * i4 - c2 * i6, k - c6 * i2 - c4 * i4 + c2 * i6,
+        k - c2 * i2 + c4 * i4 - c6 * i6, c1 * i1 + c3 * i3 + c5 * i5 + c7 * i7, c3 * i1 - c7 * i3 - c1 * i5 - c5 * i7,
+        c5 * i1 - c1 * i3 + c7 * i5 + c3 * i7, c7 * i1 - c5 * i3 + c3 * i5 - c1 * i7);
+  }
+  return 1;
+}
+
+// idct_col_8, _4 and _3 are one butterfly with in[5 * 8], in[7 * 8] (and in[3 * 8],
+// in[4 * 8], in[6 * 8]) zero; the general form gives the same values
+void idct_col(int16_t* in) {
+  int mm0, mm1, mm2, mm3, mm4, mm5, mm6, mm7, spill;
+  mm4 = in[7 * 8];
+  mm5 = in[5 * 8];
+  mm6 = in[3 * 8];
+  mm7 = in[1 * 8];
+  mm0 = mult(TAN1, mm4, 16) + mm7;
+  mm1 = mult(TAN1, mm7, 16) - mm4;
+  mm2 = mult(TAN3, mm5, 16) + mm6;
+  mm3 = mult(TAN3, mm6, 16) - mm5;
+  mm7 = mm0 + mm2;
+  mm4 = mm1 - mm3;
+  mm0 = mm0 - mm2;
+  mm1 = mm1 + mm3;
+  mm6 = mm0 + mm1;
+  mm5 = mm0 - mm1;
+  mm5 = 2 * mult(SQRT2, mm5, 16);
+  mm6 = 2 * mult(SQRT2, mm6, 16);
+  mm1 = in[2 * 8];
+  mm2 = in[6 * 8];
+  mm3 = mult(TAN2, mm2, 16) + mm1;
+  mm2 = mult(TAN2, mm1, 16) - mm2;
+  mm0 = in[0] + in[4 * 8];
+  mm1 = in[0] - in[4 * 8];
+  spill = mm0 + mm3; mm3 = mm0 - mm3; mm0 = spill;
+  spill = mm0 + mm7; mm7 = mm0 - mm7; mm0 = spill;
+  in[8 * 0] = (int16_t)(mm0 >> COL_SHIFT);
+  in[8 * 7] = (int16_t)(mm7 >> COL_SHIFT);
+  mm0 = mm3 + mm4; mm4 = mm3 - mm4; mm3 = mm0;
+  in[8 * 3] = (int16_t)(mm3 >> COL_SHIFT);
+  in[8 * 4] = (int16_t)(mm4 >> COL_SHIFT);
+  mm0 = mm1 + mm2; mm2 = mm1 - mm2; mm1 = mm0;
+  mm0 = mm1 + mm6; mm6 = mm1 - mm6; mm1 = mm0;
+  in[8 * 1] = (int16_t)(mm1 >> COL_SHIFT);
+  in[8 * 6] = (int16_t)(mm6 >> COL_SHIFT);
+  mm0 = mm2 + mm5; mm5 = mm2 - mm5; mm2 = mm0;
+  in[8 * 2] = (int16_t)(mm2 >> COL_SHIFT);
+  in[8 * 5] = (int16_t)(mm5 >> COL_SHIFT);
+}
+
+void idct(int16_t* in) {  // ff_xvid_idct
+  static const int* const tabs[8] = {kTab04, kTab17, kTab26, kTab35, kTab04, kTab35, kTab26, kTab17};
+  static const int rnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+  for (int r = 0; r < 8; ++r) idct_row(in + 8 * r, tabs[r], rnd[r]);
+  for (int c = 0; c < 8; ++c) idct_col(in + c);
+}
+
+}  // namespace xvid
+
+void xvid_idct_put(uint8_t* dst, int stride, int16_t* blk) {
+  xvid::idct(blk);
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) dst[r * stride + c] = clip_u8(blk[8 * r + c]);
+}
+
+void xvid_idct_add(uint8_t* dst, int stride, int16_t* blk) {
+  xvid::idct(blk);
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) dst[r * stride + c] = clip_u8(dst[r * stride + c] + blk[8 * r + c]);
+}
+
+// ---- MPEG-4 quarter-pel (libavcodec/qpeldsp.c) ------------------------------
+
+// mpeg4_qpel{8,16}_{h,v}_lowpass over ``n`` lines: the taps (-1, 3, -6, 20, 20,
+// -6, 3, -1) / 32 over the s + 1 samples of a line, those past either end of it
+// mirrored back into it, rounded (+16) or not (+15), clipped
+void qpel_lowpass(uint8_t* dst, int dstep, int dline, const uint8_t* src, int sstep, int sline, int s, int n,
+                  int rnd) {
+  static const int taps[8] = {-1, 3, -6, 20, 20, -6, 3, -1};
+  for (int l = 0; l < n; ++l)
+    for (int k = 0; k < s; ++k) {
+      int sum = 0;
+      for (int t = 0; t < 8; ++t) {
+        int i = k - 3 + t;
+        i = i < 0 ? -1 - i : (i > s ? 2 * s + 1 - i : i);
+        sum += taps[t] * src[l * sline + i * sstep];
+      }
+      dst[l * dline + k * dstep] = clip_u8((sum + rnd) >> 5);
+    }
+}
+
+// put_{,no_rnd_}qpel{8,16}_mcXY_c: an s x s block (s = 8 or 16) at quarter-pel
+// position dxy = (y << 2) | x from ``full``, the (s + 1) x (s + 1) samples from
+// the block's integer position (stride s + 1); the intermediate planes are
+// rounded as the result is (put: (a + b + 1) >> 1 and +16; no_rnd: (a + b) >> 1 and +15).
+// ``old``: the mc11/31/12/32/13/33 of libavcodec before build 4653
+// (qpel{8,16}_mcXY_old_c, FF_BUG_STD_QPEL), which average four planes
+void qpel_mc(uint8_t* out, const uint8_t* full, int s, int dxy, bool no_rnd, bool old) {
+  const int fs = s + 1, rnd = no_rnd ? 15 : 16, r2 = no_rnd ? 0 : 1;
+  const int X = dxy & 3, Y = dxy >> 2;
+  uint8_t half[17 * 16], hv[16 * 16];
+  auto l2 = [&](uint8_t* d, int ds, const uint8_t* a, int as, const uint8_t* b, int bs, int rows) {
+    for (int r = 0; r < rows; ++r)
+      for (int k = 0; k < s; ++k) d[r * ds + k] = (uint8_t)((a[r * as + k] + b[r * bs + k] + r2) >> 1);
+  };
+  auto h = [&](uint8_t* d, const uint8_t* src, int rows) { qpel_lowpass(d, 1, s, src, 1, fs, s, rows, rnd); };
+  auto v = [&](uint8_t* d, const uint8_t* src, int sstride) { qpel_lowpass(d, s, 1, src, sstride, 1, s, s, rnd); };
+  if (Y == 0) {
+    if (X == 0) {
+      for (int r = 0; r < s; ++r) memcpy(out + r * s, full + r * fs, s);
+    } else if (X == 2) {
+      h(out, full, s);
+    } else {  // mc10, mc30
+      h(half, full, s);
+      l2(out, s, full + (X == 3), fs, half, s, s);
+    }
+    return;
+  }
+  if (X == 0) {
+    if (Y == 2) {
+      v(out, full, fs);
+    } else {  // mc01, mc03
+      v(half, full, fs);
+      l2(out, s, full + (Y == 3) * fs, fs, half, s, s);
+    }
+    return;
+  }
+  // the others filter s + 1 rows horizontally, then vertically
+  h(half, full, s + 1);
+  if (old && X != 2) {
+    uint8_t hvv[16 * 16];
+    v(hv, full + (X == 3), fs);  // halfV
+    v(hvv, half, s);  // halfHV
+    if (Y == 2) {
+      l2(out, s, hv, s, hvv, s, s);
+      return;
+    }
+    const uint8_t* a = full + (X == 3) + (Y == 3) * fs;
+    const uint8_t* b = half + (Y == 3) * s;
+    for (int r = 0; r < s; ++r)
+      for (int k = 0; k < s; ++k)
+        out[r * s + k] = (uint8_t)((a[r * fs + k] + b[r * s + k] + hv[r * s + k] + hvv[r * s + k] + 1 + r2) >> 2);
+    return;
+  }
+  if (X != 2) l2(half, s, half, s, full + (X == 3), fs, s + 1);  // mc11, 31, 13, 33, 12, 32
+  if (Y == 2) {
+    v(out, half, s);
+    return;
+  }
+  v(hv, half, s);
+  l2(out, s, half + (Y == 3) * s, s, hv, s, s);
+}
+
+// ff_mpeg4_default_intra_matrix, ff_mpeg4_default_non_intra_matrix (natural order)
+const uint8_t kDefaultIntraMatrix[64] = {
+    8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28, 20, 21, 22, 23, 24, 26,
+    28, 30, 21, 22, 23, 24, 26, 28, 30, 32, 22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28,
+    30, 32, 35, 38, 25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45};
+const uint8_t kDefaultInterMatrix[64] = {
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24, 18, 19, 20, 21, 22, 23,
+    24, 25, 19, 20, 21, 22, 23, 24, 26, 27, 20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24,
+    26, 27, 28, 30, 22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33};
 
 // ---- planar frames and YUV -> RGB ------------------------------------------
 
@@ -509,9 +729,18 @@ enum { I_VOP = 0, P_VOP = 1, B_VOP = 2, S_VOP = 3 };
 enum Stat {
   ST_I_VOP, ST_P_VOP, ST_NOT_CODED_VOP, ST_SKIPPED_MB, ST_INTRA_MB_IN_P, ST_FOUR_MV_MB, ST_DQUANT,
   ST_PACKETS, ST_ESCAPE1, ST_ESCAPE2, ST_ESCAPE3, ST_AC_PRED_MB, ST_DC_AS_AC, ST_NO_ROUNDING_MB,
-  ST_AC_RESCALED, ST_COUNT
+  ST_AC_RESCALED, ST_B_VOP, ST_B_DIRECT, ST_B_FORWARD, ST_B_BACKWARD, ST_B_INTERPOLATED, ST_B_COLOCATED_SKIP,
+  ST_DBQUANT, ST_QPEL_MB, ST_MPEG_QUANT_BLOCK, ST_XVID_IDCT_BLOCK, ST_PACKED_B, ST_SKIPPED_B, ST_COUNT
 };
 constexpr int SLICE_END = 1;  // decode_slice: a video packet ends before the VOP does
+constexpr int FRAME_SKIPPED = 4;  // decode_vop_header: a VOP FFmpeg decodes to no frame
+constexpr int MAX_NVOP_SIZE = 19;  // h263dec.c: a packet this small after a packed one is its placeholder
+
+// FFmpeg's workaround_bugs flags that change what a progressive stream decodes to
+enum Bug {
+  BUG_UMP4 = 1 << 0, BUG_QPEL_CHROMA = 1 << 1, BUG_QPEL_CHROMA2 = 1 << 2, BUG_EDGE = 1 << 3, BUG_DC_CLIP = 1 << 4,
+  BUG_STD_QPEL = 1 << 5
+};
 
 struct Mpeg4 {
   uint32_t tag = 0;  // the container's fourcc, upper case
@@ -520,25 +749,45 @@ struct Mpeg4 {
   // video object layer
   bool have_vol = false;
   int vo_type = 0, vol_control = 0, width = 0, height = 0, mb_w = 0, mb_h = 0, mb_num = 0;
-  int time_increment_bits = 0, quant_precision = 5;
-  bool resync_marker = false;
-  int lavc_build = -1, xvid_build = -1, divx_version = -1;
+  int time_increment_bits = 0, time_resolution = 1, quant_precision = 5;
+  bool resync_marker = false, low_delay = false, quarter_sample = false, mpeg_quant = false;
+  uint8_t intra_matrix[64], inter_matrix[64];  // natural order
+  // the encoder, from the user data and the fourcc (ff_mpeg4_workaround_bugs)
+  int lavc_build = -1, xvid_build = -1, divx_version = -1, divx_build = -1;
+  bool divx_packed = false, xvid_idct = false;
+  int bugs = 0;
+  int picture_number = 0;
+  // time stamps (decode_vop_header), in ticks of 1 / time_resolution
+  int64_t time_base = 0, last_time_base = 0, time = 0, last_non_b_time = 0;
+  uint16_t pp_time = 0, pb_time = 0;
   // the VOP being decoded
-  int pict_type = I_VOP, qscale = 1, f_code = 1, no_rounding = 0, intra_dc_threshold = 99;
+  int pict_type = I_VOP, qscale = 1, f_code = 1, b_code = 1, no_rounding = 0, intra_dc_threshold = 99;
   int y_dc_scale = 8, c_dc_scale = 8;
   int mb_x = 0, mb_y = 0, resync_mb_x = 0, resync_mb_y = 0;
   bool first_slice_line = true, ac_pred = false;
-  Frame cur, ref;
-  bool have_ref = false;
+  // pictures: the one decoded, the older and the newer reference (FFmpeg's
+  // cur_pic, last_pic and next_pic)
+  Frame cur, past, future;
+  bool have_past = false, have_future = false, skipped_last_frame = false, last_decoded_b = false;
+  std::vector<uint8_t> stash;  // the B-VOP after a packed P-VOP (divx_packed)
   // prediction state, with a border of one block (or macroblock) on each side
   int bw = 0, cw = 0;  // widths of the luma-block and chroma (macroblock) grids, borders included
   std::vector<int16_t> dc_y, dc_u, dc_v, ac_y, ac_u, ac_v, mv;
   std::vector<int8_t> qs;  // quantiser of each macroblock
+  // the newer reference's macroblocks, for B-VOPs: not coded, four vectors
+  std::vector<uint8_t> ref_skipped, ref_four_mv;
   int16_t block[6][64];
   int last_index[6];
   int mv_type = 0;  // 0: one vector, 1: four
-  int mvs[4][2];
+  int mv_dir = 1;  // 1 forward, 2 backward, 3 both
+  int mvs[2][4][2];  // [direction][block][x, y]
+  int last_mv[2][2];  // B-VOPs: the vector predictors of each direction
   bool mb_intra = false;
+
+  Mpeg4() {
+    memcpy(intra_matrix, kDefaultIntraMatrix, 64);
+    memcpy(inter_matrix, kDefaultInterMatrix, 64);
+  }
 
   int refuse(const char* what) {
     msg = std::string("MPEG-4 Part 2: ") + what + " is not supported";
@@ -559,6 +808,20 @@ struct Mpeg4 {
 
   // ---- headers
 
+  // load_*_quant_mat: up to 64 values in zigzag order, the last repeated after a 0
+  int load_matrix(Bits& b, uint8_t* m) {
+    int last = 0, i = 0;
+    for (; i < 64; ++i) {
+      if (b.left() < 8) return damaged("a truncated quantisation matrix");
+      int v = (int)b.get(8);
+      if (v == 0) break;
+      last = v;
+      m[kZigzag[i]] = (uint8_t)v;
+    }
+    for (; i < 64; ++i) m[kZigzag[i]] = (uint8_t)last;
+    return OK;
+  }
+
   int decode_vol(Bits& b) {
     b.skip(1);  // random_accessible_vol
     vo_type = (int)b.get(8);
@@ -572,14 +835,17 @@ struct Mpeg4 {
     vol_control = b.get1();
     if (vol_control) {
       if (b.get(2) != 1) return refuse("a chroma format other than 4:2:0");
-      b.skip(1);  // low_delay
+      low_delay = b.get1();
       if (b.get1()) b.skip(15 + 1 + 15 + 1 + 15 + 1 + 3 + 11 + 1 + 15 + 1);  // vbv parameters
+    } else if (picture_number == 0) {  // SIMPLE_VO_TYPE and ADV_SIMPLE_VO_TYPE are low delay
+      low_delay = vo_type == 1 || vo_type == 17;
     }
     int shape = (int)b.get(2);
     if (shape != 0) return refuse("a video object layer shape other than rectangular");
     b.skip(1);
     int resolution = (int)b.get(16);
     if (!resolution) return damaged("vop_time_increment_resolution 0");
+    time_resolution = resolution;
     time_increment_bits = 1;
     while ((1 << time_increment_bits) < resolution) ++time_increment_bits;  // av_log2(res - 1) + 1
     if (resolution == 1) time_increment_bits = 1;
@@ -594,8 +860,20 @@ struct Mpeg4 {
     b.skip(1);  // obmc_disable: FFmpeg decodes without OBMC either way
     if (b.get(ver_id == 1 ? 1 : 2)) return refuse("sprites and global motion compensation");
     if (b.get1()) return refuse("video other than 8-bit");
-    if (b.get1()) return refuse("MPEG quantisation matrices (quant_type 1)");
-    if (ver_id != 1 && b.get1()) return refuse("quarter-pel motion compensation");
+    mpeg_quant = b.get1();  // quant_type 1: MPEG quantisation
+    if (mpeg_quant) {
+      memcpy(intra_matrix, kDefaultIntraMatrix, 64);
+      memcpy(inter_matrix, kDefaultInterMatrix, 64);
+      if (b.get1()) {
+        int st = load_matrix(b, intra_matrix);
+        if (st) return st;
+      }
+      if (b.get1()) {
+        int st = load_matrix(b, inter_matrix);
+        if (st) return st;
+      }
+    }
+    quarter_sample = ver_id != 1 && b.get1();
     if (!b.get1()) return refuse("complexity estimation");
     resync_marker = !b.get1();
     if (b.get1()) return refuse(b.get1() ? "data partitioning with RVLC" : "data partitioning");
@@ -622,7 +900,9 @@ struct Mpeg4 {
       ac_v.assign(nc * 16, 0);
       mv.assign(nb * 2, 0);
       qs.assign(nc, 0);
-      have_ref = false;
+      ref_skipped.assign(mb_num, 0);
+      ref_four_mv.assign(mb_num, 0);
+      have_past = have_future = false;
     }
     have_vol = true;
     return OK;
@@ -640,17 +920,16 @@ struct Mpeg4 {
     char last;
     int e = sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
     if (e < 2) e = sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
-    if (e >= 2) divx_version = ver;
+    if (e >= 2) {
+      divx_version = ver;
+      divx_build = build;
+      divx_packed = e == 3 && last == 'p';
+    }
     e = sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
     if (e != 4) e = sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2, &ver3, &build);
     if (e != 4) {
       e = sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
-      if (e > 1) {
-        if (ver > 0xFF || ver2 > 0xFF || ver3 > 0xFF)
-          e = 0;
-        else
-          build = (ver << 16) + (ver2 << 8) + ver3;
-      }
+      if (e > 1) build = ((ver & 0xFF) << 16) + ((ver2 & 0xFF) << 8) + (ver3 & 0xFF);
     }
     if (e != 4 && strcmp(buf, "ffmpeg") == 0) lavc_build = 4600;
     if (e == 4) lavc_build = build;
@@ -662,13 +941,17 @@ struct Mpeg4 {
   int decode_headers(Bits& b) {
     b.align();
     uint32_t startcode = 0xff;
+    bool vol = false;
     while (true) {
       if (b.left() <= 0) return NO_FRAME;
       startcode = (startcode << 8) | b.get(8);
       if ((startcode & 0xFFFFFF00) != 0x100) continue;
       if (startcode >= 0x120 && startcode <= 0x12F) {
-        int st = decode_vol(b);
-        if (st) return st;
+        if (!vol) {  // FFmpeg ignores a second VOL header in one packet
+          vol = true;
+          int st = decode_vol(b);
+          if (st) return st;
+        }
       } else if (startcode == 0x1B2) {
         decode_user_data(b);
       } else if (startcode == 0x1B6) {
@@ -679,8 +962,9 @@ struct Mpeg4 {
     }
   }
 
-  // ff_mpeg4_workaround_bugs: the encoders whose streams FFmpeg decodes with
-  // the Xvid IDCT or with bug workarounds
+  // ff_mpeg4_workaround_bugs: the encoder told by the user data or fourcc, and
+  // what FFmpeg decodes differently for it (the Xvid IDCT; the bugs of old
+  // Xvid, DivX and libavcodec builds)
   int check_encoder() {
     auto rl32 = [](const char* s) {  // AV_RL32
       return (uint32_t)s[0] | (uint32_t)s[1] << 8 | (uint32_t)s[2] << 16 | (uint32_t)s[3] << 24;
@@ -693,41 +977,83 @@ struct Mpeg4 {
     if (xvid_build == -1 && divx_version == -1 && lavc_build == -1 && tag == rl32("DIVX") && vo_type == 0 &&
         vol_control == 0)
       divx_version = 400;
-    if (xvid_build >= 0) return refuse("a stream from the Xvid encoder (decoded with the Xvid IDCT)");
-    if (divx_version >= 0) return refuse("a stream from the DivX encoder (decoded with its bug workarounds)");
-    if (tag == rl32("XVIX") || tag == rl32("UMP4")) return refuse("a stream whose fourcc asks for bug workarounds");
-    bool iedge = (lavc_build & 0xFF) >= 100 && lavc_build > 3621476 && lavc_build < 3752552 &&
-                 (lavc_build < 3752037 || lavc_build > 3752191);  // FF_BUG_IEDGE's builds
-    if (lavc_build >= 0 && (lavc_build <= 4712 || iedge))
-      return refuse("a stream from an old libavcodec (decoded with bug workarounds)");
+    if (xvid_build >= 0 && divx_version >= 0) divx_version = divx_build = -1;
+    // FF_BUG_XVID_ILACE (XVIX) and FF_BUG_HPEL_CHROMA (DivX) act on interlaced video only
+    if (tag == rl32("UMP4")) bugs |= BUG_UMP4;
+    if (divx_version >= 500 && divx_build < 1814) bugs |= BUG_QPEL_CHROMA;
+    if (divx_version > 502 && divx_build < 1814) bugs |= BUG_QPEL_CHROMA2;
+    if ((unsigned)xvid_build <= 1u) bugs |= BUG_QPEL_CHROMA;
+    if ((unsigned)xvid_build <= 12u) bugs |= BUG_EDGE;
+    if ((unsigned)xvid_build <= 32u) bugs |= BUG_DC_CLIP;
+    if ((unsigned)lavc_build < 4653u) bugs |= BUG_STD_QPEL;
+    if ((unsigned)lavc_build < 4670u) bugs |= BUG_EDGE;
+    if ((unsigned)lavc_build <= 4712u) bugs |= BUG_DC_CLIP;
+    if ((unsigned)divx_version < 500u) bugs |= BUG_EDGE;
+    // padding_bug_score (old Xvid, DivX 5.01 of 2002-04-16) acts on streams
+    // without resync markers whose end is padded wrongly; FF_BUG_IEDGE moves
+    // an edge buffer in a way no progressive picture shows
+    if (xvid_build >= 0) xvid_idct = true;
     return OK;
   }
 
+  int h_edge() const { return (bugs & BUG_EDGE) ? width : mb_w * 16; }
+  int v_edge() const { return (bugs & BUG_EDGE) ? height : mb_h * 16; }
+
+  // decode_vop_header up to the quantiser; FRAME_SKIPPED for a VOP FFmpeg
+  // decodes to no frame
   int decode_vop_header(Bits& b) {
     pict_type = (int)b.get(2);
+    if (pict_type == B_VOP && low_delay && vol_control == 0) low_delay = false;  // "set incorrectly"
+    int time_incr = 0;
     while (b.get1()) {
+      ++time_incr;
       if (b.left() <= 0) return damaged("truncated VOP header");
     }
     b.skip(1);  // marker
-    b.skip(time_increment_bits);
+    const int time_increment = (int)b.get(time_increment_bits);
+    if (pict_type != B_VOP) {
+      last_time_base = time_base;
+      time_base += time_incr;
+      time = time_base * time_resolution + time_increment;
+      if ((bugs & BUG_UMP4) && time < last_non_b_time) {
+        ++time_base;
+        time += time_resolution;
+      }
+      pp_time = (uint16_t)(time - last_non_b_time);
+      last_non_b_time = time;
+    } else {
+      time = (last_time_base + time_incr) * time_resolution + time_increment;
+      pb_time = (uint16_t)(pp_time - (last_non_b_time - time));
+      if (pp_time <= pb_time || pp_time <= pp_time - pb_time || pp_time <= 0) {
+        ++stats[ST_SKIPPED_B];  // "messed up order": FFmpeg skips the B-VOP
+        return FRAME_SKIPPED;
+      }
+    }
     b.skip(1);  // marker
     if (!b.get1()) {  // vop_coded = 0: FFmpeg outputs no frame
       ++stats[ST_NOT_CODED_VOP];
-      return NO_FRAME;
+      skipped_last_frame = true;
+      return FRAME_SKIPPED;
     }
-    if (pict_type == B_VOP) return refuse("B-VOPs (Advanced Simple Profile)");
     if (pict_type == S_VOP) return refuse("S-VOPs (sprites and global motion compensation)");
     no_rounding = pict_type == P_VOP ? b.get1() : 0;
     intra_dc_threshold = kDcThreshold[b.get(3)];
     int q = (int)b.get(quant_precision);
     if (q == 0) return damaged("quantiser 0");
     set_qscale(q);
-    f_code = 1;
+    f_code = b_code = 1;
     if (pict_type != I_VOP) {
       f_code = (int)b.get(3);
       if (f_code == 0) return damaged("f_code 0");
     }
+    if (pict_type == B_VOP) {
+      b_code = (int)b.get(3);
+      if (b_code == 0) return damaged("b_code 0");
+    }
     if (b.left() < 0) return damaged("truncated VOP header");
+    // divx4, old Xvid and OpenDivX streams that do not set low_delay
+    if (vo_type == 0 && vol_control == 0 && divx_version == -1 && picture_number == 0) low_delay = true;
+    ++picture_number;
     return OK;
   }
 
@@ -768,13 +1094,17 @@ struct Mpeg4 {
   }
 
   // mpeg4_get_level_dc: the DC level with its prediction, stored scaled
+  // (not clipped at 2047 under FF_BUG_DC_CLIP)
   int level_dc(int n, int pred, int level) {
     int scale = n < 4 ? y_dc_scale : c_dc_scale;
     pred = (pred + (scale >> 1)) / scale;
     level += pred;
     int ret = level;
     level *= scale;
-    if (level & ~2047) level = level < 0 ? 0 : 2047;
+    if (level & ~2047) {
+      if (level < 0) level = 0;
+      else if (!(bugs & BUG_DC_CLIP)) level = 2047;
+    }
     *dc_at(n) = (int16_t)level;
     return ret;
   }
@@ -828,7 +1158,9 @@ struct Mpeg4 {
     return level_dc(n, pred, level);
   }
 
-  int decode_block(Bits& b, int16_t* blk, int n, bool coded, bool intra) {  // mpeg4_decode_block
+  // mpeg4_decode_block; the inter levels of MPEG quantisation are left for
+  // dequant_mpeg_inter, as FFmpeg's tables for quantiser 0 leave them
+  int decode_block(Bits& b, int16_t* blk, int n, bool coded, bool intra) {
     const Tables& t = tables();
     int i, qmul, qadd, dir = 0, pred = 0;
     const RunLevel* rl;
@@ -856,8 +1188,8 @@ struct Mpeg4 {
         return OK;
       }
       rl = &t.inter;
-      qmul = qscale << 1;
-      qadd = (qscale - 1) | 1;
+      qmul = mpeg_quant ? 1 : qscale << 1;
+      qadd = mpeg_quant ? 0 : (qscale - 1) | 1;
     }
     if (coded) {
       while (true) {
@@ -929,6 +1261,37 @@ struct Mpeg4 {
     return OK;
   }
 
+  // dct_unquantize_mpeg2_intra_c (FFmpeg's, not the bit-exact one): the DC
+  // by its scale, the others level * 2 qscale * matrix >> 4
+  void dequant_mpeg_intra(int16_t* blk, int n) {
+    blk[0] = (int16_t)(blk[0] * (n < 4 ? y_dc_scale : c_dc_scale));
+    const int q = qscale << 1;
+    for (int i = 1; i <= last_index[n]; ++i) {
+      const int j = kZigzag[i];
+      int level = blk[j];
+      if (!level) continue;
+      level = level < 0 ? -((int)(-level * q * intra_matrix[j]) >> 4) : (int)(level * q * intra_matrix[j]) >> 4;
+      blk[j] = (int16_t)level;
+    }
+  }
+
+  // dct_unquantize_mpeg2_inter_c: (2 level + 1) * 2 qscale * matrix >> 5, then
+  // mismatch control on the last coefficient
+  void dequant_mpeg_inter(int16_t* blk, int n) {
+    const int q = qscale << 1;
+    int sum = -1;
+    for (int i = 0; i <= last_index[n]; ++i) {
+      const int j = kZigzag[i];
+      int level = blk[j];
+      if (!level) continue;
+      level = level < 0 ? -((((-level << 1) + 1) * q * inter_matrix[j]) >> 5)
+                        : (((level << 1) + 1) * q * inter_matrix[j]) >> 5;
+      blk[j] = (int16_t)level;
+      sum += level;
+    }
+    blk[63] ^= sum & 1;
+  }
+
   // ---- motion vectors
 
   // ff_h263_pred_motion
@@ -980,11 +1343,11 @@ struct Mpeg4 {
   }
 
   // ff_h263_decode_motion; INT32_MIN for a bad code
-  int decode_motion(Bits& b, int pred) {
+  int decode_motion(Bits& b, int pred, int fcode) {
     int code = tables().mv.read(b);
     if (code == 0) return pred;
     if (code < 0) return INT32_MIN;
-    int sign = b.get1(), shift = f_code - 1, val = code;
+    int sign = b.get1(), shift = fcode - 1, val = code;
     if (shift) {
       val = (val - 1) << shift;
       val |= (int)b.get(shift);
@@ -992,7 +1355,7 @@ struct Mpeg4 {
     }
     if (sign) val = -val;
     val += pred;
-    int bits = 5 + f_code;  // sign_extend(val, 5 + f_code)
+    int bits = 5 + fcode;  // sign_extend(val, 5 + f_code)
     return (int)((uint32_t)val << (32 - bits)) >> (32 - bits);
   }
 
@@ -1033,37 +1396,89 @@ struct Mpeg4 {
       }
   }
 
-  int h_edge() const { return mb_w * 16; }
-  int v_edge() const { return mb_h * 16; }
+  // qpel_mc of the (s + 1) x (s + 1) samples at (x, y), edges repeated
+  static void qpel(const uint8_t* plane, int stride, int edge_w, int edge_h, int x, int y, int dxy, int s,
+                   bool no_rnd, bool old, uint8_t* dst, int dstride) {
+    uint8_t full[17 * 17], out[16 * 16];
+    for (int r = 0; r <= s; ++r) {
+      int yy = y + r;
+      yy = yy < 0 ? 0 : (yy >= edge_h ? edge_h - 1 : yy);
+      for (int c = 0; c <= s; ++c) {
+        int xx = x + c;
+        xx = xx < 0 ? 0 : (xx >= edge_w ? edge_w - 1 : xx);
+        full[r * (s + 1) + c] = plane[(size_t)yy * stride + xx];
+      }
+    }
+    qpel_mc(out, full, s, dxy, no_rnd, old);
+    for (int r = 0; r < s; ++r) memcpy(dst + (size_t)r * dstride, out + r * s, s);
+  }
 
-  void motion(uint8_t* dy, uint8_t* du, uint8_t* dv) {
-    const Frame& f = ref;
-    bool nr = no_rounding != 0;
-    int he = h_edge(), ve = v_edge();
-    if (mv_type == 0) {  // mpeg_motion_internal, 16x16
-      int mx = mvs[0][0], my = mvs[0][1];
-      int dxy = ((my & 1) << 1) | (mx & 1);
-      int sx = mb_x * 16 + (mx >> 1), sy = mb_y * 16 + (my >> 1);
-      hpel(f.y.data(), f.ystride, he, ve, sx, sy, dxy, 16, nr, dy, cur.ystride);
-      int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-      int ux = sx >> 1, uy = sy >> 1;
-      hpel(f.u.data(), f.cstride, he >> 1, ve >> 1, ux, uy, uvdxy, 8, nr, du, cur.cstride);
-      hpel(f.v.data(), f.cstride, he >> 1, ve >> 1, ux, uy, uvdxy, 8, nr, dv, cur.cstride);
+  // the macroblock's prediction from one reference (ff_mpv_motion for
+  // MV_TYPE_16X16 and MV_TYPE_8X8: mpeg_motion, qpel_motion, hpel_motion and
+  // chroma_4mv_motion) into y (16 x 16), u and v (8 x 8 each)
+  void predict(const Frame& f, const int (*mvv)[2], bool nr, uint8_t* y, uint8_t* u, uint8_t* v) {
+    const int he = h_edge(), ve = v_edge();
+    if (mv_type == 0) {
+      const int mx = mvv[0][0], my = mvv[0][1];
+      if (quarter_sample) {  // qpel_motion
+        const int dxy = ((my & 3) << 2) | (mx & 3);
+        const int sx = mb_x * 16 + (mx >> 2), sy = mb_y * 16 + (my >> 2);
+        qpel(f.y.data(), f.ystride, he, ve, sx, sy, dxy, 16, nr, bugs & BUG_STD_QPEL, y, 16);
+        int cx, cy;
+        if (bugs & BUG_QPEL_CHROMA2) {
+          static const int rtab[8] = {0, 0, 1, 1, 0, 0, 0, 1};
+          cx = (mx >> 1) + rtab[mx & 7];
+          cy = (my >> 1) + rtab[my & 7];
+        } else if (bugs & BUG_QPEL_CHROMA) {
+          cx = (mx >> 1) | (mx & 1);
+          cy = (my >> 1) | (my & 1);
+        } else {
+          cx = mx / 2;
+          cy = my / 2;
+        }
+        cx = (cx >> 1) | (cx & 1);
+        cy = (cy >> 1) | (cy & 1);
+        const int uvdxy = (cx & 1) | ((cy & 1) << 1);
+        const int ux = mb_x * 8 + (cx >> 1), uy = mb_y * 8 + (cy >> 1);
+        hpel(f.u.data(), f.cstride, he >> 1, ve >> 1, ux, uy, uvdxy, 8, nr, u, 8);
+        hpel(f.v.data(), f.cstride, he >> 1, ve >> 1, ux, uy, uvdxy, 8, nr, v, 8);
+        return;
+      }
+      // mpeg_motion_internal, 16x16
+      const int dxy = ((my & 1) << 1) | (mx & 1);
+      const int sx = mb_x * 16 + (mx >> 1), sy = mb_y * 16 + (my >> 1);
+      hpel(f.y.data(), f.ystride, he, ve, sx, sy, dxy, 16, nr, y, 16);
+      const int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+      const int ux = sx >> 1, uy = sy >> 1;
+      hpel(f.u.data(), f.cstride, he >> 1, ve >> 1, ux, uy, uvdxy, 8, nr, u, 8);
+      hpel(f.v.data(), f.cstride, he >> 1, ve >> 1, ux, uy, uvdxy, 8, nr, v, 8);
       return;
     }
     int sumx = 0, sumy = 0;
-    for (int i = 0; i < 4; ++i) {  // hpel_motion
-      int mx = mvs[i][0], my = mvs[i][1];
-      int sx = mb_x * 16 + (i & 1) * 8 + (mx >> 1), sy = mb_y * 16 + (i >> 1) * 8 + (my >> 1);
-      int dxy = 0;
-      sx = std::max(-16, std::min(sx, width));
-      if (sx != width) dxy |= mx & 1;
-      sy = std::max(-16, std::min(sy, height));
-      if (sy != height) dxy |= (my & 1) << 1;
-      hpel(f.y.data(), f.ystride, he, ve, sx, sy, dxy, 8, nr,
-           dy + (i & 1) * 8 + (size_t)(i >> 1) * 8 * cur.ystride, cur.ystride);
-      sumx += mx;
-      sumy += my;
+    for (int i = 0; i < 4; ++i) {
+      const int mx = mvv[i][0], my = mvv[i][1];
+      uint8_t* d = y + (i & 1) * 8 + (i >> 1) * 8 * 16;
+      if (quarter_sample) {
+        int dxy = ((my & 3) << 2) | (mx & 3);
+        int sx = mb_x * 16 + (mx >> 2) + (i & 1) * 8, sy = mb_y * 16 + (my >> 2) + (i >> 1) * 8;
+        sx = std::max(-16, std::min(sx, width));
+        if (sx == width) dxy &= ~3;
+        sy = std::max(-16, std::min(sy, height));
+        if (sy == height) dxy &= ~12;
+        qpel(f.y.data(), f.ystride, he, ve, sx, sy, dxy, 8, nr, bugs & BUG_STD_QPEL, d, 16);
+        sumx += mx / 2;
+        sumy += my / 2;
+      } else {  // hpel_motion
+        int sx = mb_x * 16 + (i & 1) * 8 + (mx >> 1), sy = mb_y * 16 + (i >> 1) * 8 + (my >> 1);
+        int dxy = 0;
+        sx = std::max(-16, std::min(sx, width));
+        if (sx != width) dxy |= mx & 1;
+        sy = std::max(-16, std::min(sy, height));
+        if (sy != height) dxy |= (my & 1) << 1;
+        hpel(f.y.data(), f.ystride, he, ve, sx, sy, dxy, 8, nr, d, 16);
+        sumx += mx;
+        sumy += my;
+      }
     }
     // chroma_4mv_motion, with ff_h263_round_chroma
     static const uint8_t roundtab[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
@@ -1076,27 +1491,149 @@ struct Mpeg4 {
     if (sx == (width >> 1)) dxy &= ~1;
     sy = std::max(-8, std::min(sy, height >> 1));
     if (sy == (height >> 1)) dxy &= ~2;
-    hpel(f.u.data(), f.cstride, he >> 1, ve >> 1, sx, sy, dxy, 8, nr, du, cur.cstride);
-    hpel(f.v.data(), f.cstride, he >> 1, ve >> 1, sx, sy, dxy, 8, nr, dv, cur.cstride);
+    hpel(f.u.data(), f.cstride, he >> 1, ve >> 1, sx, sy, dxy, 8, nr, u, 8);
+    hpel(f.v.data(), f.cstride, he >> 1, ve >> 1, sx, sy, dxy, 8, nr, v, 8);
+  }
+
+  // the forward prediction put, the backward one put or averaged over it
+  // (avg_pixels and avg_qpel: (dst + pred + 1) >> 1)
+  void motion(uint8_t* dy, uint8_t* du, uint8_t* dv) {
+    uint8_t py[256], pu[64], pv[64];
+    bool have = false;
+    for (int dir = 0; dir < 2; ++dir) {
+      if (!(mv_dir & (1 << dir))) continue;
+      const Frame& f = pict_type == B_VOP ? (dir ? future : past) : future;
+      predict(f, mvs[dir], pict_type != B_VOP && no_rounding, py, pu, pv);
+      for (int r = 0; r < 16; ++r)
+        for (int c = 0; c < 16; ++c) {
+          uint8_t& d = dy[(size_t)r * cur.ystride + c];
+          d = have ? (uint8_t)((d + py[r * 16 + c] + 1) >> 1) : py[r * 16 + c];
+        }
+      for (int r = 0; r < 8; ++r)
+        for (int c = 0; c < 8; ++c) {
+          uint8_t& a = du[(size_t)r * cur.cstride + c];
+          uint8_t& b = dv[(size_t)r * cur.cstride + c];
+          a = have ? (uint8_t)((a + pu[r * 8 + c] + 1) >> 1) : pu[r * 8 + c];
+          b = have ? (uint8_t)((b + pv[r * 8 + c] + 1) >> 1) : pv[r * 8 + c];
+        }
+      have = true;
+    }
   }
 
   // ---- macroblocks
 
   int qscale_at_mb_start = 1;
 
+  // ff_mpeg4_set_direct_mv: the co-located vectors of the newer reference
+  // scaled by TRB / TRD, plus the delta
+  void set_direct_mv(int mx, int my) {
+    const int mb = mb_y * mb_w + mb_x;
+    const int tpp = pp_time, tpb = pb_time;
+    auto one = [&](int i) {
+      const int16_t* p = mv_at(i);
+      for (int c = 0; c < 2; ++c) {
+        const int d = c ? my : mx, pm = p[c];
+        mvs[0][i][c] = pm * tpb / tpp + d;
+        mvs[1][i][c] = d ? mvs[0][i][c] - pm : pm * (tpb - tpp) / tpp;
+      }
+    };
+    if (ref_four_mv[mb]) {
+      mv_type = 1;
+      for (int i = 0; i < 4; ++i) one(i);
+      return;
+    }
+    one(0);
+    for (int i = 1; i < 4; ++i)
+      for (int c = 0; c < 2; ++c) {
+        mvs[0][i][c] = mvs[0][0][c];
+        mvs[1][i][c] = mvs[1][0][c];
+      }
+    // FFmpeg tests FF_BUG_DIRECT_BLOCKSIZE in avctx->workaround_bugs, where
+    // ff_mpeg4_workaround_bugs does not set it: an autodetected one has no effect
+    mv_type = quarter_sample ? 1 : 0;
+  }
+
+  // mpeg4_decode_mb for B-VOPs
+  int decode_b_mb(Bits& b) {
+    mb_intra = false;
+    mv_type = 0;
+    if (mb_x == 0) memset(last_mv, 0, sizeof(last_mv));
+    for (int i = 0; i < 6; ++i) memset(block[i], 0, sizeof(block[i]));
+    if (ref_skipped[mb_y * mb_w + mb_x]) {  // not coded in the newer reference: the older one's macroblock
+      ++stats[ST_B_COLOCATED_SKIP];
+      for (int i = 0; i < 6; ++i) last_index[i] = -1;
+      mv_dir = 1;
+      memset(mvs, 0, sizeof(mvs));
+      return OK;
+    }
+    int cbp = 0;
+    bool direct;
+    if (b.get1()) {  // modb '1': direct, no vectors, no coefficients
+      direct = true;
+      ++stats[ST_B_DIRECT];
+      set_direct_mv(0, 0);
+      mv_dir = 3;
+    } else {
+      const int modb2 = b.get1();
+      int type = 0;  // mb_type: '1' direct, '01' interpolated, '001' backward, '0001' forward
+      while (type < 4 && !b.get1()) ++type;
+      if (type == 4) return damaged("bad B macroblock type");
+      if (!modb2) cbp = (int)b.get(6);
+      direct = type == 0;
+      if (!direct && cbp && b.get1()) {
+        ++stats[ST_DBQUANT];
+        set_qscale(qscale + b.get1() * 4 - 2);
+      }
+      if (!direct) {
+        mv_dir = type == 1 ? 3 : type == 2 ? 2 : 1;
+        ++stats[type == 1 ? ST_B_INTERPOLATED : type == 2 ? ST_B_BACKWARD : ST_B_FORWARD];
+        for (int dir = 0; dir < 2; ++dir) {
+          if (!(mv_dir & (1 << dir))) continue;
+          const int fc = dir ? b_code : f_code;
+          int mx = decode_motion(b, last_mv[dir][0], fc);
+          if (mx == INT32_MIN) return damaged("bad motion vector code");
+          int my = decode_motion(b, last_mv[dir][1], fc);
+          if (my == INT32_MIN) return damaged("bad motion vector code");
+          last_mv[dir][0] = mvs[dir][0][0] = mx;
+          last_mv[dir][1] = mvs[dir][0][1] = my;
+        }
+      } else {
+        ++stats[ST_B_DIRECT];
+        int mx = decode_motion(b, 0, 1);
+        if (mx == INT32_MIN) return damaged("bad motion vector code");
+        int my = decode_motion(b, 0, 1);
+        if (my == INT32_MIN) return damaged("bad motion vector code");
+        set_direct_mv(mx, my);
+        mv_dir = 3;
+      }
+    }
+    if (quarter_sample) ++stats[ST_QPEL_MB];
+    for (int i = 0; i < 6; ++i) {
+      int st = decode_block(b, block[i], i, (cbp & 32) != 0, false);
+      if (st) return st;
+      cbp += cbp;
+    }
+    return OK;
+  }
+
   // mpeg4_decode_mb, for I- and P-VOPs without data partitioning
   int decode_mb(Bits& b) {
+    if (pict_type == B_VOP) return decode_b_mb(b);
     const Tables& t = tables();
     int cbpc, cbp, dquant;
     for (int i = 0; i < 6; ++i) memset(block[i], 0, sizeof(block[i]));
     mv_type = 0;
+    mv_dir = 1;
+    const int mb = mb_y * mb_w + mb_x;
+    ref_skipped[mb] = ref_four_mv[mb] = 0;
     if (pict_type == P_VOP) {
       do {
         if (b.get1()) {  // not coded: the reference's macroblock, vector 0
           ++stats[ST_SKIPPED_MB];
+          ref_skipped[mb] = 1;
           mb_intra = false;
           for (int i = 0; i < 6; ++i) last_index[i] = -1;
-          mvs[0][0] = mvs[0][1] = 0;
+          mvs[0][0][0] = mvs[0][0][1] = 0;
           return OK;
         }
         cbpc = t.inter_mcbpc.read(b);
@@ -1114,26 +1651,28 @@ struct Mpeg4 {
           set_qscale(qscale + kDquant[b.get(2)]);
         }
         if (no_rounding) ++stats[ST_NO_ROUNDING_MB];
+        if (quarter_sample) ++stats[ST_QPEL_MB];
         int px, py;
         if ((cbpc & 16) == 0) {
           pred_motion(0, &px, &py);
-          int mx = decode_motion(b, px);
+          int mx = decode_motion(b, px, f_code);
           if (mx == INT32_MIN) return damaged("bad motion vector code");
-          int my = decode_motion(b, py);
+          int my = decode_motion(b, py, f_code);
           if (my == INT32_MIN) return damaged("bad motion vector code");
-          mvs[0][0] = mx;
-          mvs[0][1] = my;
+          mvs[0][0][0] = mx;
+          mvs[0][0][1] = my;
         } else {
           ++stats[ST_FOUR_MV_MB];
           mv_type = 1;
+          ref_four_mv[mb] = 1;
           for (int i = 0; i < 4; ++i) {
             int16_t* mvp = pred_motion(i, &px, &py);
-            int mx = decode_motion(b, px);
+            int mx = decode_motion(b, px, f_code);
             if (mx == INT32_MIN) return damaged("bad motion vector code");
-            int my = decode_motion(b, py);
+            int my = decode_motion(b, py, f_code);
             if (my == INT32_MIN) return damaged("bad motion vector code");
-            mvs[i][0] = mvp[0] = (int16_t)mx;
-            mvs[i][1] = mvp[1] = (int16_t)my;
+            mvs[0][i][0] = mvp[0] = (int16_t)mx;
+            mvs[0][i][1] = mvp[1] = (int16_t)my;
           }
         }
         for (int i = 0; i < 6; ++i) {
@@ -1170,9 +1709,10 @@ struct Mpeg4 {
     return OK;
   }
 
-  void update_motion_val() {  // ff_h263_update_motion_val
+  void update_motion_val() {  // ff_h263_update_motion_val (not for B-VOPs)
+    if (pict_type == B_VOP) return;
     if (mv_type == 1 && !mb_intra) return;  // stored while parsing
-    int mx = mb_intra ? 0 : mvs[0][0], my = mb_intra ? 0 : mvs[0][1];
+    int mx = mb_intra ? 0 : mvs[0][0][0], my = mb_intra ? 0 : mvs[0][0][1];
     for (int n = 0; n < 4; ++n) {
       int16_t* p = mv_at(n);
       p[0] = (int16_t)mx;
@@ -1180,32 +1720,64 @@ struct Mpeg4 {
     }
   }
 
+  void idct_put(uint8_t* dst, int stride, int16_t* blk) {
+    if (xvid_idct) {
+      ++stats[ST_XVID_IDCT_BLOCK];
+      xvid_idct_put(dst, stride, blk);
+    } else {
+      vid::idct_put(dst, stride, blk);
+    }
+  }
+  void idct_add(uint8_t* dst, int stride, int16_t* blk) {
+    if (xvid_idct) {
+      ++stats[ST_XVID_IDCT_BLOCK];
+      xvid_idct_add(dst, stride, blk);
+    } else {
+      vid::idct_add(dst, stride, blk);
+    }
+  }
+
   void reconstruct() {  // ff_mpv_reconstruct_mb
-    qs_at(mb_x, mb_y) = (int8_t)qscale;
+    if (pict_type != B_VOP) qs_at(mb_x, mb_y) = (int8_t)qscale;
     uint8_t* dy = cur.y.data() + (size_t)mb_y * 16 * cur.ystride + mb_x * 16;
     uint8_t* du = cur.u.data() + (size_t)mb_y * 8 * cur.cstride + mb_x * 8;
     uint8_t* dv = cur.v.data() + (size_t)mb_y * 8 * cur.cstride + mb_x * 8;
     uint8_t* dst[6] = {dy, dy + 8, dy + 8 * (size_t)cur.ystride, dy + 8 * (size_t)cur.ystride + 8, du, dv};
     if (!mb_intra) {
-      clean_intra_entries();
+      if (pict_type != B_VOP) clean_intra_entries();
       motion(dy, du, dv);
       for (int n = 0; n < 6; ++n)
-        if (last_index[n] >= 0) idct_add(dst[n], n < 4 ? cur.ystride : cur.cstride, block[n]);
+        if (last_index[n] >= 0) {
+          if (mpeg_quant) {
+            ++stats[ST_MPEG_QUANT_BLOCK];
+            dequant_mpeg_inter(block[n], n);
+          }
+          idct_add(dst[n], n < 4 ? cur.ystride : cur.cstride, block[n]);
+        }
       return;
     }
     int qmul = qscale << 1, qadd = (qscale - 1) | 1;  // dct_unquantize_h263_intra
     for (int n = 0; n < 6; ++n) {
       int16_t* blk = block[n];
-      blk[0] = (int16_t)(blk[0] * (n < 4 ? y_dc_scale : c_dc_scale));
-      for (int k = 1; k < 64; ++k) {
-        int level = blk[k];
-        if (level) blk[k] = (int16_t)(level < 0 ? level * qmul - qadd : level * qmul + qadd);
+      if (mpeg_quant) {
+        ++stats[ST_MPEG_QUANT_BLOCK];
+        dequant_mpeg_intra(blk, n);
+      } else {
+        blk[0] = (int16_t)(blk[0] * (n < 4 ? y_dc_scale : c_dc_scale));
+        for (int k = 1; k < 64; ++k) {
+          int level = blk[k];
+          if (level) blk[k] = (int16_t)(level < 0 ? level * qmul - qadd : level * qmul + qadd);
+        }
       }
       idct_put(dst[n], n < 4 ? cur.ystride : cur.cstride, blk);
     }
   }
 
-  int prefix_length() const { return pict_type == I_VOP ? 16 : f_code + 15; }
+  int prefix_length() const {  // ff_mpeg4_get_video_packet_prefix_length
+    if (pict_type == I_VOP) return 16;
+    if (pict_type == B_VOP) return std::max(std::max(f_code, b_code), 2) + 15;
+    return f_code + 15;
+  }
 
   // mpeg4_is_resync: the macroblock number of the video packet that starts
   // here, mb_num at the end of the data, 0 if none
@@ -1266,6 +1838,7 @@ struct Mpeg4 {
       b.skip(1);
       b.skip(2 + 3);  // vop_coding_type, intra_dc_vlc_thr (FFmpeg ignores both here)
       if (pict_type != I_VOP) b.skip(3);  // f_code
+      if (pict_type == B_VOP) b.skip(3);  // b_code
     }
     return OK;
   }
@@ -1297,7 +1870,7 @@ struct Mpeg4 {
     return damaged("the data ends before the VOP does");
   }
 
-  void clean_buffers() {  // ff_mpeg4_clean_buffers: no AC prediction across packets
+  void clean_buffers() {  // ff_mpeg4_clean_buffers: no AC or vector prediction across packets
     auto clear = [](std::vector<int16_t>& ac, size_t from, size_t count, size_t total) {
       from = std::min(from, total);
       count = std::min(count, total - from);
@@ -1308,6 +1881,7 @@ struct Mpeg4 {
     size_t c = (size_t)mb_y * cw + mb_x;
     clear(ac_u, c, cw + 1, ac_u.size() / 16);
     clear(ac_v, c, cw + 1, ac_v.size() / 16);
+    memset(last_mv, 0, sizeof(last_mv));
   }
 
   int decode_slice(Bits& b) {
@@ -1339,7 +1913,40 @@ struct Mpeg4 {
     return OK;
   }
 
-  int decode(const uint8_t* data, long n, Frame& out) {
+  // ff_mpeg4_frame_end for divx_packed: the rest of a packet whose next VOP
+  // is an I- or B-VOP is kept for the next packet
+  void keep_packed(const uint8_t* data, long n, int64_t consumed_bits) {
+    const long at = (long)(consumed_bits >> 3);
+    if (n - at <= 7) return;
+    for (long i = at; i < n - 4; ++i)
+      if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1 && data[i + 3] == 0xB6) {
+        if (!(data[i + 4] & 0x40)) {
+          stash.assign(data + at, data + n);
+          ++stats[ST_PACKED_B];
+        }
+        return;
+      }
+  }
+
+  // one packet; FRAME with ``out`` the frame to show (in display order: with
+  // B-VOPs a reference waits for the next one, and `flush` gives the last)
+  int decode(const uint8_t* packet, long packet_n, Frame& out) {
+    if (divx_packed && !stash.empty()) {  // "Discarding excessive bitstream in packed xvid"
+      for (long i = 0; i + 3 < packet_n; ++i)
+        if (packet[i] == 0 && packet[i + 1] == 0 && packet[i + 2] == 1) {
+          if (packet[i + 3] == 0xB0) stash.clear();
+          break;
+        }
+    }
+    std::vector<uint8_t> held;
+    const uint8_t* data = packet;
+    long n = packet_n;
+    if (!stash.empty() && (divx_packed || packet_n <= MAX_NVOP_SIZE)) {
+      held.swap(stash);
+      data = held.data();
+      n = (long)held.size();
+    }
+    stash.clear();
     if (n >= 3 && data[0] == 0 && data[1] == 0 && (data[2] & 0xFC) == 0x80)
       return refuse("short_video_header (an H.263 picture)");
     Bits b;
@@ -1351,11 +1958,18 @@ struct Mpeg4 {
     st = check_encoder();
     if (st) return st;
     st = decode_vop_header(b);
+    if (st == FRAME_SKIPPED) return NO_FRAME;
     if (st) return st;
-    if (pict_type == P_VOP && !have_ref) return damaged("a P-VOP without a reference frame");
-    ++stats[pict_type == I_VOP ? ST_I_VOP : ST_P_VOP];
+    skipped_last_frame = false;
+    if (pict_type == P_VOP && !have_future) return damaged("a P-VOP without a reference frame");
+    if (pict_type == B_VOP && !have_past) {  // FFmpeg skips B-VOPs without both references
+      ++stats[ST_SKIPPED_B];
+      return NO_FRAME;
+    }
+    ++stats[pict_type == I_VOP ? ST_I_VOP : pict_type == P_VOP ? ST_P_VOP : ST_B_VOP];
     cur.alloc(width, height, mb_w * 16, mb_h * 16, mb_w * 8, mb_h * 8, 1);
     mb_x = mb_y = 0;
+    memset(last_mv, 0, sizeof(last_mv));
     while (true) {
       Bits packet_start = b;
       st = decode_slice(b);
@@ -1367,10 +1981,68 @@ struct Mpeg4 {
       clean_buffers();
     }
     if (st != OK && st != SLICE_END) return st;
-    std::swap(ref, cur);
-    have_ref = true;
-    out = ref;
+    if (divx_packed) keep_packed(packet, packet_n, data == packet ? b.pos : 0);
+    cur.full_range = false;
+    last_decoded_b = pict_type == B_VOP;
+    if (pict_type == B_VOP) {
+      out = cur;
+      return FRAME;
+    }
+    const bool had_future = have_future;
+    if (had_future) std::swap(past, future);
+    std::swap(future, cur);
+    have_past = had_future;
+    have_future = true;
+    if (low_delay) {
+      out = future;
+      return FRAME;
+    }
+    if (!had_future) return NO_FRAME;
+    out = past;
+    return FRAME;
+  }
+
+  // the end of the stream: the reference still held back (h263dec.c), or the
+  // last picture again when the stream ended with a VOP that is not coded
+  int flush(Frame& out) {
+    if (!low_delay && have_future) {
+      have_future = have_past = false;
+      out = future;
+      return FRAME;
+    }
+    if (low_delay && skipped_last_frame && have_future) {
+      skipped_last_frame = false;
+      out = last_decoded_b ? cur : future;
+      return FRAME;
+    }
+    return NO_FRAME;
+  }
+};
+
+// ---- VP8 (vp8.h, as FFmpeg's vp8.c decodes a stream) ------------------------
+
+struct Vp8 {
+  vp8::Decoder dec;
+  int decode(const uint8_t* data, long n, Frame& out, std::string& msg) {
+    int st = dec.decode(data, (size_t)n);
+    if (st) {
+      static const char* what[] = {"", "the frame ends early", "", "", "", "", "a bad frame header", "",
+                                   "bad token partitions", "", "a frame size of 0 or above 8192",
+                                   "an inter frame before any key frame"};
+      msg = std::string("VP8: ") + (st > 0 && st < 12 ? what[st] : "damaged data");
+      return DAMAGED;
+    }
+    if (!dec.show) return NO_FRAME;  // invisible frames update the references only, as in FFmpeg
+    const vp8::Picture& p = *dec.cur;
+    out.width = p.width;
+    out.height = p.height;
+    out.ystride = p.ys;
+    out.cstride = p.uvs;
+    out.cshift_y = 1;
     out.full_range = false;
+    out.y = p.Y;
+    out.u = p.U;
+    out.v = p.V;
     return FRAME;
   }
 };
@@ -1380,8 +2052,10 @@ struct Handle {
   int open_status = 0;
   Mjpeg mjpeg;
   Mpeg4 mpeg4;
+  Vp8 vp8;
   Frame frame;
   bool have_frame = false;
+  int first_w = 0, first_h = 0;  // the size of the first frame converted
   std::string msg;
 };
 
@@ -1389,7 +2063,7 @@ struct Handle {
 
 extern "C" {
 
-// codec: 1 Motion-JPEG, 2 MPEG-4 Part 2; ``priv``: the decoder configuration
+// codec: 1 Motion-JPEG, 2 MPEG-4 Part 2, 3 VP8; ``priv``: the decoder configuration
 // (MPEG-4's VOS/VOL headers) or empty; ``tag``: the container's fourcc
 void* vdec_open(int codec, const uint8_t* priv, long n, uint32_t tag) {
   vid::Handle* h = new vid::Handle();
@@ -1408,14 +2082,17 @@ void* vdec_open(int codec, const uint8_t* priv, long n, uint32_t tag) {
 }
 
 // Decode one packet: 0 a frame is ready (vdec_size, vdec_rgb), 1 no frame
-// (headers only, or a VOP that is not coded), 2 a tool or format refused,
-// 3 damaged data; vdec_error gives the message of 2 and 3.
+// (headers only, a VOP that is not coded, an invisible VP8 frame, or a
+// reference held back until the next one for display order), 2 a tool or
+// format refused, 3 damaged data; vdec_error gives the message of 2 and 3.
 int vdec_send(void* hp, const uint8_t* data, long n) {
   vid::Handle* h = (vid::Handle*)hp;
   if (h->open_status) return h->open_status;
   int st;
   if (h->codec == 1) {
     st = h->mjpeg.decode(data, n, h->frame, h->msg);
+  } else if (h->codec == 3) {
+    st = h->vp8.decode(data, n, h->frame, h->msg);
   } else {
     st = h->mpeg4.decode(data, n, h->frame);
     if (st >= vid::NOT_IMPLEMENTED) h->msg = h->mpeg4.msg;
@@ -1435,6 +2112,19 @@ int vdec_size(void* hp, int* height, int* width) {
 int vdec_rgb(void* hp, uint8_t* out) {
   vid::Handle* h = (vid::Handle*)hp;
   if (!h->have_frame) return vid::DAMAGED;
+  if (!h->first_w) {
+    h->first_w = h->frame.width;
+    h->first_h = h->frame.height;
+  }
+  if (h->frame.width != h->first_w || h->frame.height != h->first_h) {  // OpenCV scales it to the first size
+    char buf[200];
+    snprintf(buf, sizeof(buf),
+             "a %dx%d frame after %dx%d ones: OpenCV scales a frame whose size changed with libswscale's scaled "
+             "path",
+             h->frame.width, h->frame.height, h->first_w, h->first_h);
+    h->msg = buf;
+    return vid::NOT_IMPLEMENTED;
+  }
   if ((h->frame.width | h->frame.height) & 1) {  // libswscale takes its scaled path for these
     char buf[160];
     snprintf(buf, sizeof(buf), "a %dx%d frame: odd frame sizes leave libswscale's unscaled YUV->RGB path",
@@ -1444,6 +2134,15 @@ int vdec_rgb(void* hp, uint8_t* out) {
   }
   vid::to_rgb(h->frame, out);
   return 0;
+}
+
+// The end of the stream: 0 a frame held back for display order is ready, 1 none.
+int vdec_flush(void* hp) {
+  vid::Handle* h = (vid::Handle*)hp;
+  if (h->codec != 2 || h->open_status) return vid::NO_FRAME;
+  int st = h->mpeg4.flush(h->frame);
+  if (st == vid::FRAME) h->have_frame = true;
+  return st;
 }
 
 const char* vdec_error(void* hp, int) { return ((vid::Handle*)hp)->msg.c_str(); }

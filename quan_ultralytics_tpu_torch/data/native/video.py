@@ -17,22 +17,28 @@ demuxer returns for it (``cv2.VideoCapture`` with ``CAP_PROP_FORMAT = -1``):
 * RIFF AVI (``.avi``): the ``movi`` list's ``##dc``/``##db`` chunks in file
   order, inside ``LIST rec `` and across OpenDML ``RIFF AVIX`` extensions; the
   BITMAPINFOHEADER's compression fourcc mapped to a codec as FFmpeg's
-  ``riff.c`` maps it.
+  ``riff.c`` maps it (``VP80`` to VP8).
 * Matroska/WebM (``.mkv``, ``.webm``): EBML ``Segment`` -> ``Tracks``
-  (``CodecID``, ``CodecPrivate``) and ``Cluster`` -> ``SimpleBlock`` /
-  ``BlockGroup`` blocks; laced blocks and content encodings raise
-  `NotImplementedError`.
+  (``CodecID``, ``CodecPrivate``; ``V_VP8`` is VP8) and ``Cluster`` ->
+  ``SimpleBlock`` / ``BlockGroup`` blocks; laced blocks and content encodings
+  raise `NotImplementedError`.
 
-Codecs: Motion-JPEG and MPEG-4 Part 2 Simple Profile, decoded in C++ with
-FFmpeg's reconstruction (see ``video.cpp``). Any other codec (VP8, VP9,
-H.264, HEVC, AV1, ...) and any MPEG-4 tool outside the Simple Profile raises
-a `NotImplementedError` that names it. A missing file, or one no demuxer
-takes, yields no frames, as ``cv2.VideoCapture`` reads none; a stream damaged
-part way yields the frames decoded before the damage.
+Codecs, decoded in C++ with FFmpeg's reconstruction (see ``video.cpp``):
+Motion-JPEG; MPEG-4 Part 2 Simple and Advanced Simple Profile (B-VOPs, given
+in display order, quarter-pel, MPEG quantisation; the streams of the Xvid and
+DivX encoders with the Xvid IDCT and FFmpeg's workarounds, DivX's packed
+B-VOPs); VP8 (``vp8.h``, key and inter frames, profiles 0-3). Any other
+codec (VP9, H.264, HEVC, AV1, ...) and the MPEG-4 tools still refused
+(interlace, GMC/sprites, data partitioning, ...) raise a
+`NotImplementedError` that names them, as does a frame whose size changed
+mid-stream (OpenCV scales it). A missing file, or one no demuxer takes,
+yields no frames, as ``cv2.VideoCapture`` reads none; a stream damaged part
+way yields the frames decoded before the damage.
 
-``video.cpp`` is compiled with ``g++`` at first use into ``build/`` beside the
-image reader's library, keyed by a hash of its sources and flags, under the
-same file lock (`utils.native_build`). A failed build raises.
+``video.cpp`` (with ``vp8.h``) is compiled with ``g++`` at first use into
+``build/`` beside the image reader's library, keyed by a hash of its sources
+and flags, under the same file lock (`utils.native_build`). A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -49,13 +55,13 @@ from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, build_cxx
 
 HERE = Path(__file__).resolve().parent
 SOURCE = HERE / "video.cpp"
-# video.cpp includes the JPEG reader's entropy decoding and the Annex K tables
-DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h")
+# video.cpp includes the JPEG reader's entropy decoding, the Annex K tables and the VP8 core
+DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h", HERE / "vp8.h", HERE / "webp_tables.h")
 LIB_NAME = "libquan_torch_video.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
-MPEG4, MJPEG = "mpeg4", "mjpeg"
-_CODEC_IDS = {MJPEG: 1, MPEG4: 2}
+MPEG4, MJPEG, VP8 = "mpeg4", "mjpeg", "vp8"
+_CODEC_IDS = {MJPEG: 1, MPEG4: 2, VP8: 3}
 
 # FFmpeg riff.c ff_codec_bmp_tags: the BITMAPINFOHEADER fourccs of the two codecs
 _RIFF_MPEG4 = {b"FMP4", b"DIVX", b"DX50", b"XVID", b"MP4S", b"M4S2", b"MP4V", b"DIV1", b"BLZ0", b"UMP4",
@@ -67,9 +73,9 @@ _RIFF_MJPEG = {b"MJPG", b"LJPG", b"DMB1", b"MJPA", b"JR24", b"AVRN", b"ACDV", b"
                b"IJLV", b"MVJP", b"AVI1", b"AVI2", b"MTSJ", b"ZJPG", b"MMJP"}
 # names of codecs met in these containers that the port does not decode
 _OTHER = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264", b"HEVC": "HEVC", b"HVC1": "HEVC",
-          b"HEV1": "HEVC", b"VP80": "VP8", b"VP90": "VP9", b"AV01": "AV1", b"MPG2": "MPEG-2",
+          b"HEV1": "HEVC", b"VP90": "VP9", b"AV01": "AV1", b"MPG2": "MPEG-2",
           b"MPG1": "MPEG-1", b"WMV3": "WMV3", b"WVC1": "VC-1", b"THEO": "Theora"}
-_MKV_OTHER = {"V_VP8": "VP8", "V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
+_MKV_OTHER = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
               "V_MPEGH/ISO/HEVC": "HEVC", "V_MPEG2": "MPEG-2", "V_MPEG1": "MPEG-1", "V_THEORA": "Theora"}
 
 PathLike = Union[str, Path]
@@ -83,7 +89,7 @@ class Unreadable(Exception):
 class Demuxed:
     """The first video track of a file."""
 
-    codec: str  # MPEG4 or MJPEG
+    codec: str  # MPEG4, MJPEG or VP8
     private: bytes  # decoder configuration (MPEG-4's VOS/VOL headers), may be empty
     packets: List[bytes] = field(default_factory=list)  # in decode order
     tag: bytes = b""  # the container's fourcc for the codec, upper case
@@ -322,6 +328,8 @@ def _demux_avi(data: bytes, path: PathLike) -> Demuxed:
         codec = MPEG4
     elif upper in _RIFF_MJPEG:
         codec = MJPEG
+    elif upper == b"VP80":
+        codec = VP8
     else:
         name = _OTHER.get(upper, tag.decode("latin-1"))
         raise _refuse(path, "AVI", f"the {name} codec ({tag.decode('latin-1')})")
@@ -425,6 +433,8 @@ def _demux_mkv(data: bytes, path: PathLike) -> Demuxed:
                         codec, tag = MPEG4, b"MP4V"
                     elif cid == "V_MJPEG":
                         codec, tag = MJPEG, b"MJPG"
+                    elif cid == "V_VP8":
+                        codec, tag = VP8, b"VP80"
                     elif cid == "V_MS/VFW/FOURCC" and len(private) >= 40:
                         tag = private[16:20].upper()
                         codec = MPEG4 if tag in _RIFF_MPEG4 else MJPEG if tag in _RIFF_MJPEG else None
@@ -496,10 +506,11 @@ def library() -> ctypes.CDLL:
         lib.vdec_open.argtypes = [ctypes.c_int, u8p, ctypes.c_long, ctypes.c_uint32]
         lib.vdec_open.restype = vp
         lib.vdec_send.argtypes = [vp, u8p, ctypes.c_long]
+        lib.vdec_flush.argtypes = [vp]
         lib.vdec_size.argtypes = [vp, ip, ip]
         lib.vdec_rgb.argtypes = [vp, vp]
         lib.vdec_stats.argtypes = [vp, vp]
-        for fn in (lib.vdec_send, lib.vdec_size, lib.vdec_rgb, lib.vdec_stats):
+        for fn in (lib.vdec_send, lib.vdec_flush, lib.vdec_size, lib.vdec_rgb, lib.vdec_stats):
             fn.restype = ctypes.c_int
         lib.vdec_close.argtypes = [vp]
         lib.vdec_close.restype = None
@@ -512,13 +523,16 @@ def library() -> ctypes.CDLL:
 FRAME, NO_FRAME = 0, 1  # vdec_send's statuses that are not errors
 # video.cpp's counts of the MPEG-4 coding tools a stream used (its Stat enum), read by tests only
 _TOOL_COUNTS = ("i_vops", "p_vops", "not_coded_vops", "skipped_mbs", "intra_mbs_in_p", "four_mv_mbs", "dquant",
-         "video_packets", "escape1", "escape2", "escape3", "ac_pred_mbs", "dc_as_ac", "no_rounding_mbs",
-         "ac_rescaled")
+                "video_packets", "escape1", "escape2", "escape3", "ac_pred_mbs", "dc_as_ac", "no_rounding_mbs",
+                "ac_rescaled", "b_vops", "b_direct_mbs", "b_forward_mbs", "b_backward_mbs", "b_interpolated_mbs",
+                "b_colocated_skips", "dbquant", "qpel_mbs", "mpeg_quant_blocks", "xvid_idct_blocks", "packed_b_vops",
+                "skipped_b_vops")
 _NOT_IMPLEMENTED = 2  # vdec_send: a tool the decoder refuses (the message names it)
 
 
 class Decoder:
-    """One stream's decoder: `send` a packet, then read the frame it completed."""
+    """One stream's decoder: `send` a packet, then read the frame it completed;
+    `flush` at the end of the stream."""
 
     def __init__(self, codec: str, private: bytes = b"", tag: bytes = b""):
         self.lib = library()
@@ -535,6 +549,11 @@ class Decoder:
             return st == FRAME
         msg = self.lib.vdec_error(self.handle, st).decode()
         raise NotImplementedError(msg) if st == _NOT_IMPLEMENTED else ValueError(msg)
+
+    def flush(self) -> bool:
+        """The end of the stream: True if it completed a frame held back for
+        display order (the last reference of a stream with B-VOPs)."""
+        return self.lib.vdec_flush(self.handle) == FRAME
 
     def size(self) -> Tuple[int, int]:
         h, w = ctypes.c_int(), ctypes.c_int()
@@ -568,8 +587,10 @@ class Decoder:
 
 
 def frames(path: PathLike) -> Iterator[np.ndarray]:
-    """RGB ``uint8 [h, w, 3]`` frames of a video file in display order, as
-    ``cv2.VideoCapture`` + ``cvtColor(BGR2RGB)`` gives them. A missing or
+    """RGB ``uint8 [h, w, 3]`` frames of a video file in display order (the
+    reference a stream with B-VOPs holds back comes out at the end, from
+    `Decoder.flush`), as ``cv2.VideoCapture`` + ``cvtColor(BGR2RGB)`` gives
+    them. A missing or
     unreadable file yields nothing; a stream damaged part way yields the
     frames before the damage; an unsupported codec or tool raises
     `NotImplementedError`."""
@@ -589,5 +610,11 @@ def frames(path: PathLike) -> Iterator[np.ndarray]:
                 return
             if frame is not None:
                 yield frame
+        try:
+            frame = dec.rgb() if dec.flush() else None
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{where}: {e}") from None
+        if frame is not None:
+            yield frame
     finally:
         dec.close()

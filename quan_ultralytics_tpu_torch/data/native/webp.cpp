@@ -6,18 +6,15 @@
 //   entropy image), LZ77 with the 120-entry distance map, the colour cache,
 //   and the predictor (14 modes), cross-colour, subtract-green and
 //   colour-indexing (with pixel bundling) transforms. Output ARGB.
-// * VP8 (RFC 6386), key frames: the boolean decoder and frame header,
-//   segments, 1/2/4/8 token partitions, coefficient probability updates,
-//   intra 16x16, B_PRED 4x4 and chroma prediction with libwebp's borders
-//   (127 above, 129 left, the top-right pixels replicated down the last
-//   column), libwebp's dequantisation clamps, inverse WHT and DCT, the simple
-//   and normal loop filters, then libwebp's "fancy" 4:2:0 upsampler and its
-//   14-bit YUV->RGB conversion. Output RGB, cropped to the picture.
+// * VP8 (RFC 6386), key frames: decoded into planes by vp8.h (the VP8 core
+//   the video reader shares, with libwebp's choices where decoders differ),
+//   then libwebp's "fancy" 4:2:0 upsampler and its 14-bit YUV->RGB
+//   conversion. Output RGB, cropped to the picture.
 // * The encoder writes VP8L: a predictor transform (one mode for the whole
 //   image), subtract-green, prefix codes built from the histograms and
 //   limited to 15 bits, and runs of equal pixels as distance-1 copies.
 //
-// The constant tables are in webp_tables.h.
+// The constant tables are in webp_tables.h (through vp8.h).
 
 #include <stdint.h>
 #include <string.h>
@@ -25,7 +22,7 @@
 #include <algorithm>
 #include <vector>
 
-#include "webp_tables.h"
+#include "vp8.h"
 
 namespace {
 
@@ -695,667 +692,7 @@ static void write_pixels(BitWriter& bw, const std::vector<uint32_t>& px, bool le
 
 // ================================================================ VP8
 
-struct BoolDecoder {
-  const uint8_t* buf = nullptr;
-  const uint8_t* end = nullptr;
-  uint64_t value = 0;
-  int bits = -8;
-  uint32_t range = 254;  // range - 1
-  bool eof = false;
-
-  void init(const uint8_t* start, size_t size) {
-    buf = start;
-    end = start + size;
-    value = 0;
-    bits = -8;
-    range = 254;
-    eof = false;
-    load();
-  }
-  void load() {
-    if (buf < end) {
-      bits += 8;
-      value = (uint64_t)(*buf++) | (value << 8);
-    } else if (!eof) {
-      value <<= 8;
-      bits += 8;
-      eof = true;
-    } else {
-      bits = 0;
-    }
-  }
-  int bit(int prob) {
-    uint32_t r = range;
-    if (bits < 0) load();
-    const int pos = bits;
-    const uint32_t split = (r * (uint32_t)prob) >> 8;
-    const uint32_t v = (uint32_t)(value >> pos);
-    const int b = v > split;
-    if (b) {
-      r -= split;
-      value -= (uint64_t)(split + 1) << pos;
-    } else {
-      r = split + 1;
-    }
-    const int shift = 7 ^ (31 - __builtin_clz(r));
-    r <<= shift;
-    bits -= shift;
-    range = r - 1;
-    return b;
-  }
-  int value_bits(int n) {
-    int v = 0;
-    while (n-- > 0) v |= bit(0x80) << n;
-    return v;
-  }
-  int signed_value(int n) {
-    const int v = value_bits(n);
-    return bit(0x80) ? -v : v;
-  }
-};
-
-enum { B_DC_PRED = 0, B_TM_PRED, B_VE_PRED, B_HE_PRED, B_RD_PRED, B_VR_PRED, B_LD_PRED, B_VL_PRED, B_HD_PRED, B_HU_PRED };
-enum { DC_PRED = B_DC_PRED, TM_PRED = B_TM_PRED, V_PRED = B_VE_PRED, H_PRED = B_HE_PRED };
-enum { DC_NOTOP = 10, DC_NOLEFT, DC_NOTOPLEFT };
-
-const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
-const uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
-const uint8_t kCat3[] = {173, 148, 140, 0};
-const uint8_t kCat4[] = {176, 155, 140, 135, 0};
-const uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
-const uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
-const uint8_t* const kCat3456[] = {kCat3, kCat4, kCat5, kCat6};
-
-const int BPS = 32;
-const int Y_OFF = BPS * 1 + 8;
-const int U_OFF = Y_OFF + BPS * 16 + BPS;
-const int V_OFF = U_OFF + 16;
-
-struct MBData {
-  int16_t coeffs[384];
-  uint8_t is_i4x4, imodes[16], uvmode, segment, skip;
-  uint32_t non_zero_y, non_zero_uv;
-};
-
-struct FInfo {
-  int limit, ilevel, inner, hev_thresh;
-};
-
-static inline uint8_t clip8(int v) { return v < 0 ? 0 : v > 255 ? 255 : (uint8_t)v; }
-#define AVG3(a, b, c) ((uint8_t)(((a) + 2 * (b) + (c) + 2) >> 2))
-#define AVG2(a, b) (((a) + (b) + 1) >> 1)
-#define DST(x, y) dst[(x) + (y) * BPS]
-
-static void true_motion(uint8_t* dst, int size) {
-  const uint8_t* top = dst - BPS;
-  const int tl = top[-1];
-  for (int y = 0; y < size; ++y, dst += BPS)
-    for (int x = 0; x < size; ++x) dst[x] = clip8(top[x] + dst[-1] - tl);
-}
-
-static void fill(uint8_t* dst, int size, int v) {
-  for (int y = 0; y < size; ++y) memset(dst + y * BPS, v, size);
-}
-
-static void pred_block(uint8_t* dst, int size, int mode) {  // 16x16 luma or 8x8 chroma
-  const int shift = size == 16 ? 4 : 3;
-  int dc = 0;
-  switch (mode) {
-    case DC_PRED:
-      for (int i = 0; i < size; ++i) dc += dst[i - BPS] + dst[-1 + i * BPS];
-      fill(dst, size, (dc + size) >> (shift + 1));
-      break;
-    case DC_NOTOP:
-      for (int i = 0; i < size; ++i) dc += dst[-1 + i * BPS];
-      fill(dst, size, (dc + size / 2) >> shift);
-      break;
-    case DC_NOLEFT:
-      for (int i = 0; i < size; ++i) dc += dst[i - BPS];
-      fill(dst, size, (dc + size / 2) >> shift);
-      break;
-    case DC_NOTOPLEFT:
-      fill(dst, size, 0x80);
-      break;
-    case TM_PRED:
-      true_motion(dst, size);
-      break;
-    case V_PRED:
-      for (int y = 0; y < size; ++y) memcpy(dst + y * BPS, dst - BPS, size);
-      break;
-    case H_PRED:
-      for (int y = 0; y < size; ++y) memset(dst + y * BPS, dst[y * BPS - 1], size);
-      break;
-  }
-}
-
-static void pred4(uint8_t* dst, int mode) {
-  const uint8_t* top = dst - BPS;
-  const int I = dst[-1], J = dst[-1 + BPS], K = dst[-1 + 2 * BPS], L = dst[-1 + 3 * BPS];
-  const int X = top[-1], A = top[0], B = top[1], C = top[2], D = top[3];
-  const int E = top[4], F = top[5], G = top[6], H = top[7];
-  switch (mode) {
-    case B_DC_PRED: {
-      int dc = 4;
-      for (int i = 0; i < 4; ++i) dc += top[i] + dst[-1 + i * BPS];
-      fill(dst, 4, dc >> 3);
-      break;
-    }
-    case B_TM_PRED:
-      true_motion(dst, 4);
-      break;
-    case B_VE_PRED: {
-      const uint8_t v[4] = {AVG3(X, A, B), AVG3(A, B, C), AVG3(B, C, D), AVG3(C, D, E)};
-      for (int i = 0; i < 4; ++i) memcpy(dst + i * BPS, v, 4);
-      break;
-    }
-    case B_HE_PRED:
-      memset(dst, AVG3(X, I, J), 4);
-      memset(dst + BPS, AVG3(I, J, K), 4);
-      memset(dst + 2 * BPS, AVG3(J, K, L), 4);
-      memset(dst + 3 * BPS, AVG3(K, L, L), 4);
-      break;
-    case B_RD_PRED:
-      DST(0, 3) = AVG3(J, K, L);
-      DST(1, 3) = DST(0, 2) = AVG3(I, J, K);
-      DST(2, 3) = DST(1, 2) = DST(0, 1) = AVG3(X, I, J);
-      DST(3, 3) = DST(2, 2) = DST(1, 1) = DST(0, 0) = AVG3(A, X, I);
-      DST(3, 2) = DST(2, 1) = DST(1, 0) = AVG3(B, A, X);
-      DST(3, 1) = DST(2, 0) = AVG3(C, B, A);
-      DST(3, 0) = AVG3(D, C, B);
-      break;
-    case B_LD_PRED:
-      DST(0, 0) = AVG3(A, B, C);
-      DST(1, 0) = DST(0, 1) = AVG3(B, C, D);
-      DST(2, 0) = DST(1, 1) = DST(0, 2) = AVG3(C, D, E);
-      DST(3, 0) = DST(2, 1) = DST(1, 2) = DST(0, 3) = AVG3(D, E, F);
-      DST(3, 1) = DST(2, 2) = DST(1, 3) = AVG3(E, F, G);
-      DST(3, 2) = DST(2, 3) = AVG3(F, G, H);
-      DST(3, 3) = AVG3(G, H, H);
-      break;
-    case B_VR_PRED:
-      DST(0, 0) = DST(1, 2) = AVG2(X, A);
-      DST(1, 0) = DST(2, 2) = AVG2(A, B);
-      DST(2, 0) = DST(3, 2) = AVG2(B, C);
-      DST(3, 0) = AVG2(C, D);
-      DST(0, 3) = AVG3(K, J, I);
-      DST(0, 2) = AVG3(J, I, X);
-      DST(0, 1) = DST(1, 3) = AVG3(I, X, A);
-      DST(1, 1) = DST(2, 3) = AVG3(X, A, B);
-      DST(2, 1) = DST(3, 3) = AVG3(A, B, C);
-      DST(3, 1) = AVG3(B, C, D);
-      break;
-    case B_VL_PRED:
-      DST(0, 0) = AVG2(A, B);
-      DST(1, 0) = DST(0, 2) = AVG2(B, C);
-      DST(2, 0) = DST(1, 2) = AVG2(C, D);
-      DST(3, 0) = DST(2, 2) = AVG2(D, E);
-      DST(0, 1) = AVG3(A, B, C);
-      DST(1, 1) = DST(0, 3) = AVG3(B, C, D);
-      DST(2, 1) = DST(1, 3) = AVG3(C, D, E);
-      DST(3, 1) = DST(2, 3) = AVG3(D, E, F);
-      DST(3, 2) = AVG3(E, F, G);
-      DST(3, 3) = AVG3(F, G, H);
-      break;
-    case B_HD_PRED:
-      DST(0, 0) = DST(2, 1) = AVG2(I, X);
-      DST(0, 1) = DST(2, 2) = AVG2(J, I);
-      DST(0, 2) = DST(2, 3) = AVG2(K, J);
-      DST(0, 3) = AVG2(L, K);
-      DST(3, 0) = AVG3(A, B, C);
-      DST(2, 0) = AVG3(X, A, B);
-      DST(1, 0) = DST(3, 1) = AVG3(I, X, A);
-      DST(1, 1) = DST(3, 2) = AVG3(J, I, X);
-      DST(1, 2) = DST(3, 3) = AVG3(K, J, I);
-      DST(1, 3) = AVG3(L, K, J);
-      break;
-    case B_HU_PRED:
-      DST(0, 0) = AVG2(I, J);
-      DST(2, 0) = DST(0, 1) = AVG2(J, K);
-      DST(2, 1) = DST(0, 2) = AVG2(K, L);
-      DST(1, 0) = AVG3(I, J, K);
-      DST(3, 0) = DST(1, 1) = AVG3(J, K, L);
-      DST(3, 1) = DST(1, 2) = AVG3(K, L, L);
-      DST(3, 2) = DST(2, 2) = DST(0, 3) = DST(1, 3) = DST(2, 3) = DST(3, 3) = L;
-      break;
-  }
-}
-
-static inline int mul1(int a) { return ((a * 20091) >> 16) + a; }
-static inline int mul2(int a) { return (a * 35468) >> 16; }
-
-static void inverse_dct_add(const int16_t* in, uint8_t* dst) {
-  int C[16], *tmp = C;
-  for (int i = 0; i < 4; ++i, ++in, tmp += 4) {
-    const int a = in[0] + in[8], b = in[0] - in[8];
-    const int c = mul2(in[4]) - mul1(in[12]), d = mul1(in[4]) + mul2(in[12]);
-    tmp[0] = a + d;
-    tmp[1] = b + c;
-    tmp[2] = b - c;
-    tmp[3] = a - d;
-  }
-  tmp = C;
-  for (int i = 0; i < 4; ++i, ++tmp, dst += BPS) {
-    const int dc = tmp[0] + 4;
-    const int a = dc + tmp[8], b = dc - tmp[8];
-    const int c = mul2(tmp[4]) - mul1(tmp[12]), d = mul1(tmp[4]) + mul2(tmp[12]);
-    dst[0] = clip8(dst[0] + ((a + d) >> 3));
-    dst[1] = clip8(dst[1] + ((b + c) >> 3));
-    dst[2] = clip8(dst[2] + ((b - c) >> 3));
-    dst[3] = clip8(dst[3] + ((a - d) >> 3));
-  }
-}
-
-static void inverse_wht(const int16_t* in, int16_t* out) {
-  int tmp[16];
-  for (int i = 0; i < 4; ++i) {
-    const int a0 = in[0 + i] + in[12 + i], a1 = in[4 + i] + in[8 + i];
-    const int a2 = in[4 + i] - in[8 + i], a3 = in[0 + i] - in[12 + i];
-    tmp[0 + i] = a0 + a1;
-    tmp[8 + i] = a0 - a1;
-    tmp[4 + i] = a3 + a2;
-    tmp[12 + i] = a3 - a2;
-  }
-  for (int i = 0; i < 4; ++i, out += 64) {
-    const int dc = tmp[0 + i * 4] + 3;
-    const int a0 = dc + tmp[3 + i * 4], a1 = tmp[1 + i * 4] + tmp[2 + i * 4];
-    const int a2 = tmp[1 + i * 4] - tmp[2 + i * 4], a3 = dc - tmp[3 + i * 4];
-    out[0] = (int16_t)((a0 + a1) >> 3);
-    out[16] = (int16_t)((a3 + a2) >> 3);
-    out[32] = (int16_t)((a0 - a1) >> 3);
-    out[48] = (int16_t)((a3 - a2) >> 3);
-  }
-}
-
-static inline bool block_nonzero(const int16_t* c) {
-  for (int i = 0; i < 16; ++i)
-    if (c[i]) return true;
-  return false;
-}
-
-// ---------------------------------------------------------------- loop filter
-
-static inline int sclip1(int v) { return v < -128 ? -128 : v > 127 ? 127 : v; }
-static inline int sclip2(int v) { return v < -16 ? -16 : v > 15 ? 15 : v; }
-
-static inline void filter2(uint8_t* p, int step) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
-  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3);
-  p[-step] = clip8(p0 + a2);
-  p[0] = clip8(q0 - a1);
-}
-static inline void filter4(uint8_t* p, int step) {
-  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
-  const int a = 3 * (q0 - p0);
-  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3), a3 = (a1 + 1) >> 1;
-  p[-2 * step] = clip8(p1 + a3);
-  p[-step] = clip8(p0 + a2);
-  p[0] = clip8(q0 - a1);
-  p[step] = clip8(q1 - a3);
-}
-static inline void filter6(uint8_t* p, int step) {
-  const int p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
-  const int q0 = p[0], q1 = p[step], q2 = p[2 * step];
-  const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
-  const int a1 = (27 * a + 63) >> 7, a2 = (18 * a + 63) >> 7, a3 = (9 * a + 63) >> 7;
-  p[-3 * step] = clip8(p2 + a3);
-  p[-2 * step] = clip8(p1 + a2);
-  p[-step] = clip8(p0 + a1);
-  p[0] = clip8(q0 - a1);
-  p[step] = clip8(q1 - a2);
-  p[2 * step] = clip8(q2 - a3);
-}
-static inline bool hev(const uint8_t* p, int step, int thresh) {
-  return std::abs(p[-2 * step] - p[-step]) > thresh || std::abs(p[step] - p[0]) > thresh;
-}
-static inline bool needs_filter(const uint8_t* p, int step, int t) {
-  return 4 * std::abs(p[-step] - p[0]) + std::abs(p[-2 * step] - p[step]) <= t;
-}
-static inline bool needs_filter2(const uint8_t* p, int step, int t, int it) {
-  const int p3 = p[-4 * step], p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
-  const int q0 = p[0], q1 = p[step], q2 = p[2 * step], q3 = p[3 * step];
-  if (4 * std::abs(p0 - q0) + std::abs(p1 - q1) > t) return false;
-  return std::abs(p3 - p2) <= it && std::abs(p2 - p1) <= it && std::abs(p1 - p0) <= it &&
-         std::abs(q3 - q2) <= it && std::abs(q2 - q1) <= it && std::abs(q1 - q0) <= it;
-}
-
-// ``size`` positions along an edge: hstride crosses it, vstride runs along it
-static void simple_edge(uint8_t* p, int hstride, int vstride, int size, int thresh) {
-  const int t2 = 2 * thresh + 1;
-  for (int i = 0; i < size; ++i, p += vstride)
-    if (needs_filter(p, hstride, t2)) filter2(p, hstride);
-}
-static void normal_edge(uint8_t* p, int hstride, int vstride, int size, int thresh, int ithresh, int hev_t,
-                        bool mb_edge) {
-  const int t2 = 2 * thresh + 1;
-  for (int i = 0; i < size; ++i, p += vstride) {
-    if (!needs_filter2(p, hstride, t2, ithresh)) continue;
-    if (hev(p, hstride, hev_t)) filter2(p, hstride);
-    else if (mb_edge) filter6(p, hstride);
-    else filter4(p, hstride);
-  }
-}
-
-// ---------------------------------------------------------------- frame
-
-struct VP8Frame {
-  int width = 0, height = 0, mb_w = 0, mb_h = 0;
-  // headers
-  int use_segment = 0, update_map = 0, absolute_delta = 1;
-  int quantizer[4] = {0}, filter_strength[4] = {0};
-  uint8_t segment_probs[3] = {255, 255, 255};
-  int simple = 0, level = 0, sharpness = 0, use_lf_delta = 0;
-  int ref_lf_delta[4] = {0}, mode_lf_delta[4] = {0};
-  int filter_type = 0;
-  int num_parts = 1;
-  BoolDecoder br, parts[8];
-  int y1_mat[4][2], y2_mat[4][2], uv_mat[4][2];
-  uint8_t proba[4][8][3][11];
-  int use_skip_proba = 0, skip_p = 0;
-  FInfo fstrengths[4][2];
-};
-
-static int get_large_value(BoolDecoder& br, const uint8_t* p) {
-  int v;
-  if (!br.bit(p[3])) {
-    v = !br.bit(p[4]) ? 2 : 3 + br.bit(p[5]);
-  } else if (!br.bit(p[6])) {
-    if (!br.bit(p[7])) {
-      v = 5 + br.bit(159);
-    } else {
-      v = 7 + 2 * br.bit(165);
-      v += br.bit(145);
-    }
-  } else {
-    const int bit1 = br.bit(p[8]);
-    const int bit0 = br.bit(p[9 + bit1]);
-    const int cat = 2 * bit1 + bit0;
-    v = 0;
-    for (const uint8_t* tab = kCat3456[cat]; *tab; ++tab) v += v + br.bit(*tab);
-    v += 3 + (8 << cat);
-  }
-  return v;
-}
-
-// libwebp's GetCoeffs: the tokens of one block from position n; returns the
-// position after the last non-zero coefficient (16 if the block is full).
-static int get_coeffs(BoolDecoder& br, const uint8_t (*type_proba)[3][11], int ctx, const int* dq, int n,
-                      int16_t* out) {
-  const uint8_t* p = type_proba[kBands[n]][ctx];
-  for (; n < 16; ++n) {
-    if (!br.bit(p[0])) return n;
-    while (!br.bit(p[1])) {
-      p = type_proba[kBands[++n]][0];
-      if (n == 16) return 16;
-    }
-    int v;
-    const uint8_t(*next)[11] = type_proba[kBands[n + 1]];
-    if (!br.bit(p[2])) {
-      v = 1;
-      p = next[1];
-    } else {
-      v = get_large_value(br, p);
-      p = next[2];
-    }
-    const int s = br.bit(0x80) ? -v : v;
-    out[kZigzag[n]] = (int16_t)(s * dq[n > 0]);
-  }
-  return 16;
-}
-
-static inline uint32_t nz_code_bits(uint32_t nz_coeffs, int nz, int dc_nz) {
-  nz_coeffs <<= 2;
-  nz_coeffs |= (nz > 3) ? 3 : (nz > 1) ? 2 : dc_nz;
-  return nz_coeffs;
-}
-
-struct NZ {
-  uint32_t nz = 0, nz_dc = 0;
-};
-
-// libwebp's ParseResiduals; returns whether the macroblock has no non-zero
-// coefficient (after the WHT).
-static int parse_residuals(VP8Frame& f, BoolDecoder& br, MBData& mb, NZ& top, NZ& left) {
-  const int seg = mb.segment;
-  int16_t* dst = mb.coeffs;
-  memset(dst, 0, sizeof(mb.coeffs));
-  int first;
-  const uint8_t(*ac_proba)[3][11];
-  uint32_t non_zero_y = 0, non_zero_uv = 0;
-  if (!mb.is_i4x4) {
-    int16_t dc[16] = {0};
-    const int ctx = top.nz_dc + left.nz_dc;
-    const int nz = get_coeffs(br, f.proba[1], ctx, f.y2_mat[seg], 0, dc);
-    top.nz_dc = left.nz_dc = nz > 0;
-    inverse_wht(dc, dst);
-    first = 1;
-    ac_proba = f.proba[0];
-  } else {
-    first = 0;
-    ac_proba = f.proba[3];
-  }
-  uint32_t tnz = top.nz & 0x0f, lnz = left.nz & 0x0f;
-  for (int y = 0; y < 4; ++y) {
-    int l = lnz & 1;
-    uint32_t nz_coeffs = 0;
-    for (int x = 0; x < 4; ++x) {
-      const int ctx = l + (tnz & 1);
-      const int nz = get_coeffs(br, ac_proba, ctx, f.y1_mat[seg], first, dst);
-      l = nz > first;
-      tnz = (tnz >> 1) | (l << 7);
-      nz_coeffs = nz_code_bits(nz_coeffs, nz, dst[0] != 0);
-      dst += 16;
-    }
-    tnz >>= 4;
-    lnz = (lnz >> 1) | (l << 7);
-    non_zero_y = (non_zero_y << 8) | nz_coeffs;
-  }
-  uint32_t out_t_nz = tnz, out_l_nz = lnz >> 4;
-  for (int ch = 0; ch < 4; ch += 2) {
-    uint32_t nz_coeffs = 0;
-    tnz = top.nz >> (4 + ch);
-    lnz = left.nz >> (4 + ch);
-    for (int y = 0; y < 2; ++y) {
-      int l = lnz & 1;
-      for (int x = 0; x < 2; ++x) {
-        const int ctx = l + (tnz & 1);
-        const int nz = get_coeffs(br, f.proba[2], ctx, f.uv_mat[seg], 0, dst);
-        l = nz > 0;
-        tnz = (tnz >> 1) | (l << 3);
-        nz_coeffs = nz_code_bits(nz_coeffs, nz, dst[0] != 0);
-        dst += 16;
-      }
-      tnz >>= 2;
-      lnz = (lnz >> 1) | (l << 5);
-    }
-    non_zero_uv |= nz_coeffs << (4 * ch);
-    out_t_nz |= (tnz << 4) << ch;
-    out_l_nz |= (lnz & 0xf0) << ch;
-  }
-  top.nz = out_t_nz;
-  left.nz = out_l_nz;
-  mb.non_zero_y = non_zero_y;
-  mb.non_zero_uv = non_zero_uv;
-  return !(non_zero_y | non_zero_uv);
-}
-
-static void parse_intra_mode(VP8Frame& f, MBData& mb, uint8_t* top, uint8_t* left) {
-  BoolDecoder& br = f.br;
-  if (f.update_map)
-    mb.segment = !br.bit(f.segment_probs[0]) ? br.bit(f.segment_probs[1]) : br.bit(f.segment_probs[2]) + 2;
-  else
-    mb.segment = 0;
-  mb.skip = f.use_skip_proba ? br.bit(f.skip_p) : 0;
-  mb.is_i4x4 = !br.bit(145);
-  if (!mb.is_i4x4) {
-    const int ymode = br.bit(156) ? (br.bit(128) ? TM_PRED : H_PRED) : (br.bit(163) ? V_PRED : DC_PRED);
-    mb.imodes[0] = ymode;
-    memset(top, ymode, 4);
-    memset(left, ymode, 4);
-  } else {
-    uint8_t* modes = mb.imodes;
-    for (int y = 0; y < 4; ++y) {
-      int ymode = left[y];
-      for (int x = 0; x < 4; ++x) {
-        const uint8_t* prob = kBModesProba + (top[x] * 10 + ymode) * 9;
-        if (!br.bit(prob[0])) ymode = B_DC_PRED;
-        else if (!br.bit(prob[1])) ymode = B_TM_PRED;
-        else if (!br.bit(prob[2])) ymode = B_VE_PRED;
-        else if (!br.bit(prob[3])) ymode = !br.bit(prob[4]) ? B_HE_PRED : (!br.bit(prob[5]) ? B_RD_PRED : B_VR_PRED);
-        else if (!br.bit(prob[6])) ymode = B_LD_PRED;
-        else if (!br.bit(prob[7])) ymode = B_VL_PRED;
-        else ymode = !br.bit(prob[8]) ? B_HD_PRED : B_HU_PRED;
-        top[x] = ymode;
-      }
-      memcpy(modes, top, 4);
-      modes += 4;
-      left[y] = ymode;
-    }
-  }
-  mb.uvmode = !br.bit(142) ? DC_PRED : !br.bit(114) ? V_PRED : br.bit(183) ? TM_PRED : H_PRED;
-}
-
-static int parse_headers(VP8Frame& f, const uint8_t* data, size_t n) {
-  if (n < 10) return kEndOfData;
-  const uint32_t bits = data[0] | (data[1] << 8) | (data[2] << 16);
-  const int key_frame = !(bits & 1), profile = (bits >> 1) & 7, show = (bits >> 4) & 1;
-  const uint32_t part0 = bits >> 5;
-  if (!key_frame) return kNotKeyFrame;
-  if (profile > 3 || !show) return kBadFrameHeader;
-  if (data[3] != 0x9d || data[4] != 0x01 || data[5] != 0x2a) return kBadFrameHeader;
-  f.width = ((data[7] << 8) | data[6]) & 0x3fff;
-  f.height = ((data[9] << 8) | data[8]) & 0x3fff;
-  const uint8_t* buf = data + 10;
-  size_t size = n - 10;
-  if (part0 > size) return kEndOfData;
-  f.br.init(buf, part0);
-  buf += part0;
-  size -= part0;
-  BoolDecoder& br = f.br;
-  br.value_bits(1);  // colour space
-  br.value_bits(1);  // clamping type
-  // segment header
-  f.use_segment = br.bit(0x80);
-  if (f.use_segment) {
-    f.update_map = br.bit(0x80);
-    if (br.bit(0x80)) {
-      f.absolute_delta = br.bit(0x80);
-      for (int s = 0; s < 4; ++s) f.quantizer[s] = br.bit(0x80) ? br.signed_value(7) : 0;
-      for (int s = 0; s < 4; ++s) f.filter_strength[s] = br.bit(0x80) ? br.signed_value(6) : 0;
-    }
-    if (f.update_map)
-      for (int s = 0; s < 3; ++s) f.segment_probs[s] = br.bit(0x80) ? br.value_bits(8) : 255;
-  }
-  if (br.eof) return kBadFrameHeader;
-  // filter header
-  f.simple = br.bit(0x80);
-  f.level = br.value_bits(6);
-  f.sharpness = br.value_bits(3);
-  f.use_lf_delta = br.bit(0x80);
-  if (f.use_lf_delta && br.bit(0x80)) {
-    for (int i = 0; i < 4; ++i)
-      if (br.bit(0x80)) f.ref_lf_delta[i] = br.signed_value(6);
-    for (int i = 0; i < 4; ++i)
-      if (br.bit(0x80)) f.mode_lf_delta[i] = br.signed_value(6);
-  }
-  f.filter_type = f.level == 0 ? 0 : f.simple ? 1 : 2;
-  if (br.eof) return kBadFrameHeader;
-  // partitions
-  f.num_parts = 1 << br.value_bits(2);
-  const size_t last = f.num_parts - 1;
-  if (size < 3 * last) return kBadPartitions;
-  const uint8_t* sz = buf;
-  const uint8_t* part_start = buf + last * 3;
-  size_t left = size - last * 3;
-  for (size_t p = 0; p < last; ++p, sz += 3) {
-    size_t psize = sz[0] | (sz[1] << 8) | (sz[2] << 16);
-    if (psize > left) psize = left;
-    f.parts[p].init(part_start, psize);
-    part_start += psize;
-    left -= psize;
-  }
-  f.parts[last].init(part_start, left);
-  if (part_start >= buf + size) return kBadPartitions;
-  // quantisers
-  const int base_q0 = br.value_bits(7);
-  const int dqy1_dc = br.bit(0x80) ? br.signed_value(4) : 0;
-  const int dqy2_dc = br.bit(0x80) ? br.signed_value(4) : 0;
-  const int dqy2_ac = br.bit(0x80) ? br.signed_value(4) : 0;
-  const int dquv_dc = br.bit(0x80) ? br.signed_value(4) : 0;
-  const int dquv_ac = br.bit(0x80) ? br.signed_value(4) : 0;
-  auto clip = [](int v, int m) { return v < 0 ? 0 : v > m ? m : v; };
-  for (int i = 0; i < 4; ++i) {
-    int q;
-    if (f.use_segment) {
-      q = f.quantizer[i];
-      if (!f.absolute_delta) q += base_q0;
-    } else {
-      q = base_q0;
-    }
-    f.y1_mat[i][0] = kDcTable[clip(q + dqy1_dc, 127)];
-    f.y1_mat[i][1] = kAcTable[clip(q, 127)];
-    f.y2_mat[i][0] = kDcTable[clip(q + dqy2_dc, 127)] * 2;
-    f.y2_mat[i][1] = (kAcTable[clip(q + dqy2_ac, 127)] * 101581) >> 16;
-    if (f.y2_mat[i][1] < 8) f.y2_mat[i][1] = 8;
-    f.uv_mat[i][0] = kDcTable[clip(q + dquv_dc, 117)];
-    f.uv_mat[i][1] = kAcTable[clip(q + dquv_ac, 127)];
-  }
-  br.bit(0x80);  // refresh entropy probabilities: a single key frame ignores it
-  for (int t = 0; t < 4; ++t)
-    for (int b = 0; b < 8; ++b)
-      for (int c = 0; c < 3; ++c)
-        for (int p = 0; p < 11; ++p) {
-          const int k = ((t * 8 + b) * 3 + c) * 11 + p;
-          f.proba[t][b][c][p] = br.bit(kCoeffsUpdateProba[k]) ? br.value_bits(8) : kCoeffsProba0[k];
-        }
-  f.use_skip_proba = br.bit(0x80);
-  if (f.use_skip_proba) f.skip_p = br.value_bits(8);
-  // filter strengths
-  for (int s = 0; s < 4; ++s) {
-    int base = f.level;
-    if (f.use_segment) {
-      base = f.filter_strength[s];
-      if (!f.absolute_delta) base += f.level;
-    }
-    for (int i4 = 0; i4 <= 1; ++i4) {
-      FInfo& info = f.fstrengths[s][i4];
-      int level = base;
-      if (f.use_lf_delta) {
-        level += f.ref_lf_delta[0];
-        if (i4) level += f.mode_lf_delta[0];
-      }
-      level = level < 0 ? 0 : level > 63 ? 63 : level;
-      info.limit = 0;
-      info.ilevel = 0;
-      info.hev_thresh = 0;
-      if (level > 0) {
-        int ilevel = level;
-        if (f.sharpness > 0) {
-          ilevel >>= f.sharpness > 4 ? 2 : 1;
-          if (ilevel > 9 - f.sharpness) ilevel = 9 - f.sharpness;
-        }
-        if (ilevel < 1) ilevel = 1;
-        info.ilevel = ilevel;
-        info.limit = 2 * level + ilevel;
-        info.hev_thresh = level >= 40 ? 2 : level >= 15 ? 1 : 0;
-      }
-      info.inner = i4;
-    }
-  }
-  return br.eof ? kBadFrameHeader : kOk;
-}
-
-static const int kScan[16] = {0 + 0 * BPS,  4 + 0 * BPS,  8 + 0 * BPS,  12 + 0 * BPS, 0 + 4 * BPS,  4 + 4 * BPS,
-                              8 + 4 * BPS,  12 + 4 * BPS, 0 + 8 * BPS,  4 + 8 * BPS,  8 + 8 * BPS,  12 + 8 * BPS,
-                              0 + 12 * BPS, 4 + 12 * BPS, 8 + 12 * BPS, 12 + 12 * BPS};
-
-static inline int check_mode(int mb_x, int mb_y, int mode) {
-  if (mode == DC_PRED) {
-    if (mb_x == 0) return mb_y == 0 ? (int)DC_NOTOPLEFT : (int)DC_NOLEFT;
-    return mb_y == 0 ? (int)DC_NOTOP : (int)DC_PRED;
-  }
-  return mode;
-}
+// the key-frame decoder is vp8.h's (vp8::Decoder with libwebp's choices)
 
 // libwebp's 14-bit YUV -> RGB
 static inline int mult_hi(int v, int coeff) { return (v * coeff) >> 8; }
@@ -1394,173 +731,12 @@ static void upsample_pair(const uint8_t* top_y, const uint8_t* bottom_y, const u
   }
 }
 
-struct Planes {
-  int width = 0, height = 0, ys = 0, uvs = 0;
-  std::vector<uint8_t> Y, U, V;  // macroblock-aligned, loop-filtered
-};
-
-static int vp8_decode_planes(const uint8_t* data, size_t n, Planes& out) {
-  VP8Frame f;
-  int st = parse_headers(f, data, n);
-  if (st) return st;
-  if (f.width == 0 || f.height == 0) return kBadSize;
-  const int mb_w = (f.width + 15) >> 4, mb_h = (f.height + 15) >> 4;
-  const int ys = mb_w * 16, uvs = mb_w * 8;
-  out.width = f.width;
-  out.height = f.height;
-  out.ys = ys;
-  out.uvs = uvs;
-  std::vector<uint8_t>& Y = out.Y;
-  std::vector<uint8_t>& U = out.U;
-  std::vector<uint8_t>& V = out.V;
-  Y.assign((size_t)ys * mb_h * 16, 0);
-  U.assign((size_t)uvs * mb_h * 8, 0);
-  V.assign((size_t)uvs * mb_h * 8, 0);
-  std::vector<FInfo> finfo((size_t)mb_w * mb_h);
-  std::vector<uint8_t> intra_t(4 * mb_w, B_DC_PRED);
-  std::vector<NZ> nz_top(mb_w);
-  std::vector<uint8_t> top_y(16 * mb_w), top_u(8 * mb_w), top_v(8 * mb_w);
-  std::vector<MBData> row(mb_w);
-  uint8_t yuv_b[BPS * 17 + BPS * 9];
-  memset(yuv_b, 0, sizeof(yuv_b));
-  uint8_t* const y_dst = yuv_b + Y_OFF;
-  uint8_t* const u_dst = yuv_b + U_OFF;
-  uint8_t* const v_dst = yuv_b + V_OFF;
-  for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
-    uint8_t intra_l[4] = {B_DC_PRED, B_DC_PRED, B_DC_PRED, B_DC_PRED};
-    for (int mb_x = 0; mb_x < mb_w; ++mb_x) parse_intra_mode(f, row[mb_x], &intra_t[4 * mb_x], intra_l);
-    if (f.br.eof) return kEndOfData;
-    BoolDecoder& tbr = f.parts[mb_y & (f.num_parts - 1)];
-    NZ nz_left;
-    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-      MBData& mb = row[mb_x];
-      int skip = mb.skip;
-      if (!skip) {
-        skip = parse_residuals(f, tbr, mb, nz_top[mb_x], nz_left);
-      } else {
-        nz_left.nz = nz_top[mb_x].nz = 0;
-        if (!mb.is_i4x4) nz_left.nz_dc = nz_top[mb_x].nz_dc = 0;
-        mb.non_zero_y = mb.non_zero_uv = 0;
-        memset(mb.coeffs, 0, sizeof(mb.coeffs));
-      }
-      if (f.filter_type > 0) {
-        FInfo fi = f.fstrengths[mb.segment][mb.is_i4x4];
-        fi.inner |= !skip;
-        finfo[(size_t)mb_y * mb_w + mb_x] = fi;
-      }
-      if (tbr.eof) return kEndOfData;
-    }
-    // reconstruct the row (libwebp's ReconstructRow)
-    for (int j = 0; j < 16; ++j) y_dst[j * BPS - 1] = 129;
-    for (int j = 0; j < 8; ++j) u_dst[j * BPS - 1] = v_dst[j * BPS - 1] = 129;
-    if (mb_y > 0) {
-      y_dst[-1 - BPS] = u_dst[-1 - BPS] = v_dst[-1 - BPS] = 129;
-    } else {
-      memset(y_dst - BPS - 1, 127, 16 + 4 + 1);
-      memset(u_dst - BPS - 1, 127, 8 + 1);
-      memset(v_dst - BPS - 1, 127, 8 + 1);
-    }
-    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-      const MBData& mb = row[mb_x];
-      if (mb_x > 0) {
-        for (int j = -1; j < 16; ++j) memcpy(&y_dst[j * BPS - 4], &y_dst[j * BPS + 12], 4);
-        for (int j = -1; j < 8; ++j) {
-          memcpy(&u_dst[j * BPS - 4], &u_dst[j * BPS + 4], 4);
-          memcpy(&v_dst[j * BPS - 4], &v_dst[j * BPS + 4], 4);
-        }
-      }
-      if (mb_y > 0) {
-        memcpy(y_dst - BPS, &top_y[16 * mb_x], 16);
-        memcpy(u_dst - BPS, &top_u[8 * mb_x], 8);
-        memcpy(v_dst - BPS, &top_v[8 * mb_x], 8);
-      }
-      const int16_t* coeffs = mb.coeffs;
-      if (mb.is_i4x4) {
-        uint8_t* top_right = y_dst - BPS + 16;
-        if (mb_y > 0) {
-          if (mb_x >= mb_w - 1) memset(top_right, top_y[16 * mb_x + 15], 4);
-          else memcpy(top_right, &top_y[16 * (mb_x + 1)], 4);
-        }
-        for (int k = 1; k <= 3; ++k) memcpy(top_right + k * 4 * BPS, top_right, 4);
-        for (int k = 0; k < 16; ++k) {
-          uint8_t* dst = y_dst + kScan[k];
-          pred4(dst, mb.imodes[k]);
-          if (block_nonzero(coeffs + k * 16)) inverse_dct_add(coeffs + k * 16, dst);
-        }
-      } else {
-        pred_block(y_dst, 16, check_mode(mb_x, mb_y, mb.imodes[0]));
-        for (int k = 0; k < 16; ++k)
-          if (block_nonzero(coeffs + k * 16)) inverse_dct_add(coeffs + k * 16, y_dst + kScan[k]);
-      }
-      const int uv_mode = check_mode(mb_x, mb_y, mb.uvmode);
-      pred_block(u_dst, 8, uv_mode);
-      pred_block(v_dst, 8, uv_mode);
-      for (int k = 0; k < 4; ++k) {
-        const int off = (k & 1) * 4 + (k >> 1) * 4 * BPS;
-        if (block_nonzero(coeffs + (16 + k) * 16)) inverse_dct_add(coeffs + (16 + k) * 16, u_dst + off);
-        if (block_nonzero(coeffs + (20 + k) * 16)) inverse_dct_add(coeffs + (20 + k) * 16, v_dst + off);
-      }
-      if (mb_y < mb_h - 1) {
-        memcpy(&top_y[16 * mb_x], y_dst + 15 * BPS, 16);
-        memcpy(&top_u[8 * mb_x], u_dst + 7 * BPS, 8);
-        memcpy(&top_v[8 * mb_x], v_dst + 7 * BPS, 8);
-      }
-      for (int j = 0; j < 16; ++j) memcpy(&Y[(size_t)(mb_y * 16 + j) * ys + mb_x * 16], y_dst + j * BPS, 16);
-      for (int j = 0; j < 8; ++j) {
-        memcpy(&U[(size_t)(mb_y * 8 + j) * uvs + mb_x * 8], u_dst + j * BPS, 8);
-        memcpy(&V[(size_t)(mb_y * 8 + j) * uvs + mb_x * 8], v_dst + j * BPS, 8);
-      }
-    }
-  }
-  // loop filter, macroblocks in raster order (libwebp's DoFilter)
-  if (f.filter_type > 0) {
-    for (int mb_y = 0; mb_y < mb_h; ++mb_y)
-      for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
-        const FInfo& fi = finfo[(size_t)mb_y * mb_w + mb_x];
-        const int limit = fi.limit;
-        if (limit == 0) continue;
-        uint8_t* yp = &Y[(size_t)mb_y * 16 * ys + mb_x * 16];
-        if (f.filter_type == 1) {
-          if (mb_x > 0) simple_edge(yp, 1, ys, 16, limit + 4);
-          if (fi.inner)
-            for (int k = 1; k <= 3; ++k) simple_edge(yp + 4 * k, 1, ys, 16, limit);
-          if (mb_y > 0) simple_edge(yp, ys, 1, 16, limit + 4);
-          if (fi.inner)
-            for (int k = 1; k <= 3; ++k) simple_edge(yp + 4 * k * ys, ys, 1, 16, limit);
-        } else {
-          uint8_t* up = &U[(size_t)mb_y * 8 * uvs + mb_x * 8];
-          uint8_t* vp = &V[(size_t)mb_y * 8 * uvs + mb_x * 8];
-          const int il = fi.ilevel, ht = fi.hev_thresh;
-          if (mb_x > 0) {
-            normal_edge(yp, 1, ys, 16, limit + 4, il, ht, true);
-            normal_edge(up, 1, uvs, 8, limit + 4, il, ht, true);
-            normal_edge(vp, 1, uvs, 8, limit + 4, il, ht, true);
-          }
-          if (fi.inner) {
-            for (int k = 1; k <= 3; ++k) normal_edge(yp + 4 * k, 1, ys, 16, limit, il, ht, false);
-            normal_edge(up + 4, 1, uvs, 8, limit, il, ht, false);
-            normal_edge(vp + 4, 1, uvs, 8, limit, il, ht, false);
-          }
-          if (mb_y > 0) {
-            normal_edge(yp, ys, 1, 16, limit + 4, il, ht, true);
-            normal_edge(up, uvs, 1, 8, limit + 4, il, ht, true);
-            normal_edge(vp, uvs, 1, 8, limit + 4, il, ht, true);
-          }
-          if (fi.inner) {
-            for (int k = 1; k <= 3; ++k) normal_edge(yp + 4 * k * ys, ys, 1, 16, limit, il, ht, false);
-            normal_edge(up + 4 * uvs, uvs, 1, 8, limit, il, ht, false);
-            normal_edge(vp + 4 * uvs, uvs, 1, 8, limit, il, ht, false);
-          }
-        }
-      }
-  }
-  return kOk;
-}
-
 static int vp8_decode_rgb(const uint8_t* data, size_t n, int want_w, int want_h, uint8_t* rgb) {
-  Planes p;
-  const int st = vp8_decode_planes(data, n, p);
+  vp8::Decoder dec;
+  dec.libwebp = true;
+  const int st = dec.decode(data, n);
   if (st) return st;
+  const vp8::Picture& p = *dec.cur;
   if (p.width != want_w || p.height != want_h) return kBadSize;
   const std::vector<uint8_t>&Y = p.Y, &U = p.U, &V = p.V;
   const int ys = p.ys, uvs = p.uvs;

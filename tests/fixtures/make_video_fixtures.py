@@ -11,10 +11,30 @@ wheel ships it; writes ``tests/fixtures/video/`` and
   ``cv2.VideoWriter``, so that each MPEG-4 stream crosses the encoder's GOP of
   12 into a second I-VOP: ``mp4v`` into ``.mp4``, ``.mov``, ``.m4v``, ``.avi``
   and ``.mkv``, the same encoder under the ``XVID`` fourcc into ``.avi``,
-  ``MJPG`` into ``.avi`` and ``.mkv``, and VP8 into ``.webm`` (a codec the
-  port refuses).
-* ``track_640x480.{mp4,avi}``: the 16-frame 640 x 480 clip of
-  ``chip_smoke.make_clip`` as ``mp4v`` MP4 and ``MJPG`` AVI.
+  ``MJPG`` into ``.avi`` and ``.mkv``, VP8 into ``.webm`` and VP9 into
+  ``vp9_64x48.webm`` (a codec the port refuses by name).
+* ``vp8_{p1,p3_er,p0_golden}_64x48.avi``: 30 frames of 64 x 48 encoded by the
+  libvpx VP8 encoder that libavcodec wraps (``libvpx``), through ctypes as
+  below, at a GOP of 12: profile 1 (bilinear prediction), profile 3 with the
+  error-resilient mode (bilinear, full-pixel chroma), and profile 0 at a low
+  bitrate with golden-frame boosts (``auto-alt-ref``, ``arnr-maxframes``).
+* ``mpeg4_{bvop,qpel,mq,asp}_88x40.avi``: the tools frames through
+  libavcodec's MPEG-4 encoder with Advanced Simple Profile tools: B-VOPs
+  (``bf=2``), quarter-pel with four vectors (``+qpel+mv4``), MPEG
+  quantisation (``mpeg_quant=1``) and all of them with AC prediction,
+  resync markers and adaptive quantisation (DQUANT and DBQUANT).
+* ``{xvid,divx}_asp_88x40.avi`` and ``divx_packed_88x40.avi``: the ASP
+  stream with libavcodec's user data replaced by Xvid's (``XviD0001``: the
+  Xvid IDCT and FFmpeg's workarounds for that build) or DivX's
+  (``DivX503b1393``: its chroma workaround for quarter-pel), and the DivX
+  stream packed as DivX 5 writes B-VOPs into AVI (a P-VOP and the B-VOP after
+  it in one chunk, an N-VOP placeholder after the last B-VOP;
+  ``DivX503b1393p``).
+* ``track_640x480.{mp4,avi,webm}``: the 16-frame 640 x 480 clip of
+  ``chip_smoke.make_clip`` as ``mp4v`` MP4, ``MJPG`` AVI and ``VP80`` WebM;
+  ``track_640x480_xvid.avi``: the same frames through libavcodec's MPEG-4
+  encoder with B-VOPs and quarter-pel under Xvid's user data (``XviD0064``)
+  and fourcc.
 * ``mpeg4_tools_88x40.avi``: 14 frames of 88 x 40 (a width and height that
   are not whole macroblocks) encoded by libavcodec's MPEG-4 encoder itself,
   reached through ctypes in the libraries the wheel bundles, with the coding
@@ -52,6 +72,24 @@ SMALL = (48, 64)  # (h, w)
 SMALL_FRAMES = 14  # crosses the MPEG-4 encoder's GOP of 12
 TOOLS = (40, 88)
 TOOLS_OPTIONS = {"flags": "+mv4+aic", "ps": "50", "lumi_mask": "0.8", "dark_mask": "0.9", "scplx_mask": "0.5"}
+# Advanced Simple Profile streams of the tools frames: libavcodec MPEG-4 options
+ASP_OPTIONS = {
+    "mpeg4_bvop_88x40.avi": {"bf": "2"},
+    "mpeg4_qpel_88x40.avi": {"flags": "+qpel+mv4"},
+    "mpeg4_mq_88x40.avi": {"mpeg_quant": "1"},
+    "mpeg4_asp_88x40.avi": {**TOOLS_OPTIONS, "bf": "2", "flags": "+qpel+mv4+aic", "mpeg_quant": "1"},
+}
+# the ASP stream under other encoders' user data: (file, user data, fourcc, DivX-packed)
+TAGGED = [("xvid_asp_88x40.avi", b"XviD0001", b"XVID", False), ("divx_asp_88x40.avi", b"DivX503b1393", b"DX50", False),
+          ("divx_packed_88x40.avi", b"DivX503b1393p", b"DX50", True)]
+VP8_CLIPS = 30  # frames of the libvpx-encoded VP8 clips: 3 key frames at a GOP of 12
+VP8_OPTIONS = {
+    "vp8_p1_64x48.avi": {"profile": "1"},
+    "vp8_p3_er_64x48.avi": {"profile": "3", "error-resilient": "default"},
+    "vp8_p0_golden_64x48.avi": {"b": "60k", "auto-alt-ref": "1", "lag-in-frames": "8", "arnr-maxframes": "5"},
+}
+CLIP_ASP = {"bf": "2", "flags": "+qpel", "b": "800k"}  # track_640x480_xvid.avi
+MPEG4, LIBVPX = 12, 139  # AVCodecID of libavcodec's MPEG-4 encoder and of its libvpx VP8 wrapper
 # a P-VOP header with vop_coded 0 (time increment 3 of 5 bits, as a 1/25 s VOL has), stuffed to a byte
 NOT_CODED_VOP = bytes.fromhex("000001b651cf")
 
@@ -124,7 +162,18 @@ def _libs() -> dict:
 def encode_mpeg4(frames: list, options: dict) -> list:
     """Packets of libavcodec's MPEG-4 encoder (VOS and VOL in the first) for
     RGB ``frames`` with AVCodecContext ``options`` (``av_opt_set`` names),
-    a GOP of 12 at 25 frames a second."""
+    a GOP of 12 at 25 frames a second, in decode order."""
+    return encode(frames, options, MPEG4)
+
+
+def encode_vp8(frames: list, options: dict) -> list:
+    """Packets of libvpx's VP8 encoder as libavcodec wraps it, as `encode_mpeg4`."""
+    return encode(frames, options, LIBVPX)
+
+
+def encode(frames: list, options: dict, codec_id: int) -> list:
+    """Packets of the libavcodec encoder ``codec_id`` for RGB ``frames`` (a
+    height that is a multiple of 4), as `encode_mpeg4` describes."""
     libs = _libs()
     avu, avc = libs["avutil"], libs["avcodec"]
     vp = ctypes.c_void_p
@@ -137,7 +186,7 @@ def encode_mpeg4(frames: list, options: dict) -> list:
                          (avu.av_opt_set, ctypes.c_int, [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int])]:
         f.restype, f.argtypes = res, args
     h, w = frames[0].shape[:2]
-    codec = avc.avcodec_find_encoder(12)  # AV_CODEC_ID_MPEG4
+    codec = avc.avcodec_find_encoder(codec_id)
     ctx = avc.avcodec_alloc_context3(codec)
     # time_base has no option name: find it as the field before pkt_timebase
     assert avu.av_opt_set(ctx, b"pkt_timebase", b"12345/54321", 0) == 0
@@ -173,6 +222,42 @@ def encode_mpeg4(frames: list, options: dict) -> list:
         drain()
     avc.avcodec_send_frame(ctx, None)
     drain()
+    return out
+
+
+def set_user_data(packets: list, text: bytes) -> list:
+    """``packets`` with the user data libavcodec writes after the VOL (its
+    ``Lavc...`` build) replaced by ``text``, as another encoder writes it."""
+    first = packets[0]
+    at = first.index(b"\x00\x00\x01\xb2Lavc")
+    end = first.index(b"\x00\x00\x01", at + 4)
+    return [first[:at + 4] + text + first[end:]] + packets[1:]
+
+
+def vop_types(packet: bytes) -> list:
+    """The coding type of each VOP in ``packet`` (0 I, 1 P, 2 B, 3 S)."""
+    out, at = [], packet.find(b"\x00\x00\x01\xb6")
+    while at >= 0:
+        out.append(packet[at + 4] >> 6)
+        at = packet.find(b"\x00\x00\x01\xb6", at + 4)
+    return out
+
+
+def pack_b_frames(packets: list) -> list:
+    """DivX 5's packed B-VOPs: a reference VOP followed by B-VOPs (in decode
+    order) becomes a chunk of the reference and the first B-VOP, the other
+    B-VOPs alone, then an N-VOP placeholder, so that the AVI holds one chunk
+    a displayed frame."""
+    out, i = [], 0
+    while i < len(packets):
+        j = i + 1
+        while j < len(packets) and vop_types(packets[j])[:1] == [2]:
+            j += 1
+        if j > i + 1:
+            out += [packets[i] + packets[i + 1], *packets[i + 2:j], NOT_CODED_VOP]
+        else:
+            out.append(packets[i])
+        i = j
     return out
 
 
@@ -234,17 +319,30 @@ def main() -> None:
     files["mjpg_64x48.avi"] = ("MJPG", small)
     files["mjpg_64x48.mkv"] = ("MJPG", small)
     files["vp8_64x48.webm"] = ("VP80", small)
+    files["vp9_64x48.webm"] = ("VP90", small[:4])
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         track = chip_smoke.make_clip(Path(tmp))
     files["track_640x480.mp4"] = ("mp4v", track)
     files["track_640x480.avi"] = ("MJPG", track)
+    files["track_640x480.webm"] = ("VP80", track)
     for name, (fourcc, frames) in files.items():
         write_cv2(OUT / name, fourcc, frames)
     tools = tools_frames()
     packets = encode_mpeg4(tools, TOOLS_OPTIONS)
     packets.insert(5, NOT_CODED_VOP)
     write_avi(OUT / "mpeg4_tools_88x40.avi", packets, TOOLS[1], TOOLS[0], b"FMP4")
+    for name, options in ASP_OPTIONS.items():
+        write_avi(OUT / name, encode_mpeg4(tools, {"g": "12", **options}), TOOLS[1], TOOLS[0], b"FMP4")
+    asp = encode_mpeg4(tools, {"g": "12", **ASP_OPTIONS["mpeg4_asp_88x40.avi"]})
+    for name, user, fourcc, packed in TAGGED:
+        tagged = set_user_data(asp, user)
+        write_avi(OUT / name, pack_b_frames(tagged) if packed else tagged, TOOLS[1], TOOLS[0], fourcc)
+    vp8_frames = small_frames(VP8_CLIPS, SMALL, seed=7)
+    for name, options in VP8_OPTIONS.items():
+        write_avi(OUT / name, encode_vp8(vp8_frames, {"g": "12", **options}), SMALL[1], SMALL[0], b"VP80")
+    clip = set_user_data(encode_mpeg4(track, {"g": "12", **CLIP_ASP}), b"XviD0064")
+    write_avi(OUT / "track_640x480_xvid.avi", clip, track[0].shape[1], track[0].shape[0], b"XVID")
 
     out = {}
     for path in sorted(OUT.iterdir()):

@@ -166,6 +166,34 @@ def test_video_modules_alone_load_no_jax_cv2_pil_or_video_library(module, import
     assert rc == 0, err
 
 
+# the C++ standard headers the host libraries may include; anything else is a library
+STD_HEADERS = {"algorithm", "cmath", "cstdint", "cstdio", "cstdlib", "cstring", "limits", "memory", "string",
+               "utility", "vector", "stdint.h", "string.h", "array", "cassert", "climits", "functional"}
+
+
+def test_native_sources_include_and_link_no_codec_library():
+    """The host libraries (the image and video decoders, VP8's core in
+    ``vp8.h`` among them) include only C++ standard headers and their own
+    files, and are built with no library to link: no libavcodec, libvpx,
+    libwebp, libjpeg or other codec library reaches the port."""
+    from quan_ultralytics_tpu_torch.data.native import native, pixels, video
+
+    native_dir = PORT / "data" / "native"
+    sources = sorted(native_dir.glob("*.cpp")) + sorted(native_dir.glob("*.h"))
+    assert {"video.cpp", "vp8.h", "webp.cpp"} <= {p.name for p in sources}
+    bad = []
+    for path in sources:
+        for inc in re.findall(r'^\s*#\s*include\s*([<"][^>"]+[>"])', path.read_text(), re.M):
+            name = inc[1:-1]
+            ok = name in STD_HEADERS if inc[0] == "<" else (native_dir / name).is_file()
+            if not ok:
+                bad.append(f"{path.name}: #include {inc}")
+    assert not bad, bad
+    for flags in (native.CXX_FLAGS, pixels.CXX_FLAGS, video.CXX_FLAGS):
+        assert not [f for f in flags if f.startswith(("-l", "-L", "-Wl"))], flags
+    assert set(video.DEPENDS) >= {native_dir / "vp8.h", native_dir / "webp_tables.h"}
+
+
 def test_source_scan_finds_no_jax_import():
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10

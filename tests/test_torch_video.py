@@ -14,10 +14,17 @@ CPU against OpenCV 5.0's FFmpeg capture, and the JAX package's
   frames, a truncated one the frames of its whole packets; a codec or coding
   tool the port does not decode raises a `NotImplementedError` naming it;
   damaged packets end the stream or raise, never crash the process.
+* VP8 (key and inter frames, profiles 0-3, invisible frames) and MPEG-4
+  Advanced Simple Profile (B-VOPs in display order, quarter-pel, MPEG
+  quantisation with default and carried matrices, the Xvid IDCT and FFmpeg's
+  workarounds for Xvid, DivX and old libavcodec builds, DivX's packed
+  B-VOPs), on the committed fixtures and on seeded random streams from the
+  libvpx and libavcodec encoders the wheel bundles.
 """
 
 import json
 import random
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -41,7 +48,8 @@ VIDEOS = FIXTURES / "video"
 DIGESTS = json.loads((FIXTURES / "video_fixtures.json").read_text())
 DECODED = sorted(k for k, v in DIGESTS.items() if "per_frame" in v)
 sys.path.insert(0, str(FIXTURES))
-from make_video_fixtures import cv2_frames, sha, small_frames, write_avi  # noqa: E402
+from make_video_fixtures import (NOT_CODED_VOP, cv2_frames, encode_mpeg4, encode_vp8, pack_b_frames,  # noqa: E402
+                                 set_user_data, sha, small_frames, tools_frames, write_avi)
 
 
 def cv2_packets(path) -> list:
@@ -58,15 +66,19 @@ def cv2_packets(path) -> list:
 
 
 def test_fixtures_cover_every_container_and_codec():
-    """Every container of the demuxers and both codecs are among the
-    fixtures, the VP8 WebM the one refused, all under 1.5 MB together."""
+    """Every container of the demuxers and the three codecs are among the
+    fixtures, the VP9 WebM the one refused; the small clips are a few KB
+    each, the two 640 x 480 clips of this slice about 1 MB together."""
     kinds = {(v.get("container"), v.get("codec")) for v in DIGESTS.values()}
     for kind in [("ISO-BMFF", "mpeg4"), ("AVI", "mpeg4"), ("Matroska", "mpeg4"), ("AVI", "mjpeg"),
-                 ("Matroska", "mjpeg")]:
+                 ("Matroska", "mjpeg"), ("Matroska", "vp8"), ("AVI", "vp8")]:
         assert kind in kinds
     assert {p.suffix for p in VIDEOS.iterdir()} == {".mp4", ".mov", ".m4v", ".avi", ".mkv", ".webm"}
-    assert [k for k, v in DIGESTS.items() if "refused" in v] == ["vp8_64x48.webm"]
-    assert sum(p.stat().st_size for p in VIDEOS.iterdir()) < 1_500_000
+    assert [k for k, v in DIGESTS.items() if "refused" in v] == ["vp9_64x48.webm"]
+    small = [p for p in VIDEOS.iterdir() if not p.name.startswith("track_")]
+    assert max(p.stat().st_size for p in small) < 30_000
+    assert sum((VIDEOS / n).stat().st_size for n in ("track_640x480.webm", "track_640x480_xvid.avi")) < 1_100_000
+    assert sum(p.stat().st_size for p in VIDEOS.iterdir()) < 2_600_000
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
@@ -75,7 +87,7 @@ def test_packets_equal_ffmpeg_demuxers(name):
     ref = cv2_packets(path)
     assert len(ref) >= DIGESTS[name]["frames"] > 0
     if "refused" in DIGESTS[name]:
-        with pytest.raises(NotImplementedError, match=r"VP8 codec \(V_VP8\) in Matroska"):
+        with pytest.raises(NotImplementedError, match=re.escape(DIGESTS[name]["refused"].split(": ", 1)[1])):
             video.demux(path)
         return
     stream = video.demux(path)
@@ -111,6 +123,46 @@ def test_tools_fixture_exercises_the_mpeg4_tools():
     for tool in ("skipped_mbs", "intra_mbs_in_p", "four_mv_mbs", "dquant", "video_packets", "escape1",
                  "escape2", "escape3", "ac_pred_mbs", "no_rounding_mbs", "ac_rescaled"):
         assert stats[tool] > 0, tool
+
+
+def tool_counts(name: str) -> dict:
+    """`Decoder._tool_counts` after every packet of a fixture and the flush."""
+    stream = video.demux(VIDEOS / name)
+    dec = video.Decoder(stream.codec, stream.private, stream.tag)
+    frames = sum(dec.send(p) for p in stream.packets) + dec.flush()
+    return dict(dec._tool_counts(), frames=frames, packets=len(stream.packets))
+
+
+def test_asp_fixtures_exercise_the_asp_tools():
+    """The libavcodec-encoded ASP fixtures reach what they were written for:
+    B-VOPs in all four macroblock modes (direct, forward, backward,
+    interpolated), B macroblocks skipped with their co-located one, DBQUANT,
+    quarter-pel, MPEG quantisation, the Xvid IDCT under Xvid's user data and
+    the packed B-VOPs of the DivX AVI, each with as many frames as VOPs."""
+    asp = tool_counts("mpeg4_asp_88x40.avi")
+    for tool in ("b_vops", "b_direct_mbs", "b_forward_mbs", "b_backward_mbs", "b_interpolated_mbs", "dbquant",
+                 "qpel_mbs", "mpeg_quant_blocks", "four_mv_mbs", "ac_pred_mbs", "video_packets", "dquant"):
+        assert asp[tool] > 0, tool
+    assert asp["frames"] == asp["packets"] == asp["i_vops"] + asp["p_vops"] + asp["b_vops"] == 14
+    assert asp["xvid_idct_blocks"] == 0 and tool_counts("xvid_asp_88x40.avi")["xvid_idct_blocks"] > 0
+    bvop = tool_counts("mpeg4_bvop_88x40.avi")
+    assert bvop["b_vops"] > 0 and bvop["b_colocated_skips"] > 0 and tool_counts("mpeg4_qpel_88x40.avi")["qpel_mbs"] > 0
+    assert tool_counts("mpeg4_mq_88x40.avi")["mpeg_quant_blocks"] > 0
+    packed = tool_counts("divx_packed_88x40.avi")
+    assert packed["packed_b_vops"] == asp["b_vops"] and packed["frames"] == 14 and packed["not_coded_vops"] == 0
+    clip = tool_counts("track_640x480_xvid.avi")
+    assert clip["b_vops"] > 0 and clip["qpel_mbs"] > 0 and clip["xvid_idct_blocks"] > 0 and clip["frames"] == 16
+
+
+def test_encoder_workarounds_change_the_frames():
+    """The same ASP stream under Xvid's and DivX's user data decodes to other
+    frames than under libavcodec's (the Xvid IDCT and FFmpeg's workarounds
+    for those builds), and each to OpenCV's (test_frames_equal_opencv)."""
+    lavc = [f["cv2"] for f in DIGESTS["mpeg4_asp_88x40.avi"]["per_frame"]]
+    for name in ("xvid_asp_88x40.avi", "divx_asp_88x40.avi"):
+        other = [f["cv2"] for f in DIGESTS[name]["per_frame"]]
+        assert len(other) == len(lavc) and other != lavc, name
+    assert DIGESTS["divx_packed_88x40.avi"]["per_frame"] == DIGESTS["divx_asp_88x40.avi"]["per_frame"]
 
 
 CLIPS = [("mp4v", ".mp4", (48, 64)), ("mp4v", ".avi", (50, 90)), ("mp4v", ".mkv", (40, 72)),
@@ -161,7 +213,12 @@ def test_mjpeg_without_huffman_tables_takes_annex_k(tmp_path):
         np.testing.assert_array_equal(g, r)
 
 
-@pytest.mark.parametrize("name", ["mp4v_64x48.mp4", "xvid_64x48.avi", "mjpg_64x48.mkv", "mpeg4_tools_88x40.avi"])
+@pytest.mark.parametrize("name", ["mp4v_64x48.mp4", "xvid_64x48.avi", "mjpg_64x48.mkv", "mpeg4_tools_88x40.avi",
+                                  "vp8_64x48.webm", "vp8_p1_64x48.avi", "vp8_p3_er_64x48.avi",
+                                  "vp8_p0_golden_64x48.avi", "mpeg4_bvop_88x40.avi", "mpeg4_qpel_88x40.avi",
+                                  "mpeg4_mq_88x40.avi", "mpeg4_asp_88x40.avi", "xvid_asp_88x40.avi",
+                                  "divx_asp_88x40.avi", "divx_packed_88x40.avi", "track_640x480.webm",
+                                  "track_640x480_xvid.avi"])
 def test_load_source_of_a_video_matches_jax(name):
     got = list(load_source(VIDEOS / name))
     ref = list(jax_load_source(str(VIDEOS / name)))
@@ -336,12 +393,14 @@ def test_demuxer_faults_reach_the_caller(monkeypatch):
 
 
 def test_unsupported_codecs_raise_named_errors(tmp_path):
-    """VP8 and VP9 WebM (cv2 decodes both) and an AVI of a codec the port
-    has no decoder for raise NotImplementedError naming the codec; the JAX
-    package reads the VP8 file."""
-    with pytest.raises(NotImplementedError, match="VP8"):
-        list(load_source(VIDEOS / "vp8_64x48.webm"))
-    assert len(list(jax_load_source(str(VIDEOS / "vp8_64x48.webm")))) == 14
+    """VP9 WebM (cv2 decodes it), an AVI of a codec the port has no decoder
+    for and interlaced MPEG-4 raise NotImplementedError naming the codec or
+    tool; the VP8 WebM, refused before VP8 was ported, now gives the JAX
+    package's 14 frames."""
+    got, ref = list(load_source(VIDEOS / "vp8_64x48.webm")), list(jax_load_source(str(VIDEOS / "vp8_64x48.webm")))
+    assert len(got) == len(ref) == 14
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
     vp9 = tmp_path / "vp9.webm"
     vw = cv2.VideoWriter(str(vp9), cv2.VideoWriter_fourcc(*"VP90"), 10, (64, 48))
     for f in small_frames(3):
@@ -354,6 +413,10 @@ def test_unsupported_codecs_raise_named_errors(tmp_path):
     write_avi(h264, [b"\0\0\0\1\x67"], 64, 48, b"H264")
     with pytest.raises(NotImplementedError, match=r"H\.264 codec \(H264\) in AVI"):
         list(load_source(h264))
+    interlaced = tmp_path / "interlaced.avi"  # cv2's swscale refuses to convert these frames: it gives none
+    write_avi(interlaced, encode_mpeg4(tools_frames(3), {"g": "12", "flags": "+ildct+ilme"}), 88, 40, b"FMP4")
+    with pytest.raises(NotImplementedError, match="MPEG-4 Part 2: interlaced video is not supported"):
+        list(load_source(interlaced))
 
 
 # ---------------------------------------------------------------- hand-made MPEG-4 headers
@@ -402,6 +465,8 @@ def vol(ver_id=1, shape=0, interlaced=0, sprite=0, not_8_bit=0, quant_type=0, qu
     if not_8_bit:
         w.put(5, 4).put(10, 4)
     w.put(quant_type, 1)
+    if quant_type:
+        w.put(0, 2)  # load_intra_quant_mat, load_nonintra_quant_mat: the default matrices
     if ver_id != 1:
         w.put(quarter_sample, 1)
     w.put(complexity_disable, 1).put(1, 1).put(data_partitioned, 1)
@@ -427,11 +492,9 @@ def vop(kind: int, q: int = 4) -> bytes:
 
 REFUSED = [
     (dict(interlaced=1), "interlaced"),
-    (dict(ver_id=2, quarter_sample=1), "quarter-pel"),
     (dict(sprite=1), "sprites and global motion compensation"),
     (dict(ver_id=2, sprite=2), "sprites and global motion compensation"),
     (dict(not_8_bit=1), "other than 8-bit"),
-    (dict(quant_type=1), r"MPEG quantisation matrices \(quant_type 1\)"),
     (dict(data_partitioned=1), "data partitioning"),
     (dict(data_partitioned=1, rvlc=1), "data partitioning with RVLC"),
     (dict(shape=1), "shape other than rectangular"),
@@ -453,7 +516,7 @@ def test_refused_mpeg4_vol_tools_raise_named_errors(fields, match):
             dec.send(packet)
 
 
-@pytest.mark.parametrize("kind,match", [(2, r"B-VOPs \(Advanced Simple Profile\)"), (3, "S-VOPs")])
+@pytest.mark.parametrize("kind,match", [(3, "S-VOPs")])
 def test_refused_vop_types_raise_named_errors(kind, match):
     dec = video.Decoder("mpeg4", vol())
     with pytest.raises(NotImplementedError, match=match):
@@ -461,18 +524,211 @@ def test_refused_vop_types_raise_named_errors(kind, match):
 
 
 def test_short_video_header_and_encoder_workarounds_are_refused():
-    """An H.263 picture (short_video_header) in an MPEG-4 stream, a stream
-    an XVID fourcc marks as Xvid's (FFmpeg decodes it with the Xvid IDCT),
-    DivX and Xvid user data, and an old libavcodec's."""
+    """An H.263 picture (short_video_header) in an MPEG-4 stream is refused.
+    The streams that were refused with it before FFmpeg's encoder
+    workarounds were ported (a stream an XVID fourcc marks as Xvid's, DivX
+    and Xvid user data, an old libavcodec's) now reach their macroblocks: a
+    VOP with none is damaged data, not a refusal."""
     with pytest.raises(NotImplementedError, match="short_video_header"):
         video.Decoder("mpeg4").send(bytes.fromhex("00008202") + bytes(20))
-    with pytest.raises(NotImplementedError, match="Xvid"):
+    with pytest.raises(ValueError, match="MPEG-4 Part 2"):
         video.Decoder("mpeg4", vol(), b"XVID").send(vop(0))
-    for user, match in ((b"DivX503b1393p", "DivX"), (b"XviD0050", "Xvid"), (b"Lavc56.1.100", "old libavcodec")):
-        with pytest.raises(NotImplementedError, match=match):
+    for user in (b"DivX503b1393p", b"XviD0050", b"Lavc56.1.100", b"FFmpeg0.4.6b4652"):
+        with pytest.raises(ValueError, match="MPEG-4 Part 2"):
             video.Decoder("mpeg4", vol() + b"\0\0\1\xb2" + user).send(vop(0))
-    # the fixture's stream under the XVID fourcc names libavcodec in its user data: decoded
+    # the fixture's stream under the XVID fourcc names libavcodec in its user data: decoded as it
     assert DIGESTS["xvid_64x48.avi"]["per_frame"] == DIGESTS["mp4v_64x48.avi"]["per_frame"]
+
+
+@pytest.mark.parametrize("fields", [dict(ver_id=2, quarter_sample=1), dict(quant_type=1)],
+                         ids=["quarter-pel", "MPEG-quantisation"])
+def test_asp_vol_tools_are_read(fields):
+    """Quarter-pel and MPEG quantisation in a hand-made VOL header are read,
+    from the decoder configuration or in band: its VOP reaches the
+    macroblocks (none here: damaged data, not a refusal)."""
+    header = vol(**fields)
+    assert video.Decoder("mpeg4").send(header) is False
+    for dec, packet in ((video.Decoder("mpeg4", header), vop(0)), (video.Decoder("mpeg4"), header + vop(0))):
+        with pytest.raises(ValueError, match="MPEG-4 Part 2"):
+            dec.send(packet)
+
+
+def with_matrices(packets: list, intra, inter) -> list:
+    """``packets`` (libavcodec's, MPEG quantisation, no matrices carried)
+    with the VOL rewritten to carry ``intra`` and ``inter`` (lists of up to
+    64 values in zigzag order, a 0 ending a short one; None: no matrix)."""
+    first = packets[0]
+    start = first.index(b"\x00\x00\x01\x20") + 4
+    end = first.index(b"\x00\x00\x01", start)
+    bits = "".join(f"{b:08b}" for b in first[start:end])
+    bits = bits[:bits.rindex("0")]  # the VOL's own fields, without the stuffing to the byte
+    pos = 1 + 8
+    ver_id = 1
+    if bits[pos] == "1":
+        ver_id = int(bits[pos + 1:pos + 5], 2)
+        pos += 8
+    else:
+        pos += 1
+    pos += 4 + (16 if bits[pos:pos + 4] == "1111" else 0)
+    if bits[pos] == "1":  # vol_control_parameters
+        pos += 1 + 3
+        pos += 1 + (79 if bits[pos] == "1" else 0)
+    else:
+        pos += 1
+    pos += 2 + 1 + 16 + 1
+    tib = max(1, (int(bits[pos - 17:pos - 1], 2) - 1).bit_length())
+    pos += 1 + (tib if bits[pos] == "1" else 0)
+    pos += 1 + 13 + 1 + 13 + 1 + 1 + 1 + (1 if ver_id == 1 else 2)
+    assert bits[pos] == "0" and bits[pos + 1] == "1", "not 8-bit video with MPEG quantisation"
+    pos += 2
+    assert bits[pos:pos + 2] == "00", "the stream already carries matrices"
+
+    def matrix(m):
+        return "0" if m is None else "1" + "".join(f"{v:08b}" for v in m)
+
+    bits = bits[:pos] + matrix(intra) + matrix(inter) + bits[pos + 2:]
+    bits += "0" + "1" * (7 - len(bits) % 8)
+    vol_bytes = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+    return [first[:start] + vol_bytes + first[end:]] + packets[1:]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantisation_matrices_carried_in_the_vol_equal_opencv(tmp_path, seed):
+    """MPEG quantisation with matrices carried in the VOL (seeded random
+    values, whole or ended early by a 0 and their last value repeated, or
+    left to the defaults): the frames equal OpenCV's. The encoder quantised
+    with the default matrices, so these frames drift; both decoders drift
+    alike."""
+    rng = np.random.default_rng(seed)
+
+    def random_matrix():
+        if rng.random() < 0.25:
+            return None
+        m = rng.integers(8, 64, 64).tolist()
+        return m if rng.random() < 0.5 else m[:rng.integers(1, 63)] + [0]
+
+    frames = small_frames(8, (48, 64), seed=seed)
+    options = {"g": "12", "mpeg_quant": "1", "bf": str(seed % 3), "flags": "+qpel" if seed % 2 else "+mv4"}
+    path = tmp_path / "matrices.avi"
+    write_avi(path, with_matrices(encode_mpeg4(frames, options), random_matrix(), random_matrix()), 64, 48, b"FMP4")
+    ref, got = cv2_frames(path), list(video.frames(path))
+    assert len(got) == len(ref) == 8
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+
+
+def random_clip(rng, n: int, hw=(48, 64)) -> list:
+    """``n`` RGB frames of noise under shapes moving at random speeds."""
+    h, w = hw
+    base = rng.integers(0, 256, (h + 40, w + 40, 3)).astype(np.uint8)
+    dx, dy = rng.integers(-3, 4, 2)
+    out = []
+    for t in range(n):
+        x0, y0 = 20 + int(dx * t) % 20, 20 + int(dy * t) % 20
+        im = base[y0:y0 + h, x0:x0 + w].copy()
+        for k in range(3):
+            vx, vy, size = rng.integers(-4, 5), rng.integers(-4, 5), rng.integers(4, 16)
+            x, y = (10 + k * 17 + vx * t) % (w - size), (5 + k * 9 + vy * t) % (h - size)
+            im[y:y + size, x:x + size] = rng.integers(0, 256, 3)
+        out.append(im)
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_seeded_random_vp8_streams_equal_opencv(tmp_path, seed):
+    """Random frames through libvpx's VP8 encoder with random options
+    (profile, GOP, bitrate, sharpness, error resilience, golden-frame
+    boosts): every frame equals OpenCV's."""
+    rng = np.random.default_rng(100 + seed)
+    options = {"profile": str(rng.integers(0, 4)), "g": str(rng.integers(3, 20)),
+               "b": f"{rng.integers(20, 800)}k", "sharpness": str(rng.integers(0, 8))}
+    if rng.random() < 0.5:
+        options["error-resilient"] = "default"
+    if rng.random() < 0.5:
+        options.update({"auto-alt-ref": "1", "lag-in-frames": "6"})
+    n = int(rng.integers(6, 16))
+    path = tmp_path / "vp8.avi"
+    write_avi(path, encode_vp8(random_clip(rng, n), options), 64, 48, b"VP80")
+    ref, got = cv2_frames(path), list(video.frames(path))
+    assert len(got) == len(ref) == n, options
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r, err_msg=str(options))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_seeded_random_mpeg4_streams_equal_opencv(tmp_path, seed):
+    """Random frames through libavcodec's MPEG-4 encoder with random
+    Advanced Simple Profile options (B-VOPs, quarter-pel, four vectors, AC
+    prediction, MPEG quantisation, resync markers, adaptive quantisation)
+    and random encoder user data and fourcc (libavcodec's, Xvid builds,
+    DivX builds, DivX's packed B-VOPs): as many frames as OpenCV gives, each
+    equal to OpenCV's."""
+    rng = np.random.default_rng(200 + seed)
+    flags = "".join(f for f in ("+qpel", "+mv4", "+aic") if rng.random() < 0.5)
+    options = {"g": str(rng.integers(4, 16)), "bf": str(rng.integers(0, 3)), "b": f"{rng.integers(50, 900)}k"}
+    if flags:
+        options["flags"] = flags
+    if rng.random() < 0.5:
+        options["mpeg_quant"] = "1"
+    if rng.random() < 0.3:
+        options["ps"] = str(rng.integers(40, 200))
+    if rng.random() < 0.3:
+        options.update({"lumi_mask": "0.5", "dark_mask": "0.5"})
+    n = int(rng.integers(6, 14))
+    packets = encode_mpeg4(random_clip(rng, n), options)
+    user, fourcc = [(None, b"FMP4"), (b"XviD0001", b"XVID"), (b"XviD0012", b"XVID"), (b"XviD0064", b"XVID"),
+                    (b"DivX503b1393", b"DX50"), (b"DivX501b413", b"DIVX"), (b"DivX503b1393p", b"DX50"),
+                    (b"FFmpeg0.4.6b4652", b"FMP4")][seed]
+    if user:
+        packets = set_user_data(packets, user)
+    if user == b"DivX503b1393p":
+        packets = pack_b_frames(packets)
+    path = tmp_path / "asp.avi"
+    write_avi(path, packets, 64, 48, fourcc)
+    ref, got = cv2_frames(path), list(video.frames(path))
+    assert len(got) == len(ref) > 0, (options, user)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r, err_msg=str((options, user)))
+
+
+def test_vop_that_is_not_coded_at_the_end_repeats_the_last_frame(tmp_path):
+    """A stream that ends with a VOP that is not coded gives its last frame
+    once more (FFmpeg's flush), one in the middle of a stream with B-VOPs
+    makes FFmpeg skip the B-VOPs whose times then fall out of order: the
+    same frames as OpenCV in both."""
+    frames = tools_frames(10)
+    sp, bf = encode_mpeg4(frames, {"g": "12"}), encode_mpeg4(frames, {"g": "12", "bf": "2"})
+    for name, packets, count in (("end", sp + [NOT_CODED_VOP], 11), ("middle", bf[:4] + [NOT_CODED_VOP] + bf[4:], 0)):
+        path = tmp_path / f"{name}.avi"
+        write_avi(path, packets, 88, 40, b"FMP4")
+        ref, got = cv2_frames(path), list(video.frames(path))
+        assert len(got) == len(ref) and (count == 0 or len(ref) == count), name
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)
+
+
+def test_invisible_vp8_frames_and_size_changes(tmp_path):
+    """A VP8 frame with show_frame 0 updates the references and gives no
+    frame, as FFmpeg's vp8.c; a key frame that changes the size is decoded,
+    and its frame refused by name (OpenCV scales it to the first size with
+    libswscale's scaled path)."""
+    packets = encode_vp8(small_frames(12, (48, 64), seed=9), {"g": "12"})
+    hidden = list(packets)
+    hidden[5] = bytes([hidden[5][0] & ~0x10]) + hidden[5][1:]
+    path = tmp_path / "hidden.avi"
+    write_avi(path, hidden, 64, 48, b"VP80")
+    ref, got = cv2_frames(path), list(video.frames(path))
+    assert len(got) == len(ref) == 11
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    bigger = encode_vp8(small_frames(3, (80, 96), seed=9), {"g": "12"})
+    path = tmp_path / "resized.avi"
+    write_avi(path, packets[:4] + bigger, 64, 48, b"VP80")
+    assert {f.shape for f in cv2_frames(path)} == {(48, 64, 3)}
+    gen = video.frames(path)
+    assert [next(gen).shape for _ in range(4)] == [(48, 64, 3)] * 4
+    with pytest.raises(NotImplementedError, match="a 96x80 frame after 64x48 ones"):
+        next(gen)
 
 
 FUZZ = """
@@ -501,6 +757,12 @@ for name in names:
                     assert dec.rgb().shape[2] == 3
             except (ValueError, NotImplementedError):
                 break
+        else:
+            try:
+                if dec.flush():
+                    assert dec.rgb().shape[2] == 3
+            except NotImplementedError:
+                pass
         done += 1
 print(done)
 """
@@ -512,7 +774,8 @@ def test_damaged_packets_end_or_raise_never_crash():
     decodes or raises ValueError/NotImplementedError, and the process exits
     normally."""
     names = [str(VIDEOS / n) for n in ("mp4v_64x48.mp4", "mjpg_64x48.avi", "mpeg4_tools_88x40.avi",
-                                         "mp4v_64x48.mkv")]
+                                         "mp4v_64x48.mkv", "vp8_64x48.webm", "vp8_p3_er_64x48.avi",
+                                         "mpeg4_asp_88x40.avi", "divx_packed_88x40.avi")]
     proc = subprocess.run([sys.executable, "-c", FUZZ, str(random.Random(0).randrange(1 << 30)), *names],
                           cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
