@@ -268,7 +268,22 @@ Phases:
  66. phase 60 on the Xvid ASP AVI: ``obb predict save=True`` at 1024 through
      ``cli.main`` and the bf16 facade (K1 + K3), the file's boxes equal to
      those of its decoded frames;
- 67. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 67. the newer TIFF and JPEG kinds on the card's host: the committed fixtures of
+     JPEG-in-TIFF, raw YCbCr, CMYK, CIELab, CCITT, BigTIFF and CMYK JPEG
+     through the val loader against their OpenCV digests, the kinds still
+     refused failing by name, and the decode ms of a 1024 x 1024 frame in
+     each new kind (made by the fixture maker's container writers: numpy,
+     struct, zlib and the port's JPEG and LZW encoders);
+ 68. val on phase 7's set as GDAL's JPEG-YCbCr 4:2:0 tiled BigTIFF and as
+     CMYK LZW TIFF, each against a PNG set of its own decoded pixels (the
+     same detections and metrics, bit for bit; K1 + K3), and one
+     ``Trainer.fit`` epoch on the JPEG-TIFF set and on its PNG twin (the same
+     loader batches; K1 and K2);
+ 69. ``split_dota`` of phase 52's 4000 x 4000 scene as a tiled JPEG-YCbCr
+     BigTIFF (crops byte-equal to those of the PNG scene of its decoded
+     pixels) and ``obb predict`` through ``cli.main`` on a folder holding
+     every new kind (labels equal to those of its pixels as PNG);
+ 70. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -286,8 +301,10 @@ Phases:
      video_cli_predict, video_predict, video_vp8_cli_track,
      video_vp8_track_botsort, video_asp_cli_predict, video_asp_predict,
      image_val_{png,bmp,tiff_lzw_pred2,
-     tiff_tiled_deflate,webp_lossless}, image_fit_{bmp,png} and
-     image_cli_predict_{mixed,png}; each
+     tiff_tiled_deflate,webp_lossless}, image_fit_{bmp,png},
+     image_cli_predict_{mixed,png}, image_val_{jpeg_ycbcr_bigtiff,cmyk_lzw}
+     and their _png twins, image_fit_jpeg_ycbcr_bigtiff{,_png} and
+     image_cli_predict_kinds{,_png}; each
      kernel launched on each path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
@@ -5742,6 +5759,292 @@ def phase_image_sources(root: Path, png_cfg, card: str, reps: int = 5):
     return out
 
 
+# the newer TIFF and JPEG kinds (phases 67-69), written by tests/fixtures/make_image_fixtures.py's container writers
+KIND_SETS = {"jpeg_ycbcr_bigtiff": ".tif", "cmyk_lzw": ".tiff"}
+KIND_FIXTURES = ("jpeg_cmyk", "jpeg_ycck", "tiff_bigtiff", "tiff_cmyk", "tiff_float32", "tiff_g3_2d", "tiff_gdal",
+                 "tiff_jpeg", "tiff_lzma", "tiff_old_jpeg", "tiff_pil_ccitt", "tiff_pil_cmyk", "tiff_pil_jpeg",
+                 "tiff_pil_lab", "tiff_pil_ycbcr", "tiff_ycbcr")  # name prefixes of its committed fixtures
+
+
+def image_maker():
+    """tests/fixtures/make_image_fixtures.py as a module: its TIFF container
+    writers need numpy, struct, zlib and the port's encoders only."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "fixtures" / "make_image_fixtures.py"
+    spec = importlib.util.spec_from_file_location("make_image_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _encode_kind(maker, name: str, im: np.ndarray) -> bytes:
+    """``im`` in one of the new kinds, by the fixture maker's writers."""
+    if name == "jpeg_ycbcr_bigtiff":  # GDAL's COMPRESS=JPEG PHOTOMETRIC=YCBCR TILED=YES BIGTIFF=YES
+        return maker.gdal_jpeg_tiff(im, tile=TIFF_TILE)
+    if name == "cmyk_lzw":
+        return maker.tiff_file(maker.cmyk_of(im), {262: (3, [5])}, compress="lzw", rows_per_strip=64)
+    if name == "ycbcr420_lzw":
+        return maker.ycbcr_file(maker.rgb_to_ycbcr(im), 2, 2, rows_per_strip=64, compress="lzw")
+    if name == "cielab":
+        return maker.tiff_file(maker.rgb_to_ycbcr(im), {262: (3, [8])}, tile=TIFF_TILE)
+    if name == "jpeg_gray_strips":
+        return maker.jpeg_tiff(im[..., 1:2], maker.port_jpeg, 1, rows_per_strip=64)
+    if name == "bigtiff_deflate":
+        return maker.tiff_file(im, {}, tile=TIFF_TILE, predictor=True, big=True)
+    bilevel = im[..., 1] < 120
+    mode = {"ccitt_g4": "g4", "ccitt_g3_2d": "g3_2d", "ccitt_rle": "rle"}[name]
+    return maker.fax_tiff(bilevel, mode, rows_per_strip=128, **(
+        {"lsb_first": True, "align_eol": True} if mode == "g3_2d" else {}))
+
+
+KIND_DECODES = ("jpeg_ycbcr_bigtiff", "jpeg_gray_strips", "ycbcr420_lzw", "cmyk_lzw", "cielab", "ccitt_g4",
+                "ccitt_g3_2d", "ccitt_rle", "bigtiff_deflate")
+
+
+def phase_image_kinds_sources(root: Path, png_cfg, card: str, reps: int = 5):
+    """67. The committed fixtures of the newer TIFF and JPEG kinds through the val loader,
+    each against its OpenCV digest; the kinds still refused (old-style JPEG,
+    YCCK; float, LZMA, CMYK with alpha) raise their named errors; the decode
+    ms of a 1024 x 1024 frame (phase 61's) in each new kind and of the
+    committed 1024 x 1024 CMYK JPEG."""
+    import hashlib
+    import shutil
+
+    from quan_ultralytics_tpu_torch.cfg.datasets import DOTA_V1
+    from quan_ultralytics_tpu_torch.data import YOLODataset
+    from quan_ultralytics_tpu_torch.data.native import native
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
+    digests = {k: v for k, v in json.loads((fixtures / "image_fixtures.json").read_text()).items()
+               if k.startswith(KIND_FIXTURES)}
+    (root / "fixtures" / "images" / "val").mkdir(parents=True)
+    (root / "fixtures" / "labels" / "val").mkdir(parents=True)
+    refused = {}
+    for name, ref in digests.items():
+        if "raises" in ref:
+            try:
+                native.imread(fixtures / "image" / name)
+            except (NotImplementedError, ValueError) as e:
+                check(type(e).__name__ == ref["raises"] and ref.get("match", "") in str(e),
+                      f"image kinds: {name} raised {type(e).__name__}: {e}")
+                refused[name] = type(e).__name__
+            else:
+                check(False, f"image kinds: {name} decoded; it should raise {ref['raises']}")
+            continue
+        shutil.copy(fixtures / "image" / name, root / "fixtures" / "images" / "val" / name)
+        (root / "fixtures" / "labels" / "val" / f"{Path(name).stem}.txt").write_text("0 0.2 0.2 0.6 0.2 0.6 0.6 0.2 0.6\n")
+    cfg = {"path": str(root / "fixtures"), "train": "images/val", "val": "images/val", "names": DOTA_V1["names"]}
+    ds = YOLODataset(cfg, "val", task="obb")
+    check(len(ds) == len(digests) - len(refused) >= 18, f"image kinds: {len(ds)} fixtures in the val set")
+    for i in range(len(ds)):
+        name = Path(ds.samples[i].im_file).name
+        im = ds.load_image(i)
+        check(list(im.shape) == digests[name]["shape"]
+              and hashlib.sha256(np.ascontiguousarray(im).tobytes()).hexdigest() == digests[name]["sha256"],
+              f"image kinds: {name} does not decode to its OpenCV pixels")
+    stem = next(Path(s.im_file).stem for s in YOLODataset(png_cfg, "val", task="obb").samples
+                if native.read_shape(s.im_file) == (1024, 1024))
+    frame = native.imread(Path(png_cfg["path"]) / "images" / "train" / f"{stem}.png")
+    maker = image_maker()
+    paths = {"cmyk_jpeg": fixtures / "image" / "jpeg_cmyk_1024.jpg"}
+    for name in KIND_DECODES:
+        paths[name] = root / f"frame_{name}.tif"
+        paths[name].write_bytes(_encode_kind(maker, name, frame))
+    decode_ms, sizes = {}, {}
+    for k, path in paths.items():
+        native.imread(path)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            im = native.imread(path)
+        decode_ms[k] = 1e3 * (time.perf_counter() - t0) / reps
+        sizes[k] = path.stat().st_size
+        check(im.shape == (1024, 1024, 3), f"image kinds decode: {path.name} is {im.shape}")
+    print(f"image kinds: {len(ds)} fixtures of the newer kinds through the val loader equal to their OpenCV digests, "
+          f"{len(refused)} refused by name ({', '.join(f'{k}: {v}' for k, v in refused.items())}); decode of a "
+          f"1024 x 1024 frame " + ", ".join(f"{k} {v:.2f} ms ({sizes[k]} B)" for k, v in decode_ms.items())
+          + f" (mean of {reps}); {card}")
+    return {"fixtures": len(ds), "refused": refused, "decode_1024_ms": decode_ms, "bytes_1024": sizes}
+
+
+def phase_image_kinds_val_fit(root: Path, png_cfg, card: str):
+    """68. Phase 7's set (phase 61's PNG set) written as GDAL's JPEG-YCbCr
+    4:2:0 tiled BigTIFF and as CMYK LZW TIFF, and each set's twin: PNGs of
+    the port's own decoded pixels of its files. The Validator at 1024 (conf
+    0.001, bf16, K1 + K3, seeded weights) on each set and twin: the same kept
+    detections and metrics, bit for bit. One ``Trainer.fit`` epoch at 1024
+    (bf16, batch 8, the recipe's augmentations, cuDNN deterministic) on the
+    JPEG-TIFF set and on its twin: the same loader batches; K1 and K2."""
+    import shutil
+
+    from quan_ultralytics_tpu_torch.data import YOLODataset, build_dataloader
+    from quan_ultralytics_tpu_torch.data.augment import AugmentHyp
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
+    from quan_ultralytics_tpu_torch.engine.validator import Validator
+
+    maker = image_maker()
+    src = Path(png_cfg["path"])
+    cfgs, write_s = {}, {}
+    for name, suffix in KIND_SETS.items():
+        for tag in (name, f"{name}_png"):
+            shutil.copytree(src / "labels", root / tag / "labels")
+            (root / tag / "images" / "train").mkdir(parents=True)
+        t0 = time.perf_counter()
+        for p in sorted((src / "images" / "train").glob("*.png")):
+            path = root / name / "images" / "train" / (p.stem + suffix)
+            path.write_bytes(_encode_kind(maker, name, native.imread(p)))
+            native.imwrite_png(root / f"{name}_png" / "images" / "train" / f"{p.stem}.png", native.imread(path))
+        write_s[name] = time.perf_counter() - t0
+        cfgs[name] = {**png_cfg, "path": str(root / name)}
+        cfgs[f"{name}_png"] = {**png_cfg, "path": str(root / f"{name}_png")}
+    m = seeded_model(torch.bfloat16, fused_1x1=True)
+    nb = math.ceil(len(DATA_SIZES) / BATCH)
+    val = {}
+    for name, cfg in cfgs.items():
+        ds = YOLODataset(cfg, "val", task="obb")
+        check({Path(s.im_file).suffix for s in ds.samples} == {KIND_SETS.get(name, ".png")},
+              f"image kinds val [{name}]: the set holds other files")
+        v = Validator(m, imgsz=IMGSZ, conf=VAL_CONF)
+        js = root / f"{name}_dets.json"
+        _reset_counts()
+        metrics = v(ds, batch_size=BATCH, save_json=str(js))  # the main path
+        torch.cuda.synchronize()
+        got = _counts()
+        check(got == {"qattn_fwd": nb, "qattn_fwd_with_stats": 0, "qattn_bwd": 0, "qconv1x1_fused": 37 * nb},
+              f"image kinds val [{name}]: launches {got}")
+        val[name] = {"metrics": metrics, "load_ms_a_batch": v.speed["load_ms"], "infer_ms": v.speed["infer_ms"],
+                     "detections": json.loads(js.read_text()), "launches": got, "write_s": write_s.get(name)}
+    for name in KIND_SETS:
+        a, b = val[name], val[f"{name}_png"]
+        check(a["detections"] == b["detections"] and a["metrics"] == b["metrics"],
+              f"image kinds val [{name}]: the detections or metrics differ from its PNG twin's")
+    del m
+    torch.cuda.empty_cache()
+    fit = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("jpeg_ycbcr_bigtiff", "jpeg_ycbcr_bigtiff_png"):
+            tds = YOLODataset(cfgs[name], "train", task="obb")
+            steps = len(tds) // BATCH
+            tr = Trainer(seeded_model(torch.bfloat16), TrainConfig(batch=BATCH, nbs=BATCH, epochs=1),
+                         steps_per_epoch=steps, device=DEVICE)
+            batches = []
+
+            def loader(epoch, tds=tds, batches=batches):
+                for b in build_dataloader(tds, BATCH, IMGSZ, hyp=AugmentHyp(), augment=True, seed=epoch):
+                    batches.append({k: v for k, v in b.items() if isinstance(v, np.ndarray)})
+                    yield b
+
+            _reset_counts()
+            t0 = time.perf_counter()
+            history = tr.fit(loader, None, epochs=1)  # the main path
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = _counts()
+            check(got == {"qattn_fwd": steps, "qattn_fwd_with_stats": steps, "qattn_bwd": steps,
+                          "qconv1x1_fused": 0}, f"image kinds fit [{name}]: launches {got}")
+            check(len(history) == 1 and math.isfinite(history[0]["loss"]), f"image kinds fit [{name}]: {history}")
+            fit[name] = {"batches": batches, "seconds": secs, "launches": got, "loss": history[0]["loss"]}
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = fit["jpeg_ycbcr_bigtiff"], fit["jpeg_ycbcr_bigtiff_png"]
+    check(len(a["batches"]) == len(b["batches"]) > 0 and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(a["batches"], b["batches"])),
+        "image kinds fit: the JPEG-TIFF set's batches differ from its PNG twin's")
+    print("image kinds val: " + "; ".join(
+        f"{name}: load + letterbox {r['load_ms_a_batch']:.1f} ms a batch of {BATCH}"
+        + (f", written in {r['write_s']:.2f} s" if r["write_s"] is not None else "") for name, r in val.items())
+        + f"; detections and metrics of each set equal to its PNG twin's bit for bit; fit: one epoch on the "
+        f"JPEG-YCbCr BigTIFF set in {a['seconds']:.1f} s (twin {b['seconds']:.1f} s), its batches the twin's, "
+        f"losses {a['loss']} and {b['loss']}; launches {a['launches']}; {card}")
+    for r in val.values():
+        del r["detections"]
+    return {"val": val, "fit": {k: {x: y for x, y in r.items() if x != "batches"} for k, r in fit.items()}}
+
+
+def phase_image_kinds_split_cli(root: Path, card: str):
+    """69. Phase 52's 4000 x 4000 scene as a tiled (256) JPEG-YCbCr 4:2:0
+    BigTIFF, its ``split_dota`` crops byte-equal to those of the PNG scene of
+    its decoded pixels; ``obb predict`` through ``cli.main`` on a folder of
+    every new kind (JPEG-YCbCr BigTIFF, JPEG gray strips, raw YCbCr, CMYK,
+    CIELab, CCITT G4, G3 2-D and RLE, BigTIFF Deflate, CMYK JPEG), its saved
+    labels equal to those of the same pixels as PNG."""
+    import shutil
+
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.data.split_dota import get_windows, split_image
+
+    maker = image_maker()
+    im, lines = split_scene(9)
+    t0 = time.perf_counter()
+    data = _encode_kind(maker, "jpeg_ycbcr_bigtiff", im)
+    write_s = time.perf_counter() - t0
+    crops = {}
+    for kind in ("tif", "png"):
+        d = root / f"scene_{kind}"
+        d.mkdir(parents=True)
+        src = d / f"P9999.{kind}"
+        if kind == "tif":
+            src.write_bytes(data)
+        else:
+            native.imwrite_png(src, native.imread(root / "scene_tif" / "P9999.tif"))
+        (d / "P9999.txt").write_text("\n".join(lines) + "\n")
+        t0 = time.perf_counter()
+        split_image(str(src), str(d / "P9999.txt"), d / "split" / "images", d / "split" / "labels")
+        crops[kind] = {"seconds": time.perf_counter() - t0, "files": sorted((d / "split").rglob("*.*")),
+                       "bytes": src.stat().st_size}
+    a, b = crops["tif"]["files"], crops["png"]["files"]
+    n_crops = sum(x.suffix == ".jpg" for x in a)
+    check(len(a) == len(b) and n_crops == len(get_windows(SPLIT_SIZE))
+          and all(x.name == y.name and x.read_bytes() == y.read_bytes() for x, y in zip(a, b)),
+          "image kinds split_dota: the JPEG-YCbCr BigTIFF scene's crops differ from its PNG twin's")
+    pkl = seeded_pkl(root / "kinds_obb_seeded.pkl", MODEL, NC)
+    rng = np.random.default_rng(13)
+    mixed, as_png = root / "mixed", root / "mixed_png"
+    mixed.mkdir()
+    as_png.mkdir()
+    kinds = list(KIND_DECODES) + ["cmyk_jpeg"]
+    for i, name in enumerate(kinds):
+        h, w = MIXED_SIZE
+        yy, xx = np.mgrid[0:h, 0:w]
+        frame = np.stack([xx * 200 // w, yy * 200 // h, (xx + yy) * 100 // (h + w)], -1).astype(np.uint8)
+        for _ in range(int(rng.integers(2, 12))):
+            y0, x0 = int(rng.integers(0, h - 80)), int(rng.integers(0, w - 80))
+            frame[y0:y0 + int(rng.integers(20, 80)), x0:x0 + int(rng.integers(20, 80))] = rng.integers(150, 256, 3)
+        if name == "cmyk_jpeg":  # the committed CMYK JPEG: no CMYK JPEG encoder on the card
+            path = mixed / f"im{i}.jpg"
+            shutil.copy(Path(__file__).resolve().parent / "tests" / "fixtures" / "image" / "jpeg_cmyk_1024.jpg", path)
+        else:
+            path = mixed / f"im{i}{'.tiff' if i % 2 else '.tif'}"
+            path.write_bytes(_encode_kind(maker, name, frame))
+        native.imwrite_png(as_png / f"im{i}.png", native.imread(path))
+    labels, launches, secs = {}, {}, {}
+    for kind, src in (("kinds", mixed), ("png", as_png)):
+        _, secs[kind], launches[kind] = _cli(["obb", "predict", f"model={pkl}", f"source={src}", f"imgsz={IMGSZ}",
+                                              f"conf={VAL_CONF}", "save_txt=True", "save_conf=True",
+                                              f"save_dir={root / ('pred_' + kind)}"])
+        labels[kind] = sorted((root / f"pred_{kind}" / "labels").glob("*.txt"))
+        check(launches[kind]["qattn_fwd"] > 0 and launches[kind]["qconv1x1_fused"] == 37 * launches[kind]["qattn_fwd"],
+              f"image kinds cli predict [{kind}]: launches {launches[kind]}")
+    check(len(labels["kinds"]) > 0 and [p.name for p in labels["kinds"]] == [p.name for p in labels["png"]]
+          and all(x.read_bytes() == y.read_bytes() for x, y in zip(labels["kinds"], labels["png"])),
+          "image kinds cli predict: the labels of the kinds folder differ from those of its pixels as PNG")
+    rows = sum(len(p.read_text().splitlines()) for p in labels["kinds"])
+    print(f"image kinds: the {SPLIT_SIZE[1]} x {SPLIT_SIZE[0]} scene as a 256-tiled JPEG-YCbCr 4:2:0 BigTIFF "
+          f"({crops['tif']['bytes'] / 1e6:.2f} MB, written in {write_s:.2f} s) split in {crops['tif']['seconds']:.2f} s, "
+          f"its {n_crops} crops and labels byte-equal to its PNG twin's ({crops['png']['seconds']:.2f} s); obb "
+          f"predict of {len(kinds)} kinds through the CLI in {secs['kinds']:.1f} s, {rows} label rows equal to the PNG "
+          f"copies'; {card}")
+    return {"crops": n_crops, "split_tiff_s": crops["tif"]["seconds"], "split_png_s": crops["png"]["seconds"],
+            "scene_write_s": write_s, "scene_bytes": {k: v["bytes"] for k, v in crops.items()},
+            "cli_predict_s": secs, "launches_cli": launches["kinds"], "launches_cli_png": launches["png"],
+            "label_rows": rows, "kinds": kinds}
+
+
 def lap(t_start: float, what: str) -> None:
     """Print the script's seconds so far, after ``what``."""
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
@@ -5889,9 +6192,16 @@ def main() -> int:
         image_cfgs, image_val = phase_image_val(Path(tmp) / "sets", card)
         images = {"val": image_val, "fit": phase_image_fit(image_cfgs, card),
                   "sources": phase_image_sources(Path(tmp) / "sources", image_cfgs["png"], card)}
-    images["seconds"] = time.perf_counter() - t_images
-    print(f"image phases: {images['seconds']:.1f} s")
-    lap(t_start, "the image phases")
+        images["seconds"] = time.perf_counter() - t_images
+        print(f"image phases: {images['seconds']:.1f} s")
+        lap(t_start, "the image phases")
+        t_kinds = time.perf_counter()
+        images["kinds"] = {"sources": phase_image_kinds_sources(Path(tmp) / "kinds", image_cfgs["png"], card),
+                           **phase_image_kinds_val_fit(Path(tmp) / "kind_sets", image_cfgs["png"], card),
+                           "split_cli": phase_image_kinds_split_cli(Path(tmp) / "kind_split", card)}
+        images["kinds"]["seconds"] = time.perf_counter() - t_kinds
+    print(f"image kind phases: {images['kinds']['seconds']:.1f} s")
+    lap(t_start, "the image kind phases")
     t_asp_vp8 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_asp_vp8_") as tmp:
         videos["asp_vp8"] = {"decode": phase_video_asp_vp8_decode(card),
@@ -6050,6 +6360,13 @@ def main() -> int:
                          "image_fit_png": images["fit"]["png"]["launches"],
                          "image_cli_predict_mixed": images["sources"]["launches_cli"],
                          "image_cli_predict_png": images["sources"]["launches_cli_png"]})
+    # the newer TIFF and JPEG kinds: val on each kind set and its PNG twin (K1 and K3), the JPEG-TIFF set's fit epoch and
+    # its twin's (K1 and K2), obb predict of the kinds folder and of its PNG copies through the CLI (K1 and K3)
+    kinds = images["kinds"]
+    det_launches.update({f"image_val_{name}": r["launches"] for name, r in kinds["val"].items()})
+    det_launches.update({f"image_fit_{name}": r["launches"] for name, r in kinds["fit"].items()})
+    det_launches.update({"image_cli_predict_kinds": kinds["split_cli"]["launches_cli"],
+                         "image_cli_predict_kinds_png": kinds["split_cli"]["launches_cli_png"]})
     for path in [k for k in det_launches if k.startswith("image_")]:
         check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
         if path.startswith("image_fit"):

@@ -1,7 +1,8 @@
 // The loops of the BMP and TIFF readers and writers that numpy cannot
 // vectorise: BMP's RLE8 and RLE4 as OpenCV 5.0's decoder runs them
 // (grfmt_bmp.cpp), and TIFF's LZW (as libtiff decodes and encodes it),
-// PackBits and horizontal differencing.
+// PackBits, horizontal differencing and CCITT RLE, Group 3 (1-D and 2-D) and
+// Group 4 (ITU-T T.4 and T.6) as libtiff 4.7's tif_fax3.c decodes them.
 
 #include <stdint.h>
 #include <string.h>
@@ -33,9 +34,404 @@ struct RleState {
   }
 };
 
+// ---- CCITT RLE, Group 3 and Group 4 ------------------------------------------
+//
+// The decoder keeps libtiff's bit accumulator (least significant bit first,
+// zeros padded past the end of the data, which may also pad a byte-aligned
+// RLE row by a bit), its run arrays (white and black runs alternating, the
+// previous row's runs as the 2-D reference) and its handling of damaged rows:
+// a row whose runs do not add up to the width is cut or padded (tif_fax3.c
+// CLEANUP_RUNS), a bad code word ends the row, and data that ends before the
+// last row ends the strip there. The code tables are built from T.4's code
+// words as mkg3states.c builds tif_fax3sm.c.
+
+enum FaxState : uint8_t { S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW, S_TermB, S_MakeUpW,
+                          S_MakeUpB, S_MakeUp, S_EOL };
+
+struct FaxEnt {
+  uint8_t state = S_Null, width = 0;
+  uint16_t param = 0;
+};
+
+const char* const kWhiteTerm[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111", "10011", "10100", "00111", "01000",
+    "001000", "000011", "110100", "110101", "101010", "101011", "0100111", "0001100", "0001000", "0010111",
+    "0000011", "0000100", "0101000", "0101011", "0010011", "0100100", "0011000", "00000010", "00000011",
+    "00011010", "00011011", "00010010", "00010011", "00010100", "00010101", "00010110", "00010111", "00101000",
+    "00101001", "00101010", "00101011", "00101100", "00101101", "00000100", "00000101", "00001010", "00001011",
+    "01010010", "01010011", "01010100", "01010101", "00100100", "00100101", "01011000", "01011001", "01011010",
+    "01011011", "01001010", "01001011", "00110010", "00110011", "00110100"};
+const char* const kWhiteMakeUp[27] = {  // 64, 128, ..., 1728
+    "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100", "01100101", "01101000",
+    "01100111", "011001100", "011001101", "011010010", "011010011", "011010100", "011010101", "011010110",
+    "011010111", "011011000", "011011001", "011011010", "011011011", "010011000", "010011001", "010011010",
+    "011000", "010011011"};
+const char* const kBlackTerm[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101", "000100", "0000100", "0000101",
+    "0000111", "00000100", "00000111", "000011000", "0000010111", "0000011000", "0000001000", "00001100111",
+    "00001101000", "00001101100", "00000110111", "00000101000", "00000010111", "00000011000", "000011001010",
+    "000011001011", "000011001100", "000011001101", "000001101000", "000001101001", "000001101010",
+    "000001101011", "000011010010", "000011010011", "000011010100", "000011010101", "000011010110",
+    "000011010111", "000001101100", "000001101101", "000011011010", "000011011011", "000001010100",
+    "000001010101", "000001010110", "000001010111", "000001100100", "000001100101", "000001010010",
+    "000001010011", "000000100100", "000000110111", "000000111000", "000000100111", "000000101000",
+    "000001011000", "000001011001", "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111"};
+const char* const kBlackMakeUp[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011", "000000110011", "000000110100",
+    "000000110101", "0000001101100", "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+    "0000001001101", "0000001110010", "0000001110011", "0000001110100", "0000001110101", "0000001110110",
+    "0000001110111", "0000001010010", "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+    "0000001011011", "0000001100100", "0000001100101"};
+const char* const kMakeUp[13] = {  // 1792, 1856, ..., 2560: both colours
+    "00000001000", "00000001100", "00000001101", "000000010010", "000000010011", "000000010100",
+    "000000010101", "000000010110", "000000010111", "000000011100", "000000011101", "000000011110",
+    "000000011111"};
+
+// mkg3states.c FillTable: every ``size``-bit index whose first bits (least
+// significant first) are the code word
+void fax_fill(FaxEnt* t, int size, const char* bits, FaxState state, int param) {
+  int width = (int)strlen(bits), code = 0;
+  for (int i = 0; i < width; ++i)
+    if (bits[i] == '1') code |= 1 << i;
+  for (int c = code; c < (1 << size); c += 1 << width) t[c] = FaxEnt{(uint8_t)state, (uint8_t)width, (uint16_t)param};
+}
+
+struct FaxTables {
+  FaxEnt mode[128], white[4096], black[8192];
+  FaxTables() {
+    fax_fill(mode, 7, "0001", S_Pass, 0);
+    fax_fill(mode, 7, "001", S_Horiz, 0);
+    fax_fill(mode, 7, "1", S_V0, 0);
+    fax_fill(mode, 7, "011", S_VR, 1);
+    fax_fill(mode, 7, "000011", S_VR, 2);
+    fax_fill(mode, 7, "0000011", S_VR, 3);
+    fax_fill(mode, 7, "010", S_VL, 1);
+    fax_fill(mode, 7, "000010", S_VL, 2);
+    fax_fill(mode, 7, "0000010", S_VL, 3);
+    fax_fill(mode, 7, "0000001", S_Ext, 0);
+    fax_fill(mode, 7, "0000000", S_EOL, 0);
+    for (int i = 0; i < 27; ++i) fax_fill(white, 12, kWhiteMakeUp[i], S_MakeUpW, 64 * (i + 1));
+    for (int i = 0; i < 13; ++i) fax_fill(white, 12, kMakeUp[i], S_MakeUp, 1792 + 64 * i);
+    for (int i = 0; i < 64; ++i) fax_fill(white, 12, kWhiteTerm[i], S_TermW, i);
+    fax_fill(white, 12, "00000000000", S_EOL, 0);
+    for (int i = 0; i < 27; ++i) fax_fill(black, 13, kBlackMakeUp[i], S_MakeUpB, 64 * (i + 1));
+    for (int i = 0; i < 13; ++i) fax_fill(black, 13, kMakeUp[i], S_MakeUp, 1792 + 64 * i);
+    for (int i = 0; i < 64; ++i) fax_fill(black, 13, kBlackTerm[i], S_TermB, i);
+    fax_fill(black, 13, "00000000000", S_EOL, 0);
+  }
+};
+
+struct FaxDecoder {
+  const uint8_t* cp;
+  const uint8_t* ep;
+  bool reverse;  // FillOrder 1: the first bit of the data is each byte's high bit
+  uint32_t acc = 0;
+  int avail = 0, eolcnt = 0;
+  int lastx;
+  long nruns;
+  std::vector<uint32_t> runs;
+  uint32_t* cur;
+  uint32_t* ref;
+  const FaxTables& tab;
+
+  FaxDecoder(const uint8_t* in, long n, bool lsb_first, int width, bool two_d, const FaxTables& t)
+      : cp(in), ep(in + n), reverse(!lsb_first), lastx(width), tab(t) {
+    nruns = ((long)width + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
+    runs.assign(2 * nruns + 2, 0);
+    cur = runs.data();
+    ref = two_d ? runs.data() + nruns : nullptr;
+    if (ref) {
+      ref[0] = (uint32_t)width;
+      ref[1] = 0;
+    }
+  }
+  static uint8_t rev(uint8_t b) {
+    b = (uint8_t)((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+    b = (uint8_t)((b & 0xCC) >> 2 | (b & 0x33) << 2);
+    return (uint8_t)((b & 0xAA) >> 1 | (b & 0x55) << 1);
+  }
+  uint32_t next() { return reverse ? rev(*cp++) : *cp++; }
+  // NeedBits8 / NeedBits16: false where the data has ended with no bit left
+  bool need8(int n) {
+    if (avail < n) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = n;
+      } else {
+        acc |= next() << avail;
+        avail += 8;
+      }
+    }
+    return true;
+  }
+  bool need16(int n) {
+    if (avail < n) {
+      if (cp >= ep) {
+        if (avail == 0) return false;
+        avail = n;
+      } else {
+        acc |= next() << avail;
+        if ((avail += 8) < n) {
+          if (cp >= ep) {
+            avail = n;
+          } else {
+            acc |= next() << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  uint32_t get(int n) const { return acc & ((1u << n) - 1); }
+  void clr(int n) {
+    avail -= n;
+    acc >>= n;
+  }
+  // the bits to the next byte boundary of the data (RLE rows are byte-aligned)
+  void align() { clr(avail & 7); }
+
+  // _TIFFFax3fillruns: white and black runs from x = 0 into a row of bits (black = 1), clipped at lastx
+  void fill(uint8_t* row, uint32_t* r, uint32_t* erun) {
+    if ((erun - r) & 1) *erun++ = 0;
+    long x = 0;
+    for (; r < erun; r += 2) {
+      for (int k = 0; k < 2; ++k) {
+        long run = r[k];
+        if (x + run > lastx || run > lastx) run = r[k] = (uint32_t)(lastx - x);
+        if (k == 1)
+          for (long i = x; i < x + run; ++i) row[i >> 3] |= (uint8_t)(0x80 >> (i & 7));
+        x += run;
+      }
+    }
+  }
+};
+
+// One row's runs into ``pa``; the outcome: 0 the row ended (maybe cut or padded),
+// 1 the data ended (premature EOF), -1 the strip fails (run buffer overflow).
+struct FaxRow {
+  FaxDecoder& d;
+  uint32_t* thisrun;
+  uint32_t* pa;
+  uint32_t* pb = nullptr;
+  long a0 = 0, run_length = 0, b1 = 0;
+
+  bool setvalue(long x) {  // SETVALUE
+    if (pa >= thisrun + d.nruns) return false;
+    *pa++ = (uint32_t)(run_length + x);
+    a0 += x;
+    run_length = 0;
+    return true;
+  }
+  bool cleanup() {  // CLEANUP_RUNS
+    if (run_length && !setvalue(0)) return false;
+    if (a0 != d.lastx) {
+      while (a0 > d.lastx && pa > thisrun) a0 -= *--pa;
+      if (a0 < d.lastx) {
+        if (a0 < 0) a0 = 0;
+        if (((pa - thisrun) & 1) && !setvalue(0)) return false;
+        if (!setvalue(d.lastx - a0)) return false;
+      } else if (a0 > d.lastx) {
+        if (!setvalue(d.lastx) || !setvalue(0)) return false;
+      }
+    }
+    return true;
+  }
+  // one run of ``colour`` (makeup codes, then a terminating code): 0 done, 1 EOL,
+  // 2 a bad code word, 3 the data ended, -1 overflow
+  int run(bool black) {
+    for (;;) {
+      int wid = black ? 13 : 12;
+      if (!d.need16(wid)) return 3;
+      const FaxEnt& e = (black ? d.tab.black : d.tab.white)[d.get(wid)];
+      d.clr(e.width);
+      switch (e.state) {
+        case S_EOL:
+          return 1;
+        case S_TermW:
+        case S_TermB:
+          return setvalue(e.param) ? 0 : -1;
+        case S_MakeUpW:
+        case S_MakeUpB:
+        case S_MakeUp:
+          a0 += e.param;
+          run_length += e.param;
+          break;
+        default:
+          return 2;
+      }
+    }
+  }
+  // EXPAND1D: 0 row done, 1 the data ended, -1 fail
+  int expand1d() {
+    for (;;) {
+      int st = run(false);
+      if (st == 1) d.eolcnt = 1;
+      if (st == 1 || st == 2) return cleanup() ? 0 : -1;
+      if (st == 3) return cleanup() ? 1 : -1;
+      if (st < 0) return -1;
+      if (a0 >= d.lastx) return cleanup() ? 0 : -1;
+      st = run(true);
+      if (st == 1) d.eolcnt = 1;
+      if (st == 1 || st == 2) return cleanup() ? 0 : -1;
+      if (st == 3) return cleanup() ? 1 : -1;
+      if (st < 0) return -1;
+      if (a0 >= d.lastx) return cleanup() ? 0 : -1;
+      if (*(pa - 1) == 0 && *(pa - 2) == 0) pa -= 2;
+    }
+  }
+  bool check_b1() {  // CHECK_b1
+    if (pa != thisrun)
+      while (b1 <= a0 && b1 < d.lastx) {
+        if (pb + 1 >= d.ref + d.nruns) return false;
+        b1 += pb[0] + pb[1];
+        pb += 2;
+      }
+    return true;
+  }
+  bool step_b1() {
+    if (pb >= d.ref + d.nruns) return false;
+    b1 += *pb++;
+    return true;
+  }
+  // EXPAND2D against the reference runs ``d.ref``: 0 row done, 1 the data ended, -1 fail
+  int expand2d() {
+    pb = d.ref;
+    b1 = *pb++;
+    while (a0 < d.lastx) {
+      if (pa >= thisrun + d.nruns) return -1;
+      if (!d.need8(7)) return cleanup() ? 1 : -1;
+      const FaxEnt& e = d.tab.mode[d.get(7)];
+      d.clr(e.width);
+      int st;
+      switch (e.state) {
+        case S_Pass:
+          if (!check_b1() || !step_b1()) return -1;
+          run_length += b1 - a0;
+          a0 = b1;
+          if (!step_b1()) return -1;
+          break;
+        case S_Horiz: {
+          bool black_first = (pa - thisrun) & 1;
+          st = run(black_first);
+          if (st == 0) st = run(!black_first);
+          if (st == 1 || st == 2) return cleanup() ? 0 : -1;  // a bad code (an EOL is one here)
+          if (st == 3) return cleanup() ? 1 : -1;
+          if (st < 0) return -1;
+          if (!check_b1()) return -1;
+          break;
+        }
+        case S_V0:
+          if (!check_b1() || !setvalue(b1 - a0) || !step_b1()) return -1;
+          break;
+        case S_VR:
+          if (!check_b1() || !setvalue(b1 - a0 + e.param) || !step_b1()) return -1;
+          break;
+        case S_VL:
+          if (!check_b1()) return -1;
+          if (b1 < a0 + e.param) return cleanup() ? 0 : -1;
+          if (!setvalue(b1 - a0 - e.param)) return -1;
+          b1 -= *--pb;
+          break;
+        case S_Ext:
+          *pa++ = (uint32_t)(d.lastx - a0);
+          return cleanup() ? 0 : -1;
+        case S_EOL:
+          *pa++ = (uint32_t)(d.lastx - a0);
+          if (!d.need8(4)) return cleanup() ? 1 : -1;
+          d.clr(4);
+          d.eolcnt = 1;
+          return cleanup() ? 0 : -1;
+        default:
+          return cleanup() ? 0 : -1;
+      }
+    }
+    if (run_length) {
+      if (run_length + a0 < d.lastx) {  // expect a final V0
+        if (!d.need8(1)) return cleanup() ? 1 : -1;
+        if (!d.get(1)) return cleanup() ? 0 : -1;
+        d.clr(1);
+      }
+      if (!setvalue(0)) return -1;
+    }
+    return cleanup() ? 0 : -1;
+  }
+};
+
+// SYNC_EOL: past the next EOL (an EOL already met needs only its final 1 bit);
+// false where the data ends first
+bool fax_sync_eol(FaxDecoder& d) {
+  if (d.eolcnt == 0) {
+    for (;;) {
+      if (!d.need16(11)) return false;
+      if (d.get(11) == 0) break;
+      d.clr(1);
+    }
+  }
+  for (;;) {
+    if (!d.need8(8)) return false;
+    if (d.get(8)) break;
+    d.clr(8);
+  }
+  while (d.get(1) == 0) d.clr(1);
+  d.clr(1);
+  d.eolcnt = 0;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
+
+// CCITT-coded strip or tile -> ``rows`` rows of ``width`` bits (black = 1,
+// rows of (width + 7) / 8 bytes, ``out`` zeroed by the caller). ``mode``: 2
+// RLE (Modified Huffman, byte-aligned rows), 3 Group 3 (``two_d``: T4Options
+// bit 0), 4 Group 4; ``lsb_first``: FillOrder 2. Returns 0, or -1 where
+// libtiff fails the strip: ``out`` then holds the rows decoded before the
+// fault (and the faulty one as libtiff fills it), which is what OpenCV shows,
+// as its RGBA reads do not stop on an error.
+int tiff_fax_decode(const uint8_t* in, long n, int mode, int two_d, int lsb_first, int width, int rows,
+                    uint8_t* out) {
+  static const FaxTables tables;
+  const bool ref_line = mode == 4 || (mode == 3 && two_d);
+  FaxDecoder d(in, n, lsb_first != 0, width, ref_line, tables);
+  const long rowbytes = (width + 7) / 8;
+  for (int line = 0; line < rows; ++line) {
+    uint8_t* row = out + line * rowbytes;
+    FaxRow r{d, d.cur, d.cur};
+    int st;
+    if (mode == 3) {
+      if (!fax_sync_eol(d)) return -1;  // the row stays white
+      bool one_d = true;
+      if (two_d) {
+        if (!d.need8(1)) return -1;
+        one_d = d.get(1);
+        d.clr(1);
+      }
+      st = one_d ? r.expand1d() : r.expand2d();
+    } else {
+      st = mode == 2 ? r.expand1d() : r.expand2d();
+    }
+    if (st < 0) return -1;  // a run buffer overflow: the row is not filled
+    d.fill(row, r.thisrun, r.pa);
+    if (mode == 2) {
+      if (st) return -1;
+      d.align();
+    } else if (mode == 3) {
+      if (st) return -1;
+      if (two_d) {
+        if (r.pa < r.thisrun + d.nruns) r.setvalue(0);  // imaginary change for reference
+        std::swap(d.cur, d.ref);
+      }
+    } else {
+      if (st || d.eolcnt) return line ? 0 : -1;  // EOFB, or the data ended: this row, then no more
+      if (!r.setvalue(0)) return -1;
+      std::swap(d.cur, d.ref);
+    }
+  }
+  return 0;
+}
 
 // BMP RLE8 (rle4 = 0) or RLE4 (rle4 = 1) pixel data -> palette indices
 // [height, width] in the order the rows are stored (bottom-up files are

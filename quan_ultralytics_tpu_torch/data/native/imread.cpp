@@ -20,8 +20,15 @@
 //     replicated as the main controller's context rows are (jdmainct.c), and
 //     replication for the other ratios (int_upsample);
 //   * the fixed-point YCbCr->RGB tables (jdcolor.c, build_ycc_rgb_table).
-// Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files are
-// refused with an error code that native.py raises as NotImplementedError.
+// Four-component (CMYK) files, Adobe transform 0 or no Adobe marker, come
+// out of libjpeg as CMYK and through OpenCV's CMYK->BGR
+// (imgcodecs/src/utils.cpp, icvCvt_CMYK2BGR_8u_C4C3R). The same decoder reads
+// the strips and tiles of JPEG-in-TIFF (jpeg_decode_tiff): an abbreviated
+// tables-only stream (the JPEGTables tag) read first, then the segment's own
+// stream, its colour converted only where libtiff asks libjpeg for RGB.
+// Arithmetic-coded, lossless, hierarchical, 12-bit and YCCK (Adobe
+// transform 2) files are refused with an error code that native.py raises
+// as NotImplementedError.
 
 #include <cmath>
 #include <cstdint>
@@ -46,6 +53,8 @@ enum Status {
   E_SIZE = 12,
   E_NO_FRAME = 13,
   E_DNL = 14,
+  E_YCCK = 15,
+  E_TIFF_LAYOUT = 16,
 };
 
 const char* const kMessages[] = {
@@ -57,13 +66,15 @@ const char* const kMessages[] = {
     "lossless or hierarchical JPEG is not supported",
     "only 8-bit JPEG samples are supported",
     "this chroma subsampling is not supported",
-    "only 1- and 3-component JPEG files are supported (no CMYK)",
+    "only 1-, 3- and 4-component (CMYK) JPEG files are supported",
     "bad Huffman code or table",
     "corrupt JPEG data",
     "unknown PNG filter type",
     "the image size does not match the header",
     "no frame header before the scan",
     "height given by a DNL marker is not supported",
+    "YCCK JPEG (Adobe transform 2) is not supported",
+    "the JPEG's components or sampling factors are not those the TIFF's tags give",
 };
 
 // zigzag index -> natural (row-major) index, with the 16 extra entries
@@ -344,6 +355,8 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   bool frame = false, jfif = false, adobe = false;
+  bool four_components = false;  // take CMYK / YCCK frames (a JPEG file's reader)
+  bool tables_only = false;      // an abbreviated stream of tables alone is complete
   int adobe_transform = -1;
   int restart_interval = 0;
   bool progressive = false;
@@ -382,7 +395,7 @@ struct Decoder {
     ncomp = data[s + 5];
     if (height == 0) return E_DNL;
     if (width == 0) return E_BAD_DATA;
-    if (ncomp != 1 && ncomp != 3) return E_COMPONENTS;
+    if (ncomp != 1 && ncomp != 3 && !(ncomp == 4 && four_components)) return E_COMPONENTS;
     if (len < 8 + 3 * ncomp) return E_BAD_DATA;
     hmax = vmax = 1;
     for (int i = 0; i < ncomp; ++i) {
@@ -744,10 +757,10 @@ struct Decoder {
     while (true) {
       while (pos < n && data[pos] != 0xFF) ++pos;  // garbage between segments
       while (pos < n && data[pos] == 0xFF) ++pos;
-      if (pos >= n) return scanned ? OK : E_TRUNCATED;
+      if (pos >= n) return scanned || (tables_only && !frame) ? OK : E_TRUNCATED;
       int marker = data[pos++];
       int st = OK;
-      if (marker == 0xD9) return scanned ? OK : E_TRUNCATED;
+      if (marker == 0xD9) return scanned || (tables_only && !frame) ? OK : E_TRUNCATED;
       if (marker >= 0xC0 && marker <= 0xCF && marker != 0xC4 && marker != 0xC8 && marker != 0xCC) {
         if (frame) return E_BAD_DATA;
         st = parse_sof(marker);
@@ -848,6 +861,28 @@ void upsample(const Component& c, int hmax, int vmax, int width, int height, uin
   }
 }
 
+// jdcolor.c build_ycc_rgb_table and ycc_rgb_convert: planes Y, Cb, Cr -> interleaved RGB
+void ycc_to_rgb(const uint8_t* p0, const uint8_t* p1, const uint8_t* p2, size_t npix, uint8_t* out) {
+  constexpr int SCALEBITS = 16;
+  constexpr int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
+  auto fix = [](double x) { return (int64_t)(x * (1L << SCALEBITS) + 0.5); };
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  for (int i = 0, x = -128; i < 256; ++i, ++x) {
+    cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+    cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+  }
+  auto limit = [](int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+  for (size_t i = 0; i < npix; ++i) {
+    int y = p0[i], cb = p1[i], cr = p2[i];
+    out[3 * i] = limit(y + cr_r[cr]);
+    out[3 * i + 1] = limit(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
+    out[3 * i + 2] = limit(y + cb_b[cb]);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -904,9 +939,13 @@ int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int height, int width
   Decoder d;
   d.data = data;
   d.n = (size_t)n;
+  d.four_components = true;
   int st = d.parse();
   if (st) return st;
   if (!d.frame) return E_NO_FRAME;
+  // libjpeg's colour space of a 4-component file: CMYK without an Adobe marker or with
+  // transform 0, YCCK with any other transform (jdapimin.c default_decompress_parms)
+  if (d.ncomp == 4 && d.adobe && d.adobe_transform != 0) return E_YCCK;
   if (d.height != height || d.width != width) return E_SIZE;
   if (d.progressive) d.idct_planes();
   size_t npix = (size_t)width * height;
@@ -920,6 +959,17 @@ int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int height, int width
   upsample(d.comp[0], d.hmax, d.vmax, width, height, p0.data());
   upsample(d.comp[1], d.hmax, d.vmax, width, height, p1.data());
   upsample(d.comp[2], d.hmax, d.vmax, width, height, p2.data());
+  if (d.ncomp == 4) {
+    std::vector<uint8_t> p3(npix);
+    upsample(d.comp[3], d.hmax, d.vmax, width, height, p3.data());
+    for (size_t i = 0; i < npix; ++i) {  // icvCvt_CMYK2BGR_8u_C4C3R
+      int k = p3[i];
+      out[3 * i] = (uint8_t)(k - ((255 - p0[i]) * k >> 8));
+      out[3 * i + 1] = (uint8_t)(k - ((255 - p1[i]) * k >> 8));
+      out[3 * i + 2] = (uint8_t)(k - ((255 - p2[i]) * k >> 8));
+    }
+    return OK;
+  }
   if (d.is_rgb()) {
     for (size_t i = 0; i < npix; ++i) {
       out[3 * i] = p0[i];
@@ -928,25 +978,52 @@ int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int height, int width
     }
     return OK;
   }
-  // jdcolor.c build_ycc_rgb_table and ycc_rgb_convert
-  constexpr int SCALEBITS = 16;
-  constexpr int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
-  auto fix = [](double x) { return (int64_t)(x * (1L << SCALEBITS) + 0.5); };
-  int cr_r[256], cb_b[256];
-  int64_t cr_g[256], cb_g[256];
-  for (int i = 0, x = -128; i < 256; ++i, ++x) {
-    cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
-    cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
-    cr_g[i] = -fix(0.71414) * x;
-    cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+  ycc_to_rgb(p0.data(), p1.data(), p2.data(), npix, out);
+  return OK;
+}
+
+// Decode one strip or tile of a JPEG-in-TIFF file (compression 7), as libtiff
+// 4.7 drives libjpeg (tif_jpeg.c): ``tables`` (``ntables`` bytes, 0 for none)
+// is the JPEGTables tag's abbreviated stream, read for its tables before the
+// segment's stream ``data``. The frame must hold ``ncomp`` components, the
+// first sampled ``hs`` x ``vs`` and the others 1 x 1. ``out`` takes
+// ``height * width * ncomp`` interleaved samples (the frame's size): with
+// ``ycc`` (photometric YCbCr, JPEGCOLORMODE_RGB) the components are upsampled
+// and converted to RGB by libjpeg's tables, otherwise they come out as stored.
+int jpeg_decode_tiff(const uint8_t* tables, long ntables, const uint8_t* data, long n, uint8_t* out, int height,
+                     int width, int ncomp, int hs, int vs, int ycc) {
+  Decoder d;
+  d.four_components = true;
+  int st;
+  if (ntables > 0) {
+    d.data = tables;
+    d.n = (size_t)ntables;
+    d.tables_only = true;
+    st = d.parse();
+    if (st) return st;
+    if (d.frame) return E_BAD_DATA;
+    d.tables_only = false;
   }
-  auto limit = [](int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); };
-  for (size_t i = 0; i < npix; ++i) {
-    int y = p0[i], cb = p1[i], cr = p2[i];
-    out[3 * i] = limit(y + cr_r[cr]);
-    out[3 * i + 1] = limit(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-    out[3 * i + 2] = limit(y + cb_b[cb]);
+  d.data = data;
+  d.n = (size_t)n;
+  d.pos = 0;
+  st = d.parse();
+  if (st) return st;
+  if (!d.frame) return E_NO_FRAME;
+  if (d.height != height || d.width != width) return E_SIZE;
+  if (d.ncomp != ncomp || d.comp[0].h != hs || d.comp[0].v != vs) return E_TIFF_LAYOUT;
+  for (int i = 1; i < d.ncomp; ++i)
+    if (d.comp[i].h != 1 || d.comp[i].v != 1) return E_TIFF_LAYOUT;
+  if (d.progressive) d.idct_planes();
+  size_t npix = (size_t)width * height;
+  std::vector<uint8_t> planes((size_t)ncomp * npix);
+  for (int i = 0; i < ncomp; ++i) upsample(d.comp[i], d.hmax, d.vmax, width, height, planes.data() + i * npix);
+  if (ycc && ncomp == 3) {
+    ycc_to_rgb(planes.data(), planes.data() + npix, planes.data() + 2 * npix, npix, out);
+    return OK;
   }
+  for (size_t i = 0; i < npix; ++i)
+    for (int c = 0; c < ncomp; ++c) out[i * ncomp + c] = planes[c * npix + i];
   return OK;
 }
 

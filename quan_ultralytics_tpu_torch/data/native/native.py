@@ -12,11 +12,15 @@ the pixels OpenCV gives (gray replicated to three channels, alpha dropped).
   in place). 16-bit samples keep their high byte, as OpenCV 5's
   ``IMREAD_COLOR`` gives them.
 * JPEG: baseline, extended sequential and progressive Huffman files, decoded
-  in C++ with libjpeg-turbo's arithmetic (``imread.cpp``); arithmetic-coded,
-  lossless, hierarchical, 12-bit and CMYK files raise `NotImplementedError`.
-* BMP (`bmp`), TIFF (`tiff`) and WebP (`webp`, lossless VP8L and lossy VP8
-  key frames): each module's docstring lists what it reads. A file is taken
-  by its signature, not its suffix.
+  in C++ with libjpeg-turbo's arithmetic (``imread.cpp``); four-component
+  (CMYK, Adobe transform 0) files come out of libjpeg as CMYK and through
+  OpenCV's CMYK->BGR; arithmetic-coded, lossless, hierarchical, 12-bit and
+  YCCK files raise `NotImplementedError`. The same decoder reads the strips
+  and tiles of JPEG-in-TIFF (`decode_jpeg_segment`).
+* BMP (`bmp`), TIFF (`tiff`: classic and BigTIFF, JPEG-in-TIFF, CCITT, raw
+  YCbCr, CMYK and CIELab among its kinds) and WebP (`webp`, lossless VP8L and
+  lossy VP8 key frames): each module's docstring lists what it reads. A file
+  is taken by its signature, not its suffix.
 * EXIF orientation (a JPEG's APP1 ``Exif`` segment, a PNG's ``eXIf`` chunk,
   a WebP's ``EXIF`` chunk): orientations 2-8 flip and transpose the pixels as
   ``IMREAD_COLOR`` does (`apply_orientation`), and `read_shape` gives the
@@ -64,7 +68,7 @@ WEBP_LIB_NAME = "libquan_torch_webp.so"
 JPEG_QUALITY = 95  # cv2.imwrite's default
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # imread.cpp's status codes that mean "a kind of file this reader does not take"
-_NOT_IMPLEMENTED = {3, 4, 5, 6, 7, 8, 14}
+_NOT_IMPLEMENTED = {3, 4, 5, 6, 7, 8, 14, 15}
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
@@ -90,7 +94,9 @@ def library() -> ctypes.CDLL:
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.png_unfilter.argtypes = [u8p, ctypes.c_int, ctypes.c_long, ctypes.c_int, u8p]
         lib.jpeg_decode.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_int, ctypes.c_int]
-        lib.png_unfilter.restype = lib.jpeg_decode.restype = ctypes.c_int
+        i = ctypes.c_int
+        lib.jpeg_decode_tiff.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, u8p, i, i, i, i, i, i]
+        lib.png_unfilter.restype = lib.jpeg_decode.restype = lib.jpeg_decode_tiff.restype = ctypes.c_int
         lib.imread_error.argtypes = [ctypes.c_int]
         lib.imread_error.restype = ctypes.c_char_p
         _lib = lib
@@ -111,7 +117,7 @@ def write_library() -> ctypes.CDLL:
 
 
 def codecs_library() -> ctypes.CDLL:
-    """BMP's RLE and TIFF's LZW, PackBits and predictor (``codecs.cpp``), built on first call."""
+    """BMP's RLE and TIFF's LZW, PackBits, predictor and CCITT (``codecs.cpp``), built on first call."""
     global _codecs_lib
     if _codecs_lib is None:
         lib = ctypes.CDLL(str(build_cxx(CODECS_SOURCE, CODECS_LIB_NAME, CXX_FLAGS, BUILD_DIR)))
@@ -123,6 +129,9 @@ def codecs_library() -> ctypes.CDLL:
             fn.restype = lg
         lib.tiff_undo_predictor.argtypes = [vp, lg, lg, ctypes.c_int, ctypes.c_int]
         lib.tiff_undo_predictor.restype = None
+        i = ctypes.c_int
+        lib.tiff_fax_decode.argtypes = [vp, lg, i, i, i, i, i, vp]
+        lib.tiff_fax_decode.restype = i
         _codecs_lib = lib
     return _codecs_lib
 
@@ -200,6 +209,13 @@ def _turned(shape: Tuple[int, int], orientation: int) -> Tuple[int, int]:
 
 def _jpeg_header(data: bytes, path: PathLike) -> Tuple[int, int, int]:
     """(h, w) from the frame header, and the EXIF orientation (1 without one)."""
+    h, w, _, _, orientation = jpeg_frame(data, path)
+    return h, w, orientation
+
+
+def jpeg_frame(data: bytes, path: PathLike) -> Tuple[int, int, int, Tuple[int, int], int]:
+    """(h, w, components, the first component's (h, v) sampling factors) from
+    the frame header, and the EXIF orientation (1 without one)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG file")
     pos, orientation = 2, 1
@@ -216,14 +232,28 @@ def _jpeg_header(data: bytes, path: PathLike) -> Tuple[int, int, int]:
         if marker == 0xE1 and seg[:6] == b"Exif\x00\x00" and orientation == 1:
             orientation = _exif_orientation(seg[6:])
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            if len(seg) < 5:
+            if len(seg) < 9:
                 break
             h, w = struct.unpack(">HH", seg[1:5])
-            return h, w, orientation
+            return h, w, seg[5], (seg[7] >> 4, seg[7] & 15), orientation
         if marker in (0xD9, 0xDA):
             break
         pos += 2 + length
     raise ValueError(f"{path}: no JPEG frame header")
+
+
+def decode_jpeg_segment(data: bytes, tables: bytes, ncomp: int, sampling: Tuple[int, int], ycc: bool,
+                        path: PathLike) -> np.ndarray:
+    """One strip or tile of a JPEG-in-TIFF file: ``uint8 [h, w, ncomp]`` at the
+    frame's size, after the abbreviated ``tables`` stream (``b""`` for none);
+    the first component sampled ``sampling`` (h, v) and the others 1 x 1;
+    ``ycc`` converts YCbCr to RGB as libjpeg does for libtiff's RGBA reads."""
+    h, w = jpeg_frame(data, path)[:2]
+    buf, tab = np.frombuffer(data, np.uint8), np.frombuffer(tables or b"\0", np.uint8)
+    out = np.empty((h, w, ncomp), np.uint8)
+    _check(library().jpeg_decode_tiff(_ptr(tab), len(tables), _ptr(buf), len(data), _ptr(out), h, w, ncomp,
+                                      sampling[0], sampling[1], int(ycc)), path)
+    return out
 
 
 def _decode_jpeg(data: bytes, path: PathLike) -> np.ndarray:

@@ -166,9 +166,9 @@ def _with_marker(jpg: bytes, old: int, new: int) -> bytes:
 
 def test_unsupported_images_raise(tmp_path):
     """What the readers refuse: arithmetic-coded, lossless, hierarchical,
-    12-bit and CMYK JPEG, other formats, cut and missing files. The kinds once
-    refused here (progressive JPEG, 16-bit and interlaced PNG, EXIF-rotated
-    files) decode as OpenCV decodes them."""
+    12-bit and YCCK JPEG, other formats, cut and missing files. The kinds once
+    refused here (progressive and CMYK JPEG, 16-bit and interlaced PNG,
+    EXIF-rotated files) decode as OpenCV decodes them."""
     from PIL import Image
 
     im = _image(16, 16, 3)
@@ -184,8 +184,11 @@ def test_unsupported_images_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="8-bit"):
         imread(tmp_path / "p12.jpg")
     Image.fromarray(im).convert("CMYK").save(tmp_path / "cmyk.jpg")
-    with pytest.raises(NotImplementedError, match="CMYK"):
-        imread(tmp_path / "cmyk.jpg")
+    cmyk = (tmp_path / "cmyk.jpg").read_bytes()
+    at = cmyk.index(b"Adobe") + 11  # APP14's transform: 2 is YCCK
+    (tmp_path / "ycck.jpg").write_bytes(cmyk[:at] + b"\x02" + cmyk[at + 1:])
+    with pytest.raises(NotImplementedError, match="YCCK"):
+        imread(tmp_path / "ycck.jpg")
     prog = tmp_path / "progressive.jpg"
     cv2.imwrite(str(prog), im, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     deep = tmp_path / "deep.png"
@@ -195,7 +198,7 @@ def test_unsupported_images_raise(tmp_path):
     (tmp_path / "rotated.jpg").write_bytes(_with_exif_orientation(jpg, 6))
     upright = tmp_path / "upright.jpg"
     upright.write_bytes(_with_exif_orientation(jpg, 1))
-    for p in (prog, deep, adam7, tmp_path / "rotated.jpg", upright):
+    for p in (prog, deep, adam7, tmp_path / "rotated.jpg", upright, tmp_path / "cmyk.jpg"):
         np.testing.assert_array_equal(imread(p), _cv2_rgb(p), err_msg=p.name)
     Image.fromarray(im).save(tmp_path / "a.gif")  # BMP, TIFF and WebP are read now: a GIF is not
     with pytest.raises(NotImplementedError, match="GIF file is not read"):
@@ -205,6 +208,25 @@ def test_unsupported_images_raise(tmp_path):
         imread(tmp_path / "cut.jpg")
     with pytest.raises(FileNotFoundError):
         imread(tmp_path / "missing.png")
+
+
+@pytest.mark.parametrize("subsampling", [None, 0, 1, 2])
+@pytest.mark.parametrize("progressive", [False, True])
+def test_cmyk_jpeg_as_opencv(tmp_path, subsampling, progressive):
+    """Four-component JPEG with Adobe's APP14 (transform 0), as PIL writes it
+    at every subsampling (its first component's factors; the others 1 x 1):
+    libjpeg's CMYK, then OpenCV's CMYK -> BGR."""
+    from PIL import Image
+
+    rng = np.random.default_rng((subsampling or 3) + 4 * progressive)
+    kw = {} if subsampling is None else {"subsampling": subsampling}  # None: PIL's default
+    for size in [(1, 1), (37, 53), (64, 64), (17, 130)]:
+        px = np.clip(np.add.outer(np.arange(size[0]) * 5, np.arange(size[1]) * 3)[..., None]
+                     + rng.integers(0, 60, size + (4,)), 0, 255).astype(np.uint8)
+        p = tmp_path / f"c{size[0]}.jpg"
+        Image.fromarray(px, "CMYK").save(p, quality=int(rng.integers(40, 96)), progressive=progressive, **kw)
+        np.testing.assert_array_equal(imread(p), _cv2_rgb(p))
+        assert read_shape(p) == size
 
 
 # ---------------------------------------------------------------- progressive JPEG, EXIF, 16-bit and Adam7 PNG
