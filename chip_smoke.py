@@ -259,9 +259,9 @@ Phases:
      libvpx's profiles 1 and 3 and error-resilient mode, golden-frame boosts)
      and the MPEG-4 Advanced Simple Profile ones (B-VOPs, quarter-pel, MPEG
      quantisation, Xvid's and DivX's user data, DivX's packed B-VOPs) against
-     their digests, the VP9 WebM's refusal against its message, and the
-     decode and RGB ms a frame of the 640 x 480 clip as VP8 WebM and as the
-     Xvid ASP AVI (``vp8.h`` and ``video.cpp`` on the card's host);
+     their digests, and the decode and RGB ms a frame of the 640 x 480 clip
+     as VP8 WebM and as the Xvid ASP AVI (``vp8.h`` and ``video.cpp`` on the
+     card's host);
  65. phase 59 on the VP8 WebM: ``detect track`` through ``cli.main`` and
      ``YOLO.track`` with BoT-SORT at 640 (K1 + K3), the streamed file's
      tracks equal to those of its decoded frames;
@@ -283,7 +283,22 @@ Phases:
      BigTIFF (crops byte-equal to those of the PNG scene of its decoded
      pixels) and ``obb predict`` through ``cli.main`` on a folder holding
      every new kind (labels equal to those of its pixels as PNG);
- 70. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 70. VP9 on the card's host: the VP9 fixtures (cv2's ``VP90``/``vp09`` clips
+     in WebM, Matroska, AVI and MP4; libvpx-vp9's tiles with backward
+     adaptation, lossless and segmented full-range streams, its two passes
+     with alternate references and compound prediction; superframes,
+     hidden, intra-only, show_existing and bilinear-filtered frames) against
+     their digests, the
+     FFV1 AVI's refusal against its message, and the decode and RGB ms a
+     frame of the 640 x 480 clip as VP9 WebM (``vp9.h``);
+ 71. phase 59 on the VP9 WebM: ``detect track`` through ``cli.main`` and
+     ``YOLO.track`` with BoT-SORT at 640 (K1 + K3), the streamed file's
+     tracks equal to those of its decoded frames;
+ 72. phase 60 on the VP9 clip's packets put into MP4 (``vp09``, by
+     ``tests/fixtures/make_video_fixtures.py``'s ``write_mp4``): ``obb
+     predict save=True`` at 1024 through ``cli.main`` and the bf16 facade
+     (K1 + K3), the file's boxes equal to those of its decoded frames;
+ 73. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -300,7 +315,8 @@ Phases:
      stem_deep1_dp_nccl_train, video_cli_track, video_track_botsort,
      video_cli_predict, video_predict, video_vp8_cli_track,
      video_vp8_track_botsort, video_asp_cli_predict, video_asp_predict,
-     image_val_{png,bmp,tiff_lzw_pred2,
+     video_vp9_cli_track, video_vp9_track_botsort, video_vp9_cli_predict,
+     video_vp9_predict, image_val_{png,bmp,tiff_lzw_pred2,
      tiff_tiled_deflate,webp_lossless}, image_fit_{bmp,png},
      image_cli_predict_{mixed,png}, image_val_{jpeg_ycbcr_bigtiff,cmyk_lzw}
      and their _png twins, image_fit_jpeg_ycbcr_bigtiff{,_png} and
@@ -5264,13 +5280,17 @@ VIDEO_CLIP = "track_640x480.mp4"  # make_clip's frames as mp4v MPEG-4 Part 2, th
 
 VIDEOS = Path(__file__).resolve().parent / "tests" / "fixtures" / "video"
 # phase 64's fixtures: VP8 and MPEG-4 Advanced Simple Profile (with Xvid's and DivX's
-# streams), and the refused VP9 WebM; phase 58 holds the others
+# streams); phase 70's: VP9 and the refused FFV1 AVI; phase 58 holds the others
 VIDEO_ASP_VP8 = {"vp8_64x48.webm", "vp8_p1_64x48.avi", "vp8_p3_er_64x48.avi", "vp8_p0_golden_64x48.avi",
                  "mpeg4_bvop_88x40.avi", "mpeg4_qpel_88x40.avi", "mpeg4_mq_88x40.avi", "mpeg4_asp_88x40.avi",
-                 "xvid_asp_88x40.avi", "divx_asp_88x40.avi", "divx_packed_88x40.avi", "vp9_64x48.webm",
+                 "xvid_asp_88x40.avi", "divx_asp_88x40.avi", "divx_packed_88x40.avi",
                  "track_640x480.webm", "track_640x480_xvid.avi"}
+VIDEO_VP9 = {"vp9_64x48.webm", "vp9_64x48.mkv", "vp9_64x48.avi", "vp9_64x48.mp4", "vp9_tiles_512x64.mkv",
+             "vp9_lossless_64x48.avi", "vp9_aq_96x64.mp4", "vp9_crafted_64x48.mkv", "vp9_arf_96x64.webm",
+             "vp9_bilinear_96x64.mkv", "track_640x480_vp9.webm", "ffv1_64x48.avi"}
 VIDEO_VP8_CLIP = "track_640x480.webm"  # make_clip's frames as cv2's VP80 WebM: phase 65's track source
 VIDEO_ASP_CLIP = "track_640x480_xvid.avi"  # B-VOPs and quarter-pel under Xvid's user data: phase 66's source
+VIDEO_VP9_CLIP = "track_640x480_vp9.webm"  # make_clip's frames as cv2's VP90 WebM: phase 71's track source
 
 
 def _video_fixtures(names, tag: str) -> dict:
@@ -5319,9 +5339,12 @@ def _video_ms(name: str) -> dict:
             t0 = time.perf_counter()
             ready = dec.send(packet) if packet is not None else dec.flush()
             t1 = time.perf_counter()
-            if ready:
+            while ready:  # a VP9 packet may show more than one frame
                 dec.rgb()
                 n += 1
+                t2 = time.perf_counter()
+                ready = dec.next()
+                t1 += time.perf_counter() - t2
             spent["decode"] += t1 - t0
             spent["rgb"] += time.perf_counter() - t1
         dec.close()
@@ -5347,7 +5370,7 @@ def phase_video_decode(card: str):
     Motion-JPEG clips (demux once, then decode and convert to RGB, mean of
     VIDEO_PASSES)."""
     digests = json.loads((VIDEOS.parent / "video_fixtures.json").read_text())
-    out = {"fixtures": _video_fixtures(set(digests) - VIDEO_ASP_VP8, "video decode"),
+    out = {"fixtures": _video_fixtures(set(digests) - VIDEO_ASP_VP8 - VIDEO_VP9, "video decode"),
            "ms_a_frame": {name: _video_ms(name) for name in ("track_640x480.mp4", "track_640x480.avi")}}
     _print_video("video decode", out, card)
     return out
@@ -5356,9 +5379,9 @@ def phase_video_decode(card: str):
 def phase_video_asp_vp8_decode(card: str):
     """64. The VP8 and MPEG-4 Advanced Simple Profile fixtures (B-VOPs,
     quarter-pel, MPEG quantisation; Xvid's and DivX's streams, DivX's packed
-    B-VOPs) through `video.frames`, each frame against the port's SHA-256,
-    the VP9 WebM's refusal against its recorded message; the decode and RGB
-    ms a frame of the 640 x 480 clip as VP8 WebM and as the Xvid ASP AVI."""
+    B-VOPs) through `video.frames`, each frame against the port's SHA-256;
+    the decode and RGB ms a frame of the 640 x 480 clip as VP8 WebM and as
+    the Xvid ASP AVI."""
     out = {"fixtures": _video_fixtures(VIDEO_ASP_VP8, "video VP8/ASP decode"),
            "ms_a_frame": {name: _video_ms(name) for name in (VIDEO_VP8_CLIP, VIDEO_ASP_CLIP)}}
     check(all(v["frames"] == TRACK_FRAMES for v in out["ms_a_frame"].values()),
@@ -5367,8 +5390,34 @@ def phase_video_asp_vp8_decode(card: str):
     return out
 
 
-def phase_video_track(root: Path, card: str, clip_name: str = VIDEO_CLIP):
-    """59 (and 65 with the VP8 WebM). ``detect track model=<seeded pkl> source=<clip>`` through
+def phase_video_vp9_decode(card: str):
+    """70. The VP9 fixtures (cv2's clips in the four containers; libvpx-vp9's
+    tiles with backward adaptation, lossless and segmented full-range
+    streams, its two passes with compound prediction; superframes, hidden,
+    intra-only, show_existing and bilinear-filtered frames)
+    through `video.frames`, each frame against the port's SHA-256, the FFV1
+    AVI's refusal against its recorded message; the decode and RGB ms a
+    frame of the 640 x 480 clip as VP9 WebM."""
+    out = {"fixtures": _video_fixtures(VIDEO_VP9, "video VP9 decode"),
+           "ms_a_frame": {VIDEO_VP9_CLIP: _video_ms(VIDEO_VP9_CLIP)}}
+    check(out["ms_a_frame"][VIDEO_VP9_CLIP]["frames"] == TRACK_FRAMES,
+          f"video VP9 decode: the clip's frames {out['ms_a_frame']}")
+    _print_video("video VP9 decode", out, card)
+    return out
+
+
+def vp9_clip_mp4(root: Path) -> Path:
+    """The VP9 clip's packets in an MP4 (``vp09``) under ``root``, as phase 72's source."""
+    from quan_ultralytics_tpu_torch.data.native import video
+
+    path = root / "track_640x480_vp9.mp4"
+    root.mkdir(parents=True, exist_ok=True)
+    fixture_maker("make_video_fixtures").write_mp4(path, video.demux(VIDEOS / VIDEO_VP9_CLIP).packets, TRACK_SIZE[1], TRACK_SIZE[0])
+    return path
+
+
+def phase_video_track(root: Path, card: str, clip_name=VIDEO_CLIP):
+    """59 (and 65 with the VP8 WebM, 71 with the VP9 WebM). ``detect track model=<seeded pkl> source=<clip>`` through
     ``cli.main`` (ByteTrack, the CLI's defaults, f32): a line a frame, K1 on
     the CUDA cores and K3 at every fused site each frame. Then
     ``YOLO.track(load_source(<clip.mp4>), tracker="botsort")`` with the
@@ -5382,7 +5431,7 @@ def phase_video_track(root: Path, card: str, clip_name: str = VIDEO_CLIP):
     from quan_ultralytics_tpu_torch.engine.model import YOLO
     from quan_ultralytics_tpu_torch.trackers import byte_tracker
 
-    clip = VIDEOS / clip_name
+    clip = clip_name if isinstance(clip_name, Path) else VIDEOS / clip_name
     pkl = seeded_pkl(root / "video_track_seeded.pkl", DET_MODEL, DET_NC)
     k3 = default_k3_sites(DET_MODEL, DET_NC)
     text, cli_s, cli_n = _cli(["detect", "track", f"model={pkl}", f"source={clip}", f"imgsz={DET_IMGSZ}"])
@@ -5436,15 +5485,15 @@ def phase_video_track(root: Path, card: str, clip_name: str = VIDEO_CLIP):
            "update_ms_a_frame": 1e3 * spent["update"] / TRACK_FRAMES,
            "infer_ms_a_frame": 1e3 * (total - spent["decode"] - spent["update"]) / TRACK_FRAMES,
            "tracks_a_frame": [len(t) for t in tracks], "thresholds": kw}
-    print(f"video track: detect track of {clip_name} through the CLI in {cli_s:.1f} s, {len(lines)} lines, "
+    print(f"video track: detect track of {clip.name} through the CLI in {cli_s:.1f} s, {len(lines)} lines, "
           f"launches {cli_n}; YOLO.track [botsort] {row['ms_a_frame']:.1f} ms a frame (decode "
           f"{row['decode_ms_a_frame']:.2f}, infer {row['infer_ms_a_frame']:.1f}, update "
           f"{row['update_ms_a_frame']:.2f}); launches {got}; tracks a frame {row['tracks_a_frame']}; {card}")
     return row
 
 
-def phase_video_predict(root: Path, card: str, clip_name: str = VIDEO_CLIP):
-    """60 (and 66 with the Xvid ASP AVI). ``obb predict model=<seeded pkl> source=<clip> save=True`` at
+def phase_video_predict(root: Path, card: str, clip_name=VIDEO_CLIP):
+    """60 (and 66 with the Xvid ASP AVI, 72 with the VP9 MP4). ``obb predict model=<seeded pkl> source=<clip> save=True`` at
     1024 through ``cli.main`` (f32): an im{i}.jpg a frame at the frame's size
     and the facade's lines for the decoded arrays; then the facade in bf16
     (K1 + K3 on the tensor cores): ``predict(<clip.mp4>)`` against
@@ -5454,7 +5503,7 @@ def phase_video_predict(root: Path, card: str, clip_name: str = VIDEO_CLIP):
     from quan_ultralytics_tpu_torch.data.native import native
     from quan_ultralytics_tpu_torch.engine.model import YOLO
 
-    clip = VIDEOS / clip_name
+    clip = clip_name if isinstance(clip_name, Path) else VIDEOS / clip_name
     pkl = seeded_pkl(root / "video_obb_seeded.pkl", MODEL, NC)
     arrays = list(load_source(clip))
     text, cli_s, cli_n = _cli(["obb", "predict", f"model={pkl}", f"source={clip}", f"imgsz={IMGSZ}", "save=True",
@@ -5486,7 +5535,7 @@ def phase_video_predict(root: Path, card: str, clip_name: str = VIDEO_CLIP):
     check(same, "video predict: the clip's detections differ from those of its decoded frames")
     row = {"cli_s": cli_s, "launches_cli": cli_n, "launches": got, "ms_a_frame": 1e3 * secs / TRACK_FRAMES,
            "detections": [len(r) for r in res]}
-    print(f"video predict: obb predict save=True of {clip_name} at {IMGSZ} through the CLI (f32) in {cli_s:.1f} s, "
+    print(f"video predict: obb predict save=True of {clip.name} at {IMGSZ} through the CLI (f32) in {cli_s:.1f} s, "
           f"{len(arrays)} im*.jpg, launches {cli_n}; bf16 facade: {row['ms_a_frame']:.1f} ms a frame from the file, "
           f"launches {got}, detections {row['detections']}; {card}")
     return row
@@ -5766,13 +5815,15 @@ KIND_FIXTURES = ("jpeg_cmyk", "jpeg_ycck", "tiff_bigtiff", "tiff_cmyk", "tiff_fl
                  "tiff_pil_lab", "tiff_pil_ycbcr", "tiff_ycbcr")  # name prefixes of its committed fixtures
 
 
-def image_maker():
-    """tests/fixtures/make_image_fixtures.py as a module: its TIFF container
-    writers need numpy, struct, zlib and the port's encoders only."""
+def fixture_maker(name: str):
+    """tests/fixtures/<name>.py as a module: make_image_fixtures' TIFF
+    container writers need numpy, struct, zlib and the port's encoders only,
+    make_video_fixtures' container writers numpy and struct (both import
+    OpenCV and PIL only where they call them)."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "tests" / "fixtures" / "make_image_fixtures.py"
-    spec = importlib.util.spec_from_file_location("make_image_fixtures", path)
+    path = Path(__file__).resolve().parent / "tests" / "fixtures" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -5846,7 +5897,7 @@ def phase_image_kinds_sources(root: Path, png_cfg, card: str, reps: int = 5):
     stem = next(Path(s.im_file).stem for s in YOLODataset(png_cfg, "val", task="obb").samples
                 if native.read_shape(s.im_file) == (1024, 1024))
     frame = native.imread(Path(png_cfg["path"]) / "images" / "train" / f"{stem}.png")
-    maker = image_maker()
+    maker = fixture_maker("make_image_fixtures")
     paths = {"cmyk_jpeg": fixtures / "image" / "jpeg_cmyk_1024.jpg"}
     for name in KIND_DECODES:
         paths[name] = root / f"frame_{name}.tif"
@@ -5883,7 +5934,7 @@ def phase_image_kinds_val_fit(root: Path, png_cfg, card: str):
     from quan_ultralytics_tpu_torch.engine.trainer import TrainConfig, Trainer
     from quan_ultralytics_tpu_torch.engine.validator import Validator
 
-    maker = image_maker()
+    maker = fixture_maker("make_image_fixtures")
     src = Path(png_cfg["path"])
     cfgs, write_s = {}, {}
     for name, suffix in KIND_SETS.items():
@@ -5978,7 +6029,7 @@ def phase_image_kinds_split_cli(root: Path, card: str):
     from quan_ultralytics_tpu_torch.data.native import native
     from quan_ultralytics_tpu_torch.data.split_dota import get_windows, split_image
 
-    maker = image_maker()
+    maker = fixture_maker("make_image_fixtures")
     im, lines = split_scene(9)
     t0 = time.perf_counter()
     data = _encode_kind(maker, "jpeg_ycbcr_bigtiff", im)
@@ -6210,6 +6261,14 @@ def main() -> int:
     videos["asp_vp8"]["seconds"] = time.perf_counter() - t_asp_vp8
     print(f"VP8 and ASP video phases: {videos['asp_vp8']['seconds']:.1f} s")
     lap(t_start, "the VP8 and ASP video phases")
+    t_vp9 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_vp9_") as tmp:
+        videos["vp9"] = {"decode": phase_video_vp9_decode(card),
+                         "track": phase_video_track(Path(tmp), card, VIDEO_VP9_CLIP),
+                         "predict": phase_video_predict(Path(tmp), card, vp9_clip_mp4(Path(tmp) / "mp4"))}
+    videos["vp9"]["seconds"] = time.perf_counter() - t_vp9
+    print(f"VP9 video phases: {videos['vp9']['seconds']:.1f} s")
+    lap(t_start, "the VP9 video phases")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -6351,6 +6410,16 @@ def main() -> int:
                          "video_asp_cli_predict": asp_vp8["predict"]["launches_cli"],
                          "video_asp_predict": asp_vp8["predict"]["launches"]})
     for path in ("video_vp8_cli_track", "video_vp8_track_botsort", "video_asp_cli_predict", "video_asp_predict"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # VP9: detect track of the VP9 WebM (CLI, ByteTrack; facade, BoT-SORT) and obb predict of its packets in
+    # MP4 (CLI; bf16 facade)
+    vp9 = videos["vp9"]
+    det_launches.update({"video_vp9_cli_track": vp9["track"]["launches_cli"],
+                         "video_vp9_track_botsort": vp9["track"]["launches"],
+                         "video_vp9_cli_predict": vp9["predict"]["launches_cli"],
+                         "video_vp9_predict": vp9["predict"]["launches"]})
+    for path in ("video_vp9_cli_track", "video_vp9_track_botsort", "video_vp9_cli_predict", "video_vp9_predict"):
         check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     # the image formats: val on each set (K1 and K3), the BMP and PNG fit epochs (K1 and K2), obb predict

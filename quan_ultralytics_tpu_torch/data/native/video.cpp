@@ -46,6 +46,9 @@
 //     names them.
 //   * VP8 (vp8.h, as vp8.c decodes a stream): key and inter frames, the
 //     golden and altref references, invisible frames (no output).
+//   * VP9 profile 0 (vp9.h, as FFmpeg's vp9 decoder decodes a stream): a
+//     packet is split at its superframe index and may give more than one
+//     frame (vdec_next hands out the others), hidden frames none.
 //   * YUV -> BGR24 (libswscale's unscaled yuv2rgb path for 4:2:0 and 4:2:2
 //     frames of even width and height; other frames, and a frame whose size
 //     changed mid-stream, which OpenCV scales, are refused):
@@ -59,6 +62,7 @@
 #include "imread.cpp"
 #include "jpeg_tables.h"
 #include "vp8.h"
+#include "vp9.h"
 
 #include <algorithm>
 #include <cstdio>
@@ -2047,12 +2051,79 @@ struct Vp8 {
   }
 };
 
+// ---- VP9 (vp9.h, as FFmpeg's vp9 decoder decodes a stream) ------------------
+
+struct Vp9 {
+  vp9::Decoder dec;
+  std::vector<vp9::PicPtr> queue;  // the frames a packet shows, in order
+  size_t next = 0;
+  int pending = 0;  // an error met after a frame of the same packet was shown
+  std::string pending_msg;
+
+  static void put(const vp9::Picture& p, Frame& out) {
+    out.width = p.width;
+    out.height = p.height;
+    out.ystride = p.stride[0];
+    out.cstride = p.stride[1];
+    out.cshift_y = 1;
+    out.full_range = p.full_range;
+    out.y = p.plane[0];
+    out.u = p.plane[1];
+    out.v = p.plane[2];
+  }
+
+  // Decode every frame of a packet; FRAME if it shows one (the first is put
+  // in ``out``, the others wait for `take`), NO_FRAME if none. An error after
+  // a shown frame is held back until the next packet, as FFmpeg's capture
+  // returns the frames decoded before it.
+  int decode(const uint8_t* data, long n, Frame& out, std::string& msg) {
+    queue.clear();
+    next = 0;
+    if (pending) {
+      int st = pending;
+      pending = 0;
+      msg = pending_msg;
+      return st;
+    }
+    std::vector<std::pair<size_t, size_t>> frames;
+    if (!vp9::split_superframe(data, (size_t)n, frames)) {
+      msg = "VP9: a superframe index whose sizes overrun the packet";
+      return DAMAGED;
+    }
+    if (frames.size() > 1) dec.stats[vp9::ST_SUPERFRAMES]++;
+    const uint8_t* mem_end = data + n;
+    for (auto& f : frames) {
+      vp9::PicPtr shown;
+      int st = dec.decode_frame(data + f.first, f.second, mem_end, shown);
+      if (st) {
+        int code = st == vp9::kUnsupported ? NOT_IMPLEMENTED : DAMAGED;
+        if (queue.empty()) {
+          msg = dec.msg;
+          return code;
+        }
+        pending = code;
+        pending_msg = dec.msg;
+        break;
+      }
+      if (shown) queue.push_back(shown);
+    }
+    return take(out);
+  }
+
+  int take(Frame& out) {
+    if (next >= queue.size()) return NO_FRAME;
+    put(*queue[next++], out);
+    return FRAME;
+  }
+};
+
 struct Handle {
   int codec;
   int open_status = 0;
   Mjpeg mjpeg;
   Mpeg4 mpeg4;
   Vp8 vp8;
+  Vp9 vp9;
   Frame frame;
   bool have_frame = false;
   int first_w = 0, first_h = 0;  // the size of the first frame converted
@@ -2063,7 +2134,7 @@ struct Handle {
 
 extern "C" {
 
-// codec: 1 Motion-JPEG, 2 MPEG-4 Part 2, 3 VP8; ``priv``: the decoder configuration
+// codec: 1 Motion-JPEG, 2 MPEG-4 Part 2, 3 VP8, 4 VP9; ``priv``: the decoder configuration
 // (MPEG-4's VOS/VOL headers) or empty; ``tag``: the container's fourcc
 void* vdec_open(int codec, const uint8_t* priv, long n, uint32_t tag) {
   vid::Handle* h = new vid::Handle();
@@ -2082,9 +2153,10 @@ void* vdec_open(int codec, const uint8_t* priv, long n, uint32_t tag) {
 }
 
 // Decode one packet: 0 a frame is ready (vdec_size, vdec_rgb), 1 no frame
-// (headers only, a VOP that is not coded, an invisible VP8 frame, or a
+// (headers only, a VOP that is not coded, an invisible VP8 or VP9 frame, or a
 // reference held back until the next one for display order), 2 a tool or
 // format refused, 3 damaged data; vdec_error gives the message of 2 and 3.
+// A VP9 packet may show more than one frame: vdec_next gives the others.
 int vdec_send(void* hp, const uint8_t* data, long n) {
   vid::Handle* h = (vid::Handle*)hp;
   if (h->open_status) return h->open_status;
@@ -2093,6 +2165,8 @@ int vdec_send(void* hp, const uint8_t* data, long n) {
     st = h->mjpeg.decode(data, n, h->frame, h->msg);
   } else if (h->codec == 3) {
     st = h->vp8.decode(data, n, h->frame, h->msg);
+  } else if (h->codec == 4) {
+    st = h->vp9.decode(data, n, h->frame, h->msg);
   } else {
     st = h->mpeg4.decode(data, n, h->frame);
     if (st >= vid::NOT_IMPLEMENTED) h->msg = h->mpeg4.msg;
@@ -2136,6 +2210,14 @@ int vdec_rgb(void* hp, uint8_t* out) {
   return 0;
 }
 
+// The next frame the last packet shows (a VP9 superframe or a frame followed
+// by show_existing_frame): 0 it is ready, 1 there is none.
+int vdec_next(void* hp) {
+  vid::Handle* h = (vid::Handle*)hp;
+  if (h->codec != 4 || h->open_status) return vid::NO_FRAME;
+  return h->vp9.take(h->frame);
+}
+
 // The end of the stream: 0 a frame held back for display order is ready, 1 none.
 int vdec_flush(void* hp) {
   vid::Handle* h = (vid::Handle*)hp;
@@ -2147,9 +2229,14 @@ int vdec_flush(void* hp) {
 
 const char* vdec_error(void* hp, int) { return ((vid::Handle*)hp)->msg.c_str(); }
 
-// the MPEG-4 decoder's counts of coding tools met so far (vid::Stat order), for tests
+// the decoder's counts of coding tools met so far (MPEG-4: vid::Stat order,
+// VP9: vp9::Stat order), for tests
 int vdec_stats(void* hp, int64_t* out) {
   vid::Handle* h = (vid::Handle*)hp;
+  if (h->codec == 4) {
+    for (int i = 0; i < vp9::ST_COUNT; ++i) out[i] = h->vp9.dec.stats[i];
+    return vp9::ST_COUNT;
+  }
   for (int i = 0; i < vid::ST_COUNT; ++i) out[i] = h->mpeg4.stats[i];
   return vid::ST_COUNT;
 }

@@ -11,15 +11,17 @@ demuxer returns for it (``cv2.VideoCapture`` with ``CAP_PROP_FORMAT = -1``):
 
 * ISO-BMFF (``.mp4``, ``.mov``, ``.m4v``): ``moov`` before or after ``mdat``,
   the sample tables (``stsd``, ``stsz``, ``stsc``, ``stco``/``co64``), an MPEG-4
-  Part 2 track's decoder configuration from its ``esds``. A fragmented file
+  Part 2 track's decoder configuration from its ``esds``, a ``vp09`` track's
+  profile and bit depth from its ``vpcC``. A fragmented file
   (``moof``) or an edit list other than the identity raises
   `NotImplementedError`.
 * RIFF AVI (``.avi``): the ``movi`` list's ``##dc``/``##db`` chunks in file
   order, inside ``LIST rec `` and across OpenDML ``RIFF AVIX`` extensions; the
   BITMAPINFOHEADER's compression fourcc mapped to a codec as FFmpeg's
-  ``riff.c`` maps it (``VP80`` to VP8).
+  ``riff.c`` maps it (``VP80`` to VP8, ``VP90`` to VP9).
 * Matroska/WebM (``.mkv``, ``.webm``): EBML ``Segment`` -> ``Tracks``
-  (``CodecID``, ``CodecPrivate``; ``V_VP8`` is VP8) and ``Cluster`` ->
+  (``CodecID``, ``CodecPrivate``; ``V_VP8`` is VP8, ``V_VP9`` VP9, whose
+  ``CodecPrivate`` features change no decoding) and ``Cluster`` ->
   ``SimpleBlock`` / ``BlockGroup`` blocks; laced blocks and content encodings
   raise `NotImplementedError`.
 
@@ -27,15 +29,18 @@ Codecs, decoded in C++ with FFmpeg's reconstruction (see ``video.cpp``):
 Motion-JPEG; MPEG-4 Part 2 Simple and Advanced Simple Profile (B-VOPs, given
 in display order, quarter-pel, MPEG quantisation; the streams of the Xvid and
 DivX encoders with the Xvid IDCT and FFmpeg's workarounds, DivX's packed
-B-VOPs); VP8 (``vp8.h``, key and inter frames, profiles 0-3). Any other
-codec (VP9, H.264, HEVC, AV1, ...) and the MPEG-4 tools still refused
+B-VOPs); VP8 (``vp8.h``, key and inter frames, profiles 0-3); VP9 profile 0
+(``vp9.h``: superframes, hidden frames and show_existing_frame, so that a
+packet may give more than one frame or none). Any other codec (H.264, HEVC,
+AV1, FFV1, ...), VP9's profiles 1-3 and scaled references, and the MPEG-4
+tools still refused
 (interlace, GMC/sprites, data partitioning, ...) raise a
 `NotImplementedError` that names them, as does a frame whose size changed
 mid-stream (OpenCV scales it). A missing file, or one no demuxer takes,
 yields no frames, as ``cv2.VideoCapture`` reads none; a stream damaged part
 way yields the frames decoded before the damage.
 
-``video.cpp`` (with ``vp8.h``) is compiled with ``g++`` at first use into
+``video.cpp`` (with ``vp8.h`` and ``vp9.h``) is compiled with ``g++`` at first use into
 ``build/`` beside the image reader's library, keyed by a hash of its sources
 and flags, under the same file lock (`utils.native_build`). A failed build
 raises.
@@ -55,13 +60,14 @@ from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, build_cxx
 
 HERE = Path(__file__).resolve().parent
 SOURCE = HERE / "video.cpp"
-# video.cpp includes the JPEG reader's entropy decoding, the Annex K tables and the VP8 core
-DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h", HERE / "vp8.h", HERE / "webp_tables.h")
+# video.cpp includes the JPEG reader's entropy decoding, the Annex K tables and the VP8 and VP9 cores
+DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h", HERE / "vp8.h", HERE / "webp_tables.h", HERE / "vp9.h",
+           HERE / "vp9_tables.h")
 LIB_NAME = "libquan_torch_video.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
-MPEG4, MJPEG, VP8 = "mpeg4", "mjpeg", "vp8"
-_CODEC_IDS = {MJPEG: 1, MPEG4: 2, VP8: 3}
+MPEG4, MJPEG, VP8, VP9 = "mpeg4", "mjpeg", "vp8", "vp9"
+_CODEC_IDS = {MJPEG: 1, MPEG4: 2, VP8: 3, VP9: 4}
 
 # FFmpeg riff.c ff_codec_bmp_tags: the BITMAPINFOHEADER fourccs of the two codecs
 _RIFF_MPEG4 = {b"FMP4", b"DIVX", b"DX50", b"XVID", b"MP4S", b"M4S2", b"MP4V", b"DIV1", b"BLZ0", b"UMP4",
@@ -73,9 +79,10 @@ _RIFF_MJPEG = {b"MJPG", b"LJPG", b"DMB1", b"MJPA", b"JR24", b"AVRN", b"ACDV", b"
                b"IJLV", b"MVJP", b"AVI1", b"AVI2", b"MTSJ", b"ZJPG", b"MMJP"}
 # names of codecs met in these containers that the port does not decode
 _OTHER = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264", b"HEVC": "HEVC", b"HVC1": "HEVC",
-          b"HEV1": "HEVC", b"VP90": "VP9", b"AV01": "AV1", b"MPG2": "MPEG-2",
-          b"MPG1": "MPEG-1", b"WMV3": "WMV3", b"WVC1": "VC-1", b"THEO": "Theora"}
-_MKV_OTHER = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
+          b"HEV1": "HEVC", b"AV01": "AV1", b"MPG2": "MPEG-2", b"MPG1": "MPEG-1", b"WMV3": "WMV3",
+          b"WVC1": "VC-1", b"THEO": "Theora", b"FFV1": "FFV1", b"HFYU": "HuffYUV", b"FFVH": "HuffYUV",
+          b"ULRG": "Ut Video", b"ULY0": "Ut Video", b"ULY2": "Ut Video", b"ULH0": "Ut Video"}
+_MKV_OTHER = {"V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_FFV1": "FFV1",
               "V_MPEGH/ISO/HEVC": "HEVC", "V_MPEG2": "MPEG-2", "V_MPEG1": "MPEG-1", "V_THEORA": "Theora"}
 
 PathLike = Union[str, Path]
@@ -89,7 +96,7 @@ class Unreadable(Exception):
 class Demuxed:
     """The first video track of a file."""
 
-    codec: str  # MPEG4, MJPEG or VP8
+    codec: str  # MPEG4, MJPEG, VP8 or VP9
     private: bytes  # decoder configuration (MPEG-4's VOS/VOL headers), may be empty
     packets: List[bytes] = field(default_factory=list)  # in decode order
     tag: bytes = b""  # the container's fourcc for the codec, upper case
@@ -242,6 +249,13 @@ def _mp4_track(data: bytes, stbl: Tuple[int, int], path: PathLike) -> Demuxed:
             raise _refuse(path, "ISO-BMFF", f"object type 0x{object_type:02x} in mp4v")
     elif fmt in (b"jpeg", b"mjpa"):
         codec = MJPEG
+    elif fmt == b"vp09":
+        codec = VP9
+        vpcc = _child(data, entry + 8 + 78, min(entry + entry_size, stsd[1]), b"vpcC")
+        if vpcc:
+            profile, _, depth = _read(">BBB", data, vpcc[0] + 4, vpcc[1])
+            if profile != 0 or depth >> 4 != 8:
+                raise _refuse(path, "ISO-BMFF", f"VP9 profile {profile} at {depth >> 4} bits (vpcC)")
     else:
         name = _OTHER.get(fmt.upper(), fmt.decode("latin-1"))
         raise _refuse(path, "ISO-BMFF", f"the {name} codec ({fmt.decode('latin-1')})")
@@ -330,6 +344,8 @@ def _demux_avi(data: bytes, path: PathLike) -> Demuxed:
         codec = MJPEG
     elif upper == b"VP80":
         codec = VP8
+    elif upper == b"VP90":
+        codec = VP9
     else:
         name = _OTHER.get(upper, tag.decode("latin-1"))
         raise _refuse(path, "AVI", f"the {name} codec ({tag.decode('latin-1')})")
@@ -435,6 +451,8 @@ def _demux_mkv(data: bytes, path: PathLike) -> Demuxed:
                         codec, tag = MJPEG, b"MJPG"
                     elif cid == "V_VP8":
                         codec, tag = VP8, b"VP80"
+                    elif cid == "V_VP9":
+                        codec, tag = VP9, b"VP90"
                     elif cid == "V_MS/VFW/FOURCC" and len(private) >= 40:
                         tag = private[16:20].upper()
                         codec = MPEG4 if tag in _RIFF_MPEG4 else MJPEG if tag in _RIFF_MJPEG else None
@@ -507,10 +525,11 @@ def library() -> ctypes.CDLL:
         lib.vdec_open.restype = vp
         lib.vdec_send.argtypes = [vp, u8p, ctypes.c_long]
         lib.vdec_flush.argtypes = [vp]
+        lib.vdec_next.argtypes = [vp]
         lib.vdec_size.argtypes = [vp, ip, ip]
         lib.vdec_rgb.argtypes = [vp, vp]
         lib.vdec_stats.argtypes = [vp, vp]
-        for fn in (lib.vdec_send, lib.vdec_flush, lib.vdec_size, lib.vdec_rgb, lib.vdec_stats):
+        for fn in (lib.vdec_send, lib.vdec_flush, lib.vdec_next, lib.vdec_size, lib.vdec_rgb, lib.vdec_stats):
             fn.restype = ctypes.c_int
         lib.vdec_close.argtypes = [vp]
         lib.vdec_close.restype = None
@@ -527,6 +546,14 @@ _TOOL_COUNTS = ("i_vops", "p_vops", "not_coded_vops", "skipped_mbs", "intra_mbs_
                 "ac_rescaled", "b_vops", "b_direct_mbs", "b_forward_mbs", "b_backward_mbs", "b_interpolated_mbs",
                 "b_colocated_skips", "dbquant", "qpel_mbs", "mpeg_quant_blocks", "xvid_idct_blocks", "packed_b_vops",
                 "skipped_b_vops")
+# vp9.h's counts (its Stat enum)
+_VP9_TOOL_COUNTS = ("key_frames", "inter_frames", "intra_only_frames", "hidden_frames", "show_existing",
+                    "superframes", "tx4x4", "tx8x8", "tx16x16", "tx32x32", "dct_dct", "dct_adst", "adst_dct",
+                    "adst_adst", "wht", "mode_v", "mode_h", "mode_dc", "mode_d45", "mode_d135", "mode_d117",
+                    "mode_d153", "mode_d63", "mode_d207", "mode_tm", "filter_regular", "filter_smooth",
+                    "filter_sharp", "filter_bilinear", "compound", "sub8x8", "newmv", "multi_tile_frames",
+                    "segmented_frames", "lossless_frames", "adapted_frames", "loop_filtered_frames",
+                    "prev_frame_mvs", "error_resilient_frames", "full_range_frames")
 _NOT_IMPLEMENTED = 2  # vdec_send: a tool the decoder refuses (the message names it)
 
 
@@ -536,6 +563,7 @@ class Decoder:
 
     def __init__(self, codec: str, private: bytes = b"", tag: bytes = b""):
         self.lib = library()
+        self.codec = codec
         tag32 = struct.unpack("<I", (tag + b"\0\0\0\0")[:4])[0]
         self.handle = self.lib.vdec_open(_CODEC_IDS[codec], private, len(private), tag32)
         if not self.handle:
@@ -549,6 +577,11 @@ class Decoder:
             return st == FRAME
         msg = self.lib.vdec_error(self.handle, st).decode()
         raise NotImplementedError(msg) if st == _NOT_IMPLEMENTED else ValueError(msg)
+
+    def next(self) -> bool:
+        """True if the last packet shows another frame (a VP9 superframe, or a
+        frame followed by show_existing_frame), which `rgb` then gives."""
+        return self.lib.vdec_next(self.handle) == FRAME
 
     def flush(self) -> bool:
         """The end of the stream: True if it completed a frame held back for
@@ -571,11 +604,12 @@ class Decoder:
         return out
 
     def _tool_counts(self) -> dict:
-        """How often each MPEG-4 coding tool (`_TOOL_COUNTS`) was met so far:
-        for tests, to tell which tools a fixture reaches."""
-        out = np.zeros(32, np.int64)
+        """How often each coding tool (`_TOOL_COUNTS` for MPEG-4,
+        `_VP9_TOOL_COUNTS` for VP9) was met so far: for tests, to tell which
+        tools a fixture reaches."""
+        out = np.zeros(64, np.int64)
         n = self.lib.vdec_stats(self.handle, out.ctypes.data)
-        return dict(zip(_TOOL_COUNTS, out[:n].tolist()))
+        return dict(zip(_VP9_TOOL_COUNTS if self.codec == VP9 else _TOOL_COUNTS, out[:n].tolist()))
 
     def close(self) -> None:
         if self.handle:
@@ -602,14 +636,15 @@ def frames(path: PathLike) -> Iterator[np.ndarray]:
     dec = Decoder(stream.codec, stream.private, stream.tag)
     try:
         for packet in stream.packets:
-            try:
-                frame = dec.rgb() if dec.send(packet) else None
+            try:  # a VP9 packet may show more than one frame
+                got = [dec.rgb()] if dec.send(packet) else []
+                while got and dec.next():
+                    got.append(dec.rgb())
             except NotImplementedError as e:
                 raise NotImplementedError(f"{where}: {e}") from None
             except ValueError:  # damaged data: the frames so far, as FFmpeg's capture stops
                 return
-            if frame is not None:
-                yield frame
+            yield from got
         try:
             frame = dec.rgb() if dec.flush() else None
         except NotImplementedError as e:

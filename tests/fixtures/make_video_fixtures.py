@@ -11,8 +11,24 @@ wheel ships it; writes ``tests/fixtures/video/`` and
   ``cv2.VideoWriter``, so that each MPEG-4 stream crosses the encoder's GOP of
   12 into a second I-VOP: ``mp4v`` into ``.mp4``, ``.mov``, ``.m4v``, ``.avi``
   and ``.mkv``, the same encoder under the ``XVID`` fourcc into ``.avi``,
-  ``MJPG`` into ``.avi`` and ``.mkv``, VP8 into ``.webm`` and VP9 into
-  ``vp9_64x48.webm`` (a codec the port refuses by name).
+  ``MJPG`` into ``.avi`` and ``.mkv``, VP8 into ``.webm``; ``vp9_64x48.*``
+  the first 4 frames as VP9 (cv2's ``VP90`` into ``.webm``, ``.mkv`` and
+  ``.avi``, ``vp09`` into ``.mp4``), and ``ffv1_64x48.avi`` as FFV1 (a
+  codec the port refuses by name).
+* ``vp9_{tiles_512x64.mkv,lossless_64x48.avi,aq_96x64.mp4}``: libvpx's VP9
+  encoder as libavcodec wraps it (``libvpx-vp9``, through ctypes as below):
+  two tile columns and two tile rows with backward adaptation
+  (``frame-parallel=0``), lossless (the WHT), and cyclic-refresh segmentation
+  (``aq-mode=3`` at the realtime deadline) at full range, put into Matroska,
+  AVI and MP4 by the writers below; ``vp9_arf_96x64.webm`` the encoder's
+  two passes (`encode_vp9_two_pass`: hidden alternate references in
+  superframes, compound prediction); ``vp9_bilinear_96x64.mkv`` a stream
+  whose frames coded with one filter name the bilinear one instead
+  (`bilinear_frame`: libvpx's encoder never picks it); ``vp9_crafted_64x48.mkv`` an
+  error-resilient stream repacked as no encoder writes it: two shown frames
+  in one superframe, a frame made hidden and then shown again by a
+  one-byte ``show_existing_frame``, and a key frame rewritten as a hidden
+  intra-only frame that the next packet shows (`vp9_crafted`).
 * ``vp8_{p1,p3_er,p0_golden}_64x48.avi``: 30 frames of 64 x 48 encoded by the
   libvpx VP8 encoder that libavcodec wraps (``libvpx``), through ctypes as
   below, at a GOP of 12: profile 1 (bilinear prediction), profile 3 with the
@@ -31,7 +47,10 @@ wheel ships it; writes ``tests/fixtures/video/`` and
   it in one chunk, an N-VOP placeholder after the last B-VOP;
   ``DivX503b1393p``).
 * ``track_640x480.{mp4,avi,webm}``: the 16-frame 640 x 480 clip of
-  ``chip_smoke.make_clip`` as ``mp4v`` MP4, ``MJPG`` AVI and ``VP80`` WebM;
+  ``chip_smoke.make_clip`` as ``mp4v`` MP4, ``MJPG`` AVI and ``VP80`` WebM,
+  ``track_640x480_vp9.webm`` as cv2's ``VP90`` WebM (chip_smoke.py puts its
+  packets into MP4 with `write_mp4`: this module imports OpenCV only where it
+  calls it);
   ``track_640x480_xvid.avi``: the same frames through libavcodec's MPEG-4
   encoder with B-VOPs and quarter-pel under Xvid's user data (``XviD0064``)
   and fourcc.
@@ -61,7 +80,6 @@ import struct
 import sys
 from pathlib import Path
 
-import cv2
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
@@ -89,7 +107,21 @@ VP8_OPTIONS = {
     "vp8_p0_golden_64x48.avi": {"b": "60k", "auto-alt-ref": "1", "lag-in-frames": "8", "arnr-maxframes": "5"},
 }
 CLIP_ASP = {"bf": "2", "flags": "+qpel", "b": "800k"}  # track_640x480_xvid.avi
-MPEG4, LIBVPX = 12, 139  # AVCodecID of libavcodec's MPEG-4 encoder and of its libvpx VP8 wrapper
+MPEG4, LIBVPX, LIBVPX_VP9 = 12, 139, 167  # AVCodecIDs: libavcodec's MPEG-4 encoder, its libvpx VP8 and VP9 wrappers
+VP9_FRAMES = 16  # frames of the libvpx-vp9 fixtures: a second key frame at the GOP of 12
+# the libvpx-vp9 fixtures: the frames' (h, w) and the encoder's options; the suffix picks the writer
+VP9_OPTIONS = {
+    "vp9_tiles_512x64.mkv": ((64, 512), {"crf": "40", "b": "0", "tile-columns": "1", "tile-rows": "1",
+                                         "frame-parallel": "0"}),
+    "vp9_lossless_64x48.avi": ((48, 64), {"lossless": "1"}),
+    "vp9_aq_96x64.mp4": ((64, 96), {"aq-mode": "3", "deadline": "realtime", "cpu-used": "8", "b": "80k",
+                                    "color_range": "pc"}),
+}
+# libvpx-vp9 frames coded with one filter for the frame, rewritten to the bilinear filter (`bilinear_frame`)
+VP9_BILINEAR = ("vp9_bilinear_96x64.mkv", (64, 96), {"b": "200k", "cpu-used": "4"})
+# the two-pass fixture: alternate references (hidden, in superframes) and compound prediction
+VP9_TWO_PASS = ("vp9_arf_96x64.webm", (64, 96), {"crf": "20", "b": "0", "auto-alt-ref": "1",
+                                                 "lag-in-frames": "25", "cpu-used": "1", "g": "30"})
 # a P-VOP header with vop_coded 0 (time increment 3 of 5 bits, as a 1/25 s VOL has), stuffed to a byte
 NOT_CODED_VOP = bytes.fromhex("000001b651cf")
 
@@ -138,6 +170,8 @@ def tools_frames(n: int = SMALL_FRAMES, hw=TOOLS, seed: int = 5) -> list:
 
 
 def write_cv2(path: Path, fourcc: str, frames: list) -> None:
+    import cv2
+
     h, w = frames[0].shape[:2]
     vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 25, (w, h))
     if not vw.isOpened():
@@ -151,6 +185,8 @@ def write_cv2(path: Path, fourcc: str, frames: list) -> None:
 
 
 def _libs() -> dict:
+    import cv2
+
     libs = Path(cv2.__file__).resolve().parents[1] / "opencv_python.libs"
     found = {}
     for name in ("avutil", "avcodec"):
@@ -171,9 +207,29 @@ def encode_vp8(frames: list, options: dict) -> list:
     return encode(frames, options, LIBVPX)
 
 
-def encode(frames: list, options: dict, codec_id: int) -> list:
-    """Packets of the libavcodec encoder ``codec_id`` for RGB ``frames`` (a
-    height that is a multiple of 4), as `encode_mpeg4` describes."""
+def encode_vp9(frames: list, options: dict) -> list:
+    """Packets of libvpx's VP9 encoder as libavcodec wraps it, as `encode_mpeg4`."""
+    return encode(frames, options, LIBVPX_VP9)
+
+
+def encode_vp9_two_pass(frames: list, options: dict) -> list:
+    """Packets of libvpx's VP9 encoder in two passes (``flags=+pass1``, then
+    ``+pass2`` with the first pass's statistics), as a two-pass ``vpxenc``
+    writes them: alternate reference frames, hidden and packed with the next
+    shown frame into superframes, and compound prediction from them."""
+    stats, slot = encode(frames, {**options, "flags": "+pass1"}, LIBVPX_VP9, first_pass=True)
+    return encode(frames, {**options, "flags": "+pass2"}, LIBVPX_VP9, stats_in=(stats, slot))
+
+
+def encode(frames: list, options: dict, codec_id: int, first_pass: bool = False, stats_in: tuple = None):
+    """Packets of the libavcodec encoder ``codec_id`` for RGB ``frames`` (an
+    even width and height), as `encode_mpeg4` describes. With ``first_pass``
+    (``flags=+pass1``), the statistics the encoder leaves in the context's
+    ``stats_out`` and the pointer slot that holds it (found as the slot that
+    the final flush fills); ``stats_in`` gives them back to a second pass
+    (``stats_in`` is the slot after ``stats_out``)."""
+    import cv2
+
     libs = _libs()
     avu, avc = libs["avutil"], libs["avcodec"]
     vp = ctypes.c_void_p
@@ -196,6 +252,10 @@ def encode(frames: list, options: dict, codec_id: int) -> list:
     for k, v in {"video_size": f"{w}x{h}", "pixel_format": "yuv420p", "g": "12", **options}.items():
         if avu.av_opt_set(ctx, k.encode(), v.encode(), 1):
             raise RuntimeError(f"libavcodec refuses the option {k}={v}")
+    slots = (ctypes.c_void_p * 256).from_address(ctx)
+    if stats_in is not None:
+        avu.av_strdup.restype, avu.av_strdup.argtypes = vp, [ctypes.c_char_p]
+        slots[stats_in[1] + 1] = avu.av_strdup(stats_in[0])
     if avc.avcodec_open2(ctx, codec, None):
         raise RuntimeError("avcodec_open2 failed")
     frame, pkt, out = avu.av_frame_alloc(), avc.av_packet_alloc(), []
@@ -209,8 +269,10 @@ def encode(frames: list, options: dict, codec_id: int) -> list:
             avc.av_packet_unref(pkt)
 
     for i, im in enumerate(frames):
-        yuv = cv2.cvtColor(np.ascontiguousarray(im), cv2.COLOR_RGB2YUV_I420)
-        planes = [yuv[:h], yuv[h:h + h // 4].reshape(h // 2, w // 2), yuv[h + h // 4:].reshape(h // 2, w // 2)]
+        yuv = cv2.cvtColor(np.ascontiguousarray(im), cv2.COLOR_RGB2YUV_I420).reshape(-1)
+        c = (h // 2) * (w // 2)
+        planes = [yuv[:h * w].reshape(h, w), yuv[h * w:h * w + c].reshape(h // 2, w // 2),
+                  yuv[h * w + c:h * w + 2 * c].reshape(h // 2, w // 2)]
         assert avu.av_frame_make_writable(frame) == 0
         data, lines = (ctypes.c_void_p * 8).from_address(frame), (ctypes.c_int * 8).from_address(frame + 64)
         for p, plane in enumerate(planes):
@@ -220,9 +282,274 @@ def encode(frames: list, options: dict, codec_id: int) -> list:
         ctypes.c_int64.from_address(frame + 136).value = i  # AVFrame.pts
         assert avc.avcodec_send_frame(ctx, frame) == 0
         drain()
+    before = list(slots)
     avc.avcodec_send_frame(ctx, None)
     drain()
+    if first_pass:
+        slot = next(i for i in range(256) if slots[i] and not before[i])
+        return ctypes.string_at(slots[slot]), slot
     return out
+
+
+# ---------------------------------------------------------------- VP9 packets and containers
+
+
+class _Bits:
+    """An MSB-first bit reader that records what it read."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def read(self, n: int = 1) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | ((self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+
+def vp9_header(packet: bytes, size: tuple = None) -> dict:
+    """The fields of a profile 0 VP9 frame's uncompressed header that the
+    repackers below need (``size``, the stream's (w, h), for an inter frame
+    that takes its size from a reference), with the bit positions they
+    rewrite: ``key``,
+    ``show`` (and its bit), ``error_res`` (and the bit after it), ``refresh``
+    (the slots the frame refreshes), ``size_at`` (where the frame size
+    starts), ``end`` (the bit after header_size_in_bytes) and
+    ``compressed`` (that size)."""
+    b = _Bits(packet)
+    assert b.read(2) == 2 and b.read(2) == 0, "a profile 0 frame"
+    if b.read():
+        return {"existing": b.read(3)}
+    out = {"key": not b.read(), "show_at": b.pos}
+    out["show"] = b.read()
+    out["error_res"] = b.read()
+    out["after_error_res"] = b.pos
+    if out["key"]:
+        b.read(24)
+        if b.read(3) != 7:
+            b.read(1)
+        out["refresh"], out["size_at"] = 0xFF, b.pos
+        w, h = b.read(16) + 1, b.read(16) + 1
+        if b.read():
+            b.read(32)
+    else:
+        intra_only = b.read() if not out["show"] else 0
+        out["intra_only"] = intra_only
+        if not out["error_res"]:
+            b.read(2)
+        if intra_only:
+            b.read(24)
+            out["refresh"], out["size_at"] = b.read(8), b.pos
+            w, h = b.read(16) + 1, b.read(16) + 1
+            if b.read():
+                b.read(32)
+        else:
+            out["refresh"] = b.read(8)
+            b.read(12)
+            out["ref_size_at"] = b.pos
+            found = any(b.read() for _ in range(3))
+            w, h = size if found else (b.read(16) + 1, b.read(16) + 1)
+            out["ref_size_end"] = b.pos
+            if b.read():
+                b.read(32)
+            b.read(1)
+            if not b.read():
+                out["filter_at"] = b.pos
+                b.read(2)
+    out["size"] = (w, h)
+    if not out["error_res"]:
+        b.read(2)
+    b.read(2)
+    b.read(6 + 3)
+    if b.read() and b.read():
+        for _ in range(6):
+            if b.read():
+                b.read(7)
+    b.read(8)
+    for _ in range(3):
+        if b.read():
+            b.read(5)
+    if b.read():
+        if b.read():
+            for _ in range(7):
+                if b.read():
+                    b.read(8)
+            if b.read():
+                for _ in range(3):
+                    if b.read():
+                        b.read(8)
+        if b.read():
+            b.read(1)
+            for _ in range(8):
+                for n in (9, 7, 2):
+                    if b.read():
+                        b.read(n)
+                b.read(1)
+    sb_cols = (out["size"][0] + 63) // 64
+    min_log2 = 0
+    while (64 << min_log2) < sb_cols:
+        min_log2 += 1
+    max_log2 = 1
+    while (sb_cols >> max_log2) >= 4:
+        max_log2 += 1
+    for _ in range(max_log2 - 1 - min_log2):
+        if not b.read():
+            break
+    if b.read():
+        b.read(1)
+    out["compressed"] = b.read(16)
+    out["end"] = b.pos
+    return out
+
+
+def _bits_of(packet: bytes, start: int, end: int) -> str:
+    return "".join(str((packet[i >> 3] >> (7 - (i & 7))) & 1) for i in range(start, end))
+
+
+def _repack(bits: str, packet: bytes, end: int) -> bytes:
+    """``bits`` (a new uncompressed header) padded to a byte, then ``packet``
+    from the byte after its old header (``end`` its bit length)."""
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big") + packet[(end + 7) // 8:]
+
+
+def hide_frame(packet: bytes, size: tuple) -> bytes:
+    """An inter frame made hidden: show_frame 0 and the intra_only bit (0)
+    that the header then carries. ``size`` is the stream's (w, h)."""
+    hd = vp9_header(packet, size)
+    assert not hd["key"] and hd["show"]
+    bits = _bits_of(packet, 0, hd["end"])
+    at = hd["show_at"]
+    bits = bits[:at] + "0" + bits[at + 1:hd["after_error_res"]] + "0" + bits[hd["after_error_res"]:]
+    return _repack(bits, packet, hd["end"])
+
+
+def intra_only_frame(packet: bytes, refresh: int) -> bytes:
+    """A key frame rewritten as a hidden intra-only frame that refreshes the
+    slots of ``refresh`` and resets every frame context (reset_frame_context
+    3), as the key frame did: the same pixels, but no frame shown."""
+    hd = vp9_header(packet)
+    assert hd["key"]
+    bits = "10" + "00" + "0" + "1" + "0" + str(hd["error_res"]) + "1"
+    if not hd["error_res"]:
+        bits += "11"
+    bits += "01001001" "10000011" "01000010"  # the sync code
+    bits += format(refresh, "08b") + _bits_of(packet, hd["size_at"], hd["end"])
+    return _repack(bits, packet, hd["end"])
+
+
+def resized_inter_frame(packet: bytes, size: tuple, new: tuple) -> bytes:
+    """An inter frame of a stream of ``size`` that names the frame size
+    ``new`` instead of taking its references' (a frame whose references
+    must be scaled); ``new`` needs as many 64-pixel columns as ``size``."""
+    hd = vp9_header(packet, size)
+    assert not hd["key"] and not hd.get("intra_only") and (new[0] + 63) // 64 == (size[0] + 63) // 64
+    bits = _bits_of(packet, 0, hd["end"])
+    bits = (bits[:hd["ref_size_at"]] + "000" + format(new[0] - 1, "016b") + format(new[1] - 1, "016b")
+            + bits[hd["ref_size_end"]:])
+    return _repack(bits, packet, hd["end"])
+
+
+def bilinear_frame(packet: bytes, size: tuple) -> bytes:
+    """An inter frame coded with one interpolation filter for the frame,
+    rewritten to name the bilinear one (the filter that libvpx's encoder
+    never picks; the frame parses the same, its prediction changes)."""
+    at = vp9_header(packet, size)["filter_at"]
+    out = bytearray(packet)
+    for i in (at, at + 1):
+        out[i >> 3] |= 0x80 >> (i & 7)
+    return bytes(out)
+
+
+def show_existing(slot: int) -> bytes:
+    """A one-byte frame that shows the frame in reference ``slot`` again."""
+    return bytes([0x88 | slot])
+
+
+def superframe(frames: list) -> bytes:
+    """``frames`` in one packet with a superframe index after them."""
+    mag = max(1, (max(map(len, frames)).bit_length() + 7) // 8)
+    marker = 0xC0 | (mag - 1) << 3 | (len(frames) - 1)
+    index = bytes([marker]) + b"".join(len(f).to_bytes(mag, "little") for f in frames) + bytes([marker])
+    return b"".join(frames) + index
+
+
+def vp9_crafted(packets: list, size: tuple) -> list:
+    """An error-resilient stream's ``packets`` (no frame predicts from the
+    previous frame's motion vectors, none adapts its probabilities), repacked
+    with what the encoder does not write: packets 1 and 2 in one superframe;
+    packet 4 made hidden and shown again by show_existing_frame of a slot it
+    refreshes, in one packet; the second key frame (packet 12) as a hidden
+    intra-only frame refreshing every slot, followed in its own packet by
+    show_existing_frame of slot 0."""
+    out = [packets[0], superframe(packets[1:3]), packets[3]]
+    refresh = vp9_header(packets[4], size)["refresh"]
+    slot = (refresh & -refresh).bit_length() - 1
+    out.append(superframe([hide_frame(packets[4], size), show_existing(slot)]))
+    out += packets[5:12]
+    out += [intra_only_frame(packets[12], 0xFF), show_existing(0)]
+    out += packets[13:]
+    return out
+
+
+def _ebml(ident: bytes, payload: bytes) -> bytes:
+    return ident + (0x01 << 56 | len(payload)).to_bytes(8, "big") + payload
+
+
+def _uint(v: int) -> bytes:
+    return v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big")
+
+
+def write_mkv(path: Path, packets: list, w: int, h: int, codec: str = "V_VP9", doctype: str = "webm") -> None:
+    """A minimal Matroska file: one video track of ``packets`` as SimpleBlocks
+    of one cluster, 40 ms apart."""
+    header = _ebml(b"\x1a\x45\xdf\xa3", _ebml(b"\x42\x86", b"\x01") + _ebml(b"\x42\xf7", b"\x01")
+                   + _ebml(b"\x42\xf2", b"\x04") + _ebml(b"\x42\xf3", b"\x08")
+                   + _ebml(b"\x42\x82", doctype.encode()) + _ebml(b"\x42\x87", b"\x04")
+                   + _ebml(b"\x42\x85", b"\x02"))
+    info = _ebml(b"\x15\x49\xa9\x66", _ebml(b"\x2a\xd7\xb1", _uint(1_000_000)) + _ebml(b"\x4d\x80", b"fixtures")
+                 + _ebml(b"\x57\x41", b"fixtures"))
+    video_el = _ebml(b"\xe0", _ebml(b"\xb0", _uint(w)) + _ebml(b"\xba", _uint(h)))
+    track = _ebml(b"\xae", _ebml(b"\xd7", b"\x01") + _ebml(b"\x73\xc5", b"\x01") + _ebml(b"\x83", b"\x01")
+                  + _ebml(b"\x86", codec.encode()) + video_el)
+    blocks = b"".join(_ebml(b"\xa3", b"\x81" + struct.pack(">h", 40 * i) + (b"\x80" if i == 0 else b"\x00") + p)
+                      for i, p in enumerate(packets))
+    cluster = _ebml(b"\x1f\x43\xb6\x75", _ebml(b"\xe7", b"\x00") + blocks)
+    path.write_bytes(header + _ebml(b"\x18\x53\x80\x67", info + _ebml(b"\x16\x54\xae\x6b", track) + cluster))
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def write_mp4(path: Path, packets: list, w: int, h: int, profile: int = 0, depth: int = 8) -> None:
+    """A minimal MP4 file: one ``vp09`` track (its ``vpcC`` naming ``profile``
+    and bit ``depth``) of ``packets``, 40 ms apart, in one chunk of an
+    ``mdat`` before the ``moov``."""
+    n = len(packets)
+    ftyp = _box(b"ftyp", b"isom" + struct.pack(">I", 512) + b"isomiso2vp09mp41")
+    mdat = _box(b"mdat", b"".join(packets))
+    matrix = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+    mvhd = _box(b"mvhd", struct.pack(">IIIII", 0, 0, 0, 1000, 40 * n) + struct.pack(">IH", 0x10000, 0x100)
+                + bytes(10) + matrix + bytes(24) + struct.pack(">I", 2))
+    tkhd = _box(b"tkhd", struct.pack(">IIIII", 3, 0, 0, 1, 0) + struct.pack(">I", 40 * n) + bytes(8)
+                + struct.pack(">hhhH", 0, 0, 0, 0) + matrix + struct.pack(">II", w << 16, h << 16))
+    mdhd = _box(b"mdhd", struct.pack(">IIIIIHH", 0, 0, 0, 1000, 40 * n, 0x55C4, 0))
+    hdlr = _box(b"hdlr", struct.pack(">II", 0, 0) + b"vide" + bytes(12) + b"VideoHandler\0")
+    vpcc = _box(b"vpcC", struct.pack(">IBBBBBBH", 1 << 24, profile, 10, depth << 4 | 1 << 1, 2, 2, 2, 0))
+    entry = _box(b"vp09", bytes(6) + struct.pack(">HHH12sHHIIIH32sHh", 1, 0, 0, bytes(12), w, h, 0x480000, 0x480000,
+                                                   0, 1, bytes(32), 0x18, -1) + vpcc)
+    at = len(ftyp) + 8
+    stbl = _box(b"stbl", _box(b"stsd", struct.pack(">II", 0, 1) + entry)
+                + _box(b"stts", struct.pack(">IIII", 0, 1, n, 40))
+                + _box(b"stsc", struct.pack(">IIIII", 0, 1, 1, n, 1))
+                + _box(b"stsz", struct.pack(">III", 0, 0, n) + b"".join(struct.pack(">I", len(p)) for p in packets))
+                + _box(b"stco", struct.pack(">III", 0, 1, at)))
+    minf = _box(b"minf", _box(b"vmhd", struct.pack(">IHHHH", 1, 0, 0, 0, 0))
+                + _box(b"dinf", _box(b"dref", struct.pack(">II", 0, 1) + _box(b"url ", struct.pack(">I", 1)))) + stbl)
+    moov = _box(b"moov", mvhd + _box(b"trak", tkhd + _box(b"mdia", mdhd + hdlr + minf)))
+    path.write_bytes(ftyp + mdat + moov)
 
 
 def set_user_data(packets: list, text: bytes) -> list:
@@ -290,6 +617,8 @@ def write_avi(path: Path, packets: list, w: int, h: int, fourcc: bytes, fps: int
 
 
 def cv2_frames(path: Path) -> list:
+    import cv2
+
     cap = cv2.VideoCapture(str(path))
     out = []
     while True:
@@ -319,13 +648,17 @@ def main() -> None:
     files["mjpg_64x48.avi"] = ("MJPG", small)
     files["mjpg_64x48.mkv"] = ("MJPG", small)
     files["vp8_64x48.webm"] = ("VP80", small)
-    files["vp9_64x48.webm"] = ("VP90", small[:4])
+    for suffix in ("webm", "mkv", "avi"):
+        files[f"vp9_64x48.{suffix}"] = ("VP90", small[:4])
+    files["vp9_64x48.mp4"] = ("vp09", small[:4])
+    files["ffv1_64x48.avi"] = ("FFV1", small[:4])
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         track = chip_smoke.make_clip(Path(tmp))
     files["track_640x480.mp4"] = ("mp4v", track)
     files["track_640x480.avi"] = ("MJPG", track)
     files["track_640x480.webm"] = ("VP80", track)
+    files["track_640x480_vp9.webm"] = ("VP90", track)
     for name, (fourcc, frames) in files.items():
         write_cv2(OUT / name, fourcc, frames)
     tools = tools_frames()
@@ -341,8 +674,33 @@ def main() -> None:
     vp8_frames = small_frames(VP8_CLIPS, SMALL, seed=7)
     for name, options in VP8_OPTIONS.items():
         write_avi(OUT / name, encode_vp8(vp8_frames, {"g": "12", **options}), SMALL[1], SMALL[0], b"VP80")
+    for name, (hw, options) in VP9_OPTIONS.items():
+        packets = encode_vp9(small_frames(VP9_FRAMES, hw, seed=9), {"g": "12", **options})
+        writer = {".mkv": write_mkv, ".mp4": write_mp4}.get(Path(name).suffix)
+        if writer:
+            writer(OUT / name, packets, hw[1], hw[0])
+        else:
+            write_avi(OUT / name, packets, hw[1], hw[0], b"VP90")
+    name, hw, options = VP9_TWO_PASS
+    write_mkv(OUT / name, encode_vp9_two_pass(small_frames(24, hw, seed=2), options), hw[1], hw[0])
+    name, hw, options = VP9_BILINEAR
+    size = (hw[1], hw[0])
+    packets = encode_vp9(small_frames(VP9_FRAMES, hw, seed=5), {"g": "12", **options})
+    write_mkv(OUT / name, [bilinear_frame(p, size) if "filter_at" in vp9_header(p, size) else p for p in packets],
+              *size)
+    resilient = encode_vp9(small_frames(VP9_FRAMES, SMALL, seed=9), {"g": "12", "crf": "30", "b": "0",
+                                                                     "error-resilient": "1"})
+    write_mkv(OUT / "vp9_crafted_64x48.mkv", vp9_crafted(resilient, (SMALL[1], SMALL[0])), SMALL[1], SMALL[0])
     clip = set_user_data(encode_mpeg4(track, {"g": "12", **CLIP_ASP}), b"XviD0064")
     write_avi(OUT / "track_640x480_xvid.avi", clip, track[0].shape[1], track[0].shape[0], b"XVID")
+
+    write_digests()
+
+
+def write_digests() -> None:
+    """``video_fixtures.json`` from the files in ``OUT``."""
+    sys.path.insert(0, str(REPO))
+    from quan_ultralytics_tpu_torch.data.native import video
 
     out = {}
     for path in sorted(OUT.iterdir()):

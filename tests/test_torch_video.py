@@ -46,7 +46,8 @@ REPO = Path(__file__).resolve().parents[1]
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 VIDEOS = FIXTURES / "video"
 DIGESTS = json.loads((FIXTURES / "video_fixtures.json").read_text())
-DECODED = sorted(k for k, v in DIGESTS.items() if "per_frame" in v)
+# the decoded fixtures whose frames this file holds to OpenCV's (VP9's: tests/test_torch_vp9.py)
+DECODED = sorted(k for k, v in DIGESTS.items() if "per_frame" in v and v["codec"] != "vp9")
 sys.path.insert(0, str(FIXTURES))
 from make_video_fixtures import (NOT_CODED_VOP, cv2_frames, encode_mpeg4, encode_vp8, pack_b_frames,  # noqa: E402
                                  set_user_data, sha, small_frames, tools_frames, write_avi)
@@ -66,19 +67,22 @@ def cv2_packets(path) -> list:
 
 
 def test_fixtures_cover_every_container_and_codec():
-    """Every container of the demuxers and the three codecs are among the
-    fixtures, the VP9 WebM the one refused; the small clips are a few KB
-    each, the two 640 x 480 clips of this slice about 1 MB together."""
+    """Every container of the demuxers and the four codecs are among the
+    fixtures, cv2's FFV1 AVI the one refused; the small clips are a few KB
+    each, the three 640 x 480 clips of the later slices about 1.4 MB
+    together."""
     kinds = {(v.get("container"), v.get("codec")) for v in DIGESTS.values()}
     for kind in [("ISO-BMFF", "mpeg4"), ("AVI", "mpeg4"), ("Matroska", "mpeg4"), ("AVI", "mjpeg"),
-                 ("Matroska", "mjpeg"), ("Matroska", "vp8"), ("AVI", "vp8")]:
+                 ("Matroska", "mjpeg"), ("Matroska", "vp8"), ("AVI", "vp8"), ("Matroska", "vp9"), ("AVI", "vp9"),
+                 ("ISO-BMFF", "vp9")]:
         assert kind in kinds
     assert {p.suffix for p in VIDEOS.iterdir()} == {".mp4", ".mov", ".m4v", ".avi", ".mkv", ".webm"}
-    assert [k for k, v in DIGESTS.items() if "refused" in v] == ["vp9_64x48.webm"]
+    assert [k for k, v in DIGESTS.items() if "refused" in v] == ["ffv1_64x48.avi"]
     small = [p for p in VIDEOS.iterdir() if not p.name.startswith("track_")]
     assert max(p.stat().st_size for p in small) < 30_000
-    assert sum((VIDEOS / n).stat().st_size for n in ("track_640x480.webm", "track_640x480_xvid.avi")) < 1_100_000
-    assert sum(p.stat().st_size for p in VIDEOS.iterdir()) < 2_600_000
+    assert sum((VIDEOS / n).stat().st_size
+               for n in ("track_640x480.webm", "track_640x480_xvid.avi", "track_640x480_vp9.webm")) < 1_500_000
+    assert sum(p.stat().st_size for p in VIDEOS.iterdir()) < 3_000_000
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
@@ -393,10 +397,10 @@ def test_demuxer_faults_reach_the_caller(monkeypatch):
 
 
 def test_unsupported_codecs_raise_named_errors(tmp_path):
-    """VP9 WebM (cv2 decodes it), an AVI of a codec the port has no decoder
-    for and interlaced MPEG-4 raise NotImplementedError naming the codec or
-    tool; the VP8 WebM, refused before VP8 was ported, now gives the JAX
-    package's 14 frames."""
+    """FFV1 (cv2 decodes it), VP9 profile 1, an AVI of a codec the port has
+    no decoder for and interlaced MPEG-4 raise NotImplementedError naming the
+    codec or tool; the VP8 WebM and a VP9 WebM that cv2 writes, refused
+    before those codecs were ported, now give the JAX package's frames."""
     got, ref = list(load_source(VIDEOS / "vp8_64x48.webm")), list(jax_load_source(str(VIDEOS / "vp8_64x48.webm")))
     assert len(got) == len(ref) == 14
     for g, r in zip(got, ref):
@@ -406,9 +410,17 @@ def test_unsupported_codecs_raise_named_errors(tmp_path):
     for f in small_frames(3):
         vw.write(np.ascontiguousarray(f[..., ::-1]))
     vw.release()
-    if cv2_packets(vp9):
-        with pytest.raises(NotImplementedError, match="VP9"):
-            list(load_source(vp9))
+    got, ref = list(load_source(vp9)), list(jax_load_source(str(vp9)))
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    with pytest.raises(NotImplementedError, match=r"the FFV1 codec \(FFV1\) in AVI"):
+        list(load_source(VIDEOS / "ffv1_64x48.avi"))
+    profile1 = tmp_path / "profile1.avi"
+    first = video.demux(vp9).packets[0]
+    write_avi(profile1, [bytes([first[0] | 0x20]) + first[1:]], 64, 48, b"VP90")
+    with pytest.raises(NotImplementedError, match=r"VP9: profile 1 \(4:2:2, 4:4:0 and 4:4:4 at 8 bits\)"):
+        list(load_source(profile1))
     h264 = tmp_path / "h264.avi"
     write_avi(h264, [b"\0\0\0\1\x67"], 64, 48, b"H264")
     with pytest.raises(NotImplementedError, match=r"H\.264 codec \(H264\) in AVI"):
@@ -755,6 +767,8 @@ for name in names:
             try:
                 if dec.send(bytes(p)):
                     assert dec.rgb().shape[2] == 3
+                    while dec.next():  # the other frames a VP9 packet shows
+                        assert dec.rgb().shape[2] == 3
             except (ValueError, NotImplementedError):
                 break
         else:
@@ -775,7 +789,8 @@ def test_damaged_packets_end_or_raise_never_crash():
     normally."""
     names = [str(VIDEOS / n) for n in ("mp4v_64x48.mp4", "mjpg_64x48.avi", "mpeg4_tools_88x40.avi",
                                          "mp4v_64x48.mkv", "vp8_64x48.webm", "vp8_p3_er_64x48.avi",
-                                         "mpeg4_asp_88x40.avi", "divx_packed_88x40.avi")]
+                                         "mpeg4_asp_88x40.avi", "divx_packed_88x40.avi", "vp9_tiles_512x64.mkv",
+                                         "vp9_crafted_64x48.mkv", "vp9_aq_96x64.mp4")]
     proc = subprocess.run([sys.executable, "-c", FUZZ, str(random.Random(0).randrange(1 << 30)), *names],
                           cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
