@@ -298,7 +298,18 @@ Phases:
      ``tests/fixtures/make_video_fixtures.py``'s ``write_mp4``): ``obb
      predict save=True`` at 1024 through ``cli.main`` and the bf16 facade
      (K1 + K3), the file's boxes equal to those of its decoded frames;
- 73. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 73. the stills ``cv2.imread`` takes outside IMG_EXTS: every committed still
+     fixture (PxM, PAM, PFM, Sun raster, Radiance HDR, GIF) against its
+     OpenCV digest or its ValueError, the decode ms of a 512 x 512 file of
+     each kind, ``obb predict`` at 1024 of one file of each kind through
+     ``cli.main`` (K1 once and K3 at 37 sites a file) and the bf16 facade,
+     the files' boxes equal to those of their decoded arrays;
+ 74. the H.263 family (H.263, H.263+, Sorenson H.263, MS-MPEG4 v2 and v3) and
+     MPEG-4 data partitioning: their fixtures against their digests, and the
+     decode and RGB ms a frame of the 640 x 480 clip as cv2's DIV3 AVI,
+     beside the VP8 and VP9 clips';
+ 75. phases 59 and 60 on the DIV3 AVI;
+ 76. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -319,8 +330,10 @@ Phases:
      video_vp9_predict, image_val_{png,bmp,tiff_lzw_pred2,
      tiff_tiled_deflate,webp_lossless}, image_fit_{bmp,png},
      image_cli_predict_{mixed,png}, image_val_{jpeg_ycbcr_bigtiff,cmyk_lzw}
-     and their _png twins, image_fit_jpeg_ycbcr_bigtiff{,_png} and
-     image_cli_predict_kinds{,_png}; each
+     and their _png twins, image_fit_jpeg_ycbcr_bigtiff{,_png},
+     image_cli_predict_kinds{,_png}, still_cli_predict, still_predict,
+     video_div3_cli_track, video_div3_track_botsort, video_div3_cli_predict
+     and video_div3_predict; each
      kernel launched on each path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
@@ -5291,6 +5304,11 @@ VIDEO_VP9 = {"vp9_64x48.webm", "vp9_64x48.mkv", "vp9_64x48.avi", "vp9_64x48.mp4"
 VIDEO_VP8_CLIP = "track_640x480.webm"  # make_clip's frames as cv2's VP80 WebM: phase 65's track source
 VIDEO_ASP_CLIP = "track_640x480_xvid.avi"  # B-VOPs and quarter-pel under Xvid's user data: phase 66's source
 VIDEO_VP9_CLIP = "track_640x480_vp9.webm"  # make_clip's frames as cv2's VP90 WebM: phase 71's track source
+# the H.263 family's fixtures (phase 74): H.263, H.263+, Sorenson, MS-MPEG4 v2 and v3, MPEG-4 data partitioning
+VIDEO_H263 = {"h263_176x144.avi", "h263_352x288.avi", "flv1_64x48.avi", "mp42_64x48.avi", "div3_64x48.avi",
+              "u263_88x40.avi", "flv1_tools_88x40.avi", "mp42_tools_88x40.avi", "div3_tools_88x40.avi",
+              "mpeg4_dp_88x40.avi", "flv1_droppable_88x40.avi", "track_640x480_div3.avi"}
+VIDEO_DIV3_CLIP = "track_640x480_div3.avi"  # make_clip's frames as cv2's DIV3 AVI: phase 75's source
 
 
 def _video_fixtures(names, tag: str) -> dict:
@@ -5334,7 +5352,7 @@ def _video_ms(name: str) -> dict:
     spent = {"decode": 0.0, "rgb": 0.0}
     n = 0
     for _ in range(VIDEO_PASSES):
-        dec = video.Decoder(stream.codec, stream.private, stream.tag)
+        dec = video.Decoder(stream.codec, stream.private, stream.tag, stream.size)
         for packet in [*stream.packets, None]:
             t0 = time.perf_counter()
             ready = dec.send(packet) if packet is not None else dec.flush()
@@ -5370,7 +5388,7 @@ def phase_video_decode(card: str):
     Motion-JPEG clips (demux once, then decode and convert to RGB, mean of
     VIDEO_PASSES)."""
     digests = json.loads((VIDEOS.parent / "video_fixtures.json").read_text())
-    out = {"fixtures": _video_fixtures(set(digests) - VIDEO_ASP_VP8 - VIDEO_VP9, "video decode"),
+    out = {"fixtures": _video_fixtures(set(digests) - VIDEO_ASP_VP8 - VIDEO_VP9 - VIDEO_H263, "video decode"),
            "ms_a_frame": {name: _video_ms(name) for name in ("track_640x480.mp4", "track_640x480.avi")}}
     _print_video("video decode", out, card)
     return out
@@ -5403,6 +5421,21 @@ def phase_video_vp9_decode(card: str):
     check(out["ms_a_frame"][VIDEO_VP9_CLIP]["frames"] == TRACK_FRAMES,
           f"video VP9 decode: the clip's frames {out['ms_a_frame']}")
     _print_video("video VP9 decode", out, card)
+    return out
+
+
+def phase_video_h263_decode(card: str):
+    """74. The H.263 family's fixtures (cv2's H263 at QCIF and CIF, FLV1, MP42
+    and DIV3; libavcodec's h263p custom format, flv, msmpeg4v2 and msmpeg4 at
+    fixed quantisers, Sorenson's disposable frames; MPEG-4 with data
+    partitioning) through `video.frames`, each frame against the port's
+    SHA-256; the decode and RGB ms a frame of the 640 x 480 clip as DIV3,
+    beside the VP8 and VP9 clips' in the same run."""
+    out = {"fixtures": _video_fixtures(VIDEO_H263, "video H.263 decode"),
+           "ms_a_frame": {name: _video_ms(name) for name in (VIDEO_DIV3_CLIP, VIDEO_VP8_CLIP, VIDEO_VP9_CLIP)}}
+    check(all(v["frames"] == TRACK_FRAMES for v in out["ms_a_frame"].values()),
+          f"video H.263 decode: the clips' frames {out['ms_a_frame']}")
+    _print_video("video H.263 decode", out, card)
     return out
 
 
@@ -5701,7 +5734,8 @@ def phase_image_sources(root: Path, png_cfg, card: str, reps: int = 5):
     from quan_ultralytics_tpu_torch.data.split_dota import get_windows, split_image
 
     fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
-    digests = json.loads((fixtures / "image_fixtures.json").read_text())
+    digests = {k: v for k, v in json.loads((fixtures / "image_fixtures.json").read_text()).items()
+               if not v.get("still")}  # phase 73's: no dataset lists them
     (root / "fixtures" / "images" / "val").mkdir(parents=True)
     (root / "fixtures" / "labels" / "val").mkdir(parents=True)
     refused = 0
@@ -6101,6 +6135,112 @@ def lap(t_start: float, what: str) -> None:
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}")
 
 
+# ---------------------------------------------------------------- phase 73
+
+STILL_SIDE = 512  # the side of the stills whose decode phase 73 times
+
+
+def _still_files(root: Path) -> dict:
+    """kind -> a STILL_SIDE x STILL_SIDE file of that kind: the raw kinds
+    written here by make_still_fixtures' numpy writers, the GIF committed."""
+    maker = fixture_maker("make_still_fixtures")
+    im = maker.image(STILL_SIDE, STILL_SIDE, seed=6)
+    gray = im[..., 1]
+    root.mkdir(parents=True, exist_ok=True)
+    data = {"ppm": maker.pnm(im, 6), "pgm_16bit": maker.pnm(gray.astype(np.uint16) * 257, 5, 65535),
+            "pbm": maker.pnm(gray > 128, 4), "ppm_ascii": maker.pnm(im, 3), "pam": maker.pam(im[..., ::-1]),
+            "pfm": maker.pfm(im.astype(np.float32)), "ras": maker.sun(im, 24),
+            "hdr": maker.hdr(maker.to_rgbe(im.astype(np.float32) / 255))}
+    suffix = {"pgm_16bit": ".pgm", "ppm_ascii": ".ppm"}
+    files = {}
+    for kind, blob in data.items():
+        files[kind] = root / f"still_{kind}{suffix.get(kind, '.' + kind)}"
+        files[kind].write_bytes(blob)
+    files["gif"] = Path(__file__).resolve().parent / "tests" / "fixtures" / "image" / "still_gif_512.gif"
+    return files
+
+
+def phase_still_kinds(root: Path, card: str, reps: int = 5):
+    """73. The stills cv2.imread takes outside the dataset formats: every
+    committed still fixture (PxM, PAM, PFM, Sun raster, Radiance HDR, GIF)
+    through `native.imread` against its OpenCV digest (or its ValueError);
+    the decode ms of a 512 x 512 file of each kind; ``obb predict`` at 1024
+    through ``cli.main`` of one file of each kind, a call each (f32: its line
+    equals the facade's over the decoded array; K1 once and K3 at 37 sites),
+    then the bf16 facade on each file against its array within PRED_TOL,
+    launches counted."""
+    import hashlib
+
+    from quan_ultralytics_tpu_torch.data.native import native
+    from quan_ultralytics_tpu_torch.engine.model import YOLO
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "fixtures"
+    digests = {k: v for k, v in json.loads((fixtures / "image_fixtures.json").read_text()).items() if v.get("still")}
+    raised = 0
+    for name, ref in digests.items():
+        if ref.get("raises"):
+            try:
+                native.imread(fixtures / "image" / name)
+            except ValueError:
+                raised += 1
+                continue
+            check(False, f"still kinds: {name} decoded; OpenCV reads nothing of it")
+        im = native.imread(fixtures / "image" / name)
+        check(list(im.shape) == ref["shape"] and hashlib.sha256(im.tobytes()).hexdigest() == ref["sha256"],
+              f"still kinds: {name} does not decode to its OpenCV pixels")
+    files = _still_files(root / "stills")
+    decode_ms, sizes, arrays = {}, {}, []
+    for kind, path in files.items():
+        arrays.append(native.imread(path))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            im = native.imread(path)
+        decode_ms[kind] = 1e3 * (time.perf_counter() - t0) / reps
+        sizes[kind] = path.stat().st_size
+        check(im.shape == (STILL_SIDE, STILL_SIDE, 3), f"still kinds decode: {path.name} is {im.shape}")
+    pkl = seeded_pkl(root / "still_obb_seeded.pkl", MODEL, NC)
+    n = len(files)
+    f32 = YOLO(str(pkl), device=DEVICE)
+    cli_s, cli_n = 0.0, {}
+    for path, im in zip(files.values(), arrays):  # a file a call: predict's source is one path, as in JAX
+        text, secs, counts = _cli(["obb", "predict", f"model={pkl}", f"source={path}", f"imgsz={IMGSZ}"])
+        check(counts["qattn_fwd"] == 1 and counts["qconv1x1_fused"] == 37, f"still cli predict {path.name}: {counts}")
+        r = f32.predict(im, imgsz=IMGSZ)[0]
+        check([ln for ln in text.splitlines() if ln.startswith("image ")]
+              == [f"image 1/1 {r.orig_shape[1]}x{r.orig_shape[0]} {r.verbose()}"],
+              f"still cli predict: the lines of {path.name} differ from the facade's for its decoded array")
+        cli_s += secs
+        cli_n = {k: cli_n.get(k, 0) + v for k, v in counts.items()}
+    y = YOLO(str(pkl), dtype=torch.bfloat16, device=DEVICE)
+    y.predict(arrays[:1], imgsz=IMGSZ)  # warm up
+    base = [y.predict(im, imgsz=IMGSZ)[0] for im in arrays]
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = [y.predict(str(p), imgsz=IMGSZ)[0] for p in files.values()]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    check(got["qattn_fwd"] == n and got["qconv1x1_fused"] == 37 * n and got["qattn_bwd"] == 0,
+          f"still predict: launches {got}")
+    tol = PRED_TOL[torch.bfloat16]
+    same = len(res) == len(base) == n and all(
+        len(a) == len(b) and np.array_equal(a.cls, b.cls)
+        and np.abs(a.boxes - b.boxes).max(initial=0.0) <= tol * max(1.0, float(np.abs(b.boxes).max(initial=0.0)))
+        for a, b in zip(res, base))
+    check(same, "still predict: the files' detections differ from those of their decoded arrays")
+    row = {"fixtures": len(digests), "raised": raised, "decode_512_ms": decode_ms, "bytes_512": sizes,
+           "cli_s": cli_s, "launches_cli": cli_n, "launches": got, "ms_an_image": 1e3 * secs / n,
+           "detections": [len(r) for r in res]}
+    print(f"still kinds: {len(digests) - raised} still fixtures equal to their OpenCV digests, {raised} broken ones "
+          f"raise ValueError; decode of a {STILL_SIDE} x {STILL_SIDE} file "
+          + ", ".join(f"{k} {v:.2f} ms ({sizes[k]} B)" for k, v in decode_ms.items())
+          + f" (mean of {reps}); obb predict of the {n} files at {IMGSZ} through the CLI (f32, a call each) in "
+          f"{cli_s:.1f} s, "
+          f"launches {cli_n}; bf16 facade {row['ms_an_image']:.1f} ms an image, launches {got}, detections "
+          f"{row['detections']}; {card}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
@@ -6269,6 +6409,15 @@ def main() -> int:
     videos["vp9"]["seconds"] = time.perf_counter() - t_vp9
     print(f"VP9 video phases: {videos['vp9']['seconds']:.1f} s")
     lap(t_start, "the VP9 video phases")
+    t_h263 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_h263_") as tmp:
+        images["stills"] = phase_still_kinds(Path(tmp), card)
+        videos["h263"] = {"decode": phase_video_h263_decode(card),
+                          "track": phase_video_track(Path(tmp), card, VIDEO_DIV3_CLIP),
+                          "predict": phase_video_predict(Path(tmp), card, VIDEO_DIV3_CLIP)}
+    videos["h263"]["seconds"] = time.perf_counter() - t_h263
+    print(f"still and H.263 family phases: {videos['h263']['seconds']:.1f} s")
+    lap(t_start, "the still and H.263 family phases")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -6420,6 +6569,19 @@ def main() -> int:
                          "video_vp9_cli_predict": vp9["predict"]["launches_cli"],
                          "video_vp9_predict": vp9["predict"]["launches"]})
     for path in ("video_vp9_cli_track", "video_vp9_track_botsort", "video_vp9_cli_predict", "video_vp9_predict"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the stills outside the dataset formats (obb predict through the CLI, bf16 facade) and the DIV3 clip:
+    # detect track (CLI, ByteTrack; facade, BoT-SORT) and obb predict (CLI; bf16 facade)
+    h263 = videos["h263"]
+    det_launches.update({"still_cli_predict": images["stills"]["launches_cli"],
+                         "still_predict": images["stills"]["launches"],
+                         "video_div3_cli_track": h263["track"]["launches_cli"],
+                         "video_div3_track_botsort": h263["track"]["launches"],
+                         "video_div3_cli_predict": h263["predict"]["launches_cli"],
+                         "video_div3_predict": h263["predict"]["launches"]})
+    for path in ("still_cli_predict", "still_predict", "video_div3_cli_track", "video_div3_track_botsort",
+                 "video_div3_cli_predict", "video_div3_predict"):
         check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     # the image formats: val on each set (K1 and K3), the BMP and PNG fit epochs (K1 and K2), obb predict

@@ -2,9 +2,10 @@
 (counterpart of the JAX package's ``data/loaders.py``; reference
 ultralytics/data/loaders.py LoadImagesAndVideos).
 
-Image files (PNG, JPEG, BMP, TIFF, WebP) are read by the port's readers
-(`data.native.native.imread`: RGB, the pixels ``cv2.imread`` then
-``cvtColor(BGR2RGB)`` gives). Video files are read by the port's demuxers and
+Image files (PNG, JPEG, BMP, TIFF, WebP; and, by their path, the stills
+``cv2.imread`` also takes: PxM, PAM, PFM, Sun raster, Radiance HDR, GIF)
+are read by the port's readers (`data.native.native.imread`: RGB, the
+pixels ``cv2.imread`` then ``cvtColor(BGR2RGB)`` gives). Video files are read by the port's demuxers and
 decoders (`data.native.video.frames`: RGB frames in display order, the pixels
 ``cv2.VideoCapture`` then ``cvtColor(BGR2RGB)`` gives), streamed one frame at
 a time. As with ``cv2.VideoCapture``, a missing or unreadable video yields no

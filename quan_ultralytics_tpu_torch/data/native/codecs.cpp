@@ -2,7 +2,10 @@
 // vectorise: BMP's RLE8 and RLE4 as OpenCV 5.0's decoder runs them
 // (grfmt_bmp.cpp), and TIFF's LZW (as libtiff decodes and encodes it),
 // PackBits, horizontal differencing and CCITT RLE, Group 3 (1-D and 2-D) and
-// Group 4 (ITU-T T.4 and T.6) as libtiff 4.7's tif_fax3.c decodes them.
+// Group 4 (ITU-T T.4 and T.6) as libtiff 4.7's tif_fax3.c decodes them;
+// and those of the stills OpenCV reads outside the dataset formats: the
+// numbers of ASCII PxM files (grfmt_pxm.cpp's ReadNumber), Radiance's RGBE scanlines (rgbe.cpp's
+// RGBE_ReadPixels_RLE) and GIF's LZW.
 
 #include <stdint.h>
 #include <string.h>
@@ -662,6 +665,166 @@ long tiff_packbits_decode(const uint8_t* in, long n, uint8_t* out, long cap) {
       memset(out + o, in[i++], count);
       o += count;
     }
+  }
+  return o;
+}
+
+// ASCII PxM samples as OpenCV's ReadNumber reads them, from ``*pos``: white
+// space and ``#`` comments (to the end of the line) skipped before each
+// number; with ``single_digit`` (P1) one digit a sample. ``count`` samples
+// into ``out``; ``*pos`` is left after the character that ended the last.
+// Returns 0, 1 for a character that is no digit, space or comment, 2 where
+// the data ends first, 3 for a number above INT_MAX.
+int pnm_ascii(const uint8_t* src, long n, long* pos, long count, int single_digit, int32_t* out) {
+  long p = *pos;
+  auto space = [](int c) { return c == ' ' || (c >= 9 && c <= 13); };
+  for (long k = 0; k < count; ++k) {
+    if (p >= n) return 2;
+    int code = src[p++];
+    while (code < '0' || code > '9') {
+      if (code == '#') {
+        do {
+          if (p >= n) return 2;
+          code = src[p++];
+        } while (code != '\n' && code != '\r');
+        if (p >= n) return 2;
+        code = src[p++];
+      } else if (space(code)) {
+        while (space(code)) {
+          if (p >= n) return 2;
+          code = src[p++];
+        }
+      } else {
+        return 1;
+      }
+    }
+    int64_t val = 0;
+    int digits = 0;
+    do {
+      val = val * 10 + (code - '0');
+      if (val > 2147483647) return 3;
+      ++digits;
+      if (single_digit) break;
+      if (p >= n) return 2;  // the stream's getByte throws past the end
+      code = src[p++];
+    } while (code >= '0' && code <= '9');
+    out[k] = (int32_t)val;
+  }
+  *pos = p;
+  return 0;
+}
+
+// Radiance RGBE pixels (RGBE_ReadPixels_RLE) -> ``width * height`` RGBE
+// quadruples: new-style scanlines (2, 2, width) with each channel run-length
+// coded, else flat pixels from the first one that does not start so, as
+// rgbe.cpp reads them (old-style run pixels are taken as pixels). Returns 0,
+// 1 for bad scanline data or a wrong width, 2 where the data ends first.
+int hdr_read_pixels(const uint8_t* src, long n, int width, int height, uint8_t* out) {
+  long pos = 0;
+  const long total = (long)width * height;
+  auto flat = [&](long from) {
+    long need = (total - from) * 4;
+    if (pos + need > n) return 2;
+    memcpy(out + from * 4, src + pos, need);
+    return 0;
+  };
+  if (width < 8 || width > 0x7fff) return flat(0);
+  std::vector<uint8_t> line((size_t)width * 4);
+  for (int y = 0; y < height; ++y) {
+    if (pos + 4 > n) return 2;
+    const uint8_t* q = src + pos;
+    pos += 4;
+    if (q[0] != 2 || q[1] != 2 || (q[2] & 0x80)) {
+      memcpy(out + (long)y * width * 4, q, 4);
+      return flat((long)y * width + 1);
+    }
+    if (((q[2] << 8) | q[3]) != width) return 1;
+    long at = 0;
+    for (int c = 0; c < 4; ++c) {
+      const long end = (long)(c + 1) * width;
+      while (at < end) {
+        if (pos + 2 > n) return 2;
+        int count = src[pos], value = src[pos + 1];
+        pos += 2;
+        if (count > 128) {
+          count -= 128;
+          if (count > end - at) return 1;
+          memset(&line[at], value, count);
+          at += count;
+        } else {
+          if (count == 0 || count > end - at) return 1;
+          line[at++] = (uint8_t)value;
+          if (--count > 0) {
+            if (pos + count > n) return 2;
+            memcpy(&line[at], src + pos, count);
+            pos += count;
+            at += count;
+          }
+        }
+      }
+    }
+    uint8_t* o = out + (long)y * width * 4;
+    for (int x = 0; x < width; ++x)
+      for (int c = 0; c < 4; ++c) o[x * 4 + c] = line[(size_t)c * width + x];
+  }
+  return 0;
+}
+
+// GIF LZW (least significant bit first, code sizes from min_size + 1 up to
+// 12, a clear and an end code, a full 4,096-entry table kept until the next
+// clear) -> up to ``cap`` indices. Returns the number written, or -1 for a
+// code that is not yet in the table.
+long gif_lzw_decode(const uint8_t* in, long n, int min_size, uint8_t* out, long cap) {
+  const int clear = 1 << min_size, end = clear + 1;
+  std::vector<uint16_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), stack(4097);
+  int size = min_size + 1, next = clear + 2, prev = -1;
+  uint8_t first = 0;
+  uint32_t acc = 0;
+  int nbits = 0;
+  long pos = 0, o = 0;
+  while (o < cap) {
+    while (nbits < size && pos < n) {
+      acc |= (uint32_t)in[pos++] << nbits;
+      nbits += 8;
+    }
+    if (nbits < size) break;
+    int code = acc & ((1u << size) - 1);
+    acc >>= size;
+    nbits -= size;
+    if (code == clear) {
+      size = min_size + 1;
+      next = clear + 2;
+      prev = -1;
+      continue;
+    }
+    if (code == end) break;
+    if (prev < 0) {
+      if (code >= clear) return -1;
+      out[o++] = first = (uint8_t)code;
+      prev = code;
+      continue;
+    }
+    int cur = code, sp = 0;
+    if (code >= next) {
+      if (code > next) return -1;
+      stack[sp++] = first;
+      cur = prev;
+    }
+    while (cur >= clear) {
+      stack[sp++] = suffix[cur];
+      cur = prefix[cur];
+    }
+    stack[sp++] = (uint8_t)cur;
+    first = (uint8_t)cur;
+    while (sp > 0 && o < cap) out[o++] = stack[--sp];
+    if (next < 4096) {
+      prefix[next] = (uint16_t)prev;
+      suffix[next] = first;
+      ++next;
+      if (next == (1 << size) && size < 12) ++size;
+    }
+    prev = code;
   }
   return o;
 }

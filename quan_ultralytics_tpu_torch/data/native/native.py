@@ -21,6 +21,10 @@ the pixels OpenCV gives (gray replicated to three channels, alpha dropped).
   YCbCr, CMYK and CIELab among its kinds) and WebP (`webp`, lossless VP8L and
   lossy VP8 key frames): each module's docstring lists what it reads. A file
   is taken by its signature, not its suffix.
+* The stills ``cv2.imread`` also takes, read by `imread` only (datasets
+  list PNG, JPEG, BMP, TIFF and WebP files, so `read_shape` refuses them):
+  PBM/PGM/PPM, PAM and PFM (`pxm`), Sun raster (`sunras`), Radiance HDR
+  (`hdr`) and GIF's first frame (`gif`).
 * EXIF orientation (a JPEG's APP1 ``Exif`` segment, a PNG's ``eXIf`` chunk,
   a WebP's ``EXIF`` chunk): orientations 2-8 flip and transpose the pixels as
   ``IMREAD_COLOR`` does (`apply_orientation`), and `read_shape` gives the
@@ -117,7 +121,8 @@ def write_library() -> ctypes.CDLL:
 
 
 def codecs_library() -> ctypes.CDLL:
-    """BMP's RLE and TIFF's LZW, PackBits, predictor and CCITT (``codecs.cpp``), built on first call."""
+    """BMP's RLE, TIFF's LZW, PackBits, predictor and CCITT, and the loops of
+    the PxM, Radiance and GIF readers (``codecs.cpp``), built on first call."""
     global _codecs_lib
     if _codecs_lib is None:
         lib = ctypes.CDLL(str(build_cxx(CODECS_SOURCE, CODECS_LIB_NAME, CXX_FLAGS, BUILD_DIR)))
@@ -132,6 +137,12 @@ def codecs_library() -> ctypes.CDLL:
         i = ctypes.c_int
         lib.tiff_fax_decode.argtypes = [vp, lg, i, i, i, i, i, vp]
         lib.tiff_fax_decode.restype = i
+        lib.pnm_ascii.argtypes = [vp, lg, ctypes.POINTER(lg), lg, i, vp]
+        lib.pnm_ascii.restype = i
+        lib.hdr_read_pixels.argtypes = [vp, lg, i, i, vp]
+        lib.hdr_read_pixels.restype = i
+        lib.gif_lzw_decode.argtypes = [vp, lg, i, vp, lg]
+        lib.gif_lzw_decode.restype = lg
         _codecs_lib = lib
     return _codecs_lib
 
@@ -376,13 +387,35 @@ def _format(head: bytes):
     return None
 
 
+def _still(head: bytes):
+    """The module of the stills ``cv2.imread`` takes outside the dataset formats
+    (PxM, PAM, PFM, Sun raster, Radiance, GIF) whose signature ``head`` starts
+    with, or None: chosen by the first bytes, as OpenCV's ``findDecoder``."""
+    from quan_ultralytics_tpu_torch.data.native import gif, hdr, pxm, sunras
+
+    if head[:2] in pxm.SIGNATURES:
+        return pxm
+    if head[:4] == sunras.SIGNATURE:
+        return sunras
+    if head.startswith(hdr.SIGNATURES):
+        return hdr
+    if head[:6] in gif.SIGNATURES:
+        return gif
+    return None
+
+
 def _unknown(path: PathLike, head: bytes) -> NotImplementedError:
-    kind = "GIF" if head[:3] == b"GIF" else "this kind of"
-    return NotImplementedError(f"{path}: {kind} file is not read (PNG, JPEG, BMP, TIFF and WebP are)")
+    mod = _still(head)
+    if mod is not None:  # read by imread, not by the dataset readers
+        return NotImplementedError(f"{path}: a {mod.NAME} file is read by imread only (datasets take PNG, JPEG, "
+                                   "BMP, TIFF and WebP)")
+    return NotImplementedError(f"{path}: this kind of file is not read (PNG, JPEG, BMP, TIFF, WebP, PxM, PAM, "
+                               "PFM, Sun raster, Radiance HDR and GIF are)")
 
 
 def imread(path: PathLike) -> np.ndarray:
-    """RGB ``uint8 [h, w, 3]`` pixels of a PNG, JPEG, BMP, TIFF or WebP file,
+    """RGB ``uint8 [h, w, 3]`` pixels of a PNG, JPEG, BMP, TIFF, WebP, PxM,
+    PAM, PFM, Sun raster, Radiance HDR or GIF file (the first frame),
     as OpenCV's IMREAD_COLOR (then BGR->RGB) gives them. Raises
     `FileNotFoundError` for a missing file, `NotImplementedError` for a kind
     of file this reader does not take, `ValueError` where OpenCV reads
@@ -392,7 +425,7 @@ def imread(path: PathLike) -> np.ndarray:
         return _decode_png(data, path)
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data, path)
-    fmt = _format(data[:12])
+    fmt = _format(data[:12]) or _still(data[:16])
     if fmt is None:
         raise _unknown(path, data)
     return fmt.decode(data, path)

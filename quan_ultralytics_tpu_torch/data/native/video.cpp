@@ -1,5 +1,6 @@
 // Video decoding on the host: Motion-JPEG, MPEG-4 Part 2 (Simple and Advanced
-// Simple Profile) and VP8 packets into planar YUV, and YUV into RGB as
+// Simple Profile), the H.263 family (H.263, Sorenson H.263, MS-MPEG4 v2 and
+// v3), VP8 and VP9 packets into planar YUV, and YUV into RGB as
 // OpenCV's FFmpeg capture converts it. Called through ctypes from video.py,
 // which demuxes the file.
 //
@@ -39,11 +40,17 @@
 //     the user data or fourcc selects ff_mpeg4_workaround_bugs's behaviour:
 //     the Xvid IDCT, the old qpel filters, the quarter-pel chroma rounding of
 //     old Xvid and DivX builds, edges at the picture size, unclipped DC,
-//     low_delay detection, and DivX 5's packed B-VOPs. Data partitioning,
-//     RVLC, interlace, GMC/sprites, short_video_header, non-8-bit video,
+//     low_delay detection, and DivX 5's packed B-VOPs; data partitioning
+//     (the first two partitions of each video packet, then its textures).
+//     An H.263 picture (short_video_header) is damaged data, as FFmpeg's
+//     MPEG-4 decoder finds no VOP in it (the H.263 decoder below reads it).
+//     RVLC, interlace, GMC/sprites, non-8-bit video,
 //     shapes other than rectangular, newpred, reduced-resolution VOPs,
 //     scalability and complexity estimation are refused with a message that
 //     names them.
+//   * The H.263 family (struct H263 below, over Mpeg4's macroblock state):
+//     H.263 and H.263+ (ituh263dec.c), Sorenson H.263 (flvdec.c), MS-MPEG4
+//     v2 and v3 (msmpeg4dec.c, tables in msmpeg4_tables.h), low delay.
 //   * VP8 (vp8.h, as vp8.c decodes a stream): key and inter frames, the
 //     golden and altref references, invisible frames (no output).
 //   * VP9 profile 0 (vp9.h, as FFmpeg's vp9 decoder decodes a stream): a
@@ -61,6 +68,7 @@
 
 #include "imread.cpp"
 #include "jpeg_tables.h"
+#include "msmpeg4_tables.h"
 #include "vp8.h"
 #include "vp9.h"
 
@@ -734,10 +742,12 @@ enum Stat {
   ST_I_VOP, ST_P_VOP, ST_NOT_CODED_VOP, ST_SKIPPED_MB, ST_INTRA_MB_IN_P, ST_FOUR_MV_MB, ST_DQUANT,
   ST_PACKETS, ST_ESCAPE1, ST_ESCAPE2, ST_ESCAPE3, ST_AC_PRED_MB, ST_DC_AS_AC, ST_NO_ROUNDING_MB,
   ST_AC_RESCALED, ST_B_VOP, ST_B_DIRECT, ST_B_FORWARD, ST_B_BACKWARD, ST_B_INTERPOLATED, ST_B_COLOCATED_SKIP,
-  ST_DBQUANT, ST_QPEL_MB, ST_MPEG_QUANT_BLOCK, ST_XVID_IDCT_BLOCK, ST_PACKED_B, ST_SKIPPED_B, ST_COUNT
+  ST_DBQUANT, ST_QPEL_MB, ST_MPEG_QUANT_BLOCK, ST_XVID_IDCT_BLOCK, ST_PACKED_B, ST_SKIPPED_B,
+  ST_PARTITIONED_PACKETS, ST_GOB_HEADERS, ST_FLV_ESCAPE, ST_MV_ESCAPE, ST_DROPPABLE, ST_COUNT
 };
 constexpr int SLICE_END = 1;  // decode_slice: a video packet ends before the VOP does
 constexpr int FRAME_SKIPPED = 4;  // decode_vop_header: a VOP FFmpeg decodes to no frame
+constexpr int PARTITIONS_END = 5;  // decode_partitioned_mb: the video packet's last macroblock
 constexpr int MAX_NVOP_SIZE = 19;  // h263dec.c: a packet this small after a packed one is its placeholder
 
 // FFmpeg's workaround_bugs flags that change what a progressive stream decodes to
@@ -755,6 +765,12 @@ struct Mpeg4 {
   int vo_type = 0, vol_control = 0, width = 0, height = 0, mb_w = 0, mb_h = 0, mb_num = 0;
   int time_increment_bits = 0, time_resolution = 1, quant_precision = 5;
   bool resync_marker = false, low_delay = false, quarter_sample = false, mpeg_quant = false;
+  bool data_partitioning = false, partitioned = false;  // the VOL's flag; the VOP being decoded uses it
+  // the macroblocks of a data-partitioned video packet, from its first two
+  // partitions (FFmpeg's mb_type, cbp_table, qscale_table, pred_dir_table)
+  enum { DP_INTER = 0, DP_INTER4V = 1, DP_INTRA = 2, DP_SKIP = 3 };
+  std::vector<uint8_t> dp_type, dp_cbp, dp_ac_pred, dp_q, dp_dir;
+  int mb_num_left = 0;
   uint8_t intra_matrix[64], inter_matrix[64];  // natural order
   // the encoder, from the user data and the fourcc (ff_mpeg4_workaround_bugs)
   int lavc_build = -1, xvid_build = -1, divx_version = -1, divx_build = -1;
@@ -804,10 +820,14 @@ struct Mpeg4 {
     return DAMAGED;
   }
 
+  // the DC scales by quantiser: MPEG-4's, or those of the H.263 family
+  const uint8_t* y_dc_table = kYDcScale;
+  const uint8_t* c_dc_table = kCDcScale;
+
   void set_qscale(int q) {
     qscale = q < 1 ? 1 : (q > 31 ? 31 : q);
-    y_dc_scale = kYDcScale[qscale];
-    c_dc_scale = kCDcScale[qscale];
+    y_dc_scale = y_dc_table[qscale];
+    c_dc_scale = c_dc_table[qscale];
   }
 
   // ---- headers
@@ -880,36 +900,40 @@ struct Mpeg4 {
     quarter_sample = ver_id != 1 && b.get1();
     if (!b.get1()) return refuse("complexity estimation");
     resync_marker = !b.get1();
-    if (b.get1()) return refuse(b.get1() ? "data partitioning with RVLC" : "data partitioning");
+    data_partitioning = b.get1();
+    if (data_partitioning && b.get1()) return refuse("data partitioning with RVLC (reversible VLCs)");
     if (ver_id != 1) {
       if (b.get1()) return refuse("newpred");
       if (b.get1()) return refuse("reduced-resolution VOPs");
     }
     if (b.get1()) return refuse("scalability");
     if (w <= 0 || h <= 0 || w > 8192 || h > 8192) return damaged("bad frame size");
-    if (!have_vol || w != width || h != height) {
-      width = w;
-      height = h;
-      mb_w = (w + 15) / 16;
-      mb_h = (h + 15) / 16;
-      mb_num = mb_w * mb_h;
-      bw = 2 * mb_w + 2;
-      cw = mb_w + 2;
-      size_t nb = (size_t)bw * (2 * mb_h + 2), nc = (size_t)cw * (mb_h + 2);
-      dc_y.assign(nb, 1024);
-      dc_u.assign(nc, 1024);
-      dc_v.assign(nc, 1024);
-      ac_y.assign(nb * 16, 0);
-      ac_u.assign(nc * 16, 0);
-      ac_v.assign(nc * 16, 0);
-      mv.assign(nb * 2, 0);
-      qs.assign(nc, 0);
-      ref_skipped.assign(mb_num, 0);
-      ref_four_mv.assign(mb_num, 0);
-      have_past = have_future = false;
-    }
+    if (!have_vol || w != width || h != height) set_size(w, h);
     have_vol = true;
     return OK;
+  }
+
+  // the picture size, and the prediction state for it (the references dropped)
+  void set_size(int w, int h) {
+    width = w;
+    height = h;
+    mb_w = (w + 15) / 16;
+    mb_h = (h + 15) / 16;
+    mb_num = mb_w * mb_h;
+    bw = 2 * mb_w + 2;
+    cw = mb_w + 2;
+    size_t nb = (size_t)bw * (2 * mb_h + 2), nc = (size_t)cw * (mb_h + 2);
+    dc_y.assign(nb, 1024);
+    dc_u.assign(nc, 1024);
+    dc_v.assign(nc, 1024);
+    ac_y.assign(nb * 16, 0);
+    ac_u.assign(nc * 16, 0);
+    ac_v.assign(nc * 16, 0);
+    mv.assign(nb * 2, 0);
+    qs.assign(nc, 0);
+    ref_skipped.assign(mb_num, 0);
+    ref_four_mv.assign(mb_num, 0);
+    have_past = have_future = false;
   }
 
   void decode_user_data(Bits& b) {
@@ -1171,7 +1195,12 @@ struct Mpeg4 {
     const uint8_t* scan = kZigzag;
     bool use_dc_vlc = qscale_at_mb_start < intra_dc_threshold;
     if (intra) {
-      if (use_dc_vlc) {
+      if (use_dc_vlc && partitioned) {  // decoded with the partitions: recovered from its store
+        const int scale = n < 4 ? y_dc_scale : c_dc_scale;
+        blk[0] = (int16_t)((*dc_at(n) + (scale >> 1)) / scale);
+        dir = (dp_dir[mb_y * mb_w + mb_x] << n) & 32 ? 1 : 0;
+        i = 0;
+      } else if (use_dc_vlc) {
         int level = decode_dc(b, n, &dir);
         if (level == INT32_MIN) return damaged("bad DC size code");
         blk[0] = (int16_t)level;
@@ -1373,11 +1402,14 @@ struct Mpeg4 {
       yy = yy < 0 ? 0 : (yy >= edge_h ? edge_h - 1 : yy);
       return (int)plane[(size_t)yy * stride + xx];
     };
-    // put_no_rnd_pixels{8,16}_{x2,y2}_mmxext, which FFmpeg's x86 build takes
-    // unless asked to be bit-exact: pavgb(max(p - 1, 0), q), exact but where
-    // p is 0; p is the left sample (x2) or that of the pair's odd source row
-    // counted from the block's first (y2)
-    auto avg_no_rnd = [](int p, int q) { return ((p > 0 ? p - 1 : 0) + q + 1) >> 1; };
+    // FFmpeg's x86 build averages 8-wide blocks without rounding by
+    // put_no_rnd_pixels8_{x2,y2}_mmxext unless asked to be bit-exact:
+    // pavgb(max(p - 1, 0), q), exact but where p is 0; p is the left sample
+    // (x2) or that of the pair's odd source row counted from the block's
+    // first (y2). 16-wide blocks take the exact C versions.
+    auto avg_no_rnd = [bsize](int p, int q) {
+      return bsize == 16 ? (p + q) >> 1 : ((p > 0 ? p - 1 : 0) + q + 1) >> 1;
+    };
     for (int r = 0; r < bsize; ++r)
       for (int c = 0; c < bsize; ++c) {
         int a = px(x + c, y + r), v;
@@ -1620,8 +1652,228 @@ struct Mpeg4 {
     return OK;
   }
 
+  // ---- data partitioning (mpeg4_decode_partitions)
+
+  static constexpr uint32_t DC_MARKER = 0x6B001, MOTION_MARKER = 0x1F001;
+
+  // the intra DCs of a macroblock in a partition, and their directions (dp_dir)
+  int partition_dcs(Bits& b, int mb) {
+    int dir = 0;
+    for (int i = 0; i < 6; ++i) {
+      int d = 0;
+      const int level = decode_dc(b, i, &d);
+      if (level == INT32_MIN || level < 0) return damaged("a bad DC in a partition");
+      dir = (dir << 1) | d;
+    }
+    dp_dir[mb] = (uint8_t)dir;
+    return OK;
+  }
+
+  // mpeg4_decode_partition_a: the macroblocks up to the DC or motion marker;
+  // returns their number, or -1 (msg set)
+  int partition_a(Bits& b) {
+    const Tables& t = tables();
+    int count = 0;
+    first_slice_line = true;
+    for (; mb_y < mb_h; ++mb_y) {
+      for (; mb_x < mb_w; ++mb_x) {
+        const int mb = mb_y * mb_w + mb_x;
+        ++count;
+        if (mb_x == resync_mb_x && mb_y == resync_mb_y + 1) first_slice_line = false;
+        if (pict_type == I_VOP) {
+          int cbpc;
+          do {
+            if (b.show(19) == DC_MARKER) return count - 1;
+            cbpc = t.intra_mcbpc.read(b);
+            if (cbpc < 0) return damaged("bad MCBPC code in the first partition"), -1;
+          } while (cbpc == 8);
+          dp_cbp[mb] = (uint8_t)(cbpc & 3);
+          dp_type[mb] = DP_INTRA;
+          mb_intra = true;
+          if (cbpc & 4) {
+            ++stats[ST_DQUANT];
+            set_qscale(qscale + kDquant[b.get(2)]);
+          }
+          dp_q[mb] = (uint8_t)qscale;
+          qs_at(mb_x, mb_y) = (int8_t)qscale;
+          if (partition_dcs(b, mb)) return -1;
+          continue;
+        }
+        int cbpc;
+        while (true) {
+          const uint32_t bits = b.show(17);
+          if (bits == MOTION_MARKER) return count - 1;
+          b.skip(1);
+          if (bits & 0x10000) {
+            cbpc = -1;  // not coded
+            break;
+          }
+          cbpc = t.inter_mcbpc.read(b);
+          if (cbpc < 0) return damaged("bad MCBPC code in the first partition"), -1;
+          if (cbpc != 20) break;
+        }
+        int16_t* mvp = mv_at(0);
+        const int wr = bw * 2;
+        auto set_all = [&](int mx, int my) {
+          mvp[0] = mvp[2] = mvp[wr] = mvp[wr + 2] = (int16_t)mx;
+          mvp[1] = mvp[3] = mvp[wr + 1] = mvp[wr + 3] = (int16_t)my;
+        };
+        if (cbpc < 0) {
+          ++stats[ST_SKIPPED_MB];
+          dp_type[mb] = DP_SKIP;
+          set_all(0, 0);
+          clean_intra_entries();
+          continue;
+        }
+        dp_cbp[mb] = (uint8_t)(cbpc & (8 + 3));
+        if (cbpc & 4) {
+          dp_type[mb] = DP_INTRA;
+          set_all(0, 0);
+          continue;
+        }
+        clean_intra_entries();
+        if (no_rounding) ++stats[ST_NO_ROUNDING_MB];
+        if (quarter_sample) ++stats[ST_QPEL_MB];
+        int px, py;
+        if (!(cbpc & 16)) {
+          dp_type[mb] = DP_INTER;
+          pred_motion(0, &px, &py);
+          const int mx = decode_motion(b, px, f_code);
+          if (mx == INT32_MIN) return damaged("bad motion vector code"), -1;
+          const int my = decode_motion(b, py, f_code);
+          if (my == INT32_MIN) return damaged("bad motion vector code"), -1;
+          set_all(mx, my);
+        } else {
+          ++stats[ST_FOUR_MV_MB];
+          dp_type[mb] = DP_INTER4V;
+          for (int i = 0; i < 4; ++i) {
+            int16_t* p = pred_motion(i, &px, &py);
+            const int mx = decode_motion(b, px, f_code);
+            if (mx == INT32_MIN) return damaged("bad motion vector code"), -1;
+            const int my = decode_motion(b, py, f_code);
+            if (my == INT32_MIN) return damaged("bad motion vector code"), -1;
+            p[0] = (int16_t)mx;
+            p[1] = (int16_t)my;
+          }
+        }
+      }
+      mb_x = 0;
+    }
+    return count;
+  }
+
+  // mpeg4_decode_partition_b: ac_pred, CBPY, DQUANT and the DCs of P-VOPs' intra macroblocks
+  int partition_b(Bits& b, int count) {
+    const Tables& t = tables();
+    int n = 0;
+    mb_x = resync_mb_x;
+    first_slice_line = true;
+    for (mb_y = resync_mb_y; n < count; ++mb_y) {
+      for (; n < count && mb_x < mb_w; ++mb_x) {
+        const int mb = mb_y * mb_w + mb_x;
+        ++n;
+        if (mb_x == resync_mb_x && mb_y == resync_mb_y + 1) first_slice_line = false;
+        if (pict_type == I_VOP || dp_type[mb] == DP_INTRA) {
+          dp_ac_pred[mb] = (uint8_t)b.get1();
+          const int cbpy = t.cbpy.read(b);
+          if (cbpy < 0) return damaged("bad CBPY code in the second partition");
+          if (pict_type == P_VOP) {
+            ++stats[ST_INTRA_MB_IN_P];
+            if (dp_cbp[mb] & 8) {
+              ++stats[ST_DQUANT];
+              set_qscale(qscale + kDquant[b.get(2)]);
+            }
+            dp_q[mb] = (uint8_t)qscale;
+            qs_at(mb_x, mb_y) = (int8_t)qscale;
+            if (partition_dcs(b, mb)) return DAMAGED;
+          }
+          dp_cbp[mb] = (uint8_t)((dp_cbp[mb] & 3) | (cbpy << 2));
+        } else if (dp_type[mb] == DP_SKIP) {
+          dp_q[mb] = (uint8_t)qscale;
+          dp_cbp[mb] = 0;
+        } else {
+          const int cbpy = t.cbpy.read(b);
+          if (cbpy < 0) return damaged("bad CBPY code in the second partition");
+          if (dp_cbp[mb] & 8) {
+            ++stats[ST_DQUANT];
+            set_qscale(qscale + kDquant[b.get(2)]);
+          }
+          dp_q[mb] = (uint8_t)qscale;
+          dp_cbp[mb] = (uint8_t)((dp_cbp[mb] & 3) | ((cbpy ^ 0xF) << 2));
+        }
+      }
+      if (n >= count) return OK;
+      mb_x = 0;
+    }
+    return OK;
+  }
+
+  // ff_mpeg4_decode_partitions, then back to the packet's first macroblock
+  int decode_partitions(Bits& b) {
+    const int q = qscale;
+    const int count = partition_a(b);
+    if (count < 0) return DAMAGED;
+    if (count == 0) return damaged("an empty first partition");
+    if (resync_mb_x + resync_mb_y * mb_w + count > mb_num) return damaged("a partition past the picture");
+    mb_num_left = count;
+    if (pict_type == I_VOP) {
+      while (b.show(9) == 1) b.skip(9);
+      if (b.get(19) != DC_MARKER) return damaged("no DC marker after the first partition");
+    } else {
+      while (b.show(10) == 1) b.skip(10);
+      if (b.get(17) != MOTION_MARKER) return damaged("no motion marker after the first partition");
+    }
+    int st = partition_b(b, count);
+    if (st) return st;
+    ++stats[ST_PARTITIONED_PACKETS];
+    first_slice_line = true;
+    mb_x = resync_mb_x;
+    mb_y = resync_mb_y;
+    set_qscale(q);
+    return OK;
+  }
+
+  // mpeg4_decode_partitioned_mb: the texture of one macroblock; SLICE_END at
+  // the packet's last one
+  int decode_partitioned_mb(Bits& b) {
+    const int mb = mb_y * mb_w + mb_x;
+    const int type = dp_type[mb];
+    int cbp = dp_cbp[mb];
+    qscale_at_mb_start = qscale;  // FFmpeg tests the intra DC threshold before taking the macroblock's quantiser
+    if (dp_q[mb] != qscale) set_qscale(dp_q[mb]);
+    for (int i = 0; i < 6; ++i) memset(block[i], 0, sizeof(block[i]));
+    mv_dir = 1;
+    mv_type = type == DP_INTER4V ? 1 : 0;
+    mb_intra = type == DP_INTRA;
+    ac_pred = mb_intra && dp_ac_pred[mb];
+    if (ac_pred) ++stats[ST_AC_PRED_MB];
+    const int mb_index = mb_y * mb_w + mb_x;
+    ref_skipped[mb_index] = type == DP_SKIP;
+    ref_four_mv[mb_index] = type == DP_INTER4V;
+    for (int i = 0; i < 4; ++i) {
+      const int16_t* p = mv_at(i);
+      mvs[0][i][0] = p[0];
+      mvs[0][i][1] = p[1];
+    }
+    if (type == DP_SKIP) {
+      for (int i = 0; i < 6; ++i) last_index[i] = -1;
+    } else {
+      for (int i = 0; i < 6; ++i) {
+        int st = decode_block(b, block[i], i, (cbp & 32) != 0, mb_intra);
+        if (st) return st;
+        cbp += cbp;
+      }
+    }
+    if (--mb_num_left <= 0) {
+      if (is_resync(b)) return PARTITIONS_END;
+      return damaged("a video packet whose partitions do not end together");
+    }
+    return OK;
+  }
+
   // mpeg4_decode_mb, for I- and P-VOPs without data partitioning
   int decode_mb(Bits& b) {
+    if (partitioned) return decode_partitioned_mb(b);
     if (pict_type == B_VOP) return decode_b_mb(b);
     const Tables& t = tables();
     int cbpc, cbp, dquant;
@@ -1893,14 +2145,26 @@ struct Mpeg4 {
     resync_mb_x = mb_x;
     resync_mb_y = mb_y;
     set_qscale(qscale);
+    if (partitioned) {
+      int st = decode_partitions(b);
+      if (st) return st;
+    }
     for (; mb_y < mb_h; ++mb_y) {
       for (; mb_x < mb_w; ++mb_x) {
         if (resync_mb_x == mb_x && resync_mb_y + 1 == mb_y) first_slice_line = false;
-        qscale_at_mb_start = qscale;
+        if (!partitioned) qscale_at_mb_start = qscale;
         int st = decode_mb(b);
         update_motion_val();
-        if (st) return st;
+        if (st && st != PARTITIONS_END) return st;
         reconstruct();
+        if (st == PARTITIONS_END) {
+          if (++mb_x >= mb_w) {
+            mb_x = 0;
+            ++mb_y;
+          }
+          return SLICE_END;
+        }
+        if (partitioned) continue;
         int next = is_resync(b);
         if (next) {
           if (next < 0 || mb_x + mb_y * mb_w + 1 >= next) {
@@ -1952,7 +2216,7 @@ struct Mpeg4 {
     }
     stash.clear();
     if (n >= 3 && data[0] == 0 && data[1] == 0 && (data[2] & 0xFC) == 0x80)
-      return refuse("short_video_header (an H.263 picture)");
+      return damaged("an H.263 picture (short_video_header), which FFmpeg's MPEG-4 decoder decodes to nothing");
     Bits b;
     b.init(data, n);
     int st = decode_headers(b);
@@ -1974,6 +2238,10 @@ struct Mpeg4 {
     cur.alloc(width, height, mb_w * 16, mb_h * 16, mb_w * 8, mb_h * 8, 1);
     mb_x = mb_y = 0;
     memset(last_mv, 0, sizeof(last_mv));
+    partitioned = data_partitioning && pict_type != B_VOP;
+    if (partitioned) {
+      for (auto* v : {&dp_type, &dp_cbp, &dp_ac_pred, &dp_q, &dp_dir}) v->assign(mb_num, 0);
+    }
     while (true) {
       Bits packet_start = b;
       st = decode_slice(b);
@@ -2020,6 +2288,929 @@ struct Mpeg4 {
       return FRAME;
     }
     return NO_FRAME;
+  }
+};
+
+// ---- The H.263 family (h263dec.c, ituh263dec.c, flvdec.c, msmpeg4dec.c) -------
+//
+// One decoder over Mpeg4's macroblock state, motion compensation and IDCT,
+// with the picture layers of H.263 (baseline, and PLUSPTYPE's custom picture
+// format without the optional annexes), Sorenson H.263 (FLV1) and Microsoft's
+// MPEG-4 v2 (MP42) and v3 (DIV3): low delay, one frame out for each picture.
+
+// A VLC whose codes may be longer than its table: the codes of up to ``bits``
+// bits looked up at once, the longer ones compared one by one
+struct LongVlc {
+  int bits = 0;
+  std::vector<int32_t> sym;
+  std::vector<uint8_t> len;
+  std::vector<uint32_t> long_code;
+  std::vector<uint8_t> long_len;
+  std::vector<int32_t> long_sym;
+  void init(int b) {
+    bits = b;
+    sym.assign((size_t)1 << b, -1);
+    len.assign((size_t)1 << b, 0);
+  }
+  void add(uint32_t code, int n, int symbol) {
+    if (n <= bits) {
+      const int shift = bits - n;
+      const uint32_t base = code << shift;
+      for (uint32_t j = 0; j < (1u << shift); ++j) {
+        sym[base | j] = symbol;
+        len[base | j] = (uint8_t)n;
+      }
+      return;
+    }
+    size_t at = 0;  // kept sorted by length
+    while (at < long_len.size() && long_len[at] <= n) ++at;
+    long_code.insert(long_code.begin() + at, code);
+    long_len.insert(long_len.begin() + at, (uint8_t)n);
+    long_sym.insert(long_sym.begin() + at, symbol);
+  }
+  int read(Bits& b) const {  // the symbol, or -1 for no code
+    const uint32_t idx = b.show(bits);
+    if (len[idx]) {
+      b.skip(len[idx]);
+      return sym[idx];
+    }
+    for (size_t i = 0; i < long_len.size(); ++i)
+      if (b.show(long_len[i]) == long_code[i]) {
+        b.skip(long_len[i]);
+        return long_sym[i];
+      }
+    return -1;
+  }
+};
+
+// An RLTable: a VLC over n codes and the escape (symbol n), each code's run,
+// level and last flag, and ff_rl_init's largest level of each run and largest
+// run of each level
+struct RlTab {
+  LongVlc vlc;
+  int n = 0;
+  std::vector<int> run, level, last;
+  int max_level[2][65] = {}, max_run[2][65] = {};
+  void init(int count, int last_start, const int* runs, const int* levels) {
+    n = count;
+    run.assign(runs, runs + n);
+    level.assign(levels, levels + n);
+    last.resize(n);
+    for (int i = 0; i < n; ++i) {
+      last[i] = i >= last_start;
+      const int l = last[i];
+      max_level[l][run[i] & 63] = std::max(max_level[l][run[i] & 63], level[i]);
+      if (level[i] <= 64) max_run[l][level[i]] = std::max(max_run[l][level[i]], run[i]);
+    }
+  }
+};
+
+struct H263Tables {
+  RlTab rl[6];  // ff_rl_table's order: 0, 1 and MPEG-4's intra table; 2, 3 and H.263's inter table
+  LongVlc mb_i, mb_non_intra, dc[2][2], mv[2], v2_dc[2], v2_mb_type, v2_intra_cbpc;
+  H263Tables() {
+    const int8_t* runs[4] = {msmp4::kRl0Run, msmp4::kRl1Run, msmp4::kRl2Run, msmp4::kRl3Run};
+    const int8_t* levels[4] = {msmp4::kRl0Level, msmp4::kRl1Level, msmp4::kRl2Level, msmp4::kRl3Level};
+    const uint16_t (*vlcs[4])[2] = {msmp4::kRl0Vlc, msmp4::kRl1Vlc, msmp4::kRl2Vlc, msmp4::kRl3Vlc};
+    const int sizes[4] = {msmp4::kRl0Size, msmp4::kRl1Size, msmp4::kRl2Size, msmp4::kRl3Size};
+    const int lasts[4] = {msmp4::kRl0Last, msmp4::kRl1Last, msmp4::kRl2Last, msmp4::kRl3Last};
+    const int slot[4] = {0, 1, 3, 4};
+    for (int t = 0; t < 4; ++t) {
+      RlTab& r = rl[slot[t]];
+      std::vector<int> ru(runs[t], runs[t] + sizes[t]), le(levels[t], levels[t] + sizes[t]);
+      r.init(sizes[t], lasts[t], ru.data(), le.data());
+      r.vlc.init(9);
+      for (int i = 0; i <= sizes[t]; ++i) r.vlc.add(vlcs[t][i][0], vlcs[t][i][1], i);
+    }
+    const RunLevel* mpeg4[2] = {&tables().intra, &tables().inter};
+    const uint16_t (*tcoef[2])[2] = {kIntraTcoef, kInterTcoef};
+    for (int t = 0; t < 2; ++t) {
+      RlTab& r = rl[t ? 5 : 2];
+      const RunLevel& src = *mpeg4[t];
+      int last_start = 0;
+      while (last_start < kEscape && !src.last[last_start]) ++last_start;
+      r.init(kEscape, last_start, src.run, src.level);
+      r.vlc.init(9);
+      for (int i = 0; i <= kEscape; ++i) r.vlc.add(tcoef[t][i][0], tcoef[t][i][1], i);
+    }
+    mb_i.init(9);
+    for (int i = 0; i < 64; ++i) mb_i.add(msmp4::kMbITable[i][0], msmp4::kMbITable[i][1], i);
+    mb_non_intra.init(9);
+    for (int i = 0; i < 128; ++i) mb_non_intra.add(msmp4::kMbNonIntraTable[i][0], msmp4::kMbNonIntraTable[i][1], i);
+    for (int t = 0; t < 2; ++t)
+      for (int c = 0; c < 2; ++c) {
+        dc[t][c].init(9);
+        for (int i = 0; i < 120; ++i) dc[t][c].add(msmp4::kDcTables[t][c][i][0], msmp4::kDcTables[t][c][i][1], i);
+      }
+    const uint8_t* lens[2] = {msmp4::kMvLens0, msmp4::kMvLens1};
+    const uint16_t* syms[2] = {msmp4::kMvSyms0, msmp4::kMvSyms1};
+    for (int t = 0; t < 2; ++t) {  // ff_vlc_init_from_lengths: codes in order, each after the last
+      mv[t].init(9);
+      uint64_t acc = 0;
+      for (int i = 0; i < 1100; ++i) {
+        mv[t].add((uint32_t)(acc >> (32 - lens[t][i])), lens[t][i], syms[t][i]);
+        acc += (uint64_t)1 << (32 - lens[t][i]);
+      }
+    }
+    // init_h263_dc_for_msmpeg4: MPEG-4's DC size codes inverted, the value's
+    // bits after them and a marker past 8 bits; symbol level + 256
+    for (int c = 0; c < 2; ++c) {
+      v2_dc[c].init(9);
+      for (int level = -256; level < 256; ++level) {
+        int size = 0;
+        for (int v = std::abs(level); v; v >>= 1) ++size;
+        const int l = level < 0 ? (-level) ^ ((1 << size) - 1) : level;
+        uint32_t code = c ? kDcChromCode[size] : kDcLumCode[size];
+        int n = c ? kDcChromLen[size] : kDcLumLen[size];
+        code ^= (1u << n) - 1;
+        if (size > 0) {
+          code = (code << size) | l;
+          n += size;
+          if (size > 8) {
+            code = (code << 1) | 1;
+            ++n;
+          }
+        }
+        v2_dc[c].add(code, n, level + 256);
+      }
+    }
+    v2_mb_type.init(7);
+    for (int i = 0; i < 8; ++i) v2_mb_type.add(msmp4::kV2MbType[i][0], msmp4::kV2MbType[i][1], i);
+    v2_intra_cbpc.init(3);
+    for (int i = 0; i < 4; ++i) v2_intra_cbpc.add(msmp4::kV2IntraCbpc[i][0], msmp4::kV2IntraCbpc[i][1], i);
+  }
+};
+
+const H263Tables& h263_tables() {
+  static const H263Tables t;
+  return t;
+}
+
+// ff_mpeg1_dc_scale_table (8 at every quantiser): H.263's, FLV's and MS-MPEG4 v2's DC scale
+const uint8_t kDcScale8[32] = {8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8,
+                               8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8};
+// ff_h263_format: the source formats of PTYPE, width and height
+const int kH263Format[8][2] = {{0, 0}, {128, 96}, {176, 144}, {352, 288}, {704, 576}, {1408, 1152}, {0, 0}, {0, 0}};
+
+enum H263Kind { K_H263 = 0, K_FLV = 1, K_MSMP4V2 = 2, K_MSMP4V3 = 3 };
+constexpr int SLICE_ERROR = -1;
+
+struct H263 : Mpeg4 {
+  int kind = K_H263;
+  int flv = 0;  // FFmpeg's h263_flv: 1 or 2 (the 11-bit escapes of format 1)
+  int gob_height = 1;
+  // H.263+: the OPPTYPE fields carried over to pictures whose UFEP is 0
+  bool have_opptype = false, custom_pcf = false;
+  int plus_format = 0;
+  // MS-MPEG4
+  int slice_height = 0, rl_table_index = 2, rl_chroma_table_index = 2, dc_table_index = 0, mv_table_index = 0;
+  bool use_skip_mb_code = false, flipflop_rounding = false, droppable = false;
+  int pred_dir = 0;  // msmpeg4_pred_dc's direction for the block being decoded
+  std::vector<uint8_t> coded_block;  // MS-MPEG4 v3: each luma block's coded flag, with a border
+
+  const char* name() const {
+    return kind == K_H263 ? "H.263" : kind == K_FLV ? "Sorenson H.263" : kind == K_MSMP4V2 ? "MS-MPEG4 v2" : "MS-MPEG4 v3";
+  }
+  int refuse(const char* what) {
+    msg = std::string(name()) + ": " + what + " is not supported";
+    return NOT_IMPLEMENTED;
+  }
+  int damaged(const char* what) {
+    char buf[200];
+    snprintf(buf, sizeof(buf), "%s: %s (macroblock %d, %d)", name(), what, mb_x, mb_y);
+    msg = buf;
+    return DAMAGED;
+  }
+
+  void open(int k) {
+    kind = k;
+    y_dc_table = kind == K_MSMP4V3 ? msmp4::kV3YDcScale : kDcScale8;
+    c_dc_table = kind == K_MSMP4V3 ? msmp4::kV3CDcScale : kDcScale8;
+    low_delay = true;
+  }
+  void resize(int w, int h) {
+    set_size(w, h);
+    coded_block.assign((size_t)bw * (2 * mb_h + 2), 0);
+    gob_height = height <= 400 ? 1 : height <= 800 ? 2 : 4;  // ff_h263_get_gob_height
+    have_vol = true;
+  }
+
+  // ---- picture headers
+
+  // ff_h263_decode_picture_header, without the annexes FFmpeg's encoders leave off
+  int h263_picture_header(Bits& b) {
+    b.align();
+    uint32_t startcode = b.get(22 - 8);
+    for (int64_t i = b.left(); i > 24; i -= 8) {
+      startcode = ((startcode << 8) | b.get(8)) & 0x003FFFFF;
+      if (startcode == 0x20) break;
+    }
+    if (startcode != 0x20) return damaged("no picture start code");
+    b.skip(8);  // temporal reference
+    if (!b.get1()) return damaged("a PTYPE without its marker");
+    if (b.get1()) return damaged("a PTYPE that is not H.263's");
+    b.skip(3);  // split screen, document camera, freeze picture release
+    int format = (int)b.get(3);
+    int w = 0, h = 0;
+    if (format != 7 && format != 6) {
+      w = kH263Format[format][0];
+      h = kH263Format[format][1];
+      if (!w) return damaged("a forbidden source format");
+      pict_type = b.get1() ? P_VOP : I_VOP;
+      if (b.get1()) return refuse("the unrestricted motion vector mode (H.263 Annex D)");
+      if (b.get1()) return refuse("syntax-based arithmetic coding (H.263 Annex E)");
+      if (b.get1()) return refuse("the advanced prediction mode (H.263 Annex F)");
+      if (b.get1()) return refuse("PB-frames (H.263 Annex G)");
+      set_qscale((int)b.get(5));
+      b.skip(1);  // continuous presence multipoint
+    } else {
+      const int ufep = (int)b.get(3);
+      if (ufep == 1) {  // OPPTYPE
+        plus_format = (int)b.get(3);
+        custom_pcf = b.get1();
+        if (b.get1()) return refuse("the unlimited unrestricted motion vector mode (H.263 Annex D)");
+        if (b.get1()) return refuse("syntax-based arithmetic coding (H.263 Annex E)");
+        if (b.get1()) return refuse("the advanced prediction mode (H.263 Annex F)");
+        if (b.get1()) return refuse("advanced intra coding (H.263 Annex I)");
+        if (b.get1()) return refuse("the deblocking filter (H.263 Annex J)");
+        if (b.get1()) return refuse("the slice structured mode (H.263 Annex K)");
+        if (b.get1()) return refuse("reference picture selection (H.263 Annex N)");
+        if (b.get1()) return refuse("independent segment decoding (H.263 Annex R)");
+        if (b.get1()) return refuse("the alternative inter VLC (H.263 Annex S)");
+        if (b.get1()) return refuse("the modified quantisation (H.263 Annex T)");
+        b.skip(1 + 3);
+        have_opptype = true;
+      } else if (ufep != 0) {
+        return damaged("a bad UFEP");
+      }
+      if (!have_opptype) return damaged("an H.263+ picture before any OPPTYPE");
+      switch ((int)b.get(3)) {  // MPPTYPE
+        case 0: case 7: pict_type = I_VOP; break;
+        case 1: pict_type = P_VOP; break;
+        case 2: return refuse("improved PB-frames (H.263 Annex M)");
+        case 3: return refuse("B-pictures (H.263 Annex O)");
+        default: return damaged("a bad picture coding type");
+      }
+      b.skip(2);
+      no_rounding = b.get1();
+      b.skip(4);
+      if (ufep) {
+        if (plus_format == 6) {  // custom picture format
+          const int aspect = (int)b.get(4);
+          w = ((int)b.get(9) + 1) * 4;
+          if (!b.get1()) return damaged("a custom picture format without its marker");
+          h = (int)b.get(9) * 4;
+          if (aspect == 15) b.skip(16);  // extended pixel aspect ratio
+        } else {
+          w = kH263Format[plus_format & 7][0];
+          h = kH263Format[plus_format & 7][1];
+        }
+        if (!w || !h) return damaged("a zero picture size");
+        if (custom_pcf) b.skip(1 + 7);  // custom picture clock frequency
+      } else {
+        w = width;
+        h = height;
+      }
+      if (custom_pcf) b.skip(2);  // extended temporal reference
+      set_qscale((int)b.get(5));
+    }
+    if (qscale == 0) return damaged("quantiser 0");
+    while (b.get1()) b.skip(8);  // PEI and PSUPP
+    if (b.left() < 0) return damaged("a truncated picture header");
+    if (w != width || h != height || !have_vol) resize(w, h);
+    f_code = 1;
+    return OK;
+  }
+
+  // ff_flv_decode_picture_header
+  int flv_picture_header(Bits& b) {
+    if (b.get(17) != 1) return damaged("no picture start code");
+    const int format = (int)b.get(5);
+    if (format != 0 && format != 1) return damaged("a bad picture format");
+    flv = format + 1;
+    b.skip(8);  // temporal reference
+    int w, h;
+    switch ((int)b.get(3)) {
+      case 0: w = (int)b.get(8); h = (int)b.get(8); break;
+      case 1: w = (int)b.get(16); h = (int)b.get(16); break;
+      case 2: w = 352; h = 288; break;
+      case 3: w = 176; h = 144; break;
+      case 4: w = 128; h = 96; break;
+      case 5: w = 320; h = 240; break;
+      case 6: w = 160; h = 120; break;
+      default: w = h = 0;
+    }
+    if (w <= 0 || h <= 0 || w > 8192 || h > 8192) return damaged("a bad picture size");
+    const int type = (int)b.get(2);
+    if (type > 2) return damaged("a bad picture type");
+    pict_type = type ? P_VOP : I_VOP;
+    droppable = type == 2;  // a disposable P-frame: no reference for the next
+    if (droppable) ++stats[ST_DROPPABLE];
+    b.skip(1);  // deblocking flag
+    set_qscale((int)b.get(5));
+    if (qscale == 0) return damaged("quantiser 0");
+    while (b.get1()) b.skip(8);  // PEI
+    if (b.left() < 0) return damaged("a truncated picture header");
+    if (w != width || h != height || !have_vol) resize(w, h);
+    f_code = 1;
+    return OK;
+  }
+
+  int decode012(Bits& b) { return b.get1() ? 1 + b.get1() : 0; }
+
+  // ff_msmpeg4_decode_picture_header (v2, v3)
+  int msmpeg4_picture_header(Bits& b) {
+    if (b.left() * 8 < (int64_t)mb_num) return damaged("a picture smaller than an eighth of a bit a macroblock");
+    const int type = (int)b.get(2) + 1;
+    if (type != 1 && type != 2) return damaged("a bad picture type");
+    pict_type = type == 1 ? I_VOP : P_VOP;
+    const int q = (int)b.get(5);
+    if (q == 0) return damaged("quantiser 0");
+    set_qscale(q);
+    if (pict_type == I_VOP) {
+      const int code = (int)b.get(5);
+      if (code < 0x17) return damaged("a bad slice code");
+      slice_height = mb_h / (code - 0x16);
+      if (kind == K_MSMP4V3) {
+        rl_chroma_table_index = decode012(b);
+        rl_table_index = decode012(b);
+        dc_table_index = b.get1();
+      } else {
+        rl_table_index = rl_chroma_table_index = 2;
+      }
+      no_rounding = 1;
+    } else {
+      use_skip_mb_code = b.get1();
+      if (kind == K_MSMP4V3) {
+        rl_table_index = rl_chroma_table_index = decode012(b);
+        dc_table_index = b.get1();
+        mv_table_index = b.get1();
+      } else {
+        rl_table_index = rl_chroma_table_index = 2;
+      }
+      no_rounding = flipflop_rounding ? no_rounding ^ 1 : 0;
+    }
+    return OK;
+  }
+
+  // ff_msmpeg4_decode_ext_header, after an I-frame's macroblocks
+  void msmpeg4_ext_header(Bits& b) {
+    const int64_t left = b.left();
+    const int length = kind == K_MSMP4V3 ? 17 : 16;
+    if (left >= length && left < length + 8) {
+      b.skip(5 + 11);  // frame rate, bit rate
+      flipflop_rounding = kind == K_MSMP4V3 && b.get1();
+    } else if (left < length + 8) {
+      flipflop_rounding = false;
+    }
+  }
+
+  // ---- blocks
+
+  // msmpeg4_pred_dc (v2, v3): the predictor from the scaled DCs around, by
+  // the test MS-MPEG4 takes (the top one on a tie, where MPEG-4 takes the left)
+  int msmpeg4_pred_dc(int n) {
+    const int scale = n < 4 ? y_dc_scale : c_dc_scale;
+    int16_t* dc = dc_at(n);
+    const int wr = wrap(n);
+    int a = dc[-1], bb = dc[-1 - wr], c = dc[-wr];
+    if (first_slice_line && !(n & 2)) bb = c = 1024;
+    // FFmpeg's x86 build divides with imull by ff_inverse[scale] (2^32 / scale
+    // rounded up) and keeps the high half: floor division, one less for a
+    // negative multiple of a scale that is not a power of two
+    const int32_t inv = (int32_t)(scale == 1 ? 4294967295u : (uint32_t)((((uint64_t)1 << 32) + scale - 1) / scale));
+    auto div = [&](int x) { return (int)(((int64_t)(x + (scale >> 1)) * inv) >> 32); };
+    a = div(a);
+    bb = div(bb);
+    c = div(c);
+    if (std::abs(a - bb) <= std::abs(bb - c)) {  // MPEG-4 takes the left one on a tie
+      pred_dir = 1;
+      return c;
+    }
+    pred_dir = 0;
+    return a;
+  }
+
+  // msmpeg4_decode_dc; INT32_MIN for a bad code
+  int msmpeg4_decode_dc(Bits& b, int n) {
+    const H263Tables& t = h263_tables();
+    int level;
+    if (kind == K_MSMP4V2) {
+      level = t.v2_dc[n >= 4].read(b);
+      if (level < 0) return INT32_MIN;
+      level -= 256;
+    } else {
+      level = t.dc[dc_table_index][n >= 4].read(b);
+      if (level < 0) return INT32_MIN;
+      if (level == 119) {  // DC_MAX: the magnitude in 8 bits
+        level = (int)b.get(8);
+        if (b.get1()) level = -level;
+      } else if (level != 0 && b.get1()) {
+        level = -level;
+      }
+    }
+    level += msmpeg4_pred_dc(n);
+    *dc_at(n) = (int16_t)(level * (n < 4 ? y_dc_scale : c_dc_scale));
+    return level;
+  }
+
+  // ff_msmpeg4_decode_block (v2, v3): inter levels dequantised here, intra ones in reconstruct
+  int msmpeg4_decode_block(Bits& b, int16_t* blk, int n, bool coded) {
+    const H263Tables& t = h263_tables();
+    int i, qmul, qadd, run_diff;
+    const RlTab* rl;
+    const uint8_t* scan = kZigzag;
+    if (mb_intra) {
+      qmul = 1;
+      qadd = 0;
+      int level = msmpeg4_decode_dc(b, n);
+      if (level == INT32_MIN) return damaged("bad DC code");
+      if (level > 256 * (n < 4 ? y_dc_scale : c_dc_scale)) return damaged("a DC out of range");
+      blk[0] = (int16_t)level;
+      rl = &t.rl[n < 4 ? rl_table_index : 3 + rl_chroma_table_index];
+      run_diff = 0;
+      i = 0;
+      if (ac_pred) scan = pred_dir == 0 ? kAltVertical : kAltHorizontal;
+      if (!coded) {
+        pred_ac(blk, n, pred_dir);
+        last_index[n] = ac_pred ? 63 : 0;
+        return OK;
+      }
+    } else {
+      qmul = qscale << 1;
+      qadd = (qscale - 1) | 1;
+      i = -1;
+      rl = &t.rl[3 + rl_table_index];
+      run_diff = kind == K_MSMP4V2 ? 0 : 1;
+      if (!coded) {
+        last_index[n] = -1;
+        return OK;
+      }
+    }
+    while (true) {
+      int sym = rl->vlc.read(b);
+      if (sym < 0) return damaged("bad TCOEF code");
+      int level, run, last;
+      if (sym != rl->n) {
+        last = rl->last[sym];
+        level = rl->level[sym] * qmul + qadd;
+        if (b.get1()) level = -level;
+        i += rl->run[sym] + 1 + (last ? 192 : 0);
+      } else {
+        const int mode = (int)b.show(2);
+        if (mode < 2) {  // '0': third escape
+          if (!(mode & 1)) {
+            ++stats[ST_ESCAPE3];
+            b.skip(2);
+            last = b.get1();
+            run = (int)b.get(6);
+            level = b.sget(8);
+            level = level > 0 ? level * qmul + qadd : level * qmul - qadd;
+            i += run + 1 + (last ? 192 : 0);
+          } else {  // '01': second escape, the run offset by the level's largest
+            ++stats[ST_ESCAPE2];
+            b.skip(2);
+            sym = rl->vlc.read(b);
+            if (sym < 0 || sym == rl->n) return damaged("bad TCOEF code after escape");
+            last = rl->last[sym];
+            const int lv = rl->level[sym];
+            level = lv * qmul + qadd;
+            i += rl->run[sym] + 1 + (last ? 192 : 0) + rl->max_run[last][lv] + run_diff;
+            if (b.get1()) level = -level;
+          }
+        } else {  // '1': first escape, the level offset by the run's largest
+          ++stats[ST_ESCAPE1];
+          b.skip(1);
+          sym = rl->vlc.read(b);
+          if (sym < 0 || sym == rl->n) return damaged("bad TCOEF code after escape");
+          last = rl->last[sym];
+          level = rl->level[sym] * qmul + qadd + rl->max_level[last][rl->run[sym] & 63] * qmul;
+          i += rl->run[sym] + 1 + (last ? 192 : 0);
+          if (b.get1()) level = -level;
+        }
+      }
+      if (i > 62) {
+        i -= 192;
+        if (i & ~63) {  // FFmpeg ignores the overflow and ends the block
+          i = 63;
+          break;
+        }
+        blk[scan[i]] = (int16_t)level;
+        break;
+      }
+      blk[scan[i]] = (int16_t)level;
+    }
+    if (b.left() < 0) return damaged("truncated block");
+    if (mb_intra) {
+      pred_ac(blk, n, pred_dir);
+      if (ac_pred) i = 63;
+    }
+    last_index[n] = i;
+    return OK;
+  }
+
+  // h263_decode_block (no advanced intra coding): levels as coded, the
+  // inter ones dequantised here (dct_unquantize_h263_inter), the intra ones
+  // in reconstruct
+  int h263_decode_block(Bits& b, int16_t* blk, int n, bool coded) {
+    const RlTab& rl = h263_tables().rl[5];
+    int i;
+    if (mb_intra) {
+      int level = (int)b.get(8);
+      if ((level & 0x7F) == 0) return damaged("an illegal intra DC");
+      if (level == 255) level = 128;
+      blk[0] = (int16_t)level;
+      i = 1;
+    } else {
+      i = 0;
+    }
+    if (!coded) {
+      last_index[n] = i - 1;
+      return OK;
+    }
+    const int qmul = qscale << 1, qadd = (qscale - 1) | 1;
+    --i;
+    while (true) {
+      int sym = rl.vlc.read(b);
+      if (sym < 0) return damaged("bad TCOEF code");
+      int run, level;
+      if (sym == rl.n) {  // escape
+        if (flv > 1) {
+          ++stats[ST_FLV_ESCAPE];
+          const int is11 = b.get1();
+          run = (int)b.get(7) + 1;
+          level = b.sget(is11 ? 11 : 7);
+        } else {
+          ++stats[ST_ESCAPE3];
+          run = (int)b.get(7) + 1;
+          level = (int8_t)b.get(8);
+          if (level == -128) {
+            level = (int)b.get(5);
+            level |= b.sget(6) * 32;
+          }
+        }
+      } else {
+        run = rl.run[sym] + 1 + (rl.last[sym] ? 192 : 0);
+        level = rl.level[sym];
+        if (b.get1()) level = -level;
+      }
+      i += run;
+      bool last = false;
+      if (i >= 64) {
+        i = i - run + ((run - 1) & 63) + 1;
+        if (i >= 64) return damaged("coefficients past the block");
+        last = true;
+      }
+      if (!mb_intra && level) level = level > 0 ? level * qmul + qadd : level * qmul - qadd;
+      blk[kZigzag[i]] = (int16_t)level;
+      if (last) break;
+    }
+    if (b.left() < 0) return damaged("truncated block");
+    last_index[n] = i;
+    return OK;
+  }
+
+  // ---- macroblocks
+
+  void skip_mb() {
+    ++stats[ST_SKIPPED_MB];
+    mb_intra = false;
+    for (int i = 0; i < 6; ++i) last_index[i] = -1;
+    mvs[0][0][0] = mvs[0][0][1] = 0;
+    mv_type = 0;
+  }
+
+  // ff_h263_decode_mb for I- and P-pictures without the optional annexes;
+  // SLICE_END where the next 16 bits are zero (a GOB or picture start code)
+  int h263_decode_mb(Bits& b) {
+    const Tables& t = tables();
+    int cbpc, cbp;
+    for (int i = 0; i < 6; ++i) memset(block[i], 0, sizeof(block[i]));
+    mv_type = 0;
+    mv_dir = 1;
+    ac_pred = false;
+    bool skipped = false;
+    if (pict_type == P_VOP) {
+      do {
+        if (b.get1()) {
+          skip_mb();
+          skipped = true;
+          break;
+        }
+        cbpc = t.inter_mcbpc.read(b);
+        if (cbpc < 0) return damaged("bad MCBPC code");
+      } while (cbpc == 20);
+      if (!skipped) {
+        mb_intra = (cbpc & 4) != 0;
+        if (!mb_intra) {
+          int cbpy = t.cbpy.read(b);
+          if (cbpy < 0) return damaged("bad CBPY code");
+          cbp = (cbpc & 3) | ((cbpy ^ 0xF) << 2);
+          if (cbpc & 8) {
+            ++stats[ST_DQUANT];
+            set_qscale(qscale + kDquant[b.get(2)]);
+          }
+          // four vectors, which FFmpeg's encoders write with +mv4 and no OBMC
+          const int nmv = cbpc & 16 ? 4 : 1;
+          if (nmv == 4) {
+            ++stats[ST_FOUR_MV_MB];
+            mv_type = 1;
+          }
+          for (int i = 0; i < nmv; ++i) {
+            int px, py;
+            int16_t* mvp = pred_motion(i, &px, &py);
+            int mx = decode_motion(b, px, 1);
+            if (mx == INT32_MIN) return damaged("bad motion vector code");
+            int my = decode_motion(b, py, 1);
+            if (my == INT32_MIN) return damaged("bad motion vector code");
+            mvs[0][i][0] = mx;
+            mvs[0][i][1] = my;
+            if (nmv == 4) {
+              mvp[0] = (int16_t)mx;
+              mvp[1] = (int16_t)my;
+            }
+          }
+          for (int i = 0; i < 6; ++i) {
+            int st = h263_decode_block(b, block[i], i, (cbp & 32) != 0);
+            if (st) return st;
+            cbp += cbp;
+          }
+        } else {
+          ++stats[ST_INTRA_MB_IN_P];
+        }
+      }
+    } else {
+      do {
+        cbpc = t.intra_mcbpc.read(b);
+        if (cbpc < 0) return damaged("bad MCBPC code");
+      } while (cbpc == 8);
+      mb_intra = true;
+    }
+    if (!skipped && mb_intra) {
+      int cbpy = t.cbpy.read(b);
+      if (cbpy < 0) return damaged("bad CBPY code");
+      cbp = (cbpc & 3) | (cbpy << 2);
+      if (pict_type == P_VOP ? (cbpc & 8) : (cbpc & 4)) {
+        ++stats[ST_DQUANT];
+        set_qscale(qscale + kDquant[b.get(2)]);
+      }
+      for (int i = 0; i < 6; ++i) {
+        int st = h263_decode_block(b, block[i], i, (cbp & 32) != 0);
+        if (st) return st;
+        cbp += cbp;
+      }
+    }
+    if (b.left() < 0) return damaged("the data ends inside a macroblock");
+    int64_t left = b.left();
+    uint32_t v = b.show(16);
+    if (left < 16) v >>= 16 - left;
+    return v == 0 ? SLICE_END : OK;
+  }
+
+  // msmpeg4v2_decode_motion: H.263's vector code, wrapped into -63..63
+  int v2_decode_motion(Bits& b, int pred) {
+    int code = tables().mv.read(b);
+    if (code < 0) return INT32_MIN;
+    if (code == 0) return pred;
+    int val = b.get1() ? -code : code;
+    val += pred;
+    if (val <= -64) val += 64;
+    else if (val >= 64) val -= 64;
+    return val;
+  }
+
+  // ff_msmpeg4_decode_motion (v3)
+  int v3_decode_motion(Bits& b, int* mx, int* my) {
+    const int sym = h263_tables().mv[mv_table_index].read(b);
+    if (sym < 0) return damaged("bad motion vector code");
+    int x, y;
+    if (sym) {
+      x = sym >> 8;
+      y = sym & 0xFF;
+    } else {
+      ++stats[ST_MV_ESCAPE];
+      x = (int)b.get(6);
+      y = (int)b.get(6);
+    }
+    x += *mx - 32;
+    y += *my - 32;
+    if (x <= -64) x += 64;
+    else if (x >= 64) x -= 64;
+    if (y <= -64) y += 64;
+    else if (y >= 64) y -= 64;
+    *mx = x;
+    *my = y;
+    return OK;
+  }
+
+  uint8_t* coded_at(int n) { return &coded_block[(size_t)(2 * mb_y + (n >> 1) + 1) * bw + 2 * mb_x + (n & 1) + 1]; }
+
+  // msmpeg4v12_decode_mb (v2) and msmpeg4v34_decode_mb (v3)
+  int msmpeg4_decode_mb(Bits& b) {
+    const Tables& t = tables();
+    const H263Tables& ht = h263_tables();
+    for (int i = 0; i < 6; ++i) memset(block[i], 0, sizeof(block[i]));
+    mv_type = 0;
+    mv_dir = 1;
+    ac_pred = false;
+    if (b.left() <= 0) return damaged("the data ends before the picture does");
+    int cbp = 0;
+    if (pict_type == P_VOP) {
+      if (use_skip_mb_code && b.get1()) {
+        skip_mb();
+        return OK;
+      }
+      int code;
+      if (kind == K_MSMP4V2) {
+        code = ht.v2_mb_type.read(b);
+        if (code < 0 || code > 7) return damaged("bad macroblock type code");
+        mb_intra = code >> 2;
+        cbp = code & 3;
+      } else {
+        code = ht.mb_non_intra.read(b);
+        if (code < 0) return damaged("bad macroblock type code");
+        mb_intra = !(code & 0x40);
+        cbp = code & 0x3F;
+      }
+    } else {
+      mb_intra = true;
+      if (kind == K_MSMP4V2) {
+        cbp = ht.v2_intra_cbpc.read(b);
+        if (cbp < 0) return damaged("bad intra CBPC code");
+      } else {
+        const int code = ht.mb_i.read(b);
+        if (code < 0) return damaged("bad intra macroblock code");
+        for (int i = 0; i < 6; ++i) {  // ff_msmpeg4_coded_block_pred for the luma blocks
+          int val = (code >> (5 - i)) & 1;
+          if (i < 4) {
+            uint8_t* cb = coded_at(i);
+            const int a = cb[-1], bb = cb[-1 - bw], c = cb[-bw];
+            val ^= bb == c ? a : c;
+            *cb = (uint8_t)val;
+          }
+          cbp |= val << (5 - i);
+        }
+      }
+    }
+    if (!mb_intra) {
+      if (kind == K_MSMP4V2) {
+        int cbpy = t.cbpy.read(b);
+        if (cbpy < 0) return damaged("bad CBPY code");
+        cbp |= cbpy << 2;
+        if ((cbp & 3) != 3) cbp ^= 0x3C;
+      }
+      int px, py;
+      pred_motion(0, &px, &py);
+      if (kind == K_MSMP4V2) {
+        px = v2_decode_motion(b, px);
+        if (px == INT32_MIN) return damaged("bad motion vector code");
+        py = v2_decode_motion(b, py);
+        if (py == INT32_MIN) return damaged("bad motion vector code");
+      } else {
+        int st = v3_decode_motion(b, &px, &py);
+        if (st) return st;
+      }
+      mvs[0][0][0] = px;
+      mvs[0][0][1] = py;
+    } else {
+      if (pict_type == P_VOP) ++stats[ST_INTRA_MB_IN_P];
+      if (kind == K_MSMP4V2) {
+        ac_pred = b.get1();
+        const int cbpy = t.cbpy.read(b);
+        if (cbpy < 0) return damaged("bad CBPY code");
+        cbp |= cbpy << 2;
+      } else {
+        ac_pred = b.get1();
+      }
+      if (ac_pred) ++stats[ST_AC_PRED_MB];
+    }
+    for (int i = 0; i < 6; ++i) {
+      int st = msmpeg4_decode_block(b, block[i], i, (cbp >> (5 - i)) & 1);
+      if (st) return st;
+    }
+    return OK;
+  }
+
+  // ---- slices and pictures
+
+  // h263_decode_gob_header, after a SLICE_END; false where none follows
+  bool gob_header(Bits& b) {
+    if (b.show(16)) return false;
+    b.skip(16);
+    int64_t left = std::min<int64_t>(b.left(), 32);
+    for (; left > 13; --left)
+      if (b.get1()) break;
+    if (left <= 13) return false;
+    const int gob = (int)b.get(5);
+    mb_x = 0;
+    mb_y = gob_height * gob;
+    b.skip(2);  // GFID
+    const int q = (int)b.get(5);
+    if (mb_y >= mb_h || q == 0) return false;
+    set_qscale(q);
+    ++stats[ST_GOB_HEADERS];
+    return true;
+  }
+
+  // ff_h263_resync for H.263: the GOB header here, else the next one at a
+  // byte boundary after the slice's start
+  int h263_resync(Bits& b, const Bits& slice_start) {
+    if (b.show(16) == 0) {
+      Bits g = b;
+      if (gob_header(g)) {
+        b = g;
+        return OK;
+      }
+    }
+    b = slice_start;
+    b.align();
+    for (int64_t left = b.left(); left > 16 + 1 + 5 + 5; left -= 8) {
+      if (b.show(16) == 0) {
+        Bits g = b;
+        if (gob_header(g)) {
+          b = g;
+          return OK;
+        }
+      }
+      b.skip(8);
+    }
+    return damaged("the data ends before the picture does");
+  }
+
+  Bits slice_start;  // FFmpeg's last_resync_gb
+
+  // decode_slice: from (mb_x, mb_y) to a SLICE_END (H.263 and FLV), the end
+  // of an MS-MPEG4 slice (slice_height rows) or of the picture
+  int decode_slice(Bits& b) {
+    slice_start = b;
+    first_slice_line = true;
+    resync_mb_x = mb_x;
+    resync_mb_y = mb_y;
+    set_qscale(qscale);
+    for (; mb_y < mb_h; ++mb_y) {
+      if (kind >= K_MSMP4V2 && resync_mb_y + slice_height == mb_y) return OK;
+      for (; mb_x < mb_w; ++mb_x) {
+        if (resync_mb_x == mb_x && resync_mb_y + 1 == mb_y) first_slice_line = false;
+        qscale_at_mb_start = qscale;
+        int st = kind >= K_MSMP4V2 ? msmpeg4_decode_mb(b) : h263_decode_mb(b);
+        update_motion_val();
+        if (st != OK && st != SLICE_END) return st;
+        reconstruct();
+        if (st == SLICE_END) {
+          if (++mb_x >= mb_w) {
+            mb_x = 0;
+            ++mb_y;
+          }
+          return SLICE_END;
+        }
+      }
+      mb_x = 0;
+    }
+    return OK;
+  }
+
+  int decode(const uint8_t* data, long n, Frame& out) {
+    Bits b;
+    b.init(data, n);
+    int st;
+    droppable = false;
+    if (kind == K_FLV) {
+      st = flv_picture_header(b);
+    } else if (kind == K_H263) {
+      st = h263_picture_header(b);
+    } else {
+      if (!have_vol) return damaged("no frame size from the container");
+      st = msmpeg4_picture_header(b);
+    }
+    if (st) return st;
+    if (pict_type == P_VOP && !have_future) return damaged("a P-frame without a reference frame");
+    ++stats[pict_type == I_VOP ? ST_I_VOP : ST_P_VOP];
+    cur.alloc(width, height, mb_w * 16, mb_h * 16, mb_w * 8, mb_h * 8, 1);
+    mb_x = mb_y = 0;
+    memset(last_mv, 0, sizeof(last_mv));
+    st = decode_slice(b);
+    while (mb_y < mb_h) {
+      if (st != OK && st != SLICE_END) return st;
+      if (kind >= K_MSMP4V2) {
+        if (slice_height <= 0 || mb_x != 0 || mb_y % slice_height != 0 || b.left() < 0) break;
+        ++stats[ST_PACKETS];
+        clean_buffers();
+      } else {
+        st = h263_resync(b, slice_start);
+        if (st) return st;
+      }
+      st = decode_slice(b);
+    }
+    if (st != OK && st != SLICE_END) return st;
+    if (mb_y < mb_h) return damaged("the data ends before the picture does");
+    if (kind >= K_MSMP4V2 && pict_type == I_VOP) msmpeg4_ext_header(b);
+    cur.full_range = false;
+    out = cur;
+    if (!droppable) {
+      std::swap(future, cur);
+      have_future = true;
+    }
+    return FRAME;
   }
 };
 
@@ -2122,6 +3313,7 @@ struct Handle {
   int open_status = 0;
   Mjpeg mjpeg;
   Mpeg4 mpeg4;
+  H263 h263;
   Vp8 vp8;
   Vp9 vp9;
   Frame frame;
@@ -2134,12 +3326,14 @@ struct Handle {
 
 extern "C" {
 
-// codec: 1 Motion-JPEG, 2 MPEG-4 Part 2, 3 VP8, 4 VP9; ``priv``: the decoder configuration
+// codec: 1 Motion-JPEG, 2 MPEG-4 Part 2, 3 VP8, 4 VP9, 5 H.263 (and H.263+), 6 Sorenson
+// H.263, 7 MS-MPEG4 v2, 8 MS-MPEG4 v3; ``priv``: the decoder configuration
 // (MPEG-4's VOS/VOL headers) or empty; ``tag``: the container's fourcc
 void* vdec_open(int codec, const uint8_t* priv, long n, uint32_t tag) {
   vid::Handle* h = new vid::Handle();
   h->codec = codec;
   h->mpeg4.tag = tag;
+  if (codec >= 5) h->h263.open(codec - 5);
   if (codec == 2 && n > 0) {
     vid::Bits b;
     b.init(priv, n);
@@ -2167,6 +3361,9 @@ int vdec_send(void* hp, const uint8_t* data, long n) {
     st = h->vp8.decode(data, n, h->frame, h->msg);
   } else if (h->codec == 4) {
     st = h->vp9.decode(data, n, h->frame, h->msg);
+  } else if (h->codec >= 5) {
+    st = h->h263.decode(data, n, h->frame);
+    if (st >= vid::NOT_IMPLEMENTED) h->msg = h->h263.msg;
   } else {
     st = h->mpeg4.decode(data, n, h->frame);
     if (st >= vid::NOT_IMPLEMENTED) h->msg = h->mpeg4.msg;
@@ -2237,8 +3434,15 @@ int vdec_stats(void* hp, int64_t* out) {
     for (int i = 0; i < vp9::ST_COUNT; ++i) out[i] = h->vp9.dec.stats[i];
     return vp9::ST_COUNT;
   }
-  for (int i = 0; i < vid::ST_COUNT; ++i) out[i] = h->mpeg4.stats[i];
+  const int64_t* stats = h->codec >= 5 ? h->h263.stats : h->mpeg4.stats;
+  for (int i = 0; i < vid::ST_COUNT; ++i) out[i] = stats[i];
   return vid::ST_COUNT;
+}
+
+// The picture size a container gives (MS-MPEG4 carries none in its bitstream).
+void vdec_set_size(void* hp, int width, int height) {
+  vid::Handle* h = (vid::Handle*)hp;
+  if (h->codec >= 7 && width > 0 && height > 0 && width <= 8192 && height <= 8192) h->h263.resize(width, height);
 }
 
 void vdec_close(void* hp) { delete (vid::Handle*)hp; }

@@ -18,11 +18,14 @@ demuxer returns for it (``cv2.VideoCapture`` with ``CAP_PROP_FORMAT = -1``):
 * RIFF AVI (``.avi``): the ``movi`` list's ``##dc``/``##db`` chunks in file
   order, inside ``LIST rec `` and across OpenDML ``RIFF AVIX`` extensions; the
   BITMAPINFOHEADER's compression fourcc mapped to a codec as FFmpeg's
-  ``riff.c`` maps it (``VP80`` to VP8, ``VP90`` to VP9).
+  ``riff.c`` maps it (``VP80`` to VP8, ``VP90`` to VP9, ``H263``/``U263``/
+  ``FLV1``/``MP42``/``DIV3`` and their aliases to the H.263 family), and its
+  frame size (MS-MPEG4 carries none in its bitstream).
 * Matroska/WebM (``.mkv``, ``.webm``): EBML ``Segment`` -> ``Tracks``
   (``CodecID``, ``CodecPrivate``; ``V_VP8`` is VP8, ``V_VP9`` VP9, whose
   ``CodecPrivate`` features change no decoding) and ``Cluster`` ->
-  ``SimpleBlock`` / ``BlockGroup`` blocks; laced blocks and content encodings
+  ``SimpleBlock`` / ``BlockGroup`` blocks; ``V_MS/VFW/FOURCC`` tracks by
+  their BITMAPINFOHEADER as in AVI; laced blocks and content encodings
   raise `NotImplementedError`.
 
 Codecs, decoded in C++ with FFmpeg's reconstruction (see ``video.cpp``):
@@ -31,16 +34,18 @@ in display order, quarter-pel, MPEG quantisation; the streams of the Xvid and
 DivX encoders with the Xvid IDCT and FFmpeg's workarounds, DivX's packed
 B-VOPs); VP8 (``vp8.h``, key and inter frames, profiles 0-3); VP9 profile 0
 (``vp9.h``: superframes, hidden frames and show_existing_frame, so that a
-packet may give more than one frame or none). Any other codec (H.264, HEVC,
-AV1, FFV1, ...), VP9's profiles 1-3 and scaled references, and the MPEG-4
-tools still refused
-(interlace, GMC/sprites, data partitioning, ...) raise a
+packet may give more than one frame or none); MPEG-4 data partitioning; the
+H.263 family (H.263 and H.263+ without the optional annexes, Sorenson H.263,
+MS-MPEG4 v2 and v3, with the tables of ``msmpeg4_tables.h``). Any other codec
+(H.264, HEVC, AV1, FFV1, WMV1, WMV2, MS-MPEG4 v1, ...), VP9's profiles 1-3
+and scaled references, the H.263+ annexes and the MPEG-4 tools still refused
+(interlace, GMC/sprites, RVLC, ...) raise a
 `NotImplementedError` that names them, as does a frame whose size changed
 mid-stream (OpenCV scales it). A missing file, or one no demuxer takes,
 yields no frames, as ``cv2.VideoCapture`` reads none; a stream damaged part
 way yields the frames decoded before the damage.
 
-``video.cpp`` (with ``vp8.h`` and ``vp9.h``) is compiled with ``g++`` at first use into
+``video.cpp`` (with ``msmpeg4_tables.h``, ``vp8.h`` and ``vp9.h``) is compiled with ``g++`` at first use into
 ``build/`` beside the image reader's library, keyed by a hash of its sources
 and flags, under the same file lock (`utils.native_build`). A failed build
 raises.
@@ -60,14 +65,16 @@ from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, build_cxx
 
 HERE = Path(__file__).resolve().parent
 SOURCE = HERE / "video.cpp"
-# video.cpp includes the JPEG reader's entropy decoding, the Annex K tables and the VP8 and VP9 cores
-DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h", HERE / "vp8.h", HERE / "webp_tables.h", HERE / "vp9.h",
-           HERE / "vp9_tables.h")
+# video.cpp includes the JPEG reader's entropy decoding, the Annex K tables, the MS-MPEG4 tables and the VP8
+# and VP9 cores
+DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h", HERE / "msmpeg4_tables.h", HERE / "vp8.h",
+           HERE / "webp_tables.h", HERE / "vp9.h", HERE / "vp9_tables.h")
 LIB_NAME = "libquan_torch_video.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 MPEG4, MJPEG, VP8, VP9 = "mpeg4", "mjpeg", "vp8", "vp9"
-_CODEC_IDS = {MJPEG: 1, MPEG4: 2, VP8: 3, VP9: 4}
+H263, H263P, FLV1, MSMPEG4V2, MSMPEG4V3 = "h263", "h263p", "flv1", "msmpeg4v2", "msmpeg4v3"
+_CODEC_IDS = {MJPEG: 1, MPEG4: 2, VP8: 3, VP9: 4, H263: 5, H263P: 5, FLV1: 6, MSMPEG4V2: 7, MSMPEG4V3: 8}
 
 # FFmpeg riff.c ff_codec_bmp_tags: the BITMAPINFOHEADER fourccs of the two codecs
 _RIFF_MPEG4 = {b"FMP4", b"DIVX", b"DX50", b"XVID", b"MP4S", b"M4S2", b"MP4V", b"DIV1", b"BLZ0", b"UMP4",
@@ -77,9 +84,15 @@ _RIFF_MPEG4 = {b"FMP4", b"DIVX", b"DX50", b"XVID", b"MP4S", b"M4S2", b"MP4V", b"
                b"QMP4", b"PLV1", b"GLV4", b"GMP4", b"MNM4", b"GTM4"}
 _RIFF_MJPEG = {b"MJPG", b"LJPG", b"DMB1", b"MJPA", b"JR24", b"AVRN", b"ACDV", b"QIVG", b"SLMJ", b"CJPG",
                b"IJLV", b"MVJP", b"AVI1", b"AVI2", b"MTSJ", b"ZJPG", b"MMJP"}
+# ff_codec_bmp_tags' fourccs of the H.263 family
+_RIFF_H263 = {b"H263": H263, b"X263": H263, b"T263": H263, b"L263": H263, b"VX1K": H263, b"ZYGO": H263,
+              b"M263": H263, b"U263": H263P, b"FLV1": FLV1, b"MP42": MSMPEG4V2, b"DIV2": MSMPEG4V2,
+              b"DIV3": MSMPEG4V3, b"MPG3": MSMPEG4V3, b"DIV4": MSMPEG4V3, b"DIV5": MSMPEG4V3, b"DIV6": MSMPEG4V3,
+              b"DVX3": MSMPEG4V3, b"AP41": MSMPEG4V3, b"COL0": MSMPEG4V3, b"COL1": MSMPEG4V3}
 # names of codecs met in these containers that the port does not decode
-_OTHER = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264", b"HEVC": "HEVC", b"HVC1": "HEVC",
-          b"HEV1": "HEVC", b"AV01": "AV1", b"MPG2": "MPEG-2", b"MPG1": "MPEG-1", b"WMV3": "WMV3",
+_OTHER = {b"WMV1": "WMV1 (Windows Media Video 7)", b"WMV2": "WMV2 (Windows Media Video 8)",
+          b"MP41": "MS-MPEG4 v1", b"MPG4": "MS-MPEG4 v1", b"I263": "Intel H.263", b"H264": "H.264",
+          b"X264": "H.264", b"AVC1": "H.264", b"HEVC": "HEVC", b"HVC1": "HEVC", b"HEV1": "HEVC", b"AV01": "AV1", b"MPG2": "MPEG-2", b"MPG1": "MPEG-1", b"WMV3": "WMV3",
           b"WVC1": "VC-1", b"THEO": "Theora", b"FFV1": "FFV1", b"HFYU": "HuffYUV", b"FFVH": "HuffYUV",
           b"ULRG": "Ut Video", b"ULY0": "Ut Video", b"ULY2": "Ut Video", b"ULH0": "Ut Video"}
 _MKV_OTHER = {"V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264", "V_FFV1": "FFV1",
@@ -96,11 +109,12 @@ class Unreadable(Exception):
 class Demuxed:
     """The first video track of a file."""
 
-    codec: str  # MPEG4, MJPEG, VP8 or VP9
+    codec: str  # MPEG4, MJPEG, VP8, VP9 or one of the H.263 family
     private: bytes  # decoder configuration (MPEG-4's VOS/VOL headers), may be empty
     packets: List[bytes] = field(default_factory=list)  # in decode order
     tag: bytes = b""  # the container's fourcc for the codec, upper case
     container: str = ""
+    size: Tuple[int, int] = (0, 0)  # (width, height) from a BITMAPINFOHEADER, (0, 0) where there is none
 
 
 def _refuse(path: PathLike, container: str, what: str) -> NotImplementedError:
@@ -300,10 +314,10 @@ def _demux_avi(data: bytes, path: PathLike) -> Demuxed:
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"AVI ":
         raise Unreadable("not an AVI file")
     video, tag, private, packets = None, b"", b"", []
-    stream = -1
+    stream, frame_size = -1, (0, 0)
 
     def walk(start: int, end: int, in_movi: bool) -> None:
-        nonlocal video, tag, private, stream
+        nonlocal video, tag, private, stream, frame_size
         pos = start
         while pos + 8 <= end:
             kind, size = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])[0]
@@ -321,6 +335,8 @@ def _demux_avi(data: bytes, path: PathLike) -> Demuxed:
                     video = stream
             elif kind == b"strf" and video == stream and not tag:
                 tag = data[body + 16:body + 20]
+                if size >= 12:
+                    frame_size = struct.unpack("<ii", data[body + 4:body + 12])
                 private = data[body + 40:body + size] if size > 40 else b""
             elif in_movi and video is not None and kind[:2] == b"%02d" % video and kind[2:] in (b"dc", b"db"):
                 if size:
@@ -338,18 +354,20 @@ def _demux_avi(data: bytes, path: PathLike) -> Demuxed:
     if video is None:
         raise Unreadable("no video stream")
     upper = tag.upper()
-    if upper in _RIFF_MPEG4 or tag == b"mp4v":
-        codec = MPEG4
-    elif upper in _RIFF_MJPEG:
-        codec = MJPEG
-    elif upper == b"VP80":
-        codec = VP8
-    elif upper == b"VP90":
-        codec = VP9
-    else:
+    codec = _riff_codec(upper) or (MPEG4 if tag == b"mp4v" else None)
+    if codec is None:
         name = _OTHER.get(upper, tag.decode("latin-1"))
         raise _refuse(path, "AVI", f"the {name} codec ({tag.decode('latin-1')})")
-    return Demuxed(codec, private, packets, upper, "AVI")
+    return Demuxed(codec, private, packets, upper, "AVI", (frame_size[0], abs(frame_size[1])))
+
+
+def _riff_codec(upper: bytes) -> Optional[str]:
+    """The codec of a BITMAPINFOHEADER fourcc (upper case), as riff.c maps it, or None."""
+    if upper in _RIFF_MPEG4:
+        return MPEG4
+    if upper in _RIFF_MJPEG:
+        return MJPEG
+    return {b"VP80": VP8, b"VP90": VP9}.get(upper) or _RIFF_H263.get(upper)
 
 
 # ---------------------------------------------------------------- Matroska
@@ -428,7 +446,7 @@ def _demux_mkv(data: bytes, path: PathLike) -> Demuxed:
     if data[:4] != struct.pack(">I", _EBML):
         raise Unreadable("not a Matroska file")
     container = "Matroska"
-    track, codec, private, tag, packets = None, None, b"", b"", []
+    track, codec, private, tag, packets, size = None, None, b"", b"", [], (0, 0)
     for ident, s, e in _elements(data, 0, len(data)):
         if ident != _SEGMENT:
             continue
@@ -455,10 +473,12 @@ def _demux_mkv(data: bytes, path: PathLike) -> Demuxed:
                         codec, tag = VP9, b"VP90"
                     elif cid == "V_MS/VFW/FOURCC" and len(private) >= 40:
                         tag = private[16:20].upper()
-                        codec = MPEG4 if tag in _RIFF_MPEG4 else MJPEG if tag in _RIFF_MJPEG else None
+                        codec = _riff_codec(tag)
                         if codec is None:
                             name = _OTHER.get(tag, tag.decode("latin-1"))
                             raise _refuse(path, container, f"the {name} codec ({tag.decode('latin-1')})")
+                        size = struct.unpack("<ii", private[4:12])
+                        size = (size[0], abs(size[1]))
                         private = private[40:]
                     else:
                         raise _refuse(path, container, f"the {_MKV_OTHER.get(cid, cid)} codec ({cid})")
@@ -484,7 +504,7 @@ def _demux_mkv(data: bytes, path: PathLike) -> Demuxed:
         break
     if track is None:
         raise Unreadable("no video track")
-    return Demuxed(codec, private, packets, tag, container)
+    return Demuxed(codec, private, packets, tag, container, size)
 
 
 # ---------------------------------------------------------------- public
@@ -533,6 +553,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.vdec_close.argtypes = [vp]
         lib.vdec_close.restype = None
+        lib.vdec_set_size.argtypes = [vp, ctypes.c_int, ctypes.c_int]
+        lib.vdec_set_size.restype = None
         lib.vdec_error.argtypes = [vp, ctypes.c_int]
         lib.vdec_error.restype = ctypes.c_char_p
         _lib = lib
@@ -545,7 +567,8 @@ _TOOL_COUNTS = ("i_vops", "p_vops", "not_coded_vops", "skipped_mbs", "intra_mbs_
                 "video_packets", "escape1", "escape2", "escape3", "ac_pred_mbs", "dc_as_ac", "no_rounding_mbs",
                 "ac_rescaled", "b_vops", "b_direct_mbs", "b_forward_mbs", "b_backward_mbs", "b_interpolated_mbs",
                 "b_colocated_skips", "dbquant", "qpel_mbs", "mpeg_quant_blocks", "xvid_idct_blocks", "packed_b_vops",
-                "skipped_b_vops")
+                "skipped_b_vops", "partitioned_packets", "gob_headers", "flv_escapes", "mv_escapes",
+                "droppable_frames")
 # vp9.h's counts (its Stat enum)
 _VP9_TOOL_COUNTS = ("key_frames", "inter_frames", "intra_only_frames", "hidden_frames", "show_existing",
                     "superframes", "tx4x4", "tx8x8", "tx16x16", "tx32x32", "dct_dct", "dct_adst", "adst_dct",
@@ -561,13 +584,14 @@ class Decoder:
     """One stream's decoder: `send` a packet, then read the frame it completed;
     `flush` at the end of the stream."""
 
-    def __init__(self, codec: str, private: bytes = b"", tag: bytes = b""):
+    def __init__(self, codec: str, private: bytes = b"", tag: bytes = b"", size: Tuple[int, int] = (0, 0)):
         self.lib = library()
         self.codec = codec
         tag32 = struct.unpack("<I", (tag + b"\0\0\0\0")[:4])[0]
         self.handle = self.lib.vdec_open(_CODEC_IDS[codec], private, len(private), tag32)
         if not self.handle:
             raise MemoryError("vdec_open failed")
+        self.lib.vdec_set_size(self.handle, *size)  # (width, height): MS-MPEG4's frame size is the container's
 
     def send(self, packet: bytes) -> bool:
         """Decode ``packet``; True if it completed a frame. Raises
@@ -633,7 +657,7 @@ def frames(path: PathLike) -> Iterator[np.ndarray]:
     except (OSError, Unreadable):
         return
     where = f"{path} ({stream.container}, {stream.codec})"
-    dec = Decoder(stream.codec, stream.private, stream.tag)
+    dec = Decoder(stream.codec, stream.private, stream.tag, stream.size)
     try:
         for packet in stream.packets:
             try:  # a VP9 packet may show more than one frame

@@ -1,4 +1,4 @@
-"""Run chip_smoke.py's phase 1 and its image-format phases (61-63, 67-69) alone, on one card.
+"""Run chip_smoke.py's phase 1 and its image-format phases (61-63, 67-69, 73) alone, on one card.
 
     python3 scripts/image_phases.py
 
@@ -13,7 +13,10 @@ YCbCr, CMYK, CIELab, CCITT, BigTIFF, CMYK JPEG) and times a 1024 x 1024
 decode of each; phase 68 validates the set as GDAL's JPEG-YCbCr BigTIFF and
 as CMYK LZW TIFF against PNG twins of their decoded pixels and fits one
 epoch on the JPEG-TIFF set; phase 69 splits the 4000 x 4000 scene as a
-JPEG-YCbCr BigTIFF and runs ``obb predict`` on a folder of every new kind.
+JPEG-YCbCr BigTIFF and runs ``obb predict`` on a folder of every new kind;
+phase 73 checks the committed stills that only ``imread`` takes (PxM, PAM,
+PFM, Sun raster, Radiance HDR, GIF), times a 512 x 512 decode of each kind
+and runs ``obb predict`` on a list of one file of each.
 Exits non-zero without a card, or when a phase fails.
 """
 
@@ -56,6 +59,9 @@ def main() -> int:
         t0 = time.perf_counter()
         cs.phase_image_kinds_split_cli(Path(tmp) / "kind_split", card)
         print(f"phase 69: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        cs.phase_still_kinds(Path(tmp) / "stills", card)
+        print(f"phase 73: {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Run chip_smoke.py's phase 1 and its video phases (58-60, 64-66 and 70-72) alone, on one card.
+"""Run chip_smoke.py's phase 1 and its video phases (58-60, 64-66, 70-72, 74 and 75) alone, on one card.
 
     python3 scripts/video_phases.py
 
@@ -11,7 +11,10 @@ of it at 1024. Phase 64 decodes the VP8 and MPEG-4 Advanced Simple Profile
 fixtures and times the clip as VP8 WebM and as an Xvid ASP AVI; phases 65
 and 66 repeat 59 on the VP8 WebM and 60 on the Xvid AVI. Phase 70 decodes the
 VP9 fixtures (and the FFV1 refusal) and times the clip as VP9 WebM; phases 71
-and 72 repeat 59 on the VP9 WebM and 60 on its packets put into MP4.
+and 72 repeat 59 on the VP9 WebM and 60 on its packets put into MP4. Phase
+74 decodes the H.263 family's fixtures (H.263, H.263+, Sorenson, MS-MPEG4 v2
+and v3, MPEG-4 data partitioning) and times the clip as DIV3 beside VP8 and
+VP9; phase 75 repeats 59 and 60 on the DIV3 AVI.
 Exits non-zero without a card, or when a phase fails.
 """
 
@@ -36,7 +39,7 @@ def main() -> int:
 
     card, _, _ = cs.phase_device()
     for name, fn in (("58", cs.phase_video_decode), ("64", cs.phase_video_asp_vp8_decode),
-                     ("70", cs.phase_video_vp9_decode)):
+                     ("70", cs.phase_video_vp9_decode), ("74", cs.phase_video_h263_decode)):
         t0 = time.perf_counter()
         fn(card)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -44,7 +47,9 @@ def main() -> int:
                            ("65", cs.phase_video_track, cs.VIDEO_VP8_CLIP),
                            ("66", cs.phase_video_predict, cs.VIDEO_ASP_CLIP),
                            ("71", cs.phase_video_track, cs.VIDEO_VP9_CLIP),
-                           ("72", cs.phase_video_predict, None)):
+                           ("72", cs.phase_video_predict, None),
+                           ("75 track", cs.phase_video_track, cs.VIDEO_DIV3_CLIP),
+                           ("75 predict", cs.phase_video_predict, cs.VIDEO_DIV3_CLIP)):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             fn(Path(tmp), card, clip if clip is not None else cs.vp9_clip_mp4(Path(tmp) / "mp4"))

@@ -798,14 +798,16 @@ def digest(path: Path) -> dict:
 def main():
     OUT.mkdir(exist_ok=True)
     for p in OUT.iterdir():
-        p.unlink()
+        if not p.name.startswith("still_"):  # make_still_fixtures.py's files and entries stay
+            p.unlink()
     rng = np.random.default_rng(17)
     bmp_fixtures(rng)
     tiff_fixtures(rng)
     webp_fixtures(rng)
     kind_fixtures()
-    table = {p.name: digest(p) for p in sorted(OUT.iterdir())}
-    DIGESTS.write_text(json.dumps(table, indent=1) + "\n")
+    table = {k: v for k, v in json.loads(DIGESTS.read_text()).items() if k.startswith("still_")}
+    table.update({p.name: digest(p) for p in sorted(OUT.iterdir()) if not p.name.startswith("still_")})
+    DIGESTS.write_text(json.dumps(dict(sorted(table.items())), indent=1) + "\n")
     size = sum(p.stat().st_size for p in OUT.iterdir())
     print(f"{len(table)} fixtures, {size} bytes")
 

@@ -65,6 +65,19 @@ wheel ships it; writes ``tests/fixtures/video/`` and
   decodes to no frame) is put after the fifth packet, and the 15 packets
   into an AVI by `write_avi` below.
 
+* the H.263 family (`h263_fixtures`; ``python
+  tests/fixtures/make_video_fixtures.py --h263`` rewrites only these and the
+  digests): ``h263_{176x144,352x288}.avi``, ``{flv1,mp42,div3}_64x48.avi``
+  from cv2's H263, FLV1, MP42 and DIV3 writers; ``u263_88x40.avi``,
+  ``{flv1,mp42,div3}_tools_88x40.avi`` from libavcodec's h263p (PLUSPTYPE's
+  custom picture format), flv, msmpeg4v2 and msmpeg4 encoders at fixed
+  quantisers with four vectors and RD decisions, the MS-MPEG4 ones rewritten
+  to three slices (`msmpeg4_slices`); ``flv1_droppable_88x40.avi``
+  with every third frame made a disposable P-frame (`droppable`);
+  ``mpeg4_dp_88x40.avi``, the MPEG-4 tools stream with data partitioning and
+  video packets; and ``track_640x480_div3.avi``, the 640 x 480 clip as cv2's DIV3, the source of
+  chip_smoke.py's DIV3 phases.
+
 ``video_fixtures.json`` holds, for each file, its codec, container and frame
 count, and for each frame the SHA-256 of ``cv2.VideoCapture``'s frame after
 ``cvtColor(BGR2RGB)`` and of the port's (``data.native.video.frames``), with
@@ -108,6 +121,21 @@ VP8_OPTIONS = {
 }
 CLIP_ASP = {"bf": "2", "flags": "+qpel", "b": "800k"}  # track_640x480_xvid.avi
 MPEG4, LIBVPX, LIBVPX_VP9 = 12, 139, 167  # AVCodecIDs: libavcodec's MPEG-4 encoder, its libvpx VP8 and VP9 wrappers
+# AVCodecIDs of the H.263 family's encoders: h263, msmpeg4v2, msmpeg4 (v3), h263p, flv
+H263, MSMPEG4V2, MSMPEG4V3, H263P, FLV1 = 4, 15, 16, 19, 21
+# the H.263 family (`h263_fixtures`): cv2.VideoWriter's streams, (fourcc, (h, w), frames)
+H263_CV2 = {"h263_176x144.avi": ("H263", (144, 176), 6), "h263_352x288.avi": ("H263", (288, 352), 3),
+            "flv1_64x48.avi": ("FLV1", (48, 64), SMALL_FRAMES), "mp42_64x48.avi": ("MP42", (48, 64), SMALL_FRAMES),
+            "div3_64x48.avi": ("DIV3", (48, 64), SMALL_FRAMES)}
+# libavcodec's own encoders with the tools cv2.VideoWriter does not ask for: (encoder, fourcc, options)
+H263_TOOLS = {
+    "u263_88x40.avi": (H263P, b"U263", {"flags": "+mv4"}),  # PLUSPTYPE's custom format, four vectors
+    "flv1_tools_88x40.avi": (FLV1, b"FLV1", {"flags": "+mv4+qscale", "global_quality": "236", "mbd": "rd"}),
+    "mp42_tools_88x40.avi": (MSMPEG4V2, b"MP42", {"flags": "+qscale", "global_quality": "354", "g": "5"}),
+    "div3_tools_88x40.avi": (MSMPEG4V3, b"DIV3", {"flags": "+qscale", "global_quality": "236", "mbd": "rd",
+                                                  "g": "7"}),
+    "mpeg4_dp_88x40.avi": (MPEG4, b"FMP4", {**TOOLS_OPTIONS, "data_partitioning": "1", "ps": "60"}),
+}
 VP9_FRAMES = 16  # frames of the libvpx-vp9 fixtures: a second key frame at the GOP of 12
 # the libvpx-vp9 fixtures: the frames' (h, w) and the encoder's options; the suffix picks the writer
 VP9_OPTIONS = {
@@ -501,9 +529,10 @@ def _uint(v: int) -> bytes:
     return v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big")
 
 
-def write_mkv(path: Path, packets: list, w: int, h: int, codec: str = "V_VP9", doctype: str = "webm") -> None:
+def write_mkv(path: Path, packets: list, w: int, h: int, codec: str = "V_VP9", doctype: str = "webm",
+              private: bytes = b"") -> None:
     """A minimal Matroska file: one video track of ``packets`` as SimpleBlocks
-    of one cluster, 40 ms apart."""
+    of one cluster, 40 ms apart; ``private`` its CodecPrivate."""
     header = _ebml(b"\x1a\x45\xdf\xa3", _ebml(b"\x42\x86", b"\x01") + _ebml(b"\x42\xf7", b"\x01")
                    + _ebml(b"\x42\xf2", b"\x04") + _ebml(b"\x42\xf3", b"\x08")
                    + _ebml(b"\x42\x82", doctype.encode()) + _ebml(b"\x42\x87", b"\x04")
@@ -512,7 +541,7 @@ def write_mkv(path: Path, packets: list, w: int, h: int, codec: str = "V_VP9", d
                  + _ebml(b"\x57\x41", b"fixtures"))
     video_el = _ebml(b"\xe0", _ebml(b"\xb0", _uint(w)) + _ebml(b"\xba", _uint(h)))
     track = _ebml(b"\xae", _ebml(b"\xd7", b"\x01") + _ebml(b"\x73\xc5", b"\x01") + _ebml(b"\x83", b"\x01")
-                  + _ebml(b"\x86", codec.encode()) + video_el)
+                  + _ebml(b"\x86", codec.encode()) + (_ebml(b"\x63\xa2", private) if private else b"") + video_el)
     blocks = b"".join(_ebml(b"\xa3", b"\x81" + struct.pack(">h", 40 * i) + (b"\x80" if i == 0 else b"\x00") + p)
                       for i, p in enumerate(packets))
     cluster = _ebml(b"\x1f\x43\xb6\x75", _ebml(b"\xe7", b"\x00") + blocks)
@@ -550,6 +579,55 @@ def write_mp4(path: Path, packets: list, w: int, h: int, profile: int = 0, depth
                 + _box(b"dinf", _box(b"dref", struct.pack(">II", 0, 1) + _box(b"url ", struct.pack(">I", 1)))) + stbl)
     moov = _box(b"moov", mvhd + _box(b"trak", tkhd + _box(b"mdia", mdhd + hdlr + minf)))
     path.write_bytes(ftyp + mdat + moov)
+
+
+def droppable(packet: bytes, size: tuple) -> bytes:
+    """A Sorenson H.263 P-frame rewritten as a disposable one (picture type
+    2), which no later frame predicts from; ``size`` is the header's (w, h)
+    as the encoder codes it in 8 or 16 bits."""
+    w, h = size
+    size_bits = 3 + (16 if max(w, h) > 255 else 8) * 2 if (w, h) not in (
+        (352, 288), (176, 144), (128, 96), (320, 240), (160, 120)) else 3
+    at = 17 + 5 + 8 + size_bits
+    bits = "".join(f"{b:08b}" for b in packet)
+    assert bits[at:at + 2] == "01", "not a P-frame"
+    bits = bits[:at] + "10" + bits[at + 2:]
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def msmpeg4_slices(packets: list, slices: int) -> list:
+    """MS-MPEG4 packets whose I-frames declare ``slices`` slices (slice code
+    0x16 + slices) where the encoder wrote one: each slice then starts its
+    predictions afresh, as a decoder reads the code (libavcodec's encoder
+    writes a single slice)."""
+    out = []
+    for p in packets:
+        bits = "".join(f"{b:08b}" for b in p)
+        if bits[:2] == "00":  # an I-frame: picture type, quantiser, then the slice code
+            bits = bits[:7] + f"{0x16 + slices:05b}" + bits[12:]
+        out.append(bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8)))
+    return out
+
+
+def h263_fixtures(track: list) -> None:
+    """The H.263 family's fixtures: cv2's H263 (QCIF, CIF), FLV1, MP42 and DIV3
+    writers; libavcodec's h263p (PLUSPTYPE custom format), flv, msmpeg4v2
+    and msmpeg4 encoders at fixed quantisers with four vectors and RD
+    macroblock decisions; a Sorenson stream with disposable P-frames; the
+    MPEG-4 encoder with data partitioning and video packets; H.263 pictures
+    under an MPEG-4 fourcc (short_video_header: FFmpeg's MPEG-4 decoder
+    gives no frame); the 640 x 480 clip as cv2's DIV3."""
+    for name, (fourcc, hw, n) in H263_CV2.items():
+        write_cv2(OUT / name, fourcc, small_frames(n, hw, seed=11))
+    for name, (codec, fourcc, options) in H263_TOOLS.items():
+        packets = encode(tools_frames(), {"g": "12", **options}, codec)
+        if codec in (MSMPEG4V2, MSMPEG4V3):
+            packets = msmpeg4_slices(packets, 3)
+        write_avi(OUT / name, packets, TOOLS[1], TOOLS[0], fourcc)
+    flv = encode(tools_frames(), {"g": "12"}, FLV1)
+    flv = [droppable(p, (TOOLS[1], TOOLS[0])) if i % 3 == 2 else p for i, p in enumerate(flv)]
+    write_avi(OUT / "flv1_droppable_88x40.avi", flv, TOOLS[1], TOOLS[0], b"FLV1")
+    write_cv2(OUT / "track_640x480_div3.avi", "DIV3", track)
 
 
 def set_user_data(packets: list, text: bytes) -> list:
@@ -693,7 +771,21 @@ def main() -> None:
     write_mkv(OUT / "vp9_crafted_64x48.mkv", vp9_crafted(resilient, (SMALL[1], SMALL[0])), SMALL[1], SMALL[0])
     clip = set_user_data(encode_mpeg4(track, {"g": "12", **CLIP_ASP}), b"XviD0064")
     write_avi(OUT / "track_640x480_xvid.avi", clip, track[0].shape[1], track[0].shape[0], b"XVID")
+    h263_fixtures(track)
 
+    write_digests()
+
+
+def main_h263() -> None:
+    """``--h263``: only the H.263 family's fixtures, then every digest."""
+    sys.path.insert(0, str(REPO))
+    import tempfile
+
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        track = chip_smoke.make_clip(Path(tmp))
+    h263_fixtures(track)
     write_digests()
 
 
@@ -725,4 +817,4 @@ def write_digests() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main_h263() if "--h263" in sys.argv else main()

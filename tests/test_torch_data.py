@@ -200,9 +200,11 @@ def test_unsupported_images_raise(tmp_path):
     upright.write_bytes(_with_exif_orientation(jpg, 1))
     for p in (prog, deep, adam7, tmp_path / "rotated.jpg", upright, tmp_path / "cmyk.jpg"):
         np.testing.assert_array_equal(imread(p), _cv2_rgb(p), err_msg=p.name)
-    Image.fromarray(im).save(tmp_path / "a.gif")  # BMP, TIFF and WebP are read now: a GIF is not
-    with pytest.raises(NotImplementedError, match="GIF file is not read"):
-        imread(tmp_path / "a.gif")
+    Image.fromarray(im).save(tmp_path / "a.gif")  # a GIF is read now, as cv2.imread reads its first frame
+    np.testing.assert_array_equal(imread(tmp_path / "a.gif"), _cv2_rgb(tmp_path / "a.gif"))
+    (tmp_path / "a.xcf").write_bytes(b"gimp xcf file\0" + bytes(64))  # a kind no reader takes
+    with pytest.raises(NotImplementedError, match="this kind of file is not read"):
+        imread(tmp_path / "a.xcf")
     (tmp_path / "cut.jpg").write_bytes(jpg[:len(jpg) // 2])
     with pytest.raises(ValueError, match="ends before"):
         imread(tmp_path / "cut.jpg")

@@ -89,6 +89,19 @@ def _assert_as_opencv(path, stored=None):
 @pytest.mark.parametrize("name", sorted(TABLE))
 def test_committed_image_fixture(name):
     ref, path = TABLE[name], FIXTURES / "image" / name
+    if ref.get("still"):  # read by imread only (tests/test_torch_stills.py): datasets do not list them
+        with pytest.raises(NotImplementedError, match="read by imread only"):
+            read_shape(path)
+        with pytest.raises(NotImplementedError, match="read by imread only"):
+            read_stored_shape(path)
+        if ref.get("raises"):
+            with pytest.raises(ValueError):
+                imread(path)
+            return
+        got = imread(path)
+        assert list(got.shape) == ref["shape"]
+        assert hashlib.sha256(got.tobytes()).hexdigest() == ref["sha256"]
+        return
     assert list(read_stored_shape(path)) == ref["stored"]
     if ref.get("raises") == "NotImplementedError":
         with pytest.raises(NotImplementedError, match=ref["match"]):
@@ -506,11 +519,13 @@ def test_webp_writer_read_back_by_opencv(tmp_path):
 
 def test_unported_kinds_raise_named_errors(tmp_path):
     im = MAKER.image(20, 30, seed=1)
-    Image.fromarray(im).save(tmp_path / "a.gif")
-    with pytest.raises(NotImplementedError, match="GIF"):
-        imread(tmp_path / "a.gif")
+    Image.fromarray(im).save(tmp_path / "a.gif")  # imread reads a GIF now; the dataset readers do not
+    np.testing.assert_array_equal(imread(tmp_path / "a.gif"), _cv2_rgb(tmp_path / "a.gif"))
     with pytest.raises(NotImplementedError, match="GIF"):
         read_shape(tmp_path / "a.gif")
+    (tmp_path / "x.xcf").write_bytes(b"gimp xcf v011" + bytes(40))
+    with pytest.raises(NotImplementedError, match="this kind of file is not read"):
+        imread(tmp_path / "x.xcf")
     for comp, what in ((6, "old-style JPEG"), (32809, "ThunderScan"), (32771, "CCITT RLEW"), (34712, "JPEG 2000")):
         (tmp_path / "c.tif").write_bytes(MAKER.tiff_file(im, {259: (3, [comp])}, deflate=False))
         with pytest.raises(NotImplementedError, match=what):

@@ -67,14 +67,15 @@ def cv2_packets(path) -> list:
 
 
 def test_fixtures_cover_every_container_and_codec():
-    """Every container of the demuxers and the four codecs are among the
+    """Every container of the demuxers and the codecs are among the
     fixtures, cv2's FFV1 AVI the one refused; the small clips are a few KB
     each, the three 640 x 480 clips of the later slices about 1.4 MB
-    together."""
+    together, the DIV3 one (the H.263 family's slice) under 500 KB."""
     kinds = {(v.get("container"), v.get("codec")) for v in DIGESTS.values()}
     for kind in [("ISO-BMFF", "mpeg4"), ("AVI", "mpeg4"), ("Matroska", "mpeg4"), ("AVI", "mjpeg"),
                  ("Matroska", "mjpeg"), ("Matroska", "vp8"), ("AVI", "vp8"), ("Matroska", "vp9"), ("AVI", "vp9"),
-                 ("ISO-BMFF", "vp9")]:
+                 ("ISO-BMFF", "vp9"), ("AVI", "h263"), ("AVI", "h263p"), ("AVI", "flv1"), ("AVI", "msmpeg4v2"),
+                 ("AVI", "msmpeg4v3")]:
         assert kind in kinds
     assert {p.suffix for p in VIDEOS.iterdir()} == {".mp4", ".mov", ".m4v", ".avi", ".mkv", ".webm"}
     assert [k for k, v in DIGESTS.items() if "refused" in v] == ["ffv1_64x48.avi"]
@@ -82,7 +83,8 @@ def test_fixtures_cover_every_container_and_codec():
     assert max(p.stat().st_size for p in small) < 30_000
     assert sum((VIDEOS / n).stat().st_size
                for n in ("track_640x480.webm", "track_640x480_xvid.avi", "track_640x480_vp9.webm")) < 1_500_000
-    assert sum(p.stat().st_size for p in VIDEOS.iterdir()) < 3_000_000
+    assert (VIDEOS / "track_640x480_div3.avi").stat().st_size < 500_000
+    assert sum(p.stat().st_size for p in VIDEOS.iterdir()) < 3_500_000
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
@@ -507,7 +509,6 @@ REFUSED = [
     (dict(sprite=1), "sprites and global motion compensation"),
     (dict(ver_id=2, sprite=2), "sprites and global motion compensation"),
     (dict(not_8_bit=1), "other than 8-bit"),
-    (dict(data_partitioned=1), "data partitioning"),
     (dict(data_partitioned=1, rvlc=1), "data partitioning with RVLC"),
     (dict(shape=1), "shape other than rectangular"),
     (dict(complexity_disable=0), "complexity estimation"),
@@ -535,14 +536,21 @@ def test_refused_vop_types_raise_named_errors(kind, match):
         dec.send(vop(kind))
 
 
-def test_short_video_header_and_encoder_workarounds_are_refused():
-    """An H.263 picture (short_video_header) in an MPEG-4 stream is refused.
-    The streams that were refused with it before FFmpeg's encoder
-    workarounds were ported (a stream an XVID fourcc marks as Xvid's, DivX
-    and Xvid user data, an old libavcodec's) now reach their macroblocks: a
-    VOP with none is damaged data, not a refusal."""
-    with pytest.raises(NotImplementedError, match="short_video_header"):
+def test_short_video_header_and_encoder_workarounds_are_refused(tmp_path):
+    """An H.263 picture (short_video_header) in an MPEG-4 stream is read as
+    FFmpeg's MPEG-4 decoder reads it: damaged data, so that an AVI of them
+    under an MPEG-4 fourcc gives no frame, as cv2.VideoCapture gives none
+    (the same packets under the H263 fourcc give every frame). The streams
+    that were refused with it before FFmpeg's encoder workarounds were
+    ported (a stream an XVID fourcc marks as Xvid's, DivX and Xvid user
+    data, an old libavcodec's) now reach their macroblocks: a VOP with none
+    is damaged data, not a refusal."""
+    with pytest.raises(ValueError, match="short_video_header"):
         video.Decoder("mpeg4").send(bytes.fromhex("00008202") + bytes(20))
+    h263 = video.demux(VIDEOS / "h263_176x144.avi").packets
+    write_avi(tmp_path / "short.avi", h263, 176, 144, b"FMP4")
+    assert cv2_frames(tmp_path / "short.avi") == [] and list(video.frames(tmp_path / "short.avi")) == []
+    assert len(list(video.frames(VIDEOS / "h263_176x144.avi"))) == len(h263)
     with pytest.raises(ValueError, match="MPEG-4 Part 2"):
         video.Decoder("mpeg4", vol(), b"XVID").send(vop(0))
     for user in (b"DivX503b1393p", b"XviD0050", b"Lavc56.1.100", b"FFmpeg0.4.6b4652"):
@@ -552,10 +560,11 @@ def test_short_video_header_and_encoder_workarounds_are_refused():
     assert DIGESTS["xvid_64x48.avi"]["per_frame"] == DIGESTS["mp4v_64x48.avi"]["per_frame"]
 
 
-@pytest.mark.parametrize("fields", [dict(ver_id=2, quarter_sample=1), dict(quant_type=1)],
-                         ids=["quarter-pel", "MPEG-quantisation"])
+@pytest.mark.parametrize("fields", [dict(ver_id=2, quarter_sample=1), dict(quant_type=1), dict(data_partitioned=1)],
+                         ids=["quarter-pel", "MPEG-quantisation", "data-partitioning"])
 def test_asp_vol_tools_are_read(fields):
-    """Quarter-pel and MPEG quantisation in a hand-made VOL header are read,
+    """Quarter-pel, MPEG quantisation and data partitioning (without RVLC) in
+    a hand-made VOL header are read,
     from the decoder configuration or in band: its VOP reaches the
     macroblocks (none here: damaged data, not a refusal)."""
     header = vol(**fields)
@@ -790,7 +799,9 @@ def test_damaged_packets_end_or_raise_never_crash():
     names = [str(VIDEOS / n) for n in ("mp4v_64x48.mp4", "mjpg_64x48.avi", "mpeg4_tools_88x40.avi",
                                          "mp4v_64x48.mkv", "vp8_64x48.webm", "vp8_p3_er_64x48.avi",
                                          "mpeg4_asp_88x40.avi", "divx_packed_88x40.avi", "vp9_tiles_512x64.mkv",
-                                         "vp9_crafted_64x48.mkv", "vp9_aq_96x64.mp4")]
+                                         "vp9_crafted_64x48.mkv", "vp9_aq_96x64.mp4", "h263_176x144.avi",
+                                         "u263_88x40.avi", "flv1_tools_88x40.avi", "mp42_tools_88x40.avi",
+                                         "div3_tools_88x40.avi", "mpeg4_dp_88x40.avi")]
     proc = subprocess.run([sys.executable, "-c", FUZZ, str(random.Random(0).randrange(1 << 30)), *names],
                           cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
