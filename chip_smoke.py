@@ -149,8 +149,9 @@ Phases:
      ``Trainer.fit`` cut after epoch 0 and resumed from its ``last.ckpt``
      (the JAX trainer's pickle), whose next update equals the uninterrupted
      run's;
- 35. the TPU-chosen defaults (ROADMAP item 4): the conv form (grouped,
-     folded, auto at fold thresholds 16, 32, 64, 128) by device busy ms of
+ 35. the TPU-chosen defaults (ROADMAP Queue 3, "Defaults chosen on the
+     H100"): the conv form (grouped, folded, auto at fold thresholds 16, 32,
+     64, 128) by device busy ms of
      the OBB ``infer`` and micro-step at 1024 and a Q-WRN-16-2 step at batch
      128, one round (the defaults were chosen from two); the assigner's
      metric chain in f32 and bf16 is timed in phase 6 and ``fused_1x1`` in
@@ -309,7 +310,15 @@ Phases:
      decode and RGB ms a frame of the 640 x 480 clip as cv2's DIV3 AVI,
      beside the VP8 and VP9 clips';
  75. phases 59 and 60 on the DIV3 AVI;
- 76. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
+ 76. WMV1 and WMV2 (cv2's in AVI and Matroska; libavcodec's with inter-intra
+     prediction, per-macroblock run-level tables, the loop filter with the
+     top-left vector predictor, and a stream rewritten to mspel motion, skip
+     maps, other CBP tables and ABT) and
+     H.263+'s deblocking filter: their fixtures against their digests, and
+     the decode and RGB ms a frame of the 640 x 480 clip as WMV2 (libavcodec's
+     wmv2 at quantiser 22), beside the DIV3 clip's;
+ 77. phases 59 and 60 on the WMV2 AVI;
+ 78. the ``kernels`` line (launches by path: predict, train, fit, val, cli and
      the facade's fused_1x1 predict, detect_predict, detect_train,
      detect_fit, detect_val, detect_val_rect, detect_cli and
      detect_facade_fused_1x1, seg_predict, seg_train, seg_fit, seg_val,
@@ -332,8 +341,9 @@ Phases:
      image_cli_predict_{mixed,png}, image_val_{jpeg_ycbcr_bigtiff,cmyk_lzw}
      and their _png twins, image_fit_jpeg_ycbcr_bigtiff{,_png},
      image_cli_predict_kinds{,_png}, still_cli_predict, still_predict,
-     video_div3_cli_track, video_div3_track_botsort, video_div3_cli_predict
-     and video_div3_predict; each
+     video_div3_cli_track, video_div3_track_botsort, video_div3_cli_predict,
+     video_div3_predict, video_wmv2_cli_track, video_wmv2_track_botsort,
+     video_wmv2_cli_predict and video_wmv2_predict; each
      kernel launched on each path that runs it; K1 and K2
      also timed at N = 400, 640's layer 10, at QPSA's N = 400, dk = dv = 4
      (``qpsa_n400``), and K1 at N = 49 and K3 at the Classify site; K1's and
@@ -1245,8 +1255,8 @@ def phase_loss_layer(batch, m_cut: int = 16, calls: int = 3):
     """The loss layer alone, ``obb_loss`` (the bf16 assigner included) and its
     backward to the head's outputs, on one train-mode forward's outputs: at the
     batch's TRAIN_M padded rows and with the rows cut to ``m_cut``; and at TRAIN_M
-    with the assigner's metric chain in f32 (``assigner_bf16=False``, ROADMAP item
-    4; key ``"<TRAIN_M> f32 assigner"``). Device ms a call from torch.profiler (the
+    with the assigner's metric chain in f32 (``assigner_bf16=False``, ROADMAP
+    Queue 3, "Defaults chosen on the H100"; key ``"<TRAIN_M> f32 assigner"``). Device ms a call from torch.profiler (the
     sum of its kernels' times) and host ms a call (host clock, synchronized)."""
     tr = make_trainer(torch.bfloat16)
     with torch.no_grad():
@@ -3792,7 +3802,8 @@ def set_conv_form(models, impl: str, fold_max) -> None:
 
 
 def phase_conv_forms(x, tables=None, calls: int = 1):
-    """The quaternion conv's form (ROADMAP item 4), measured where it is chosen:
+    """The quaternion conv's form (ROADMAP Queue 3, "Defaults chosen on the
+    H100"), measured where it is chosen:
     QUAN-YOLO11n-OBB's ``infer`` at 1024 (batch 8, bf16, K1) and its train micro-step
     (the same, accumulating: no update in the window), and a Q-WRN-16-2 train step at
     batch 128 @ 32 (bf16), under each of FORM_ARMS, in FORM_ROUNDS rounds (the arms
@@ -5309,6 +5320,11 @@ VIDEO_H263 = {"h263_176x144.avi", "h263_352x288.avi", "flv1_64x48.avi", "mp42_64
               "u263_88x40.avi", "flv1_tools_88x40.avi", "mp42_tools_88x40.avi", "div3_tools_88x40.avi",
               "mpeg4_dp_88x40.avi", "flv1_droppable_88x40.avi", "track_640x480_div3.avi"}
 VIDEO_DIV3_CLIP = "track_640x480_div3.avi"  # make_clip's frames as cv2's DIV3 AVI: phase 75's source
+# WMV1, WMV2 and H.263+ Annex J (phase 76)
+VIDEO_WMV = {"wmv1_64x48.avi", "wmv1_64x48.mkv", "wmv2_64x48.avi", "wmv2_64x48.mkv", "wmv1_ii_88x40.avi",
+             "wmv1_mbrl_88x40.avi", "wmv2_loop_88x40.avi", "wmv2_crafted_88x40.avi", "u263_loop_88x40.avi",
+             "track_640x480_wmv2.avi"}
+VIDEO_WMV2_CLIP = "track_640x480_wmv2.avi"  # make_clip's frames through libavcodec's wmv2: phase 77's source
 
 
 def _video_fixtures(names, tag: str) -> dict:
@@ -5436,6 +5452,24 @@ def phase_video_h263_decode(card: str):
     check(all(v["frames"] == TRACK_FRAMES for v in out["ms_a_frame"].values()),
           f"video H.263 decode: the clips' frames {out['ms_a_frame']}")
     _print_video("video H.263 decode", out, card)
+    return out
+
+
+def phase_video_wmv_decode(card: str):
+    """76. The WMV1, WMV2 and Annex J fixtures (cv2's WMV1 and WMV2 in AVI and
+    Matroska; libavcodec's wmv1 with inter-intra prediction and with
+    per-macroblock run-level tables in three slices, its wmv2 with the loop
+    filter and the top-left vector predictor and rewritten to mspel motion,
+    skip maps, per-macroblock tables, other CBP tables and ABT, its h263p
+    with the deblocking filter) through
+    `video.frames`, each frame against the port's SHA-256; the decode and RGB
+    ms a frame of the 640 x 480 clip as WMV2, beside the DIV3 clip's in the
+    same run."""
+    out = {"fixtures": _video_fixtures(VIDEO_WMV, "video WMV decode"),
+           "ms_a_frame": {name: _video_ms(name) for name in (VIDEO_WMV2_CLIP, VIDEO_DIV3_CLIP)}}
+    check(all(v["frames"] == TRACK_FRAMES for v in out["ms_a_frame"].values()),
+          f"video WMV decode: the clips' frames {out['ms_a_frame']}")
+    _print_video("video WMV decode", out, card)
     return out
 
 
@@ -6418,6 +6452,14 @@ def main() -> int:
     videos["h263"]["seconds"] = time.perf_counter() - t_h263
     print(f"still and H.263 family phases: {videos['h263']['seconds']:.1f} s")
     lap(t_start, "the still and H.263 family phases")
+    t_wmv = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wmv_") as tmp:
+        videos["wmv"] = {"decode": phase_video_wmv_decode(card),
+                         "track": phase_video_track(Path(tmp), card, VIDEO_WMV2_CLIP),
+                         "predict": phase_video_predict(Path(tmp), card, VIDEO_WMV2_CLIP)}
+    videos["wmv"]["seconds"] = time.perf_counter() - t_wmv
+    print(f"WMV video phases: {videos['wmv']['seconds']:.1f} s")
+    lap(t_start, "the WMV video phases")
     classify = {"data": cls_data, "cifar": cls_cifar, "imagenet": cls_imagenet, "yolo": cls_yolo, "cli": cls_cli}
     detect = {"data": det_data, "predict": det_predict, "train": det_train, "fit": det_fit, "val": det_val,
               "cli": det_cli}
@@ -6584,6 +6626,15 @@ def main() -> int:
                  "video_div3_cli_predict", "video_div3_predict"):
         check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
         check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
+    # the WMV2 clip: detect track (CLI, ByteTrack; facade, BoT-SORT) and obb predict (CLI; bf16 facade)
+    wmv = videos["wmv"]
+    det_launches.update({"video_wmv2_cli_track": wmv["track"]["launches_cli"],
+                         "video_wmv2_track_botsort": wmv["track"]["launches"],
+                         "video_wmv2_cli_predict": wmv["predict"]["launches_cli"],
+                         "video_wmv2_predict": wmv["predict"]["launches"]})
+    for path in ("video_wmv2_cli_track", "video_wmv2_track_botsort", "video_wmv2_cli_predict", "video_wmv2_predict"):
+        check(det_launches[path]["qattn_fwd"] > 0, f"K1 did not launch on {path}")
+        check(det_launches[path]["qconv1x1_fused"] > 0, f"K3 did not launch on {path}")
     # the image formats: val on each set (K1 and K3), the BMP and PNG fit epochs (K1 and K2), obb predict
     # of the mixed folder and of its PNG copies through the CLI (K1 and K3)
     det_launches.update({f"image_val_{name}": r["launches"] for name, r in images["val"].items()})
@@ -6713,7 +6764,7 @@ def main() -> int:
         "seconds": stem["seconds"]}}, default=str))
     print(json.dumps({"video": videos}, default=str))
     print(json.dumps({"images": images}, default=str))
-    # ROADMAP item 4: the TPU-chosen defaults, by the numbers of this run
+    # ROADMAP Queue 3, "Defaults chosen on the H100": the TPU-chosen defaults, by the numbers of this run
     print(json.dumps({"defaults": {
         "stem": {"choice": stem["predict"]["default"], "faster": stem["predict"]["faster"],
                  "device_ms": {n: r["device_ms"] for n, r in stem["predict"]["modes"].items()},

@@ -1,6 +1,6 @@
 // Video decoding on the host: Motion-JPEG, MPEG-4 Part 2 (Simple and Advanced
 // Simple Profile), the H.263 family (H.263, Sorenson H.263, MS-MPEG4 v2 and
-// v3), VP8 and VP9 packets into planar YUV, and YUV into RGB as
+// v3, WMV1, WMV2), VP8 and VP9 packets into planar YUV, and YUV into RGB as
 // OpenCV's FFmpeg capture converts it. Called through ctypes from video.py,
 // which demuxes the file.
 //
@@ -50,7 +50,10 @@
 //     names them.
 //   * The H.263 family (struct H263 below, over Mpeg4's macroblock state):
 //     H.263 and H.263+ (ituh263dec.c), Sorenson H.263 (flvdec.c), MS-MPEG4
-//     v2 and v3 (msmpeg4dec.c, tables in msmpeg4_tables.h), low delay.
+//     v2 and v3 (msmpeg4dec.c, tables in msmpeg4_tables.h), WMV1
+//     (msmpeg4dec.c) and WMV2 (wmv2dec.c, wmv2dsp.c; tables in
+//     wmv_tables.h), the deblocking filter of WMV2 and H.263+ Annex J
+//     (h263.c, h263dsp.c), low delay.
 //   * VP8 (vp8.h, as vp8.c decodes a stream): key and inter frames, the
 //     golden and altref references, invisible frames (no output).
 //   * VP9 profile 0 (vp9.h, as FFmpeg's vp9 decoder decodes a stream): a
@@ -69,6 +72,7 @@
 #include "imread.cpp"
 #include "jpeg_tables.h"
 #include "msmpeg4_tables.h"
+#include "wmv_tables.h"
 #include "vp8.h"
 #include "vp9.h"
 
@@ -192,6 +196,44 @@ void idct_add(uint8_t* dst, int stride, int16_t* blk) {
   }
 }
 
+// ff_simple_idct84_add / ff_simple_idct48_add (simple_idct.c): WMV2's ABT
+// sub-blocks, the 8-point row or column above and a 4-point one across it
+constexpr double SQRT2 = 1.41421356237309504880;  // M_SQRT2
+constexpr int C_SHIFT4 = 4 + 1 + 12, R_SHIFT4 = 11;
+constexpr int C1_4 = (int)(0.6532814824 * SQRT2 * (1 << 12) + 0.5), C2_4 = (int)(0.2705980501 * SQRT2 * (1 << 12) + 0.5),
+              C3_4 = (int)(0.5 * SQRT2 * (1 << 12) + 0.5);
+constexpr int R1_4 = (int)(0.6532814824 * SQRT2 * (1 << 15) + 0.5), R2_4 = (int)(0.2705980501 * SQRT2 * (1 << 15) + 0.5),
+              R3_4 = (int)(0.5 * SQRT2 * (1 << 15) + 0.5);
+
+void idct84_add(uint8_t* dst, int stride, int16_t* blk) {  // an 8 x 4 block: rows 0..3
+  for (int r = 0; r < 4; ++r) idct_row(blk + 8 * r);
+  for (int c = 0; c < 8; ++c) {  // idct4col_add
+    const int a0 = blk[c], a1 = blk[8 + c], a2 = blk[16 + c], a3 = blk[24 + c];
+    const int c0 = (a0 + a2) * C3_4 + (1 << (C_SHIFT4 - 1)), c2 = (a0 - a2) * C3_4 + (1 << (C_SHIFT4 - 1));
+    const int c1 = a1 * C1_4 + a3 * C2_4, c3 = a1 * C2_4 - a3 * C1_4;
+    const int out[4] = {c0 + c1, c2 + c3, c2 - c3, c0 - c1};
+    for (int r = 0; r < 4; ++r) dst[r * stride + c] = clip_u8(dst[r * stride + c] + (out[r] >> C_SHIFT4));
+  }
+}
+
+void idct48_add(uint8_t* dst, int stride, int16_t* blk) {  // a 4 x 8 block: columns 0..3
+  for (int r = 0; r < 8; ++r) {  // idct4row
+    int16_t* row = blk + 8 * r;
+    const int a0 = row[0], a1 = row[1], a2 = row[2], a3 = row[3];
+    const int c0 = (a0 + a2) * R3_4 + (1 << (R_SHIFT4 - 1)), c2 = (a0 - a2) * R3_4 + (1 << (R_SHIFT4 - 1));
+    const int c1 = a1 * R1_4 + a3 * R2_4, c3 = a1 * R2_4 - a3 * R1_4;
+    row[0] = (int16_t)((c0 + c1) >> R_SHIFT4);
+    row[1] = (int16_t)((c2 + c3) >> R_SHIFT4);
+    row[2] = (int16_t)((c2 - c3) >> R_SHIFT4);
+    row[3] = (int16_t)((c0 - c1) >> R_SHIFT4);
+  }
+  int out[8];
+  for (int c = 0; c < 4; ++c) {
+    idct_col(blk + c, out);
+    for (int r = 0; r < 8; ++r) dst[r * stride + c] = clip_u8(dst[r * stride + c] + out[r]);
+  }
+}
+
 // ---- Xvid's IDCT (libavcodec/xvididct.c), for streams from the Xvid encoder --
 
 namespace xvid {
@@ -302,6 +344,89 @@ void xvid_idct_add(uint8_t* dst, int stride, int16_t* blk) {
   xvid::idct(blk);
   for (int r = 0; r < 8; ++r)
     for (int c = 0; c < 8; ++c) dst[r * stride + c] = clip_u8(dst[r * stride + c] + blk[8 * r + c]);
+}
+
+// ---- WMV2's IDCT and quarter-sample filters (libavcodec/wmv2dsp.c) ---------
+
+constexpr int WW0 = 2048, WW1 = 2841, WW2 = 2676, WW3 = 2408, WW5 = 1609, WW6 = 1108, WW7 = 565;
+
+// wmv2_idct_row / wmv2_idct_col; ``s`` is 1 along a row, 8 down a column
+void wmv2_idct_1d(int16_t* b, int s, bool col) {
+  const int r = col ? 4 : 0, sh = col ? 3 : 0;
+  const int a1 = (WW1 * b[1 * s] + WW7 * b[7 * s] + r) >> sh, a7 = (WW7 * b[1 * s] - WW1 * b[7 * s] + r) >> sh;
+  const int a5 = (WW5 * b[5 * s] + WW3 * b[3 * s] + r) >> sh, a3 = (WW3 * b[5 * s] - WW5 * b[3 * s] + r) >> sh;
+  const int a2 = (WW2 * b[2 * s] + WW6 * b[6 * s] + r) >> sh, a6 = (WW6 * b[2 * s] - WW2 * b[6 * s] + r) >> sh;
+  const int a0 = (WW0 * b[0] + WW0 * b[4 * s]) >> sh, a4 = (WW0 * b[0] - WW0 * b[4 * s]) >> sh;
+  const int s1 = (int)(181u * (uint32_t)(a1 - a5 + a7 - a3) + 128) >> 8;
+  const int s2 = (int)(181u * (uint32_t)(a1 - a5 - a7 + a3) + 128) >> 8;
+  const int rnd = col ? 1 << 13 : 1 << 7, out = col ? 14 : 8;
+  b[0] = (int16_t)((a0 + a2 + a1 + a5 + rnd) >> out);
+  b[1 * s] = (int16_t)((a4 + a6 + s1 + rnd) >> out);
+  b[2 * s] = (int16_t)((a4 - a6 + s2 + rnd) >> out);
+  b[3 * s] = (int16_t)((a0 - a2 + a7 + a3 + rnd) >> out);
+  b[4 * s] = (int16_t)((a0 - a2 - a7 - a3 + rnd) >> out);
+  b[5 * s] = (int16_t)((a4 - a6 - s2 + rnd) >> out);
+  b[6 * s] = (int16_t)((a4 + a6 - s1 + rnd) >> out);
+  b[7 * s] = (int16_t)((a0 + a2 - a1 - a5 + rnd) >> out);
+}
+
+// wmv2_idct_put_c / wmv2_idct_add_c (the x86 build has no other)
+void wmv2_idct(uint8_t* dst, int stride, int16_t* blk, bool add) {
+  for (int i = 0; i < 64; i += 8) wmv2_idct_1d(blk + i, 1, false);
+  for (int i = 0; i < 8; ++i) wmv2_idct_1d(blk + i, 8, true);
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) {
+      uint8_t& d = dst[(size_t)r * stride + c];
+      d = clip_u8((add ? d : 0) + blk[r * 8 + c]);
+    }
+}
+
+// put_mspel8_mcXY_c: an 8 x 8 block from ``src`` (stride 11, its sample (0, 0)
+// at src[12], one sample of context before and two after on each axis) at
+// mspel position ``dxy`` (0 the samples, 1 mc10, 2 mc20, 3 mc30, 4 mc02,
+// 5 mc12, 6 mc22, 7 mc32): wmv2_mspel8_{h,v}_lowpass's taps (-1, 9, 9, -1) / 16
+// and put_pixels8_l2's rounded average
+void mspel8(uint8_t* dst, int dstride, const uint8_t* src, int dxy) {
+  constexpr int S = 11;
+  auto low = [](int a, int b, int c, int d) { return clip_u8((9 * (b + c) - (a + d) + 8) >> 4); };
+  uint8_t half_h[11 * 8], a[64], b[64];  // half_h: rows -1..9 filtered along each row
+  for (int r = -1; r < 10; ++r)
+    for (int c = 0; c < 8; ++c) {
+      const uint8_t* p = src + 12 + r * S + c;
+      half_h[(r + 1) * 8 + c] = low(p[-1], p[0], p[1], p[2]);
+    }
+  auto vlow = [&](uint8_t* out, int x0) {  // along columns of src from column x0
+    for (int r = 0; r < 8; ++r)
+      for (int c = 0; c < 8; ++c) {
+        const uint8_t* p = src + 12 + r * S + c + x0;
+        out[r * 8 + c] = low(p[-S], p[0], p[S], p[2 * S]);
+      }
+  };
+  auto vlow_h = [&](uint8_t* out) {  // along columns of half_h
+    for (int r = 0; r < 8; ++r)
+      for (int c = 0; c < 8; ++c) {
+        const uint8_t* p = half_h + (r + 1) * 8 + c;
+        out[r * 8 + c] = low(p[-8], p[0], p[8], p[16]);
+      }
+  };
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) a[r * 8 + c] = src[12 + r * S + c];
+  switch (dxy) {
+    case 0: break;
+    case 1: case 3:  // the samples (mc10) or those one to the right (mc30) averaged with the row filter
+      for (int r = 0; r < 8; ++r)
+        for (int c = 0; c < 8; ++c)
+          a[r * 8 + c] = (uint8_t)((src[12 + r * S + c + (dxy == 3)] + half_h[(r + 1) * 8 + c] + 1) >> 1);
+      break;
+    case 2: memcpy(a, half_h + 8, 64); break;
+    case 4: vlow(a, 0); break;
+    case 6: vlow_h(a); break;
+    default:  // mc12 / mc32: the column filter at x (or x + 1) averaged with both filters
+      vlow(a, dxy == 7);
+      vlow_h(b);
+      for (int i = 0; i < 64; ++i) a[i] = (uint8_t)((a[i] + b[i] + 1) >> 1);
+  }
+  for (int r = 0; r < 8; ++r) memcpy(dst + (size_t)r * dstride, a + r * 8, 8);
 }
 
 // ---- MPEG-4 quarter-pel (libavcodec/qpeldsp.c) ------------------------------
@@ -743,7 +868,9 @@ enum Stat {
   ST_PACKETS, ST_ESCAPE1, ST_ESCAPE2, ST_ESCAPE3, ST_AC_PRED_MB, ST_DC_AS_AC, ST_NO_ROUNDING_MB,
   ST_AC_RESCALED, ST_B_VOP, ST_B_DIRECT, ST_B_FORWARD, ST_B_BACKWARD, ST_B_INTERPOLATED, ST_B_COLOCATED_SKIP,
   ST_DBQUANT, ST_QPEL_MB, ST_MPEG_QUANT_BLOCK, ST_XVID_IDCT_BLOCK, ST_PACKED_B, ST_SKIPPED_B,
-  ST_PARTITIONED_PACKETS, ST_GOB_HEADERS, ST_FLV_ESCAPE, ST_MV_ESCAPE, ST_DROPPABLE, ST_COUNT
+  ST_PARTITIONED_PACKETS, ST_GOB_HEADERS, ST_FLV_ESCAPE, ST_MV_ESCAPE, ST_DROPPABLE, ST_INTER_INTRA_PICTURES,
+  ST_INTER_INTRA_MB, ST_PER_MB_RL_PICTURES, ST_SKIP_MAPS, ST_MSPEL_PICTURES, ST_HSHIFT_MB, ST_LOOP_FILTERED_MB,
+  ST_WMV_ESCAPE3_LENGTHS, ST_SKIPPED_PICTURES, ST_ABT_BLOCK, ST_TOP_LEFT_MV, ST_COUNT
 };
 constexpr int SLICE_END = 1;  // decode_slice: a video packet ends before the VOP does
 constexpr int FRAME_SKIPPED = 4;  // decode_vop_header: a VOP FFmpeg decodes to no frame
@@ -775,6 +902,13 @@ struct Mpeg4 {
   // the encoder, from the user data and the fourcc (ff_mpeg4_workaround_bugs)
   int lavc_build = -1, xvid_build = -1, divx_version = -1, divx_build = -1;
   bool divx_packed = false, xvid_idct = false;
+  // WMV2 (the H263 decoder below): its own IDCT, and its quarter-sample luma
+  // prediction (ff_mspel_motion) with the picture's mspel flag and the macroblock's hshift;
+  // each inter block's ABT type (0 8x8, 1 two 8x4, 2 two 4x8) and second sub-block
+  bool wmv2_idct = false, mspel = false;
+  int hshift = 0;
+  int abt_type_table[6] = {};
+  int16_t abt_block2[6][64] = {};
   int bugs = 0;
   int picture_number = 0;
   // time stamps (decode_vop_header), in ticks of 1 / time_resolution
@@ -1454,6 +1588,10 @@ struct Mpeg4 {
   // chroma_4mv_motion) into y (16 x 16), u and v (8 x 8 each)
   void predict(const Frame& f, const int (*mvv)[2], bool nr, uint8_t* y, uint8_t* u, uint8_t* v) {
     const int he = h_edge(), ve = v_edge();
+    if (mv_type == 0 && mspel) {
+      mspel_predict(f, mvv[0][0], mvv[0][1], nr, y, u, v);
+      return;
+    }
     if (mv_type == 0) {
       const int mx = mvv[0][0], my = mvv[0][1];
       if (quarter_sample) {  // qpel_motion
@@ -1529,6 +1667,35 @@ struct Mpeg4 {
     if (sy == (height >> 1)) dxy &= ~2;
     hpel(f.u.data(), f.cstride, he >> 1, ve >> 1, sx, sy, dxy, 8, nr, u, 8);
     hpel(f.v.data(), f.cstride, he >> 1, ve >> 1, sx, sy, dxy, 8, nr, v, 8);
+  }
+
+  // ff_mspel_motion (wmv2.c): the luma's four 8 x 8 blocks through the mspel
+  // filters at dxy = 2 * (half-sample position) + hshift, the chroma at half
+  // samples rounded from the quarter positions; edges repeated
+  void mspel_predict(const Frame& f, int mx, int my, bool nr, uint8_t* y, uint8_t* u, uint8_t* v) {
+    const int he = h_edge(), ve = v_edge();
+    int dxy = 2 * (((my & 1) << 1) | (mx & 1)) + hshift;
+    int sx = std::max(-16, std::min(mb_x * 16 + (mx >> 1), width));
+    int sy = std::max(-16, std::min(mb_y * 16 + (my >> 1), height));
+    if (sx <= -16 || sx >= width) dxy &= ~3;
+    if (sy <= -16 || sy >= height) dxy &= ~4;
+    uint8_t src[11 * 11];
+    for (int blk = 0; blk < 4; ++blk) {
+      const int bx = sx + (blk & 1) * 8, by = sy + (blk >> 1) * 8;
+      for (int r = 0; r < 11; ++r) {
+        const int yy = std::max(0, std::min(by + r - 1, ve - 1));
+        for (int c = 0; c < 11; ++c)
+          src[r * 11 + c] = f.y[(size_t)yy * f.ystride + std::max(0, std::min(bx + c - 1, he - 1))];
+      }
+      mspel8(y + (blk & 1) * 8 + (blk >> 1) * 8 * 16, 16, src, dxy);
+    }
+    int cdxy = ((mx & 3) != 0) | (((my & 3) != 0) << 1);
+    int cx = std::max(-8, std::min(mb_x * 8 + (mx >> 2), width >> 1));
+    if (cx == (width >> 1)) cdxy &= ~1;
+    int cy = std::max(-8, std::min(mb_y * 8 + (my >> 2), height >> 1));
+    if (cy == (height >> 1)) cdxy &= ~2;
+    hpel(f.u.data(), f.cstride, he >> 1, ve >> 1, cx, cy, cdxy, 8, nr, u, 8);
+    hpel(f.v.data(), f.cstride, he >> 1, ve >> 1, cx, cy, cdxy, 8, nr, v, 8);
   }
 
   // the forward prediction put, the backward one put or averaged over it
@@ -1977,7 +2144,9 @@ struct Mpeg4 {
   }
 
   void idct_put(uint8_t* dst, int stride, int16_t* blk) {
-    if (xvid_idct) {
+    if (wmv2_idct) {
+      vid::wmv2_idct(dst, stride, blk, false);
+    } else if (xvid_idct) {
       ++stats[ST_XVID_IDCT_BLOCK];
       xvid_idct_put(dst, stride, blk);
     } else {
@@ -1985,7 +2154,9 @@ struct Mpeg4 {
     }
   }
   void idct_add(uint8_t* dst, int stride, int16_t* blk) {
-    if (xvid_idct) {
+    if (wmv2_idct) {
+      vid::wmv2_idct(dst, stride, blk, true);
+    } else if (xvid_idct) {
       ++stats[ST_XVID_IDCT_BLOCK];
       xvid_idct_add(dst, stride, blk);
     } else {
@@ -2008,7 +2179,15 @@ struct Mpeg4 {
             ++stats[ST_MPEG_QUANT_BLOCK];
             dequant_mpeg_inter(block[n], n);
           }
-          idct_add(dst[n], n < 4 ? cur.ystride : cur.cstride, block[n]);
+          const int stride = n < 4 ? cur.ystride : cur.cstride;
+          if (wmv2_idct && abt_type_table[n]) {  // wmv2_add_block: the two sub-blocks
+            const bool rows = abt_type_table[n] == 1;
+            (rows ? idct84_add : idct48_add)(dst[n], stride, block[n]);
+            (rows ? idct84_add : idct48_add)(dst[n] + (rows ? 4 * (size_t)stride : 4), stride, abt_block2[n]);
+            memset(abt_block2[n], 0, sizeof(abt_block2[n]));
+          } else {
+            idct_add(dst[n], stride, block[n]);
+          }
         }
       return;
     }
@@ -2295,8 +2474,10 @@ struct Mpeg4 {
 //
 // One decoder over Mpeg4's macroblock state, motion compensation and IDCT,
 // with the picture layers of H.263 (baseline, and PLUSPTYPE's custom picture
-// format without the optional annexes), Sorenson H.263 (FLV1) and Microsoft's
-// MPEG-4 v2 (MP42) and v3 (DIV3): low delay, one frame out for each picture.
+// format with the deblocking filter of Annex J and no other optional annex),
+// Sorenson H.263 (FLV1), Microsoft's MPEG-4 v2 (MP42) and v3 (DIV3), and
+// Windows Media Video 7 (WMV1) and 8 (WMV2): low delay, one frame out for
+// each picture (none for a WMV2 picture whose every macroblock is skipped).
 
 // A VLC whose codes may be longer than its table: the codes of up to ``bits``
 // bits looked up at once, the longer ones compared one by one
@@ -2368,6 +2549,7 @@ struct RlTab {
 struct H263Tables {
   RlTab rl[6];  // ff_rl_table's order: 0, 1 and MPEG-4's intra table; 2, 3 and H.263's inter table
   LongVlc mb_i, mb_non_intra, dc[2][2], mv[2], v2_dc[2], v2_mb_type, v2_intra_cbpc;
+  LongVlc wmv2_inter[3], inter_intra;  // WMV2's macroblock VLCs by CBP table index (the fourth is mb_non_intra)
   H263Tables() {
     const int8_t* runs[4] = {msmp4::kRl0Run, msmp4::kRl1Run, msmp4::kRl2Run, msmp4::kRl3Run};
     const int8_t* levels[4] = {msmp4::kRl0Level, msmp4::kRl1Level, msmp4::kRl2Level, msmp4::kRl3Level};
@@ -2397,6 +2579,12 @@ struct H263Tables {
     for (int i = 0; i < 64; ++i) mb_i.add(msmp4::kMbITable[i][0], msmp4::kMbITable[i][1], i);
     mb_non_intra.init(9);
     for (int i = 0; i < 128; ++i) mb_non_intra.add(msmp4::kMbNonIntraTable[i][0], msmp4::kMbNonIntraTable[i][1], i);
+    for (int t = 0; t < 3; ++t) {
+      wmv2_inter[t].init(9);
+      for (int i = 0; i < 128; ++i) wmv2_inter[t].add(wmv::kWmv2InterTable[t][i][0], wmv::kWmv2InterTable[t][i][1], i);
+    }
+    inter_intra.init(3);
+    for (int i = 0; i < 4; ++i) inter_intra.add(wmv::kTableInterIntra[i][0], wmv::kTableInterIntra[i][1], i);
     for (int t = 0; t < 2; ++t)
       for (int c = 0; c < 2; ++c) {
         dc[t][c].init(9);
@@ -2452,8 +2640,10 @@ const uint8_t kDcScale8[32] = {8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8,
 // ff_h263_format: the source formats of PTYPE, width and height
 const int kH263Format[8][2] = {{0, 0}, {128, 96}, {176, 144}, {352, 288}, {704, 576}, {1408, 1152}, {0, 0}, {0, 0}};
 
-enum H263Kind { K_H263 = 0, K_FLV = 1, K_MSMP4V2 = 2, K_MSMP4V3 = 3 };
+enum H263Kind { K_H263 = 0, K_FLV = 1, K_MSMP4V2 = 2, K_MSMP4V3 = 3, K_WMV1 = 4, K_WMV2 = 5 };
 constexpr int SLICE_ERROR = -1;
+constexpr int MBAC_BITRATE = 50 * 1024, II_BITRATE = 128 * 1024;  // msmpeg4.h: WMV1's tools by bit rate
+enum { SKIP_TYPE_NONE = 0, SKIP_TYPE_MPEG = 1, SKIP_TYPE_ROW = 2, SKIP_TYPE_COL = 3 };  // WMV2's skip maps
 
 struct H263 : Mpeg4 {
   int kind = K_H263;
@@ -2467,9 +2657,40 @@ struct H263 : Mpeg4 {
   bool use_skip_mb_code = false, flipflop_rounding = false, droppable = false;
   int pred_dir = 0;  // msmpeg4_pred_dc's direction for the block being decoded
   std::vector<uint8_t> coded_block;  // MS-MPEG4 v3: each luma block's coded flag, with a border
+  // WMV1 and WMV2: the bit rate of the ext header, which picks WMV1's tools;
+  // run-level tables chosen per macroblock; the inter-intra DC predictor and
+  // its direction; escape 3's lengths, fixed at its first use in a picture
+  int bit_rate = 0, aic_dir = 0, esc3_level_length = 0, esc3_run_length = 0;
+  bool per_mb_rl_table = false, inter_intra_pred = false;
+  // WMV2 (wmv2dec.c): the ext header (the container's 4 bytes of extradata)
+  std::vector<uint8_t> extradata;
+  bool have_ext = false;
+  int mspel_bit = 0, abt_flag = 0, j_type_bit = 0, top_left_mv_flag = 0, per_mb_rl_bit = 0, cbp_table_index = 0;
+  // ABT: the type a picture, a macroblock or each block picks (abt_type_table holds each block's)
+  int abt_type = 0;
+  bool per_mb_abt = false, per_block_abt = false;
+  // the H.263 deblocking filter (Annex J; WMV2's loop_filter) and the
+  // picture's skipped macroblocks, which it leaves alone (IS_SKIP)
+  bool loop_filter = false;
+  std::vector<uint8_t> mb_skip;
+  // MS-MPEG4 and WMV, for tests only (vdec_trace): where each picture and
+  // macroblock lies in its packet, so that a test can rewrite a stream into
+  // one that uses a tool no encoder at hand writes. A picture: -1, the
+  // picture's count, its type, the bit after its quantiser, then zeros; a
+  // macroblock: its index, intra, skipped, cbp, its type code, the bits at its
+  // start, after its type code, where a per-macroblock run-level table is read
+  // and after its vector, the vector; then (WMV2) the bits at the start and
+  // end of each block and the block in which escape 3's lengths were read
+  // (-1: none)
+  bool tracing = false;
+  std::vector<int64_t> trace;
+  int64_t tr_header = 0, tr_code = 0, tr_rl = 0, tr_mv = 0, tr_blocks[6][2] = {};
+  int tr_sym = 0, tr_cbp = 0, tr_esc3_block = -1, pictures = 0;
+  static constexpr int TRACE_WIDTH = 24;
 
   const char* name() const {
-    return kind == K_H263 ? "H.263" : kind == K_FLV ? "Sorenson H.263" : kind == K_MSMP4V2 ? "MS-MPEG4 v2" : "MS-MPEG4 v3";
+    static const char* names[] = {"H.263", "Sorenson H.263", "MS-MPEG4 v2", "MS-MPEG4 v3", "WMV1", "WMV2"};
+    return names[kind];
   }
   int refuse(const char* what) {
     msg = std::string(name()) + ": " + what + " is not supported";
@@ -2484,13 +2705,15 @@ struct H263 : Mpeg4 {
 
   void open(int k) {
     kind = k;
-    y_dc_table = kind == K_MSMP4V3 ? msmp4::kV3YDcScale : kDcScale8;
-    c_dc_table = kind == K_MSMP4V3 ? msmp4::kV3CDcScale : kDcScale8;
+    y_dc_table = kind == K_MSMP4V3 ? msmp4::kV3YDcScale : kind >= K_WMV1 ? wmv::kWmv1YDcScale : kDcScale8;
+    c_dc_table = kind >= K_MSMP4V3 ? msmp4::kV3CDcScale : kDcScale8;
+    wmv2_idct = kind == K_WMV2;
     low_delay = true;
   }
   void resize(int w, int h) {
     set_size(w, h);
     coded_block.assign((size_t)bw * (2 * mb_h + 2), 0);
+    mb_skip.assign(mb_num, 0);
     gob_height = height <= 400 ? 1 : height <= 800 ? 2 : 4;  // ff_h263_get_gob_height
     have_vol = true;
   }
@@ -2532,7 +2755,7 @@ struct H263 : Mpeg4 {
         if (b.get1()) return refuse("syntax-based arithmetic coding (H.263 Annex E)");
         if (b.get1()) return refuse("the advanced prediction mode (H.263 Annex F)");
         if (b.get1()) return refuse("advanced intra coding (H.263 Annex I)");
-        if (b.get1()) return refuse("the deblocking filter (H.263 Annex J)");
+        loop_filter = b.get1();
         if (b.get1()) return refuse("the slice structured mode (H.263 Annex K)");
         if (b.get1()) return refuse("reference picture selection (H.263 Annex N)");
         if (b.get1()) return refuse("independent segment decoding (H.263 Annex R)");
@@ -2618,7 +2841,7 @@ struct H263 : Mpeg4 {
 
   int decode012(Bits& b) { return b.get1() ? 1 + b.get1() : 0; }
 
-  // ff_msmpeg4_decode_picture_header (v2, v3)
+  // ff_msmpeg4_decode_picture_header (v2, v3, WMV1)
   int msmpeg4_picture_header(Bits& b) {
     if (b.left() * 8 < (int64_t)mb_num) return damaged("a picture smaller than an eighth of a bit a macroblock");
     const int type = (int)b.get(2) + 1;
@@ -2627,11 +2850,24 @@ struct H263 : Mpeg4 {
     const int q = (int)b.get(5);
     if (q == 0) return damaged("quantiser 0");
     set_qscale(q);
+    tr_header = b.pos;
     if (pict_type == I_VOP) {
       const int code = (int)b.get(5);
       if (code < 0x17) return damaged("a bad slice code");
       slice_height = mb_h / (code - 0x16);
-      if (kind == K_MSMP4V3) {
+      if (kind == K_WMV1) {
+        // ff_msmpeg4_decode_ext_header(s, (2 + 5 + 5 + 17 + 7) / 8): its 17 bits here
+        b.skip(5);  // frame rate
+        bit_rate = (int)b.get(11) * 1024;
+        flipflop_rounding = b.get1();
+        per_mb_rl_table = bit_rate > MBAC_BITRATE && b.get1();
+        if (!per_mb_rl_table) {
+          rl_chroma_table_index = decode012(b);
+          rl_table_index = decode012(b);
+        }
+        dc_table_index = b.get1();
+        inter_intra_pred = false;
+      } else if (kind == K_MSMP4V3) {
         rl_chroma_table_index = decode012(b);
         rl_table_index = decode012(b);
         dc_table_index = b.get1();
@@ -2641,19 +2877,140 @@ struct H263 : Mpeg4 {
       no_rounding = 1;
     } else {
       use_skip_mb_code = b.get1();
-      if (kind == K_MSMP4V3) {
-        rl_table_index = rl_chroma_table_index = decode012(b);
+      per_mb_rl_table = kind == K_WMV1 && bit_rate > MBAC_BITRATE && b.get1();
+      if (kind >= K_MSMP4V3) {
+        if (!per_mb_rl_table) rl_table_index = rl_chroma_table_index = decode012(b);
         dc_table_index = b.get1();
         mv_table_index = b.get1();
       } else {
         rl_table_index = rl_chroma_table_index = 2;
       }
+      inter_intra_pred = kind == K_WMV1 && width * height < 320 * 240 && bit_rate <= II_BITRATE;
+      if (inter_intra_pred) ++stats[ST_INTER_INTRA_PICTURES];
       no_rounding = flipflop_rounding ? no_rounding ^ 1 : 0;
+    }
+    if (per_mb_rl_table) ++stats[ST_PER_MB_RL_PICTURES];
+    esc3_level_length = esc3_run_length = 0;
+    return OK;
+  }
+
+  // wmv2dec.c decode_ext_header: the container's 4 bytes, read before the first picture
+  int wmv2_ext_header() {
+    if (extradata.size() < 4)
+      return refuse("a stream without the 4 bytes of extradata that hold its ext header (FFmpeg conceals such "
+                    "pictures)");
+    Bits g;
+    g.init(extradata.data(), 4);
+    g.skip(5);  // frame rate
+    bit_rate = (int)g.get(11) * 1024;
+    mspel_bit = g.get1();
+    loop_filter = g.get1();
+    abt_flag = g.get1();
+    j_type_bit = g.get1();
+    top_left_mv_flag = g.get1();
+    per_mb_rl_bit = g.get1();
+    const int code = (int)g.get(3);
+    if (code == 0) return damaged("an ext header with no slices");
+    slice_height = mb_h / code;
+    have_ext = true;
+    return OK;
+  }
+
+  // ff_wmv2_decode_picture_header; FRAME_SKIPPED for a P-frame whose every
+  // macroblock is skipped, which FFmpeg decodes to no frame
+  int wmv2_picture_header(Bits& b) {
+    if (!have_ext) {
+      const int st = wmv2_ext_header();
+      if (st) return st;
+    }
+    pict_type = b.get1() ? P_VOP : I_VOP;
+    if (pict_type == I_VOP) b.skip(7);
+    const int q = (int)b.get(5);
+    if (q == 0) return damaged("quantiser 0");
+    set_qscale(q);
+    tr_header = b.pos;
+    if (pict_type == P_VOP && b.show(1)) {
+      Bits g = b;
+      const int skip_type = (int)g.get(2);
+      int run = skip_type == SKIP_TYPE_COL ? mb_w : mb_h;
+      while (run > 0) {
+        const int n = std::min(run, 25);
+        if (g.get(n) + 1 != (1u << n)) break;
+        run -= n;
+      }
+      if (!run) return FRAME_SKIPPED;
     }
     return OK;
   }
 
-  // ff_msmpeg4_decode_ext_header, after an I-frame's macroblocks
+  // parse_mb_skip: the P-frame's map of skipped macroblocks
+  int wmv2_parse_mb_skip(Bits& b) {
+    const int skip_type = (int)b.get(2);
+    std::fill(mb_skip.begin(), mb_skip.end(), 0);
+    if (skip_type != SKIP_TYPE_NONE) ++stats[ST_SKIP_MAPS];
+    auto line = [&](int start, int step, int n) -> bool {  // one row or column: all skipped, or a bit each
+      if (skip_type == SKIP_TYPE_MPEG || !b.get1()) {
+        if (b.left() < n) return false;
+        for (int i = 0; i < n; ++i) mb_skip[start + i * step] = (uint8_t)b.get1();
+      } else {
+        for (int i = 0; i < n; ++i) mb_skip[start + i * step] = 1;
+      }
+      return true;
+    };
+    if (skip_type == SKIP_TYPE_MPEG) {
+      if (b.left() < mb_num) return damaged("a truncated skip map");
+      line(0, 1, mb_num);
+    } else if (skip_type == SKIP_TYPE_ROW) {
+      for (int y = 0; y < mb_h; ++y)
+        if (b.left() < 1 || !line(y * mb_w, 1, mb_w)) return damaged("a truncated skip map");
+    } else if (skip_type == SKIP_TYPE_COL) {
+      for (int x = 0; x < mb_w; ++x)
+        if (b.left() < 1 || !line(x, mb_w, mb_h)) return damaged("a truncated skip map");
+    }
+    int coded = 0;
+    for (int i = 0; i < mb_num; ++i) coded += !mb_skip[i];
+    if (coded > b.left()) return damaged("fewer bits than coded macroblocks");
+    return OK;
+  }
+
+  // ff_wmv2_decode_secondary_picture_header, once the picture's buffers exist
+  int wmv2_secondary_header(Bits& b) {
+    if (pict_type == I_VOP) {
+      std::fill(mb_skip.begin(), mb_skip.end(), 0);
+      if (j_type_bit && b.get1()) return refuse("IntraX8 J-frames (the alternative intra coding of intrax8.c)");
+      per_mb_rl_table = per_mb_rl_bit && b.get1();
+      if (!per_mb_rl_table) {
+        rl_chroma_table_index = decode012(b);
+        rl_table_index = decode012(b);
+      }
+      dc_table_index = b.get1();
+      if (b.left() * 8 < (int64_t)mb_num) return damaged("a picture smaller than an eighth of a bit a macroblock");
+      no_rounding = 1;
+    } else {
+      int st = wmv2_parse_mb_skip(b);
+      if (st) return st;
+      static const uint8_t map[3][3] = {{0, 2, 1}, {1, 0, 2}, {2, 1, 0}};  // wmv2_get_cbp_table_index
+      cbp_table_index = map[(qscale > 10) + (qscale > 20)][decode012(b)];
+      mspel = mspel_bit && b.get1();
+      if (mspel) ++stats[ST_MSPEL_PICTURES];
+      if (abt_flag) {
+        per_mb_abt = !b.get1();
+        if (!per_mb_abt) abt_type = decode012(b);
+      }
+      per_mb_rl_table = per_mb_rl_bit && b.get1();
+      if (!per_mb_rl_table) rl_table_index = rl_chroma_table_index = decode012(b);
+      if (b.left() < 2) return damaged("a truncated picture header");
+      dc_table_index = b.get1();
+      mv_table_index = b.get1();
+      no_rounding ^= 1;
+    }
+    if (per_mb_rl_table) ++stats[ST_PER_MB_RL_PICTURES];
+    inter_intra_pred = false;
+    esc3_level_length = esc3_run_length = 0;
+    return OK;
+  }
+
+  // ff_msmpeg4_decode_ext_header, after an I-frame's macroblocks (v2, v3)
   void msmpeg4_ext_header(Bits& b) {
     const int64_t left = b.left();
     const int length = kind == K_MSMP4V3 ? 17 : 16;
@@ -2667,14 +3024,24 @@ struct H263 : Mpeg4 {
 
   // ---- blocks
 
-  // msmpeg4_pred_dc (v2, v3): the predictor from the scaled DCs around, by
-  // the test MS-MPEG4 takes (the top one on a tie, where MPEG-4 takes the left)
+  // get_dc: the mean of an 8 x 8 block of the picture being decoded, by ``scale``
+  static int block_dc(const uint8_t* src, int stride, int scale) {
+    int sum = 0;
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x) sum += src[(size_t)y * stride + x];
+    return (sum + (scale >> 1)) / scale;
+  }
+
+  // ff_msmpeg4_pred_dc (v2, v3, WMV1, WMV2): the predictor from the scaled DCs
+  // around, by the test MS-MPEG4 takes (the top one on a tie, where MPEG-4 and
+  // WMV take the left); WMV1's inter-intra prediction takes the left or top
+  // block's mean pixel for luma block 0 and chroma, in the coded direction
   int msmpeg4_pred_dc(int n) {
     const int scale = n < 4 ? y_dc_scale : c_dc_scale;
     int16_t* dc = dc_at(n);
     const int wr = wrap(n);
     int a = dc[-1], bb = dc[-1 - wr], c = dc[-wr];
-    if (first_slice_line && !(n & 2)) bb = c = 1024;
+    if (first_slice_line && !(n & 2) && kind < K_WMV1) bb = c = 1024;
     // FFmpeg's x86 build divides with imull by ff_inverse[scale] (2^32 / scale
     // rounded up) and keeps the high half: floor division, one less for a
     // negative multiple of a scale that is not a power of two
@@ -2683,6 +3050,24 @@ struct H263 : Mpeg4 {
     a = div(a);
     bb = div(bb);
     c = div(c);
+    if (kind >= K_WMV1) {
+      if (inter_intra_pred && n != 3) {
+        if (n == 1 || n == 2) {
+          pred_dir = n == 2;
+          return n == 2 ? c : a;
+        }
+        const int stride = n < 4 ? cur.ystride : cur.cstride;
+        const uint8_t* dest = n < 4 ? cur.y.data() + (size_t)mb_y * 16 * stride + mb_x * 16
+                                    : (n == 4 ? cur.u : cur.v).data() + (size_t)mb_y * 8 * stride + mb_x * 8;
+        a = mb_x == 0 ? (1024 + (scale >> 1)) / scale : block_dc(dest - 8, stride, scale * 8);
+        c = mb_y == 0 ? (1024 + (scale >> 1)) / scale : block_dc(dest - 8 * (size_t)stride, stride, scale * 8);
+        // aic_dir 0: both left; 1: luma top, chroma left; 2: luma left, chroma top; 3: both top
+        pred_dir = aic_dir == 3 || (aic_dir == 1 && n == 0) || (aic_dir == 2 && n != 0);
+        return pred_dir ? c : a;
+      }
+      pred_dir = std::abs(a - bb) < std::abs(bb - c);
+      return pred_dir ? c : a;
+    }
     if (std::abs(a - bb) <= std::abs(bb - c)) {  // MPEG-4 takes the left one on a tie
       pred_dir = 1;
       return c;
@@ -2714,23 +3099,28 @@ struct H263 : Mpeg4 {
     return level;
   }
 
-  // ff_msmpeg4_decode_block (v2, v3): inter levels dequantised here, intra ones in reconstruct
-  int msmpeg4_decode_block(Bits& b, int16_t* blk, int n, bool coded) {
+  // ff_msmpeg4_decode_block (v2, v3, WMV1, WMV2): inter levels dequantised
+  // here, intra ones in reconstruct; WMV's scans and escape 3; ``inter_scan``
+  // replaces an inter block's (WMV2's ABT sub-blocks)
+  int msmpeg4_decode_block(Bits& b, int16_t* blk, int n, bool coded, const uint8_t* inter_scan = nullptr) {
     const H263Tables& t = h263_tables();
+    const bool wmv = kind >= K_WMV1;
     int i, qmul, qadd, run_diff;
     const RlTab* rl;
-    const uint8_t* scan = kZigzag;
+    const uint8_t* scan = inter_scan ? inter_scan : wmv ? wmv::kWmv1Scantable[0] : kZigzag;
     if (mb_intra) {
       qmul = 1;
       qadd = 0;
       int level = msmpeg4_decode_dc(b, n);
       if (level == INT32_MIN) return damaged("bad DC code");
-      if (level > 256 * (n < 4 ? y_dc_scale : c_dc_scale)) return damaged("a DC out of range");
+      if (level < 0 && inter_intra_pred) level = 0;
+      if (level > 256 * (n < 4 ? y_dc_scale : c_dc_scale) && !inter_intra_pred) return damaged("a DC out of range");
       blk[0] = (int16_t)level;
       rl = &t.rl[n < 4 ? rl_table_index : 3 + rl_chroma_table_index];
-      run_diff = 0;
+      run_diff = wmv;
       i = 0;
-      if (ac_pred) scan = pred_dir == 0 ? kAltVertical : kAltHorizontal;
+      if (wmv) scan = wmv::kWmv1Scantable[ac_pred ? (pred_dir == 0 ? 3 : 2) : 1];
+      else if (ac_pred) scan = pred_dir == 0 ? kAltVertical : kAltHorizontal;
       if (!coded) {
         pred_ac(blk, n, pred_dir);
         last_index[n] = ac_pred ? 63 : 0;
@@ -2763,8 +3153,32 @@ struct H263 : Mpeg4 {
             ++stats[ST_ESCAPE3];
             b.skip(2);
             last = b.get1();
-            run = (int)b.get(6);
-            level = b.sget(8);
+            if (!wmv) {
+              run = (int)b.get(6);
+              level = b.sget(8);
+            } else {  // the level's and the run's lengths, read at the picture's first escape 3
+              if (!esc3_level_length) {
+                ++stats[ST_WMV_ESCAPE3_LENGTHS];
+                int ll;
+                if (qscale < 8) {
+                  ll = (int)b.get(3);
+                  if (ll == 0) ll = 8 + b.get1();
+                } else {
+                  ll = 2;
+                  while (ll < 8 && b.show(1) == 0) {
+                    ++ll;
+                    b.skip(1);
+                  }
+                  if (ll < 8) b.skip(1);
+                }
+                esc3_level_length = ll;
+                esc3_run_length = (int)b.get(2) + 3;
+              }
+              run = (int)b.get(esc3_run_length);
+              const int sign = b.get1();
+              level = (int)b.get(esc3_level_length);
+              if (sign) level = -level;
+            }
             level = level > 0 ? level * qmul + qadd : level * qmul - qadd;
             i += run + 1 + (last ? 192 : 0);
           } else {  // '01': second escape, the run offset by the level's largest
@@ -2805,6 +3219,7 @@ struct H263 : Mpeg4 {
       pred_ac(blk, n, pred_dir);
       if (ac_pred) i = 63;
     }
+    if (wmv && i > 0) i = 63;
     last_index[n] = i;
     return OK;
   }
@@ -2890,11 +3305,13 @@ struct H263 : Mpeg4 {
     mv_dir = 1;
     ac_pred = false;
     bool skipped = false;
+    mb_skip[mb_y * mb_w + mb_x] = 0;
     if (pict_type == P_VOP) {
       do {
         if (b.get1()) {
           skip_mb();
           skipped = true;
+          mb_skip[mb_y * mb_w + mb_x] = 1;
           break;
         }
         cbpc = t.inter_mcbpc.read(b);
@@ -3005,7 +3422,30 @@ struct H263 : Mpeg4 {
 
   uint8_t* coded_at(int n) { return &coded_block[(size_t)(2 * mb_y + (n >> 1) + 1) * bw + 2 * mb_x + (n & 1) + 1]; }
 
-  // msmpeg4v12_decode_mb (v2) and msmpeg4v34_decode_mb (v3)
+  // an I-frame macroblock's cbp from its code, the luma bits predicted from
+  // the coded flags around (ff_msmpeg4_coded_block_pred)
+  int intra_cbp(int code) {
+    int cbp = 0;
+    for (int i = 0; i < 6; ++i) {
+      int val = (code >> (5 - i)) & 1;
+      if (i < 4) {
+        uint8_t* cb = coded_at(i);
+        const int a = cb[-1], bb = cb[-1 - bw], c = cb[-bw];
+        val ^= bb == c ? a : c;
+        *cb = (uint8_t)val;
+      }
+      cbp |= val << (5 - i);
+    }
+    return cbp;
+  }
+
+  // decode012 of a macroblock's own run-level table (per_mb_rl_table)
+  void mb_rl_table(Bits& b, int cbp) {
+    tr_rl = b.pos;
+    if (per_mb_rl_table && cbp) rl_table_index = rl_chroma_table_index = decode012(b);
+  }
+
+  // msmpeg4v12_decode_mb (v2) and msmpeg4v34_decode_mb (v3, WMV1)
   int msmpeg4_decode_mb(Bits& b) {
     const Tables& t = tables();
     const H263Tables& ht = h263_tables();
@@ -3032,6 +3472,7 @@ struct H263 : Mpeg4 {
         mb_intra = !(code & 0x40);
         cbp = code & 0x3F;
       }
+      tr_sym = code;
     } else {
       mb_intra = true;
       if (kind == K_MSMP4V2) {
@@ -3040,16 +3481,8 @@ struct H263 : Mpeg4 {
       } else {
         const int code = ht.mb_i.read(b);
         if (code < 0) return damaged("bad intra macroblock code");
-        for (int i = 0; i < 6; ++i) {  // ff_msmpeg4_coded_block_pred for the luma blocks
-          int val = (code >> (5 - i)) & 1;
-          if (i < 4) {
-            uint8_t* cb = coded_at(i);
-            const int a = cb[-1], bb = cb[-1 - bw], c = cb[-bw];
-            val ^= bb == c ? a : c;
-            *cb = (uint8_t)val;
-          }
-          cbp |= val << (5 - i);
-        }
+        tr_sym = code;
+        cbp = intra_cbp(code);
       }
     }
     if (!mb_intra) {
@@ -3067,8 +3500,11 @@ struct H263 : Mpeg4 {
         py = v2_decode_motion(b, py);
         if (py == INT32_MIN) return damaged("bad motion vector code");
       } else {
+        tr_code = b.pos;
+        mb_rl_table(b, cbp);
         int st = v3_decode_motion(b, &px, &py);
         if (st) return st;
+        tr_mv = b.pos;
       }
       mvs[0][0][0] = px;
       mvs[0][0][1] = py;
@@ -3080,15 +3516,210 @@ struct H263 : Mpeg4 {
         if (cbpy < 0) return damaged("bad CBPY code");
         cbp |= cbpy << 2;
       } else {
+        tr_code = b.pos;
         ac_pred = b.get1();
+        if (inter_intra_pred) {
+          ++stats[ST_INTER_INTRA_MB];
+          aic_dir = ht.inter_intra.read(b);
+        }
+        mb_rl_table(b, cbp);
       }
       if (ac_pred) ++stats[ST_AC_PRED_MB];
     }
+    tr_cbp = cbp;
     for (int i = 0; i < 6; ++i) {
       int st = msmpeg4_decode_block(b, block[i], i, (cbp >> (5 - i)) & 1);
       if (st) return st;
     }
     return OK;
+  }
+
+  // wmv2_decode_mb: MS-MPEG4's intra coding; a P-frame's macroblocks skipped
+  // by the picture's skip map, their VLC picked by the CBP table index, the
+  // vector predicted as wmv2_pred_motion predicts it (the median, the left
+  // vector on a slice's first row, or under top_left_mv_flag the left or top
+  // one as a bit says where they differ by 8 or more) and hshift after an odd
+  // vector of an mspel picture
+  int wmv2_decode_mb(Bits& b) {
+    const H263Tables& ht = h263_tables();
+    for (int i = 0; i < 6; ++i) memset(block[i], 0, sizeof(block[i]));
+    mv_type = 0;
+    mv_dir = 1;
+    ac_pred = false;
+    int cbp = 0;
+    if (pict_type == P_VOP) {
+      if (mb_skip[mb_y * mb_w + mb_x]) {
+        skip_mb();
+        hshift = 0;
+        return OK;
+      }
+      if (b.left() <= 0) return damaged("the data ends before the picture does");
+      const int code = (cbp_table_index == 3 ? ht.mb_non_intra : ht.wmv2_inter[cbp_table_index]).read(b);
+      if (code < 0) return damaged("bad macroblock type code");
+      tr_sym = code;
+      mb_intra = !(code & 0x40);
+      cbp = code & 0x3F;
+    } else {
+      mb_intra = true;
+      if (b.left() <= 0) return damaged("the data ends before the picture does");
+      const int code = ht.mb_i.read(b);
+      if (code < 0) return damaged("bad intra macroblock code");
+      tr_sym = code;
+      cbp = intra_cbp(code);
+    }
+    if (!mb_intra) {
+      const int16_t* mvp = mv_at(0);
+      const int16_t *A = mvp - 2, *B = mvp - 2 * bw, *C = mvp + 4 - 2 * bw;
+      tr_code = b.pos;
+      const int diff = mb_x && !first_slice_line && !mspel && top_left_mv_flag
+                           ? std::max(std::abs(A[0] - B[0]), std::abs(A[1] - B[1])) : 0;
+      const int type = diff >= 8 ? b.get1() : 2;
+      if (type < 2) ++stats[ST_TOP_LEFT_MV];
+      int px = type == 1 ? B[0] : A[0], py = type == 1 ? B[1] : A[1];
+      if (type == 2 && !first_slice_line) {
+        px = mid_pred(A[0], B[0], C[0]);
+        py = mid_pred(A[1], B[1], C[1]);
+      }
+      mb_rl_table(b, cbp);
+      if (cbp) {
+        per_block_abt = abt_flag && per_mb_abt && b.get1();
+        if (abt_flag && per_mb_abt && !per_block_abt) abt_type = decode012(b);
+      }
+      int st = v3_decode_motion(b, &px, &py);
+      if (st) return st;
+      tr_mv = b.pos;
+      hshift = ((px | py) & 1) && mspel ? b.get1() : 0;
+      if (hshift) ++stats[ST_HSHIFT_MB];
+      mvs[0][0][0] = px;
+      mvs[0][0][1] = py;
+    } else {
+      if (pict_type == P_VOP) ++stats[ST_INTRA_MB_IN_P];
+      tr_code = b.pos;
+      ac_pred = b.get1();
+      if (ac_pred) ++stats[ST_AC_PRED_MB];
+      mb_rl_table(b, cbp);
+    }
+    tr_cbp = cbp;
+    for (int i = 0; i < 6; ++i) {
+      tr_blocks[i][0] = b.pos;
+      const bool esc3_unset = !esc3_level_length;
+      int st = mb_intra ? msmpeg4_decode_block(b, block[i], i, (cbp >> (5 - i)) & 1)
+                        : wmv2_inter_block(b, i, (cbp >> (5 - i)) & 1);
+      if (st) return st;
+      tr_blocks[i][1] = b.pos;
+      if (esc3_unset && esc3_level_length) tr_esc3_block = i;
+    }
+    return OK;
+  }
+
+  // wmv2_decode_inter_block: an 8x8 block, or under ABT two 8x4 or 4x8
+  // sub-blocks (ff_wmv2_scantableA/B), either or both coded
+  int wmv2_inter_block(Bits& b, int n, bool coded) {
+    if (!coded) {
+      last_index[n] = -1;
+      return OK;
+    }
+    if (per_block_abt) abt_type = decode012(b);
+    abt_type_table[n] = abt_type;
+    if (!abt_type) return msmpeg4_decode_block(b, block[n], n, true);
+    ++stats[ST_ABT_BLOCK];
+    static const int sub_cbp_table[3] = {2, 3, 1};
+    const int sub_cbp = sub_cbp_table[decode012(b)];
+    const uint8_t* scan = abt_type == 1 ? wmv::kWmv2ScantableA : wmv::kWmv2ScantableB;
+    if (sub_cbp & 1) {
+      const int st = msmpeg4_decode_block(b, block[n], n, true, scan);
+      if (st) return st;
+    }
+    if (sub_cbp & 2) {
+      const int st = msmpeg4_decode_block(b, abt_block2[n], n, true, scan);
+      if (st) return st;
+    }
+    last_index[n] = 63;
+    return OK;
+  }
+
+  // ---- the deblocking filter (h263dsp.c, h263.c ff_h263_loop_filter)
+
+  // h263_{v,h}_loop_filter_c: 8 samples along an edge, ``across`` the step
+  // over it and ``along`` the step beside it (the x86 build's MMX versions
+  // give the same samples)
+  static void filter_edge(uint8_t* src, int across, int along, int qscale) {
+    const int strength = wmv::kLoopFilterStrength[qscale];
+    for (int k = 0; k < 8; ++k) {
+      uint8_t* q = src + k * along;
+      const int p0 = q[-2 * across], p3 = q[across];
+      int p1 = q[-across], p2 = q[0];
+      const int d = (p0 - p3 + 4 * (p2 - p1)) / 8;
+      int d1;
+      if (d < -2 * strength) d1 = 0;
+      else if (d < -strength) d1 = -2 * strength - d;
+      else if (d < strength) d1 = d;
+      else if (d < 2 * strength) d1 = 2 * strength - d;
+      else d1 = 0;
+      p1 += d1;
+      p2 -= d1;
+      if (p1 & 256) p1 = ~(p1 >> 31);
+      if (p2 & 256) p2 = ~(p2 >> 31);
+      q[-across] = (uint8_t)p1;
+      q[0] = (uint8_t)p2;
+      const int ad1 = std::abs(d1) >> 1;
+      const int d2 = std::max(-ad1, std::min((p0 - p3) / 4, ad1));
+      q[-2 * across] = (uint8_t)(p0 - d2);
+      q[across] = (uint8_t)(p3 + d2);
+    }
+  }
+  void v_filter(uint8_t* src, int stride, int q) { filter_edge(src, stride, 1, q); }  // the edge above src
+  void h_filter(uint8_t* src, int stride, int q) { filter_edge(src, 1, stride, q); }  // the edge left of src
+
+  // ff_h263_loop_filter after each macroblock: its inner edges and those it
+  // shares with the macroblocks above, above-left and left, at the quantiser
+  // of the one that is coded (not skipped); the chroma quantiser is the luma's
+  void loop_filter_mb() {
+    ++stats[ST_LOOP_FILTERED_MB];
+    const int ls = cur.ystride, cs = cur.cstride, xy = mb_y * mb_w + mb_x;
+    uint8_t* dy = cur.y.data() + (size_t)mb_y * 16 * ls + mb_x * 16;
+    uint8_t* du = cur.u.data() + (size_t)mb_y * 8 * cs + mb_x * 8;
+    uint8_t* dv = cur.v.data() + (size_t)mb_y * 8 * cs + mb_x * 8;
+    int qp_c = 0;
+    if (!mb_skip[xy]) {
+      qp_c = qscale;
+      v_filter(dy + 8 * ls, ls, qp_c);
+      v_filter(dy + 8 * ls + 8, ls, qp_c);
+    }
+    if (mb_y) {
+      const int qp_tt = mb_skip[xy - mb_w] ? 0 : qs_at(mb_x, mb_y - 1);
+      const int qp_tc = qp_c ? qp_c : qp_tt;
+      if (qp_tc) {
+        v_filter(dy, ls, qp_tc);
+        v_filter(dy + 8, ls, qp_tc);
+        v_filter(du, cs, qp_tc);
+        v_filter(dv, cs, qp_tc);
+      }
+      if (qp_tt) h_filter(dy - 8 * ls + 8, ls, qp_tt);
+      if (mb_x) {
+        const int qp_dt = qp_tt || mb_skip[xy - 1 - mb_w] ? qp_tt : qs_at(mb_x - 1, mb_y - 1);
+        if (qp_dt) {
+          h_filter(dy - 8 * ls, ls, qp_dt);
+          h_filter(du - 8 * cs, cs, qp_dt);
+          h_filter(dv - 8 * cs, cs, qp_dt);
+        }
+      }
+    }
+    if (qp_c) {
+      h_filter(dy + 8, ls, qp_c);
+      if (mb_y + 1 == mb_h) h_filter(dy + 8 * ls + 8, ls, qp_c);
+    }
+    if (mb_x) {
+      const int qp_lc = qp_c || mb_skip[xy - 1] ? qp_c : qs_at(mb_x - 1, mb_y);
+      if (qp_lc) {
+        h_filter(dy, ls, qp_lc);
+        if (mb_y + 1 == mb_h) {
+          h_filter(dy + 8 * ls, ls, qp_lc);
+          h_filter(du, cs, qp_lc);
+          h_filter(dv, cs, qp_lc);
+        }
+      }
+    }
   }
 
   // ---- slices and pictures
@@ -3152,10 +3783,25 @@ struct H263 : Mpeg4 {
       for (; mb_x < mb_w; ++mb_x) {
         if (resync_mb_x == mb_x && resync_mb_y + 1 == mb_y) first_slice_line = false;
         qscale_at_mb_start = qscale;
-        int st = kind >= K_MSMP4V2 ? msmpeg4_decode_mb(b) : h263_decode_mb(b);
+        const int64_t tr_start = b.pos;
+        tr_code = tr_rl = tr_mv = -1;
+        tr_cbp = tr_sym = 0;
+        tr_esc3_block = -1;
+        for (auto& blk : tr_blocks) blk[0] = blk[1] = -1;
+        int st = kind == K_WMV2 ? wmv2_decode_mb(b) : kind >= K_MSMP4V2 ? msmpeg4_decode_mb(b) : h263_decode_mb(b);
+        if (tracing && st == OK) {
+          const int64_t row[TRACE_WIDTH] = {mb_y * mb_w + mb_x, mb_intra, tr_code < 0, tr_cbp, tr_sym, tr_start,
+                                            tr_code, tr_rl, tr_mv, mvs[0][0][0], mvs[0][0][1],
+                                            tr_blocks[0][0], tr_blocks[0][1], tr_blocks[1][0], tr_blocks[1][1],
+                                            tr_blocks[2][0], tr_blocks[2][1], tr_blocks[3][0], tr_blocks[3][1],
+                                            tr_blocks[4][0], tr_blocks[4][1], tr_blocks[5][0], tr_blocks[5][1],
+                                            tr_esc3_block};
+          trace.insert(trace.end(), row, row + TRACE_WIDTH);
+        }
         update_motion_val();
         if (st != OK && st != SLICE_END) return st;
         reconstruct();
+        if (loop_filter) loop_filter_mb();
         if (st == SLICE_END) {
           if (++mb_x >= mb_w) {
             mb_x = 0;
@@ -3180,12 +3826,25 @@ struct H263 : Mpeg4 {
       st = h263_picture_header(b);
     } else {
       if (!have_vol) return damaged("no frame size from the container");
-      st = msmpeg4_picture_header(b);
+      st = kind == K_WMV2 ? wmv2_picture_header(b) : msmpeg4_picture_header(b);
+    }
+    if (st == FRAME_SKIPPED) {  // WMV2: every macroblock skipped, no frame
+      ++stats[ST_SKIPPED_PICTURES];
+      return NO_FRAME;
     }
     if (st) return st;
     if (pict_type == P_VOP && !have_future) return damaged("a P-frame without a reference frame");
     ++stats[pict_type == I_VOP ? ST_I_VOP : ST_P_VOP];
+    if (tracing) {
+      const int64_t row[TRACE_WIDTH] = {-1, pictures, pict_type, tr_header};
+      trace.insert(trace.end(), row, row + TRACE_WIDTH);
+    }
+    ++pictures;
     cur.alloc(width, height, mb_w * 16, mb_h * 16, mb_w * 8, mb_h * 8, 1);
+    if (kind == K_WMV2) {
+      st = wmv2_secondary_header(b);
+      if (st) return st;
+    }
     mb_x = mb_y = 0;
     memset(last_mv, 0, sizeof(last_mv));
     st = decode_slice(b);
@@ -3194,7 +3853,7 @@ struct H263 : Mpeg4 {
       if (kind >= K_MSMP4V2) {
         if (slice_height <= 0 || mb_x != 0 || mb_y % slice_height != 0 || b.left() < 0) break;
         ++stats[ST_PACKETS];
-        clean_buffers();
+        if (kind < K_WMV1) clean_buffers();  // h263dec.c: ff_mpeg4_clean_buffers below WMV1 only
       } else {
         st = h263_resync(b, slice_start);
         if (st) return st;
@@ -3203,7 +3862,7 @@ struct H263 : Mpeg4 {
     }
     if (st != OK && st != SLICE_END) return st;
     if (mb_y < mb_h) return damaged("the data ends before the picture does");
-    if (kind >= K_MSMP4V2 && pict_type == I_VOP) msmpeg4_ext_header(b);
+    if ((kind == K_MSMP4V2 || kind == K_MSMP4V3) && pict_type == I_VOP) msmpeg4_ext_header(b);
     cur.full_range = false;
     out = cur;
     if (!droppable) {
@@ -3327,13 +3986,15 @@ struct Handle {
 extern "C" {
 
 // codec: 1 Motion-JPEG, 2 MPEG-4 Part 2, 3 VP8, 4 VP9, 5 H.263 (and H.263+), 6 Sorenson
-// H.263, 7 MS-MPEG4 v2, 8 MS-MPEG4 v3; ``priv``: the decoder configuration
-// (MPEG-4's VOS/VOL headers) or empty; ``tag``: the container's fourcc
+// H.263, 7 MS-MPEG4 v2, 8 MS-MPEG4 v3, 9 WMV1, 10 WMV2; ``priv``: the decoder
+// configuration (MPEG-4's VOS/VOL headers, WMV2's ext header) or empty;
+// ``tag``: the container's fourcc
 void* vdec_open(int codec, const uint8_t* priv, long n, uint32_t tag) {
   vid::Handle* h = new vid::Handle();
   h->codec = codec;
   h->mpeg4.tag = tag;
   if (codec >= 5) h->h263.open(codec - 5);
+  if (codec == 10) h->h263.extradata.assign(priv, priv + n);  // WMV2's ext header
   if (codec == 2 && n > 0) {
     vid::Bits b;
     b.init(priv, n);
@@ -3437,6 +4098,20 @@ int vdec_stats(void* hp, int64_t* out) {
   const int64_t* stats = h->codec >= 5 ? h->h263.stats : h->mpeg4.stats;
   for (int i = 0; i < vid::ST_COUNT; ++i) out[i] = stats[i];
   return vid::ST_COUNT;
+}
+
+// MS-MPEG4 and WMV, for tests: with ``out`` null, start recording where each
+// picture and macroblock lies (H263::trace); else copy up to ``cap`` values of
+// the record and return its length.
+long vdec_trace(void* hp, int64_t* out, long cap) {
+  vid::H263& d = ((vid::Handle*)hp)->h263;
+  if (!out) {
+    d.tracing = true;
+    return 0;
+  }
+  const long n = (long)d.trace.size();
+  std::copy(d.trace.begin(), d.trace.begin() + std::min(n, cap), out);
+  return n;
 }
 
 // The picture size a container gives (MS-MPEG4 carries none in its bitstream).

@@ -19,8 +19,9 @@ demuxer returns for it (``cv2.VideoCapture`` with ``CAP_PROP_FORMAT = -1``):
   order, inside ``LIST rec `` and across OpenDML ``RIFF AVIX`` extensions; the
   BITMAPINFOHEADER's compression fourcc mapped to a codec as FFmpeg's
   ``riff.c`` maps it (``VP80`` to VP8, ``VP90`` to VP9, ``H263``/``U263``/
-  ``FLV1``/``MP42``/``DIV3`` and their aliases to the H.263 family), and its
-  frame size (MS-MPEG4 carries none in its bitstream).
+  ``FLV1``/``MP42``/``DIV3``/``WMV1``/``WMV2`` and their aliases to the
+  H.263 family), its frame size (MS-MPEG4 carries none in its bitstream)
+  and the bytes after it (WMV2's ext header).
 * Matroska/WebM (``.mkv``, ``.webm``): EBML ``Segment`` -> ``Tracks``
   (``CodecID``, ``CodecPrivate``; ``V_VP8`` is VP8, ``V_VP9`` VP9, whose
   ``CodecPrivate`` features change no decoding) and ``Cluster`` ->
@@ -35,17 +36,19 @@ DivX encoders with the Xvid IDCT and FFmpeg's workarounds, DivX's packed
 B-VOPs); VP8 (``vp8.h``, key and inter frames, profiles 0-3); VP9 profile 0
 (``vp9.h``: superframes, hidden frames and show_existing_frame, so that a
 packet may give more than one frame or none); MPEG-4 data partitioning; the
-H.263 family (H.263 and H.263+ without the optional annexes, Sorenson H.263,
-MS-MPEG4 v2 and v3, with the tables of ``msmpeg4_tables.h``). Any other codec
-(H.264, HEVC, AV1, FFV1, WMV1, WMV2, MS-MPEG4 v1, ...), VP9's profiles 1-3
-and scaled references, the H.263+ annexes and the MPEG-4 tools still refused
-(interlace, GMC/sprites, RVLC, ...) raise a
+H.263 family (H.263 and H.263+ with the deblocking filter and no other
+optional annex, Sorenson H.263, MS-MPEG4 v2 and v3 with the tables of
+``msmpeg4_tables.h``, WMV1 and WMV2 with those of ``wmv_tables.h``). Any
+other codec (H.264, HEVC, AV1, FFV1, MS-MPEG4 v1, ...), VP9's profiles 1-3
+and scaled references, the H.263+ annexes but J, WMV2's IntraX8 J-frames
+and a WMV2 stream without its ext header, and the MPEG-4 tools still refused (interlace, GMC/sprites, RVLC,
+...) raise a
 `NotImplementedError` that names them, as does a frame whose size changed
 mid-stream (OpenCV scales it). A missing file, or one no demuxer takes,
 yields no frames, as ``cv2.VideoCapture`` reads none; a stream damaged part
 way yields the frames decoded before the damage.
 
-``video.cpp`` (with ``msmpeg4_tables.h``, ``vp8.h`` and ``vp9.h``) is compiled with ``g++`` at first use into
+``video.cpp`` (with ``msmpeg4_tables.h``, ``wmv_tables.h``, ``vp8.h`` and ``vp9.h``) is compiled with ``g++`` at first use into
 ``build/`` beside the image reader's library, keyed by a hash of its sources
 and flags, under the same file lock (`utils.native_build`). A failed build
 raises.
@@ -65,16 +68,18 @@ from quan_ultralytics_tpu_torch.utils.native_build import BUILD_DIR, build_cxx
 
 HERE = Path(__file__).resolve().parent
 SOURCE = HERE / "video.cpp"
-# video.cpp includes the JPEG reader's entropy decoding, the Annex K tables, the MS-MPEG4 tables and the VP8
-# and VP9 cores
-DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h", HERE / "msmpeg4_tables.h", HERE / "vp8.h",
-           HERE / "webp_tables.h", HERE / "vp9.h", HERE / "vp9_tables.h")
+# video.cpp includes the JPEG reader's entropy decoding, the Annex K tables, the MS-MPEG4 and WMV tables and
+# the VP8 and VP9 cores
+DEPENDS = (HERE / "imread.cpp", HERE / "jpeg_tables.h", HERE / "msmpeg4_tables.h", HERE / "wmv_tables.h",
+           HERE / "vp8.h", HERE / "webp_tables.h", HERE / "vp9.h", HERE / "vp9_tables.h")
 LIB_NAME = "libquan_torch_video.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 MPEG4, MJPEG, VP8, VP9 = "mpeg4", "mjpeg", "vp8", "vp9"
 H263, H263P, FLV1, MSMPEG4V2, MSMPEG4V3 = "h263", "h263p", "flv1", "msmpeg4v2", "msmpeg4v3"
-_CODEC_IDS = {MJPEG: 1, MPEG4: 2, VP8: 3, VP9: 4, H263: 5, H263P: 5, FLV1: 6, MSMPEG4V2: 7, MSMPEG4V3: 8}
+WMV1, WMV2 = "wmv1", "wmv2"
+_CODEC_IDS = {MJPEG: 1, MPEG4: 2, VP8: 3, VP9: 4, H263: 5, H263P: 5, FLV1: 6, MSMPEG4V2: 7, MSMPEG4V3: 8, WMV1: 9,
+              WMV2: 10}
 
 # FFmpeg riff.c ff_codec_bmp_tags: the BITMAPINFOHEADER fourccs of the two codecs
 _RIFF_MPEG4 = {b"FMP4", b"DIVX", b"DX50", b"XVID", b"MP4S", b"M4S2", b"MP4V", b"DIV1", b"BLZ0", b"UMP4",
@@ -88,10 +93,10 @@ _RIFF_MJPEG = {b"MJPG", b"LJPG", b"DMB1", b"MJPA", b"JR24", b"AVRN", b"ACDV", b"
 _RIFF_H263 = {b"H263": H263, b"X263": H263, b"T263": H263, b"L263": H263, b"VX1K": H263, b"ZYGO": H263,
               b"M263": H263, b"U263": H263P, b"FLV1": FLV1, b"MP42": MSMPEG4V2, b"DIV2": MSMPEG4V2,
               b"DIV3": MSMPEG4V3, b"MPG3": MSMPEG4V3, b"DIV4": MSMPEG4V3, b"DIV5": MSMPEG4V3, b"DIV6": MSMPEG4V3,
-              b"DVX3": MSMPEG4V3, b"AP41": MSMPEG4V3, b"COL0": MSMPEG4V3, b"COL1": MSMPEG4V3}
+              b"DVX3": MSMPEG4V3, b"AP41": MSMPEG4V3, b"COL0": MSMPEG4V3, b"COL1": MSMPEG4V3, b"WMV1": WMV1,
+              b"WMV2": WMV2}
 # names of codecs met in these containers that the port does not decode
-_OTHER = {b"WMV1": "WMV1 (Windows Media Video 7)", b"WMV2": "WMV2 (Windows Media Video 8)",
-          b"MP41": "MS-MPEG4 v1", b"MPG4": "MS-MPEG4 v1", b"I263": "Intel H.263", b"H264": "H.264",
+_OTHER = {b"MP41": "MS-MPEG4 v1", b"MPG4": "MS-MPEG4 v1", b"I263": "Intel H.263", b"H264": "H.264",
           b"X264": "H.264", b"AVC1": "H.264", b"HEVC": "HEVC", b"HVC1": "HEVC", b"HEV1": "HEVC", b"AV01": "AV1", b"MPG2": "MPEG-2", b"MPG1": "MPEG-1", b"WMV3": "WMV3",
           b"WVC1": "VC-1", b"THEO": "Theora", b"FFV1": "FFV1", b"HFYU": "HuffYUV", b"FFVH": "HuffYUV",
           b"ULRG": "Ut Video", b"ULY0": "Ut Video", b"ULY2": "Ut Video", b"ULH0": "Ut Video"}
@@ -110,7 +115,7 @@ class Demuxed:
     """The first video track of a file."""
 
     codec: str  # MPEG4, MJPEG, VP8, VP9 or one of the H.263 family
-    private: bytes  # decoder configuration (MPEG-4's VOS/VOL headers), may be empty
+    private: bytes  # decoder configuration (MPEG-4's VOS/VOL headers, WMV2's ext header), may be empty
     packets: List[bytes] = field(default_factory=list)  # in decode order
     tag: bytes = b""  # the container's fourcc for the codec, upper case
     container: str = ""
@@ -557,6 +562,8 @@ def library() -> ctypes.CDLL:
         lib.vdec_set_size.restype = None
         lib.vdec_error.argtypes = [vp, ctypes.c_int]
         lib.vdec_error.restype = ctypes.c_char_p
+        lib.vdec_trace.argtypes = [vp, vp, ctypes.c_long]
+        lib.vdec_trace.restype = ctypes.c_long
         _lib = lib
     return _lib
 
@@ -568,7 +575,9 @@ _TOOL_COUNTS = ("i_vops", "p_vops", "not_coded_vops", "skipped_mbs", "intra_mbs_
                 "ac_rescaled", "b_vops", "b_direct_mbs", "b_forward_mbs", "b_backward_mbs", "b_interpolated_mbs",
                 "b_colocated_skips", "dbquant", "qpel_mbs", "mpeg_quant_blocks", "xvid_idct_blocks", "packed_b_vops",
                 "skipped_b_vops", "partitioned_packets", "gob_headers", "flv_escapes", "mv_escapes",
-                "droppable_frames")
+                "droppable_frames", "inter_intra_pictures", "inter_intra_mbs", "per_mb_rl_pictures", "skip_maps",
+                "mspel_pictures", "hshift_mbs", "loop_filtered_mbs", "wmv_escape3_lengths", "skipped_pictures",
+                "abt_blocks", "top_left_mvs")
 # vp9.h's counts (its Stat enum)
 _VP9_TOOL_COUNTS = ("key_frames", "inter_frames", "intra_only_frames", "hidden_frames", "show_existing",
                     "superframes", "tx4x4", "tx8x8", "tx16x16", "tx32x32", "dct_dct", "dct_adst", "adst_dct",
@@ -634,6 +643,19 @@ class Decoder:
         out = np.zeros(64, np.int64)
         n = self.lib.vdec_stats(self.handle, out.ctypes.data)
         return dict(zip(_VP9_TOOL_COUNTS if self.codec == VP9 else _TOOL_COUNTS, out[:n].tolist()))
+
+    def _start_trace(self) -> None:
+        """MS-MPEG4 and WMV, for tests: record where each picture and
+        macroblock lies in its packet from the next packet on (`_trace`)."""
+        self.lib.vdec_trace(self.handle, None, 0)
+
+    def _trace(self) -> np.ndarray:
+        """The record `_start_trace` began: ``int64 [n, 24]`` rows, as
+        ``video.cpp``'s ``H263::trace`` describes them."""
+        n = self.lib.vdec_trace(self.handle, np.zeros(1, np.int64).ctypes.data, 0)
+        out = np.zeros(n, np.int64)
+        self.lib.vdec_trace(self.handle, out.ctypes.data, n)
+        return out.reshape(-1, 24)
 
     def close(self) -> None:
         if self.handle:

@@ -1,4 +1,4 @@
-"""Run chip_smoke.py's phase 1 and its video phases (58-60, 64-66, 70-72, 74 and 75) alone, on one card.
+"""Run chip_smoke.py's phase 1 and its video phases (58-60, 64-66, 70-72 and 74-77) alone, on one card.
 
     python3 scripts/video_phases.py
 
@@ -14,7 +14,9 @@ VP9 fixtures (and the FFV1 refusal) and times the clip as VP9 WebM; phases 71
 and 72 repeat 59 on the VP9 WebM and 60 on its packets put into MP4. Phase
 74 decodes the H.263 family's fixtures (H.263, H.263+, Sorenson, MS-MPEG4 v2
 and v3, MPEG-4 data partitioning) and times the clip as DIV3 beside VP8 and
-VP9; phase 75 repeats 59 and 60 on the DIV3 AVI.
+VP9; phase 75 repeats 59 and 60 on the DIV3 AVI. Phase 76 decodes the WMV1,
+WMV2 and H.263+ Annex J fixtures and times the clip as WMV2 beside DIV3;
+phase 77 repeats 59 and 60 on the WMV2 AVI.
 Exits non-zero without a card, or when a phase fails.
 """
 
@@ -39,7 +41,8 @@ def main() -> int:
 
     card, _, _ = cs.phase_device()
     for name, fn in (("58", cs.phase_video_decode), ("64", cs.phase_video_asp_vp8_decode),
-                     ("70", cs.phase_video_vp9_decode), ("74", cs.phase_video_h263_decode)):
+                     ("70", cs.phase_video_vp9_decode), ("74", cs.phase_video_h263_decode),
+                     ("76", cs.phase_video_wmv_decode)):
         t0 = time.perf_counter()
         fn(card)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -49,7 +52,9 @@ def main() -> int:
                            ("71", cs.phase_video_track, cs.VIDEO_VP9_CLIP),
                            ("72", cs.phase_video_predict, None),
                            ("75 track", cs.phase_video_track, cs.VIDEO_DIV3_CLIP),
-                           ("75 predict", cs.phase_video_predict, cs.VIDEO_DIV3_CLIP)):
+                           ("75 predict", cs.phase_video_predict, cs.VIDEO_DIV3_CLIP),
+                           ("77 track", cs.phase_video_track, cs.VIDEO_WMV2_CLIP),
+                           ("77 predict", cs.phase_video_predict, cs.VIDEO_WMV2_CLIP)):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             fn(Path(tmp), card, clip if clip is not None else cs.vp9_clip_mp4(Path(tmp) / "mp4"))

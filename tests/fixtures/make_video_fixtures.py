@@ -77,6 +77,19 @@ wheel ships it; writes ``tests/fixtures/video/`` and
   ``mpeg4_dp_88x40.avi``, the MPEG-4 tools stream with data partitioning and
   video packets; and ``track_640x480_div3.avi``, the 640 x 480 clip as cv2's DIV3, the source of
   chip_smoke.py's DIV3 phases.
+* WMV1, WMV2 and H.263+'s deblocking filter (`wmv_fixtures`; ``--wmv``
+  rewrites only these and the digests): ``wmv{1,2}_64x48.{avi,mkv}`` from
+  cv2's writers; libavcodec's wmv1 at 48 kbit/s (inter-intra prediction) and
+  at 300 kbit/s rewritten to per-macroblock run-level tables in three
+  slices (``wmv1_{ii,mbrl}_88x40.avi``), its wmv2 with the loop filter and
+  the top-left vector predictor (`wmv2_top_left`), and rewritten by
+  `wmv2_crafted` to the tools its encoder never writes (mspel, skip maps,
+  CBP tables, per-macroblock run-level tables, ABT, a skipped picture)
+  (``wmv2_{loop,crafted}_88x40.avi``), its h263p with
+  ``flags=+loop`` (``u263_loop_88x40.avi``); ``track_640x480_wmv2.avi``,
+  the 640 x 480 clip through libavcodec's wmv2 at quantiser 22 (the card's
+  machine has no cv2: the clip is committed), the source of chip_smoke.py's
+  WMV2 phases.
 
 ``video_fixtures.json`` holds, for each file, its codec, container and frame
 count, and for each frame the SHA-256 of ``cv2.VideoCapture``'s frame after
@@ -121,8 +134,8 @@ VP8_OPTIONS = {
 }
 CLIP_ASP = {"bf": "2", "flags": "+qpel", "b": "800k"}  # track_640x480_xvid.avi
 MPEG4, LIBVPX, LIBVPX_VP9 = 12, 139, 167  # AVCodecIDs: libavcodec's MPEG-4 encoder, its libvpx VP8 and VP9 wrappers
-# AVCodecIDs of the H.263 family's encoders: h263, msmpeg4v2, msmpeg4 (v3), h263p, flv
-H263, MSMPEG4V2, MSMPEG4V3, H263P, FLV1 = 4, 15, 16, 19, 21
+# AVCodecIDs of the H.263 family's encoders: h263, msmpeg4v2, msmpeg4 (v3), wmv1, wmv2, h263p, flv
+H263, MSMPEG4V2, MSMPEG4V3, WMV1, WMV2, H263P, FLV1 = 4, 15, 16, 17, 18, 19, 21
 # the H.263 family (`h263_fixtures`): cv2.VideoWriter's streams, (fourcc, (h, w), frames)
 H263_CV2 = {"h263_176x144.avi": ("H263", (144, 176), 6), "h263_352x288.avi": ("H263", (288, 352), 3),
             "flv1_64x48.avi": ("FLV1", (48, 64), SMALL_FRAMES), "mp42_64x48.avi": ("MP42", (48, 64), SMALL_FRAMES),
@@ -249,13 +262,15 @@ def encode_vp9_two_pass(frames: list, options: dict) -> list:
     return encode(frames, {**options, "flags": "+pass2"}, LIBVPX_VP9, stats_in=(stats, slot))
 
 
-def encode(frames: list, options: dict, codec_id: int, first_pass: bool = False, stats_in: tuple = None):
+def encode(frames: list, options: dict, codec_id: int, first_pass: bool = False, stats_in: tuple = None,
+           extradata: list = None):
     """Packets of the libavcodec encoder ``codec_id`` for RGB ``frames`` (an
     even width and height), as `encode_mpeg4` describes. With ``first_pass``
     (``flags=+pass1``), the statistics the encoder leaves in the context's
     ``stats_out`` and the pointer slot that holds it (found as the slot that
     the final flush fills); ``stats_in`` gives them back to a second pass
-    (``stats_in`` is the slot after ``stats_out``)."""
+    (``stats_in`` is the slot after ``stats_out``). A list given as
+    ``extradata`` receives the encoder's extradata (WMV2's ext header)."""
     import cv2
 
     libs = _libs()
@@ -286,6 +301,9 @@ def encode(frames: list, options: dict, codec_id: int, first_pass: bool = False,
         slots[stats_in[1] + 1] = avu.av_strdup(stats_in[0])
     if avc.avcodec_open2(ctx, codec, None):
         raise RuntimeError("avcodec_open2 failed")
+    if extradata is not None:  # AVCodecContext.extradata and extradata_size follow bit_rate (56) and flags
+        extradata.append(ctypes.string_at(ctypes.c_void_p.from_address(ctx + 72).value or 0,
+                                          ctypes.c_int.from_address(ctx + 80).value))
     frame, pkt, out = avu.av_frame_alloc(), avc.av_packet_alloc(), []
     (ctypes.c_int * 4).from_address(frame + 104)[:] = [w, h, 0, 0]  # AVFrame width, height, nb_samples, format
     assert avu.av_frame_get_buffer(frame, 0) == 0
@@ -308,6 +326,9 @@ def encode(frames: list, options: dict, codec_id: int, first_pass: bool = False,
             for r in range(plane.shape[0]):
                 ctypes.memmove(data[p] + r * lines[p], plane[r].ctypes.data, plane.shape[1])
         ctypes.c_int64.from_address(frame + 136).value = i  # AVFrame.pts
+        # AVFrame.quality: with flags=+qscale the encoder takes each frame's quantiser from it (as the
+        # ffmpeg tool sets it from global_quality), not from the context
+        ctypes.c_int.from_address(frame + 160).value = int(options.get("global_quality", 0))
         assert avc.avcodec_send_frame(ctx, frame) == 0
         drain()
     before = list(slots)
@@ -630,6 +651,339 @@ def h263_fixtures(track: list) -> None:
     write_cv2(OUT / "track_640x480_div3.avi", "DIV3", track)
 
 
+# ---------------------------------------------------------------- WMV1, WMV2 and H.263+ Annex J
+
+# the WMV fixtures (`wmv_fixtures`): cv2.VideoWriter's WMV1 and WMV2 in AVI and Matroska, (fourcc, suffix)
+WMV_CV2 = {"wmv1_64x48.avi": "WMV1", "wmv1_64x48.mkv": "WMV1", "wmv2_64x48.avi": "WMV2", "wmv2_64x48.mkv": "WMV2"}
+WMV_FRAMES = 8
+# libavcodec's wmv1 and wmv2 encoders and h263p's deblocking filter: (encoder, fourcc, options)
+WMV_TOOLS = {
+    # at or under 128 kbit/s and below 320 x 240: inter-intra DC prediction in P-frames
+    "wmv1_ii_88x40.avi": (WMV1, b"WMV1", {"b": "48k", "mbd": "rd"}),
+    # above 50 kbit/s: the per-macroblock run-level bit, set by `per_mb_rl`; three slices
+    "wmv1_mbrl_88x40.avi": (WMV1, b"WMV1", {"b": "300k", "flags": "+qscale", "global_quality": str(8 * 118)}),
+    # the loop filter, and top_left_mv_flag set by `wmv2_top_left`
+    "wmv2_loop_88x40.avi": (WMV2, b"WMV2", {"flags": "+loop+qscale", "global_quality": str(9 * 118)}),
+    # rewritten by `wmv2_crafted`: mspel with hshift, skip maps, per-macroblock run-level tables, CBP tables, ABT
+    "wmv2_crafted_88x40.avi": (WMV2, b"WMV2", {"flags": "+qscale", "global_quality": str(12 * 118), "g": "21"}),
+    "u263_loop_88x40.avi": (H263P, b"U263", {"flags": "+loop+mv4+qscale", "global_quality": str(10 * 118)}),
+}
+CLIP_WMV2 = {"flags": "+qscale", "global_quality": str(22 * 118)}  # track_640x480_wmv2.avi
+
+
+SKIP_MPEG, SKIP_ROW, SKIP_COL = 1, 2, 3  # WMV2's skip map types
+CRAFT_TOOLS = ("cbp", "mspel", "rl", "skip", "abt")  # `wmv2_crafted`'s rewrites, a P-frame each in turn
+ABT_MODES = ("block", 1, 2, "mb")  # ABT per block, the picture's 8x4 or 4x8, per macroblock
+
+
+def wmv_frames(n: int = 21, hw=TOOLS, seed: int = 5) -> list:
+    """The tools frames with a patch of noise pasted on three of them (intra
+    macroblocks in P-frames) and the fourth frame repeated (a P-frame every
+    macroblock of which can be skipped)."""
+    frames = tools_frames(n, hw, seed)
+    rng = np.random.default_rng(seed)
+    for t in (3, 6, 8):
+        y, x = int(rng.integers(0, hw[0] - 16)), int(rng.integers(0, hw[1] - 28))
+        if t < n:
+            frames[t] = frames[t].copy()
+            frames[t][y:y + 16, x:x + 28] = rng.integers(0, 256, (16, 28, 3))
+    if n > 4:
+        frames[4] = frames[3]
+    return frames
+
+
+def _bits(packet: bytes) -> str:
+    return "".join(f"{b:08b}" for b in packet)
+
+
+def _packed(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def _edit(packet: bytes, edits: list) -> bytes:
+    """``packet`` with each (bit position, bits removed, bits put there) of
+    ``edits`` applied, the positions those of the original; what is put at
+    one position comes in the order of ``edits``."""
+    bits = _bits(packet)
+    for _, (at, cut, put) in sorted(enumerate(edits), key=lambda e: (e[1][0], e[0]), reverse=True):
+        bits = bits[:at] + put + bits[at + cut:]
+    return _packed(bits)
+
+
+def ext_header(extra: bytes, **fields) -> bytes:
+    """WMV2's 4-byte ext header with ``fields`` (mspel_bit, loop_filter,
+    abt_flag, j_type_bit, top_left_mv_flag, per_mb_rl_bit: 0 or 1; slice_code:
+    1-7) replaced, in decode_ext_header's order after the 5-bit frame rate
+    and the 11-bit bit rate."""
+    bits = list(_bits(extra))
+    names = ("mspel_bit", "loop_filter", "abt_flag", "j_type_bit", "top_left_mv_flag", "per_mb_rl_bit")
+    for name, value in fields.items():
+        if name == "slice_code":
+            bits[22:25] = f"{value:03b}"
+        else:
+            bits[16 + names.index(name)] = str(value)
+    return _packed("".join(bits))
+
+
+def _code012(v: int) -> str:
+    return ("0", "10", "11")[v]
+
+
+def _read012(bits: str, at: int):
+    """(value, length) of decode012 at ``at``."""
+    return (0, 1) if bits[at] == "0" else (1 + int(bits[at + 1]), 2)
+
+
+def wmv_trace(codec: str, packets: list, size: tuple, private: bytes = b"") -> list:
+    """Each packet's (picture row, macroblock rows) of the port's decoder trace
+    (``video.Decoder._trace``), None for a packet that decoded to no picture."""
+    from quan_ultralytics_tpu_torch.data.native import video
+
+    dec = video.Decoder(codec, private, b"", size)
+    dec._start_trace()
+    out = []
+    for p in packets:
+        before = len(dec._trace())
+        dec.send(p)
+        rows = dec._trace()[before:]
+        out.append((rows[0], rows[1:]) if len(rows) else None)
+    return out
+
+
+def _vlc_codes(header: str, name: str) -> list:
+    """{code, length} pairs of the array ``name`` in a table header of the port."""
+    import re
+
+    text = (REPO / "quan_ultralytics_tpu_torch" / "data" / "native" / header).read_text()
+    body = re.search(name + r"((?:\[\d+\])+) = \{([^}]*)\}", text).group(2)
+    v = [int(x) for x in body.replace("\n", " ").split(",") if x.strip()]
+    return [(v[i], v[i + 1]) for i in range(0, len(v), 2)]
+
+
+def wmv2_crafted(packets: list, size: tuple, extra: bytes, seed: int = 0) -> list:
+    """WMV2 packets rewritten to use what libavcodec's wmv2 encoder never
+    writes (its picture header fixes them), each P-frame one rewrite in turn
+    (CRAFT_TOOLS; 21 frames, one I-frame): another CBP table (each
+    macroblock type recoded); mspel motion (the picture's mspel bit set and a
+    random hshift bit after each odd vector); run-level tables chosen per
+    macroblock (the picture's index moved to each coded macroblock); a skip
+    map (the coded macroblocks that equal a skipped one, inter with no
+    coefficients and a zero vector, become skipped), ROW, MPEG, COL, ROW in
+    turn, and after the first a picture whose ROW map skips every row (FFmpeg
+    decodes it to no frame); ABT (per block, the picture's 8x4, the
+    picture's 4x8, per macroblock in turn: each coded inter block then codes
+    its sub-blocks' pattern, its coefficients read as one sub-block, the
+    first or the second, or as both where a copy of them follows).
+    ``extra`` is the stream's ext header (mspel_bit, abt_flag and
+    per_mb_rl_bit set, as the encoder writes it)."""
+    rng = np.random.default_rng(seed)
+    tables = [_vlc_codes("wmv_tables.h", "kWmv2InterTable")[i * 128:(i + 1) * 128] for i in range(3)]
+    tables.append(_vlc_codes("msmpeg4_tables.h", "kMbNonIntraTable"))
+    mb_w, mb_h = (size[0] + 15) // 16, (size[1] + 15) // 16
+    out = []
+    for k, (p, tr) in enumerate(zip(packets, wmv_trace("wmv2", packets, size, extra))):
+        pic, mbs = tr
+        bits = _bits(p)
+        h = int(pic[3])
+        if pic[2] == 0:  # I-frames stay as coded
+            out.append(p)
+            continue
+        assert bits[h:h + 2] == "00", "not SKIP_TYPE_NONE"
+        cbp_index, n012 = _read012(bits, h + 2)
+        mspel_at = h + 2 + n012
+        rl_flag_at = mspel_at + 1 + 2  # mspel, per_mb_abt ^ 1 = 1, abt_type 0
+        assert bits[mspel_at + 1:mspel_at + 3] == "10" and bits[rl_flag_at] == "0"
+        rl, n_rl = _read012(bits, rl_flag_at + 1)
+        edits, tool, nth = [], CRAFT_TOOLS[(k - 1) % len(CRAFT_TOOLS)], (k - 1) // len(CRAFT_TOOLS)
+        if tool == "mspel":
+            edits.append((mspel_at, 1, "1"))
+            for row in mbs:
+                if not row[1] and not row[2] and (row[9] | row[10]) & 1:
+                    edits.append((int(row[8]), 0, str(int(rng.integers(0, 2)))))
+        elif tool == "skip":
+            kind = (SKIP_ROW, SKIP_MPEG, SKIP_COL)[nth % 3]
+            skip = np.zeros(mb_w * mb_h, bool)
+            for row in mbs:
+                if not row[1] and not row[3] and row[9] == 0 and row[10] == 0:
+                    skip[row[0]] = True
+                    edits.append((int(row[5]), int(row[8] - row[5]), ""))
+            grid = skip.reshape(mb_h, mb_w)
+            lines = grid if kind == SKIP_ROW else grid.T
+            if kind == SKIP_MPEG:
+                m = "".join("1" if v else "0" for v in skip)
+            else:
+                m = "".join("1" if ln.all() else "0" + "".join("1" if v else "0" for v in ln) for ln in lines)
+            edits.append((h, 2, f"{kind:02b}" + m))
+        elif tool == "rl":  # run-level tables per macroblock
+            edits.append((rl_flag_at, 1 + n_rl, "1"))
+            for row in mbs:
+                if not row[2] and row[3]:
+                    edits.append((int(row[7]), 0, _code012(rl)))
+        elif tool == "abt":
+            mode = ABT_MODES[nth % len(ABT_MODES)]
+            edits.append((mspel_at + 2, 1, _code012(mode)) if mode in (1, 2) else (mspel_at + 1, 2, "0"))
+            for row in mbs:
+                if row[1] or row[2] or not row[3]:
+                    continue
+                t = mode if mode in (1, 2) else int(rng.integers(0, 3))
+                if mode in ("block", "mb"):
+                    edits.append((int(row[7]), 0, "1" if mode == "block" else "0" + _code012(t)))
+                for n in range(6):
+                    if not (row[3] >> (5 - n)) & 1:
+                        continue
+                    start, end = int(row[11 + 2 * n]), int(row[12 + 2 * n])
+                    if mode == "block":
+                        t = int(rng.integers(0, 3))
+                    put = _code012(t) if mode == "block" else ""
+                    if t:
+                        sub = int(rng.integers(0, 2 if row[23] == n else 3))  # both halves: the bits again
+                        put += ("11", "0", "10")[sub]
+                        if sub == 2:
+                            edits.append((end, 0, bits[start:end]))
+                    if put:
+                        edits.append((start, 0, put))
+        elif tool == "cbp":  # the CBP table of another index
+            q = int(np.unpackbits(np.frombuffer(p[:1], np.uint8))[1:6] @ (1 << np.arange(4, -1, -1)))
+            new = (cbp_index + 1 + int(rng.integers(0, 2))) % 3
+            old_t, new_t = [[(0, 2, 1), (1, 0, 2), (2, 1, 0)][(q > 10) + (q > 20)][c] for c in (cbp_index, new)]
+            edits.append((h + 2, n012, _code012(new)))
+            for row in mbs:
+                if not row[2]:
+                    code, n = tables[new_t][int(row[4])]
+                    edits.append((int(row[5]), tables[old_t][int(row[4])][1], f"{code:0{n}b}"))
+        out.append(_edit(p, edits))
+        if tool == "skip" and nth == 0:
+            out.append(_packed("1" + bits[1:6] + f"{SKIP_ROW:02b}" + "1" * mb_h))
+    return out
+
+
+def _wrap64(v: int) -> int:
+    """ff_msmpeg4_decode_motion's fold of a vector component into -63..63."""
+    return v + 64 if v <= -64 else v - 64 if v >= 64 else v
+
+
+def _mv_codes(table: int) -> dict:
+    """MS-MPEG4's vector VLC ``table`` (0 or 1) as {symbol: bits}: the codes
+    given in order of msmpeg4_tables.h's lengths, as ff_vlc_init_from_lengths
+    gives them."""
+    import re
+
+    text = (REPO / "quan_ultralytics_tpu_torch" / "data" / "native" / "msmpeg4_tables.h").read_text()
+    arrays = [[int(v) for v in re.search(name + r"\[1100\] = \{([^}]*)\}", text).group(1).replace("\n", " ").split(",")
+               if v.strip()] for name in (f"kMvLens{table}", f"kMvSyms{table}")]
+    codes, acc = {}, 0
+    for n, sym in zip(*arrays):
+        codes[sym] = f"{acc >> (32 - n):0{n}b}"
+        acc += 1 << (32 - n)
+    return codes
+
+
+def wmv2_top_left(packets: list, size: tuple, extra: bytes, seed: int = 0):
+    """(packets, ext header) of a one-slice WMV2 stream with no mspel picture
+    rewritten to top_left_mv_flag, which libavcodec's encoder never sets:
+    where the left and top vectors of an inter macroblock off the first row
+    and column differ by 8 or more, a random bit picks one of them as the
+    predictor and the vector is coded again from it (by the VLC or its
+    escape), so that every vector stays as it was."""
+    rng = np.random.default_rng(seed)
+    mb_w = (size[0] + 15) // 16
+    out = []
+    for p, tr in zip(packets, wmv_trace("wmv2", packets, size, extra)):
+        pic, mbs = tr
+        if pic[2] == 0:
+            out.append(p)
+            continue
+        bits, h = _bits(p), int(pic[3])
+        assert bits[h:h + 2] == "00", "not SKIP_TYPE_NONE"
+        at = h + 2 + _read012(bits, h + 2)[1]  # mspel, then per_mb_abt ^ 1, abt_type, per_mb_rl, rl, dc, mv table
+        assert bits[at:at + 4] == "0100", "mspel, ABT or per-macroblock run-level tables"
+        at += 4 + _read012(bits, at + 4)[1] + 1
+        codes = _mv_codes(int(bits[at]))
+        motion = {int(r[0]): (0, 0) if r[1] or r[2] else (int(r[9]), int(r[10])) for r in mbs}
+        edits = []
+        for r in mbs:
+            i = int(r[0])
+            if r[1] or r[2] or i % mb_w == 0 or i < mb_w:
+                continue
+            a, b, mv = motion[i - 1], motion[i - mb_w], motion[i]
+            if max(abs(a[0] - b[0]), abs(a[1] - b[1])) < 8:
+                continue
+            t = int(rng.integers(0, 2))
+            pred = (a, b)[t]
+            sym = []
+            for c in range(2):  # the code x (0..63) that ff_msmpeg4_decode_motion turns into mv[c]
+                x = [x for x in range(64) if _wrap64(x + pred[c] - 32) == mv[c]]
+                assert x, "a vector out of the predictor's reach"
+                sym.append(x[0])
+            code = codes.get((sym[0] << 8) | sym[1]) if sym != [0, 0] else None
+            code = code if code is not None else codes[0] + f"{sym[0]:06b}{sym[1]:06b}"
+            edits.append((int(r[6]), int(r[8] - r[6]), str(t) + code))
+        out.append(_edit(p, edits))
+    return out, ext_header(extra, top_left_mv_flag=1)
+
+
+def per_mb_rl(packets: list, size: tuple, codec: str, extra: bytes = b"") -> list:
+    """MS-MPEG4 packets (WMV1 above 50 kbit/s, WMV2) whose P-frames, and
+    I-frames coded with one run-level table for luma and chroma, set the
+    per-macroblock run-level bit (which libavcodec's encoders write as 0): the
+    picture's table index is moved to each coded macroblock."""
+    out = []
+    for p, tr in zip(packets, wmv_trace(codec, packets, size, extra)):
+        pic, mbs = tr
+        bits, h = _bits(p), int(pic[3])
+        if codec == "wmv1":
+            flag_at = h + 5 + 17 if pic[2] == 0 else h + 1
+        else:
+            flag_at = h + 1 if pic[2] == 0 else None
+        if flag_at is None:
+            out.append(p)
+            continue
+        assert bits[flag_at] == "0"
+        first, n1 = _read012(bits, flag_at + 1)
+        n = n1
+        if pic[2] == 0:
+            second, n2 = _read012(bits, flag_at + 1 + n1)
+            if second != first:
+                out.append(p)
+                continue
+            n += n2
+        edits = [(flag_at, 1 + n, "1")]
+        edits += [(int(row[7]), 0, _code012(first)) for row in mbs if not row[2] and row[3]]
+        out.append(_edit(p, edits))
+    return out
+
+
+def wmv_fixtures(track: list) -> None:
+    """The WMV1, WMV2 and Annex J fixtures: cv2's WMV1 and WMV2 writers into
+    AVI and Matroska; libavcodec's wmv1 encoder at 100 kbit/s (inter-intra
+    prediction) and at 300 kbit/s with run-level tables per macroblock
+    (`per_mb_rl`) in three slices; its wmv2 encoder with the loop filter and
+    the top-left vector predictor (`wmv2_top_left`), and rewritten by
+    `wmv2_crafted`; h263p with the deblocking filter; the
+    640 x 480 clip through libavcodec's wmv2 encoder at quantiser 20 (small
+    enough to commit), the source of chip_smoke.py's WMV2 phases."""
+    small = small_frames(WMV_FRAMES, SMALL, seed=13)
+    for name, fourcc in WMV_CV2.items():
+        write_cv2(OUT / name, fourcc, small)
+    frames = wmv_frames()
+    size = (TOOLS[1], TOOLS[0])
+    for name, (codec, fourcc, options) in WMV_TOOLS.items():
+        extra = []
+        packets = encode(frames if "crafted" in name else frames[:WMV_FRAMES], options, codec, extradata=extra)
+        extra = extra[0] if codec == WMV2 else b""
+        if name == "wmv1_mbrl_88x40.avi":
+            packets = msmpeg4_slices(per_mb_rl(packets, size, "wmv1"), 3)
+        elif name == "wmv2_crafted_88x40.avi":
+            packets = wmv2_crafted(per_mb_rl(packets, size, "wmv2", extra), size, extra)
+        elif name == "wmv2_loop_88x40.avi":
+            packets, extra = wmv2_top_left(packets, size, extra)
+        write_avi(OUT / name, packets, size[0], size[1], fourcc, extra=extra)
+    extra = []
+    clip = encode(track, CLIP_WMV2, WMV2, extradata=extra)
+    write_avi(OUT / "track_640x480_wmv2.avi", clip, track[0].shape[1], track[0].shape[0], b"WMV2", extra=extra[0])
+
+
 def set_user_data(packets: list, text: bytes) -> list:
     """``packets`` with the user data libavcodec writes after the VOL (its
     ``Lavc...`` build) replaced by ``text``, as another encoder writes it."""
@@ -666,9 +1020,10 @@ def pack_b_frames(packets: list) -> list:
     return out
 
 
-def write_avi(path: Path, packets: list, w: int, h: int, fourcc: bytes, fps: int = 25) -> None:
+def write_avi(path: Path, packets: list, w: int, h: int, fourcc: bytes, fps: int = 25, extra: bytes = b"") -> None:
     """A minimal AVI 1.0 file: one video stream of ``packets`` as ``00dc``
-    chunks, with an ``idx1`` index."""
+    chunks, with an ``idx1`` index; ``extra`` follows the BITMAPINFOHEADER
+    (biSize 40 + its length), as WMV2's ext header does."""
     def chunk(kind: bytes, body: bytes) -> bytes:
         return kind + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")
 
@@ -679,7 +1034,7 @@ def write_avi(path: Path, packets: list, w: int, h: int, fourcc: bytes, fps: int
     avih = struct.pack("<IIIIIIIIII4I", 1000000 // fps, 0, 0, 0x10, n, 0, 1, biggest, w, h, 0, 0, 0, 0)
     strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", fourcc, 0, 0, 0, 0, 1, fps, 0, n, biggest,
                        0xFFFFFFFF, 0, 0, 0, w, h)
-    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3, 0, 0, 0, 0)
+    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extra), w, h, 1, 24, fourcc, w * h * 3, 0, 0, 0, 0) + extra
     hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
     movi, index, at = b"", b"", 4
     for p in packets:
@@ -772,6 +1127,7 @@ def main() -> None:
     clip = set_user_data(encode_mpeg4(track, {"g": "12", **CLIP_ASP}), b"XviD0064")
     write_avi(OUT / "track_640x480_xvid.avi", clip, track[0].shape[1], track[0].shape[0], b"XVID")
     h263_fixtures(track)
+    wmv_fixtures(track)
 
     write_digests()
 
@@ -786,6 +1142,19 @@ def main_h263() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         track = chip_smoke.make_clip(Path(tmp))
     h263_fixtures(track)
+    write_digests()
+
+
+def main_wmv() -> None:
+    """``--wmv``: only the WMV and Annex J fixtures, then every digest."""
+    sys.path.insert(0, str(REPO))
+    import tempfile
+
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        track = chip_smoke.make_clip(Path(tmp))
+    wmv_fixtures(track)
     write_digests()
 
 
@@ -817,4 +1186,4 @@ def write_digests() -> None:
 
 
 if __name__ == "__main__":
-    main_h263() if "--h263" in sys.argv else main()
+    main_h263() if "--h263" in sys.argv else main_wmv() if "--wmv" in sys.argv else main()

@@ -150,7 +150,7 @@ def test_usage_errors_match_jax(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [["obb", "export", "model=yolo11n-obb-quan.yaml", "format=params"],
-                                  ["detect", "track", "source=x.mp4"], ["tune", "data=x.yaml"],
+                                  ["detect", "track", "source=x.mp4", "model=m.pkl"], ["tune", "data=x.yaml"],
                                   ["benchmark", "imgsz=64", "device=cpu", "batch=2", "iters=1"],
                                   ["classify", "export", "model=qwrn16_2"]])
 def test_modes_not_ported_exit_nonzero(argv, tmp_path, monkeypatch, capsys):
@@ -159,8 +159,9 @@ def test_modes_not_ported_exit_nonzero(argv, tmp_path, monkeypatch, capsys):
     the JAX package's ``test_tune_mode_dispatch``), ``benchmark`` prints the
     table; ``track`` of a video source goes through ``load_source`` as the
     JAX CLI's does (a missing clip gives no frames, so both print nothing and
-    exit 0); ``classify export`` still exits non-zero, naming, as the JAX CLI
-    does, classify's one mode."""
+    exit 0; the model a ``.pkl`` the port writes, which the JAX facade reads
+    without compiling its init op by op); ``classify export`` still exits
+    non-zero, naming, as the JAX CLI does, classify's one mode."""
     monkeypatch.chdir(tmp_path)
     mode = "classify" if argv[0] == "classify" else argv[1] if argv[0] in tcli.TASKS else argv[0]
     if mode == "export":
@@ -184,6 +185,7 @@ def test_modes_not_ported_exit_nonzero(argv, tmp_path, monkeypatch, capsys):
         assert lines[0].split() == ["model", "imgsz", "dtype", "batch", "ms_per_batch", "img_per_s"]
         assert lines[1].split()[:4] == ["yolo11n-obb-quan.yaml", "64", "bfloat16", "2"]
     elif mode == "track":
+        YOLO("yolo11n-quan.yaml", device="cpu").export(format="params", path="m.pkl")
         assert tcli.main(argv + ["device=cpu"]) == 0
         got = capsys.readouterr().out
         assert jcli.main(list(argv)) == 0

@@ -15,9 +15,11 @@ the JAX package, exactly (tolerance 0):
   macroblock decisions, GOPs and GOB headers, equal ``cv2.VideoCapture``;
 * a DIV3 stream in Matroska (``V_MS/VFW/FOURCC``) equals OpenCV's frames;
 * ``msmpeg4_tables.h`` is a run of bytes of the libavcodec the wheel bundles;
-* what stays unported raises a `NotImplementedError` that names it: WMV1,
-  WMV2, MS-MPEG4 v1 and each H.263+ annex libavcodec's h263p encoder writes
-  on request.
+* what stays unported raises a `NotImplementedError` that names it:
+  MS-MPEG4 v1 and each H.263+ annex libavcodec's h263p encoder writes on
+  request but the deblocking filter (Annex J, now read as WMV2 shares it:
+  ``test_torch_wmv.py``); cv2's WMV1 and WMV2 are read (ibid.), a WMV2
+  stream without its ext header refused by name.
 """
 
 import re
@@ -160,14 +162,21 @@ def test_msmpeg4_tables_equal_libavcodec_bytes():
 # ---------------------------------------------------------------- what stays unported
 
 
-@pytest.mark.parametrize("fourcc,match", [("WMV1", r"WMV1 \(Windows Media Video 7\)"),
-                                          ("WMV2", r"WMV2 \(Windows Media Video 8\)")])
+@pytest.mark.parametrize("fourcc,match", [("WMV1", None),
+                                          ("WMV2", r"WMV2: a stream without the 4 bytes of extradata")])
 def test_windows_media_video_is_refused_by_name(tmp_path, fourcc, match):
+    """cv2's WMV1 and WMV2 AVIs are read as cv2 reads them; what stays refused
+    by name is a WMV2 stream without the ext header its BITMAPINFOHEADER
+    carries (FFmpeg conceals its pictures)."""
     path = tmp_path / "a.avi"
     maker.write_cv2(path, fourcc, small_frames(2))
-    assert len(cv2_frames(path)) == 2
-    with pytest.raises(NotImplementedError, match=match):
-        list(load_source(path))
+    _as_opencv(path)
+    if match:
+        stream = video.demux(path)
+        write_avi(tmp_path / "b.avi", stream.packets, 64, 48, stream.tag)
+        assert len(cv2_frames(tmp_path / "b.avi")) == 2
+        with pytest.raises(NotImplementedError, match=match):
+            list(load_source(tmp_path / "b.avi"))
 
 
 def test_msmpeg4_v1_is_refused_by_name(tmp_path):
@@ -187,8 +196,14 @@ def test_msmpeg4_v1_is_refused_by_name(tmp_path):
     ({"aiv": "1"}, "alternative inter VLC .H.263 Annex S."),
 ])
 def test_h263_plus_annexes_are_refused_by_name(tmp_path, options, match):
+    """Each annex refused by name from the picture header, but the deblocking
+    filter (Annex J), which is read (``tests/test_torch_wmv.py`` holds it on
+    more streams)."""
     write_avi(tmp_path / "a.avi", encode(tools_frames(2), options, maker.H263P), 88, 40, b"U263")
     assert len(cv2_frames(tmp_path / "a.avi")) == 2
+    if "Annex J" in match:
+        _as_opencv(tmp_path / "a.avi")
+        return
     with pytest.raises(NotImplementedError, match="H.263: the " + match if "advanced intra" not in match
                        else "H.263: " + match):
         list(video.frames(tmp_path / "a.avi"))

@@ -70,12 +70,13 @@ def test_fixtures_cover_every_container_and_codec():
     """Every container of the demuxers and the codecs are among the
     fixtures, cv2's FFV1 AVI the one refused; the small clips are a few KB
     each, the three 640 x 480 clips of the later slices about 1.4 MB
-    together, the DIV3 one (the H.263 family's slice) under 500 KB."""
+    together, the DIV3 one (the H.263 family's slice) under 500 KB, the WMV2
+    one (libavcodec at quantiser 22) under 50 KB."""
     kinds = {(v.get("container"), v.get("codec")) for v in DIGESTS.values()}
     for kind in [("ISO-BMFF", "mpeg4"), ("AVI", "mpeg4"), ("Matroska", "mpeg4"), ("AVI", "mjpeg"),
                  ("Matroska", "mjpeg"), ("Matroska", "vp8"), ("AVI", "vp8"), ("Matroska", "vp9"), ("AVI", "vp9"),
                  ("ISO-BMFF", "vp9"), ("AVI", "h263"), ("AVI", "h263p"), ("AVI", "flv1"), ("AVI", "msmpeg4v2"),
-                 ("AVI", "msmpeg4v3")]:
+                 ("AVI", "msmpeg4v3"), ("AVI", "wmv1"), ("Matroska", "wmv1"), ("AVI", "wmv2"), ("Matroska", "wmv2")]:
         assert kind in kinds
     assert {p.suffix for p in VIDEOS.iterdir()} == {".mp4", ".mov", ".m4v", ".avi", ".mkv", ".webm"}
     assert [k for k, v in DIGESTS.items() if "refused" in v] == ["ffv1_64x48.avi"]
@@ -84,6 +85,7 @@ def test_fixtures_cover_every_container_and_codec():
     assert sum((VIDEOS / n).stat().st_size
                for n in ("track_640x480.webm", "track_640x480_xvid.avi", "track_640x480_vp9.webm")) < 1_500_000
     assert (VIDEOS / "track_640x480_div3.avi").stat().st_size < 500_000
+    assert (VIDEOS / "track_640x480_wmv2.avi").stat().st_size < 50_000
     assert sum(p.stat().st_size for p in VIDEOS.iterdir()) < 3_500_000
 
 
@@ -771,7 +773,7 @@ for name in names:
             else:
                 for _ in range(rng.randint(1, 8)):
                     p[rng.randrange(len(p))] ^= 1 << rng.randrange(8)
-        dec = video.Decoder(stream.codec, stream.private, stream.tag)
+        dec = video.Decoder(stream.codec, stream.private, stream.tag, stream.size)
         for p in packets:
             try:
                 if dec.send(bytes(p)):
@@ -801,7 +803,8 @@ def test_damaged_packets_end_or_raise_never_crash():
                                          "mpeg4_asp_88x40.avi", "divx_packed_88x40.avi", "vp9_tiles_512x64.mkv",
                                          "vp9_crafted_64x48.mkv", "vp9_aq_96x64.mp4", "h263_176x144.avi",
                                          "u263_88x40.avi", "flv1_tools_88x40.avi", "mp42_tools_88x40.avi",
-                                         "div3_tools_88x40.avi", "mpeg4_dp_88x40.avi")]
+                                         "div3_tools_88x40.avi", "mpeg4_dp_88x40.avi", "wmv1_mbrl_88x40.avi",
+                                         "wmv2_crafted_88x40.avi", "u263_loop_88x40.avi")]
     proc = subprocess.run([sys.executable, "-c", FUZZ, str(random.Random(0).randrange(1 << 30)), *names],
                           cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
